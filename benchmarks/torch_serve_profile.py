@@ -1,0 +1,175 @@
+"""Where the time goes in the port's serving path, on the card.
+
+    python benchmarks/torch_serve_profile.py [--layers N] [--out PATH]
+
+Builds granite-3-8b at full width (40 layers unless ``--layers`` cuts the
+depth; fp32, random weights from ``--seed``) on the CUDA device, admits 8
+prompts of mixed length in [128, 1024] into a dense-layout
+``repro_torch.serving.ServeEngine`` (slots 8, max_len 2048) and runs one
+16-step decode dispatch, after one untimed warm-up round of the same
+work.  Each phase runs twice: once timed with CUDA events around it (wall
+on the device's clock, no profiler attached) and once under
+``torch.profiler`` for the per-kernel device time.  It prints one JSON
+object per phase — wall ms, device-busy ms (sum of kernel durations: the
+kernels of one stream do not overlap), the idle share, and the device
+time grouped by layer (K1 prefill attention, K2 decode partials, matrix
+products, indexing and cache writes, reductions, elementwise and other)
+with the top kernels — and writes them all to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.model import transformer as tf  # noqa: E402
+from repro_torch.model.layers import Runtime  # noqa: E402
+from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
+
+
+def _group(name: str) -> str:
+    n = name.lower()
+    if "fusemax_prefill" in n:
+        return "K1 prefill attention"
+    if "decode_partials" in n:
+        return "K2 decode partials"
+    if any(s in n for s in ("gemm", "gemv", "cutlass", "sm90_xmma",
+                            "splitk", "matmul", "dot_kernel")):
+        return "matrix products"
+    if "index" in n or "scatter" in n or "gather" in n:
+        return "indexing / cache writes"
+    if "reduce" in n:
+        return "reductions (norms, softmax combine, argmax)"
+    return "elementwise / other"
+
+
+def _profile(fn) -> dict:
+    """Device time by kernel over one call of ``fn``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = ev.device_time_total if hasattr(ev, "device_time_total") \
+                else ev.cuda_time_total
+            k = kernels.setdefault(ev.name, [0.0, 0])
+            k[0] += us / 1e3
+            k[1] += 1
+    return kernels
+
+
+def _timed(fn) -> float:
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def _summary(phase: str, wall_ms: float, kernels: dict, extra: dict) -> dict:
+    busy = sum(v[0] for v in kernels.values())
+    groups: dict = {}
+    for name, (ms, n) in kernels.items():
+        g = groups.setdefault(_group(name), [0.0, 0])
+        g[0] += ms
+        g[1] += n
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy,
+        "idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
+        "by_layer": {g: {"ms": v[0], "launches": v[1],
+                         "share_of_busy": v[0] / busy if busy else None}
+                     for g, v in sorted(groups.items(),
+                                        key=lambda kv: -kv[1][0])},
+        "top_kernels": [{"name": n[:120], "ms": v[0], "launches": v[1]}
+                        for n, v in top],
+        **extra,
+    }
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: all 40)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="build/torch_serve_profile.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_serve_profile: needs a CUDA device")
+
+    cfg = get_config("granite-3-8b")
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
+    model = tf.init(cfg, args.seed, rt, device="cuda")
+    rng = np.random.default_rng(args.seed)
+    lens = [int(x) for x in rng.integers(128, 1025, size=8)]
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+
+    def fresh_engine():
+        eng = ServeEngine(cfg, model, slots=8, max_len=2048, rt=rt,
+                          device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=17))
+        return eng
+
+    results = []
+    for rnd in ("warmup", "timed", "profiled"):
+        eng = fresh_engine()
+        if rnd == "warmup":
+            eng._admit()
+            eng._decode_chunk()          # the one-step first dispatch
+            eng._decode_chunk()          # a 16-step dispatch
+            continue
+        if rnd == "timed":
+            t_admit = _timed(eng._admit)
+            t_first = _timed(eng._decode_chunk)
+            h0 = time.perf_counter()
+            t_chunk = _timed(eng._decode_chunk)
+            host_chunk = (time.perf_counter() - h0) * 1e3
+            steps = eng.stats["decode_steps"] - 1
+            continue
+        k_admit = _profile(eng._admit)
+        pre = dict(eng.stats)
+        k_first = _profile(eng._decode_chunk)
+        k_chunk = _profile(eng._decode_chunk)
+    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
+                   "--format=csv,noheader").read().strip()
+    common = {"card": smi, "layers": cfg.n_layers, "prompt_lens": lens}
+    results.append(_summary("prefill (all admission groups)", t_admit,
+                            k_admit, dict(common, dispatches=pre[
+                                "prefill_dispatches"],
+                                tokens=sum(lens))))
+    results.append(_summary("decode, first dispatch (1 step)", t_first,
+                            k_first, dict(common, steps=1)))
+    results.append(_summary(f"decode, {steps}-step dispatch", t_chunk,
+                            k_chunk, dict(common, steps=steps,
+                                          ms_per_step=t_chunk / steps,
+                                          host_ms=host_chunk)))
+    for r in results:
+        print(json.dumps(r))
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(results, fh, indent=1)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,32 @@
+"""FuseMax attention kernels for Hopper, with their plain torch versions.
+
+``fusemax.py``  — 1-pass prefill attention: CUDA wrapper + plain version
+``decode.py``   — split-K decode partials: CUDA wrapper + plain version,
+                  and the torch combine
+``ops.py``      — public ops (GQA folding, tile choice, impl dispatch)
+``autotune.py`` — modeled tile / split selection
+``ref.py``      — 3-pass fp32 oracles
+``_build.py``   — nvcc build + ctypes loading of ``csrc/*.cu``
+"""
+from repro_torch.kernels import autotune
+from repro_torch.kernels.autotune import (
+    AttentionParams, DecodeParams, attention_params, decode_params,
+)
+from repro_torch.kernels.decode import (
+    combine_partials, decode_partials_cuda, decode_partials_torch,
+)
+from repro_torch.kernels.fusemax import (
+    exp_maccs, fusemax_attention_cuda, fusemax_attention_torch,
+)
+from repro_torch.kernels.ops import (
+    KERNEL_CASCADES, fusemax_attention, fusemax_decode,
+)
+from repro_torch.kernels.ref import decode_reference, mha_reference
+
+__all__ = [
+    "AttentionParams", "DecodeParams", "KERNEL_CASCADES",
+    "attention_params", "autotune", "combine_partials", "decode_params",
+    "decode_partials_cuda", "decode_partials_torch", "decode_reference",
+    "exp_maccs", "fusemax_attention", "fusemax_attention_cuda",
+    "fusemax_attention_torch", "fusemax_decode", "mha_reference",
+]

@@ -1,0 +1,190 @@
+"""Tile and split selection for the FuseMax kernels.
+
+Port of the *modeled* half of ``repro.kernels.autotune``: the cost model
+seeded by the paper's 128×128 spatial array prices padding waste,
+per-tile overhead and the M-independent working set of each candidate,
+and :func:`attention_params` / :func:`decode_params` return the cheapest.
+The model is a pure function of the (bucketed) shape, so it is memoised
+with ``functools.lru_cache`` instead of a mutable table.
+
+What the port changes:
+
+* The CUDA prefill kernel (``csrc/fusemax_prefill.cu``) is compiled for
+  one tile, so ``attention_params(..., impl="cuda")`` returns that tile
+  after checking its shared-memory footprint against the card's per-block
+  limit — the TPU's VMEM budget does not apply to it.
+* The split-K geometry (``decode_params``) is the reference's, for every
+  impl: it is keyed on the cache length and never on P, so a later verify
+  path inherits exactly the split structure of single-token decode.
+
+The measured mode and its on-disk cache are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+#: the paper's 2D array edge (``SpatialArch.pe2d_rows/cols``) — the base
+#: tile of the cost model
+ARRAY_EDGE = 128
+
+#: VMEM budget of the reference model (half of a 16 MiB VMEM); kept so the
+#: modeled choices equal the reference's
+VMEM_BUDGET = 8 * 2**20
+
+#: per-tile fixed overhead in MACC-equivalents (reference calibration)
+TILE_OVERHEAD = 4096
+
+#: dynamic shared memory one block may use on an H100 (227 KB)
+SMEM_BUDGET = 232_448
+
+#: the tile ``csrc/fusemax_prefill.cu`` is compiled for (BQ, BK)
+CUDA_PREFILL_TILE = (64, 64)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two ≥ n (1 for n ≤ 1).  Shared by the shape
+    buckets here and the serving engine's admission-width padding."""
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _bucket(n: int) -> int:
+    """Shape bucket: next power of two — every shape in a bucket resolves
+    to the same tiles regardless of call order."""
+    return next_pow2(n)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionParams:
+    block_q: int
+    block_k: int
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeParams:
+    splits: int
+    block_k: int
+
+
+def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int) -> int:
+    """Shared memory of one prefill block: Q and K tiles with a padded row
+    (bank-conflict-free column reads), the V tile, and the probability
+    tile, all fp32 — must match the layout in ``fusemax_prefill.cu``."""
+    return 4 * (block_q * (e + 1) + block_k * (e + 1) + block_k * f
+                + block_q * (block_k + 1))
+
+
+# ---------------------------------------------------------------------------
+# Modeled costs (prior: the paper's 128×128 2D array)
+# ---------------------------------------------------------------------------
+
+def _attention_candidates(p: int, m: int) -> list[AttentionParams]:
+    base = ARRAY_EDGE
+    bqs = sorted({min(_round_up(p, 8), b) for b in (32, 64, base, 2 * base)})
+    bks = sorted({min(_round_up(m, base), b)
+                  for b in (base, 2 * base, 4 * base)})
+    return [AttentionParams(bq, bk) for bq in bqs for bk in bks]
+
+
+def _attention_cost(c: AttentionParams, p: int, m: int, e: int, f: int,
+                    elem_bytes: int = 4) -> float:
+    """Score = padded MACC work + per-tile overhead; ∞ if VMEM-infeasible."""
+    vmem = (c.block_q * e + c.block_k * (e + f) + c.block_q * f
+            + 2 * c.block_q * 128) * elem_bytes
+    if vmem > VMEM_BUDGET:
+        return float("inf")
+    p_pad = _round_up(p, c.block_q)
+    m_pad = _round_up(m, c.block_k)
+    n_tiles = (p_pad // c.block_q) * (m_pad // c.block_k)
+    work = p_pad * m_pad * (e + f)               # BQK + SLNV MACCs
+    return work + n_tiles * TILE_OVERHEAD
+
+
+def _decode_candidates(m: int) -> list[DecodeParams]:
+    base = ARRAY_EDGE
+    out = []
+    for splits in (1, 2, 4, 8, 16):
+        if splits > m:
+            continue
+        s = splits
+        while m % s:                             # ragged M: shrink to a divisor
+            s -= 1
+        split_len = m // s
+        if split_len < base and s > 1:
+            continue
+        for bk in (base, 2 * base, 4 * base):
+            out.append(DecodeParams(s, min(bk, split_len)))
+    return list(dict.fromkeys(out))
+
+
+def _decode_cost(c: DecodeParams, m: int, g: int, e: int, f: int,
+                 elem_bytes: int = 4) -> float:
+    """Split-K decode: parallel sweep time + O(splits) combine cost."""
+    vmem = (g * e + c.block_k * (e + f) + g * f + 2 * g * 128) * elem_bytes
+    if vmem > VMEM_BUDGET:
+        return float("inf")
+    split_len = m // c.splits
+    split_len = _round_up(split_len, min(c.block_k, split_len))
+    sweep = split_len * g * (e + f)
+    n_tiles = max(1, split_len // c.block_k)
+    combine = c.splits * g * (f + 2)             # Eqs. 48-52 partial merge
+    return sweep + n_tiles * TILE_OVERHEAD + combine
+
+
+@functools.lru_cache(maxsize=None)
+def _modeled_attention(pb: int, mb: int, e: int, f: int) -> AttentionParams:
+    cands = _attention_candidates(pb, mb)
+    return min(cands, key=lambda c: _attention_cost(c, pb, mb, e, f))
+
+
+def attention_params(p: int, m: int, e: int, f: int, *,
+                     impl: str = "torch") -> AttentionParams:
+    """Pick (block_q, block_k) for a prefill-shaped attention call.
+
+    ``impl="cuda"`` returns the tile the CUDA kernel is compiled for and
+    raises if that tile does not fit one block's shared memory at this
+    head width; every other impl takes the reference's modeled choice
+    from the power-of-two bucketed shape."""
+    if impl == "cuda":
+        bq, bk = CUDA_PREFILL_TILE
+        need = prefill_smem_bytes(bq, bk, e, f)
+        if need > SMEM_BUDGET:
+            raise ValueError(
+                f"prefill tile {bq}x{bk} at head dims E={e}, F={f} needs "
+                f"{need} B of shared memory > {SMEM_BUDGET} B per block")
+        return AttentionParams(bq, bk)
+    return _modeled_attention(_bucket(p), _bucket(m), e, f)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_params(m: int, g: int, e: int, f: int) -> DecodeParams:
+    """Pick (splits, block_k) for a split-K decode against an M-slot cache.
+
+    Keyed by the exact cache length (split validity depends on M's
+    divisors) and never by P or the impl."""
+    cands = _decode_candidates(m)
+    return min(cands, key=lambda c: _decode_cost(c, m, g, e, f))
+
+
+def verify_block_k(block_k: int, *, p: int, g: int, e: int, f: int,
+                   elem_bytes: int = 4) -> int:
+    """The reference's VMEM clamp for P > 1 verify rows: halve ``block_k``
+    until the p-fold q tile fits ``VMEM_BUDGET``.  ``block_k`` is the
+    granularity of the key tiles a split sweeps, which decides which tiles
+    run for a row with no valid key, so the port applies the same clamp
+    to keep those rows equal to the reference's; ``splits`` is never
+    touched."""
+    if p <= 1:
+        return block_k
+    rows = p * g
+    while block_k > ARRAY_EDGE:
+        vmem = (rows * e + block_k * (e + f) + rows * f
+                + 2 * rows * 128) * elem_bytes
+        if vmem <= VMEM_BUDGET:
+            break
+        block_k //= 2
+    return block_k

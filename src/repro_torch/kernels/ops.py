@@ -1,0 +1,204 @@
+"""Public attention ops: GQA folding, tile choice and dispatch around the
+FuseMax kernels.  Port of the dense half of ``repro.kernels.ops``.
+
+``fusemax_attention`` — [B, Hq, P, E] × [B, Hkv, M, E/F] → [B, Hq, P, F].
+``fusemax_decode``    — one-token (or P-row verify) queries against a
+  ragged dense KV cache, split-K.
+
+``impl``:
+  "cuda"   the hand-written Hopper kernel; raises on a CPU tensor,
+  "torch"  the kernel's plain torch version (the CPU path, and the
+           reference the kernel is held to on the card),
+  "ref"    the 3-pass oracle,
+  "auto"   "cuda" for CUDA tensors, "torch" for CPU tensors — a CUDA
+           tensor never takes the plain path unless the caller names it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import autotune, ref as _ref
+from repro_torch.kernels.decode import (
+    combine_partials, decode_partials_cuda, decode_partials_torch,
+)
+from repro_torch.kernels.fusemax import (
+    fusemax_attention_cuda, fusemax_attention_torch,
+)
+
+# Every public op dispatches to exactly one declared cascade of the
+# reference (``repro.kernels.ops.KERNEL_CASCADES``); the port names the
+# builders by dotted path so it never imports the JAX package, and
+# tests/test_torch_kernels.py checks the two maps agree.
+KERNEL_CASCADES = {
+    "mha_reference": "repro.kernels.ref.reference_cascade",
+    "decode_reference": "repro.kernels.ref.reference_cascade",
+    "fusemax_attention": "repro.kernels.fusemax.prefill_cascade",
+    "fusemax_decode": "repro.kernels.decode.decode_splitk_cascade",
+    "fusemax_decode[p>1]": "repro.kernels.decode.verify_chain_cascade",
+}
+
+IMPLS = ("cuda", "torch", "ref", "auto")
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def resolve_impl(impl: str, t: torch.Tensor) -> str:
+    """Resolve ``"auto"`` by the tensor's device; refuse "cuda" on the
+    CPU."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (one of {IMPLS})")
+    if impl == "auto":
+        return "cuda" if t.is_cuda else "torch"
+    if impl == "cuda" and not t.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors; got a tensor on "
+                         f"{t.device}")
+    return impl
+
+
+def fusemax_attention(
+    q: torch.Tensor,   # [B, Hq, P, E]
+    k: torch.Tensor,   # [B, Hkv, M, E]
+    v: torch.Tensor,   # [B, Hkv, M, F]
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    impl: str = "auto",
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+    exp_impl: str = "native",
+) -> torch.Tensor:
+    """FuseMax attention (1-pass cascade, deferred division).
+
+    ``block_q`` / ``block_k`` left as ``None`` come from
+    :func:`autotune.attention_params` (the kernel's compiled tile for
+    "cuda", the reference's modeled choice otherwise)."""
+    b, hq, p, e = q.shape
+    _, hkv, m, f = v.shape
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / (e ** 0.5)
+    impl = resolve_impl(impl, q)
+
+    if impl == "ref":
+        return _ref.mha_reference(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            scale=scale, q_offset=q_offset)
+
+    if block_q is None or block_k is None:
+        tuned = autotune.attention_params(p * group, m, e, f, impl=impl)
+        block_q = tuned.block_q if block_q is None else block_q
+        block_k = tuned.block_k if block_k is None else block_k
+
+    # fold GQA groups into query rows: row r = p·group + g → qpos = r//group
+    q_f = (q.reshape(b, hkv, group, p, e).transpose(2, 3)
+           .reshape(b * hkv, p * group, e))
+    k_f = k.reshape(b * hkv, m, e)
+    v_f = v.reshape(b * hkv, m, f)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset, group=group, m_valid=m, exp_impl=exp_impl)
+    if impl == "cuda":
+        out = fusemax_attention_cuda(
+            q_f.contiguous(), k_f.contiguous(), v_f.contiguous(),
+            block_q=block_q, block_k=block_k, **kw)
+    else:
+        # the TPU wrapper's tile clamps, so the plain version runs the
+        # same (query tile, key tile) pairs as the Pallas kernel
+        pg = p * group
+        out = fusemax_attention_torch(
+            q_f, k_f, v_f, block_q=min(block_q, _round_up(pg, 8)),
+            block_k=min(block_k, _round_up(m, 128)), **kw)
+    return (out.reshape(b, hkv, p, group, f).transpose(2, 3)
+            .reshape(b, hq, p, f))
+
+
+def _fold_decode_q(q: torch.Tensor, b: int, hkv: int, group: int,
+                   e: int) -> torch.Tensor:
+    """Fold GQA groups into kernel query rows ([B, Hq, P, E] →
+    [B·Hkv, P·G, E]; row r is draft position r // G).  Unlike the TPU
+    wrapper, G is not padded to an 8-row floor: the CUDA kernel tiles
+    keys, not query rows, so no padded row exists to reach the output."""
+    p = q.shape[2]
+    return (q.reshape(b, hkv, group, p, e).transpose(2, 3)
+            .reshape(b * hkv, p * group, e))
+
+
+def _unfold_decode_out(out: torch.Tensor, b: int, hkv: int, group: int,
+                       f: int, p: int = 1) -> torch.Tensor:
+    """Inverse of :func:`_fold_decode_q` for kernel outputs
+    ([B·Hkv, P·G, F] → [B, Hq, P, F])."""
+    return (out.reshape(b, hkv, p, group, f).transpose(2, 3)
+            .reshape(b, hkv * group, p, f))
+
+
+def fusemax_decode(
+    q: torch.Tensor,         # [B, Hq, P, E]
+    k: torch.Tensor,         # [B, Hkv, M, E]  (cache, padded to M slots)
+    v: torch.Tensor,         # [B, Hkv, M, F]
+    kv_len: torch.Tensor,    # [B] valid lengths (the query is kv_len-1)
+    *,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    splits: Optional[int] = None,
+    block_k: Optional[int] = None,
+    exp_impl: str = "native",
+) -> torch.Tensor:
+    """Decode against a ragged KV cache (split-K FuseMax).
+
+    P = 1 is the plain decode step; P > 1 are verify rows: query j sits at
+    ``kv_len - 1 + j`` and attends keys ``< kv_len + j``.  ``splits`` /
+    ``block_k`` left as ``None`` come from :func:`autotune.decode_params`,
+    whose key never sees P."""
+    b, hq, p, e = q.shape
+    _, hkv, m, f = v.shape
+    if p != 1 and window is not None:
+        raise ValueError(
+            "multi-query verify does not support windowed attention "
+            "(draft positions would need per-query ring views)")
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / (e ** 0.5)
+    impl = resolve_impl(impl, q)
+
+    if splits is None or block_k is None:
+        tuned = autotune.decode_params(m, max(group, 8), e, f)
+        splits = tuned.splits if splits is None else splits
+        block_k = tuned.block_k if block_k is None else block_k
+    splits = max(1, min(splits, m // min(m, block_k)))
+    while m % splits:
+        splits -= 1
+
+    if impl == "ref":
+        if p == 1:
+            return _ref.decode_reference(
+                q, k, v, kv_len, softcap=softcap, window=window, scale=scale)
+        outs = [_ref.decode_reference(
+                    q[:, :, j:j + 1], k, v, kv_len + j,
+                    softcap=softcap, window=window, scale=scale)
+                for j in range(p)]
+        return torch.cat(outs, dim=2)
+
+    block_k = autotune.verify_block_k(block_k, p=p, g=max(group, 8), e=e,
+                                      f=f)
+    q_f = _fold_decode_q(q, b, hkv, group, e)
+    k_f = k.reshape(b * hkv, m, e)
+    v_f = v.reshape(b * hkv, m, f)
+    kw = dict(scale=scale, softcap=softcap, window=window, hkv=hkv,
+              splits=splits, block_k=block_k, exp_impl=exp_impl, n_pos=p,
+              rows_per_pos=group)
+    if impl == "cuda":
+        pm, pl, pnv = decode_partials_cuda(
+            q_f.contiguous(), k_f.contiguous(), v_f.contiguous(),
+            kv_len.to(device=q.device, dtype=torch.int32).contiguous(), **kw)
+    else:
+        pm, pl, pnv = decode_partials_torch(q_f, k_f, v_f, kv_len, **kw)
+    out = combine_partials(pm, pl, pnv, q.dtype)
+    return _unfold_decode_out(out, b, hkv, group, f, p=p)
