@@ -106,6 +106,30 @@ def test_fusemax_attention_bf16():
                                np.asarray(ref, np.float32), **BF16_TOL)
 
 
+@pytest.mark.parametrize("m_valid,kw", [
+    (200, dict()),
+    (150, dict(causal=True, q_offset=40)),
+    (90, dict(causal=True, window=24, softcap=20.0)),
+])
+def test_kernel_layout_plain_version_matches_pallas_kernel(m_valid, kw):
+    """At the folded layout the CUDA kernel takes (GQA group 4 in the
+    query rows, keys padded past ``m_valid``), the plain version equals
+    the Pallas kernel run on the same arrays."""
+    from repro.kernels.fusemax import fusemax_attention_pallas
+    from repro_torch.kernels.fusemax import fusemax_attention_torch
+
+    rng = np.random.default_rng(m_valid)
+    q = rng.standard_normal((4, 64 * 4, 32)).astype(np.float32)
+    k = rng.standard_normal((4, 256, 32)).astype(np.float32)
+    v = rng.standard_normal((4, 256, 32)).astype(np.float32)
+    args = dict(scale=32 ** -0.5, group=4, block_q=64, block_k=128,
+                m_valid=m_valid, **kw)
+    ref = jax_call(fusemax_attention_pallas, q, k, v, interpret=True,
+                   **args)
+    ours = torch_call(fusemax_attention_torch, q, k, v, **args)
+    np.testing.assert_allclose(ours, ref, **F32_TOL)
+
+
 def test_exp_maccs_elementwise():
     x = np.linspace(-60.0, 0.0, 50001, dtype=np.float32)
     ours = exp_maccs(torch.from_numpy(x)).numpy()

@@ -74,6 +74,19 @@ def test_same_trace_same_streams_and_counters(models, engine_kw):
         {k: jeng.stats[k] for k in COUNTERS}
     assert teng.logits_finite()
     assert teng.memory_stats() == jeng.memory_stats()
+    # the dense caches end equal too, zeroed row tails included.  Not the
+    # last position: only empty slots (kv_len = 0) write there, and their
+    # attention output is 0 in the port (the Pallas semantics) but a mean
+    # of V in the reference's jnp executor, so from layer 1 on their K/V
+    # differ; no live slot ever reads that position (kv_len < max_len).
+    # The reference stacks the run's layers on axis 0.
+    last = engine_kw["max_len"] - 1
+    for name in ("k", "v"):
+        ref = np.asarray(jeng.caches[0][0]["attn"][name])
+        for layer, c in enumerate(teng.caches):
+            np.testing.assert_allclose(c["attn"][name].numpy()[:, :, :last],
+                                       ref[layer][:, :, :last],
+                                       rtol=1e-5, atol=1e-5)
 
 
 def test_warmup_resets_counters_and_keeps_streams(models):
