@@ -186,18 +186,20 @@ def serve_bench(args) -> dict:
 #: flags of legs not ported yet → (is it set?, ROADMAP item)
 _UNPORTED = (
     (lambda a: a.cache_layout != "dense", "--cache-layout paged/both",
-     "paged layout + K3"),
+     "§1 item 1, paged layout and prefix cache with K3"),
     (lambda a: a.speculate is not None and not a.no_speculate,
-     "--speculate", "speculation"),
-    (lambda a: bool(a.duplicates), "--duplicates", "speculation"),
+     "--speculate", "§1 item 3, speculation"),
+    (lambda a: bool(a.duplicates), "--duplicates",
+     "§1 item 3, speculation"),
     (lambda a: a.kv_dtype is not None, "--kv-dtype",
-     "quantized pages / swap"),
-    (lambda a: a.pool_mb is not None, "--pool-mb", "quantized pages / swap"),
+     "§1 item 4, quantized pages and host swap"),
+    (lambda a: a.pool_mb is not None, "--pool-mb",
+     "§1 item 4, quantized pages and host swap"),
     (lambda a: bool(a.host_swap_gb), "--host-swap-gb",
-     "quantized pages / swap"),
-    (lambda a: bool(a.mesh), "--mesh", "sharded pool"),
-    (lambda a: a.run_async, "--async", "async / dp"),
-    (lambda a: a.dp > 1, "--dp", "async / dp"),
+     "§1 item 4, quantized pages and host swap"),
+    (lambda a: bool(a.mesh), "--mesh", "§1 item 8, device-sharded pool"),
+    (lambda a: a.run_async, "--async", "§1 item 7, async front end and dp"),
+    (lambda a: a.dp > 1, "--dp", "§1 item 7, async front end and dp"),
 )
 
 
@@ -261,7 +263,7 @@ def main(argv: Optional[list] = None) -> dict:
     for is_set, flag, item in _UNPORTED:
         if is_set(args):
             raise SystemExit(f"{flag} is not ported to repro_torch yet "
-                             f"(ROADMAP: {item})")
+                             f"(ROADMAP {item})")
     metrics = serve_bench(args)
     outputs = metrics.pop("_outputs")
     print(f"served {metrics['requests']} requests "

@@ -105,8 +105,8 @@ def gqa_prefill_chunk(p: GQA, x: torch.Tensor, cache: dict, off: int,
     the cache first.  x: [B, S, d]."""
     if spec.window is not None:
         raise NotImplementedError(
-            "windowed ring caches are not ported yet (ROADMAP: windows / "
-            "softcap model side)")
+            "windowed ring caches are not ported yet (ROADMAP §1 item 2, "
+            "windows and softcaps)")
     b, s_len, _ = x.shape
     positions = torch.arange(off, off + s_len, device=x.device).expand(
         b, s_len)
@@ -130,8 +130,8 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, kv_len: torch.Tensor,
     kv_len = 0 writes the last slot, as in the reference)."""
     if spec.window is not None:
         raise NotImplementedError(
-            "windowed ring caches are not ported yet (ROADMAP: windows / "
-            "softcap model side)")
+            "windowed ring caches are not ported yet (ROADMAP §1 item 2, "
+            "windows and softcaps)")
     b = x.shape[0]
     pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
     q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, 1, dh]

@@ -32,12 +32,12 @@ from repro_torch.model.layers import (
 
 #: where each unported feature stands in ROADMAP.md
 _ROADMAP = {
-    "window": "ROADMAP: windows / softcap model side (gemma2-9b)",
-    "softcap": "ROADMAP: windows / softcap model side (gemma2-9b)",
-    "mla": "ROADMAP: MLA / MoE + K4",
-    "moe": "ROADMAP: MLA / MoE + K4",
-    "ssm": "ROADMAP: SSM",
-    "frontend": "ROADMAP: modules still to port (frame / patch front ends)",
+    "window": "ROADMAP §1 item 2, windows and softcaps (gemma2-9b)",
+    "softcap": "ROADMAP §1 item 2, windows and softcaps (gemma2-9b)",
+    "mla": "ROADMAP §1 item 5, MLA and MoE with K4",
+    "moe": "ROADMAP §1 item 5, MLA and MoE with K4",
+    "ssm": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
+    "frontend": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
 }
 
 

@@ -56,7 +56,7 @@ class Request:
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP: {item})")
+        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 class ServeEngine:
@@ -81,15 +81,17 @@ class ServeEngine:
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache_layout: {cache_layout!r}")
         if cache_layout == "paged":
-            raise _not_ported("cache_layout='paged'", "paged layout + K3")
+            raise _not_ported("cache_layout='paged'",
+                              "§1 item 1, paged layout and prefix cache "
+                              "with K3")
         if speculate is not None:
-            raise _not_ported("speculative decoding", "speculation")
+            raise _not_ported("speculative decoding", "§1 item 3, speculation")
         if kv_dtype is not None or pool_bytes is not None or host_swap_bytes:
             raise _not_ported("kv_dtype / pool_bytes / host_swap_bytes",
-                              "quantized pages / swap")
+                              "§1 item 4, quantized pages and host swap")
         if mesh is not None:
             raise _not_ported("the device-sharded pool (mesh=)",
-                              "sharded pool")
+                              "§1 item 8, device-sharded pool")
         self.device = resolve_device(device)
         param_dev = model.embed.table.device
         if param_dev.type != self.device.type:
