@@ -1,20 +1,23 @@
 """Where the time goes in the port's serving path, on the card.
 
-    python benchmarks/torch_serve_profile.py [--layers N] [--out PATH]
+    python benchmarks/torch_serve_profile.py [--cache-layout dense|paged]
+        [--layers N] [--out PATH]
 
 Builds granite-3-8b at full width (40 layers unless ``--layers`` cuts the
 depth; fp32, random weights from ``--seed``) on the CUDA device, admits 8
-prompts of mixed length in [128, 1024] into a dense-layout
-``repro_torch.serving.ServeEngine`` (slots 8, max_len 2048) and runs one
-16-step decode dispatch, after one untimed warm-up round of the same
-work.  Each phase runs twice: once timed with CUDA events around it (wall
+prompts of mixed length in [128, 1024] into a
+``repro_torch.serving.ServeEngine`` on the ``--cache-layout`` (slots 8,
+max_len 2048; the paged layout with its default pool of 1024 pages of
+16 tokens and the prefix cache on) and runs one 16-step decode dispatch,
+after one untimed warm-up round of the same work.  Each phase runs twice: once timed with CUDA events around it (wall
 on the device's clock, no profiler attached) and once under
 ``torch.profiler`` for the per-kernel device time.  It prints one JSON
 object per phase — wall ms, device-busy ms (sum of kernel durations: the
 kernels of one stream do not overlap), the idle share, and the device
 time grouped by layer (K1 prefill attention, K2 decode partials, matrix
 products, indexing and cache writes, reductions, elementwise and other)
-with the top kernels — and writes them all to ``--out``.
+with the top kernels, and the number of kernels per decode step — and
+writes them all to ``--out``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ def _group(name: str) -> str:
     n = name.lower()
     if "fusemax_prefill" in n:
         return "K1 prefill attention"
+    if "pagedkv" in n:                 # the K3 instantiations of the body
+        return "K3 paged decode partials"
     if "decode_partials" in n:
         return "K2 decode partials"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "sm90_xmma",
@@ -105,6 +110,8 @@ def _summary(phase: str, wall_ms: float, kernels: dict, extra: dict) -> dict:
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--cache-layout", default="dense",
+                    choices=("dense", "paged"))
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth (default: all 40)")
     ap.add_argument("--seed", type=int, default=0)
@@ -124,7 +131,7 @@ def main(argv=None) -> list:
 
     def fresh_engine():
         eng = ServeEngine(cfg, model, slots=8, max_len=2048, rt=rt,
-                          device="cuda")
+                          cache_layout=args.cache_layout, device="cuda")
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=p, max_new_tokens=17))
         return eng
@@ -151,7 +158,8 @@ def main(argv=None) -> list:
         k_chunk = _profile(eng._decode_chunk)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
-    common = {"card": smi, "layers": cfg.n_layers, "prompt_lens": lens}
+    common = {"card": smi, "layers": cfg.n_layers, "prompt_lens": lens,
+              "cache_layout": args.cache_layout}
     results.append(_summary("prefill (all admission groups)", t_admit,
                             k_admit, dict(common, dispatches=pre[
                                 "prefill_dispatches"],
@@ -161,7 +169,10 @@ def main(argv=None) -> list:
     results.append(_summary(f"decode, {steps}-step dispatch", t_chunk,
                             k_chunk, dict(common, steps=steps,
                                           ms_per_step=t_chunk / steps,
-                                          host_ms=host_chunk)))
+                                          host_ms=host_chunk,
+                                          kernels_per_step=sum(
+                                              v[1] for v in k_chunk.values())
+                                          / steps)))
     for r in results:
         print(json.dumps(r))
     if args.out:

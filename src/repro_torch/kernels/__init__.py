@@ -1,8 +1,8 @@
 """FuseMax attention kernels for Hopper, with their plain torch versions.
 
 ``fusemax.py``  — 1-pass prefill attention: CUDA wrapper + plain version
-``decode.py``   — split-K decode partials: CUDA wrapper + plain version,
-                  and the torch combine
+``decode.py``   — split-K decode partials, dense and paged: CUDA
+                  wrappers + plain versions, and the torch combine
 ``ops.py``      — public ops (GQA folding, tile choice, impl dispatch)
 ``autotune.py`` — modeled tile / split selection
 ``ref.py``      — 3-pass fp32 oracles
@@ -11,15 +11,18 @@
 from repro_torch.kernels import autotune
 from repro_torch.kernels.autotune import (
     AttentionParams, DecodeParams, attention_params, decode_params,
+    paged_decode_params,
 )
 from repro_torch.kernels.decode import (
     combine_partials, decode_partials_cuda, decode_partials_torch,
+    paged_decode_partials_cuda, paged_decode_partials_torch,
 )
 from repro_torch.kernels.fusemax import (
     exp_maccs, fusemax_attention_cuda, fusemax_attention_torch,
 )
 from repro_torch.kernels.ops import (
-    KERNEL_CASCADES, fusemax_attention, fusemax_decode,
+    KERNEL_CASCADES, fusemax_attention, fusemax_decode, fusemax_decode_paged,
+    gather_pages,
 )
 from repro_torch.kernels.ref import decode_reference, mha_reference
 
@@ -28,5 +31,7 @@ __all__ = [
     "attention_params", "autotune", "combine_partials", "decode_params",
     "decode_partials_cuda", "decode_partials_torch", "decode_reference",
     "exp_maccs", "fusemax_attention", "fusemax_attention_cuda",
-    "fusemax_attention_torch", "fusemax_decode", "mha_reference",
+    "fusemax_attention_torch", "fusemax_decode", "fusemax_decode_paged",
+    "gather_pages", "mha_reference", "paged_decode_params",
+    "paged_decode_partials_cuda", "paged_decode_partials_torch",
 ]

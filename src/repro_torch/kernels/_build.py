@@ -4,9 +4,9 @@ Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on its
 own by ``nvcc`` into a shared library that :mod:`ctypes` loads (no
 PyTorch headers, so a build takes seconds).  All sources are compiled in
 parallel at first use, into ``build/repro_torch_kernels/<hash>/`` at the
-root of the checkout, where ``<hash>`` covers every source and the
-compiler flags — an edited source rebuilds, an unchanged one loads the
-library already built.  The compiler's ``-Xptxas -v`` report (registers,
+root of the checkout, where ``<hash>`` covers every source, every shared
+header (``csrc/*.cuh``) and the compiler flags — an edited source or
+header rebuilds, an unchanged tree loads the libraries already built.  The compiler's ``-Xptxas -v`` report (registers,
 shared memory, spills per kernel) is kept beside each library as
 ``<name>.log``.
 
@@ -33,6 +33,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 SOURCES = {
     "fusemax_prefill": "fusemax_prefill.cu",
     "decode_partials": "decode_partials.cu",
+    "paged_decode_partials": "paged_decode_partials.cu",
 }
 
 NVCC_FLAGS = [
@@ -62,6 +63,9 @@ def build_dir() -> Path:
     for name in sorted(SOURCES):
         h.update(name.encode())
         h.update((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -3,7 +3,8 @@
 Port of the *modeled* half of ``repro.kernels.autotune``: the cost model
 seeded by the paper's 128×128 spatial array prices padding waste,
 per-tile overhead and the M-independent working set of each candidate,
-and :func:`attention_params` / :func:`decode_params` return the cheapest.
+and :func:`attention_params` / :func:`decode_params` /
+:func:`paged_decode_params` return the cheapest.
 The model is a pure function of the (bucketed) shape, so it is memoised
 with ``functools.lru_cache`` instead of a mutable table.
 
@@ -168,6 +169,39 @@ def decode_params(m: int, g: int, e: int, f: int) -> DecodeParams:
     divisors) and never by P or the impl."""
     cands = _decode_candidates(m)
     return min(cands, key=lambda c: _decode_cost(c, m, g, e, f))
+
+
+def _paged_decode_candidates(n_pages: int,
+                             page_size: int) -> list[DecodeParams]:
+    """Page-aligned split-K candidates: ``splits`` divides the table width
+    (split boundaries fall on page boundaries) and ``block_k`` divides
+    ``page_size`` (a key tile never straddles two pages)."""
+    base = ARRAY_EDGE
+    out = []
+    for splits in (1, 2, 4, 8, 16):
+        if splits > n_pages or n_pages % splits:
+            continue
+        split_tokens = (n_pages // splits) * page_size
+        if split_tokens < base and splits > 1:
+            continue
+        for bk in (base, 2 * base, 4 * base):
+            bk = min(bk, page_size)
+            if page_size % bk:
+                bk = page_size
+            out.append(DecodeParams(splits, bk))
+    return list(dict.fromkeys(out)) or [DecodeParams(1, page_size)]
+
+
+@functools.lru_cache(maxsize=None)
+def paged_decode_params(n_pages: int, page_size: int, g: int, e: int,
+                        f: int, elem_bytes: int = 4) -> DecodeParams:
+    """Pick (splits, block_k) for a paged split-K decode over a block table
+    ``n_pages`` wide: the cost model of :func:`decode_params` at
+    M = n_pages·page_size, restricted to page-aligned candidates."""
+    m = n_pages * page_size
+    cands = _paged_decode_candidates(n_pages, page_size)
+    return min(cands, key=lambda c: _decode_cost(c, m, g, e, f,
+                                                 elem_bytes=elem_bytes))
 
 
 def verify_block_k(block_k: int, *, p: int, g: int, e: int, f: int,

@@ -1,14 +1,16 @@
 """FuseMax split-K decode ("flash-decoding" over Cascade 5): the CUDA
-partials kernel's wrapper, its plain torch version, and the combine.
+partials kernels' wrappers, their plain torch versions, and the combine.
 
-Port of the dense half of ``repro.kernels.decode``.  Decode offers one
+Port of the GQA half of ``repro.kernels.decode``.  Decode offers one
 query token per sequence, so the 1-pass cascade runs twice:
 
 1. each of S disjoint splits of the cache sweeps its key tiles with the
-   running (m, l, acc) state and emits per-split partials —
-   :func:`decode_partials_torch` (plain) or :func:`decode_partials_cuda`
-   (``csrc/decode_partials.cu``, launches counted in
-   ``decode_partials_cuda.launches``);
+   running (m, l, acc) state and emits per-split partials — over a dense
+   cache with :func:`decode_partials_torch` (plain) or
+   :func:`decode_partials_cuda` (``csrc/decode_partials.cu``), over a page
+   pool through a block table with :func:`paged_decode_partials_torch` or
+   :func:`paged_decode_partials_cuda` (``csrc/paged_decode_partials.cu``);
+   each CUDA wrapper counts its launches in ``<wrapper>.launches``;
 2. :func:`combine_partials` merges them with the associative running-max
    algebra of Eqs. 48-52, in plain torch ops as the reference keeps it in
    jnp outside its ``pallas_call``.
@@ -19,9 +21,12 @@ only if ``k_lo < kv_len + P - 1`` (and, with a window, ``k_hi > kv_len - 1
 (the jnp executor of the reference returns a mean of V there instead).
 
 Layout: q ``[B·Hkv, R, E]`` with R = P·G folded query rows (row r is
-draft position ``r // rows_per_pos``), k/v ``[B·Hkv, M, E/F]``, kv_len
-``[B]`` int32 → partials m, l ``[B·Hkv, S, R]`` and acc ``[B·Hkv, S, R,
-F]`` in fp32, without the TPU's 128-lane padding.
+draft position ``r // rows_per_pos``), k/v ``[B·Hkv, M, E/F]`` (dense) or
+pages ``[P, page_size, Hkv, E/F]`` with a ``[B, W]`` int32 block table
+whose unbacked entries hold the sentinel ``P`` (paged), kv_len ``[B]``
+int32 → partials m, l ``[B·Hkv, S, R]`` and acc ``[B·Hkv, S, R, F]`` in
+fp32, without the TPU's 128-lane padding.  The paged splits are
+page-aligned and its key tiles lie inside one page.
 """
 from __future__ import annotations
 
@@ -47,50 +52,35 @@ def _split_geometry(m: int, splits: int, block_k: int) -> tuple[int, int]:
     return split_len, block_k
 
 
-def decode_partials_torch(
-    q: torch.Tensor,        # [BHkv, R, E]
-    k: torch.Tensor,        # [BHkv, M, E]
-    v: torch.Tensor,        # [BHkv, M, F]
-    kv_len: torch.Tensor,   # [B] int
-    *,
-    scale: float,
-    softcap: Optional[float] = None,
-    window: Optional[int] = None,
-    hkv: int,
-    splits: int,
-    block_k: int,
-    exp_impl: str = "native",
-    n_pos: int = 1,
-    rows_per_pos: Optional[int] = None,
-):
-    """Plain split-K partials, mirroring ``_decode_partials_kernel``: all
-    splits sweep their key tiles in lockstep, each (fiber, split) updating
-    its running state only on the tiles the TPU kernel runs."""
-    bh, r, e = q.shape
-    m, f = v.shape[1], v.shape[2]
-    split_len, block_k = _split_geometry(m, splits, block_k)
-    rows_per_pos = r // n_pos if rows_per_pos is None else rows_per_pos
+def _sweep_partials(q: torch.Tensor, tiles, n_tiles: int, kvl: torch.Tensor,
+                    split0: torch.Tensor, *, scale: float,
+                    softcap: Optional[float], window: Optional[int],
+                    block_k: int, exp_impl: str, n_pos: int,
+                    rows_per_pos: int, f: int):
+    """The running-state sweep both plain partials versions share: every
+    (fiber, split) walks its ``n_tiles`` key tiles in lockstep and updates
+    (m, l, acc) only on the tiles the TPU kernel runs.  ``tiles(t)``
+    returns tile ``t`` of every split as K ``[BH, S, block_k, E]`` and V
+    ``[BH, S, block_k, F]``; ``kvl`` is the per-fiber valid length and
+    ``split0`` the logical index of each split's first key."""
+    bh, r, _ = q.shape
+    splits = split0.numel()
     dev = q.device
-    kvl = kv_len.to(device=dev, dtype=torch.int64).repeat_interleave(hkv)
     q_pos = kvl - 1                                          # [BH]
     qf = q.float()
-    k4 = k.reshape(bh, splits, split_len, e)
-    v4 = v.reshape(bh, splits, split_len, f)
-    split0 = torch.arange(splits, device=dev) * split_len    # [S]
     pos = torch.arange(r, device=dev) // rows_per_pos        # [R]
-
     rm = torch.full((bh, splits, r), NEG_INF, dtype=torch.float32,
                     device=dev)
     rd = torch.zeros((bh, splits, r), dtype=torch.float32, device=dev)
     rnv = torch.zeros((bh, splits, r, f), dtype=torch.float32, device=dev)
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
-    for t in range(split_len // block_k):
+    for t in range(n_tiles):
         k_lo = split0 + t * block_k                          # [S]
         run = k_lo[None, :] < (kvl + (n_pos - 1))[:, None]   # [BH, S]
         if window is not None:
             run &= (k_lo + block_k - 1)[None, :] > (q_pos - window)[:, None]
-        kt = k4[:, :, t * block_k:(t + 1) * block_k].float()
-        vt = v4[:, :, t * block_k:(t + 1) * block_k].float()
+        kt, vt = tiles(t)
+        kt, vt = kt.float(), vt.float()
         sc = torch.einsum("bre,bske->bsrk", qf, kt) * scale  # [BH,S,R,bk]
         if softcap is not None:
             sc = softcap * torch.tanh(sc / softcap)
@@ -113,6 +103,109 @@ def decode_partials_torch(
         rnv = torch.where(run3[..., None], rnv * prm[..., None] + slnv, rnv)
         rm = torch.where(run3, m_new, rm)
     return rm, rd, rnv
+
+
+def decode_partials_torch(
+    q: torch.Tensor,        # [BHkv, R, E]
+    k: torch.Tensor,        # [BHkv, M, E]
+    v: torch.Tensor,        # [BHkv, M, F]
+    kv_len: torch.Tensor,   # [B] int
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    hkv: int,
+    splits: int,
+    block_k: int,
+    exp_impl: str = "native",
+    n_pos: int = 1,
+    rows_per_pos: Optional[int] = None,
+):
+    """Plain split-K partials, mirroring ``_decode_partials_kernel``: all
+    splits sweep their key tiles in lockstep, each (fiber, split) updating
+    its running state only on the tiles the TPU kernel runs."""
+    bh, r, e = q.shape
+    m, f = v.shape[1], v.shape[2]
+    split_len, block_k = _split_geometry(m, splits, block_k)
+    dev = q.device
+    kvl = kv_len.to(device=dev, dtype=torch.int64).repeat_interleave(hkv)
+    k4 = k.reshape(bh, splits, split_len, e)
+    v4 = v.reshape(bh, splits, split_len, f)
+
+    def tiles(t):
+        sl = slice(t * block_k, (t + 1) * block_k)
+        return k4[:, :, sl], v4[:, :, sl]
+
+    return _sweep_partials(
+        q, tiles, split_len // block_k, kvl,
+        torch.arange(splits, device=dev) * split_len, scale=scale,
+        softcap=softcap, window=window, block_k=block_k, exp_impl=exp_impl,
+        n_pos=n_pos, rows_per_pos=r // n_pos if rows_per_pos is None
+        else rows_per_pos, f=f)
+
+
+def _paged_geometry(w: int, page_size: int, splits: int,
+                    block_k: int) -> tuple[int, int]:
+    """(split_pages, block_k) as ``fusemax_decode_paged_pallas`` derives
+    them: page-aligned splits, key tiles inside one page."""
+    if w % splits:
+        raise ValueError(f"table width {w} not divisible by splits={splits}")
+    block_k = min(block_k, page_size)
+    if page_size % block_k:
+        raise ValueError(f"page_size={page_size} % block_k={block_k}")
+    return w // splits, block_k
+
+
+def paged_decode_partials_torch(
+    q: torch.Tensor,            # [BHkv, R, E]
+    k_pages: torch.Tensor,      # [P, page_size, Hkv, E]
+    v_pages: torch.Tensor,      # [P, page_size, Hkv, F]
+    block_table: torch.Tensor,  # [B, W] int page ids (sentinel = P)
+    kv_len: torch.Tensor,       # [B] int
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    hkv: int,
+    splits: int,
+    block_k: int,
+    exp_impl: str = "native",
+    n_pos: int = 1,
+    rows_per_pos: Optional[int] = None,
+):
+    """Plain paged split-K partials, mirroring
+    ``_paged_decode_partials_kernel``: tile ``t`` of split ``s`` is the
+    ``block_k`` keys at offset ``(t % (ps/block_k))·block_k`` of page
+    ``block_table[b, s·W/S + t // (ps/block_k)]``, the sentinel clamped to
+    ``P - 1`` (those keys lie past ``kv_len`` and are masked); masks and
+    the tile-run rule use the logical token index."""
+    bh, r, e = q.shape
+    n_pages, ps, hkv_p, f = v_pages.shape
+    b, w = block_table.shape
+    if hkv_p != hkv or bh != b * hkv:
+        raise ValueError(f"q {tuple(q.shape)}, pages {tuple(v_pages.shape)}, "
+                         f"table {tuple(block_table.shape)}, hkv={hkv}")
+    split_pages, block_k = _paged_geometry(w, ps, splits, block_k)
+    bpp = ps // block_k
+    dev = q.device
+    kvl = kv_len.to(device=dev, dtype=torch.int64).repeat_interleave(hkv)
+    bt = torch.clamp(block_table.to(device=dev, dtype=torch.int64),
+                     max=n_pages - 1)
+    slot0 = torch.arange(splits, device=dev) * split_pages   # [S]
+
+    def tiles(t):
+        page = bt[:, slot0 + t // bpp]                        # [B, S]
+        off = (t % bpp) * block_k
+        # [B, S, bk, Hkv, E] → [B·Hkv, S, bk, E]
+        kt = k_pages[:, off:off + block_k][page]
+        vt = v_pages[:, off:off + block_k][page]
+        return (kt.permute(0, 3, 1, 2, 4).reshape(bh, splits, block_k, e),
+                vt.permute(0, 3, 1, 2, 4).reshape(bh, splits, block_k, f))
+
+    return _sweep_partials(
+        q, tiles, split_pages * bpp, kvl, slot0 * ps, scale=scale,
+        softcap=softcap, window=None, block_k=block_k, exp_impl=exp_impl,
+        n_pos=n_pos, rows_per_pos=r // n_pos if rows_per_pos is None
+        else rows_per_pos, f=f)
 
 
 def combine_partials(pm: torch.Tensor, pl: torch.Tensor, pnv: torch.Tensor,
@@ -202,3 +295,87 @@ def decode_partials_cuda(
 
 
 decode_partials_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_lib():
+    """(paged kernel entry point, most query rows it takes) — builds at
+    first use."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load("paged_decode_partials")
+    fn = lib.paged_decode_partials
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    max_rows = lib.paged_decode_partials_max_rows
+    max_rows.restype = ctypes.c_int
+    max_rows.argtypes = []
+    return fn, max_rows()
+
+
+def paged_decode_partials_cuda(
+    q: torch.Tensor,            # [BHkv, R, E]
+    k_pages: torch.Tensor,      # [P, page_size, Hkv, E]
+    v_pages: torch.Tensor,      # [P, page_size, Hkv, F]
+    block_table: torch.Tensor,  # [B, W] int32 on the same device
+    kv_len: torch.Tensor,       # [B] int32 on the same device
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    hkv: int,
+    splits: int,
+    block_k: int,
+    exp_impl: str = "native",
+    n_pos: int = 1,
+    rows_per_pos: Optional[int] = None,
+):
+    """Launch the CUDA paged split-K partials kernel
+    (``csrc/paged_decode_partials.cu``) on the current stream (no sync).
+    Same contract as :func:`paged_decode_partials_torch`."""
+    check_cuda_operands("paged_decode_partials_cuda", q, k_pages, v_pages)
+    bh, r, e = q.shape
+    n_pages, ps, hkv_p, f = v_pages.shape
+    if k_pages.shape[:3] != v_pages.shape[:3] or hkv_p != hkv:
+        raise ValueError(f"paged_decode_partials_cuda: k_pages "
+                         f"{tuple(k_pages.shape)}, v_pages "
+                         f"{tuple(v_pages.shape)}, hkv={hkv}")
+    for name, t in (("block_table", block_table), ("kv_len", kv_len)):
+        if t.dtype != torch.int32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{q.device}; got {t.dtype} on {t.device}")
+    b, w = block_table.shape
+    if bh != b * hkv or kv_len.shape != (b,):
+        raise ValueError(f"q {tuple(q.shape)} is not B·Hkv fibers for a "
+                         f"table {tuple(block_table.shape)} and kv_len "
+                         f"{tuple(kv_len.shape)}")
+    if exp_impl not in ("native", "maccs"):
+        raise ValueError(f"unknown exp_impl {exp_impl!r}")
+    rows_per_pos = r // n_pos if rows_per_pos is None else rows_per_pos
+    split_pages, block_k = _paged_geometry(w, ps, splits, block_k)
+    fn, max_rows = _paged_lib()
+    if not 1 <= r <= max_rows:
+        raise ValueError(f"{r} query rows per fiber; the kernel takes "
+                         f"1..{max_rows}")
+    if bh > 65535:
+        raise ValueError(f"grid ({splits}, {bh}) too large")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    pm = torch.empty((bh, splits, r), **f32)
+    pl = torch.empty((bh, splits, r), **f32)
+    pnv = torch.empty((bh, splits, r, f), **f32)
+    err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
+             _ptr(kv_len), _ptr(pm), _ptr(pl), _ptr(pnv),
+             CUDA_DTYPES[q.dtype], e, bh, hkv, r, n_pages, ps, w, splits,
+             split_pages * ps, block_k, n_pos, rows_per_pos, float(scale),
+             0.0 if softcap is None else float(softcap),
+             int(exp_impl == "maccs"), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(
+            f"paged_decode_partials launch failed: CUDA error {err}")
+    paged_decode_partials_cuda.launches += 1
+    return pm, pl, pnv
+
+
+paged_decode_partials_cuda.launches = 0

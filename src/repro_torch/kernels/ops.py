@@ -1,9 +1,11 @@
 """Public attention ops: GQA folding, tile choice and dispatch around the
-FuseMax kernels.  Port of the dense half of ``repro.kernels.ops``.
+FuseMax kernels.  Port of the GQA half of ``repro.kernels.ops``.
 
-``fusemax_attention`` — [B, Hq, P, E] × [B, Hkv, M, E/F] → [B, Hq, P, F].
-``fusemax_decode``    — one-token (or P-row verify) queries against a
+``fusemax_attention``    — [B, Hq, P, E] × [B, Hkv, M, E/F] → [B, Hq, P, F].
+``fusemax_decode``       — one-token (or P-row verify) queries against a
   ragged dense KV cache, split-K.
+``fusemax_decode_paged`` — the same against a page pool through a block
+  table (``gather_pages`` materializes the table's view for the ref path).
 
 ``impl``:
   "cuda"   the hand-written Hopper kernel; raises on a CPU tensor,
@@ -22,6 +24,7 @@ import torch
 from repro_torch.kernels import autotune, ref as _ref
 from repro_torch.kernels.decode import (
     combine_partials, decode_partials_cuda, decode_partials_torch,
+    paged_decode_partials_cuda, paged_decode_partials_torch,
 )
 from repro_torch.kernels.fusemax import (
     fusemax_attention_cuda, fusemax_attention_torch,
@@ -36,7 +39,9 @@ KERNEL_CASCADES = {
     "decode_reference": "repro.kernels.ref.reference_cascade",
     "fusemax_attention": "repro.kernels.fusemax.prefill_cascade",
     "fusemax_decode": "repro.kernels.decode.decode_splitk_cascade",
+    "fusemax_decode_paged": "repro.kernels.decode.decode_paged_cascade",
     "fusemax_decode[p>1]": "repro.kernels.decode.verify_chain_cascade",
+    "fusemax_decode_paged[p>1]": "repro.kernels.decode.verify_chain_cascade",
 }
 
 IMPLS = ("cuda", "torch", "ref", "auto")
@@ -200,5 +205,85 @@ def fusemax_decode(
             kv_len.to(device=q.device, dtype=torch.int32).contiguous(), **kw)
     else:
         pm, pl, pnv = decode_partials_torch(q_f, k_f, v_f, kv_len, **kw)
+    out = combine_partials(pm, pl, pnv, q.dtype)
+    return _unfold_decode_out(out, b, hkv, group, f, p=p)
+
+
+def gather_pages(pages: torch.Tensor,
+                 block_table: torch.Tensor) -> torch.Tensor:
+    """Materialize a block-table view of a page pool: pages
+    ``[P, page_size, *tail]``, block_table ``[B, W]`` → ``[B, W·page_size,
+    *tail]``.  Unbacked entries hold the sentinel id ``P``; the gather
+    clamps them to the last page and callers mask by the logical length.
+    The ref path and the prefix-hit prefill read through this; the paged
+    kernel resolves pages itself and never builds the view."""
+    b = block_table.shape[0]
+    bt = torch.clamp(block_table.to(device=pages.device, dtype=torch.long),
+                     max=pages.shape[0] - 1)
+    return pages[bt].reshape(b, -1, *pages.shape[2:])
+
+
+def fusemax_decode_paged(
+    q: torch.Tensor,            # [B, Hq, P, E]
+    k_pages: torch.Tensor,      # [P_pages, page_size, Hkv, E]
+    v_pages: torch.Tensor,      # [P_pages, page_size, Hkv, F]
+    block_table: torch.Tensor,  # [B, W] int page ids (sentinel = P_pages)
+    kv_len: torch.Tensor,       # [B] valid logical lengths
+    *,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    splits: Optional[int] = None,
+    block_k: Optional[int] = None,
+    exp_impl: str = "native",
+) -> torch.Tensor:
+    """Decode (P = 1) or verify rows (P > 1) against a *paged* KV cache
+    whose logical view is the whole table (global layers; the reference's
+    ring ``capacity`` comes with windowed layers, ROADMAP §1 item 2).
+
+    "cuda" launches the paged kernel (pages found through the table inside
+    the kernel), "torch" its plain version — both with page-aligned
+    ``splits``/``block_k`` from :func:`autotune.paged_decode_params` when
+    left as ``None``; "ref" gathers the table's view and runs the 3-pass
+    oracle."""
+    b, hq, p, e = q.shape
+    n_pages, page_size, hkv, f = v_pages.shape
+    w = block_table.shape[1]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / (e ** 0.5)
+    impl = resolve_impl(impl, q)
+
+    if impl == "ref":
+        k = gather_pages(k_pages, block_table).transpose(1, 2)
+        v = gather_pages(v_pages, block_table).transpose(1, 2)
+        return fusemax_decode(q, k, v, kv_len, softcap=softcap, scale=scale,
+                              impl="ref")
+
+    if splits is None or block_k is None:
+        tuned = autotune.paged_decode_params(
+            w, page_size, max(group, 8), e, f,
+            elem_bytes=k_pages.element_size())
+        splits = tuned.splits if splits is None else splits
+        block_k = tuned.block_k if block_k is None else block_k
+    splits = max(1, min(splits, w))
+    while w % splits:
+        splits -= 1
+    block_k = min(block_k, page_size)
+    while page_size % block_k:
+        block_k -= 1
+    block_k = autotune.verify_block_k(block_k, p=p, g=max(group, 8), e=e,
+                                      f=f)
+    q_f = _fold_decode_q(q, b, hkv, group, e)
+    kw = dict(scale=scale, softcap=softcap, hkv=hkv, splits=splits,
+              block_k=block_k, exp_impl=exp_impl, n_pos=p,
+              rows_per_pos=group)
+    if impl == "cuda":
+        pm, pl, pnv = paged_decode_partials_cuda(
+            q_f.contiguous(), k_pages, v_pages,
+            block_table.to(device=q.device, dtype=torch.int32).contiguous(),
+            kv_len.to(device=q.device, dtype=torch.int32).contiguous(), **kw)
+    else:
+        pm, pl, pnv = paged_decode_partials_torch(
+            q_f, k_pages, v_pages, block_table, kv_len, **kw)
     out = combine_partials(pm, pl, pnv, q.dtype)
     return _unfold_decode_out(out, b, hkv, group, f, p=p)

@@ -3,21 +3,28 @@
   python -m repro_torch.launch.serve --arch granite-3-8b-smoke --requests 6 \
       --slots 4 --max-len 256
 
-Port of ``repro.launch.serve`` for the dense cache layout: builds the
-model from a seed on ``--device`` (``cuda`` by default; ``cpu`` runs the
-plain torch path), warms the engine up, serves a seeded synthetic trace
-``--repeats`` times and reports the median run — tok/s, time to first
-token, decode steps/s, dispatch counts and cache bytes — in the
+Port of ``repro.launch.serve`` for the dense and paged cache layouts:
+builds the model from a seed on ``--device`` (``cuda`` by default;
+``cpu`` runs the plain torch path), warms each engine up, serves a seeded
+synthetic trace ``--repeats`` times per layout and reports the median
+run — tok/s, time to first token, decode steps/s, dispatch counts, cache
+bytes, prefix reuse and the CUDA kernel launches of that run — in the
 reference's JSON schema, plus the device it ran on, written to
 ``BENCH_torch_serving.json``.
 
+``--cache-layout both`` serves the trace on the dense and the paged
+layout and reports ``outputs_match`` (greedy streams equal across
+layouts); with ``--shared-prefix-len N`` every prompt starts with the
+same N tokens, and the paged layout is served once more with the prefix
+cache off (``paged_noprefix``), which joins ``outputs_match``.  Every
+paged leg ends with the pool's invariant audit
+(``PagedKVCache.check_invariants``), which raises on a violation.
+
 The reference's other legs take the same flags here and exit with the
-ROADMAP item that ports them: ``--cache-layout paged|both``,
-``--speculate``/``--duplicates``, ``--kv-dtype``/``--pool-mb``/
-``--host-swap-gb``, ``--mesh`` and ``--async``/``--dp``.
-``--no-compile-cache`` and ``--no-prefix-cache`` are accepted and do
-nothing (XLA's cache and the paged prefix index have no counterpart on
-this path).
+ROADMAP item that ports them: ``--speculate``/``--duplicates``,
+``--kv-dtype``/``--pool-mb``/``--host-swap-gb``, ``--mesh`` and
+``--async``/``--dp``.  ``--no-compile-cache`` is accepted and does
+nothing (XLA's cache has no counterpart here).
 """
 from __future__ import annotations
 
@@ -30,7 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels.decode import decode_partials_cuda
+from repro_torch.kernels.decode import (
+    decode_partials_cuda, paged_decode_partials_cuda,
+)
 from repro_torch.kernels.fusemax import fusemax_attention_cuda
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime
@@ -61,7 +70,8 @@ def device_info(device: torch.device) -> dict:
 def kernel_launches() -> dict:
     """Launches of each CUDA kernel so far in this process."""
     return {"fusemax_prefill": fusemax_attention_cuda.launches,
-            "decode_partials": decode_partials_cuda.launches}
+            "decode_partials": decode_partials_cuda.launches,
+            "paged_decode_partials": paged_decode_partials_cuda.launches}
 
 
 def _sync(device: torch.device) -> None:
@@ -69,12 +79,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _serve_one_layout(args, cfg, model, rt, layout: str) -> dict:
+def _serve_one_layout(args, cfg, model, rt, layout: str,
+                      prefix_caching: bool = True) -> dict:
     engine = ServeEngine(cfg, model, slots=args.slots, max_len=args.max_len,
                          rt=rt, temperature=args.temperature,
                          decode_chunk=args.decode_chunk,
                          prefill_chunk=args.prefill_chunk,
-                         cache_layout=layout, device=args.device,
+                         cache_layout=layout, page_size=args.page_size,
+                         num_pages=args.num_pages,
+                         prefix_caching=prefix_caching, device=args.device,
                          seed=args.seed)
     lens = _trace_lens(args)
     warmup_s = None
@@ -86,6 +99,9 @@ def _serve_one_layout(args, cfg, model, rt, layout: str) -> dict:
     for _ in range(max(1, args.repeats)):
         for k in engine.stats:
             engine.stats[k] = 0
+        # each repeat serves the identical trace: a warm index would absorb
+        # runs 2..N, so every run starts from an empty one
+        engine.clear_prefix_cache()
         rng = np.random.default_rng(args.seed)
         sp = args.shared_prefix_len
         shared = rng.integers(0, cfg.vocab, size=(sp,)) if sp else None
@@ -113,9 +129,19 @@ def _serve_one_layout(args, cfg, model, rt, layout: str) -> dict:
     total_new = sum(len(r.generated) for r in reqs)
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     ttfts = [r.ttft for r in reqs if r.ttft is not None]
+    memory = engine.memory_stats()
+    finite = engine.logits_finite()
+    prefix_on = engine.kv is not None and engine.kv.prefix_enabled
+    if engine.kv is not None:
+        # the trace has drained: a quiescent point, so the pool's host
+        # state must audit clean (raises AssertionError otherwise)
+        engine.kv.check_invariants()
+    del engine                   # free this layout's caches before the next
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.empty_cache()
     return {
         "cache_layout": layout,
-        "prefix_caching": False,
+        "prefix_caching": prefix_on,
         "prefix": {
             "hits": stats["prefix_hits"],
             "hit_rate": round(stats["prefix_hits"] / len(reqs), 3),
@@ -134,19 +160,19 @@ def _serve_one_layout(args, cfg, model, rt, layout: str) -> dict:
             "p50": round(float(np.median(ttfts)), 4) if ttfts else None,
             "max": round(float(np.max(ttfts)), 4) if ttfts else None,
         },
-        "steps_per_s": round(engine.stats["decode_steps"] / dt, 2),
+        "steps_per_s": round(stats["decode_steps"] / dt, 2),
         "dispatches": {
-            "prefill": engine.stats["prefill_dispatches"],
-            "decode": engine.stats["decode_dispatches"],
-            "decode_steps": engine.stats["decode_steps"],
+            "prefill": stats["prefill_dispatches"],
+            "decode": stats["decode_dispatches"],
+            "decode_steps": stats["decode_steps"],
         },
-        "tokens_decoded": engine.stats["tokens_decoded"],
-        "preemptions": engine.stats["preemptions"],
-        "peak_live_tokens": engine.stats["peak_live_tokens"],
-        "memory": engine.memory_stats(),
+        "tokens_decoded": stats["tokens_decoded"],
+        "preemptions": stats["preemptions"],
+        "peak_live_tokens": stats["peak_live_tokens"],
+        "memory": memory,
         # CUDA kernel launches during the reported run (0 on the CPU)
         "kernel_launches": launches,
-        "logits_finite": engine.logits_finite(),
+        "logits_finite": finite,
         "_outputs": [list(r.generated) for r in reqs],
     }
 
@@ -157,8 +183,19 @@ def serve_bench(args) -> dict:
     cfg = get_config(args.arch)
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
     model = tf.init(cfg, args.seed, rt, device=args.device)
-    per_layout = {"dense": _serve_one_layout(args, cfg, model, rt, "dense")}
-    outputs = per_layout["dense"].pop("_outputs")
+    layouts = ["dense", "paged"] if args.cache_layout == "both" \
+        else [args.cache_layout]
+    per_layout = {lo: _serve_one_layout(
+        args, cfg, model, rt, lo, prefix_caching=not args.no_prefix_cache)
+        for lo in layouts}
+    if args.shared_prefix_len and "paged" in layouts \
+            and not args.no_prefix_cache:
+        # shared-prefix trace mode: the paged layout once more with the
+        # prefix cache off — greedy streams must be identical either way
+        per_layout["paged_noprefix"] = _serve_one_layout(
+            args, cfg, model, rt, "paged", prefix_caching=False)
+        layouts = layouts + ["paged_noprefix"]
+    outputs = {lo: per_layout[lo].pop("_outputs") for lo in layouts}
     metrics = {
         "arch": args.arch,
         "requests": args.requests,
@@ -170,7 +207,8 @@ def serve_bench(args) -> dict:
         "page_size": args.page_size,
         "num_pages": args.num_pages,
     }
-    metrics.update({k: v for k, v in per_layout["dense"].items()
+    # the primary layout's fields stay top-level, as in the reference
+    metrics.update({k: v for k, v in per_layout[layouts[0]].items()
                     if k != "cache_layout"})
     metrics["cache_layout"] = args.cache_layout
     metrics["shared_prefix_len"] = args.shared_prefix_len
@@ -178,15 +216,21 @@ def serve_bench(args) -> dict:
     metrics["pool_mb"] = None
     metrics["host_swap_gb"] = 0
     metrics["layouts"] = per_layout
+    if len(layouts) >= 2:
+        metrics["outputs_match"] = all(
+            outputs[lo] == outputs[layouts[0]] for lo in layouts[1:])
+    if "dense" in per_layout and "paged" in per_layout:
+        d, p = per_layout["dense"], per_layout["paged"]
+        metrics["paged_vs_dense_tok_per_s"] = round(
+            p["tok_per_s"] / max(d["tok_per_s"], 1e-9), 3)
     metrics["device"] = device_info(torch.device(args.device))
-    metrics["_outputs"] = outputs
+    metrics["_outputs"] = outputs[layouts[0]]
+    metrics["_outputs_by_layout"] = outputs
     return metrics
 
 
 #: flags of legs not ported yet → (is it set?, ROADMAP item)
 _UNPORTED = (
-    (lambda a: a.cache_layout != "dense", "--cache-layout paged/both",
-     "§1 item 1, paged layout and prefix cache with K3"),
     (lambda a: a.speculate is not None and not a.no_speculate,
      "--speculate", "§1 item 3, speculation"),
     (lambda a: bool(a.duplicates), "--duplicates",
@@ -227,13 +271,22 @@ def _parser() -> argparse.ArgumentParser:
                     help="split prompts into chunks of this many tokens "
                          "inside the prefill dispatch")
     ap.add_argument("--cache-layout", default="dense",
-                    choices=("dense", "paged", "both"))
-    ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--num-pages", type=int, default=None)
+                    choices=("dense", "paged", "both"),
+                    help="KV-cache layout; 'both' A/Bs the two and "
+                         "cross-checks greedy outputs")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per page (paged layout)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="full-class pool size in pages (paged layout); "
+                         "default = dense-equivalent slots*max_len/page")
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="trace mode: every prompt starts with the same "
-                         "N-token prefix")
-    ap.add_argument("--no-prefix-cache", action="store_true")
+                         "N-token prefix; the paged layout is also served "
+                         "with the prefix cache off and joins "
+                         "outputs_match")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable automatic prefix caching on the paged "
+                         "layout")
     ap.add_argument("--speculate", type=int, default=None, metavar="K")
     ap.add_argument("--no-speculate", action="store_true")
     ap.add_argument("--duplicates", type=int, default=0, metavar="N")
@@ -265,7 +318,7 @@ def main(argv: Optional[list] = None) -> dict:
             raise SystemExit(f"{flag} is not ported to repro_torch yet "
                              f"(ROADMAP {item})")
     metrics = serve_bench(args)
-    outputs = metrics.pop("_outputs")
+    hidden = {k: metrics.pop(k) for k in ("_outputs", "_outputs_by_layout")}
     print(f"served {metrics['requests']} requests "
           f"({metrics['tokens_decoded']} new tokens) in "
           f"{metrics['wall_s']:.2f}s → {metrics['tok_per_s']:.1f} tok/s "
@@ -274,10 +327,28 @@ def main(argv: Optional[list] = None) -> dict:
           f"{metrics['dispatches']['prefill']} prefill dispatches, "
           f"TTFT p50 {metrics['ttft_s']['p50']}s) on "
           f"{metrics['device']['kind']}")
+    for lo, m in metrics["layouts"].items():
+        mem = m["memory"]
+        print(f"  {lo}: {m['tok_per_s']:.1f} tok/s, peak resident "
+              f"{mem['peak_resident_cache_bytes']} B "
+              f"({mem['bytes_per_live_token']} B/live-token), "
+              f"physical {mem['physical_cache_bytes']} B, "
+              f"preemptions {m['preemptions']}")
+        pf = m["prefix"]
+        if pf["tokens_reused"]:
+            print(f"    prefix cache: {pf['hits']} hits "
+                  f"(rate {pf['hit_rate']}), {pf['tokens_reused']} tokens "
+                  f"reused, {pf['cow_copies']} COW copies, prefill "
+                  f"dispatch savings {pf['prefill_savings']:.1%} "
+                  f"({pf['tokens_prefilled']}/{pf['prompt_tokens']} "
+                  f"prompt tokens prefilled)")
+    if "outputs_match" in metrics:
+        print(f"  greedy outputs match across layouts: "
+              f"{metrics['outputs_match']}")
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(metrics, fh, indent=1)
-    metrics["_outputs"] = outputs
+    metrics.update(hidden)
     return metrics
 
 

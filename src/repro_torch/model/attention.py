@@ -6,14 +6,25 @@ the absolute position, applied before K is cached so reads need no
 rotation.  Attention runs through :mod:`repro_torch.kernels.ops` with
 ``Runtime.attn_impl``.
 
-Cache protocol (dense layout, global layers): ``{"k", "v": [B, Hkv, Mmax,
-dh]}``, one row per batch slot.  The port updates caches *in place*
-(``index_put_`` / slice assignment) where the reference returns new
-arrays under buffer donation; every function still returns the cache so
-the call sites read the same.
+Cache protocols (global layers):
+
+* dense — ``{"k", "v": [B, Hkv, Mmax, dh]}``, one row per batch slot;
+* paged — ``{"k_pages", "v_pages": [P + 1, page_size, Hkv, dh]}``: the
+  pool's ``P`` pages plus one *sink* page at index ``P``.  Block tables
+  (``[B, W]`` int32, host-managed by :mod:`repro_torch.serving.kv_cache`)
+  map logical token ``l`` to ``(table[b, l // page_size], l % page_size)``
+  and hold the sentinel id ``P`` where no page backs them.  The reference
+  drops masked and sentinel writes with a ``mode="drop"`` scatter; torch
+  has none, and a boolean-masked write would cost a device→host sync per
+  layer, so the port routes them into the sink page instead.  Every read
+  sees pages ``0..P-1`` only (sentinel reads clamp to ``P - 1``).
+
+The port updates caches *in place* (``index_put_`` / slice assignment)
+where the reference returns new arrays under buffer donation; every
+function still returns the cache so the call sites read the same.
 
 Not ported yet (ROADMAP "Modules still to port"): sliding-window ring
-caches, the paged layout, verify, MLA.
+caches, quantized pages, verify, MLA.
 """
 from __future__ import annotations
 
@@ -24,8 +35,60 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.kernels.ops import fusemax_attention, fusemax_decode
+from repro_torch.kernels.ops import (
+    fusemax_attention, fusemax_decode, fusemax_decode_paged, gather_pages,
+)
 from repro_torch.model.layers import Runtime, _param, normal_, rope
+
+
+_RING = ("windowed ring caches are not ported yet (ROADMAP §1 item 2, "
+         "windows and softcaps)")
+
+
+def paged_cache_key(spec: LayerSpec) -> str:
+    """Block-table key for a layer: windowed layers share a table per
+    window size; global layers share the "full" table."""
+    return "full" if spec.window is None else f"w{spec.window}"
+
+
+def pool_pages(pages: torch.Tensor) -> torch.Tensor:
+    """The readable pages of a pool allocated with its sink page
+    (``[P + 1, ...]`` → the ``[P, ...]`` view, contiguous)."""
+    return pages[:-1]
+
+
+def page_slots(pages: torch.Tensor, bt_rows: torch.Tensor,
+               positions: torch.Tensor, capacity: int,
+               valid: Optional[torch.Tensor] = None):
+    """Where per-token writes land in a pool allocated with its sink page:
+    ``(page, offset)``, each shaped like ``positions``.  The logical index
+    wraps at ``capacity``; tokens where ``valid`` is False go to the sink
+    page ``P``, as do tokens behind a sentinel table entry (which *is*
+    ``P``) — the reference's ``mode="drop"`` without a host sync."""
+    sink = pages.shape[0] - 1
+    page_size = pages.shape[1]
+    l = positions.long() % capacity
+    page = torch.gather(bt_rows.long(), 1, l // page_size)
+    if valid is not None:
+        page = torch.where(valid, page, sink)
+    return page, l % page_size
+
+
+def write_pages(pages: torch.Tensor, bt_rows: torch.Tensor,
+                positions: torch.Tensor, values: torch.Tensor,
+                capacity: int, valid: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """Scatter per-token values into a page pool through block-table rows,
+    in place.
+
+    pages: ``[P + 1, page_size, *tail]`` (pool + sink page); bt_rows:
+    ``[N, W]``; positions: ``[N, S]`` absolute token positions; values:
+    ``[N, S, *tail]``.  Masked and sentinel writes land in the sink page
+    (:func:`page_slots`), so pages ``0..P-1`` end exactly as the
+    reference's.  Returns ``pages``."""
+    page, off = page_slots(pages, bt_rows, positions, capacity, valid)
+    pages[page, off] = values.to(pages.dtype)
+    return pages
 
 
 class GQA(nn.Module):
@@ -104,9 +167,7 @@ def gqa_prefill_chunk(p: GQA, x: torch.Tensor, cache: dict, off: int,
     attend the cached history plus the chunk, whose K/V are written into
     the cache first.  x: [B, S, d]."""
     if spec.window is not None:
-        raise NotImplementedError(
-            "windowed ring caches are not ported yet (ROADMAP §1 item 2, "
-            "windows and softcaps)")
+        raise NotImplementedError(_RING)
     b, s_len, _ = x.shape
     positions = torch.arange(off, off + s_len, device=x.device).expand(
         b, s_len)
@@ -129,9 +190,7 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, kv_len: torch.Tensor,
     The new K/V land at slot ``(kv_len - 1) % slots`` (an empty slot with
     kv_len = 0 writes the last slot, as in the reference)."""
     if spec.window is not None:
-        raise NotImplementedError(
-            "windowed ring caches are not ported yet (ROADMAP §1 item 2, "
-            "windows and softcaps)")
+        raise NotImplementedError(_RING)
     b = x.shape[0]
     pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
     q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, 1, dh]
@@ -142,6 +201,138 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, kv_len: torch.Tensor,
     cache["v"][bidx, :, slot] = v_new[:, :, 0].to(cache["v"].dtype)
     out = fusemax_decode(
         q, cache["k"], cache["v"], kv_len,
+        softcap=cfg.attn_softcap,
+        impl=rt.attn_impl,
+        splits=rt.decode_splits,
+        exp_impl=rt.exp_impl,
+    )                                                    # [B, H, 1, dh]
+    return _out_proj(p, out), cache
+
+
+# ---------------------------------------------------------------------------
+# GQA — paged cache variants
+# ---------------------------------------------------------------------------
+
+def gqa_init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                         dtype, device, kv_dtype: Optional[str] = None
+                         ) -> dict:
+    """A layer's page pool: ``num_pages`` pages plus the sink page."""
+    if kv_dtype is not None:
+        raise NotImplementedError(
+            "quantized page pools are not ported yet (ROADMAP §1 item 4, "
+            "quantized pages and host swap)")
+    shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.dh)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _gqa_capacity(cache: dict, bt_rows: torch.Tensor,
+                  spec: LayerSpec) -> int:
+    """Logical token capacity of a paged GQA cache: the window for local
+    layers, the full table span for global layers."""
+    page_size = cache["k_pages"].shape[1]
+    return spec.window if spec.window is not None \
+        else bt_rows.shape[1] * page_size
+
+
+def _gqa_paged_attend(q: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, bt_rows: torch.Tensor,
+                      off: int, cap: int, cfg: ModelConfig,
+                      spec: LayerSpec, rt: Runtime) -> torch.Tensor:
+    """Attention of a paged prefill chunk *before* its writes land:
+    queries [off, off+S) attend the history gathered through the
+    block-table rows plus the chunk's own K/V.  Returns the
+    pre-projection output [B, H, S, F].  ``k_pages``/``v_pages`` are the
+    readable ``[P, ...]`` pools."""
+    kw = dict(causal=cfg.causal, softcap=cfg.attn_softcap,
+              impl=rt.attn_impl, block_q=rt.block_q, block_k=rt.block_k,
+              exp_impl=rt.exp_impl)
+    if off == 0:
+        # no history: attend the chunk itself (as gqa_forward does)
+        return fusemax_attention(q, k_new, v_new, window=spec.window, **kw)
+    if spec.window is not None:
+        raise NotImplementedError(_RING)
+    # gather only the pages the prefix occupies (plain torch indexing, as
+    # the reference gathers in jnp outside any kernel), then K1 with the
+    # history offset
+    hp = -(-off // k_pages.shape[1])
+    k_hist = gather_pages(k_pages, bt_rows[:, :hp]).transpose(1, 2)
+    v_hist = gather_pages(v_pages, bt_rows[:, :hp]).transpose(1, 2)
+    k = torch.cat([k_hist[:, :, :off], k_new.to(k_hist.dtype)], dim=2)
+    v = torch.cat([v_hist[:, :, :off], v_new.to(v_hist.dtype)], dim=2)
+    return fusemax_attention(q, k, v, q_offset=off, **kw)
+
+
+def gqa_prefill_paged(p: GQA, x: torch.Tensor, cache: dict,
+                      bt_rows: torch.Tensor, off: int, cfg: ModelConfig,
+                      spec: LayerSpec, rt: Runtime, true_len: torch.Tensor,
+                      cached_len: Optional[torch.Tensor] = None):
+    """Prefill a prompt chunk straight into the page pool: queries
+    [off, off+S) attend history gathered through ``bt_rows`` plus the
+    chunk; the chunk's K/V then scatter into pages, masked by
+    ``true_len`` and by ``cached_len`` (positions below it live in pages
+    mapped from the prefix index: read, never rewritten).  x: [B, S, d]."""
+    b, s_len, _ = x.shape
+    positions = torch.arange(off, off + s_len, device=x.device).expand(
+        b, s_len)
+    cap = _gqa_capacity(cache, bt_rows, spec)
+    tl = true_len.to(x.device).long()[:, None]
+    pos = positions[:1]                                   # [1, S]
+    valid = (pos < tl) & (pos >= torch.clamp(tl, max=off + s_len) - cap)
+    if cached_len is not None:
+        valid = valid & (positions >= cached_len.to(x.device)[:, None])
+    valid = valid.expand(b, s_len)
+
+    q, k_new, v_new = _proj_qkv(p, x, cfg, positions)
+    if off == 0:
+        y = gqa_forward(p, x, cfg, spec, rt, qkv=(q, k_new, v_new))
+    else:
+        out = _gqa_paged_attend(q, k_new, v_new,
+                                pool_pages(cache["k_pages"]),
+                                pool_pages(cache["v_pages"]), bt_rows, off,
+                                cap, cfg, spec, rt)
+        y = _out_proj(p, out)
+    write_pages(cache["k_pages"], bt_rows, positions, k_new.transpose(1, 2),
+                cap, valid)
+    write_pages(cache["v_pages"], bt_rows, positions, v_new.transpose(1, 2),
+                cap, valid)
+    return y, cache
+
+
+def gqa_decode_slots(cache: dict, bt_rows: torch.Tensor,
+                     kv_len: torch.Tensor, spec: LayerSpec):
+    """:func:`page_slots` of one decode step's new token (position
+    ``kv_len - 1``; inactive slots with kv_len = 0 go to the sink).  The
+    same for every layer of a capacity class, so a step computes it once
+    per class."""
+    pos = (kv_len.long() - 1)[:, None]
+    return page_slots(cache["k_pages"], bt_rows, pos,
+                      _gqa_capacity(cache, bt_rows, spec),
+                      (kv_len > 0)[:, None])
+
+
+def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
+                     bt_rows: torch.Tensor, kv_len: torch.Tensor,
+                     cfg: ModelConfig, spec: LayerSpec, rt: Runtime,
+                     slots=None):
+    """One-token decode against the page pool: write the new K/V at the
+    logical tail, read through the block table.  Inactive slots
+    (kv_len = 0) drop their writes (into the sink page).  ``slots``: this
+    step's :func:`gqa_decode_slots`, when the caller shares them across
+    layers.  x: [B, 1, d]."""
+    if spec.window is not None:
+        raise NotImplementedError(_RING)
+    pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
+    q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, 1, dh]
+    page, off = gqa_decode_slots(cache, bt_rows, kv_len, spec) \
+        if slots is None else slots
+    for name, new in (("k_pages", k_new), ("v_pages", v_new)):
+        pages = cache[name]
+        pages[page, off] = new.transpose(1, 2).to(pages.dtype)
+    out = fusemax_decode_paged(
+        q, pool_pages(cache["k_pages"]), pool_pages(cache["v_pages"]),
+        bt_rows, kv_len,
         softcap=cfg.attn_softcap,
         impl=rt.attn_impl,
         splits=rt.decode_splits,

@@ -7,13 +7,18 @@ them; the port keeps one module per layer (the weight bridge unstacks)
 and loops in Python, and its caches are a flat per-layer list.
 
 Entry points:
-  ``init``           → :class:`Model` with seeded random weights
-  ``forward``        → logits [B, S, vocab]
-  ``init_cache``     → per-layer dense caches
-  ``prefill``        → (last-token logits, caches)
-  ``decode_step``    → (logits, caches)
-  ``decode_loop``    → fused multi-step greedy / sampled decode
+  ``init``             → :class:`Model` with seeded random weights
+  ``forward``          → logits [B, S, vocab]
+  ``init_cache``       → per-layer dense caches
+  ``init_paged_cache`` → per-layer page pools (paged layout)
+  ``prefill``          → (last-token logits, caches)
+  ``decode_step``      → (logits, caches)
+  ``decode_loop``      → fused multi-step greedy / sampled decode
   ``scatter_cache_slots`` → land a batched prefill in its slot rows
+  ``copy_cache_pages`` → copy-on-write of shared prefix pages
+
+``block_tables`` (``{"full": [slots, W] int32}`` on the device) selects
+the paged layout in ``prefill`` / ``decode_step`` / ``decode_loop``.
 """
 from __future__ import annotations
 
@@ -149,11 +154,21 @@ def layer_forward(p: Layer, x: torch.Tensor, cfg: ModelConfig,
 
 def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
                  kv_len: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
-                 rt: Runtime):
-    """One-token decode. x: [B, 1, d]; kv_len includes the current token."""
+                 rt: Runtime, block_tables: Optional[dict] = None,
+                 slots: Optional[dict] = None):
+    """One-token decode. x: [B, 1, d]; kv_len includes the current token.
+    With ``block_tables`` the layer reads and writes its page pool through
+    its class's table (``slots``: the step's write positions per class,
+    shared by the class's layers; computed here when absent)."""
     h = apply_norm(p.ln1, x, cfg.norm)
-    y, cache["attn"] = attn_mod.gqa_decode(p.attn, h, cache["attn"], kv_len,
-                                           cfg, spec, rt)
+    if block_tables is not None:
+        key = attn_mod.paged_cache_key(spec)
+        y, cache["attn"] = attn_mod.gqa_decode_paged(
+            p.attn, h, cache["attn"], block_tables[key], kv_len, cfg, spec,
+            rt, slots=None if slots is None else slots.get(key))
+    else:
+        y, cache["attn"] = attn_mod.gqa_decode(p.attn, h, cache["attn"],
+                                               kv_len, cfg, spec, rt)
     x = _residual(p, x, y, cfg)
     return _mlp_block(p, x, cfg), cache
 
@@ -193,27 +208,70 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             for spec in cfg.layer_specs()]
 
 
+def init_paged_cache(cfg: ModelConfig, slots: int, num_pages: dict,
+                     page_size: int, dtype, device,
+                     kv_dtype: Optional[str] = None) -> list:
+    """Per-layer page pools ``[{"attn": {"k_pages", "v_pages"}}, ...]``,
+    ``num_pages`` keyed like the block tables ("full" / "w<window>").
+    Every layer owns its pages; the tables (one per class, shared by the
+    class's layers) are managed by
+    :class:`repro_torch.serving.kv_cache.PagedKVCache`.  ``slots`` would
+    size per-slot SSM state, which this slice does not port."""
+    return [{"attn": attn_mod.gqa_init_paged_cache(
+                cfg, num_pages[attn_mod.paged_cache_key(spec)], page_size,
+                dtype, device, kv_dtype=kv_dtype)}
+            for spec in cfg.layer_specs()]
+
+
+def copy_cache_pages(cfg: ModelConfig, caches: list, key: str,
+                     src: torch.Tensor, dst: torch.Tensor) -> list:
+    """``pages[dst] = pages[src]`` in every layer of capacity class
+    ``key`` — one indexed copy per layer for all pairs at once (copy-on-
+    write of shared prefix pages).  Returns ``caches``."""
+    for spec, c in zip(cfg.layer_specs(), caches):
+        if attn_mod.paged_cache_key(spec) != key:
+            continue
+        for a in c["attn"].values():
+            a[dst] = a[src]
+    return caches
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
-                caches: list, kv_len: torch.Tensor, rt: Runtime = Runtime()):
+                caches: list, kv_len: torch.Tensor, rt: Runtime = Runtime(),
+                block_tables: Optional[dict] = None):
     """One decode step for the whole batch.  tokens: [B, 1] int; kv_len:
-    [B] sequence length *including* the current token.  Caches update in
-    place.  Returns (logits [B, vocab], caches)."""
+    [B] sequence length *including* the current token.  ``block_tables``
+    selects the paged layout.  Caches update in place.  Returns (logits
+    [B, vocab], caches)."""
     x = _embed_inputs(cfg, model, tokens, rt)
+    slots: dict = {}
     for spec, p, c in zip(cfg.layer_specs(), model.layers, caches):
-        x, _ = layer_decode(p, x, c, kv_len, cfg, spec, rt)
+        if block_tables is not None:
+            key = attn_mod.paged_cache_key(spec)
+            if key not in slots:      # one write index per class and step
+                slots[key] = attn_mod.gqa_decode_slots(
+                    c["attn"], block_tables[key], kv_len, spec)
+        x, _ = layer_decode(p, x, c, kv_len, cfg, spec, rt, block_tables,
+                            slots)
     return _logits(cfg, model, x[:, 0]), caches
 
 
 def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
                    spec: LayerSpec, rt: Runtime, s_len: int,
-                   kv_offset: int = 0):
-    """Layer forward that also fills the dense cache: positions
-    [kv_offset, kv_offset + S).  With ``kv_offset > 0`` (chunked-prefill
-    continuation) queries attend the cached history."""
+                   kv_offset: int = 0, true_len=None, bt_rows=None,
+                   cached_len=None):
+    """Layer forward that also fills the cache: positions [kv_offset,
+    kv_offset + S).  With ``kv_offset > 0`` (chunked-prefill or prefix-hit
+    continuation) queries attend the cached history.  ``bt_rows`` (the
+    rows' block tables by class) selects the paged layout."""
     h = apply_norm(p.ln1, x, cfg.norm)
     ac = cache["attn"]
-    if kv_offset:
+    if bt_rows is not None:
+        y, cache["attn"] = attn_mod.gqa_prefill_paged(
+            p.attn, h, ac, bt_rows[attn_mod.paged_cache_key(spec)],
+            kv_offset, cfg, spec, rt, true_len, cached_len)
+    elif kv_offset:
         y, cache["attn"] = attn_mod.gqa_prefill_chunk(
             p.attn, h, ac, kv_offset, cfg, spec, rt)
     else:
@@ -230,7 +288,10 @@ def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: Model, batch: dict, caches: list,
             rt: Runtime = Runtime(), kv_offset: int = 0,
-            true_len: Optional[torch.Tensor] = None):
+            true_len: Optional[torch.Tensor] = None,
+            block_tables: Optional[dict] = None,
+            slot_ids: Optional[torch.Tensor] = None,
+            cached_len: Optional[torch.Tensor] = None):
     """Process a prompt (or prompt chunk), filling caches in place.
     Returns (logits_last, caches).
 
@@ -240,11 +301,24 @@ def prefill(cfg: ModelConfig, model: Model, batch: dict, caches: list,
     gathered at each row's last real token within this chunk (rows whose
     last token lies in another chunk return garbage — the caller
     selects).  Padded tail positions are causal-masked out of every real
-    row and overwritten by decode before they are read."""
+    row and overwritten by decode before they are read.
+
+    ``block_tables`` + ``slot_ids`` switch to the paged layout: K/V
+    scatter into the page pools through ``block_tables[...][slot_ids]``
+    (no mini-cache), masked past each row's ``true_len`` and below its
+    ``cached_len`` ([B]: the shared-prefix pages it maps read-only)."""
     x = _embed_inputs(cfg, model, batch["inputs"], rt)
     s_len = x.shape[1]
+    bt_rows = None
+    if slot_ids is not None:
+        if true_len is None:
+            true_len = torch.full((x.shape[0],), kv_offset + s_len,
+                                  dtype=torch.int32, device=x.device)
+        idx = slot_ids.to(device=x.device, dtype=torch.long)
+        bt_rows = {k: t[idx] for k, t in block_tables.items()}
     for spec, p, c in zip(cfg.layer_specs(), model.layers, caches):
-        x, _ = _prefill_layer(p, x, c, cfg, spec, rt, s_len, kv_offset)
+        x, _ = _prefill_layer(p, x, c, cfg, spec, rt, s_len, kv_offset,
+                              true_len, bt_rows, cached_len)
     if true_len is None:
         last = x[:, -1]
     else:
@@ -278,7 +352,7 @@ def decode_loop(cfg: ModelConfig, model: Model, caches: list,
                 remaining: torch.Tensor, *, n_steps: int,
                 rt: Runtime = Runtime(), temperature: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                host_remaining=None):
+                host_remaining=None, block_tables: Optional[dict] = None):
     """Fused multi-step decode: advance every slot by up to ``n_steps``
     tokens, sampling on the device.
 
@@ -290,6 +364,9 @@ def decode_loop(cfg: ModelConfig, model: Model, caches: list,
     step count is ``min(n_steps, max(remaining))``, which the caller's host
     mirror ``host_remaining`` gives without waiting for the device (read
     from ``remaining`` otherwise).
+
+    ``block_tables`` (paged layout) is loop-invariant: the engine grows
+    every slot's pages for the whole chunk before the dispatch.
 
     Returns ``(tokens [n_steps, B], caches, kv_len, last_logits,
     remaining, steps)``.  Greedy streams equal per-token
@@ -313,7 +390,7 @@ def decode_loop(cfg: ModelConfig, model: Model, caches: list,
         toks[i] = nxt
         kv_len = kv_len + active.to(torch.int32)
         new_logits, caches = decode_step(cfg, model, nxt[:, None], caches,
-                                         kv_len, rt)
+                                         kv_len, rt, block_tables)
         last_logits = torch.where(active[:, None],
                                   new_logits.to(last_logits.dtype),
                                   last_logits)

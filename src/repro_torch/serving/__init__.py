@@ -1,4 +1,6 @@
-"""Serving: the continuous-batching engine (dense cache layout)."""
+"""Serving: the continuous-batching engine (dense and paged cache layouts)
+and the paged KV pool with its prefix cache."""
 from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.kv_cache import PagePool, PagedKVCache
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["PagePool", "PagedKVCache", "Request", "ServeEngine"]

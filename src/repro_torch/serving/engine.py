@@ -1,23 +1,37 @@
 """Serving engine: batched bucketed prefill + fused multi-step decode on the
-dense cache layout.
+dense or the paged cache layout.
 
-Port of the dense layout of ``repro.serving.ServeEngine``.  A fixed set
-of slots holds requests (continuous batching); each slot has its own
-``kv_len``; decode advances the whole batch through
-:func:`transformer.decode_loop`, whose split-K decode kernel handles the
-ragged lengths itself.  Finished slots refill from the queue.
+Port of ``repro.serving.ServeEngine`` (both layouts, no speculation).  A
+fixed set of slots holds requests (continuous batching); each slot has
+its own ``kv_len``; decode advances the whole batch through
+:func:`transformer.decode_loop`, whose split-K decode kernels handle the
+ragged lengths themselves.  Finished slots refill from the queue.
 
+* **Layouts** — ``"dense"``: per-slot ``[slots, max_len]`` rows, admission
+  needs a free slot.  ``"paged"``: a page pool with per-slot block tables
+  (:mod:`repro_torch.serving.kv_cache`); admission needs a free slot AND
+  the prompt's pages, slots grow page by page, and on pool exhaustion the
+  youngest slot is preempted back to the queue (recompute: its prompt +
+  generated tokens re-prefill on re-admission, which reproduces the
+  greedy stream).  With ``prefix_caching`` a completed request's full
+  pages enter a token-hash prefix index; later prompts sharing the prefix
+  map them at admission and prefill only the tail (``stats``:
+  ``prefix_hits`` / ``tokens_reused`` / ``cow_copies``), and greedy
+  streams stay identical with the cache on or off.
 * **Batched bucketed prefill** — admitted prompts pad to power-of-two
-  length buckets and each bucket group runs as ONE prefill over a fresh
-  per-group cache of the bucket's length, which then lands in the slot
-  rows (:func:`transformer.scatter_cache_slots`).  Padded tails are
-  causal-masked; each row's logits come from its real last token
-  (``true_len``).  Prompts longer than ``prefill_chunk`` run in pieces
-  inside the same dispatch.
+  length buckets and each (shared-prefix offset, bucket) group runs as
+  ONE prefill — dense: over a fresh per-group cache of the bucket's
+  length, which then lands in the slot rows
+  (:func:`transformer.scatter_cache_slots`); paged: straight into the
+  pool through the block tables.  Padded tails are causal-masked; each
+  row's logits come from its real last token (``true_len``).  Prompts
+  longer than ``prefill_chunk`` run in pieces inside the same dispatch.
 * **Fused multi-step decode** — one dispatch advances every slot by up to
   ``decode_chunk`` tokens with on-device sampling and the reference's
   early exit; the first dispatch after an admission runs a single step
-  so the reported TTFT is a first-token latency.
+  so the reported TTFT is a first-token latency.  On the paged layout
+  every slot's pages for the whole chunk are grown before the dispatch,
+  so the block tables go to the device once per dispatch.
 
 The reference donates its cache buffers to each jit'd call; the port
 updates the caches in place instead.  ``stats`` counts dispatches and
@@ -25,9 +39,8 @@ steps exactly as the reference does, so the two engines can be held to
 the same counters on the same trace.
 
 Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md):
-``cache_layout="paged"`` (paged layout + K3), ``speculate``, ``kv_dtype``
-/ ``pool_bytes`` / ``host_swap_bytes`` (quantized pages / swap) and
-``mesh`` (sharded pool).
+``speculate``, ``kv_dtype`` / ``pool_bytes`` / ``host_swap_bytes``
+(quantized pages / swap) and ``mesh`` (sharded pool).
 """
 from __future__ import annotations
 
@@ -42,6 +55,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.autotune import next_pow2
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime, resolve_device
+from repro_torch.serving.kv_cache import (
+    _QUANT, _SHARD, _SPEC, PagedKVCache, _not_ported,
+)
 
 
 @dataclasses.dataclass
@@ -52,18 +68,15 @@ class Request:
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
     ttft: Optional[float] = None       # seconds, submit → first token known
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+    preemptions: int = 0               # times bounced back to the queue
 
 
 class ServeEngine:
-    """Continuous-batching engine over a fixed slot count (dense layout).
+    """Continuous-batching engine over a fixed slot count.
 
-    ``stats`` counts device dispatches and decode steps like the
-    reference; ``memory_stats`` reports the dense cache's bytes."""
+    ``stats`` counts device dispatches, decode steps and the paged
+    layout's preemptions and prefix reuse like the reference;
+    ``memory_stats`` reports cache residency for the layout A/B."""
 
     def __init__(self, cfg: ModelConfig, model: tf.Model, *, slots: int,
                  max_len: int, rt: Runtime = Runtime(),
@@ -71,6 +84,9 @@ class ServeEngine:
                  decode_chunk: int = 16,
                  prefill_chunk: Optional[int] = None,
                  cache_layout: str = "dense",
+                 page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 prefix_caching: bool = True,
                  speculate: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  pool_bytes: Optional[int] = None,
@@ -80,18 +96,13 @@ class ServeEngine:
                  seed: int = 0):
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache_layout: {cache_layout!r}")
-        if cache_layout == "paged":
-            raise _not_ported("cache_layout='paged'",
-                              "§1 item 1, paged layout and prefix cache "
-                              "with K3")
         if speculate is not None:
-            raise _not_ported("speculative decoding", "§1 item 3, speculation")
+            raise _not_ported("speculative decoding", _SPEC)
         if kv_dtype is not None or pool_bytes is not None or host_swap_bytes:
             raise _not_ported("kv_dtype / pool_bytes / host_swap_bytes",
-                              "§1 item 4, quantized pages and host swap")
+                              _QUANT)
         if mesh is not None:
-            raise _not_ported("the device-sharded pool (mesh=)",
-                              "§1 item 8, device-sharded pool")
+            raise _not_ported("the device-sharded pool (mesh=)", _SHARD)
         self.device = resolve_device(device)
         param_dev = model.embed.table.device
         if param_dev.type != self.device.type:
@@ -107,7 +118,16 @@ class ServeEngine:
             else max(1, prefill_chunk)
         self.cache_dtype = dtype
         self.cache_layout = cache_layout
-        self.caches = tf.init_cache(cfg, slots, max_len, dtype, self.device)
+        if cache_layout == "paged":
+            self.kv = PagedKVCache(cfg, slots, max_len, dtype,
+                                   page_size=page_size, num_pages=num_pages,
+                                   prefix_caching=prefix_caching,
+                                   device=self.device)
+            self.caches = self.kv.caches
+        else:
+            self.kv = None
+            self.caches = tf.init_cache(cfg, slots, max_len, dtype,
+                                        self.device)
         # host mirrors of per-slot state
         self.kv_len = np.zeros((slots,), np.int32)
         self.remaining = np.zeros((slots,), np.int32)
@@ -121,6 +141,8 @@ class ServeEngine:
         # device-side flag: every logits block a dispatch produced was
         # finite (checked without a host sync; read by logits_finite())
         self._finite = torch.ones((), dtype=torch.bool, device=self.device)
+        self._admit_seq = 0
+        self._order = [0] * slots          # admission sequence per slot
         self.stats = {"prefill_dispatches": 0, "decode_dispatches": 0,
                       "decode_steps": 0, "tokens_decoded": 0,
                       "preemptions": 0, "peak_live_tokens": 0,
@@ -147,23 +169,37 @@ class ServeEngine:
         return pieces
 
     def _prefill_into_slots(self, tokens: torch.Tensor,
-                            slot_ids: torch.Tensor,
-                            true_len: torch.Tensor) -> None:
-        """One prefill dispatch: ``tokens [n, s]`` padded to bucket ``s``
-        into a fresh [n, s] cache, then into slot rows ``slot_ids``; each
-        row's last-token logits land in ``_last_logits``."""
+                            slot_ids: torch.Tensor, true_len: torch.Tensor,
+                            off0: int = 0,
+                            cached_len: Optional[torch.Tensor] = None
+                            ) -> None:
+        """One prefill dispatch of ``tokens [n, s]`` (prompt tails padded
+        to bucket ``s``) into slot rows ``slot_ids``; each row's last-token
+        logits land in ``_last_logits``.  Dense: through a fresh [n, s]
+        cache scattered into the rows.  Paged: straight into the pool,
+        positions from the group's shared-prefix offset ``off0``, with
+        writes below each row's ``cached_len`` dropped."""
         n, s = tokens.shape
         cfg, rt = self.cfg, self.rt
-        mini = tf.init_cache(cfg, n, s, self.cache_dtype, self.device)
+        if self.kv is not None:
+            caches = self.caches
+            kw = dict(block_tables=self.kv.tables(), slot_ids=slot_ids,
+                      cached_len=cached_len)
+        else:
+            caches = tf.init_cache(cfg, n, s, self.cache_dtype, self.device)
+            kw = {}
         logits = torch.zeros((n, cfg.vocab), dtype=torch.float32,
                              device=self.device)
-        for off, c in self._prefill_pieces(s):
-            lg, mini = tf.prefill(cfg, self.model,
-                                  {"inputs": tokens[:, off:off + c]}, mini,
-                                  rt, kv_offset=off, true_len=true_len)
+        for piece, c in self._prefill_pieces(s):
+            off = off0 + piece
+            lg, caches = tf.prefill(cfg, self.model,
+                                    {"inputs": tokens[:, piece:piece + c]},
+                                    caches, rt, kv_offset=off,
+                                    true_len=true_len, **kw)
             sel = (true_len - 1 >= off) & (true_len - 1 < off + c)
             logits = torch.where(sel[:, None], lg.to(logits.dtype), logits)
-        tf.scatter_cache_slots(cfg, self.caches, mini, slot_ids)
+        if self.kv is None:
+            tf.scatter_cache_slots(cfg, self.caches, caches, slot_ids)
         self._last_logits.index_copy_(0, slot_ids.long(), logits)
         self._finite &= torch.isfinite(logits).all()
 
@@ -174,30 +210,70 @@ class ServeEngine:
         (admission-width power of two, length bucket) these prompt lengths
         produce, plus the decode loops, then reset the counters.  In the
         port this builds the CUDA kernels and brings the library handles
-        (cuBLAS) up before the timed traffic.  Returns the seconds spent."""
+        (cuBLAS) up before the timed traffic.  With prefix caching a
+        second phase replays identical prompts against a live index, so
+        the tail-offset prefill shapes a hit produces (COW resends
+        included) run here too; the index is dropped at the end.  Returns
+        the seconds spent."""
         t0 = time.perf_counter()
-        lens = (prompt_len,) if isinstance(prompt_len, int) else prompt_len
-        buckets = sorted({self._bucket(max(1, min(p, self.max_len - 1)))
-                          for p in lens})
-        counts = {self.slots} | {
-            1 << i for i in range((self.slots - 1).bit_length())}
-        for b in buckets:
-            plen = min(b, self.max_len - 1)
-            for count in sorted(counts, reverse=True):
+        prefix_was = False
+        if self.kv is not None:
+            # phase 1 must run the *cold* prefills: with the index live the
+            # identical dummy prompts would hit each other
+            prefix_was = self.kv.prefix_enabled
+            self.kv.prefix_enabled = False
+        try:
+            lens = (prompt_len,) if isinstance(prompt_len, int) \
+                else prompt_len
+            buckets = sorted({self._bucket(max(1, min(p, self.max_len - 1)))
+                              for p in lens})
+            counts = {self.slots} | {
+                1 << i for i in range((self.slots - 1).bit_length())}
+
+            def trace(count, plen):
                 for i in range(count):
                     self.submit(Request(rid=-1 - i,
                                         prompt=np.zeros((plen,), np.int32),
                                         max_new_tokens=self.decode_chunk))
                 self.run()
-        for k in self.stats:
-            self.stats[k] = 0
+
+            for b in buckets:
+                plen = min(b, self.max_len - 1)
+                for count in sorted(counts, reverse=True):
+                    trace(count, plen)
+            if prefix_was:
+                # phase 2 — tail offsets: two waves per (bucket, width)
+                # with the index live (wave 1 registers, wave 2 resends)
+                self.kv.prefix_enabled = True
+                for b in buckets:
+                    plen = min(b, self.max_len - 1)
+                    for count in sorted(counts, reverse=True):
+                        for _ in range(2):
+                            trace(count, plen)
+            for k in self.stats:
+                self.stats[k] = 0
+            if self.kv is not None:
+                self.kv.clear_prefix()
+                self.kv.reset_peaks()
+        finally:
+            if self.kv is not None:
+                self.kv.prefix_enabled = prefix_was
         return time.perf_counter() - t0
+
+    def clear_prefix_cache(self) -> int:
+        """Drop every reusable-prefix entry so the pool can drain fully.
+        Returns the entries dropped."""
+        if self.kv is None:
+            return 0
+        return self.kv.clear_prefix()
 
     def submit(self, req: Request) -> None:
         if len(req.prompt) >= self.max_len:
             raise ValueError(
                 f"prompt length {len(req.prompt)} needs at least one free "
                 f"cache slot for decode (max_len={self.max_len})")
+        if self.kv is not None:
+            self.kv.validate_request(len(req.prompt) + req.max_new_tokens)
         req._t_submit = time.perf_counter()
         self.queue.append(req)
 
@@ -210,45 +286,109 @@ class ServeEngine:
         return np.asarray(req.prompt, np.int32)
 
     def _admit(self) -> None:
-        """Fill free slots from the queue; one batched prefill dispatch per
-        length bucket, in ascending bucket order."""
-        admitted: list[tuple[int, Request, np.ndarray]] = []
+        """Fill free slots from the queue.  Dense: admission = a free slot.
+        Paged: a free slot AND the prompt's pages (+1 decode token) fit the
+        pool; the prompt is first matched against the prefix index and
+        only the uncached tail is prefilled.  One batched prefill dispatch
+        per (shared-prefix length, tail bucket) group, cold groups first
+        so a group that writes fresh prefix pages runs before one that
+        reads them."""
+        admitted: list = []
         for i in range(self.slots):
             if self.active[i] is not None or not self.queue:
                 continue
-            req = self.queue.pop(0)
+            req = self.queue[0]
+            tokens = self._resume_tokens(req)
+            cached, cow_pairs = 0, []
+            if self.kv is not None:
+                info = self.kv.admit(i, tokens, len(tokens) + 1)
+                if info is None:
+                    break                # head-of-line waits for pages
+                cached = info["cached_len"]
+                cow_pairs = info["cow_pairs"]
+                if info["reused"]:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["tokens_reused"] += info["reused"]
+                self.stats["cow_copies"] += len(cow_pairs)
+            self.queue.pop(0)
             self.active[i] = req
-            admitted.append((i, req, self._resume_tokens(req)))
+            self._admit_seq += 1
+            self._order[i] = self._admit_seq
+            admitted.append((i, req, tokens, cached, cow_pairs))
         if not admitted:
             return
-        by_group: dict[tuple[int, int], list] = {}
-        for slot, req, tokens in admitted:
-            key = (0, self._bucket(len(tokens)))
-            by_group.setdefault(key, []).append((slot, req, tokens))
-        for (_, sb), group in sorted(by_group.items()):
+        by_group: dict = {}
+        for slot, req, tokens, cached, cow_pairs in admitted:
+            key = (cached, self._bucket(len(tokens) - cached))
+            by_group.setdefault(key, []).append(
+                (slot, req, tokens, cached, cow_pairs))
+        for (off0, sb), group in sorted(by_group.items()):
+            # deferred COW copies land after their source page's writer
+            # (an earlier, colder group) and before this group's prefill
+            pairs = [p for g in group for p in g[4]]
+            if pairs:
+                self.caches = self.kv.apply_cow(self.caches, pairs)
             # pad the group to the next power of two (duplicate rows write
             # the same data twice): bounded shapes per bucket
             width = next_pow2(len(group))
             padded = group + [group[-1]] * (width - len(group))
             slot_ids = np.array([g[0] for g in padded], np.int32)
             true_len = np.array([len(g[2]) for g in padded], np.int32)
+            cached_len = np.array([g[3] for g in padded], np.int32)
             toks = np.zeros((len(padded), sb), np.int32)
-            for r, (_, _, t) in enumerate(padded):
-                toks[r, :len(t)] = t
+            for r, (_, _, t, co, _cp) in enumerate(padded):
+                toks[r, :len(t) - co] = t[co:]
+            dev = self.device
             self._prefill_into_slots(
-                torch.from_numpy(toks).to(self.device),
-                torch.from_numpy(slot_ids).to(self.device),
-                torch.from_numpy(true_len).to(self.device))
+                torch.from_numpy(toks).to(dev),
+                torch.from_numpy(slot_ids).to(dev),
+                torch.from_numpy(true_len).to(dev), off0,
+                torch.from_numpy(cached_len).to(dev)
+                if self.kv is not None else None)
             self.stats["prefill_dispatches"] += 1
-            for slot, req, tokens in group:
+            for slot, req, tokens, co, _cp in group:
                 s = len(tokens)
-                self.stats["tokens_prefilled"] += s
+                self.stats["tokens_prefilled"] += s - co
                 self.kv_len[slot] = s
                 budget = req.max_new_tokens - len(req.generated)
                 # ≥1 token always, bounded by the request and the cache
                 self.remaining[slot] = min(
                     budget, max(1, self.max_len - 1 - s))
         self._sync_live_peak()
+
+    def _preempt(self, slot: int) -> None:
+        """Bounce a slot back to the head of the queue, releasing its
+        pages (recompute preemption — see :meth:`_resume_tokens`)."""
+        req = self.active[slot]
+        self.kv.release(slot)
+        self.active[slot] = None
+        self.kv_len[slot] = 0
+        self.remaining[slot] = 0
+        req.preemptions += 1
+        self.stats["preemptions"] += 1
+        self.queue.insert(0, req)
+
+    def _preempt_candidates(self) -> list:
+        """Slots eligible as preemption victims."""
+        return [j for j, r in enumerate(self.active) if r is not None]
+
+    def _ensure_pages(self, n: int) -> None:
+        """Grow every active slot's pages for an ``n``-step decode chunk,
+        oldest slot first; on pool exhaustion the *youngest* active slot is
+        preempted (so the oldest always makes progress)."""
+        if self.kv is None:
+            return
+        order = sorted((i for i, r in enumerate(self.active)
+                        if r is not None), key=lambda i: self._order[i])
+        for i in order:
+            while self.active[i] is not None:
+                target = int(self.kv_len[i]) + \
+                    int(min(n, self.remaining[i]))
+                if self.kv.grow(i, target):
+                    break
+                victim = max(self._preempt_candidates(),
+                             key=lambda j: self._order[j])
+                self._preempt(victim)
 
     def _sync_live_peak(self) -> None:
         self.stats["peak_live_tokens"] = max(
@@ -266,6 +406,10 @@ class ServeEngine:
             n = 1
         else:
             n = self.decode_chunk
+        self._ensure_pages(n)          # may preempt → recompute the batch
+        act = [i for i, r in enumerate(self.active) if r is not None]
+        if not act:
+            return
         rem_before = self.remaining.copy()
         toks, self.caches, kv_len, self._last_logits, remaining, steps = \
             tf.decode_loop(
@@ -274,7 +418,8 @@ class ServeEngine:
                 self._last_logits,
                 torch.from_numpy(self.remaining).to(self.device),
                 n_steps=n, rt=self.rt, temperature=self.temperature,
-                generator=self.generator, host_remaining=self.remaining)
+                generator=self.generator, host_remaining=self.remaining,
+                block_tables=None if self.kv is None else self.kv.tables())
         self.stats["decode_dispatches"] += 1
         self.stats["decode_steps"] += int(steps)
         self._finite &= torch.isfinite(self._last_logits).all()
@@ -296,6 +441,10 @@ class ServeEngine:
                 req.done = True
                 self.active[i] = None
                 self.kv_len[i] = 0
+                if self.kv is not None:
+                    # completion: the slot's full pages go to the prefix
+                    # index instead of the free list
+                    self.kv.release(i, tokens=self._resume_tokens(req))
 
     def step(self) -> None:
         """Admit waiting requests, then run one fused decode dispatch."""
@@ -317,9 +466,20 @@ class ServeEngine:
         return bool(self._finite.item())
 
     def memory_stats(self) -> dict:
-        """Dense-layout cache accounting (the whole allocation is
-        resident)."""
+        """Cache accounting for the layout A/B: ``resident_cache_bytes``
+        is the whole allocation for the dense layout, the pages live slots
+        reference for the paged one."""
         peak_live = max(1, self.stats["peak_live_tokens"])
+        if self.kv is not None:
+            m = self.kv.memory_stats()
+            m["layout"] = "paged"
+            m["bytes_per_live_token"] = round(
+                m["peak_resident_cache_bytes"] / peak_live, 1)
+            m["prefix_cache"].update(
+                hits=self.stats["prefix_hits"],
+                tokens_reused=self.stats["tokens_reused"],
+                cow_copies=self.stats["cow_copies"])
+            return m
         attn = sum(t.numel() * t.element_size()
                    for c in self.caches for t in c["attn"].values())
         return {

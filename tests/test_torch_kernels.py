@@ -219,6 +219,25 @@ def test_autotune_matches_reference_model():
     assert autotune.next_pow2(1000) == jax_autotune.next_pow2(1000) == 1024
 
 
+@pytest.mark.parametrize("w,ps,e", [(128, 16, 128), (4, 16, 32),
+                                    (64, 8, 64), (8, 64, 128), (3, 16, 32),
+                                    (16, 32, 256)])
+def test_paged_autotune_matches_reference_model(w, ps, e):
+    """Page-aligned split-K geometry: the reference's cost model over its
+    candidates (granite's serve shape first: 16 splits of 16-key tiles,
+    where the dense model picks 128-key tiles at the same splits)."""
+    want = min(jax_autotune._paged_decode_candidates(w, ps),
+               key=lambda c: jax_autotune._decode_cost(c, w * ps, 8, e, e))
+    got = autotune.paged_decode_params(w, ps, 8, e, e)
+    assert (got.splits, got.block_k) == (want.splits, want.block_k)
+    ref = jax_autotune.paged_decode_params(w, ps, 8, e, e)
+    assert (got.splits, got.block_k) == (ref.splits, ref.block_k)
+    if (w, ps, e) == (128, 16, 128):
+        assert (got.splits, got.block_k) == (16, 16)
+        dense = autotune.decode_params(w * ps, 8, e, e)
+        assert (dense.splits, dense.block_k) == (16, 128)
+
+
 def test_cuda_tile_fits_shared_memory():
     tile = autotune.attention_params(4096, 1024, 128, 128, impl="cuda")
     assert (tile.block_q, tile.block_k) == autotune.CUDA_PREFILL_TILE
@@ -254,6 +273,7 @@ def test_import_without_jax_or_triton():
         import repro_torch
         import repro_torch.kernels.ops
         import repro_torch.serving.engine
+        import repro_torch.serving.kv_cache
         import repro_torch.launch.serve
         import repro_torch.bridge
         bad = [m for m in sys.modules

@@ -166,6 +166,62 @@ def test_decode_loop_greedy_streams_equal(pair):
                                **LOGIT_TOL)
 
 
+@pytest.mark.parametrize("prefill_chunk", [None, 8])
+def test_paged_prefill_and_decode_loop_match(pair, prefill_chunk):
+    """The model on the paged layout: a bucketed prefill into two of four
+    slots through their block tables (optionally in 8-token pieces), then
+    the fused loop with the tables: equal tokens and logits, and pools
+    equal page for page (the port's sink page aside)."""
+    name, cfg, jcfg, params, model = pair
+    toks = _tokens(cfg, 2, 24, seed=3)
+    true_len = np.array([24, 13], np.int32)
+    n_pages, ps = 12, 8
+    table = np.full((4, 8), n_pages, np.int32)
+    table[1, :5] = [7, 2, 10, 0, 4]
+    table[3, :4] = [3, 11, 5, 8]
+    slot_ids = np.array([1, 3], np.int32)
+    jc = jtf.init_paged_cache(jcfg, 4, {"full": n_pages}, ps, jnp.float32)
+    tc = tf.init_paged_cache(cfg, 4, {"full": n_pages}, ps, torch.float32,
+                             "cpu")
+    jbt, tbt = {"full": jnp.asarray(table)}, {"full": torch.from_numpy(table)}
+    pieces = [(0, 24)] if prefill_chunk is None else \
+        [(o, 8) for o in range(0, 24, 8)]
+    for off, c in pieces:
+        jl, jc = jtf.prefill(jcfg, params,
+                             {"inputs": jnp.asarray(toks[:, off:off + c])},
+                             jc, JRT, kv_offset=off,
+                             true_len=jnp.asarray(true_len),
+                             block_tables=jbt, slot_ids=jnp.asarray(slot_ids))
+        tl, tc = tf.prefill(cfg, model,
+                            {"inputs": torch.from_numpy(toks[:, off:off + c])},
+                            tc, RT, kv_offset=off,
+                            true_len=torch.from_numpy(true_len),
+                            block_tables=tbt,
+                            slot_ids=torch.from_numpy(slot_ids))
+    if prefill_chunk is None:
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    last_j = jnp.zeros((4, cfg.vocab)).at[slot_ids].set(jl)
+    last_t = torch.zeros((4, cfg.vocab))
+    last_t[torch.from_numpy(slot_ids).long()] = tl
+    kv_len = np.array([0, 24, 0, 13], np.int32)
+    remaining = np.array([0, 5, 0, 8], np.int32)
+    jout = jtf.decode_loop(jcfg, params, jc, jnp.asarray(kv_len), last_j,
+                           jnp.asarray(remaining), jax.random.PRNGKey(0),
+                           n_steps=8, rt=JRT, block_tables=jbt)
+    tout = tf.decode_loop(cfg, model, tc, torch.from_numpy(kv_len), last_t,
+                          torch.from_numpy(remaining), n_steps=8, rt=RT,
+                          host_remaining=remaining, block_tables=tbt)
+    np.testing.assert_array_equal(np.asarray(jout[0]), tout[0].numpy())
+    live = kv_len > 0
+    np.testing.assert_allclose(tout[3].numpy()[live],
+                               np.asarray(jout[3])[live], **LOGIT_TOL)
+    for name in ("k_pages", "v_pages"):
+        ref = np.asarray(jout[1][0][0]["attn"][name])   # stacked layers
+        for layer, c in enumerate(tout[1]):
+            np.testing.assert_allclose(c["attn"][name][:-1].numpy(),
+                                       ref[layer], rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("name,item", [
     ("gemma2-9b-smoke", "windows"),
     ("deepseek-v3-671b-smoke", "MLA"),

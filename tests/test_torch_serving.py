@@ -121,7 +121,6 @@ def test_engine_defaults_to_cuda_and_never_drifts_to_cpu(models,
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(cache_layout="paged"), "paged layout"),
     (dict(speculate=4), "speculation"),
     (dict(kv_dtype="int8"), "quantized pages"),
     (dict(mesh=object()), "sharded pool"),
@@ -144,7 +143,8 @@ def test_launcher_on_cpu_writes_the_reference_schema(tmp_path):
     assert saved["tokens_decoded"] == 12
     assert saved["device"] == {"platform": "cpu", "kind": "cpu", "count": 1}
     assert saved["kernel_launches"] == {"fusemax_prefill": 0,
-                                        "decode_partials": 0}
+                                        "decode_partials": 0,
+                                        "paged_decode_partials": 0}
     for key in ("tok_per_s", "ttft_s", "steps_per_s", "dispatches",
                 "memory", "layouts", "prefix", "wall_s", "warmup_s"):
         assert key in saved, key
@@ -167,7 +167,6 @@ def test_launcher_trace_lengths_match_reference(argv):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--cache-layout", "both"], "paged layout"),
     (["--speculate", "4"], "speculation"),
     (["--kv-dtype", "int8"], "quantized pages"),
     (["--mesh", "tp=2"], "sharded pool"),
