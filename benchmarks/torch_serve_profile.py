@@ -1,10 +1,12 @@
 """Where the time goes in the port's serving path, on the card.
 
     python benchmarks/torch_serve_profile.py [--cache-layout dense|paged]
-        [--layers N] [--out PATH]
+        [--arch granite-3-8b|deepseek-v3-671b] [--layers N] [--out PATH]
 
-Builds granite-3-8b at full width (40 layers unless ``--layers`` cuts the
-depth; fp32, random weights from ``--seed``) on the CUDA device, admits 8
+Builds ``--arch`` at full width (all its layers unless ``--layers`` cuts
+the depth — ``--arch deepseek-v3-671b --layers 3`` is its dense prefix,
+MLA + dense FFN, served on the paged layout only; fp32, random weights
+from ``--seed``) on the CUDA device, admits 8
 prompts of mixed length in [128, 1024] into a
 ``repro_torch.serving.ServeEngine`` on the ``--cache-layout`` (slots 8,
 max_len 2048; the paged layout with its default pool of 1024 pages of
@@ -14,8 +16,9 @@ on the device's clock, no profiler attached) and once under
 ``torch.profiler`` for the per-kernel device time.  It prints one JSON
 object per phase — wall ms, device-busy ms (sum of kernel durations: the
 kernels of one stream do not overlap), the idle share, and the device
-time grouped by layer (K1 prefill attention, K2 decode partials, matrix
-products, indexing and cache writes, reductions, elementwise and other)
+time grouped by layer (K1 prefill attention, K2/K3/K4 decode partials,
+matrix products, indexing and cache writes, reductions, elementwise and
+other)
 with the top kernels, and the number of kernels per decode step — and
 writes them all to ``--out``.
 """
@@ -44,6 +47,8 @@ def _group(name: str) -> str:
     n = name.lower()
     if "fusemax_prefill" in n:
         return "K1 prefill attention"
+    if "mla_paged_decode_partials" in n:
+        return "K4 MLA paged decode partials"
     if "pagedkv" in n:                 # the K3 instantiations of the body
         return "K3 paged decode partials"
     if "decode_partials" in n:
@@ -112,15 +117,20 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cache-layout", default="dense",
                     choices=("dense", "paged"))
+    ap.add_argument("--arch", default="granite-3-8b",
+                    choices=("granite-3-8b", "deepseek-v3-671b"))
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth (default: all 40)")
+                    help="cut the depth (default: all of the arch's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/torch_serve_profile.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_serve_profile: needs a CUDA device")
 
-    cfg = get_config("granite-3-8b")
+    cfg = get_config(args.arch)
+    if cfg.mla is not None and args.cache_layout != "paged":
+        raise SystemExit("torch_serve_profile: MLA serves on the paged "
+                         "layout only (ROADMAP §1 item 5a)")
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
@@ -158,7 +168,8 @@ def main(argv=None) -> list:
         k_chunk = _profile(eng._decode_chunk)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
-    common = {"card": smi, "layers": cfg.n_layers, "prompt_lens": lens,
+    common = {"card": smi, "arch": args.arch, "layers": cfg.n_layers,
+              "prompt_lens": lens,
               "cache_layout": args.cache_layout}
     results.append(_summary("prefill (all admission groups)", t_admit,
                             k_admit, dict(common, dispatches=pre[

@@ -9,17 +9,21 @@ JSON line (``"phase": ...``):
 
 1. device  — ``nvidia-smi`` name and power limit (also printed raw on a
              line of its own), torch and CUDA versions;
-2. build   — seconds to build the three kernels from ``kernels/csrc``
+2. build   — seconds to build the four kernels from ``kernels/csrc``
              (nvcc, in parallel) and the ptxas register / shared-memory
              report;
-3. kernels — every case of the prefill (K1), dense split-K decode (K2)
-             and paged split-K decode (K3) kernels against its plain torch
-             version on the same inputs, with its tolerance; K3 against K2
-             on a permuted pool holding a dense cache's rows (``k3_vs_k2``:
-             equal bits on every row with kv_len >= 1); then each kernel's
-             time at the shapes the granite-3-8b main path gives it, beside
-             its plain version's, a library call's (``library_ms``: a
-             yardstick the port never calls) and the least time the card
+3. kernels — every case of the prefill (K1, at the GQA head dims and at
+             DeepSeek's MLA (E, F) = (192, 128) and (576, 512)), dense
+             split-K decode (K2), paged split-K decode (K3) and paged MLA
+             latent decode (K4) kernels against its plain torch version on
+             the same inputs, with its tolerance; K3 against K2 on a
+             permuted pool holding a dense cache's rows (``k3_vs_k2``) and
+             K4 on a permuted latent pool against K4 on the same rows in
+             identity page order (``k4_perm_vs_identity``), both equal bits
+             on every row with kv_len >= 1; then each kernel's time at the
+             shapes the granite-3-8b and DeepSeek-V3 main paths give it,
+             beside its plain version's, a library call's (``library_ms``:
+             a yardstick the port never calls) and the least time the card
              could take (``bound_ms``);
 4. model   — granite-3-8b at full width cut to 4 layers, fp32: prefill 4
              mixed-length prompts and decode 8 greedy steps with
@@ -34,7 +38,18 @@ JSON line (``"phase": ...``):
 6. serve_prefix — the launcher on the paged layout with a 256-token
              shared prefix against its prefix-cache-off leg: equal
              streams, tokens reused, the pool's invariants audited;
-7. the ``kernels`` line (launches on the main path, errors, times,
+7. model_mla — DeepSeek-V3's first three layers (MLA + dense FFN) at full
+             width, fp32, on the paged layout: two prefill chunks (the
+             second at an offset, the absorbed form) and 8 decode steps
+             with ``attn_impl="cuda"`` and ``"torch"``;
+8. serve_mla — the launcher (``--cache-layout paged``) serving that tower:
+             K4 launched 3 x decode steps and K1 3 x prefill dispatches in
+             the timed run;
+9. serve_mla_prefix — that tower with a 256-token shared prefix against
+             its prefix-cache-off leg: equal streams, 3840 tokens reused;
+10. serve_mla_impls — a short trace on that tower with ``attn_impl``
+             "cuda" and "torch": equal greedy streams;
+11. the ``kernels`` line (launches on the main paths, errors, times,
    bounds) and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises: the script then exits non-zero and prints no
@@ -44,6 +59,7 @@ the port's sources are not beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -111,45 +127,65 @@ def _rand(torch, gen, shape, dtype):
 
 
 def k1_cases(torch):
-    """(name, b, hkv, group, p, m, d, dtype, kwargs) for the prefill
-    kernel."""
+    """(name, b, hkv, group, p, m, e, f, dtype, kwargs) for the prefill
+    kernel: the GQA head dims, then DeepSeek's MLA prefill (E, F) =
+    (192, 128) with its 128 heads one per fiber, and its absorbed latent
+    attention (576, 512) with every head in one fiber's group and a
+    history offset."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
-        ("fp32 causal g4 d128", 2, 2, 4, 128, 128, 128, f32,
+        ("fp32 causal g4 d128", 2, 2, 4, 128, 128, 128, 128, f32,
          dict(causal=True)),
-        ("bf16 causal g4 d128", 2, 2, 4, 128, 128, 128, bf16,
+        ("bf16 causal g4 d128", 2, 2, 4, 128, 128, 128, 128, bf16,
          dict(causal=True)),
-        ("fp32 causal q_offset=64 g4", 1, 2, 4, 100, 164, 128, f32,
+        ("fp32 causal q_offset=64 g4", 1, 2, 4, 100, 164, 128, 128, f32,
          dict(causal=True, q_offset=64)),
-        ("fp32 m_valid=200 of 256 g1 d64", 2, 2, 1, 96, 256, 64, f32,
+        ("fp32 m_valid=200 of 256 g1 d64", 2, 2, 1, 96, 256, 64, 64, f32,
          dict(m_valid=200)),
-        ("fp32 window=48 causal g8 d64", 1, 2, 8, 96, 96, 64, f32,
+        ("fp32 window=48 causal g8 d64", 1, 2, 8, 96, 96, 64, 64, f32,
          dict(causal=True, window=48)),
-        ("fp32 softcap=30 causal g4", 1, 2, 4, 128, 128, 128, f32,
+        ("fp32 softcap=30 causal g4", 1, 2, 4, 128, 128, 128, 128, f32,
          dict(causal=True, softcap=30.0)),
-        ("fp32 exp=maccs causal g4", 1, 2, 4, 128, 128, 128, f32,
+        ("fp32 exp=maccs causal g4", 1, 2, 4, 128, 128, 128, 128, f32,
          dict(causal=True, exp_impl="maccs")),
-        ("bf16 causal g1 d128 unaligned", 1, 4, 1, 200, 200, 128, bf16,
+        ("bf16 causal g1 d128 unaligned", 1, 4, 1, 200, 200, 128, 128, bf16,
          dict(causal=True)),
-        ("bf16 window=100 causal g8 d64", 1, 1, 8, 150, 150, 64, bf16,
+        ("bf16 window=100 causal g8 d64", 1, 1, 8, 150, 150, 64, 64, bf16,
          dict(causal=True, window=100)),
+        ("fp32 mla_forward E192 F128 causal g1 unaligned", 2, 4, 1, 200,
+         200, 192, 128, f32, dict(causal=True)),
+        ("bf16 mla_forward E192 F128 causal g1", 1, 8, 1, 256, 256, 192, 128,
+         bf16, dict(causal=True)),
+        ("fp32 mla_forward E192 F128 exp=maccs", 1, 4, 1, 130, 130, 192, 128,
+         f32, dict(causal=True, exp_impl="maccs")),
+        ("fp32 absorbed E576 F512 g128 q_offset=96", 2, 1, 128, 40, 136, 576,
+         512, f32, dict(causal=True, q_offset=96)),
+        ("bf16 absorbed E576 F512 g128 q_offset=64", 1, 1, 128, 33, 97, 576,
+         512, bf16, dict(causal=True, q_offset=64)),
+        ("fp32 absorbed E576 F512 g100 q_offset=37 exp=maccs", 1, 1, 100, 21,
+         58, 576, 512, f32, dict(causal=True, q_offset=37,
+                                 exp_impl="maccs")),
+        ("fp32 absorbed E576 F512 g128 no offset", 1, 1, 128, 24, 24, 576,
+         512, f32, dict(causal=True)),
     ]
 
 
-def run_k1_cases(torch, gen, fm, tile) -> list:
+def run_k1_cases(torch, gen, fm, autotune) -> list:
     rows = []
-    for name, b, hkv, g, p, m, d, dtype, kw in k1_cases(torch):
-        q = _rand(torch, gen, (b * hkv, p * g, d), dtype)
-        k = _rand(torch, gen, (b * hkv, m, d), dtype)
-        v = _rand(torch, gen, (b * hkv, m, d), dtype)
-        args = dict(scale=d ** -0.5, group=g, block_q=tile[0],
-                    block_k=tile[1], **kw)
+    for name, b, hkv, g, p, m, e, f, dtype, kw in k1_cases(torch):
+        tile = autotune.attention_params(p * g, m, e, f, impl="cuda")
+        q = _rand(torch, gen, (b * hkv, p * g, e), dtype)
+        k = _rand(torch, gen, (b * hkv, m, e), dtype)
+        v = _rand(torch, gen, (b * hkv, m, f), dtype)
+        args = dict(scale=e ** -0.5, group=g, block_q=tile.block_q,
+                    block_k=tile.block_k, **kw)
         out = fm.fusemax_attention_cuda(q, k, v, **args)
         ref = fm.fusemax_attention_torch(q, k, v, **args)
         torch.cuda.synchronize()
         dn = str(dtype).split(".")[1]
         err, ok, atol, rtol = _err(torch, out, ref, dn)
         rows.append(dict(kernel="fusemax_prefill", case=name, dtype=dn,
+                         e=e, f=f, tile=[tile.block_q, tile.block_k],
                          max_abs_err=err, atol=atol, rtol=rtol, ok=ok))
     return rows
 
@@ -193,11 +229,9 @@ def run_k2_cases(torch, gen, dec) -> list:
     return rows
 
 
-def _paged_inputs(torch, gen, b, hkv, ps, w, n_pages, d, dtype, kvl, n_pos):
-    """Random pools and a permuted block table per row whose entries past
+def _permuted_table(torch, gen, b, ps, w, n_pages, kvl, n_pos):
+    """A block table of distinct random pages per row whose entries past
     the pages ``kv_len + n_pos - 1`` keys need hold the sentinel."""
-    k = _rand(torch, gen, (n_pages, ps, hkv, d), dtype)
-    v = _rand(torch, gen, (n_pages, ps, hkv, d), dtype)
     table = torch.full((b, w), n_pages, dtype=torch.int32, device="cuda")
     perm = torch.randperm(n_pages, generator=gen, device="cuda").to(
         torch.int32)
@@ -206,7 +240,14 @@ def _paged_inputs(torch, gen, b, hkv, ps, w, n_pages, d, dtype, kvl, n_pos):
         need = -(-(n + n_pos - 1) // ps)
         table[i, :need] = perm[used:used + need]
         used += need
-    return k, v, table
+    return table
+
+
+def _paged_inputs(torch, gen, b, hkv, ps, w, n_pages, d, dtype, kvl, n_pos):
+    """Random pools and a :func:`_permuted_table`."""
+    k = _rand(torch, gen, (n_pages, ps, hkv, d), dtype)
+    v = _rand(torch, gen, (n_pages, ps, hkv, d), dtype)
+    return k, v, _permuted_table(torch, gen, b, ps, w, n_pages, kvl, n_pos)
 
 
 def k3_cases(torch):
@@ -392,6 +433,248 @@ def time_k3(torch, gen, dec, ops, autotune) -> dict:
     return row
 
 
+#: DeepSeek-V3's latent: kv_lora_rank and rope_dim
+MLA_R, MLA_RD = 512, 64
+
+
+def _latent_inputs(torch, gen, b, h, p, ps, w, n_pages, dtype, kvl):
+    """Folded absorbed queries [b, p*h, r + rd], random latent pools and a
+    :func:`_permuted_table`."""
+    q = _rand(torch, gen, (b, p * h, MLA_R + MLA_RD), dtype)
+    ckv = _rand(torch, gen, (n_pages, ps, MLA_R), dtype)
+    kr = _rand(torch, gen, (n_pages, ps, MLA_RD), dtype)
+    return q, ckv, kr, _permuted_table(torch, gen, b, ps, w, n_pages, kvl, p)
+
+
+def k4_cases(torch):
+    """(name, b, heads, P, page_size, W, pool pages, dtype, kv_len, splits,
+    block_k, kwargs) for the paged MLA latent decode kernel at DeepSeek's
+    latent (r 512, rd 64)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("fp32 G128 ps16 kv_len 0,1,aligned,unaligned splits=4", 4, 128, 1,
+         16, 32, 160, f32, [0, 1, 256, 333], 4, 16, {}),
+        ("bf16 G128 ps16 splits=16", 4, 128, 1, 16, 64, 300, bf16,
+         [1, 1024, 517, 0], 16, 16, {}),
+        ("fp32 G100 (not a multiple of the 32-row head block) splits=8", 3,
+         100, 1, 16, 16, 60, f32, [7, 256, 100], 8, 16, {}),
+        ("fp32 G128 P=2 verify splits=4", 3, 128, 2, 16, 32, 120, f32,
+         [0, 5, 510], 4, 16, {}),
+        ("bf16 G128 P=2 verify splits=2", 2, 128, 2, 16, 16, 40, bf16,
+         [1, 254], 2, 16, {}),
+        ("fp32 G128 softcap=50 exp=maccs splits=16", 2, 128, 1, 16, 128,
+         300, f32, [2048, 3], 16, 16, dict(softcap=50.0, exp_impl="maccs")),
+        ("fp32 G20 block_k=8 (sub-page tiles) splits=1", 2, 20, 1, 16, 8, 20,
+         f32, [100, 37], 1, 8, {}),
+        ("fp32 G128 ps64 block_k=32 splits=2", 2, 128, 1, 64, 8, 20, f32,
+         [400, 65], 2, 32, {}),
+    ]
+
+
+def run_k4_cases(torch, gen, dec) -> list:
+    rows = []
+    for (name, b, h, p, ps, w, n_pages, dtype, kvl, splits, bk,
+         kw) in k4_cases(torch):
+        q, ckv, kr, table = _latent_inputs(torch, gen, b, h, p, ps, w,
+                                           n_pages, dtype, kvl)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        args = dict(scale=(MLA_R + MLA_RD) ** -0.5, splits=splits,
+                    block_k=bk, n_pos=p, rows_per_pos=h, **kw)
+        out = dec.combine_partials(*dec.mla_paged_decode_partials_cuda(
+            q, ckv, kr, table, kv_len, **args), dtype)
+        ref = dec.combine_partials(*dec.mla_paged_decode_partials_torch(
+            q, ckv, kr, table, kv_len, **args), dtype)
+        torch.cuda.synchronize()
+        dn = str(dtype).split(".")[1]
+        err, ok, atol, rtol = _err(torch, out, ref, dn)
+        if 0 in kvl and p == 1:
+            # kv_len = 0 decodes to exactly 0 (no tile runs), as on the TPU
+            zero = torch.tensor(kvl, device="cuda") == 0
+            ok = ok and bool((out[zero] == 0).all().item())
+        rows.append(dict(kernel="mla_paged_decode_partials", case=name,
+                         dtype=dn, max_abs_err=err, atol=atol, rtol=rtol,
+                         ok=ok))
+    return rows
+
+
+def deepseek_decode_data(torch, gen, kvl):
+    """A DeepSeek-V3 decode step's latent data (fp32): 8 slots, 128 heads,
+    r 512, rd 64, page_size 16, W 128 (a 2048-token table), absorbed
+    queries, and the same latent rows in a pool of 1024 pages once in
+    identity page order and once permuted, table entries past each slot's
+    kv_len holding the sentinel."""
+    b, h, ps, w = 8, 128, 16, 128
+    n_pages = b * w
+    q = _rand(torch, gen, (b, h, MLA_R + MLA_RD), torch.float32)
+    ckv = _rand(torch, gen, (n_pages, ps, MLA_R), torch.float32)
+    kr = _rand(torch, gen, (n_pages, ps, MLA_RD), torch.float32)
+    ident = torch.arange(n_pages, device="cuda", dtype=torch.int32)
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    ckv_p, kr_p = torch.empty_like(ckv), torch.empty_like(kr)
+    ckv_p[perm] = ckv
+    kr_p[perm] = kr
+    tables = {"identity": with_sentinels(ident.reshape(b, w), kvl, ps,
+                                         n_pages),
+              "permuted": with_sentinels(
+                  perm.to(torch.int32).reshape(b, w).contiguous(), kvl, ps,
+                  n_pages)}
+    return dict(b=b, h=h, ps=ps, w=w, n_pages=n_pages, q=q,
+                pools={"identity": (ckv, kr), "permuted": (ckv_p, kr_p)},
+                tables=tables,
+                kv_len=torch.tensor(kvl, dtype=torch.int32, device="cuda"))
+
+
+def k4_perm_vs_identity(torch, gen, dec, autotune) -> dict:
+    """K4 on the permuted pool against K4 on the same rows in identity page
+    order, at the tuned geometry: equal bits on every kv_len >= 1 row."""
+    kvl = [2048, 1500, 1024, 700, 300, 64, 1, 0]
+    x = deepseek_decode_data(torch, gen, kvl)
+    tuned = autotune.mla_paged_decode_params(x["w"], x["ps"], x["h"], MLA_R,
+                                             MLA_RD)
+    args = dict(scale=(MLA_R + MLA_RD) ** -0.5, splits=tuned.splits,
+                block_k=tuned.block_k)
+    outs = {k: dec.combine_partials(*dec.mla_paged_decode_partials_cuda(
+        x["q"], *x["pools"][k], x["tables"][k], x["kv_len"], **args),
+        torch.float32) for k in ("identity", "permuted")}
+    torch.cuda.synchronize()
+    live = x["kv_len"] >= 1
+    diff = (outs["permuted"] - outs["identity"]).abs()
+    row = dict(kernel="mla_paged_decode_partials",
+               case="k4_perm_vs_identity", kv_len=kvl, splits=tuned.splits,
+               block_k=tuned.block_k,
+               max_abs_diff_live=diff[live].max().item(),
+               max_abs_diff_all=diff.max().item())
+    row["ok"] = row["max_abs_diff_live"] == 0.0
+    return row
+
+
+def time_k4(torch, gen, dec, ops, autotune) -> dict:
+    """K4 at a DeepSeek-V3 decode step: the data of
+    :func:`k4_perm_vs_identity` with the K2/K3 timing kv_len list, the
+    permuted pool, the tuned geometry; beside it K4 at 4 splits on the
+    same data (a fifth of the partials' bytes), and as the library
+    yardstick ``gather_pages`` + SDPA on the gathered view."""
+    import torch.nn.functional as F
+
+    kvl = [2048, 1500, 1024, 700, 300, 64, 1, 1900]
+    x = deepseek_decode_data(torch, gen, kvl)
+    b, h, ps, w = x["b"], x["h"], x["ps"], x["w"]
+    ckv, kr = x["pools"]["permuted"]
+    table, kv_len, q = x["tables"]["permuted"], x["kv_len"], x["q"]
+    tuned = autotune.mla_paged_decode_params(w, ps, h, MLA_R, MLA_RD)
+    scale = (MLA_R + MLA_RD) ** -0.5
+    args = dict(scale=scale, splits=tuned.splits, block_k=tuned.block_k)
+    out = dec.combine_partials(*dec.mla_paged_decode_partials_cuda(
+        q, ckv, kr, table, kv_len, **args), torch.float32)
+    ref = dec.combine_partials(*dec.mla_paged_decode_partials_torch(
+        q, ckv, kr, table, kv_len, **args), torch.float32)
+    err, ok, _, _ = _err(torch, out, ref, "float32")
+    ms = time_ms(torch, lambda: dec.mla_paged_decode_partials_cuda(
+        q, ckv, kr, table, kv_len, **args))
+    plain_ms = time_ms(torch, lambda: dec.mla_paged_decode_partials_torch(
+        q, ckv, kr, table, kv_len, **args), iters=5, warmup=1)
+    ms_splits4 = time_ms(torch, lambda: dec.mla_paged_decode_partials_cuda(
+        q, ckv, kr, table, kv_len, scale=scale, splits=4,
+        block_k=tuned.block_k))
+    m = w * ps
+    mask = (torch.arange(m, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    q4 = q[:, :, None]                                  # [B, H, 1, r + rd]
+
+    def library():
+        cg = ops.gather_pages(ckv, table)               # [B, M, r]
+        kg = torch.cat([cg, ops.gather_pages(kr, table)], dim=-1)
+        try:
+            return F.scaled_dot_product_attention(
+                q4, kg[:, None], cg[:, None], attn_mask=mask, scale=scale,
+                enable_gqa=True)
+        except TypeError:
+            return F.scaled_dot_product_attention(
+                q4, kg[:, None].expand(b, h, m, MLA_R + MLA_RD),
+                cg[:, None].expand(b, h, m, MLA_R), attn_mask=mask,
+                scale=scale)
+
+    library_ms = time_ms(torch, library)
+    live = sum(kvl)
+    # each valid latent row (ckv and krope) is read once, the queries, the
+    # table and kv_len once, the fp32 partials written once
+    nbytes = (4 * live * (MLA_R + MLA_RD) + 4 * q.numel()
+              + 4 * table.numel() + 4 * b
+              + 4 * b * tuned.splits * h * (MLA_R + 2))
+    # per valid key and head: r + rd multiply-adds for the score, r for
+    # the value
+    flops = 2 * h * live * (2 * MLA_R + MLA_RD)
+    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
+                      shape=f"B{b} H{h} r{MLA_R} rd{MLA_RD} page_size {ps} "
+                            f"W {w} pool {x['n_pages']} pages fp32 kv_len "
+                            f"{kvl} splits {tuned.splits} block_k "
+                            f"{tuned.block_k}")
+    row["ms_splits4_same_data"] = ms_splits4
+    row["partials_bytes"] = 4 * b * tuned.splits * h * (MLA_R + 2)
+    row["latent_bytes"] = 4 * live * (MLA_R + MLA_RD)
+    return row
+
+
+def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
+                   q_offset, shape) -> dict:
+    """K1 at one prefill shape, causal with a history offset, fp32: the
+    kernel, its plain version, SDPA on the same inputs, the bound."""
+    g = hq // hkv
+    q = _rand(torch, gen, (b, hq, p, e), torch.float32)
+    k = _rand(torch, gen, (b, hkv, m, e), torch.float32)
+    v = _rand(torch, gen, (b, hkv, m, f), torch.float32)
+    q_f = (q.reshape(b, hkv, g, p, e).transpose(2, 3)
+           .reshape(b * hkv, p * g, e).contiguous())
+    k_f, v_f = k.reshape(b * hkv, m, e), v.reshape(b * hkv, m, f)
+    tile = autotune.attention_params(p * g, m, e, f, impl="cuda")
+    args = dict(scale=e ** -0.5, causal=True, group=g, q_offset=q_offset,
+                block_q=tile.block_q, block_k=tile.block_k)
+    out = fm.fusemax_attention_cuda(q_f, k_f, v_f, **args)
+    ref = fm.fusemax_attention_torch(q_f, k_f, v_f, **args)
+    err, ok, _, _ = _err(torch, out, ref, "float32")
+    del out, ref
+    ms = time_ms(torch, lambda: fm.fusemax_attention_cuda(q_f, k_f, v_f,
+                                                          **args))
+    plain_ms = time_ms(torch, lambda: fm.fusemax_attention_torch(
+        q_f, k_f, v_f, **args), iters=3, warmup=1)
+    if q_offset:
+        mask = (torch.arange(m, device="cuda")[None, :]
+                <= q_offset + torch.arange(p, device="cuda")[:, None])
+        library_ms = time_ms(torch, _sdpa_fn(torch, q, k, v, attn_mask=mask,
+                                             scale=e ** -0.5))
+    else:
+        library_ms = time_ms(torch, _sdpa_fn(torch, q, k, v, is_causal=True,
+                                             scale=e ** -0.5))
+    # query i attends q_offset + i + 1 keys; each pair costs e MACs for
+    # Q.K and f for P.V
+    pairs = p * q_offset + p * (p + 1) // 2
+    flops = 2 * (e + f) * pairs * hq * b
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + b * hq * p * f)
+    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
+                      shape=shape)
+    row["tile"] = [tile.block_q, tile.block_k]
+    return row
+
+
+def time_k1_mla(torch, gen, fm, autotune) -> dict:
+    """K1 at DeepSeek-V3's two MLA prefill shapes: ``mla_forward`` (4
+    prompts of 1024, 128 heads, (E, F) = (192, 128), causal) and the
+    absorbed tail (4 rows of a 256-token tail after a 768-token cached
+    prefix, the 128 heads in one fiber's group, (576, 512))."""
+    fwd = _time_k1_shape(
+        torch, gen, fm, autotune, b=4, hq=128, hkv=128, p=1024, m=1024,
+        e=192, f=128, q_offset=0,
+        shape="B4 H128 (one fiber each) P=M=1024 E192 F128 fp32 causal")
+    torch.cuda.empty_cache()
+    tail = _time_k1_shape(
+        torch, gen, fm, autotune, b=4, hq=128, hkv=1, p=256, m=1024, e=576,
+        f=512, q_offset=768,
+        shape="B4 H128 in one group (Hkv 1) P=256 after 768 cached, M=1024 "
+              "E576 F512 fp32 causal")
+    torch.cuda.empty_cache()
+    return {"mla_forward": fwd, "mla_absorbed": tail}
+
+
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean ms per call over ``iters`` launches, CUDA events, warmed up."""
     for _ in range(warmup):
@@ -573,28 +856,42 @@ PREFIX_ARGS = ["--arch", "granite-3-8b", "--cache-layout", "paged",
                "--new-tokens", "32", "--max-len", "2048", "--repeats", "1",
                "--no-warmup", "--json", ""]
 
-#: the decode kernel each layout's decode steps launch
+#: the decode kernel each layout's decode steps launch (GQA models)
 DECODE_KERNEL = {"dense": "decode_partials", "paged": "paged_decode_partials",
                  "paged_noprefix": "paged_decode_partials"}
+#: ... and on an MLA model (paged layout only)
+MLA_DECODE_KERNEL = {"paged": "mla_paged_decode_partials",
+                     "paged_noprefix": "mla_paged_decode_partials"}
+DECODE_KERNELS = ("decode_partials", "paged_decode_partials",
+                  "mla_paged_decode_partials")
 
 
 def _counts(fm, dec) -> dict:
     return {"fusemax_prefill": fm.fusemax_attention_cuda.launches,
             "decode_partials": dec.decode_partials_cuda.launches,
-            "paged_decode_partials": dec.paged_decode_partials_cuda.launches}
+            "paged_decode_partials": dec.paged_decode_partials_cuda.launches,
+            "mla_paged_decode_partials":
+                dec.mla_paged_decode_partials_cuda.launches,
+            "fusemax_prefill_by_dims": {
+                f"{e}x{f}": n for (e, f), n in
+                fm.fusemax_attention_cuda.launches_by_dims.items()}}
 
 
 def _zero_counts(fm, dec) -> None:
     fm.fusemax_attention_cuda.launches = 0
+    fm.fusemax_attention_cuda.launches_by_dims.clear()
     dec.decode_partials_cuda.launches = 0
     dec.paged_decode_partials_cuda.launches = 0
+    dec.mla_paged_decode_partials_cuda.launches = 0
 
 
 def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
-                vocab: int) -> dict:
+                vocab: int, decode_kernel: dict = DECODE_KERNEL) -> dict:
     """Per layout: every stream complete and in the vocabulary, logits
     finite, and each kernel launched once per layer per dispatch (K1) or
-    decode step (K2 on the dense layout, K3 on the paged one)."""
+    decode step (``decode_kernel[layout]``: K2 on the dense layout, K3 on
+    the paged one, K4 on an MLA model's paged one), the other decode
+    kernels never."""
     legs = {}
     for lo, m in metrics["layouts"].items():
         disp, timed = m["dispatches"], m["kernel_launches"]
@@ -610,13 +907,13 @@ def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
         check(timed["fusemax_prefill"] == n_layers * disp["prefill"],
               f"{lo}: K1 launched {timed['fusemax_prefill']} times, "
               f"expected {n_layers} x {disp['prefill']} prefill dispatches")
-        dk = DECODE_KERNEL[lo]
-        other = ({"decode_partials", "paged_decode_partials"} - {dk}).pop()
+        dk = decode_kernel[lo]
         check(timed[dk] == n_layers * disp["decode_steps"],
               f"{lo}: {dk} launched {timed[dk]} times, expected "
               f"{n_layers} x {disp['decode_steps']} decode steps")
-        check(timed[other] == 0, f"{lo}: {other} launched {timed[other]} "
-                                 f"times on this layout")
+        for other in set(DECODE_KERNELS) - {dk}:
+            check(timed[other] == 0, f"{lo}: {other} launched "
+                                     f"{timed[other]} times on this layout")
     for lo, outs in metrics["_outputs_by_layout"].items():
         check(len(outs) == n_req and all(len(o) == new_tokens
                                          for o in outs),
@@ -624,7 +921,7 @@ def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
               f"expected {n_req} x {new_tokens}")
         check(all(0 <= t < vocab for o in outs for t in o),
               f"{lo}: token outside the vocabulary")
-    check(metrics.get("outputs_match") is True,
+    check(metrics.get("outputs_match", True) is True,
           f"greedy streams differ across {list(metrics['layouts'])}")
     return legs
 
@@ -642,13 +939,15 @@ def phase_serve(torch, fm, dec, serve) -> dict:
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab)
+    check("outputs_match" in metrics, "the serve phase ran one layout")
     emit("serve", args=" ".join(SERVE_ARGS), seconds=wall, legs=legs,
          outputs_match=metrics["outputs_match"],
          paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
          main_path_launches=launches,
          max_memory_allocated=torch.cuda.max_memory_allocated())
-    for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the main path")
+    for name in ("fusemax_prefill", "decode_partials",
+                 "paged_decode_partials"):
+        check(launches[name] > 0, f"{name} never launched on the main path")
     return launches
 
 
@@ -663,6 +962,7 @@ def phase_serve_prefix(torch, fm, dec, serve) -> dict:
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     legs = _check_legs(metrics, cfg.n_layers, 16, 32, cfg.vocab)
+    check("outputs_match" in metrics, "the prefix phase ran one layout")
     reused = metrics["layouts"]["paged"]["prefix"]["tokens_reused"]
     emit("serve_prefix", args=" ".join(PREFIX_ARGS), seconds=wall,
          layers=cfg.n_layers, legs=legs,
@@ -671,6 +971,218 @@ def phase_serve_prefix(torch, fm, dec, serve) -> dict:
          launches=launches)
     check(reused > 0, "no prefix tokens reused on shared-prefix traffic")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 7-10. DeepSeek-V3's MLA tower
+# ---------------------------------------------------------------------------
+
+def deepseek_tower():
+    """DeepSeek-V3 at full width cut to its first three layers: exactly
+    its dense prefix (MLA + a dense FFN of 18432), no expert layer; the
+    MTP head is never built (serving does not run it)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=3)
+
+
+def phase_model_mla(torch, fm, dec) -> None:
+    """The tower on the paged layout with ``attn_impl`` "cuda" and "torch"
+    on the same weights: two prefill chunks (the second at offset 256, the
+    absorbed form through K1 at (576, 512)) and 8 greedy decode steps
+    (K4)."""
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+
+    cfg = deepseek_tower()
+    rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                   param_dtype=torch.float32)
+    rt_t = dataclasses.replace(rt_c, attn_impl="torch")
+    model = tf.init(cfg, 0, rt_c, device="cuda")
+    lens = [512, 333, 128, 45]
+    b, chunk, ps, max_len = len(lens), 256, 16, 1024
+    w = max_len // ps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (b, 512), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    true_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    # every slot's table is a random permutation of the pool's pages
+    perm = torch.randperm(b * w, generator=gen, device="cuda")
+    tables = {"full": perm.to(torch.int32).reshape(b, w).contiguous()}
+    slot_ids = torch.arange(b, device="cuda")
+    streams, logits_all = {}, {}
+    _zero_counts(fm, dec)
+    for name, rt in (("cuda", rt_c), ("torch", rt_t)):
+        caches = tf.init_paged_cache(cfg, b, {"full": b * w}, ps,
+                                     torch.float32, "cuda")
+        lg = torch.zeros((b, cfg.vocab), device="cuda")
+        for off in (0, chunk):
+            part, caches = tf.prefill(
+                cfg, model, {"inputs": toks[:, off:off + chunk]}, caches, rt,
+                kv_offset=off, true_len=true_len, block_tables=tables,
+                slot_ids=slot_ids)
+            sel = (true_len - 1 >= off) & (true_len - 1 < off + chunk)
+            lg = torch.where(sel[:, None], part, lg)
+        kv = true_len.clone()
+        out, lgs = [], [lg]
+        for _ in range(8):
+            nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+            out.append(nxt)
+            kv = kv + 1
+            lg, caches = tf.decode_step(cfg, model, nxt[:, None], caches, kv,
+                                        rt, block_tables=tables)
+            lgs.append(lg)
+        streams[name] = torch.stack(out).cpu()
+        logits_all[name] = torch.stack(lgs)
+        del caches
+        if name == "cuda":
+            launches = _counts(fm, dec)
+    torch.cuda.synchronize()
+    diff = (logits_all["cuda"] - logits_all["torch"]).abs().max().item()
+    scale = logits_all["torch"].abs().max().item()
+    match = (streams["cuda"] == streams["torch"]).float().mean().item()
+    finite = bool(torch.isfinite(logits_all["cuda"]).all().item())
+    rel_tol = 1e-4
+    emit("model_mla", config="deepseek-v3-671b n_layers=3 (dense prefix: "
+         "MLA + dense FFN) fp32, paged", prompts=lens,
+         prefill_chunks=[[0, chunk], [chunk, 2 * chunk]], decode_steps=8,
+         logits_max_abs_diff=diff, logits_max_abs=scale, rel_tol=rel_tol,
+         token_match_rate=match, finite=finite, cuda_launches=launches)
+    check(finite, "non-finite logits in the MLA model cross-check")
+    check(diff <= rel_tol * scale,
+          f"MLA cuda vs torch logits differ by {diff} > {rel_tol} x {scale}")
+    check(match == 1.0, f"MLA greedy token match rate {match} < 1")
+    check(launches["mla_paged_decode_partials"] == 3 * 8,
+          f"K4 launched {launches['mla_paged_decode_partials']} times in 8 "
+          f"decode steps of 3 layers")
+    check(launches["fusemax_prefill_by_dims"] == {"192x128": 3,
+                                                  "576x512": 3},
+          f"K1 launches by dims {launches['fusemax_prefill_by_dims']}, "
+          f"expected 3 expanded + 3 absorbed")
+    del model, logits_all
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+MLA_SERVE_ARGS = ["--arch", "deepseek-v3-671b", "--cache-layout", "paged",
+                  "--requests", "16", "--slots", "8", "--prompt-len", "128",
+                  "--prompt-len-max", "1024", "--new-tokens", "64",
+                  "--max-len", "2048", "--page-size", "16", "--repeats", "1",
+                  "--json", ""]
+
+MLA_PREFIX_ARGS = ["--arch", "deepseek-v3-671b", "--cache-layout", "paged",
+                   "--shared-prefix-len", "256", "--requests", "16",
+                   "--slots", "8", "--prompt-len", "300", "--prompt-len-max",
+                   "500", "--new-tokens", "32", "--max-len", "2048",
+                   "--page-size", "16", "--repeats", "1", "--no-warmup",
+                   "--json", ""]
+
+
+def phase_serve_mla(torch, fm, dec, serve) -> dict:
+    """The MLA main path: the launcher serving the tower on the paged
+    layout (the serve cell's traffic)."""
+    cfg = deepseek_tower()
+    torch.cuda.reset_peak_memory_stats()
+    # the MLA main path: counts set to 0 just before it, read just after
+    _zero_counts(fm, dec)
+    t0 = time.perf_counter()
+    metrics = serve.main(MLA_SERVE_ARGS, cfg=cfg)
+    wall = time.perf_counter() - t0
+    launches = _counts(fm, dec)
+    legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab,
+                       MLA_DECODE_KERNEL)
+    emit("serve_mla", args=" ".join(MLA_SERVE_ARGS),
+         config="deepseek-v3-671b n_layers=3", seconds=wall, legs=legs,
+         main_path_launches=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    for name in ("fusemax_prefill", "mla_paged_decode_partials"):
+        check(launches[name] > 0, f"{name} never launched on the MLA path")
+    for dims in ("192x128", "576x512"):
+        check(launches["fusemax_prefill_by_dims"].get(dims, 0) > 0,
+              f"K1 at (E, F) = {dims} never launched on the MLA path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_mla_prefix(torch, fm, dec, serve) -> dict:
+    """Shared-prefix traffic on the tower, prefix cache on vs off: every
+    request after the first maps the 16 shared pages (15 x 256 tokens)
+    and prefills its tail through the absorbed K1."""
+    cfg = deepseek_tower()
+    _zero_counts(fm, dec)
+    t0 = time.perf_counter()
+    metrics = serve.main(MLA_PREFIX_ARGS, cfg=cfg)
+    wall = time.perf_counter() - t0
+    launches = _counts(fm, dec)
+    legs = _check_legs(metrics, cfg.n_layers, 16, 32, cfg.vocab,
+                       MLA_DECODE_KERNEL)
+    check("outputs_match" in metrics, "the prefix phase ran one layout")
+    reused = metrics["layouts"]["paged"]["prefix"]["tokens_reused"]
+    emit("serve_mla_prefix", args=" ".join(MLA_PREFIX_ARGS),
+         config="deepseek-v3-671b n_layers=3", seconds=wall, legs=legs,
+         outputs_match=metrics["outputs_match"], tokens_reused=reused,
+         invariants="checked by the launcher after each paged leg",
+         launches=launches)
+    check(reused == 3840, f"{reused} prefix tokens reused, expected 3840")
+    check(launches["fusemax_prefill_by_dims"].get("576x512", 0) > 0,
+          "no tail prefill ran the absorbed K1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_mla_impls(torch, fm, dec) -> None:
+    """A short trace on the tower served with ``attn_impl`` "cuda" and
+    "torch": equal greedy streams, and the torch engine launched no
+    kernel."""
+    import numpy as np
+
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = deepseek_tower()
+    rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                   param_dtype=torch.float32)
+    model = tf.init(cfg, 0, rt_c, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
+               for n in rng.integers(128, 257, size=4)]
+    streams, launches = {}, {}
+    for impl in ("cuda", "torch"):
+        _zero_counts(fm, dec)
+        engine = ServeEngine(cfg, model, slots=4, max_len=512,
+                             rt=dataclasses.replace(rt_c, attn_impl=impl),
+                             cache_layout="paged", page_size=16,
+                             device="cuda")
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        engine.run()
+        torch.cuda.synchronize()
+        streams[impl] = [list(r.generated) for r in reqs]
+        launches[impl] = _counts(fm, dec)
+        check(engine.logits_finite(), f"{impl}: non-finite logits")
+        del engine
+    emit("serve_mla_impls", config="deepseek-v3-671b n_layers=3",
+         prompts=[len(pr) for pr in prompts], new_tokens=16,
+         streams_equal=streams["cuda"] == streams["torch"],
+         launches=launches)
+    check(all(len(st) == 16 for st in streams["cuda"]),
+          "a request did not get its 16 tokens")
+    check(streams["cuda"] == streams["torch"],
+          "cuda and torch attention give different greedy streams")
+    check(launches["cuda"]["mla_paged_decode_partials"] > 0,
+          "the cuda engine never launched K4")
+    check(all(n == 0 for k, n in launches["torch"].items()
+              if k != "fusemax_prefill_by_dims"),
+          f"the torch engine launched kernels: {launches['torch']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -703,50 +1215,88 @@ def main() -> int:
     tile = (tile.block_q, tile.block_k)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = run_k1_cases(torch, gen, fm, tile) + \
-        run_k2_cases(torch, gen, dec) + run_k3_cases(torch, gen, dec)
+    rows = run_k1_cases(torch, gen, fm, autotune) + \
+        run_k2_cases(torch, gen, dec) + run_k3_cases(torch, gen, dec) + \
+        run_k4_cases(torch, gen, dec)
     for r in rows:
         emit("kernel_case", **r)
     same = k3_vs_k2(torch, gen, dec, autotune)
     emit("kernel_case", **same)
+    same4 = k4_perm_vs_identity(torch, gen, dec, autotune)
+    emit("kernel_case", **same4)
     t1 = time_k1(torch, gen, fm, tile)
     emit("kernel_time", kernel="fusemax_prefill", **t1)
     t2 = time_k2(torch, gen, dec, autotune)
     emit("kernel_time", kernel="decode_partials", **t2)
     t3 = time_k3(torch, gen, dec, ops, autotune)
     emit("kernel_time", kernel="paged_decode_partials", **t3)
-    bad = [r["case"] for r in rows + [same] if not r["ok"]]
+    t4 = time_k4(torch, gen, dec, ops, autotune)
+    emit("kernel_time", kernel="mla_paged_decode_partials", **t4)
+    t1m = time_k1_mla(torch, gen, fm, autotune)
+    for where, t in t1m.items():
+        emit("kernel_time", kernel=f"fusemax_prefill@{where}", **t)
+    bad = [r["case"] for r in rows + [same, same4] if not r["ok"]]
     bad += [n for n, t in (("K1 timing shape", t1), ("K2 timing shape", t2),
-                           ("K3 timing shape", t3)) if not t["ok"]]
+                           ("K3 timing shape", t3), ("K4 timing shape", t4),
+                           ("K1 mla_forward timing shape",
+                            t1m["mla_forward"]),
+                           ("K1 absorbed timing shape",
+                            t1m["mla_absorbed"])) if not t["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     torch.cuda.empty_cache()
 
     phase_model(torch)
     launches = phase_serve(torch, fm, dec, serve)
     phase_serve_prefix(torch, fm, dec, serve)
+    # the granite phases have released their models; the DeepSeek tower
+    # (14.4 GB of fp32 weights) gets the card to itself
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_model_mla(torch, fm, dec)
+    mla_launches = phase_serve_mla(torch, fm, dec, serve)
+    phase_serve_mla_prefix(torch, fm, dec, serve)
+    phase_serve_mla_impls(torch, fm, dec)
 
-    def entry(name, route, source, replaces, t):
-        cases = [r["ok"] for r in rows + [same] if r["kernel"] == name]
+    def entry(name, route, source, replaces, t, n_launches, kernel=None):
+        cases = [r["ok"] for r in rows + [same, same4]
+                 if r["kernel"] == (kernel or name)]
         return {"name": name, "route": route, "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": n_launches,
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "cases_passed": f"{sum(cases)}/{len(cases)}",
                 "ok": all(cases) and t["ok"]}
 
+    k1_src = "src/repro_torch/kernels/csrc/fusemax_prefill.cu"
+    k1_tpu = "src/repro/kernels/fusemax.py:102"
+    by_dims = mla_launches["fusemax_prefill_by_dims"]
     print(json.dumps({"kernels": [
-        entry("fusemax_prefill", "cuda",
-              "src/repro_torch/kernels/csrc/fusemax_prefill.cu",
-              "src/repro/kernels/fusemax.py:102", t1),
+        entry("fusemax_prefill", "cuda", k1_src, k1_tpu, t1,
+              launches["fusemax_prefill"]),
         entry("decode_partials", "cuda",
               "src/repro_torch/kernels/csrc/decode_partials.cu",
-              "src/repro/kernels/decode.py:60", t2),
+              "src/repro/kernels/decode.py:60", t2,
+              launches["decode_partials"]),
         dict(entry("paged_decode_partials", "cuda",
                    "src/repro_torch/kernels/csrc/paged_decode_partials.cu",
-                   "src/repro/kernels/decode.py:248", t3),
+                   "src/repro/kernels/decode.py:248", t3,
+                   launches["paged_decode_partials"]),
              k2_ms_same_data=t3["k2_ms_same_data"],
              k3_vs_k2_max_abs_diff=same["max_abs_diff_live"]),
+        dict(entry("mla_paged_decode_partials", "cuda",
+                   "src/repro_torch/kernels/csrc/"
+                   "mla_paged_decode_partials.cu",
+                   "src/repro/kernels/decode.py:608", t4,
+                   mla_launches["mla_paged_decode_partials"]),
+             ms_splits4_same_data=t4["ms_splits4_same_data"],
+             k4_perm_vs_identity_max_abs_diff=same4["max_abs_diff_live"]),
+        dict(entry("fusemax_prefill@mla_forward", "cuda", k1_src, k1_tpu,
+                   t1m["mla_forward"], by_dims.get("192x128", 0),
+                   kernel="fusemax_prefill"), e=192, f=128),
+        dict(entry("fusemax_prefill@mla_absorbed", "cuda", k1_src, k1_tpu,
+                   t1m["mla_absorbed"], by_dims.get("576x512", 0),
+                   kernel="fusemax_prefill"), e=576, f=512),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": info}), flush=True)
     return 0

@@ -8,6 +8,13 @@ layer ``L`` of run i is rep ``r``, position ``j`` with
 ``L = start_i + r·len(pattern) + j``.  :func:`jax_from_model` restacks,
 so the two round-trip.
 
+The leaves map one to one under the reference's names, GQA
+(``wq``/``wk``/``wv``/``wo``) and MLA (``w_dq``, ``w_uq``, ``w_dkv``,
+``w_uk``, ``w_uv``, ``wo``, ``q_norm.scale``, ``kv_norm.scale``) alike.
+DeepSeek's multi-token-prediction head (``params["mtp"]``, present when
+``cfg.n_mtp > 0``) is left out on purpose: only the reference's training
+loss runs it, serving never does, and the port builds no such module.
+
 This module imports nothing of the JAX package: callers hand it
 ``jax.device_get(params)`` (a nested dict/list of numpy arrays).
 """
@@ -43,7 +50,9 @@ def _layer_slices(cfg: ModelConfig):
 
 
 def state_from_jax(cfg: ModelConfig, params: Any) -> dict[str, np.ndarray]:
-    """The port's state dict (numpy leaves) from a JAX params tree."""
+    """The port's state dict (numpy leaves) from a JAX params tree.  Reads
+    ``embed``, ``unembed``, ``final_norm`` and ``runs``; ``mtp`` (the
+    training-only MTP head) is skipped, see the module docstring."""
     check_supported(cfg)
     state: dict[str, np.ndarray] = {}
     _flat("embed", params["embed"], state)

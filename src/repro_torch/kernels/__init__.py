@@ -1,8 +1,9 @@
 """FuseMax attention kernels for Hopper, with their plain torch versions.
 
 ``fusemax.py``  — 1-pass prefill attention: CUDA wrapper + plain version
-``decode.py``   — split-K decode partials, dense and paged: CUDA
-                  wrappers + plain versions, and the torch combine
+``decode.py``   — split-K decode partials, dense, paged and paged MLA
+                  latent: CUDA wrappers + plain versions, and the torch
+                  combine
 ``ops.py``      — public ops (GQA folding, tile choice, impl dispatch)
 ``autotune.py`` — modeled tile / split selection
 ``ref.py``      — 3-pass fp32 oracles
@@ -11,10 +12,11 @@
 from repro_torch.kernels import autotune
 from repro_torch.kernels.autotune import (
     AttentionParams, DecodeParams, attention_params, decode_params,
-    paged_decode_params,
+    mla_paged_decode_params, paged_decode_params,
 )
 from repro_torch.kernels.decode import (
     combine_partials, decode_partials_cuda, decode_partials_torch,
+    mla_paged_decode_partials_cuda, mla_paged_decode_partials_torch,
     paged_decode_partials_cuda, paged_decode_partials_torch,
 )
 from repro_torch.kernels.fusemax import (
@@ -22,7 +24,7 @@ from repro_torch.kernels.fusemax import (
 )
 from repro_torch.kernels.ops import (
     KERNEL_CASCADES, fusemax_attention, fusemax_decode, fusemax_decode_paged,
-    gather_pages,
+    fusemax_mla_decode_paged, gather_pages,
 )
 from repro_torch.kernels.ref import decode_reference, mha_reference
 
@@ -32,6 +34,8 @@ __all__ = [
     "decode_partials_cuda", "decode_partials_torch", "decode_reference",
     "exp_maccs", "fusemax_attention", "fusemax_attention_cuda",
     "fusemax_attention_torch", "fusemax_decode", "fusemax_decode_paged",
-    "gather_pages", "mha_reference", "paged_decode_params",
+    "fusemax_mla_decode_paged", "gather_pages", "mha_reference",
+    "mla_paged_decode_params", "mla_paged_decode_partials_cuda",
+    "mla_paged_decode_partials_torch", "paged_decode_params",
     "paged_decode_partials_cuda", "paged_decode_partials_torch",
 ]

@@ -34,6 +34,7 @@ SOURCES = {
     "fusemax_prefill": "fusemax_prefill.cu",
     "decode_partials": "decode_partials.cu",
     "paged_decode_partials": "paged_decode_partials.cu",
+    "mla_paged_decode_partials": "mla_paged_decode_partials.cu",
 }
 
 NVCC_FLAGS = [

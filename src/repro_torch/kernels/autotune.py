@@ -4,16 +4,20 @@ Port of the *modeled* half of ``repro.kernels.autotune``: the cost model
 seeded by the paper's 128×128 spatial array prices padding waste,
 per-tile overhead and the M-independent working set of each candidate,
 and :func:`attention_params` / :func:`decode_params` /
-:func:`paged_decode_params` return the cheapest.
+:func:`paged_decode_params` / :func:`mla_paged_decode_params` return the
+cheapest.
 The model is a pure function of the (bucketed) shape, so it is memoised
 with ``functools.lru_cache`` instead of a mutable table.
 
 What the port changes:
 
 * The CUDA prefill kernel (``csrc/fusemax_prefill.cu``) is compiled for
-  one tile, so ``attention_params(..., impl="cuda")`` returns that tile
-  after checking its shared-memory footprint against the card's per-block
-  limit — the TPU's VMEM budget does not apply to it.
+  one tile per (E, F) pair, so ``attention_params(..., impl="cuda")``
+  returns that pair's tile (``CUDA_PREFILL_TILES``, the declaration the
+  kernel's wrapper holds against the library's own
+  ``fusemax_prefill_tile`` at each launch) after checking its
+  shared-memory footprint against the card's per-block limit — the TPU's
+  VMEM budget does not apply to it.
 * The split-K geometry (``decode_params``) is the reference's, for every
   impl: it is keyed on the cache length and never on P, so a later verify
   path inherits exactly the split structure of single-token decode.
@@ -39,8 +43,16 @@ TILE_OVERHEAD = 4096
 #: dynamic shared memory one block may use on an H100 (227 KB)
 SMEM_BUDGET = 232_448
 
-#: the tile ``csrc/fusemax_prefill.cu`` is compiled for (BQ, BK)
-CUDA_PREFILL_TILE = (64, 64)
+#: (E, F) head dims → the (BQ, BK) tile ``csrc/fusemax_prefill.cu`` is
+#: compiled for at those dims (its ``PrefillTile``): GQA heads of 64 and
+#: 128, DeepSeek's MLA prefill (nope 128 + rope 64 → v 128) and its
+#: absorbed latent attention (rank 512 + rope 64 → rank 512)
+CUDA_PREFILL_TILES = {
+    (64, 64): (64, 64),
+    (128, 128): (64, 64),
+    (192, 128): (64, 64),
+    (576, 512): (32, 32),
+}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -146,12 +158,17 @@ def attention_params(p: int, m: int, e: int, f: int, *,
                      impl: str = "torch") -> AttentionParams:
     """Pick (block_q, block_k) for a prefill-shaped attention call.
 
-    ``impl="cuda"`` returns the tile the CUDA kernel is compiled for and
-    raises if that tile does not fit one block's shared memory at this
-    head width; every other impl takes the reference's modeled choice
-    from the power-of-two bucketed shape."""
+    ``impl="cuda"`` returns the tile the CUDA kernel is compiled for at
+    head dims (E, F), and raises for a pair it is not compiled for or a
+    tile that does not fit one block's shared memory; every other impl
+    takes the reference's modeled choice from the power-of-two bucketed
+    shape."""
     if impl == "cuda":
-        bq, bk = CUDA_PREFILL_TILE
+        if (e, f) not in CUDA_PREFILL_TILES:
+            raise ValueError(
+                f"the CUDA prefill kernel is compiled for head dims (E, F) "
+                f"in {sorted(CUDA_PREFILL_TILES)}, not ({e}, {f})")
+        bq, bk = CUDA_PREFILL_TILES[(e, f)]
         need = prefill_smem_bytes(bq, bk, e, f)
         if need > SMEM_BUDGET:
             raise ValueError(
@@ -202,6 +219,22 @@ def paged_decode_params(n_pages: int, page_size: int, g: int, e: int,
     cands = _paged_decode_candidates(n_pages, page_size)
     return min(cands, key=lambda c: _decode_cost(c, m, g, e, f,
                                                  elem_bytes=elem_bytes))
+
+
+@functools.lru_cache(maxsize=None)
+def mla_paged_decode_params(n_pages: int, page_size: int, g: int,
+                            rank: int, rope_dim: int,
+                            elem_bytes: int = 4) -> DecodeParams:
+    """Pick (splits, block_k) for the paged *latent-space* MLA decode
+    (K4): the K stream is the concatenated (rank + rope_dim) latent page
+    pair and the V stream is the rank-wide latent itself, so the cost
+    model of :func:`paged_decode_params` runs with e = rank + rope_dim,
+    f = rank over the same page-aligned candidates — the reference's
+    ``mla_paged_decode_params``, for every impl."""
+    m = n_pages * page_size
+    cands = _paged_decode_candidates(n_pages, page_size)
+    return min(cands, key=lambda c: _decode_cost(
+        c, m, g, rank + rope_dim, rank, elem_bytes=elem_bytes))
 
 
 def verify_block_k(block_k: int, *, p: int, g: int, e: int, f: int,

@@ -4,8 +4,8 @@
 // fusemax_attention_pallas (the TPU kernel behind ops.fusemax_attention).
 //
 // What it computes (the TPU kernel's function, not its block structure):
-//   q [BH, PG, D] (GQA group folded into query rows: row r is query
-//   position r / group + q_offset), k [BH, M, D], v [BH, M, D]; per row
+//   q [BH, PG, E] (GQA group folded into query rows: row r is query
+//   position r / group + q_offset), k [BH, M, E], v [BH, M, F]; per row
 //   the running max / denominator / numerator·V (RM, RD, RNV, Eqs. 39-41)
 //   over the key tiles the TPU kernel runs, masks for causal, window and
 //   m_valid, optional softcap, exp native or by 6 MACCs (Horner), and one
@@ -15,18 +15,29 @@
 //   next valid tile's correction factor exp(-1e30 - m) erases.
 //
 // What bounds it on this card: operations.  At prefill sizes each K/V
-// tile is reused by a 64-row Q tile, so the two matrix products
-// (2 * PG * M * D multiply-adds per fiber, halved by the causal bound)
+// tile is reused by a BQ-row Q tile, so the two matrix products
+// (PG * M * (E + F) multiply-adds per fiber, halved by the causal bound)
 // outweigh the bytes read; in fp32 the ceiling is the 67 TFLOP/s of the
 // non-tensor FP32 units.
 //
-// What the simple design does about it: one block per (64-row query
+// What the simple design does about it: one block per (BQ-row query
 // tile, batch*kv-head fiber), 256 threads.  The Q tile stays in shared
-// memory for the whole sweep (output-stationary), K/V tiles of 64 keys
-// stream through shared memory, and each thread keeps a 4x4 block of
-// scores and a 4x(D/16) block of the accumulator in registers, so every
-// shared-memory read feeds several FMAs.  Rows of Q and K are padded by
-// one float so that column reads are free of bank conflicts.  The TPU's
+// memory for the whole sweep (output-stationary), K/V tiles of BK keys
+// stream through shared memory, and each thread keeps a (BQ/16)x(BK/16)
+// block of scores and a (BQ/16)x(F/16) block of the accumulator in
+// registers, so every shared-memory read feeds several FMAs.
+//
+// The tile is chosen per (E, F) instantiation (PrefillTile below) so that
+// one block's fp32 tiles fit the 227 KB of shared memory:
+//   (64, 64), (128, 128) -- GQA heads (granite): 64 x 64;
+//   (192, 128)           -- DeepSeek MLA prefill (nope 128 + rope 64 ->
+//                           v 128, mla_forward): 64 x 64, 148 KB;
+//   (576, 512)           -- DeepSeek absorbed latent attention (rank 512 +
+//                           rope 64 -> rank 512, _mla_absorbed_attend):
+//                           32 x 32, 212 KB, 64 accumulator floats a
+//                           thread (64 x 64 would need 459 KB).
+// Rows of Q and K are padded by one float so that column reads are free
+// of bank conflicts.  The TPU's
 // sequential M1 grid axis becomes the loop over key tiles, and the TPU's
 // per-tile skip becomes the loop bounds.  All arithmetic is true fp32
 // FMA (no TF32); bf16 inputs are widened on load.  Tensor cores (wgmma),
@@ -38,9 +49,7 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int NT = 256;       // threads: 16 x 16, each 4 rows x 4 keys
+constexpr int NT = 256;       // threads: 16 x 16
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -78,20 +87,43 @@ __device__ __forceinline__ float fexp(float x) {
   return MACCS ? exp_maccs(x) : expf(x);
 }
 
-template <typename T, int D, bool MACCS>
+// The tile of each (E, F) instantiation: BQ query rows x BK keys, both
+// multiples of 16 (each of the 16 x 16 threads takes BQ/16 rows and BK/16
+// keys); F a multiple of 16 (BQ/16 x F/16 accumulator floats a thread).
+template <int E, int F> struct PrefillTile;
+template <> struct PrefillTile<64, 64> { static constexpr int BQ = 64, BK = 64; };
+template <> struct PrefillTile<128, 128> { static constexpr int BQ = 64, BK = 64; };
+template <> struct PrefillTile<192, 128> { static constexpr int BQ = 64, BK = 64; };
+template <> struct PrefillTile<576, 512> { static constexpr int BQ = 32, BK = 32; };
+
+template <int E, int F>
+__host__ __device__ constexpr int prefill_smem_bytes() {
+  constexpr int BQ = PrefillTile<E, F>::BQ, BK = PrefillTile<E, F>::BK;
+  return 4 * (BQ * (E + 1) + BK * (E + 1) + BK * F + BQ * (BK + 1));
+}
+
+template <typename T, int E, int F, bool MACCS>
 __global__ void __launch_bounds__(NT)
 fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int pg,
                        int m, float scale, int causal, int window,
                        float softcap, int q_offset, int group, int m_valid) {
-  constexpr int DS = D + 1;   // padded row stride of the Q and K tiles
-  constexpr int PS = BK + 1;  // padded row stride of the probability tile
-  constexpr int DC = D / 16;  // accumulator columns per thread
+  constexpr int BQ = PrefillTile<E, F>::BQ;
+  constexpr int BK = PrefillTile<E, F>::BK;
+  constexpr int RI = BQ / 16;  // query rows per thread
+  constexpr int KJ = BK / 16;  // keys per thread
+  constexpr int ES = E + 1;    // padded row stride of the Q and K tiles
+  constexpr int PS = BK + 1;   // padded row stride of the probability tile
+  constexpr int FC = F / 16;   // accumulator columns per thread
+  static_assert(BQ % 16 == 0 && BK % 16 == 0 && F % 16 == 0,
+                "16 x 16 threads tile rows, keys and features");
+  static_assert(prefill_smem_bytes<E, F>() <= 232448,
+                "the tiles exceed one block's shared memory");
   extern __shared__ float smem[];
-  float* qs = smem;           // [BQ][DS]
-  float* ks = qs + BQ * DS;   // [BK][DS]
-  float* vs = ks + BK * DS;   // [BK][D]
-  float* ps = vs + BK * D;    // [BQ][PS]
+  float* qs = smem;           // [BQ][ES]
+  float* ks = qs + BQ * ES;   // [BK][ES]
+  float* vs = ks + BK * ES;   // [BK][F]
+  float* ps = vs + BK * F;    // [BQ][PS]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;    // key / feature columns tx + 16 j
@@ -99,13 +131,13 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;
   const int rows = min(BQ, pg - r0);
-  const T* qb = q + (static_cast<size_t>(bh) * pg + r0) * D;
-  const T* kb = k + static_cast<size_t>(bh) * m * D;
-  const T* vb = v + static_cast<size_t>(bh) * m * D;
+  const T* qb = q + (static_cast<size_t>(bh) * pg + r0) * E;
+  const T* kb = k + static_cast<size_t>(bh) * m * E;
+  const T* vb = v + static_cast<size_t>(bh) * m * F;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    qs[r * DS + c] = r < rows ? to_f(qb[static_cast<size_t>(r) * D + c])
+  for (int i = tid; i < BQ * E; i += NT) {
+    const int r = i / E, c = i % E;
+    qs[r * ES + c] = r < rows ? to_f(qb[static_cast<size_t>(r) * E + c])
                               : 0.f;
   }
 
@@ -120,54 +152,70 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_begin = kstart / BK;
   const int t_end = kend > 0 ? (kend + BK - 1) / BK : 0;
 
-  int qpos[4];
-  float m_i[4], l_i[4], acc[4][DC];
+  int qpos[RI];
+  float m_i[RI], l_i[RI], acc[RI][FC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     qpos[i] = (r0 + ty + 16 * i) / group + q_offset;
     m_i[i] = NEG_INF;
     l_i[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < FC; ++j) acc[i][j] = 0.f;
   }
 
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // previous tile's readers are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const int kr = k0 + r;
-      const bool in = kr < m;
-      ks[r * DS + c] = in ? to_f(kb[static_cast<size_t>(kr) * D + c]) : 0.f;
-      vs[r * D + c] = in ? to_f(vb[static_cast<size_t>(kr) * D + c]) : 0.f;
+    if constexpr (E == F) {
+      for (int i = tid; i < BK * E; i += NT) {
+        const int r = i / E, c = i % E;
+        const int kr = k0 + r;
+        const bool in = kr < m;
+        ks[r * ES + c] = in ? to_f(kb[static_cast<size_t>(kr) * E + c])
+                            : 0.f;
+        vs[r * F + c] = in ? to_f(vb[static_cast<size_t>(kr) * F + c]) : 0.f;
+      }
+    } else {
+      for (int i = tid; i < BK * E; i += NT) {
+        const int r = i / E, c = i % E;
+        const int kr = k0 + r;
+        ks[r * ES + c] = kr < m ? to_f(kb[static_cast<size_t>(kr) * E + c])
+                                : 0.f;
+      }
+      for (int i = tid; i < BK * F; i += NT) {
+        const int r = i / F, c = i % F;
+        const int kr = k0 + r;
+        vs[r * F + c] = kr < m ? to_f(vb[static_cast<size_t>(kr) * F + c])
+                               : 0.f;
+      }
     }
     __syncthreads();
 
     // BQK (Eq. 42)
-    float s[4][4];
+    float s[RI][KJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int e = 0; e < D; ++e) {
-      float qv[4], kv[4];
+    for (int e = 0; e < E; ++e) {
+      float qv[RI], kv[KJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * DS + e];
+      for (int i = 0; i < RI; ++i) qv[i] = qs[(ty + 16 * i) * ES + e];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * DS + e];
+      for (int j = 0; j < KJ; ++j) kv[j] = ks[(tx + 16 * j) * ES + e];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
     // masks, LM/RM (Eqs. 43-44), SLN/SLD (Eqs. 45-46), PRM/RD (48-50)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       float lm = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
@@ -185,7 +233,7 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float m_new = fmaxf(m_i[i], lm);
       float sld = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const float p = fexp<MACCS>(s[i][j] - m_new);
         s[i][j] = p;
         sld += p;
@@ -197,46 +245,47 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_i[i] = l_i[i] * prm + sld;
       m_i[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= prm;
+      for (int j = 0; j < FC; ++j) acc[i][j] *= prm;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * PS + tx + 16 * j] = s[i][j];
+      for (int j = 0; j < KJ; ++j) ps[(ty + 16 * i) * PS + tx + 16 * j] = s[i][j];
     }
     __syncthreads();
 
     // SLNV / RNV (Eqs. 47, 51-52)
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
-      float pv[4];
+      float pv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * PS + kk];
+      for (int i = 0; i < RI; ++i) pv[i] = ps[(ty + 16 * i) * PS + kk];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        const float vv = vs[kk * D + tx + 16 * j];
+      for (int j = 0; j < FC; ++j) {
+        const float vv = vs[kk * F + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+        for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
     }
   }
 
   // AV (Eq. 53): deferred division; rows no tile reached emit 0
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int row = ty + 16 * i;
     if (row >= rows) continue;
     const float l = l_i[i] == 0.f ? 1.f : l_i[i];
-    T* orow = o + (static_cast<size_t>(bh) * pg + r0 + row) * D;
+    T* orow = o + (static_cast<size_t>(bh) * pg + r0 + row) * F;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
+    for (int j = 0; j < FC; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
   }
 }
 
-template <typename T, int D, bool MACCS>
+template <typename T, int E, int F, bool MACCS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bh, int pg, int m, float scale, int causal, int window,
                    float softcap, int q_offset, int group, int m_valid,
                    cudaStream_t stream) {
-  const int smem = 4 * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-  auto kern = fusemax_prefill_kernel<T, D, MACCS>;
+  constexpr int BQ = PrefillTile<E, F>::BQ;
+  constexpr int smem = prefill_smem_bytes<E, F>();
+  auto kern = fusemax_prefill_kernel<T, E, F, MACCS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -248,52 +297,75 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int E, int F>
 cudaError_t launch_exp(int maccs, const void* q, const void* k, const void* v,
                        void* o, int bh, int pg, int m, float scale,
                        int causal, int window, float softcap, int q_offset,
                        int group, int m_valid, cudaStream_t stream) {
-  return maccs ? launch<T, D, true>(q, k, v, o, bh, pg, m, scale, causal,
-                                    window, softcap, q_offset, group, m_valid,
-                                    stream)
-               : launch<T, D, false>(q, k, v, o, bh, pg, m, scale, causal,
-                                     window, softcap, q_offset, group,
-                                     m_valid, stream);
+  return maccs ? launch<T, E, F, true>(q, k, v, o, bh, pg, m, scale, causal,
+                                       window, softcap, q_offset, group,
+                                       m_valid, stream)
+               : launch<T, E, F, false>(q, k, v, o, bh, pg, m, scale, causal,
+                                        window, softcap, q_offset, group,
+                                        m_valid, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_dims(int e, int f, int maccs, const void* q,
+                          const void* k, const void* v, void* o, int bh,
+                          int pg, int m, float scale, int causal, int window,
+                          float softcap, int q_offset, int group, int m_valid,
+                          cudaStream_t st) {
+#define REPRO_DIMS(E, F)                                                      \
+  if (e == E && f == F)                                                       \
+    return launch_exp<T, E, F>(maccs, q, k, v, o, bh, pg, m, scale, causal,   \
+                               window, softcap, q_offset, group, m_valid, st);
+  REPRO_DIMS(128, 128)
+  REPRO_DIMS(64, 64)
+  REPRO_DIMS(192, 128)
+  REPRO_DIMS(576, 512)
+#undef REPRO_DIMS
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128 (E == F).
+// dtype: 0 = float32, 1 = bfloat16.  (e, f): q/k head dim and v head dim,
+// one of (64, 64), (128, 128), (192, 128), (576, 512).
 // window <= 0 means no window; softcap <= 0 means no softcap.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int fusemax_prefill(const void* q, const void* k, const void* v,
-                               void* o, int dtype, int head_dim, int bh,
+                               void* o, int dtype, int e, int f, int bh,
                                int pg, int m, float scale, int causal,
                                int window, float softcap, int q_offset,
                                int group, int m_valid, int exp_maccs,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 128)
-    return launch_exp<float, 128>(exp_maccs, q, k, v, o, bh, pg, m, scale,
-                                  causal, window, softcap, q_offset, group,
-                                  m_valid, st);
-  if (dtype == 0 && head_dim == 64)
-    return launch_exp<float, 64>(exp_maccs, q, k, v, o, bh, pg, m, scale,
-                                 causal, window, softcap, q_offset, group,
-                                 m_valid, st);
-  if (dtype == 1 && head_dim == 128)
-    return launch_exp<__nv_bfloat16, 128>(exp_maccs, q, k, v, o, bh, pg, m,
-                                           scale, causal, window, softcap,
-                                           q_offset, group, m_valid, st);
-  if (dtype == 1 && head_dim == 64)
-    return launch_exp<__nv_bfloat16, 64>(exp_maccs, q, k, v, o, bh, pg, m,
-                                         scale, causal, window, softcap,
-                                         q_offset, group, m_valid, st);
+  if (dtype == 0)
+    return static_cast<int>(dispatch_dims<float>(
+        e, f, exp_maccs, q, k, v, o, bh, pg, m, scale, causal, window,
+        softcap, q_offset, group, m_valid, st));
+  if (dtype == 1)
+    return static_cast<int>(dispatch_dims<__nv_bfloat16>(
+        e, f, exp_maccs, q, k, v, o, bh, pg, m, scale, causal, window,
+        softcap, q_offset, group, m_valid, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int fusemax_prefill_tile(int* block_q, int* block_k) {
-  *block_q = BQ;
-  *block_k = BK;
-  return 0;
+// The (BQ, BK) tile of the (e, f) instantiation; returns
+// cudaErrorInvalidValue (outputs untouched) for a pair not compiled.
+extern "C" int fusemax_prefill_tile(int e, int f, int* block_q,
+                                    int* block_k) {
+#define REPRO_TILE(E, F)                                                      \
+  if (e == E && f == F) {                                                     \
+    *block_q = PrefillTile<E, F>::BQ;                                         \
+    *block_k = PrefillTile<E, F>::BK;                                         \
+    return 0;                                                                 \
+  }
+  REPRO_TILE(128, 128)
+  REPRO_TILE(64, 64)
+  REPRO_TILE(192, 128)
+  REPRO_TILE(576, 512)
+#undef REPRO_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,16 +1,20 @@
 """FuseMax split-K decode ("flash-decoding" over Cascade 5): the CUDA
 partials kernels' wrappers, their plain torch versions, and the combine.
 
-Port of the GQA half of ``repro.kernels.decode``.  Decode offers one
-query token per sequence, so the 1-pass cascade runs twice:
+Port of ``repro.kernels.decode``.  Decode offers one query token per
+sequence, so the 1-pass cascade runs twice:
 
 1. each of S disjoint splits of the cache sweeps its key tiles with the
    running (m, l, acc) state and emits per-split partials — over a dense
    cache with :func:`decode_partials_torch` (plain) or
    :func:`decode_partials_cuda` (``csrc/decode_partials.cu``), over a page
    pool through a block table with :func:`paged_decode_partials_torch` or
-   :func:`paged_decode_partials_cuda` (``csrc/paged_decode_partials.cu``);
-   each CUDA wrapper counts its launches in ``<wrapper>.launches``;
+   :func:`paged_decode_partials_cuda` (``csrc/paged_decode_partials.cu``),
+   and DeepSeek's latent-space MLA decode over a latent page pool with
+   :func:`mla_paged_decode_partials_torch` or
+   :func:`mla_paged_decode_partials_cuda`
+   (``csrc/mla_paged_decode_partials.cu``); each CUDA wrapper counts its
+   launches in ``<wrapper>.launches``;
 2. :func:`combine_partials` merges them with the associative running-max
    algebra of Eqs. 48-52, in plain torch ops as the reference keeps it in
    jnp outside its ``pallas_call``.
@@ -26,7 +30,11 @@ pages ``[P, page_size, Hkv, E/F]`` with a ``[B, W]`` int32 block table
 whose unbacked entries hold the sentinel ``P`` (paged), kv_len ``[B]``
 int32 → partials m, l ``[B·Hkv, S, R]`` and acc ``[B·Hkv, S, R, F]`` in
 fp32, without the TPU's 128-lane padding.  The paged splits are
-page-aligned and its key tiles lie inside one page.
+page-aligned and its key tiles lie inside one page.  The MLA partials
+have one fiber per sequence (Hkv = 1, every head in the group): q ``[B,
+R, r + rd]`` against ckv pages ``[P, page_size, r]`` and krope pages
+``[P, page_size, rd]``; the score is ``q[:r]·ckv + q[r:]·krope`` and the
+latent tile is also the value, so acc is ``[B, S, R, r]``.
 """
 from __future__ import annotations
 
@@ -39,6 +47,19 @@ import torch
 from repro_torch.kernels.fusemax import (
     CUDA_DTYPES, NEG_INF, _exp, _ptr, _stream, check_cuda_operands,
 )
+
+#: head dims the GQA decode kernels (K2, K3) are instantiated for (E == F)
+CUDA_HEAD_DIMS = (64, 128)
+#: (rank, rope_dim) latents the MLA decode kernel (K4) is instantiated for
+CUDA_MLA_DIMS = ((512, 64),)
+
+
+def _check_head_dims(name: str, *tensors: torch.Tensor) -> None:
+    dims = {t.shape[-1] for t in tensors}
+    if len(dims) != 1 or next(iter(dims)) not in CUDA_HEAD_DIMS:
+        raise ValueError(f"{name}: head dims {[t.shape[-1] for t in tensors]}"
+                         f" — the kernel is built for E == F in "
+                         f"{CUDA_HEAD_DIMS}")
 
 
 def _split_geometry(m: int, splits: int, block_k: int) -> tuple[int, int]:
@@ -208,6 +229,57 @@ def paged_decode_partials_torch(
         else rows_per_pos, f=f)
 
 
+def mla_paged_decode_partials_torch(
+    q: torch.Tensor,            # [B, R, r + rd]
+    ckv_pages: torch.Tensor,    # [P, page_size, r]
+    krope_pages: torch.Tensor,  # [P, page_size, rd]
+    block_table: torch.Tensor,  # [B, W] int page ids (sentinel = P)
+    kv_len: torch.Tensor,       # [B] int
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    splits: int,
+    block_k: int,
+    exp_impl: str = "native",
+    n_pos: int = 1,
+    rows_per_pos: Optional[int] = None,
+):
+    """Plain paged MLA partials in latent space, mirroring
+    ``_mla_paged_decode_partials_kernel``: the paged sweep of
+    :func:`paged_decode_partials_torch` with one fiber per sequence, the
+    key tile ``[ckv | krope]`` (one dot over both halves, which the TPU
+    kernel sums as two) and the ckv tile as the value tile."""
+    b, r, e = q.shape
+    n_pages, ps, rank = ckv_pages.shape
+    bt_b, w = block_table.shape
+    if e != rank + krope_pages.shape[-1] or bt_b != b \
+            or krope_pages.shape[:2] != ckv_pages.shape[:2]:
+        raise ValueError(f"q {tuple(q.shape)}, ckv pages "
+                         f"{tuple(ckv_pages.shape)}, krope pages "
+                         f"{tuple(krope_pages.shape)}, table "
+                         f"{tuple(block_table.shape)}")
+    split_pages, block_k = _paged_geometry(w, ps, splits, block_k)
+    bpp = ps // block_k
+    dev = q.device
+    kvl = kv_len.to(device=dev, dtype=torch.int64)
+    bt = torch.clamp(block_table.to(device=dev, dtype=torch.int64),
+                     max=n_pages - 1)
+    slot0 = torch.arange(splits, device=dev) * split_pages   # [S]
+
+    def tiles(t):
+        page = bt[:, slot0 + t // bpp]                        # [B, S]
+        off = (t % bpp) * block_k
+        ckv_t = ckv_pages[:, off:off + block_k][page]         # [B,S,bk,r]
+        kr_t = krope_pages[:, off:off + block_k][page]        # [B,S,bk,rd]
+        return torch.cat([ckv_t, kr_t], dim=-1), ckv_t
+
+    return _sweep_partials(
+        q, tiles, split_pages * bpp, kvl, slot0 * ps, scale=scale,
+        softcap=softcap, window=None, block_k=block_k, exp_impl=exp_impl,
+        n_pos=n_pos, rows_per_pos=r // n_pos if rows_per_pos is None
+        else rows_per_pos, f=rank)
+
+
 def combine_partials(pm: torch.Tensor, pl: torch.Tensor, pnv: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
     """Combine split-K partials (associative running-max algebra,
@@ -257,6 +329,7 @@ def decode_partials_cuda(
     """Launch the CUDA split-K partials kernel on the current stream (no
     sync).  Same contract as :func:`decode_partials_torch`."""
     check_cuda_operands("decode_partials_cuda", q, k, v)
+    _check_head_dims("decode_partials_cuda", q, k, v)
     bh, r, e = q.shape
     m = k.shape[1]
     if k.shape[0] != bh or v.shape[:2] != k.shape[:2]:
@@ -335,6 +408,7 @@ def paged_decode_partials_cuda(
     (``csrc/paged_decode_partials.cu``) on the current stream (no sync).
     Same contract as :func:`paged_decode_partials_torch`."""
     check_cuda_operands("paged_decode_partials_cuda", q, k_pages, v_pages)
+    _check_head_dims("paged_decode_partials_cuda", q, k_pages, v_pages)
     bh, r, e = q.shape
     n_pages, ps, hkv_p, f = v_pages.shape
     if k_pages.shape[:3] != v_pages.shape[:3] or hkv_p != hkv:
@@ -379,3 +453,90 @@ def paged_decode_partials_cuda(
 
 
 paged_decode_partials_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_lib():
+    """The MLA paged kernel's entry point — builds at first use."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("mla_paged_decode_partials").mla_paged_decode_partials
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    return fn
+
+
+def mla_paged_decode_partials_cuda(
+    q: torch.Tensor,            # [B, R, r + rd]
+    ckv_pages: torch.Tensor,    # [P, page_size, r]
+    krope_pages: torch.Tensor,  # [P, page_size, rd]
+    block_table: torch.Tensor,  # [B, W] int32 on the same device
+    kv_len: torch.Tensor,       # [B] int32 on the same device
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    splits: int,
+    block_k: int,
+    exp_impl: str = "native",
+    n_pos: int = 1,
+    rows_per_pos: Optional[int] = None,
+):
+    """Launch the CUDA paged MLA partials kernel
+    (``csrc/mla_paged_decode_partials.cu``) on the current stream (no
+    sync).  Same contract as :func:`mla_paged_decode_partials_torch`."""
+    check_cuda_operands("mla_paged_decode_partials_cuda", q, ckv_pages,
+                        krope_pages)
+    b, r, e = q.shape
+    n_pages, ps, rank = ckv_pages.shape
+    rope_dim = krope_pages.shape[-1]
+    if (rank, rope_dim) not in CUDA_MLA_DIMS or e != rank + rope_dim \
+            or krope_pages.shape[:2] != ckv_pages.shape[:2]:
+        raise ValueError(f"mla_paged_decode_partials_cuda: q "
+                         f"{tuple(q.shape)}, ckv pages "
+                         f"{tuple(ckv_pages.shape)}, krope pages "
+                         f"{tuple(krope_pages.shape)} — the kernel is "
+                         f"built for (rank, rope_dim) in {CUDA_MLA_DIMS}")
+    for name, t in (("block_table", block_table), ("kv_len", kv_len)):
+        if t.dtype != torch.int32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{q.device}; got {t.dtype} on {t.device}")
+    for name, t in (("ckv_pages", ckv_pages), ("krope_pages", krope_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                             f"kernel copies 16-byte vectors)")
+    w = block_table.shape[1]
+    if block_table.shape[0] != b or kv_len.shape != (b,):
+        raise ValueError(f"q {tuple(q.shape)} is not one fiber per row of "
+                         f"the table {tuple(block_table.shape)} and kv_len "
+                         f"{tuple(kv_len.shape)}")
+    if exp_impl not in ("native", "maccs"):
+        raise ValueError(f"unknown exp_impl {exp_impl!r}")
+    rows_per_pos = r // n_pos if rows_per_pos is None else rows_per_pos
+    if r < 1 or n_pos < 1 or rows_per_pos < 1:
+        raise ValueError(f"{r} query rows, n_pos={n_pos}, "
+                         f"rows_per_pos={rows_per_pos}")
+    split_pages, block_k = _paged_geometry(w, ps, splits, block_k)
+    if b > 65535 or -(-r // 32) > 65535:
+        raise ValueError(f"grid ({splits}, {b}, {-(-r // 32)}) too large")
+    fn = _mla_lib()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    pm = torch.empty((b, splits, r), **f32)
+    pl = torch.empty((b, splits, r), **f32)
+    pnv = torch.empty((b, splits, r, rank), **f32)
+    err = fn(_ptr(q), _ptr(ckv_pages), _ptr(krope_pages), _ptr(block_table),
+             _ptr(kv_len), _ptr(pm), _ptr(pl), _ptr(pnv),
+             CUDA_DTYPES[q.dtype], rank, rope_dim, b, r, n_pages, ps, w,
+             splits, split_pages * ps, block_k, n_pos, rows_per_pos,
+             float(scale), 0.0 if softcap is None else float(softcap),
+             int(exp_impl == "maccs"), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(
+            f"mla_paged_decode_partials launch failed: CUDA error {err}")
+    mla_paged_decode_partials_cuda.launches += 1
+    return pm, pl, pnv
+
+
+mla_paged_decode_partials_cuda.launches = 0

@@ -4,14 +4,16 @@ plain torch version (paper §V, Cascade 5 / Mapping 1).
 Port of ``repro.kernels.fusemax``.  Both functions take the folded layout
 the kernel sees — q ``[B·Hkv, P·G, E]`` (GQA group folded into query rows:
 row r is query position ``r // group + q_offset``), k ``[B·Hkv, M, E]``,
-v ``[B·Hkv, M, F]`` — and return ``[B·Hkv, P·G, F]`` in q's dtype:
+v ``[B·Hkv, M, F]`` — and return ``[B·Hkv, P·G, F]`` in q's dtype.  E may
+differ from F (DeepSeek's MLA: (192, 128) expanded, (576, 512) absorbed):
 
 * :func:`fusemax_attention_torch` is the plain version: a loop over key
   tiles carrying the running max / denominator / numerator·V (RM, RD, RNV,
   Eqs. 39-41) in fp32, with the TPU kernel's per-(query tile, key tile)
   skip and its masks, and one deferred division at the end (Eq. 53).
 * :func:`fusemax_attention_cuda` launches ``csrc/fusemax_prefill.cu``
-  and counts its launches in ``fusemax_attention_cuda.launches``.
+  and counts its launches in ``fusemax_attention_cuda.launches`` (and by
+  head dims in ``.launches_by_dims``).
 
 ``NEG_INF`` is finite on purpose: a row fully masked inside a tile that
 runs accumulates ``exp(0) = 1`` terms, and the next valid tile's
@@ -25,6 +27,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.autotune import CUDA_PREFILL_TILES
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -44,8 +48,6 @@ _EXP2_COEFFS = (
 
 #: dtypes the CUDA kernels take, by their code in the C interface
 CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the CUDA kernels are instantiated for (E == F)
-CUDA_HEAD_DIMS = (64, 128)
 
 
 def exp_maccs(x: torch.Tensor) -> torch.Tensor:
@@ -158,7 +160,7 @@ def fusemax_attention_torch(
 
 def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of one dtype
-    the kernels take, with a head dim they are instantiated for."""
+    the kernels take (each wrapper checks its head dims itself)."""
     dt = tensors[0].dtype
     dev = tensors[0].device
     for t in tensors:
@@ -172,11 +174,6 @@ def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: non-contiguous operand {tuple(t.shape)}")
     if dt not in CUDA_DTYPES:
         raise ValueError(f"{name}: dtype {dt} not in {list(CUDA_DTYPES)}")
-    dims = {t.shape[-1] for t in tensors}
-    if len(dims) != 1 or dims.pop() not in CUDA_HEAD_DIMS:
-        raise ValueError(f"{name}: head dims {[t.shape[-1] for t in tensors]}"
-                         f" — the kernel is built for E == F in "
-                         f"{CUDA_HEAD_DIMS}")
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -189,23 +186,34 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 
 @functools.lru_cache(maxsize=None)
 def _prefill_lib():
-    """(kernel entry point, its compiled (BQ, BK) tile) — builds at first
-    use."""
+    """(kernel entry point, tile query) — builds at first use."""
     from repro_torch.kernels import _build
 
     lib = _build.load("fusemax_prefill")
     fn = lib.fusemax_prefill
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     tile_fn = lib.fusemax_prefill_tile
     tile_fn.restype = ctypes.c_int
-    tile_fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    tile_fn.argtypes = [ctypes.c_int, ctypes.c_int] \
+        + [ctypes.POINTER(ctypes.c_int)] * 2
+    return fn, tile_fn
+
+
+@functools.lru_cache(maxsize=None)
+def cuda_prefill_tile(e: int, f: int) -> tuple[int, int]:
+    """The (BQ, BK) tile the library compiled for head dims (E, F), as
+    ``fusemax_prefill_tile`` reports it; raises for a pair it does not
+    hold."""
+    _, tile_fn = _prefill_lib()
     bq, bk = ctypes.c_int(), ctypes.c_int()
-    tile_fn(ctypes.byref(bq), ctypes.byref(bk))
-    return fn, (bq.value, bk.value)
+    if tile_fn(e, f, ctypes.byref(bq), ctypes.byref(bk)) != 0:
+        raise ValueError(f"fusemax_prefill has no instantiation for head "
+                         f"dims (E, F) = ({e}, {f})")
+    return bq.value, bk.value
 
 
 def fusemax_attention_cuda(
@@ -225,13 +233,19 @@ def fusemax_attention_cuda(
     exp_impl: str = "native",
 ) -> torch.Tensor:
     """Launch the CUDA prefill kernel on the current stream (no sync).
-    ``block_q``/``block_k`` must be the tile the kernel is compiled for
-    (``autotune.attention_params(..., impl="cuda")``)."""
+    ``block_q``/``block_k`` must be the tile the kernel is compiled for at
+    these head dims (``autotune.attention_params(..., impl="cuda")``; the
+    library's own report is checked here)."""
     check_cuda_operands("fusemax_attention_cuda", q, k, v)
     bh, pg, e = q.shape
-    if k.shape[:2] != v.shape[:2] or k.shape[0] != bh:
+    f = v.shape[2]
+    if k.shape[:2] != v.shape[:2] or k.shape[0] != bh or k.shape[2] != e:
         raise ValueError(f"fusemax_attention_cuda: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if (e, f) not in CUDA_PREFILL_TILES:
+        raise ValueError(f"fusemax_attention_cuda: head dims (E, F) = "
+                         f"({e}, {f}); the kernel is built for "
+                         f"{sorted(CUDA_PREFILL_TILES)}")
     if exp_impl not in ("native", "maccs"):
         raise ValueError(f"unknown exp_impl {exp_impl!r}")
     m = k.shape[1]
@@ -240,15 +254,16 @@ def fusemax_attention_cuda(
         raise ValueError(f"m_valid={m_valid} outside [0, {m}]")
     if bh > 65535:
         raise ValueError(f"B·Hkv={bh} exceeds the grid's 65535 fibers")
-    fn, tile = _prefill_lib()
+    fn, _ = _prefill_lib()
+    tile = cuda_prefill_tile(e, f)
     if (block_q, block_k) != tile:
         raise ValueError(f"tile ({block_q}, {block_k}) but the kernel is "
-                         f"compiled for {tile}")
-    out = torch.empty((bh, pg, v.shape[2]), dtype=q.dtype, device=q.device)
+                         f"compiled for {tile} at (E, F) = ({e}, {f})")
+    out = torch.empty((bh, pg, f), dtype=q.dtype, device=q.device)
     if pg == 0 or bh == 0:
         return out
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), CUDA_DTYPES[q.dtype], e,
-             bh, pg, m, float(scale), int(causal),
+             f, bh, pg, m, float(scale), int(causal),
              0 if window is None else int(window),
              0.0 if softcap is None else float(softcap), int(q_offset),
              int(group), int(m_valid), int(exp_impl == "maccs"),
@@ -256,7 +271,11 @@ def fusemax_attention_cuda(
     if err != 0:
         raise RuntimeError(f"fusemax_prefill launch failed: CUDA error {err}")
     fusemax_attention_cuda.launches += 1
+    by_dims = fusemax_attention_cuda.launches_by_dims
+    by_dims[(e, f)] = by_dims.get((e, f), 0) + 1
     return out
 
 
 fusemax_attention_cuda.launches = 0
+#: the same launches split by head dims (E, F): which instantiation ran
+fusemax_attention_cuda.launches_by_dims = {}

@@ -1,11 +1,15 @@
 """Public attention ops: GQA folding, tile choice and dispatch around the
-FuseMax kernels.  Port of the GQA half of ``repro.kernels.ops``.
+FuseMax kernels.  Port of ``repro.kernels.ops`` (its MLA part as far as
+the paged latent decode; the dense-layout MLA executors wait for ROADMAP
+§1 item 5a).
 
 ``fusemax_attention``    — [B, Hq, P, E] × [B, Hkv, M, E/F] → [B, Hq, P, F].
 ``fusemax_decode``       — one-token (or P-row verify) queries against a
   ragged dense KV cache, split-K.
 ``fusemax_decode_paged`` — the same against a page pool through a block
   table (``gather_pages`` materializes the table's view for the ref path).
+``fusemax_mla_decode_paged`` — DeepSeek's absorbed-form decode in latent
+  space against a latent page pool (Hkv = 1, every head in the group).
 
 ``impl``:
   "cuda"   the hand-written Hopper kernel; raises on a CPU tensor,
@@ -24,6 +28,7 @@ import torch
 from repro_torch.kernels import autotune, ref as _ref
 from repro_torch.kernels.decode import (
     combine_partials, decode_partials_cuda, decode_partials_torch,
+    mla_paged_decode_partials_cuda, mla_paged_decode_partials_torch,
     paged_decode_partials_cuda, paged_decode_partials_torch,
 )
 from repro_torch.kernels.fusemax import (
@@ -40,8 +45,12 @@ KERNEL_CASCADES = {
     "fusemax_attention": "repro.kernels.fusemax.prefill_cascade",
     "fusemax_decode": "repro.kernels.decode.decode_splitk_cascade",
     "fusemax_decode_paged": "repro.kernels.decode.decode_paged_cascade",
+    "fusemax_mla_decode_paged":
+        "repro.kernels.decode.mla_decode_paged_cascade",
     "fusemax_decode[p>1]": "repro.kernels.decode.verify_chain_cascade",
     "fusemax_decode_paged[p>1]": "repro.kernels.decode.verify_chain_cascade",
+    "fusemax_mla_decode_paged[p>1]":
+        "repro.kernels.decode.mla_verify_chain_cascade",
 }
 
 IMPLS = ("cuda", "torch", "ref", "auto")
@@ -287,3 +296,82 @@ def fusemax_decode_paged(
             q_f, k_pages, v_pages, block_table, kv_len, **kw)
     out = combine_partials(pm, pl, pnv, q.dtype)
     return _unfold_decode_out(out, b, hkv, group, f, p=p)
+
+
+def fusemax_mla_decode_paged(
+    q: torch.Tensor,            # [B, H, P, rank + rope_dim] absorbed q_cat
+    ckv_pages: torch.Tensor,    # [P_pages, page_size, rank]
+    krope_pages: torch.Tensor,  # [P_pages, page_size, rope_dim]
+    block_table: torch.Tensor,  # [B, W] int page ids (sentinel = P_pages)
+    kv_len: torch.Tensor,       # [B] valid logical lengths
+    *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+    impl: str = "auto",
+    splits: Optional[int] = None,
+    block_k: Optional[int] = None,
+    exp_impl: str = "native",
+    ckv_scale: Optional[torch.Tensor] = None,
+    krope_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """MLA decode (P = 1) or verify rows (P > 1) against a paged *latent*
+    cache.  Queries arrive W_uk-absorbed (``q_eff = q_nopeᵀW_uk``
+    concatenated with ``q_rope``); the result is the latent output
+    ``[B, H, P, rank]``, still to be lifted through W_uv by the caller.
+
+    "cuda" launches the paged latent kernel (K4), "torch" its plain
+    version — both with the Pallas kernel's page-aligned ``splits`` /
+    ``block_k`` from :func:`autotune.mla_paged_decode_params` when left as
+    ``None`` (the reference's jnp executor sweeps one split per page
+    instead; the two agree within fp32 summation order, except that a
+    ``kv_len = 0`` row is 0 here and a mean of the latents there).  "ref"
+    gathers the table's view and runs the 3-pass oracle.  Quantized pools
+    (``ckv_scale`` / ``krope_scale``) are not ported yet."""
+    if ckv_scale is not None or krope_scale is not None:
+        raise NotImplementedError(
+            "quantized latent pools (ckv_scale / krope_scale) are not "
+            "ported to repro_torch yet (ROADMAP §1 item 4, quantized pages "
+            "and host swap)")
+    b, hq, p, e = q.shape
+    n_pages, page_size, rank = ckv_pages.shape
+    rope_dim = krope_pages.shape[-1]
+    w = block_table.shape[1]
+    if e != rank + rope_dim:
+        raise ValueError(f"q last dim {e} != rank {rank} + rope {rope_dim}")
+    scale = scale if scale is not None else 1.0 / (e ** 0.5)
+    impl = resolve_impl(impl, q)
+
+    if impl == "ref":
+        ckv = gather_pages(ckv_pages, block_table)          # [B, W·ps, r]
+        kr = gather_pages(krope_pages, block_table)
+        k = torch.cat([ckv, kr], dim=-1)[:, None]
+        return fusemax_decode(q, k, ckv[:, None], kv_len, softcap=softcap,
+                              scale=scale, impl="ref")
+
+    if splits is None or block_k is None:
+        tuned = autotune.mla_paged_decode_params(
+            w, page_size, max(hq, 8), rank, rope_dim,
+            elem_bytes=ckv_pages.element_size())
+        splits = tuned.splits if splits is None else splits
+        block_k = tuned.block_k if block_k is None else block_k
+    splits = max(1, min(splits, w))
+    while w % splits:
+        splits -= 1
+    block_k = min(block_k, page_size)
+    while page_size % block_k:
+        block_k -= 1
+    block_k = autotune.verify_block_k(block_k, p=p, g=max(hq, 8), e=e,
+                                      f=rank)
+    q_f = _fold_decode_q(q, b, 1, hq, e)                     # [B, P·H, e]
+    kw = dict(scale=scale, softcap=softcap, splits=splits, block_k=block_k,
+              exp_impl=exp_impl, n_pos=p, rows_per_pos=hq)
+    if impl == "cuda":
+        pm, pl, pnv = mla_paged_decode_partials_cuda(
+            q_f.contiguous(), ckv_pages, krope_pages,
+            block_table.to(device=q.device, dtype=torch.int32).contiguous(),
+            kv_len.to(device=q.device, dtype=torch.int32).contiguous(), **kw)
+    else:
+        pm, pl, pnv = mla_paged_decode_partials_torch(
+            q_f, ckv_pages, krope_pages, block_table, kv_len, **kw)
+    out = combine_partials(pm, pl, pnv, q.dtype)
+    return _unfold_decode_out(out, b, 1, hq, rank, p=p)

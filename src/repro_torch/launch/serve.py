@@ -20,6 +20,12 @@ cache off (``paged_noprefix``), which joins ``outputs_match``.  Every
 paged leg ends with the pool's invariant audit
 (``PagedKVCache.check_invariants``), which raises on a violation.
 
+MLA archs serve on the paged layout only (``--cache-layout dense|both``
+exits naming ROADMAP §1 item 5a); ``deepseek-v3-671b[-smoke]`` serves
+with its MoE cut — every FFN dense, as its first ``first_k_dense``
+layers are — until MoE is ported (item 5b), and the JSON says so
+(``moe_cut``).
+
 The reference's other legs take the same flags here and exit with the
 ROADMAP item that ports them: ``--speculate``/``--duplicates``,
 ``--kv-dtype``/``--pool-mb``/``--host-swap-gb``, ``--mesh`` and
@@ -29,6 +35,7 @@ nothing (XLA's cache has no counterpart here).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Optional
@@ -36,9 +43,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ModelConfig, get_config
 from repro_torch.kernels.decode import (
-    decode_partials_cuda, paged_decode_partials_cuda,
+    decode_partials_cuda, mla_paged_decode_partials_cuda,
+    paged_decode_partials_cuda,
 )
 from repro_torch.kernels.fusemax import fusemax_attention_cuda
 from repro_torch.model import transformer as tf
@@ -71,7 +79,20 @@ def kernel_launches() -> dict:
     """Launches of each CUDA kernel so far in this process."""
     return {"fusemax_prefill": fusemax_attention_cuda.launches,
             "decode_partials": decode_partials_cuda.launches,
-            "paged_decode_partials": paged_decode_partials_cuda.launches}
+            "paged_decode_partials": paged_decode_partials_cuda.launches,
+            "mla_paged_decode_partials":
+                mla_paged_decode_partials_cuda.launches}
+
+
+def serve_config(arch: str) -> ModelConfig:
+    """The config the launcher serves for ``arch``: an MLA arch with MoE
+    layers is served with its MoE cut (every FFN a dense one of ``d_ff``,
+    as in its dense prefix) because MoE is not ported yet (ROADMAP §1
+    item 5b); every other arch as registered."""
+    cfg = get_config(arch)
+    if cfg.mla is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=None, family="dense")
+    return cfg
 
 
 def _sync(device: torch.device) -> None:
@@ -177,10 +198,15 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
     }
 
 
-def serve_bench(args) -> dict:
+def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
     """Build the model and engine, serve the synthetic trace, return the
-    metrics (``_outputs`` holds the generated streams, in request order)."""
-    cfg = get_config(args.arch)
+    metrics (``_outputs`` holds the generated streams, in request order).
+    ``cfg`` overrides the config ``args.arch`` names (a library caller's
+    cut of a registered arch, e.g. fewer layers)."""
+    moe_cut = False
+    if cfg is None:
+        cfg = serve_config(args.arch)
+        moe_cut = cfg != get_config(args.arch)
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
     model = tf.init(cfg, args.seed, rt, device=args.device)
     layouts = ["dense", "paged"] if args.cache_layout == "both" \
@@ -198,6 +224,8 @@ def serve_bench(args) -> dict:
     outputs = {lo: per_layout[lo].pop("_outputs") for lo in layouts}
     metrics = {
         "arch": args.arch,
+        "n_layers": cfg.n_layers,
+        "moe_cut": moe_cut,
         "requests": args.requests,
         "slots": args.slots,
         "prompt_len": args.prompt_len,
@@ -311,13 +339,21 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[list] = None) -> dict:
+def main(argv: Optional[list] = None,
+         cfg: Optional[ModelConfig] = None) -> dict:
+    """Run the launcher on ``argv``; ``cfg`` as in :func:`serve_bench`."""
     args = _parser().parse_args(argv)
     for is_set, flag, item in _UNPORTED:
         if is_set(args):
             raise SystemExit(f"{flag} is not ported to repro_torch yet "
                              f"(ROADMAP {item})")
-    metrics = serve_bench(args)
+    mla = (cfg if cfg is not None else get_config(args.arch)).mla
+    if mla is not None and args.cache_layout != "paged":
+        raise SystemExit(
+            f"--cache-layout {args.cache_layout} on the MLA arch "
+            f"{args.arch} is not ported to repro_torch yet (ROADMAP §1 item "
+            f"5a, MLA on the dense layout); use --cache-layout paged")
+    metrics = serve_bench(args, cfg)
     hidden = {k: metrics.pop(k) for k in ("_outputs", "_outputs_by_layout")}
     print(f"served {metrics['requests']} requests "
           f"({metrics['tokens_decoded']} new tokens) in "
@@ -326,7 +362,9 @@ def main(argv: Optional[list] = None) -> dict:
           f"{metrics['dispatches']['decode']} decode dispatches, "
           f"{metrics['dispatches']['prefill']} prefill dispatches, "
           f"TTFT p50 {metrics['ttft_s']['p50']}s) on "
-          f"{metrics['device']['kind']}")
+          f"{metrics['device']['kind']}"
+          + (" — MoE cut: every FFN dense (ROADMAP §1 item 5b)"
+             if metrics["moe_cut"] else ""))
     for lo, m in metrics["layouts"].items():
         mem = m["memory"]
         print(f"  {lo}: {m['tok_per_s']:.1f} tok/s, peak resident "

@@ -1,6 +1,7 @@
-"""GQA attention on the FuseMax kernels, dense cache layout.
+"""GQA and MLA attention on the FuseMax kernels.
 
-Port of the global-attention GQA paths of ``repro.model.attention``:
+Port of the global-attention GQA paths of ``repro.model.attention`` and
+of its MLA paths on the paged layout.  GQA:
 ``wq [d, h, dh]``, ``wk``/``wv [d, hkv, dh]``, ``wo [h, dh, d]``; RoPE at
 the absolute position, applied before K is cached so reads need no
 rotation.  Attention runs through :mod:`repro_torch.kernels.ops` with
@@ -23,8 +24,19 @@ The port updates caches *in place* (``index_put_`` / slice assignment)
 where the reference returns new arrays under buffer donation; every
 function still returns the cache so the call sites read the same.
 
+MLA (DeepSeek multi-head latent attention, ``MLAAttention``): queries
+through a low-rank ``w_dq``/``q_norm``/``w_uq``; keys and values from one
+latent ``ckv = kv_norm(x w_dkv[:, :r])`` plus a shared rope key.  A
+prompt's first chunk runs the per-head expanded form (:func:`mla_forward`,
+K1 at (E, F) = (nope + rope, v)); a continuation chunk and every decode
+step run the absorbed form against the latent history (K1 at (r + rd, r)
+through :func:`_mla_absorbed_attend`, K4 through
+``ops.fusemax_mla_decode_paged``).  Its paged pool is ``{"ckv_pages":
+[P + 1, page_size, r], "krope_pages": [P + 1, page_size, rd]}``, sink page
+included, in the "full" class.
+
 Not ported yet (ROADMAP "Modules still to port"): sliding-window ring
-caches, quantized pages, verify, MLA.
+caches, quantized pages, verify, MLA on the dense layout (item 5a).
 """
 from __future__ import annotations
 
@@ -36,19 +48,29 @@ from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.ops import (
-    fusemax_attention, fusemax_decode, fusemax_decode_paged, gather_pages,
+    fusemax_attention, fusemax_decode, fusemax_decode_paged,
+    fusemax_mla_decode_paged, gather_pages,
 )
-from repro_torch.model.layers import Runtime, _param, normal_, rope
+from repro_torch.model.layers import (
+    Norm, Runtime, _param, apply_norm, normal_, rope,
+)
 
 
 _RING = ("windowed ring caches are not ported yet (ROADMAP §1 item 2, "
          "windows and softcaps)")
 
 
+_MLA_DENSE = ("MLA on the dense cache layout is not ported yet (ROADMAP §1 "
+              "item 5a, MLA on the dense layout); serve MLA models with "
+              "cache_layout='paged'")
+
+
 def paged_cache_key(spec: LayerSpec) -> str:
-    """Block-table key for a layer: windowed layers share a table per
-    window size; global layers share the "full" table."""
-    return "full" if spec.window is None else f"w{spec.window}"
+    """Block-table key for a layer: windowed GQA layers share a table per
+    window size; global GQA layers and every MLA layer share the "full"
+    table (the reference's page classes)."""
+    return "full" if spec.attn == "mla" or spec.window is None \
+        else f"w{spec.window}"
 
 
 def pool_pages(pages: torch.Tensor) -> torch.Tensor:
@@ -300,16 +322,20 @@ def gqa_prefill_paged(p: GQA, x: torch.Tensor, cache: dict,
     return y, cache
 
 
-def gqa_decode_slots(cache: dict, bt_rows: torch.Tensor,
-                     kv_len: torch.Tensor, spec: LayerSpec):
+def decode_slots(cache: dict, bt_rows: torch.Tensor, kv_len: torch.Tensor,
+                 spec: LayerSpec):
     """:func:`page_slots` of one decode step's new token (position
-    ``kv_len - 1``; inactive slots with kv_len = 0 go to the sink).  The
-    same for every layer of a capacity class, so a step computes it once
-    per class."""
+    ``kv_len - 1``; inactive slots with kv_len = 0 go to the sink), for a
+    GQA or an MLA page pool.  The same for every layer of a capacity
+    class, so a step computes it once per class."""
     pos = (kv_len.long() - 1)[:, None]
-    return page_slots(cache["k_pages"], bt_rows, pos,
-                      _gqa_capacity(cache, bt_rows, spec),
-                      (kv_len > 0)[:, None])
+    if "ckv_pages" in cache:
+        pages = cache["ckv_pages"]
+        cap = bt_rows.shape[1] * pages.shape[1]
+    else:
+        pages = cache["k_pages"]
+        cap = _gqa_capacity(cache, bt_rows, spec)
+    return page_slots(pages, bt_rows, pos, cap, (kv_len > 0)[:, None])
 
 
 def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
@@ -319,13 +345,13 @@ def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
     """One-token decode against the page pool: write the new K/V at the
     logical tail, read through the block table.  Inactive slots
     (kv_len = 0) drop their writes (into the sink page).  ``slots``: this
-    step's :func:`gqa_decode_slots`, when the caller shares them across
+    step's :func:`decode_slots`, when the caller shares them across
     layers.  x: [B, 1, d]."""
     if spec.window is not None:
         raise NotImplementedError(_RING)
     pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
     q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, 1, dh]
-    page, off = gqa_decode_slots(cache, bt_rows, kv_len, spec) \
+    page, off = decode_slots(cache, bt_rows, kv_len, spec) \
         if slots is None else slots
     for name, new in (("k_pages", k_new), ("v_pages", v_new)):
         pages = cache[name]
@@ -338,4 +364,205 @@ def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
         splits=rt.decode_splits,
         exp_impl=rt.exp_impl,
     )                                                    # [B, H, 1, dh]
+    return _out_proj(p, out), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention) — paged layout
+# ---------------------------------------------------------------------------
+
+class MLAAttention(nn.Module):
+    """Parameters of one MLA layer under the reference's names/layouts:
+    ``w_dq [d, q_lora]``, ``w_uq [q_lora, h, nope + rope]``, ``w_dkv [d,
+    r + rd]``, ``w_uk [r, h, nope]``, ``w_uv [r, h, v]``, ``wo [h, v, d]``
+    and the rmsnorms ``q_norm`` / ``kv_norm`` on the latent axes."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        m = cfg.mla
+        d, h = cfg.d_model, cfg.n_heads
+        qk = m.nope_dim + m.rope_dim
+        nk = dict(dtype=dtype, device=device)
+        self.w_dq = _param((d, m.q_lora_rank), **nk)
+        self.w_uq = _param((m.q_lora_rank, h, qk), **nk)
+        self.w_dkv = _param((d, m.kv_lora_rank + m.rope_dim), **nk)
+        self.w_uk = _param((m.kv_lora_rank, h, m.nope_dim), **nk)
+        self.w_uv = _param((m.kv_lora_rank, h, m.v_dim), **nk)
+        self.wo = _param((h, m.v_dim, d), **nk)
+        self.q_norm = Norm(m.q_lora_rank, "rmsnorm", **nk)
+        self.kv_norm = Norm(m.kv_lora_rank, "rmsnorm", **nk)
+        if gen is not None:
+            for w, fan_in in ((self.w_dq, d), (self.w_uq, m.q_lora_rank),
+                              (self.w_dkv, d), (self.w_uk, m.kv_lora_rank),
+                              (self.w_uv, m.kv_lora_rank),
+                              (self.wo, h * m.v_dim)):
+                normal_(w, 1.0 / math.sqrt(fan_in), gen)
+
+
+def mla_init(cfg: ModelConfig, *, dtype, device,
+             gen: Optional[torch.Generator] = None) -> MLAAttention:
+    return MLAAttention(cfg, dtype=dtype, device=device, gen=gen)
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.nope_dim + cfg.mla.rope_dim)
+
+
+def _mla_qkv_latent(p: MLAAttention, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor):
+    """Shared down-projections: returns (q_nope [B, H, S, nope], q_rope
+    [B, H, S, rd], ckv [B, S, r], k_rope [B, S, rd])."""
+    m = cfg.mla
+    dt = x.dtype
+    cq = apply_norm(p.q_norm, x @ p.w_dq.to(dt))
+    q = torch.einsum("bsr,rhe->bhse", cq, p.w_uq.to(dt))
+    q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    q_rope = rope(q_rope, positions[:, None, :], cfg.rope_theta)
+    dkv = x @ p.w_dkv.to(dt)                             # [B, S, r + rd]
+    ckv = apply_norm(p.kv_norm, dkv[..., :m.kv_lora_rank])
+    k_rope = rope(dkv[..., m.kv_lora_rank:], positions, cfg.rope_theta)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_forward(p: MLAAttention, x: torch.Tensor, cfg: ModelConfig,
+                spec: LayerSpec, rt: Runtime,
+                positions: Optional[torch.Tensor] = None,
+                latent=None) -> torch.Tensor:
+    """Training / prefill MLA: expand the latents per head and run K1 at
+    (E, F) = (nope + rope, v).  x: [B, S, d].  ``latent`` passes
+    :func:`_mla_qkv_latent`'s outputs the caller already computed."""
+    m = cfg.mla
+    b, s_len, _ = x.shape
+    if latent is None:
+        if positions is None:
+            positions = torch.arange(s_len, device=x.device).expand(b, s_len)
+        latent = _mla_qkv_latent(p, x, cfg, positions)
+    q_nope, q_rope, ckv, k_rope = latent
+    dt = x.dtype
+    k_nope = torch.einsum("bsr,rhe->bhse", ckv, p.w_uk.to(dt))
+    v = torch.einsum("bsr,rhe->bhse", ckv, p.w_uv.to(dt))
+    h = cfg.n_heads
+    q = torch.cat([q_nope, q_rope], dim=-1)              # [B, H, S, qk]
+    k = torch.cat([k_nope, k_rope[:, None].expand(b, h, s_len, m.rope_dim)],
+                  dim=-1)
+    out = fusemax_attention(
+        q, k, v,
+        causal=cfg.causal,
+        softcap=cfg.attn_softcap,
+        scale=_mla_scale(cfg),
+        impl=rt.attn_impl,
+        block_q=rt.block_q,
+        block_k=rt.block_k,
+        exp_impl=rt.exp_impl,
+    )                                                    # [B, H, S, v]
+    return _out_proj(p, out)
+
+
+def _mla_absorbed_attend(p: MLAAttention, q_nope: torch.Tensor,
+                         q_rope: torch.Tensor, ckv: torch.Tensor,
+                         krope: torch.Tensor, off: int, cfg: ModelConfig,
+                         rt: Runtime) -> torch.Tensor:
+    """Absorbed-form chunk attention over a latent history: one fiber
+    (Hkv = 1) with every query head in its group; ``q_eff = q_nopeᵀW_uk``
+    scores the rank-r latents plus the shared rope keys directly, the
+    accumulator stays in latent space (K1 at (r + rd, r)), and W_uv lifts
+    it at the end.  ckv: [B, tot, r]; krope: [B, tot, rd] (history and
+    this chunk).  Returns the per-head output [B, H, S, v] (pre-``wo``)."""
+    dt = q_nope.dtype
+    q_eff = torch.einsum("bhse,rhe->bhsr", q_nope, p.w_uk.to(dt))
+    q_cat = torch.cat([q_eff, q_rope], dim=-1)           # [B, H, S, r+rd]
+    k_cat = torch.cat([ckv, krope], dim=-1)[:, None]     # [B, 1, tot, r+rd]
+    out_lat = fusemax_attention(
+        q_cat, k_cat, ckv[:, None],
+        causal=cfg.causal, softcap=cfg.attn_softcap, scale=_mla_scale(cfg),
+        q_offset=off, impl=rt.attn_impl, block_q=rt.block_q,
+        block_k=rt.block_k, exp_impl=rt.exp_impl,
+    )                                                    # [B, H, S, r]
+    return torch.einsum("bhsr,rhe->bhse", out_lat, p.w_uv.to(dt))
+
+
+def mla_init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                         dtype, device, kv_dtype: Optional[str] = None
+                         ) -> dict:
+    """A layer's latent page pools: ``num_pages`` pages plus the sink
+    page."""
+    if kv_dtype is not None:
+        raise NotImplementedError(
+            "quantized page pools are not ported yet (ROADMAP §1 item 4, "
+            "quantized pages and host swap)")
+    m = cfg.mla
+    nk = dict(dtype=dtype, device=device)
+    return {"ckv_pages": torch.zeros((num_pages + 1, page_size,
+                                      m.kv_lora_rank), **nk),
+            "krope_pages": torch.zeros((num_pages + 1, page_size,
+                                        m.rope_dim), **nk)}
+
+
+def mla_prefill_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
+                      bt_rows: torch.Tensor, off: int, cfg: ModelConfig,
+                      spec: LayerSpec, rt: Runtime, true_len: torch.Tensor,
+                      cached_len: Optional[torch.Tensor] = None):
+    """Prefill a prompt chunk's latents into the page pool, masked by
+    ``true_len`` and by ``cached_len`` (positions below it live in pages
+    mapped from the prefix index: read, never rewritten).  At ``off ==
+    0`` the chunk attends itself in the expanded form
+    (:func:`mla_forward`); a continuation (``off > 0``: chunked prefill or
+    a prefix-cache hit) attends, in absorbed form
+    (:func:`_mla_absorbed_attend`), the latents of positions ``[0, off +
+    S)`` gathered through ``bt_rows`` after the chunk's writes — as the
+    reference reads them, so a position the masks kept from being
+    written is read from its page.  x: [B, S, d]."""
+    b, s_len, _ = x.shape
+    positions = torch.arange(off, off + s_len, device=x.device).expand(
+        b, s_len)
+    latent = _mla_qkv_latent(p, x, cfg, positions)
+    q_nope, q_rope, ckv_new, krope_new = latent
+    ckv_pages, krope_pages = cache["ckv_pages"], cache["krope_pages"]
+    ps = ckv_pages.shape[1]
+    cap = bt_rows.shape[1] * ps
+    valid = positions[:1] < true_len.to(x.device).long()[:, None]
+    if cached_len is not None:
+        valid = valid & (positions >= cached_len.to(x.device)[:, None])
+    valid = valid.expand(b, s_len)
+    write_pages(ckv_pages, bt_rows, positions, ckv_new, cap, valid)
+    write_pages(krope_pages, bt_rows, positions, krope_new, cap, valid)
+    if off == 0:
+        return mla_forward(p, x, cfg, spec, rt, latent=latent), cache
+    # gather only the pages the history and the chunk occupy (plain torch
+    # indexing, as the reference gathers in jnp outside any kernel)
+    tot = off + s_len
+    hp = -(-tot // ps)
+    ckv = gather_pages(pool_pages(ckv_pages), bt_rows[:, :hp])[:, :tot]
+    krope = gather_pages(pool_pages(krope_pages), bt_rows[:, :hp])[:, :tot]
+    out = _mla_absorbed_attend(p, q_nope, q_rope, ckv, krope, off, cfg, rt)
+    return _out_proj(p, out), cache
+
+
+def mla_decode_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
+                     bt_rows: torch.Tensor, kv_len: torch.Tensor,
+                     cfg: ModelConfig, spec: LayerSpec, rt: Runtime,
+                     slots=None):
+    """Absorbed-form decode against the latent pages (the reference's
+    unsharded branch): write the new latents at the logical tail, then K4
+    through ``ops.fusemax_mla_decode_paged`` and the W_uv / ``wo`` lifts.
+    Inactive slots (kv_len = 0) drop their writes.  ``slots``: this
+    step's :func:`decode_slots`, shared across layers.  x: [B, 1, d]."""
+    pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_latent(p, x, cfg, pos)
+    page, off = decode_slots(cache, bt_rows, kv_len, spec) \
+        if slots is None else slots
+    for name, new in (("ckv_pages", ckv_new), ("krope_pages", krope_new)):
+        pages = cache[name]
+        pages[page, off] = new.to(pages.dtype)
+    dt = x.dtype
+    q_eff = torch.einsum("bhse,rhe->bhsr", q_nope, p.w_uk.to(dt))
+    q_cat = torch.cat([q_eff, q_rope], dim=-1)           # [B, H, 1, r+rd]
+    out_lat = fusemax_mla_decode_paged(
+        q_cat, pool_pages(cache["ckv_pages"]),
+        pool_pages(cache["krope_pages"]), bt_rows, kv_len,
+        scale=_mla_scale(cfg), softcap=cfg.attn_softcap,
+        impl=rt.attn_impl, exp_impl=rt.exp_impl,
+    )                                                    # [B, H, 1, r]
+    out = torch.einsum("bhsr,rhe->bhse", out_lat, p.w_uv.to(dt))
     return _out_proj(p, out), cache

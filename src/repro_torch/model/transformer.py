@@ -1,7 +1,9 @@
 """Decoder model: per-layer modules, forward, serving prefill and decode.
 
-Port of ``repro.model.transformer`` for the slice the port carries: every
-layer global GQA attention + dense MLP, no softcaps, token front end.
+Port of ``repro.model.transformer`` for the slices the port carries:
+every layer global attention — GQA on the dense or the paged layout, or
+DeepSeek's MLA on the paged layout — with a dense MLP, no softcaps, token
+front end.
 The reference stacks the parameters of equal layers and ``lax.scan``s
 them; the port keeps one module per layer (the weight bridge unstacks)
 and loops in Python, and its caches are a flat per-layer list.
@@ -39,16 +41,17 @@ from repro_torch.model.layers import (
 _ROADMAP = {
     "window": "ROADMAP §1 item 2, windows and softcaps (gemma2-9b)",
     "softcap": "ROADMAP §1 item 2, windows and softcaps (gemma2-9b)",
-    "mla": "ROADMAP §1 item 5, MLA and MoE with K4",
-    "moe": "ROADMAP §1 item 5, MLA and MoE with K4",
+    "moe": "ROADMAP §1 item 5b, MoE",
     "ssm": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
     "frontend": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
 }
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for any part of ``cfg`` outside this
-    slice: global GQA + dense MLP, no softcap, token front end."""
+    """Raise NotImplementedError for any part of ``cfg`` outside the
+    ported slices: global GQA or MLA attention + dense MLP, no softcap,
+    token front end.  (MLA serves on the paged layout only:
+    :func:`init_cache` refuses it.)"""
     def no(what: str, detail: str):
         raise NotImplementedError(
             f"{cfg.name}: {detail} is not ported yet ({_ROADMAP[what]})")
@@ -60,9 +63,7 @@ def check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.layer_specs():
         if spec.ssm is not None or spec.parallel_ssm:
             no("ssm", f"{spec.ssm} layers")
-        if spec.attn == "mla":
-            no("mla", "MLA attention")
-        if spec.attn != "gqa":
+        if spec.attn not in ("gqa", "mla"):
             no("ssm", f"attention kind {spec.attn!r}")
         if spec.window is not None:
             no("window", "sliding-window attention")
@@ -84,7 +85,9 @@ class Layer(nn.Module):
         super().__init__()
         nk = dict(dtype=dtype, device=device)
         self.ln1 = Norm(cfg.d_model, cfg.norm, **nk)
-        self.attn = attn_mod.gqa_init(cfg, gen=gen, **nk)
+        init_attn = attn_mod.mla_init if spec.attn == "mla" \
+            else attn_mod.gqa_init
+        self.attn = init_attn(cfg, gen=gen, **nk)
         if cfg.post_norm:
             self.post1 = Norm(cfg.d_model, cfg.norm, **nk)
         self.ln2 = Norm(cfg.d_model, cfg.norm, **nk)
@@ -148,7 +151,9 @@ def layer_forward(p: Layer, x: torch.Tensor, cfg: ModelConfig,
                   spec: LayerSpec, rt: Runtime) -> torch.Tensor:
     """Training / prefill-shape layer. x: [B, S, d]."""
     h = apply_norm(p.ln1, x, cfg.norm)
-    x = _residual(p, x, attn_mod.gqa_forward(p.attn, h, cfg, spec, rt), cfg)
+    attend = attn_mod.mla_forward if spec.attn == "mla" \
+        else attn_mod.gqa_forward
+    x = _residual(p, x, attend(p.attn, h, cfg, spec, rt), cfg)
     return _mlp_block(p, x, cfg)
 
 
@@ -163,9 +168,13 @@ def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
     h = apply_norm(p.ln1, x, cfg.norm)
     if block_tables is not None:
         key = attn_mod.paged_cache_key(spec)
-        y, cache["attn"] = attn_mod.gqa_decode_paged(
+        decode_paged = attn_mod.mla_decode_paged if spec.attn == "mla" \
+            else attn_mod.gqa_decode_paged
+        y, cache["attn"] = decode_paged(
             p.attn, h, cache["attn"], block_tables[key], kv_len, cfg, spec,
             rt, slots=None if slots is None else slots.get(key))
+    elif spec.attn == "mla":
+        raise NotImplementedError(attn_mod._MLA_DENSE)
     else:
         y, cache["attn"] = attn_mod.gqa_decode(p.attn, h, cache["attn"],
                                                kv_len, cfg, spec, rt)
@@ -202,7 +211,10 @@ def forward(cfg: ModelConfig, model: Model, batch: dict,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> list:
-    """Per-layer dense caches ``[{"attn": {"k", "v"}}, ...]``."""
+    """Per-layer dense caches ``[{"attn": {"k", "v"}}, ...]``.  MLA layers
+    have no dense cache in the port yet (ROADMAP §1 item 5a)."""
+    if any(spec.attn == "mla" for spec in cfg.layer_specs()):
+        raise NotImplementedError(f"{cfg.name}: {attn_mod._MLA_DENSE}")
     return [{"attn": attn_mod.gqa_init_cache(cfg, spec, batch, max_len,
                                              dtype, device)}
             for spec in cfg.layer_specs()]
@@ -211,23 +223,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def init_paged_cache(cfg: ModelConfig, slots: int, num_pages: dict,
                      page_size: int, dtype, device,
                      kv_dtype: Optional[str] = None) -> list:
-    """Per-layer page pools ``[{"attn": {"k_pages", "v_pages"}}, ...]``,
+    """Per-layer page pools ``[{"attn": {"k_pages", "v_pages"}}, ...]``
+    (MLA layers: ``{"ckv_pages", "krope_pages"}`` in the "full" class),
     ``num_pages`` keyed like the block tables ("full" / "w<window>").
     Every layer owns its pages; the tables (one per class, shared by the
     class's layers) are managed by
     :class:`repro_torch.serving.kv_cache.PagedKVCache`.  ``slots`` would
     size per-slot SSM state, which this slice does not port."""
-    return [{"attn": attn_mod.gqa_init_paged_cache(
-                cfg, num_pages[attn_mod.paged_cache_key(spec)], page_size,
-                dtype, device, kv_dtype=kv_dtype)}
-            for spec in cfg.layer_specs()]
+    def pool(spec):
+        init_pool = attn_mod.mla_init_paged_cache if spec.attn == "mla" \
+            else attn_mod.gqa_init_paged_cache
+        return init_pool(cfg, num_pages[attn_mod.paged_cache_key(spec)],
+                         page_size, dtype, device, kv_dtype=kv_dtype)
+
+    return [{"attn": pool(spec)} for spec in cfg.layer_specs()]
 
 
 def copy_cache_pages(cfg: ModelConfig, caches: list, key: str,
                      src: torch.Tensor, dst: torch.Tensor) -> list:
     """``pages[dst] = pages[src]`` in every layer of capacity class
-    ``key`` — one indexed copy per layer for all pairs at once (copy-on-
-    write of shared prefix pages).  Returns ``caches``."""
+    ``key`` (MLA layers: the "full" class, both latent pools) — one
+    indexed copy per pool and layer for all pairs at once (copy-on-write
+    of shared prefix pages).  Returns ``caches``."""
     for spec, c in zip(cfg.layer_specs(), caches):
         if attn_mod.paged_cache_key(spec) != key:
             continue
@@ -250,7 +267,7 @@ def decode_step(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
         if block_tables is not None:
             key = attn_mod.paged_cache_key(spec)
             if key not in slots:      # one write index per class and step
-                slots[key] = attn_mod.gqa_decode_slots(
+                slots[key] = attn_mod.decode_slots(
                     c["attn"], block_tables[key], kv_len, spec)
         x, _ = layer_decode(p, x, c, kv_len, cfg, spec, rt, block_tables,
                             slots)
@@ -268,9 +285,13 @@ def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     h = apply_norm(p.ln1, x, cfg.norm)
     ac = cache["attn"]
     if bt_rows is not None:
-        y, cache["attn"] = attn_mod.gqa_prefill_paged(
+        prefill_paged = attn_mod.mla_prefill_paged if spec.attn == "mla" \
+            else attn_mod.gqa_prefill_paged
+        y, cache["attn"] = prefill_paged(
             p.attn, h, ac, bt_rows[attn_mod.paged_cache_key(spec)],
             kv_offset, cfg, spec, rt, true_len, cached_len)
+    elif spec.attn == "mla":
+        raise NotImplementedError(attn_mod._MLA_DENSE)
     elif kv_offset:
         y, cache["attn"] = attn_mod.gqa_prefill_chunk(
             p.attn, h, ac, kv_offset, cfg, spec, rt)

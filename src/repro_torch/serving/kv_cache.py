@@ -14,6 +14,10 @@ counters; the page arrays are torch tensors on the engine's device.
     maps it; page P is the sink that takes    slot 1: [ 0, 4, P, P]
     masked writes (never read)
 
+  An MLA layer stores latents instead — ``[P + 1, page_size, r]`` and
+  ``[P + 1, page_size, rd]`` — in the "full" class, as the reference
+  does.
+
 * A slot's table grows a page at a time (:meth:`PagedKVCache.grow`);
   unbacked entries hold the sentinel id ``P`` (reads clamp to ``P - 1``
   and are masked by kv_len; writes go to the sink page).
@@ -209,6 +213,12 @@ class PagedKVCache:
                     else max_len
                 per_layer_page_elems[key] = per_layer_page_elems.get(key, 0) \
                     + 2 * page_size * cfg.n_kv_heads * cfg.dh
+            elif spec.attn == "mla":
+                # one latent [r] and one shared rope key [rd] per token
+                caps["full"] = max_len
+                per_layer_page_elems["full"] = \
+                    per_layer_page_elems.get("full", 0) + page_size * (
+                        cfg.mla.kv_lora_rank + cfg.mla.rope_dim)
             if spec.ssm is not None:
                 has_ssm = True
 

@@ -239,11 +239,21 @@ def test_paged_autotune_matches_reference_model(w, ps, e):
 
 
 def test_cuda_tile_fits_shared_memory():
+    """Each (E, F) pair the CUDA prefill kernel is compiled for has its own
+    tile, and each fits one block's shared memory: granite's (128, 128)
+    keeps 64 x 64, DeepSeek's absorbed (576, 512) needs 32 x 32 (64 x 64
+    would take 459 KB).  A pair the kernel is not compiled for raises."""
     tile = autotune.attention_params(4096, 1024, 128, 128, impl="cuda")
-    assert (tile.block_q, tile.block_k) == autotune.CUDA_PREFILL_TILE
-    assert autotune.prefill_smem_bytes(*autotune.CUDA_PREFILL_TILE, 128,
-                                       128) <= autotune.SMEM_BUDGET
-    with pytest.raises(ValueError, match="shared memory"):
+    assert (tile.block_q, tile.block_k) == (64, 64)
+    for (e, f), (bq, bk) in autotune.CUDA_PREFILL_TILES.items():
+        got = autotune.attention_params(4096, 1024, e, f, impl="cuda")
+        assert (got.block_q, got.block_k) == (bq, bk)
+        assert autotune.prefill_smem_bytes(bq, bk, e, f) \
+            <= autotune.SMEM_BUDGET
+    assert autotune.CUDA_PREFILL_TILES[(576, 512)] == (32, 32)
+    assert autotune.prefill_smem_bytes(64, 64, 576, 512) \
+        > autotune.SMEM_BUDGET
+    with pytest.raises(ValueError, match="compiled for head dims"):
         autotune.attention_params(64, 64, 512, 512, impl="cuda")
 
 
@@ -272,6 +282,8 @@ def test_import_without_jax_or_triton():
             sys.modules[name] = None
         import repro_torch
         import repro_torch.kernels.ops
+        import repro_torch.kernels.decode
+        import repro_torch.model.attention
         import repro_torch.serving.engine
         import repro_torch.serving.kv_cache
         import repro_torch.launch.serve

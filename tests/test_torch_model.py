@@ -224,7 +224,7 @@ def test_paged_prefill_and_decode_loop_match(pair, prefill_chunk):
 
 @pytest.mark.parametrize("name,item", [
     ("gemma2-9b-smoke", "windows"),
-    ("deepseek-v3-671b-smoke", "MLA"),
+    ("deepseek-v3-671b-smoke", "MoE"),
     ("hymba-1.5b-smoke", "SSM"),
     ("musicgen-large-smoke", "front end"),
     ("llama4-maverick-400b-a17b-smoke", "MoE"),
