@@ -13,7 +13,9 @@ JSON line (``"phase": ...``):
              (nvcc, in parallel) and the ptxas register / shared-memory
              report;
 3. kernels — every case of the prefill (K1, at the GQA head dims and at
-             DeepSeek's MLA (E, F) = (192, 128) and (576, 512)), dense
+             DeepSeek's MLA (E, F) = (192, 128) and (576, 512), and cases
+             that stress its 3xTF32 split: scores in the hundreds, low
+             mantissa bits that matter, P = M = 1024), dense
              split-K decode (K2), paged split-K decode (K3) and paged MLA
              latent decode (K4) kernels against its plain torch version on
              the same inputs, with its tolerance; K3 against K2 on a
@@ -23,8 +25,10 @@ JSON line (``"phase": ...``):
              on every row with kv_len >= 1; then each kernel's time at the
              shapes the granite-3-8b and DeepSeek-V3 main paths give it,
              beside its plain version's, a library call's (``library_ms``:
-             a yardstick the port never calls) and the least time the card
-             could take (``bound_ms``);
+             a yardstick the port never calls; for K1 also SDPA under
+             each fp32 backend and the one the default call ran) and the
+             least time the card could take (``bound_ms``; K1 against the
+             tensor cores' 3xTF32 rate, with the FP32 units' beside it);
 4. model   — granite-3-8b at full width cut to 4 layers, fp32: prefill 4
              mixed-length prompts and decode 8 greedy steps with
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
@@ -69,10 +73,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and fp32
-#: non-tensor FLOP/s — the serving path is fp32, so no tensor-core rate
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32
+#: non-tensor FLOP/s (K2, K3 and K4 multiply on the FP32 units) and TF32
+#: tensor-core FLOP/s (K1 runs both products in 3xTF32: three TF32
+#: products per fp32 product)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 #: tolerances: fp32 differs only in summation order; bf16 outputs may
 #: differ by one rounding of the output (2 ulps at unit scale)
@@ -170,13 +177,61 @@ def k1_cases(torch):
     ]
 
 
+def k1_split_cases(torch):
+    """K1 cases that stress the 3xTF32 split, each with how its inputs
+    are made from unit normals: scores in the hundreds (q x 30), values
+    whose bits below TF32's mantissa matter (x + x * 2^-12 on q, k and
+    v), and one long causal sweep at each of the GQA and MLA head dims."""
+    f32 = torch.float32
+    return [
+        ("fp32 q x30 (scores in the hundreds) causal g4 d128", 1, 2, 4, 128,
+         128, 128, 128, f32, dict(causal=True), "q_x30"),
+        ("fp32 q x30 absorbed E576 F512 g128 q_offset=40", 1, 1, 128, 24, 64,
+         576, 512, f32, dict(causal=True, q_offset=40), "q_x30"),
+        ("fp32 x + x*2^-12 causal g4 d128", 1, 2, 4, 128, 128, 128, 128, f32,
+         dict(causal=True), "low_bits"),
+        ("fp32 x + x*2^-12 mla_forward E192 F128 causal", 1, 4, 1, 200, 200,
+         192, 128, f32, dict(causal=True), "low_bits"),
+        ("fp32 P=M=1024 causal g4 d128", 1, 2, 4, 1024, 1024, 128, 128, f32,
+         dict(causal=True), None),
+        ("fp32 P=M=1024 mla_forward E192 F128 causal", 1, 4, 1, 1024, 1024,
+         192, 128, f32, dict(causal=True), None),
+        ("fp32 P=M=1024 absorbed E576 F512 g16 causal", 1, 1, 16, 1024, 1024,
+         576, 512, f32, dict(causal=True), None),
+    ]
+
+
+def _prep(q, k, v, how):
+    if how == "q_x30":
+        return q * 30.0, k, v
+    if how == "low_bits":
+        return tuple(x + x * 2.0 ** -12 for x in (q, k, v))
+    return q, k, v
+
+
+def _causal_ref64(torch, q, k, v, scale, group, q_offset):
+    """Causal softmax attention in float64 on the folded layout (every
+    row sees at least one key)."""
+    pg, m = q.shape[1], k.shape[1]
+    s = torch.einsum("bre,bke->brk", q.double(), k.double()) * scale
+    qpos = torch.arange(pg, device="cuda") // group + q_offset
+    s = s.masked_fill(torch.arange(m, device="cuda")[None, :]
+                      > qpos[:, None], float("-inf"))
+    return torch.einsum("brk,bkf->brf", torch.softmax(s, -1), v.double())
+
+
 def run_k1_cases(torch, gen, fm, autotune) -> list:
+    """Every K1 case against its plain version; the split cases also
+    report the kernel's and the plain version's distance to a float64
+    reference (``vs_f64``, not gated)."""
     rows = []
-    for name, b, hkv, g, p, m, e, f, dtype, kw in k1_cases(torch):
+    cases = [c + (None, False) for c in k1_cases(torch)] + \
+        [c + (True,) for c in k1_split_cases(torch)]
+    for name, b, hkv, g, p, m, e, f, dtype, kw, how, split in cases:
         tile = autotune.attention_params(p * g, m, e, f, impl="cuda")
-        q = _rand(torch, gen, (b * hkv, p * g, e), dtype)
-        k = _rand(torch, gen, (b * hkv, m, e), dtype)
-        v = _rand(torch, gen, (b * hkv, m, f), dtype)
+        q, k, v = _prep(_rand(torch, gen, (b * hkv, p * g, e), dtype),
+                        _rand(torch, gen, (b * hkv, m, e), dtype),
+                        _rand(torch, gen, (b * hkv, m, f), dtype), how)
         args = dict(scale=e ** -0.5, group=g, block_q=tile.block_q,
                     block_k=tile.block_k, **kw)
         out = fm.fusemax_attention_cuda(q, k, v, **args)
@@ -187,6 +242,13 @@ def run_k1_cases(torch, gen, fm, autotune) -> list:
         rows.append(dict(kernel="fusemax_prefill", case=name, dtype=dn,
                          e=e, f=f, tile=[tile.block_q, tile.block_k],
                          max_abs_err=err, atol=atol, rtol=rtol, ok=ok))
+        if split:
+            r64 = _causal_ref64(torch, q, k, v, e ** -0.5, g,
+                                kw.get("q_offset", 0))
+            rows[-1]["vs_f64"] = {
+                "kernel": (out.double() - r64).abs().max().item(),
+                "plain": (ref.double() - r64).abs().max().item()}
+            del r64
     return rows
 
 
@@ -618,7 +680,9 @@ def time_k4(torch, gen, dec, ops, autotune) -> dict:
 def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
                    q_offset, shape) -> dict:
     """K1 at one prefill shape, causal with a history offset, fp32: the
-    kernel, its plain version, SDPA on the same inputs, the bound."""
+    kernel, its plain version, SDPA on the same inputs (by default and
+    under each fp32 backend), and both bounds: the FP32 units' and the
+    tensor cores' in 3xTF32, which is the one K1 runs against."""
     g = hq // hkv
     q = _rand(torch, gen, (b, hq, p, e), torch.float32)
     k = _rand(torch, gen, (b, hkv, m, e), torch.float32)
@@ -640,20 +704,73 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
     if q_offset:
         mask = (torch.arange(m, device="cuda")[None, :]
                 <= q_offset + torch.arange(p, device="cuda")[:, None])
-        library_ms = time_ms(torch, _sdpa_fn(torch, q, k, v, attn_mask=mask,
-                                             scale=e ** -0.5))
+        sdpa_kw = dict(attn_mask=mask, scale=e ** -0.5)
     else:
-        library_ms = time_ms(torch, _sdpa_fn(torch, q, k, v, is_causal=True,
-                                             scale=e ** -0.5))
+        sdpa_kw = dict(is_causal=True, scale=e ** -0.5)
+    library_ms = time_ms(torch, _sdpa_fn(torch, q, k, v, **sdpa_kw))
+    backends = _sdpa_backends(torch, q, k, v, **sdpa_kw)
     # query i attends q_offset + i + 1 keys; each pair costs e MACs for
     # Q.K and f for P.V
     pairs = p * q_offset + p * (p + 1) // 2
     flops = 2 * (e + f) * pairs * hq * b
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + b * hq * p * f)
-    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
-                      shape=shape)
-    row["tile"] = [tile.block_q, tile.block_k]
+    t_fp32 = flops / FP32_FLOPS * 1e3
+    t_3xtf32 = 3 * flops / TF32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(t_3xtf32, t_bytes),
+               bound_by="operations" if t_3xtf32 >= t_bytes else "bytes",
+               bound_ms_fp32=max(t_fp32, t_bytes),
+               bound_ms_3xtf32=max(t_3xtf32, t_bytes),
+               share_of_3xtf32_bound=max(t_3xtf32, t_bytes) / ms,
+               flops=flops, bytes=nbytes, max_abs_err=err, ok=ok,
+               tile=[tile.block_q, tile.block_k], **backends)
     return row
+
+
+def _sdpa_backends(torch, q, k, v, **kw) -> dict:
+    """SDPA on the same inputs under each fp32 backend (memory-efficient
+    and math), timed apart, and the backend the default call runs: the
+    one whose output equals the default's bit for bit.  A backend that
+    refuses ``enable_gqa`` runs on K/V expanded to the query heads before
+    the clock starts."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    default = _sdpa_fn(torch, q, k, v, **kw)()
+    rep = q.shape[1] // k.shape[1]
+    forms = [("enable_gqa", k, v, dict(enable_gqa=True))]
+    if rep > 1:
+        forms.append(("expanded", k.repeat_interleave(rep, dim=1),
+                      v.repeat_interleave(rep, dim=1), {}))
+    out = {}
+    same = []
+    for name, backend in (("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("math", SDPBackend.MATH)):
+        out[f"library_{name}_ms"] = None
+        errors = []
+        for form, kk, vv, extra in forms:
+            def call(kk=kk, vv=vv, extra=extra, backend=backend):
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(q, kk, vv,
+                                                          **extra, **kw)
+            try:
+                res = call()
+            except (RuntimeError, TypeError) as exc:
+                errors.append(f"{form}: {str(exc).splitlines()[0][:120]}")
+                continue
+            if torch.equal(res, default):
+                same.append(name)
+            del res
+            out[f"library_{name}_ms"] = time_ms(torch, call)
+            out[f"library_{name}_form"] = form
+            break
+        if out[f"library_{name}_ms"] is None:
+            out[f"library_{name}_error"] = "; ".join(errors)
+    out["library_default_backend"] = "/".join(same) or "neither"
+    del forms, default
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_k1_mla(torch, gen, fm, autotune) -> dict:
@@ -707,34 +824,14 @@ def _sdpa_fn(torch, q, k, v, **kw):
         return lambda: F.scaled_dot_product_attention(q, ke, ve, **kw)
 
 
-def time_k1(torch, gen, fm, tile) -> dict:
+def time_k1(torch, gen, fm, autotune) -> dict:
     """K1 at a granite-3-8b prefill dispatch: 4 prompts of 1024, causal,
     32 q heads over 8 kv heads, head dim 128, fp32."""
-    b, hq, hkv, p, d = 4, 32, 8, 1024, 128
-    g = hq // hkv
-    q = _rand(torch, gen, (b, hq, p, d), torch.float32)
-    k = _rand(torch, gen, (b, hkv, p, d), torch.float32)
-    v = _rand(torch, gen, (b, hkv, p, d), torch.float32)
-    q_f = (q.reshape(b, hkv, g, p, d).transpose(2, 3)
-           .reshape(b * hkv, p * g, d).contiguous())
-    k_f, v_f = k.reshape(b * hkv, p, d), v.reshape(b * hkv, p, d)
-    args = dict(scale=d ** -0.5, causal=True, group=g, block_q=tile[0],
-                block_k=tile[1])
-    out = fm.fusemax_attention_cuda(q_f, k_f, v_f, **args)
-    ref = fm.fusemax_attention_torch(q_f, k_f, v_f, **args)
-    err, ok, _, _ = _err(torch, out, ref, "float32")
-    ms = time_ms(torch, lambda: fm.fusemax_attention_cuda(q_f, k_f, v_f,
-                                                          **args))
-    plain_ms = time_ms(torch, lambda: fm.fusemax_attention_torch(
-        q_f, k_f, v_f, **args), iters=5, warmup=1)
-    library_ms = time_ms(torch, _sdpa_fn(torch, q, k, v, is_causal=True))
-    # the causal bound needs p(p+1)/2 (q, k) pairs per head; each costs
-    # d MACs for Q·K and d for P·V
-    pairs = p * (p + 1) // 2
-    flops = 4 * d * pairs * hq * b
-    nbytes = 4 * (q.numel() + k.numel() + v.numel() + q.numel())
-    return _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
-                       shape=f"B{b} Hq{hq} Hkv{hkv} P=M={p} d{d} fp32 causal")
+    row = _time_k1_shape(torch, gen, fm, autotune, b=4, hq=32, hkv=8,
+                         p=1024, m=1024, e=128, f=128, q_offset=0,
+                         shape="B4 Hq32 Hkv8 P=M=1024 d128 fp32 causal")
+    torch.cuda.empty_cache()
+    return row
 
 
 def time_k2(torch, gen, dec, autotune) -> dict:
@@ -1211,8 +1308,6 @@ def main() -> int:
     emit("build", seconds=secs, build_dir=os.path.relpath(
         _build.build_dir(), ROOT), ptxas=_build.ptxas_report())
 
-    tile = autotune.attention_params(4096, 1024, 128, 128, impl="cuda")
-    tile = (tile.block_q, tile.block_k)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = run_k1_cases(torch, gen, fm, autotune) + \
@@ -1224,7 +1319,7 @@ def main() -> int:
     emit("kernel_case", **same)
     same4 = k4_perm_vs_identity(torch, gen, dec, autotune)
     emit("kernel_case", **same4)
-    t1 = time_k1(torch, gen, fm, tile)
+    t1 = time_k1(torch, gen, fm, autotune)
     emit("kernel_time", kernel="fusemax_prefill", **t1)
     t2 = time_k2(torch, gen, dec, autotune)
     emit("kernel_time", kernel="decode_partials", **t2)
@@ -1268,12 +1363,20 @@ def main() -> int:
                 "cases_passed": f"{sum(cases)}/{len(cases)}",
                 "ok": all(cases) and t["ok"]}
 
+    def k1_entry(name, t, n_launches, **dims):
+        extra = {key: val for key, val in t.items()
+                 if key.startswith(("bound_ms_", "share_", "library_"))
+                 and key != "library_ms"}
+        return dict(entry(name, "cuda", k1_src, k1_tpu, t, n_launches,
+                          kernel="fusemax_prefill"), **dims, **extra,
+                    tile=t["tile"])
+
     k1_src = "src/repro_torch/kernels/csrc/fusemax_prefill.cu"
     k1_tpu = "src/repro/kernels/fusemax.py:102"
     by_dims = mla_launches["fusemax_prefill_by_dims"]
     print(json.dumps({"kernels": [
-        entry("fusemax_prefill", "cuda", k1_src, k1_tpu, t1,
-              launches["fusemax_prefill"]),
+        k1_entry("fusemax_prefill", t1, launches["fusemax_prefill"],
+                 e=128, f=128),
         entry("decode_partials", "cuda",
               "src/repro_torch/kernels/csrc/decode_partials.cu",
               "src/repro/kernels/decode.py:60", t2,
@@ -1291,12 +1394,10 @@ def main() -> int:
                    mla_launches["mla_paged_decode_partials"]),
              ms_splits4_same_data=t4["ms_splits4_same_data"],
              k4_perm_vs_identity_max_abs_diff=same4["max_abs_diff_live"]),
-        dict(entry("fusemax_prefill@mla_forward", "cuda", k1_src, k1_tpu,
-                   t1m["mla_forward"], by_dims.get("192x128", 0),
-                   kernel="fusemax_prefill"), e=192, f=128),
-        dict(entry("fusemax_prefill@mla_absorbed", "cuda", k1_src, k1_tpu,
-                   t1m["mla_absorbed"], by_dims.get("576x512", 0),
-                   kernel="fusemax_prefill"), e=576, f=512),
+        k1_entry("fusemax_prefill@mla_forward", t1m["mla_forward"],
+                 by_dims.get("192x128", 0), e=192, f=128),
+        k1_entry("fusemax_prefill@mla_absorbed", t1m["mla_absorbed"],
+                 by_dims.get("576x512", 0), e=576, f=512),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": info}), flush=True)
     return 0

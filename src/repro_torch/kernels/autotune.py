@@ -48,11 +48,26 @@ SMEM_BUDGET = 232_448
 #: 128, DeepSeek's MLA prefill (nope 128 + rope 64 → v 128) and its
 #: absorbed latent attention (rank 512 + rope 64 → rank 512)
 CUDA_PREFILL_TILES = {
-    (64, 64): (64, 64),
-    (128, 128): (64, 64),
-    (192, 128): (64, 64),
-    (576, 512): (32, 32),
+    (64, 64): (128, 64),
+    (128, 128): (128, 64),
+    (192, 128): (128, 64),
+    (576, 512): (64, 64),
 }
+
+#: (E, F) → the warps that share one row group of that tile (its ``WF``):
+#: each holds F / WF accumulator columns, and above 1 the probabilities
+#: go through shared memory
+CUDA_PREFILL_WARP_SPLIT = {
+    (64, 64): 1,
+    (128, 128): 2,
+    (192, 128): 2,
+    (576, 512): 4,
+}
+
+#: the prefill kernel's K chunk width (columns of E) and ring stages
+#: (``KC`` and ``NS`` in ``fusemax_prefill.cu``)
+PREFILL_K_CHUNK = 64
+PREFILL_STAGES = 3
 
 
 def _round_up(x: int, m: int) -> int:
@@ -83,12 +98,31 @@ class DecodeParams:
     block_k: int
 
 
-def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int) -> int:
-    """Shared memory of one prefill block: Q and K tiles with a padded row
-    (bank-conflict-free column reads), the V tile, and the probability
-    tile, all fp32 — must match the layout in ``fusemax_prefill.cu``."""
-    return 4 * (block_q * (e + 1) + block_k * (e + 1) + block_k * f
-                + block_q * (block_k + 1))
+def _prefill_v_chunk(block_k: int, f: int, elem_bytes: int) -> int:
+    """Keys of one V chunk (``v_chunk`` in the kernel): the largest power
+    of two from 8 to ``block_k`` whose [keys x F] slab fits the ring slot
+    of a [block_k x PREFILL_K_CHUNK] K chunk."""
+    pad = 16 // elem_bytes
+    vk = block_k
+    while vk > 8 and vk * (f + pad) > block_k * (PREFILL_K_CHUNK + pad):
+        vk //= 2
+    return vk
+
+
+def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
+                       warp_split: int, elem_bytes: int = 4) -> int:
+    """Shared memory of one prefill block — must match ``Layout`` in
+    ``fusemax_prefill.cu``: the Q tile, a ring of ``PREFILL_STAGES`` equal
+    slots (a [block_k x 64] K chunk or a [VK x F] V chunk), every row
+    padded by 16 bytes, and where ``warp_split`` warps share a row group
+    the fp32 probability tile (rows padded by 8 floats) and the row-max
+    exchange."""
+    pad = 16 // elem_bytes
+    vk = _prefill_v_chunk(block_k, f, elem_bytes)
+    slot = max(block_k * (PREFILL_K_CHUNK + pad), vk * (f + pad))
+    probs = (4 * block_q * (block_k + 8 + warp_split) if warp_split > 1
+             else 0)
+    return elem_bytes * (block_q * (e + pad) + PREFILL_STAGES * slot) + probs
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +203,8 @@ def attention_params(p: int, m: int, e: int, f: int, *,
                 f"the CUDA prefill kernel is compiled for head dims (E, F) "
                 f"in {sorted(CUDA_PREFILL_TILES)}, not ({e}, {f})")
         bq, bk = CUDA_PREFILL_TILES[(e, f)]
-        need = prefill_smem_bytes(bq, bk, e, f)
+        need = prefill_smem_bytes(bq, bk, e, f,
+                                  CUDA_PREFILL_WARP_SPLIT[(e, f)])
         if need > SMEM_BUDGET:
             raise ValueError(
                 f"prefill tile {bq}x{bk} at head dims E={e}, F={f} needs "

@@ -12,51 +12,80 @@
 //   deferred division at the end (Eq. 53) with the l = 0 -> 1 guard.
 //   NEG_INF is the finite -1e30 of the reference: a row that is fully
 //   masked inside a tile that runs picks up exp(0) = 1 terms, which the
-//   next valid tile's correction factor exp(-1e30 - m) erases.
+//   next valid tile's correction factor exp(-1e30 - m) erases.  Keys past
+//   the end of k (a partial last tile) do not exist for the plain version
+//   and add nothing here either.
 //
 // What bounds it on this card: operations.  At prefill sizes each K/V
 // tile is reused by a BQ-row Q tile, so the two matrix products
 // (PG * M * (E + F) multiply-adds per fiber, halved by the causal bound)
-// outweigh the bytes read; in fp32 the ceiling is the 67 TFLOP/s of the
-// non-tensor FP32 units.
+// outweigh the bytes read.  Both products run on the tensor cores in
+// error-compensated 3xTF32: each fp32 operand x is split into
+// hi = rna_tf32(x) and lo = rna_tf32(x - hi) (cvt.rna.tf32.f32's
+// rounding, done on the integer pipe), and mma.sync m16n8k8 accumulates
+// lo·hi + hi·lo + hi·hi (small terms first) in fp32, which keeps the
+// products about as accurate as fp32 FMA.  The ceiling is therefore
+// 3 x FLOPs / 495 TFLOP/s (dense TF32), 2.7x above the 67 TFLOP/s of the
+// FP32 units.  bf16 inputs are exact in TF32: their lo parts are zero
+// and those products are skipped (1 mma for Q·K, 2 for P·V).
+// Single-pass TF32 is never used.
 //
-// What the simple design does about it: one block per (BQ-row query
-// tile, batch*kv-head fiber), 256 threads.  The Q tile stays in shared
-// memory for the whole sweep (output-stationary), K/V tiles of BK keys
-// stream through shared memory, and each thread keeps a (BQ/16)x(BK/16)
-// block of scores and a (BQ/16)x(F/16) block of the accumulator in
-// registers, so every shared-memory read feeds several FMAs.
+// What the design does about it:
+// * A warp owns MT = 2 m16 tiles (32 query rows), so every K and V
+//   fragment it loads and splits feeds 2 x 3 mma; its scores live in
+//   m16n8 accumulator fragments, a row's max needs only the 4-lane quad
+//   shuffles, and the row sum stays a per-lane partial until the end.
+// * 32 rows x F accumulators do not fit a warp's registers at F >= 128,
+//   so WF warps share a 32-row group: each computes the scores of BK / WF
+//   of the tile's keys and holds F / WF accumulator columns; the row max
+//   is combined through shared memory and P goes through shared memory
+//   once per key tile.
+// * At (64, 64) one warp holds a row group (WF = 1) and P stays in
+//   registers between the two products: the accumulator holds columns
+//   {2t, 2t+1} where the A operand wants {t, t+4}, so the V rows of the
+//   B fragment are permuted to match (key 2t <-> k index t, 2t+1 <->
+//   t+4) instead of moving P.  At F >= 128 that design needs 16-row
+//   warps, which split each fragment for half as many mma, and it ran
+//   slower than the shared P of 32-row warps (PERF.md).
+// * K/V arrive by 16-byte cp.async into a 3-stage ring of equal slots:
+//   a key tile is E/64 K chunks [BK keys x 64] then BK/VK V chunks
+//   [VK keys x F], so (576, 512) streams K over E and V over keys, and
+//   chunk i + 2 is in flight while chunk i is computed.  Q stays in
+//   shared memory for the whole sweep.  Every row is padded by 16 bytes,
+//   which makes all fragment loads free of bank conflicts.
+// * The tensor cores' fp32 accumulation truncates, so a score is summed
+//   in partials of KDEPTH k-steps that are added in IEEE fp32.
+// * A key tile that every row of the block sees whole skips the masks;
+//   query tiles run heaviest first (under a causal mask the last tiles
+//   sweep the most keys), which shortens the tail of the grid.
 //
-// The tile is chosen per (E, F) instantiation (PrefillTile below) so that
-// one block's fp32 tiles fit the 227 KB of shared memory:
-//   (64, 64), (128, 128) -- GQA heads (granite): 64 x 64;
-//   (192, 128)           -- DeepSeek MLA prefill (nope 128 + rope 64 ->
-//                           v 128, mla_forward): 64 x 64, 148 KB;
-//   (576, 512)           -- DeepSeek absorbed latent attention (rank 512 +
-//                           rope 64 -> rank 512, _mla_absorbed_attend):
-//                           32 x 32, 212 KB, 64 accumulator floats a
-//                           thread (64 x 64 would need 459 KB).
-// Rows of Q and K are padded by one float so that column reads are free
-// of bank conflicts.  The TPU's
-// sequential M1 grid axis becomes the loop over key tiles, and the TPU's
-// per-tile skip becomes the loop bounds.  All arithmetic is true fp32
-// FMA (no TF32); bf16 inputs are widened on load.  Tensor cores (wgmma),
-// TMA and warp specialisation are left for a later change.
+// The tile is chosen per (E, F) instantiation (PrefillTile below); the
+// shared memory of one block (fp32) is
+//   (64, 64)   128 x 64, WF 1, 4 warps:          87,040 B
+//   (128, 128) 128 x 64, WF 2, 8 warps:         157,696 B
+//   (192, 128) 128 x 64, WF 2, 8 warps:         190,464 B (mla_forward)
+//   (576, 512) 64 x 64,  WF 4, 8 warps:         220,160 B (absorbed)
+// (autotune.prefill_smem_bytes is the same formula), one block per SM
+// but at (64, 64).  The TPU's sequential M1 grid axis becomes the loop
+// over key tiles, and the TPU's per-tile skip becomes the loop bounds.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;       // threads: 16 x 16
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int KC = 64;  // K chunk width (columns of E)
+constexpr int NS = 3;   // ring stages
+// k-steps a score partial sum takes on the tensor cores before it is
+// added to the row's score in IEEE fp32: the mma accumulator truncates,
+// so a deep chain on a large sum drifts (at E = 576 with scores in the
+// hundreds, one chain over all 72 k-steps broke the fp32 tolerance)
+constexpr int KDEPTH = 4;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -87,58 +116,197 @@ __device__ __forceinline__ float fexp(float x) {
   return MACCS ? exp_maccs(x) : expf(x);
 }
 
-// The tile of each (E, F) instantiation: BQ query rows x BK keys, both
-// multiples of 16 (each of the 16 x 16 threads takes BQ/16 rows and BK/16
-// keys); F a multiple of 16 (BQ/16 x F/16 accumulator floats a thread).
-template <int E, int F> struct PrefillTile;
-template <> struct PrefillTile<64, 64> { static constexpr int BQ = 64, BK = 64; };
-template <> struct PrefillTile<128, 128> { static constexpr int BQ = 64, BK = 64; };
-template <> struct PrefillTile<192, 128> { static constexpr int BQ = 64, BK = 64; };
-template <> struct PrefillTile<576, 512> { static constexpr int BQ = 32, BK = 32; };
+// ---- tensor-core 3xTF32 ---------------------------------------------------
 
-template <int E, int F>
-__host__ __device__ constexpr int prefill_smem_bytes() {
-  constexpr int BQ = PrefillTile<E, F>::BQ, BK = PrefillTile<E, F>::BK;
-  return 4 * (BQ * (E + 1) + BK * (E + 1) + BK * F + BQ * (BK + 1));
+// cvt.rna.tf32.f32 on the integer pipe: round the 13 dropped mantissa
+// bits to nearest, ties away from zero (the same bits as the cvt, which
+// runs at a fraction of the rate), for every finite x
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo (+ what lo's rounding drops), each a TF32 value
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// A shared-memory operand split for the tensor cores; a widened bf16 is
+// exact in TF32, so its lo part is 0 (and never multiplied).
+__device__ __forceinline__ void load_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  split(x, hi, lo);
+}
+__device__ __forceinline__ void load_split(__nv_bfloat16 x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(__bfloat162float(x));
+  lo = 0u;
+}
+
+// d (16x8) += a (16x8, row) * b (8x8, col), TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b in 3xTF32: lo·hi + hi·lo + hi·hi, small terms first.  An
+// operand that is exact in TF32 (A_EXACT / B_EXACT) has lo = 0, and the
+// product with it is skipped.
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  if constexpr (!A_EXACT) mma(d, al, bh0, bh1);
+  if constexpr (!B_EXACT) mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+
+// ---- cp.async --------------------------------------------------------------
+
+// 16 bytes global -> shared; zero-filled when !valid (src must still be
+// a mapped address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- tiles and shared-memory layout ----------------------------------------
+
+// The tile of each (E, F) instantiation: BQ query rows x BK keys; a row
+// group of 16 MT rows (MT m16 tiles, which share every K and V fragment
+// a warp loads and splits) is held by WF warps, each with F / WF
+// accumulator columns and the scores of BK / WF keys.
+template <int E, int F> struct PrefillTile;
+template <> struct PrefillTile<64, 64> {
+  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2;
+};
+template <> struct PrefillTile<128, 128> {
+  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2;
+};
+template <> struct PrefillTile<192, 128> {
+  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2;
+};
+template <> struct PrefillTile<576, 512> {
+  static constexpr int BQ = 64, BK = 64, WF = 4, MT = 2;
+};
+
+// keys of a V chunk: the largest power of two (8 <= VK <= BK) whose
+// [VK x F] slab fits the slot of a [BK x KC] K chunk
+constexpr int v_chunk(int bk, int f, int pad) {
+  int vk = bk;
+  while (vk > 8 && vk * (f + pad) > bk * (KC + pad)) vk /= 2;
+  return vk;
+}
+
+template <typename T, int E, int F> struct Layout {
+  using Tile = PrefillTile<E, F>;
+  static constexpr int BQ = Tile::BQ, BK = Tile::BK, WF = Tile::WF,
+                       MT = Tile::MT;
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per cp.async
+  static constexpr int PAD = VEC;          // 16 bytes a row: no bank conflicts
+  static constexpr int QS = E + PAD, KS = KC + PAD, VS = F + PAD;
+  static constexpr int VK = v_chunk(BK, F, PAD);
+  static constexpr int SLOT = BK * KS > VK * VS ? BK * KS : VK * VS;
+  static constexpr int PS = BK + 8;        // fp32 probability tile stride
+  static constexpr int NKC = E / KC, NVC = BK / VK, NCH = NKC + NVC;
+  static constexpr int NWARP = BQ / (16 * MT) * WF, NT = 32 * NWARP;
+  static constexpr int BYTES =
+      static_cast<int>(sizeof(T)) * (BQ * QS + NS * SLOT) +
+      (WF > 1 ? 4 * (BQ * PS + BQ * WF) : 0);
+  static_assert(E % KC == 0 && KC % (8 * KDEPTH) == 0 &&
+                    BQ % (16 * MT) == 0 && BK % (8 * WF) == 0 &&
+                    F % (8 * WF) == 0 && BK % VK == 0 && VK % 8 == 0,
+                "tile shapes");
+  static_assert(BYTES <= 232448, "the tiles exceed one block's shared memory");
+};
+
+// Issue chunk c (0 <= c < NCH) of the key tile at k0 into `slot`: c < NKC
+// is K[k0, k0 + BK) x [c·KC, c·KC + KC), else V[k0 + (c - NKC)·VK, + VK) x
+// F; keys past m are zero-filled.
+template <typename T, int E, int F>
+__device__ __forceinline__ void issue_chunk(T* slot, const T* kb,
+                                            const T* vb, int m, int k0,
+                                            int c, int tid) {
+  using L = Layout<T, E, F>;
+  if (c < L::NKC) {
+    constexpr int VPR = KC / L::VEC;
+    for (int i = tid; i < L::BK * VPR; i += L::NT) {
+      const int r = i / VPR, x = i % VPR;
+      const int kr = k0 + r;
+      cp_async16(slot + r * L::KS + x * L::VEC,
+                 kb + static_cast<size_t>(min(kr, m - 1)) * E + c * KC +
+                     x * L::VEC,
+                 kr < m);
+    }
+  } else {
+    constexpr int VPR = F / L::VEC;
+    const int kv0 = k0 + (c - L::NKC) * L::VK;
+    for (int i = tid; i < L::VK * VPR; i += L::NT) {
+      const int r = i / VPR, x = i % VPR;
+      const int kr = kv0 + r;
+      cp_async16(slot + r * L::VS + x * L::VEC,
+                 vb + static_cast<size_t>(min(kr, m - 1)) * F + x * L::VEC,
+                 kr < m);
+    }
+  }
 }
 
 template <typename T, int E, int F, bool MACCS>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Layout<T, E, F>::NT)
 fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int pg,
                        int m, float scale, int causal, int window,
                        float softcap, int q_offset, int group, int m_valid) {
-  constexpr int BQ = PrefillTile<E, F>::BQ;
-  constexpr int BK = PrefillTile<E, F>::BK;
-  constexpr int RI = BQ / 16;  // query rows per thread
-  constexpr int KJ = BK / 16;  // keys per thread
-  constexpr int ES = E + 1;    // padded row stride of the Q and K tiles
-  constexpr int PS = BK + 1;   // padded row stride of the probability tile
-  constexpr int FC = F / 16;   // accumulator columns per thread
-  static_assert(BQ % 16 == 0 && BK % 16 == 0 && F % 16 == 0,
-                "16 x 16 threads tile rows, keys and features");
-  static_assert(prefill_smem_bytes<E, F>() <= 232448,
-                "the tiles exceed one block's shared memory");
-  extern __shared__ float smem[];
-  float* qs = smem;           // [BQ][ES]
-  float* ks = qs + BQ * ES;   // [BK][ES]
-  float* vs = ks + BK * ES;   // [BK][F]
-  float* ps = vs + BK * F;    // [BQ][PS]
+  using L = Layout<T, E, F>;
+  constexpr int BQ = L::BQ, BK = L::BK, WF = L::WF, MT = L::MT, VK = L::VK;
+  constexpr int KW = BK / WF;   // keys whose scores one warp computes
+  constexpr int NSB = KW / 8;   // score n-blocks a warp holds per m-tile
+  constexpr int FW = F / WF;    // accumulator columns one warp holds
+  constexpr int NOB = FW / 8;   // accumulator n-blocks per m-tile
+  constexpr bool EXACT = sizeof(T) == 2;  // bf16: exact in TF32
+  constexpr bool P_REGS = WF == 1;        // P stays in registers
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;    // key / feature columns tx + 16 j
-  const int ty = tid / 16;    // query rows ty + 16 i
-  const int r0 = blockIdx.x * BQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);          // [BQ][QS]
+  T* ring = qs + BQ * L::QS;                       // NS x SLOT
+  float* ps = reinterpret_cast<float*>(ring + NS * L::SLOT);  // [BQ][PS]
+  float* red = ps + BQ * L::PS;                    // [BQ][WF]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rg = warp / WF, wf = warp % WF;
+  // heaviest query tiles first: under a causal mask the last tiles sweep
+  // the most keys
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int bh = blockIdx.y;
   const int rows = min(BQ, pg - r0);
   const T* qb = q + (static_cast<size_t>(bh) * pg + r0) * E;
   const T* kb = k + static_cast<size_t>(bh) * m * E;
   const T* vb = v + static_cast<size_t>(bh) * m * F;
 
-  for (int i = tid; i < BQ * E; i += NT) {
-    const int r = i / E, c = i % E;
-    qs[r * ES + c] = r < rows ? to_f(qb[static_cast<size_t>(r) * E + c])
-                              : 0.f;
+  {
+    constexpr int VPR = E / L::VEC;
+    for (int i = tid; i < BQ * VPR; i += L::NT) {
+      const int r = i / VPR, x = i % VPR;
+      cp_async16(qs + r * L::QS + x * L::VEC,
+                 qb + static_cast<size_t>(min(r, rows - 1)) * E + x * L::VEC,
+                 r < rows);
+    }
   }
 
   // Key tiles this query tile runs: the TPU kernel's block-level skip
@@ -151,131 +319,274 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) kend = min(kend, q_hi + 1);
   const int t_begin = kstart / BK;
   const int t_end = kend > 0 ? (kend + BK - 1) / BK : 0;
+  const int n_chunks = t_end > t_begin ? (t_end - t_begin) * L::NCH : 0;
 
-  int qpos[RI];
-  float m_i[RI], l_i[RI], acc[RI][FC];
+  auto issue = [&](int i) {
+    if (i < n_chunks)
+      issue_chunk<T, E, F>(ring + (i % NS) * L::SLOT, kb, vb, m,
+                           (t_begin + i / L::NCH) * BK, i % L::NCH, tid);
+    cp_commit();  // an empty group keeps the wait count uniform
+  };
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    qpos[i] = (r0 + ty + 16 * i) / group + q_offset;
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
+  for (int i = 0; i < NS - 1; ++i) issue(i);  // Q joins the first group
+
+  // this lane's rows: row[mt][0] = g and row[mt][1] = g + 8 of m-tile mt
+  int row[MT][2], qpos[MT][2];
+  float m_i[MT][2], l_i[MT][2];  // l: per-lane partial over the lane's keys
+  float acc[MT][NOB][4];
 #pragma unroll
-    for (int j = 0; j < FC; ++j) acc[i][j] = 0.f;
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row[mt][h] = (rg * MT + mt) * 16 + g + 8 * h;
+      qpos[mt][h] = (r0 + row[mt][h]) / group + q_offset;
+      m_i[mt][h] = NEG_INF;
+      l_i[mt][h] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < NOB; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[mt][n][x] = 0.f;
   }
 
+  int i = 0;  // chunk being consumed
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // previous tile's readers are done
-    if constexpr (E == F) {
-      for (int i = tid; i < BK * E; i += NT) {
-        const int r = i / E, c = i % E;
-        const int kr = k0 + r;
-        const bool in = kr < m;
-        ks[r * ES + c] = in ? to_f(kb[static_cast<size_t>(kr) * E + c])
-                            : 0.f;
-        vs[r * F + c] = in ? to_f(vb[static_cast<size_t>(kr) * F + c]) : 0.f;
+
+    // BQK (Eq. 42): s[mt][j] holds rows g, g + 8 of m-tile mt x keys
+    // wf·KW + 8j + {2t, 2t + 1}
+    float s[MT][NSB][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NSB; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) s[mt][j][x] = 0.f;
+    for (int c = 0; c < L::NKC; ++c, ++i) {
+      cp_wait<NS - 2>();
+      __syncthreads();  // chunk i landed; chunk i - 1's slot is free
+      issue(i + NS - 1);
+      const T* kc = ring + (i % NS) * L::SLOT;
+#pragma unroll
+      for (int kp = 0; kp < KC / 8; kp += KDEPTH) {
+        float part[MT][NSB][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < NSB; ++j)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) part[mt][j][x] = 0.f;
+#pragma unroll
+        for (int kk = kp; kk < kp + KDEPTH; ++kk) {
+          const int e0 = c * KC + kk * 8 + t4;
+          uint32_t qh[MT][4], ql[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const T* qr = qs + row[mt][0] * L::QS + e0;
+            load_split(qr[0], qh[mt][0], ql[mt][0]);
+            load_split(qr[8 * L::QS], qh[mt][1], ql[mt][1]);
+            load_split(qr[4], qh[mt][2], ql[mt][2]);
+            load_split(qr[8 * L::QS + 4], qh[mt][3], ql[mt][3]);
+          }
+#pragma unroll
+          for (int j = 0; j < NSB; ++j) {
+            const T* kr = kc + (wf * KW + j * 8 + g) * L::KS + kk * 8 + t4;
+            uint32_t kh0, kl0, kh1, kl1;
+            load_split(kr[0], kh0, kl0);
+            load_split(kr[4], kh1, kl1);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma3<EXACT, EXACT>(part[mt][j], qh[mt], ql[mt], kh0, kh1, kl0,
+                                 kl1);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < NSB; ++j)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) s[mt][j][x] += part[mt][j][x];
       }
-    } else {
-      for (int i = tid; i < BK * E; i += NT) {
-        const int r = i / E, c = i % E;
-        const int kr = k0 + r;
-        ks[r * ES + c] = kr < m ? to_f(kb[static_cast<size_t>(kr) * E + c])
-                                : 0.f;
+    }
+
+    // masks, LM/RM (Eqs. 43-44).  A tile whose keys all exist, are below
+    // m_valid and are visible to every row of the block needs no mask.
+    const bool full =
+        k0 + BK <= m_valid && (!causal || k0 + BK - 1 <= q_lo) &&
+        (window <= 0 || k0 > q_hi - window);
+    float lm[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      lm[mt][0] = NEG_INF;
+      lm[mt][1] = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NSB; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int h = x >> 1;
+          const int kpos = k0 + wf * KW + j * 8 + 2 * t4 + (x & 1);
+          float sx = s[mt][j][x] * scale;
+          if (softcap > 0.f) sx = softcap * tanhf(sx / softcap);
+          if (!full) {
+            bool ok = kpos < m_valid;
+            if (causal) ok = ok && kpos <= qpos[mt][h];
+            if (window > 0) ok = ok && kpos > qpos[mt][h] - window;
+            sx = ok ? sx : NEG_INF;
+          }
+          s[mt][j][x] = sx;
+          lm[mt][h] = fmaxf(lm[mt][h], sx);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)  // the quad holds one row
+          lm[mt][h] =
+              fmaxf(lm[mt][h], __shfl_xor_sync(0xffffffffu, lm[mt][h], off));
+    }
+    if constexpr (WF > 1) {  // the row group's other warps hold other keys
+      if (t4 == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) red[row[mt][h] * WF + wf] = lm[mt][h];
       }
-      for (int i = tid; i < BK * F; i += NT) {
-        const int r = i / F, c = i % F;
-        const int kr = k0 + r;
-        vs[r * F + c] = kr < m ? to_f(vb[static_cast<size_t>(kr) * F + c])
-                               : 0.f;
+      __syncthreads();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int w = 0; w < WF; ++w)
+            lm[mt][h] = fmaxf(lm[mt][h], red[row[mt][h] * WF + w]);
+    }
+
+    // SLN/SLD, PRM/RD (Eqs. 45-46, 48-50)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float prm[2], sld[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mn = fmaxf(m_i[mt][h], lm[mt][h]);
+        prm[h] = fexp<MACCS>(m_i[mt][h] - mn);
+        m_i[mt][h] = mn;
       }
+#pragma unroll
+      for (int j = 0; j < NSB; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int h = x >> 1;
+          float p = fexp<MACCS>(s[mt][j][x] - m_i[mt][h]);
+          if (!full && k0 + wf * KW + j * 8 + 2 * t4 + (x & 1) >= m) p = 0.f;
+          s[mt][j][x] = p;
+          sld[h] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l_i[mt][h] = l_i[mt][h] * prm[h] + sld[h];
+#pragma unroll
+      for (int n = 0; n < NOB; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[mt][n][x] *= prm[x >> 1];
+      if constexpr (!P_REGS) {
+#pragma unroll
+        for (int j = 0; j < NSB; ++j) {
+          const int col = wf * KW + j * 8 + 2 * t4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(ps + row[mt][h] * L::PS + col) =
+                make_float2(s[mt][j][2 * h], s[mt][j][2 * h + 1]);
+        }
+      }
+    }
+
+    // SLNV / RNV (Eqs. 47, 51-52).  The A fragment of k-step j takes key
+    // 8j + 2t as its k index t and 8j + 2t + 1 as t + 4 -- the columns an
+    // accumulator lane holds -- and the V rows of the B fragment follow.
+#pragma unroll
+    for (int c = 0; c < L::NVC; ++c, ++i) {
+      cp_wait<NS - 2>();
+      __syncthreads();  // chunk i landed (and, the first time, all of P)
+      issue(i + NS - 1);
+      const T* vc = ring + (i % NS) * L::SLOT;
+#pragma unroll
+      for (int kk = 0; kk < VK / 8; ++kk) {
+        uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (P_REGS) {
+            const int j = c * (VK / 8) + kk;
+            split(s[mt][j][0], ph[mt][0], pl[mt][0]);
+            split(s[mt][j][2], ph[mt][1], pl[mt][1]);
+            split(s[mt][j][1], ph[mt][2], pl[mt][2]);
+            split(s[mt][j][3], ph[mt][3], pl[mt][3]);
+          } else {
+            const float* pr =
+                ps + row[mt][0] * L::PS + c * VK + kk * 8 + 2 * t4;
+            const float2 pa = *reinterpret_cast<const float2*>(pr);
+            const float2 pb = *reinterpret_cast<const float2*>(pr + 8 * L::PS);
+            split(pa.x, ph[mt][0], pl[mt][0]);
+            split(pb.x, ph[mt][1], pl[mt][1]);
+            split(pa.y, ph[mt][2], pl[mt][2]);
+            split(pb.y, ph[mt][3], pl[mt][3]);
+          }
+        }
+        const T* vr = vc + (kk * 8 + 2 * t4) * L::VS + wf * FW + g;
+#pragma unroll
+        for (int n = 0; n < NOB; ++n) {
+          uint32_t vh0, vl0, vh1, vl1;
+          load_split(vr[n * 8], vh0, vl0);
+          load_split(vr[L::VS + n * 8], vh1, vl1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma3<false, EXACT>(acc[mt][n], ph[mt], pl[mt], vh0, vh1, vl0,
+                               vl1);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // RD of the whole row: the quad's lanes, then the row group's warps
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        l_i[mt][h] += __shfl_xor_sync(0xffffffffu, l_i[mt][h], off);
+  if constexpr (WF > 1) {
+    __syncthreads();
+    if (t4 == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) red[row[mt][h] * WF + wf] = l_i[mt][h];
     }
     __syncthreads();
-
-    // BQK (Eq. 42)
-    float s[RI][KJ];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < E; ++e) {
-      float qv[RI], kv[KJ];
+      for (int h = 0; h < 2; ++h) {
+        l_i[mt][h] = 0.f;
 #pragma unroll
-      for (int i = 0; i < RI; ++i) qv[i] = qs[(ty + 16 * i) * ES + e];
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) kv[j] = ks[(tx + 16 * j) * ES + e];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // masks, LM/RM (Eqs. 43-44), SLN/SLD (Eqs. 45-46), PRM/RD (48-50)
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      float lm = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool ok = kpos < m_valid;
-        if (causal) ok = ok && kpos <= qpos[i];
-        if (window > 0) ok = ok && kpos > qpos[i] - window;
-        x = ok ? x : NEG_INF;
-        s[i][j] = x;
-        lm = fmaxf(lm, x);
+        for (int w = 0; w < WF; ++w) l_i[mt][h] += red[row[mt][h] * WF + w];
       }
-      // the 16 threads of a row group are one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        lm = fmaxf(lm, __shfl_xor_sync(0xffffffffu, lm, off));
-      const float m_new = fmaxf(m_i[i], lm);
-      float sld = 0.f;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float p = fexp<MACCS>(s[i][j] - m_new);
-        s[i][j] = p;
-        sld += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sld += __shfl_xor_sync(0xffffffffu, sld, off);
-      const float prm = fexp<MACCS>(m_i[i] - m_new);
-      l_i[i] = l_i[i] * prm + sld;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < FC; ++j) acc[i][j] *= prm;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) ps[(ty + 16 * i) * PS + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-
-    // SLNV / RNV (Eqs. 47, 51-52)
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[RI];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) pv[i] = ps[(ty + 16 * i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < FC; ++j) {
-        const float vv = vs[kk * F + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
   }
 
   // AV (Eq. 53): deferred division; rows no tile reached emit 0
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = ty + 16 * i;
-    if (row >= rows) continue;
-    const float l = l_i[i] == 0.f ? 1.f : l_i[i];
-    T* orow = o + (static_cast<size_t>(bh) * pg + r0 + row) * F;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < FC; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
-  }
+    for (int h = 0; h < 2; ++h) {
+      if (row[mt][h] >= rows) continue;
+      const float d = l_i[mt][h] == 0.f ? 1.f : l_i[mt][h];
+      T* orow = o + (static_cast<size_t>(bh) * pg + r0 + row[mt][h]) * F +
+                wf * FW + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NOB; ++n) {
+        orow[n * 8] = from_f<T>(acc[mt][n][2 * h] / d);
+        orow[n * 8 + 1] = from_f<T>(acc[mt][n][2 * h + 1] / d);
+      }
+    }
 }
 
 template <typename T, int E, int F, bool MACCS>
@@ -283,14 +594,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bh, int pg, int m, float scale, int causal, int window,
                    float softcap, int q_offset, int group, int m_valid,
                    cudaStream_t stream) {
-  constexpr int BQ = PrefillTile<E, F>::BQ;
-  constexpr int smem = prefill_smem_bytes<E, F>();
+  using L = Layout<T, E, F>;
   auto kern = fusemax_prefill_kernel<T, E, F, MACCS>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((pg + BQ - 1) / BQ, bh);
-  kern<<<grid, NT, smem, stream>>>(
+  const dim3 grid((pg + L::BQ - 1) / L::BQ, bh);
+  kern<<<grid, L::NT, L::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), pg, m, scale, causal,
       window, softcap, q_offset, group, m_valid);
@@ -331,7 +641,8 @@ cudaError_t dispatch_dims(int e, int f, int maccs, const void* q,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  (e, f): q/k head dim and v head dim,
-// one of (64, 64), (128, 128), (192, 128), (576, 512).
+// one of (64, 64), (128, 128), (192, 128), (576, 512).  q, k, v and o
+// must be 16-byte aligned.
 // window <= 0 means no window; softcap <= 0 means no softcap.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int fusemax_prefill(const void* q, const void* k, const void* v,

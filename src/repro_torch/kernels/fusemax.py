@@ -12,7 +12,8 @@ differ from F (DeepSeek's MLA: (192, 128) expanded, (576, 512) absorbed):
   Eqs. 39-41) in fp32, with the TPU kernel's per-(query tile, key tile)
   skip and its masks, and one deferred division at the end (Eq. 53).
 * :func:`fusemax_attention_cuda` launches ``csrc/fusemax_prefill.cu``
-  and counts its launches in ``fusemax_attention_cuda.launches`` (and by
+  (both products on the tensor cores in error-compensated 3xTF32) and
+  counts its launches in ``fusemax_attention_cuda.launches`` (and by
   head dims in ``.launches_by_dims``).
 
 ``NEG_INF`` is finite on purpose: a row fully masked inside a tile that
@@ -254,6 +255,11 @@ def fusemax_attention_cuda(
         raise ValueError(f"m_valid={m_valid} outside [0, {m}]")
     if bh > 65535:
         raise ValueError(f"B·Hkv={bh} exceeds the grid's 65535 fibers")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("fusemax_attention_cuda: operands must be "
+                             "16-byte aligned (the kernel copies 16-byte "
+                             "vectors)")
     fn, _ = _prefill_lib()
     tile = cuda_prefill_tile(e, f)
     if (block_q, block_k) != tile:

@@ -241,18 +241,23 @@ def test_paged_autotune_matches_reference_model(w, ps, e):
 def test_cuda_tile_fits_shared_memory():
     """Each (E, F) pair the CUDA prefill kernel is compiled for has its own
     tile, and each fits one block's shared memory: granite's (128, 128)
-    keeps 64 x 64, DeepSeek's absorbed (576, 512) needs 32 x 32 (64 x 64
-    would take 459 KB).  A pair the kernel is not compiled for raises."""
+    takes 128 x 64 with two warps per 32-row group (157,696 B fp32, the
+    kernel's ``Layout::BYTES``), DeepSeek's absorbed (576, 512) 64 x 64
+    with four (220,160 B; 128 rows would take 388,096 B).  A pair the kernel
+    is not compiled for raises."""
     tile = autotune.attention_params(4096, 1024, 128, 128, impl="cuda")
-    assert (tile.block_q, tile.block_k) == (64, 64)
+    assert (tile.block_q, tile.block_k) == (128, 64)
     for (e, f), (bq, bk) in autotune.CUDA_PREFILL_TILES.items():
         got = autotune.attention_params(4096, 1024, e, f, impl="cuda")
         assert (got.block_q, got.block_k) == (bq, bk)
-        assert autotune.prefill_smem_bytes(bq, bk, e, f) \
+        wf = autotune.CUDA_PREFILL_WARP_SPLIT[(e, f)]
+        assert autotune.prefill_smem_bytes(bq, bk, e, f, wf) \
             <= autotune.SMEM_BUDGET
-    assert autotune.CUDA_PREFILL_TILES[(576, 512)] == (32, 32)
-    assert autotune.prefill_smem_bytes(64, 64, 576, 512) \
+    assert autotune.CUDA_PREFILL_TILES[(576, 512)] == (64, 64)
+    assert autotune.prefill_smem_bytes(128, 64, 576, 512, 4) \
         > autotune.SMEM_BUDGET
+    assert autotune.prefill_smem_bytes(128, 64, 128, 128, 2) == 157_696
+    assert autotune.prefill_smem_bytes(64, 64, 576, 512, 4) == 220_160
     with pytest.raises(ValueError, match="compiled for head dims"):
         autotune.attention_params(64, 64, 512, 512, impl="cuda")
 
