@@ -18,13 +18,22 @@ JSON line (``"phase": ...``):
              mantissa bits that matter, P = M = 1024), dense
              split-K decode (K2), paged split-K decode (K3) and paged MLA
              latent decode (K4) kernels against its plain torch version on
-             the same inputs, with its tolerance; K3 against K2 on a
+             the same inputs, with its tolerance (K2 and K3 also at 64
+             query rows, 8-token pages, splits of exactly one chunk,
+             kv_len on both sides of chunk edges and bf16 d64 at P = 3;
+             and given an operand one element off a 16-byte boundary,
+             which they must refuse); K3 against K2 on a
              permuted pool holding a dense cache's rows (``k3_vs_k2``) and
              K4 on a permuted latent pool against K4 on the same rows in
              identity page order (``k4_perm_vs_identity``), both equal bits
              on every row with kv_len >= 1; then each kernel's time at the
              shapes the granite-3-8b and DeepSeek-V3 main paths give it,
-             beside its plain version's, a library call's (``library_ms``:
+             (``ms``: CUDA events around 20 back-to-back wrapper calls;
+             K2-K4 also ``device_ms``: the kernel's own duration from
+             ``torch.profiler`` over 20 more calls, without the wrapper's
+             host time; K2 and K3 also ``host_ms``, the wrapper's host
+             time per call), beside its plain version's, a library call's
+             (``library_ms``:
              a yardstick the port never calls; for K1 also SDPA under
              each fp32 backend and the one the default call ran) and the
              least time the card could take (``bound_ms``; K1 against the
@@ -252,11 +261,12 @@ def run_k1_cases(torch, gen, fm, autotune) -> list:
     return rows
 
 
-def run_k2_cases(torch, gen, dec) -> list:
-    rows = []
+def k2_cases(torch, ck: int):
+    """(name, b, hkv, group, P, M, d, dtype, kv_len, splits, block_k,
+    kwargs) for the dense decode kernel; ``ck`` is its chunk (keys per
+    ring stage), which the stress cases straddle."""
     f32, bf16 = torch.float32, torch.bfloat16
-    # name, b, hkv, group, P, M, d, dtype, kv_len, splits, block_k, kwargs
-    cases = [
+    return [
         ("fp32 ragged kv_len incl 0,1 splits=4", 4, 8, 4, 1, 512, 128, f32,
          [0, 1, 300, 512], 4, 128, {}),
         ("bf16 ragged splits=4", 4, 8, 4, 1, 512, 128, bf16,
@@ -271,8 +281,24 @@ def run_k2_cases(torch, gen, dec) -> list:
          [0, 5, 250, 510], 4, 128, {}),
         ("bf16 P=2 verify rows g8 d64 splits=8", 2, 2, 8, 2, 1024, 64, bf16,
          [1, 1022], 8, 128, {}),
+        # stress: the most rows (8 row blocks of 8), a split of exactly one
+        # chunk, kv_len around chunk edges, bf16 d64 at P = 3
+        ("fp32 R=64 (P=16 G=4) d128 splits=4", 3, 2, 4, 16, 512, 128, f32,
+         [0, 200, 497], 4, 128, {}),
+        (f"fp32 one-chunk splits (split_len {ck}) d64 splits=8", 2, 4, 4, 1,
+         8 * ck, 64, f32, [8 * ck, 77], 8, ck, {}),
+        ("fp32 kv_len around chunk edges d128 splits=2", 8, 2, 4, 1, 8 * ck,
+         128, f32, [ck - 1, ck, ck + 1, 2 * ck - 1, 2 * ck, 2 * ck + 1,
+                    4 * ck - 1, 4 * ck + 1], 2, 128, {}),
+        ("bf16 d64 P=3 verify rows splits=4", 2, 2, 4, 3, 512, 64, bf16,
+         [0, 300], 4, 128, {}),
     ]
-    for (name, b, hkv, g, p, m, d, dtype, kvl, splits, bk, kw) in cases:
+
+
+def run_k2_cases(torch, gen, dec, autotune) -> list:
+    rows = []
+    for (name, b, hkv, g, p, m, d, dtype, kvl, splits, bk,
+         kw) in k2_cases(torch, autotune.DECODE_CHUNK):
         q = _rand(torch, gen, (b * hkv, p * g, d), dtype)
         k = _rand(torch, gen, (b * hkv, m, d), dtype)
         v = _rand(torch, gen, (b * hkv, m, d), dtype)
@@ -286,8 +312,56 @@ def run_k2_cases(torch, gen, dec) -> list:
         torch.cuda.synchronize()
         dn = str(dtype).split(".")[1]
         err, ok, atol, rtol = _err(torch, out, ref, dn)
+        if 0 in kvl and p == 1:
+            # kv_len = 0 decodes to exactly 0 (no tile runs), as on the TPU
+            zero = torch.tensor(kvl, device="cuda").repeat_interleave(hkv) == 0
+            ok = ok and bool((out[zero] == 0).all().item())
         rows.append(dict(kernel="decode_partials", case=name, dtype=dn,
                          max_abs_err=err, atol=atol, rtol=rtol, ok=ok))
+    return rows
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary (storage offset 1)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def misaligned_cases(torch, gen, dec) -> list:
+    """K2 and K3 given an operand one element off a 16-byte boundary must
+    raise (they copy 16-byte vectors and have no scalar path)."""
+    b, hkv, g, m, d, ps = 2, 2, 4, 64, 128, 16
+    q = _rand(torch, gen, (b * hkv, g, d), torch.float32)
+    k = _rand(torch, gen, (b * hkv, m, d), torch.float32)
+    kp = _rand(torch, gen, (8, ps, hkv, d), torch.float32)
+    table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(b, 4)
+    kv_len = torch.tensor([40, 64], dtype=torch.int32, device="cuda")
+    common = dict(scale=d ** -0.5, hkv=hkv, splits=1)
+    calls = [
+        ("decode_partials", "k", lambda: dec.decode_partials_cuda(
+            q, _misaligned(torch, k), k, kv_len, block_k=64, **common)),
+        ("decode_partials", "q", lambda: dec.decode_partials_cuda(
+            _misaligned(torch, q), k, k, kv_len, block_k=64, **common)),
+        ("paged_decode_partials", "v_pages",
+         lambda: dec.paged_decode_partials_cuda(
+             q, kp, _misaligned(torch, kp), table, kv_len, block_k=ps,
+             **common)),
+    ]
+    rows = []
+    for kernel, what, call in calls:
+        try:
+            call()
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        torch.cuda.synchronize()
+        rows.append(dict(kernel=kernel,
+                         case=f"misaligned {what} (storage offset 1 element) "
+                              f"raises", raised=raised,
+                         ok=raised is not None and "16-byte" in raised))
     return rows
 
 
@@ -312,10 +386,12 @@ def _paged_inputs(torch, gen, b, hkv, ps, w, n_pages, d, dtype, kvl, n_pos):
     return k, v, _permuted_table(torch, gen, b, ps, w, n_pages, kvl, n_pos)
 
 
-def k3_cases(torch):
+def k3_cases(torch, ck: int):
     """(name, b, hkv, group, P, page_size, W, pool pages, d, dtype, kv_len,
-    splits, block_k, kwargs) for the paged decode kernel."""
+    splits, block_k, kwargs) for the paged decode kernel; ``ck`` is its
+    chunk (keys per ring stage), which the stress cases straddle."""
     f32, bf16 = torch.float32, torch.bfloat16
+    w_edge = 8 * ck // 16
     return [
         ("fp32 ps16 d128 kv_len 0,1,W*ps splits=4", 4, 8, 4, 1, 16, 32, 160,
          128, f32, [0, 1, 300, 512], 4, 16, {}),
@@ -334,13 +410,27 @@ def k3_cases(torch):
         ("fp32 softcap=50 exp=maccs ps16 splits=16", 2, 8, 4, 1, 16, 128,
          300, 128, f32, [2048, 3], 16, 16,
          dict(softcap=50.0, exp_impl="maccs")),
+        # stress: the most rows, a chunk over several pages, a split of
+        # exactly one chunk, kv_len around chunk edges, bf16 d64 at P = 3
+        ("fp32 R=64 (P=16 G=4) ps16 d128 splits=4", 2, 2, 4, 16, 16, 32, 80,
+         128, f32, [1, 400], 4, 16, {}),
+        (f"fp32 ps8: a chunk of {ck} keys spans {ck // 8} pages, splits=2",
+         3, 4, 4, 1, 8, 32, 110, 128, f32, [256, 100, 37], 2, 8, {}),
+        (f"fp32 one-chunk splits (split_len {ck}) ps16 splits=8", 2, 4, 4, 1,
+         16, 8 * ck // 16, 40, 128, f32, [8 * ck, 45], 8, 16, {}),
+        ("fp32 kv_len around chunk edges ps16 splits=2", 8, 2, 4, 1, 16,
+         w_edge, 8 * w_edge + 8, 128, f32,
+         [ck - 1, ck, ck + 1, 2 * ck - 1, 2 * ck, 2 * ck + 1, 4 * ck - 1,
+          4 * ck + 1], 2, 16, {}),
+        ("bf16 d64 P=3 verify ps16 splits=4", 2, 2, 4, 3, 16, 32, 80, 64,
+         bf16, [5, 400], 4, 16, {}),
     ]
 
 
-def run_k3_cases(torch, gen, dec) -> list:
+def run_k3_cases(torch, gen, dec, autotune) -> list:
     rows = []
     for (name, b, hkv, g, p, ps, w, n_pages, d, dtype, kvl, splits, bk,
-         kw) in k3_cases(torch):
+         kw) in k3_cases(torch, autotune.DECODE_CHUNK):
         q = _rand(torch, gen, (b * hkv, p * g, d), dtype)
         k, v, table = _paged_inputs(torch, gen, b, hkv, ps, w, n_pages, d,
                                     dtype, kvl, p)
@@ -459,12 +549,21 @@ def time_k3(torch, gen, dec, ops, autotune) -> dict:
     err, ok, _, _ = _err(torch, out, ref, "float32")
     ms = time_ms(torch, lambda: dec.paged_decode_partials_cuda(
         q_f, kp, vp, table, kv_len, **args))
+    dev_ms = device_ms(torch, lambda: dec.paged_decode_partials_cuda(
+        q_f, kp, vp, table, kv_len, **args), "PagedKV")
+    wrapper_ms = host_ms(torch, lambda: dec.paged_decode_partials_cuda(
+        q_f, kp, vp, table, kv_len, **args))
     plain_ms = time_ms(torch, lambda: dec.paged_decode_partials_torch(
         q_f, kp, vp, table, kv_len, **args), iters=5, warmup=1)
     k_f, v_f = x["k"].reshape(b * hkv, m, d), x["v"].reshape(b * hkv, m, d)
-    k2_ms = time_ms(torch, lambda: dec.decode_partials_cuda(
-        q_f, k_f, v_f, kv_len, scale=d ** -0.5, hkv=hkv,
-        splits=dense.splits, block_k=dense.block_k))
+
+    def k2():
+        return dec.decode_partials_cuda(
+            q_f, k_f, v_f, kv_len, scale=d ** -0.5, hkv=hkv,
+            splits=dense.splits, block_k=dense.block_k)
+
+    k2_ms = time_ms(torch, k2)
+    k2_dev_ms = device_ms(torch, k2, "DenseKV")
     mask = (torch.arange(m, device="cuda")[None, :]
             < kv_len[:, None])[:, None, None, :]
 
@@ -492,6 +591,11 @@ def time_k3(torch, gen, dec, ops, autotune) -> dict:
                             f"{n_pages} pages d{d} fp32 kv_len {kvl} splits "
                             f"{tuned.splits} block_k {tuned.block_k}")
     row["k2_ms_same_data"] = k2_ms
+    row["device_ms"] = dev_ms
+    row["host_ms"] = wrapper_ms
+    row["device_share_of_bound"] = row["bound_ms"] / dev_ms
+    row["k2_device_ms_same_data"] = k2_dev_ms
+    row["k3_over_k2_device"] = dev_ms / k2_dev_ms
     return row
 
 
@@ -633,6 +737,8 @@ def time_k4(torch, gen, dec, ops, autotune) -> dict:
     err, ok, _, _ = _err(torch, out, ref, "float32")
     ms = time_ms(torch, lambda: dec.mla_paged_decode_partials_cuda(
         q, ckv, kr, table, kv_len, **args))
+    dev_ms = device_ms(torch, lambda: dec.mla_paged_decode_partials_cuda(
+        q, ckv, kr, table, kv_len, **args), "mla_paged_decode_partials_kernel")
     plain_ms = time_ms(torch, lambda: dec.mla_paged_decode_partials_torch(
         q, ckv, kr, table, kv_len, **args), iters=5, warmup=1)
     ms_splits4 = time_ms(torch, lambda: dec.mla_paged_decode_partials_cuda(
@@ -672,6 +778,8 @@ def time_k4(torch, gen, dec, ops, autotune) -> dict:
                             f"{kvl} splits {tuned.splits} block_k "
                             f"{tuned.block_k}")
     row["ms_splits4_same_data"] = ms_splits4
+    row["device_ms"] = dev_ms
+    row["device_share_of_bound"] = row["bound_ms"] / dev_ms
     row["partials_bytes"] = 4 * b * tuned.splits * h * (MLA_R + 2)
     row["latent_bytes"] = 4 * live * (MLA_R + MLA_RD)
     return row
@@ -807,6 +915,48 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def host_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean host ms per call of ``fn`` over ``iters`` calls, warmed up:
+    the time to check the operands and enqueue the launch (no sync inside
+    the loop); where it exceeds the kernel's device time, back-to-back
+    calls run at this pace and :func:`time_ms` reads it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def device_ms(torch, fn, kernel: str, iters: int = 20,
+              warmup: int = 3) -> float:
+    """Mean device time per launch of ``fn``'s kernel (the CUDA kernel
+    records whose name holds ``kernel``), from ``torch.profiler`` over
+    ``iters`` calls after ``warmup``: what the card spends, without the
+    wrapper's host time between launches that :func:`time_ms` sees.  The
+    mean is over the launches the profiler recorded, which may miss one of
+    the ``iters``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.device_time_total if hasattr(ev, "device_time_total")
+          else ev.cuda_time_total for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in ev.name]
+    check(0 < len(us) <= iters, f"profiler saw {len(us)} launches of "
+                                f"{kernel} in {iters} calls")
+    return sum(us) / 1e3 / len(us)
+
+
 def _sdpa_fn(torch, q, k, v, **kw):
     """One ``scaled_dot_product_attention`` call on the same inputs (GQA
     through ``enable_gqa`` where this torch has it, else on K/V expanded
@@ -856,6 +1006,10 @@ def time_k2(torch, gen, dec, autotune) -> dict:
     err, ok, _, _ = _err(torch, out, ref, "float32")
     ms = time_ms(torch, lambda: dec.decode_partials_cuda(q_f, k_f, v_f,
                                                          kv_len, **args))
+    dev_ms = device_ms(torch, lambda: dec.decode_partials_cuda(
+        q_f, k_f, v_f, kv_len, **args), "DenseKV")
+    wrapper_ms = host_ms(torch, lambda: dec.decode_partials_cuda(
+        q_f, k_f, v_f, kv_len, **args))
     plain_ms = time_ms(torch, lambda: dec.decode_partials_torch(
         q_f, k_f, v_f, kv_len, **args), iters=5, warmup=1)
     mask = (torch.arange(m, device="cuda")[None, :]
@@ -867,10 +1021,12 @@ def time_k2(torch, gen, dec, autotune) -> dict:
     nbytes = (4 * 2 * live * hkv * d + 4 * q.numel() + 4 * b
               + 4 * b * hkv * tuned.splits * g * (d + 2))
     flops = 4 * d * live * hq
-    return _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
-                       shape=f"B{b} Hq{hq} Hkv{hkv} M{m} d{d} fp32 kv_len "
-                             f"{kvl} splits {tuned.splits} block_k "
-                             f"{tuned.block_k}")
+    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
+                      shape=f"B{b} Hq{hq} Hkv{hkv} M{m} d{d} fp32 kv_len "
+                            f"{kvl} splits {tuned.splits} block_k "
+                            f"{tuned.block_k}")
+    return dict(row, device_ms=dev_ms, host_ms=wrapper_ms,
+                device_share_of_bound=row["bound_ms"] / dev_ms)
 
 
 def _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok, shape):
@@ -1311,7 +1467,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = run_k1_cases(torch, gen, fm, autotune) + \
-        run_k2_cases(torch, gen, dec) + run_k3_cases(torch, gen, dec) + \
+        run_k2_cases(torch, gen, dec, autotune) + \
+        run_k3_cases(torch, gen, dec, autotune) + \
+        misaligned_cases(torch, gen, dec) + \
         run_k4_cases(torch, gen, dec)
     for r in rows:
         emit("kernel_case", **r)
@@ -1377,21 +1535,25 @@ def main() -> int:
     print(json.dumps({"kernels": [
         k1_entry("fusemax_prefill", t1, launches["fusemax_prefill"],
                  e=128, f=128),
-        entry("decode_partials", "cuda",
-              "src/repro_torch/kernels/csrc/decode_partials.cu",
-              "src/repro/kernels/decode.py:60", t2,
-              launches["decode_partials"]),
+        dict(entry("decode_partials", "cuda",
+                   "src/repro_torch/kernels/csrc/decode_partials.cu",
+                   "src/repro/kernels/decode.py:60", t2,
+                   launches["decode_partials"]),
+             device_ms=t2["device_ms"]),
         dict(entry("paged_decode_partials", "cuda",
                    "src/repro_torch/kernels/csrc/paged_decode_partials.cu",
                    "src/repro/kernels/decode.py:248", t3,
                    launches["paged_decode_partials"]),
+             device_ms=t3["device_ms"],
              k2_ms_same_data=t3["k2_ms_same_data"],
+             k2_device_ms_same_data=t3["k2_device_ms_same_data"],
              k3_vs_k2_max_abs_diff=same["max_abs_diff_live"]),
         dict(entry("mla_paged_decode_partials", "cuda",
                    "src/repro_torch/kernels/csrc/"
                    "mla_paged_decode_partials.cu",
                    "src/repro/kernels/decode.py:608", t4,
                    mla_launches["mla_paged_decode_partials"]),
+             device_ms=t4["device_ms"],
              ms_splits4_same_data=t4["ms_splits4_same_data"],
              k4_perm_vs_identity_max_abs_diff=same4["max_abs_diff_live"]),
         k1_entry("fusemax_prefill@mla_forward", t1m["mla_forward"],

@@ -20,7 +20,10 @@ What the port changes:
   VMEM budget does not apply to it.
 * The split-K geometry (``decode_params``) is the reference's, for every
   impl: it is keyed on the cache length and never on P, so a later verify
-  path inherits exactly the split structure of single-token decode.
+  path inherits exactly the split structure of single-token decode.  The
+  CUDA decode kernels' own layout (chunk, ring stages, row blocks) is
+  mirrored by :func:`decode_smem_bytes`, which their wrappers hold
+  against ``SMEM_BUDGET`` before each launch.
 
 The measured mode and its on-disk cache are not ported yet.
 """
@@ -68,6 +71,13 @@ CUDA_PREFILL_WARP_SPLIT = {
 #: (``KC`` and ``NS`` in ``fusemax_prefill.cu``)
 PREFILL_K_CHUNK = 64
 PREFILL_STAGES = 3
+
+#: the split-K decode kernels' (K2, K3) keys per chunk, ring stages and
+#: warps that split a chunk's keys (``CK``, ``STAGES`` and ``WK`` in
+#: ``csrc/decode_partials.cuh``)
+DECODE_CHUNK = 16
+DECODE_STAGES = 2
+DECODE_KEY_WARPS = 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -123,6 +133,28 @@ def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
     probs = (4 * block_q * (block_k + 8 + warp_split) if warp_split > 1
              else 0)
     return elem_bytes * (block_q * (e + pad) + PREFILL_STAGES * slot) + probs
+
+
+def decode_row_block(rows: int) -> int:
+    """Query rows one K2/K3 block serves (``row_block`` in the kernel): 4,
+    or 8 when a fiber has more than 4 (a fiber of R rows takes
+    ceil(R / block) blocks per split)."""
+    return 4 if rows <= 4 else 8
+
+
+@functools.lru_cache(maxsize=None)
+def decode_smem_bytes(rows: int, d: int, elem_bytes: int = 4,
+                      stages: int = DECODE_STAGES, pages: int = 0) -> int:
+    """Shared memory of one K2/K3 block — must match ``smem_bytes`` in
+    ``csrc/decode_partials.cuh``: the ring of ``stages`` chunks of
+    ``DECODE_CHUNK`` K rows and as many V rows in the pool's dtype, which
+    the cross-warp merge (fp32 m, l and accumulator of every key warp and
+    row of the block) reuses after the walk, padded to 16 bytes; then the
+    split's page list, ``pages`` int32 ids (K3: ``split_len /
+    page_size``; K2: 0) padded to 4."""
+    ring = stages * 2 * DECODE_CHUNK * d * elem_bytes
+    merge = 4 * DECODE_KEY_WARPS * decode_row_block(rows) * (d + 2)
+    return _round_up(max(ring, merge), 16) + 4 * _round_up(pages, 4)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128 (E == F).
 // rows: folded query rows per fiber, 1..64.  window <= 0: no window;
-// softcap <= 0: no softcap.  Returns cudaGetLastError() after the launch.
+// softcap <= 0: no softcap.  q, k and v start on 16-byte boundaries (the
+// body copies 16-byte vectors).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int decode_partials(const void* q, const void* k, const void* v,
                                const void* kv_len, void* pm, void* pl,
                                void* pnv, int dtype, int head_dim, int bh,
@@ -34,3 +36,11 @@ extern "C" int decode_partials(const void* q, const void* k, const void* v,
 }
 
 extern "C" int decode_partials_max_rows() { return MAXR; }
+
+// Dynamic shared memory one launch with `rows` query rows per fiber takes
+// (autotune.decode_smem_bytes mirrors it; the dense layout has no page
+// list, so `pages` is 0 on its launches).
+extern "C" int decode_partials_smem_bytes(int rows, int head_dim, int dtype,
+                                          int pages) {
+  return smem_bytes(rows, head_dim, elem_bytes_of(dtype), pages);
+}

@@ -1,42 +1,68 @@
 // Split-K decode partials body shared by the dense (K2,
 // decode_partials.cu) and paged (K3, paged_decode_partials.cu) kernels.
 //
-// One block per (split, batch*kv-head fiber) computes the running
-// (m, l, acc) of Cascade 5 over the key tiles of its split that the TPU
-// kernels run — tiles with k_lo < kv_len + P - 1 and, with a window,
-// k_hi > kv_len - 1 - window — for all folded query rows of the fiber at
-// once.  Row r is draft position r / rows_per_pos and attends keys
-// < kv_len + position (P = 1: keys < kv_len).  A split in which no tile
-// runs emits (NEG_INF, 0, 0), so a slot with kv_len = 0 decodes to
-// exactly 0 after the combine, as on the TPU.
+// One block per (split, batch*kv-head fiber, block of RB query rows)
+// computes the running (m, l, acc) of Cascade 5 over the key tiles of its
+// split that the TPU kernels run — tiles with k_lo < kv_len + P - 1 and,
+// with a window, k_hi > kv_len - 1 - window, as loop bounds — for its
+// rows of the fiber.  Row r is draft position r / rows_per_pos and
+// attends keys < kv_len + position (P = 1: keys < kv_len).  A split in
+// which no tile runs emits (NEG_INF, 0, 0), so a slot with kv_len = 0
+// decodes to exactly 0 after the combine, as on the TPU.
 //
 // The two layouts differ only in where key row `kpos` of a fiber lives,
 // which a KV policy answers (DenseKV: row kpos of the fiber's [M, D]
-// slab; PagedKV: offset kpos % ps of page block_table[b][kpos / ps],
-// sentinel clamped to the last page, Hkv * D elements per token).  The
-// chunk walk, the masks and the fp32 FMA order are one template, so on a
-// pool whose pages hold a dense cache's rows the two kernels at the same
-// splits give the same bits: block_k only decides how far a split walks
-// past kv_len, and keys past kv_len add exact zeros to a row that has
-// seen a valid key.
+// slab; PagedKV: offset kpos % ps of the split's page (kpos - split0) /
+// ps, from a page list the block loads once into shared memory, the
+// sentinel id clamped to the last page, Hkv * D elements per token).  The
+// walk, the masks and the fp32 FMA order are one template, so on a pool
+// whose pages hold a dense cache's rows the two kernels at the same
+// splits give the same bits: with P = 1 and no window both walks end at
+// kv_len (see below), and elsewhere block_k only decides how far a split
+// walks past kv_len, which adds exact zeros to a row that has seen a
+// valid key.
 //
 // What bounds it on this card: bytes.  One query row per kv head meets
 // each cached key once, so the kernel does ~2 * rows * D multiply-adds
 // per key against 2 * D * sizeof(T) bytes of K and V — far below the
 // H100's ~20 FLOP per byte fp32 balance point.  The least time is the
-// K/V bytes of the valid prefix over 3.35 TB/s.
+// K/V bytes of the valid prefix over 3.35 TB/s.  A split holds only a
+// few chunks (8 pages of 16 keys at granite's decode shape), so what
+// keeps a block from that rate is the latency of each chunk's loads, and
+// what keeps the card at it is enough blocks resident on each SM.
 //
-// What the simple design does about it: each block reads kv_len itself
-// and streams only the tiles that run, 32 keys at a time, through shared
-// memory with coalesced row loads (a key row is D contiguous elements in
-// both layouts; the paged layout resolves the chunk's 32 rows once, one
-// per lane, and broadcasts them with a warp shuffle); every key is read
-// from device memory exactly once and no query row is padded.  The partials are written without the TPU's
-// 128-lane padding.  Scores, softmax and the accumulator update are true
-// fp32 FMA.  Overlapping the next chunk's loads with this chunk's
-// arithmetic (cp.async / TMA) is left for a later change.
+// What the design does about it:
+// * the split's page ids are loaded into shared memory once, beside the
+//   kv_len load, so a chunk's row addresses are arithmetic;
+// * K and V rows stream through a ring of STAGES chunks of CK keys with
+//   16-byte cp.async.cg copies (NT / CK threads per key row, one address
+//   computation per thread and chunk); chunk c + STAGES - 1 is requested
+//   before chunk c is computed, one barrier per chunk.  A small ring (2 x
+//   16 keys, 32 KB at fp32 d128) leaves registers, not shared memory, to
+//   bound the blocks per SM; benchmarks/torch_decode_variants.py measures
+//   it against 3 stages and 32- or 64-key chunks;
+// * each lane owns D / 32 contiguous features of every query row its
+//   warp serves, and of their accumulators, in registers; a chunk's keys
+//   are split between WK warps, each with its own (m, l, acc), merged
+//   once per split in shared memory (exact where a warp saw only masked
+//   keys: its m = NEG_INF meets a real maximum with a factor 0); scores
+//   are per-lane partial dots summed across the warp by a transposed
+//   butterfly (NP (row, key) dots in NP - 1 shuffles when NP = 32), the
+//   running max and sum are shuffles over the lanes of a row, and the
+//   value pass broadcasts each probability from its lane;
+// * with P = 1 and no window the walk stops at kv_len: every tile that
+//   runs starts below kv_len, so each row has a valid key in the split's
+//   first chunk and a later chunk past kv_len would add exact zeros.
+//   With P > 1 or a window a row can have no valid key in a tile that
+//   runs, and its output then depends on how many masked keys the walk
+//   crosses, so there the walk is the whole tile-run range.
+// Scores, softmax and the accumulator update are true fp32 FMA; bf16 is
+// widened on the shared-memory read.  The partials are written without
+// the TPU's 128-lane padding.
 
 #pragma once
+
+#include <atomic>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -45,10 +71,17 @@
 namespace {
 
 constexpr int NT = 128;       // threads per block (4 warps)
-constexpr int CK = 32;        // keys per shared-memory chunk
+constexpr int NW = NT / 32;   // warps per block
+constexpr int CK = 16;        // keys per chunk (one ring stage)
+constexpr int STAGES = 2;     // chunks the ring holds
+constexpr int WK = 4;         // warps that split a chunk's keys
 constexpr int MAXR = 64;      // most folded query rows per fiber
+constexpr int SMEM_BUDGET = 232448;  // dynamic shared memory of one block
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+
+static_assert(NW % WK == 0 && CK % WK == 0 && NT % CK == 0,
+              "warps split a chunk's keys evenly, threads its key rows");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -74,11 +107,30 @@ __device__ __forceinline__ float fexp(float x) {
   return MACCS ? exp_maccs(x) : expf(x);
 }
 
-__host__ __device__ constexpr int smem_floats(int rows, int d) {
-  // q [rows][d], K chunk [CK][d+1], V chunk [CK][d], scores [rows][CK+1],
-  // acc [rows][d], m / l / correction [rows]
-  return rows * d + CK * (d + 1) + CK * d + rows * (CK + 1) + rows * d +
-         3 * rows;
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+// Query rows a block serves: 4, or 8 when a fiber has more than 4.
+__host__ __device__ constexpr int row_block(int rows) {
+  return rows <= 4 ? 4 : 8;
+}
+
+// Shared memory of one block (autotune.decode_smem_bytes is its twin):
+// the ring, STAGES x [K rows | V rows] of CK x D elements, which the
+// cross-warp merge ([WK][RB] m, [WK][RB] l, [WK][RB][D] acc, fp32)
+// reuses after the walk, then the split's page list.
+__host__ __device__ constexpr int ring_bytes(int rb, int d, int elem_bytes) {
+  return round16(STAGES * 2 * CK * d * elem_bytes > 4 * WK * rb * (d + 2)
+                     ? STAGES * 2 * CK * d * elem_bytes
+                     : 4 * WK * rb * (d + 2));
+}
+__host__ __device__ constexpr int smem_bytes(int rows, int d, int elem_bytes,
+                                             int pages) {
+  return ring_bytes(row_block(rows), d, elem_bytes) +
+         4 * ((pages + 3) / 4 * 4);
+}
+
+__host__ __device__ constexpr int ilog2(int n) {
+  return n <= 1 ? 0 : 1 + ilog2(n / 2);
 }
 
 // Scalar arguments of one launch.
@@ -102,74 +154,169 @@ struct KVSource {
 // Dense cache [B*Hkv, M, D]: key row kpos of fiber bh.
 template <typename T, int D>
 struct DenseKV {
-  static constexpr bool kIndirect = false;  // row() is plain arithmetic
+  static constexpr bool kPaged = false;
   const T* k;
   const T* v;
   int m;
-  static DenseKV from(const KVSource& s) {
+  static DenseKV from(const KVSource& s, int) {
     return {static_cast<const T*>(s.k), static_cast<const T*>(s.v), s.m};
   }
-  __device__ __forceinline__ size_t row(int bh, int kpos) const {
+  int pages() const { return 0; }  // no page list
+  __device__ __forceinline__ void load_pages(int*, int, int) const {}
+  __device__ __forceinline__ size_t row(const int*, int bh, int,
+                                        int kpos) const {
     return (static_cast<size_t>(bh) * m + kpos) * D;
   }
 };
 
-// Page pool [n_pages, ps, Hkv, D] behind a block table [B, W]: the page is
-// resolved per key (a 32-key chunk may straddle pages), the sentinel id
-// n_pages clamped to the last page (such keys lie past kv_len, masked).
+// Page pool [n_pages, ps, Hkv, D] behind a block table [B, W]: the split's
+// split_len / ps page ids (splits are page-aligned) sit in shared memory,
+// the sentinel id n_pages clamped to the last page (such keys lie past
+// kv_len, masked).
 template <typename T, int D>
 struct PagedKV {
-  // row() divides by the page size and loads a table entry: each key's
-  // row is resolved once per chunk (by one lane) and broadcast, not once
-  // per loaded element
-  static constexpr bool kIndirect = true;
+  static constexpr bool kPaged = true;
   const T* k;
   const T* v;
   const int* block_table;
   int w, ps, n_pages, hkv;
-  static PagedKV from(const KVSource& s) {
+  int split_pages;  // page-list entries
+  static PagedKV from(const KVSource& s, int split_len) {
     return {static_cast<const T*>(s.k), static_cast<const T*>(s.v),
-            s.block_table, s.w, s.ps, s.n_pages, s.hkv};
+            s.block_table, s.w, s.ps, s.n_pages, s.hkv, split_len / s.ps};
   }
-  __device__ __forceinline__ size_t row(int bh, int kpos) const {
+  int pages() const { return split_pages; }
+  __device__ __forceinline__ void load_pages(int* list, int bh,
+                                             int split0) const {
+    const int* ids =
+        block_table + static_cast<size_t>(bh / hkv) * w + split0 / ps;
+    for (int i = threadIdx.x; i < split_pages; i += NT)
+      list[i] = min(ids[i], n_pages - 1);
+  }
+  __device__ __forceinline__ size_t row(const int* list, int bh, int split0,
+                                        int kpos) const {
     const int b = bh / hkv;
     const int h = bh - b * hkv;
-    const int page = min(block_table[b * w + kpos / ps], n_pages - 1);
-    return ((static_cast<size_t>(page) * ps + kpos % ps) * hkv + h) * D;
+    const int kq = kpos - split0;
+    const int pi = kq / ps;
+    const int page = list[pi];
+    return ((static_cast<size_t>(page) * ps + (kq - pi * ps)) * hkv + h) * D;
   }
 };
 
-template <typename T, int D, bool MACCS, class KV>
+// 16-byte asynchronous copy global -> shared (sm_80+), bypassing L1.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// FPL contiguous features of a key row in shared memory, as fp32.
+__device__ __forceinline__ void load_feats(const float* p, float (&o)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+}
+__device__ __forceinline__ void load_feats(const float* p, float (&o)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  o[0] = t.x; o[1] = t.y;
+}
+__device__ __forceinline__ void load_feats(const __nv_bfloat16* p,
+                                           float (&o)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+__device__ __forceinline__ void load_feats(const __nv_bfloat16* p,
+                                           float (&o)[2]) {
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  o[0] = a.x; o[1] = a.y;
+}
+
+// Sum N per-lane values v[0..N-1] across the warp (a transposed
+// butterfly: each of the log2(N) first steps sends half of the live values
+// and keeps the other half, the remaining steps are plain).  Lane l
+// returns the warp-wide sum of v[l >> (5 - log2 N)].
+template <int N>
+__device__ __forceinline__ float lane_sum(float (&v)[N], int lane) {
+  constexpr unsigned FULL = 0xffffffffu;
+  constexpr int LOGN = ilog2(N);
+  // every index below is a constant once the loops unroll, so v stays in
+  // registers
+#pragma unroll
+  for (int st = 0; st < LOGN; ++st) {
+    const int h = N >> (st + 1);
+    const int mask = 16 >> st;
+    const bool up = lane & mask;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      if (i < h) {
+        const float keep = up ? v[i + h] : v[i];
+        const float send = up ? v[i] : v[i + h];
+        v[i] = keep + __shfl_xor_sync(FULL, send, mask);
+      }
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (int st = LOGN; st < 5; ++st)
+    s += __shfl_xor_sync(FULL, s, 16 >> st);
+  return s;
+}
+
+template <typename T, int D, bool MACCS, int RB, class KV>
 __global__ void __launch_bounds__(NT)
 decode_partials_kernel(const T* __restrict__ q, const KV kv,
                        const int* __restrict__ kv_len,
                        float* __restrict__ pm, float* __restrict__ pl,
                        float* __restrict__ pnv, const DecodeArgs a) {
-  constexpr int DS = D + 1;
-  constexpr int SS = CK + 1;
-  const int R = a.R;
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [R][D]
-  float* ks = qs + R * D;           // [CK][DS]
-  float* vs = ks + CK * DS;         // [CK][D]
-  float* ss = vs + CK * D;          // [R][SS]
-  float* acc = ss + R * SS;         // [R][D]
-  float* ms = acc + R * D;          // [R]
-  float* ls = ms + R;               // [R]
-  float* cf = ls + R;               // [R]
-  static_assert(CK == 32 && D % 32 == 0,
-                "a chunk's key rows are one per lane; a warp's loads share a "
-                "row");
+  constexpr unsigned FULL = 0xffffffffu;
+  constexpr int FPL = D / 32;            // features per lane
+  constexpr int VEC = 16 / sizeof(T);    // elements per 16-byte copy
+  constexpr int VPR = D / VEC;           // copies per key row
+  constexpr int TPK = NT / CK;           // threads that copy one key row
+  constexpr int RW = RB / (NW / WK);     // query rows per warp
+  constexpr int KW = CK / WK;            // keys per warp and chunk
+  constexpr int KG = KW < 32 / RW ? KW : 32 / RW;  // keys per score group
+  constexpr int NP = RW * KG;            // (row, key) dots per lane_sum
+  constexpr int NG = KW / KG;            // score groups per warp and chunk
+  constexpr int SH = 5 - ilog2(NP);      // lane >> SH: a lane's dot
+  constexpr int STAGE = 2 * CK * D;      // elements per ring stage
+  static_assert(D % 32 == 0 && (FPL == 2 || FPL == 4),
+                "lanes own 2 or 4 contiguous features");
+  static_assert(VPR % TPK == 0, "a key row's copies split evenly");
+  static_assert(RB % (NW / WK) == 0 && NP <= 32 && (NP & (NP - 1)) == 0 &&
+                    KW % KG == 0,
+                "warps tile the rows; a score group fits the lanes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  int* page_list =
+      reinterpret_cast<int*>(smem_raw + ring_bytes(RB, D, sizeof(T)));
 
   const int split = blockIdx.x;
   const int bh = blockIdx.y;
+  const int row_base = blockIdx.z * RB;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
+  const int split0 = split * a.split_len;
+
+  kv.load_pages(page_list, bh, split0);
   const int kvl = kv_len[bh / a.hkv];
   const int q_pos = kvl - 1;        // the query is the newest token
 
   // tiles of this split the TPU kernel runs (its per-tile skip)
-  const int split0 = split * a.split_len;
   const int n_tiles = a.split_len / a.block_k;
   const int lim = kvl + a.n_pos - 1 - split0;
   const int t1 =
@@ -181,122 +328,234 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
   }
   const int kbeg = split0 + t0 * a.block_k;
   const int kfin = split0 + max(t0, t1) * a.block_k;
+  // P = 1 without a window: chunks wholly past kv_len add exact zeros
+  const bool skip = a.n_pos == 1 && a.window <= 0;
+  const int kend = skip ? min(kfin, kvl) : kfin;
+  const int n_chunks = kend > kbeg ? (kend - kbeg + CK - 1) / CK : 0;
 
-  const T* qb = q + static_cast<size_t>(bh) * R * D;
-  for (int i = tid; i < R * D; i += NT) {
-    qs[i] = to_f(qb[i]);
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += NT) {
-    ms[r] = NEG_INF;
-    ls[r] = 0.f;
-  }
-
-  for (int c0 = kbeg; c0 < kfin; c0 += CK) {
-    const int nk = min(CK, kfin - c0);
-    // indirect layouts: lane l of every warp resolves key row c0 + l
-    unsigned long long lane_row = 0;
-    if constexpr (KV::kIndirect) {
-      if (lane < nk) lane_row = kv.row(bh, c0 + lane);
-    }
-    __syncthreads();  // previous chunk's readers are done
-    for (int i = tid; i < nk * D; i += NT) {
-      const int r = i / D, c = i % D;
-      size_t row;
-      if constexpr (KV::kIndirect) {
-        // r is the same on every lane of a warp (D % 32 == 0), and so is
-        // the trip count of this loop: the whole warp shuffles
-        row = __shfl_sync(0xffffffffu, lane_row, r);
-      } else {
-        row = kv.row(bh, c0 + r);
-      }
-      const size_t g = row + c;
-      ks[r * DS + c] = to_f(__ldg(kv.k + g));
-      vs[r * D + c] = to_f(__ldg(kv.v + g));
-    }
-    __syncthreads();
-
-    // scores, scale, softcap, masks
-    for (int i = tid; i < R * CK; i += NT) {
-      const int r = i / CK, c = i % CK;
-      if (c >= nk) continue;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < D; ++e) dot = fmaf(qs[r * D + e], ks[c * DS + e], dot);
-      float x = dot * a.scale;
-      if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-      const int kpos = c0 + c;
-      bool ok = a.n_pos == 1 ? kpos < kvl : kpos < kvl + r / a.rows_per_pos;
-      if (a.window > 0) ok = ok && kpos > q_pos - a.window;
-      ss[r * SS + c] = ok ? x : NEG_INF;
-    }
-    __syncthreads();
-
-    // running max, exp, denominator: one warp per row
-    for (int r = warp; r < R; r += NT / 32) {
-      float lm = NEG_INF;
-      for (int c = lane; c < nk; c += 32) lm = fmaxf(lm, ss[r * SS + c]);
+  // copy role: thread tid copies vectors cvec, cvec + TPK, ... of key row
+  // ckey of each chunk, K and V
+  const int ckey = tid / TPK, cvec = tid % TPK;
+  auto fetch = [&](int ch) {
+    const int c0 = kbeg + ch * CK;
+    if (ch < n_chunks && ckey < kend - c0) {
+      const size_t r = kv.row(page_list, bh, split0, c0 + ckey);
+      T* dst = ring + (ch % STAGES) * STAGE + ckey * D;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        lm = fmaxf(lm, __shfl_xor_sync(0xffffffffu, lm, off));
-      const float m_prev = ms[r];
-      const float m_new = fmaxf(m_prev, lm);
-      float sum = 0.f;
-      for (int c = lane; c < nk; c += 32) {
-        const float p = fexp<MACCS>(ss[r * SS + c] - m_new);
-        ss[r * SS + c] = p;
-        sum += p;
+      for (int i = 0; i < VPR / TPK; ++i) {
+        const int e = (cvec + TPK * i) * VEC;
+        cp_async16(dst + e, kv.k + r + e);
+        cp_async16(dst + CK * D + e, kv.v + r + e);
       }
+    }
+    cp_async_commit();  // always: one group per chunk slot
+  };
+
+  // compute role: warp serves block rows r0 .. r0 + RW - 1 and keys
+  // kw0 .. kw0 + KW - 1 of every chunk; after a score group's lane_sum,
+  // lane l holds row my_i, key my_k of the group
+  const int kw0 = (warp % WK) * KW;
+  const int r0 = (warp / WK) * RW;
+  const int my_i = (lane >> SH) / KG, my_k = (lane >> SH) % KG;
+  const int my_row = row_base + r0 + my_i;
+  const int my_lim = a.n_pos == 1 ? kvl : kvl + my_row / a.rows_per_pos;
+  const bool windowed = a.window > 0;
+  float qr[RW][FPL], acc[RW][FPL];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float f = fexp<MACCS>(m_prev - m_new);
-        cf[r] = f;
-        ls[r] = ls[r] * f + sum;
-        ms[r] = m_new;
+  for (int i = 0; i < RW; ++i) {
+    const int row = row_base + r0 + i;
+    const T* qrow = q + (static_cast<size_t>(bh) * a.R + row) * D + lane * FPL;
+#pragma unroll
+    for (int j = 0; j < FPL; ++j) {
+      qr[i][j] = row < a.R ? to_f(qrow[j]) : 0.f;
+      acc[i][j] = 0.f;
+    }
+  }
+  float m_i = NEG_INF, l_i = 0.f;
+
+  if constexpr (KV::kPaged) __syncthreads();  // the page list has landed
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk ch has landed; chunk ch - 1's readers are done
+    fetch(ch + STAGES - 1);
+    const int c0 = kbeg + ch * CK;
+    const int nk = min(CK, kend - c0);
+    if (kw0 >= nk) continue;  // warp-uniform: none of its keys, no update
+    const T* kb = ring + (ch % STAGES) * STAGE;
+    const T* vb = kb + CK * D;
+
+    // scores: the lanes split the features, the warp's rows share each
+    // key row, lane_sum sums a group's NP (row, key) dots across the lanes
+    float x[NG];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      x[g] = 0.f;
+      if (kw0 + g * KG >= nk) continue;  // warp-uniform
+      float part[NP];
+#pragma unroll
+      for (int t = 0; t < NP; ++t) part[t] = 0.f;
+#pragma unroll
+      for (int k = 0; k < KG; ++k) {
+        float kf[FPL];
+        load_feats(kb + (kw0 + g * KG + k) * D + lane * FPL, kf);
+#pragma unroll
+        for (int i = 0; i < RW; ++i)
+#pragma unroll
+          for (int j = 0; j < FPL; ++j)
+            part[i * KG + k] = fmaf(qr[i][j], kf[j], part[i * KG + k]);
       }
+      x[g] = lane_sum<NP>(part, lane);
+    }
+
+    // scale, softcap, masks; the row's running max, exp and denominator
+    // over the warp's keys of the chunk (lanes differing in bits SH ..
+    // SH + log2 KG - 1 hold them); keys past nk are not in the walk
+    float lm = NEG_INF;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int key = kw0 + g * KG + my_k;
+      const int kpos = c0 + key;
+      float s = x[g] * a.scale;
+      if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
+      const bool ok = kpos < my_lim && (!windowed || kpos > q_pos - a.window);
+      x[g] = ok ? s : NEG_INF;
+      if (key < nk) lm = fmaxf(lm, x[g]);
+    }
+#pragma unroll
+    for (int o = 1 << SH; o < (KG << SH); o <<= 1)
+      lm = fmaxf(lm, __shfl_xor_sync(FULL, lm, o));
+    const float m_new = fmaxf(m_i, lm);
+    float p[NG], sum = 0.f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      p[g] = kw0 + g * KG + my_k < nk ? fexp<MACCS>(x[g] - m_new) : 0.f;
+      sum += p[g];
+    }
+#pragma unroll
+    for (int o = 1 << SH; o < (KG << SH); o <<= 1)
+      sum += __shfl_xor_sync(FULL, sum, o);
+    const float prm = fexp<MACCS>(m_i - m_new);
+    l_i = l_i * prm + sum;
+    m_i = m_new;
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const float f = __shfl_sync(FULL, prm, (i * KG) << SH);
+#pragma unroll
+      for (int j = 0; j < FPL; ++j) acc[i][j] *= f;
+    }
+
+    // accumulator += p . V, key by key in order
+#pragma unroll
+    for (int kk = 0; kk < KW; ++kk) {
+      if (kw0 + kk >= nk) break;  // warp-uniform
+      float pc[RW];
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+        pc[i] = __shfl_sync(FULL, p[kk / KG], (i * KG + kk % KG) << SH);
+      float vf[FPL];
+      load_feats(vb + (kw0 + kk) * D + lane * FPL, vf);
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int j = 0; j < FPL; ++j) acc[i][j] = fmaf(pc[i], vf[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int nr = min(RB, a.R - row_base);
+  const size_t base =
+      (static_cast<size_t>(bh) * a.splits + split) * a.R + row_base;
+  const bool holds_row = (lane & ((1 << SH) - 1)) == 0 && my_k == 0;
+  if constexpr (WK > 1) {
+    // merge the WK warps' states of each row: M = max m_w, every state
+    // scaled by exp(m_w - M), summed in warp order
+    float* mm = reinterpret_cast<float*>(smem_raw);  // [WK][RB]
+    float* ml = mm + WK * RB;                        // [WK][RB]
+    float* ma = ml + WK * RB;                        // [WK][RB][D]
+    const int kwi = warp % WK;
+    __syncthreads();  // every warp is done with the ring the merge reuses
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int j = 0; j < FPL; ++j)
+        ma[(kwi * RB + r0 + i) * D + lane * FPL + j] = acc[i][j];
+    if (holds_row) {
+      mm[kwi * RB + r0 + my_i] = m_i;
+      ml[kwi * RB + r0 + my_i] = l_i;
     }
     __syncthreads();
-
-    // accumulator: acc = acc * correction + p . V
-    for (int i = tid; i < R * D; i += NT) {
-      const int r = i / D, f = i % D;
-      float a_ = acc[i] * cf[r];
-      for (int c = 0; c < nk; ++c) a_ = fmaf(ss[r * SS + c], vs[c * D + f], a_);
-      acc[i] = a_;
+    for (int idx = tid; idx < nr * D; idx += NT) {
+      const int r = idx / D, e = idx - r * D;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < WK; ++w) mx = fmaxf(mx, mm[w * RB + r]);
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < WK; ++w)
+        s = fmaf(fexp<MACCS>(mm[w * RB + r] - mx), ma[(w * RB + r) * D + e],
+                 s);
+      pnv[(base + r) * D + e] = s;
+    }
+    for (int r = tid; r < nr; r += NT) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < WK; ++w) mx = fmaxf(mx, mm[w * RB + r]);
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < WK; ++w)
+        s = fmaf(fexp<MACCS>(mm[w * RB + r] - mx), ml[w * RB + r], s);
+      pm[base + r] = mx;
+      pl[base + r] = s;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      if (r0 + i >= nr) break;
+      float* out = pnv + (base + r0 + i) * D + lane * FPL;
+#pragma unroll
+      for (int j = 0; j < FPL; ++j) out[j] = acc[i][j];
+    }
+    if (holds_row && r0 + my_i < nr) {
+      pm[base + r0 + my_i] = m_i;
+      pl[base + r0 + my_i] = l_i;
     }
   }
-  __syncthreads();
-
-  const size_t base = (static_cast<size_t>(bh) * a.splits + split) * R;
-  for (int r = tid; r < R; r += NT) {
-    pm[base + r] = ms[r];
-    pl[base + r] = ls[r];
-  }
-  for (int i = tid; i < R * D; i += NT) pnv[base * D + i] = acc[i];
 }
 
 // Launch one instantiation on `stream`; returns cudaGetLastError().
-template <typename T, int D, bool MACCS, class KV>
+template <typename T, int D, bool MACCS, int RB, class KV>
 cudaError_t launch_partials(const void* q, const KV& kv, const void* kv_len,
-                            void* pm, void* pl, void* pnv, int bh,
+                            void* pm, void* pl, void* pnv, int bh, int smem,
                             const DecodeArgs& a, cudaStream_t stream) {
-  auto kern = decode_partials_kernel<T, D, MACCS, KV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      4 * smem_floats(MAXR, D));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.splits, bh);
-  kern<<<grid, NT, 4 * smem_floats(a.R, D), stream>>>(
+  auto kern = decode_partials_kernel<T, D, MACCS, RB, KV>;
+  if (smem > 48 * 1024) {
+    // opened up once per instantiation and device, not on every launch
+    static std::atomic<unsigned> opened{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned bit = dev < 32 ? 1u << dev : 0u;
+    if (!bit || !(opened.load(std::memory_order_relaxed) & bit)) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BUDGET);
+      if (err != cudaSuccess) return err;
+      opened.fetch_or(bit, std::memory_order_relaxed);
+    }
+  }
+  const dim3 grid(a.splits, bh, (a.R + RB - 1) / RB);
+  kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), kv, static_cast<const int*>(kv_len),
       static_cast<float*>(pm), static_cast<float*>(pl),
       static_cast<float*>(pnv), a);
   return cudaGetLastError();
 }
 
+constexpr int elem_bytes_of(int dtype) { return dtype == 1 ? 2 : 4; }
+
 // Dispatch on (dtype: 0 = float32, 1 = bfloat16) x (head_dim: 64, 128) x
-// exp variant, with the K/V layout KVT.
+// exp variant x row block, with the K/V layout KVT.
 template <template <typename, int> class KVT>
 cudaError_t dispatch_partials(int dtype, int head_dim, int maccs,
                               const void* q, const KVSource& src,
@@ -304,19 +563,25 @@ cudaError_t dispatch_partials(int dtype, int head_dim, int maccs,
                               void* pnv, int bh, const DecodeArgs& a,
                               cudaStream_t st) {
   if (a.R < 1 || a.R > MAXR) return cudaErrorInvalidValue;
+#define REPRO_LAUNCH(T, D, RB)                                                \
+  (maccs ? launch_partials<T, D, true, RB>(q, kv, kv_len, pm, pl, pnv, bh,    \
+                                           smem, a, st)                       \
+         : launch_partials<T, D, false, RB>(q, kv, kv_len, pm, pl, pnv, bh,   \
+                                            smem, a, st))
 #define REPRO_DISPATCH(T, D)                                                  \
   {                                                                           \
-    const KVT<T, D> kv = KVT<T, D>::from(src);                                \
-    return maccs ? launch_partials<T, D, true>(q, kv, kv_len, pm, pl, pnv,    \
-                                               bh, a, st)                     \
-                 : launch_partials<T, D, false>(q, kv, kv_len, pm, pl, pnv,   \
-                                                bh, a, st);                   \
+    const KVT<T, D> kv = KVT<T, D>::from(src, a.split_len);                   \
+    const int smem = smem_bytes(a.R, D, sizeof(T), kv.pages());               \
+    if (smem > SMEM_BUDGET) return cudaErrorInvalidValue;                     \
+    return row_block(a.R) == 4 ? REPRO_LAUNCH(T, D, 4)                        \
+                               : REPRO_LAUNCH(T, D, 8);                       \
   }
   if (dtype == 0 && head_dim == 128) REPRO_DISPATCH(float, 128)
   if (dtype == 0 && head_dim == 64) REPRO_DISPATCH(float, 64)
   if (dtype == 1 && head_dim == 128) REPRO_DISPATCH(__nv_bfloat16, 128)
   if (dtype == 1 && head_dim == 64) REPRO_DISPATCH(__nv_bfloat16, 64)
 #undef REPRO_DISPATCH
+#undef REPRO_LAUNCH
   return cudaErrorInvalidValue;
 }
 

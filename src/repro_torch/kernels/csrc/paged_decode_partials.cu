@@ -7,16 +7,17 @@
 // stays plain torch ops, as for the dense kernel.
 //
 // The TPU kernel finds each K/V tile's page in its BlockSpec index_map
-// (scalar-prefetched block table).  Here the block loads its own page ids:
-// the body in decode_partials.cuh (shared with K2, so the same splits give
-// the same bits) reads key row kpos of fiber (b, h) at offset kpos % ps of
-// page min(block_table[b][kpos / ps], n_pages - 1) — resolved per key,
-// because a 32-key shared-memory chunk may straddle two pages, and with
-// the sentinel id n_pages clamped (those keys lie past kv_len and are
-// masked).  Pages are [n_pages, ps, Hkv, D], so consecutive tokens of one
-// head are Hkv * D elements apart while each key row stays D contiguous
-// elements: row loads stay coalesced.  The gathered [B, W * ps, ...] view
-// is never materialized.
+// (scalar-prefetched block table).  Here each block loads its own split's
+// page ids once, into shared memory (splits are page-aligned: split_len /
+// page_size ids, the sentinel id n_pages clamped to the last page, whose
+// keys lie past kv_len and are masked), and the body in
+// decode_partials.cuh (shared with K2, so the same splits give the same
+// bits) reads key row kpos at offset (kpos - split0) % ps of list entry
+// (kpos - split0) / ps: a chunk's addresses are arithmetic, and a chunk
+// may span several pages.  Pages are [n_pages, ps, Hkv, D], so
+// consecutive tokens of one head are Hkv * D elements apart while each key
+// row stays D contiguous elements, copied in 16-byte vectors.  The
+// gathered [B, W * ps, ...] view is never materialized.
 //
 // What bounds it on this card: bytes — the valid K/V rows plus the block
 // table over 3.35 TB/s (decode_partials.cuh).
@@ -27,7 +28,8 @@
 // q [B*Hkv, rows, D]; k_pages / v_pages [n_pages, page_size, hkv, D];
 // block_table [B, w] int32 (sentinel = n_pages); kv_len [B] int32.
 // Splits are page-aligned: split_len = (w / splits) * page_size, and
-// page_size % block_k == 0.  Returns cudaGetLastError() after the launch.
+// page_size % block_k == 0.  q and the pages start on 16-byte boundaries.
+// Returns cudaGetLastError() after the launch.
 extern "C" int paged_decode_partials(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_table, const void* kv_len, void* pm, void* pl,
@@ -51,3 +53,10 @@ extern "C" int paged_decode_partials(
 }
 
 extern "C" int paged_decode_partials_max_rows() { return MAXR; }
+
+// Dynamic shared memory one launch takes: `pages` = split_len / page_size
+// page-list entries (autotune.decode_smem_bytes mirrors it).
+extern "C" int paged_decode_partials_smem_bytes(int rows, int head_dim,
+                                                int dtype, int pages) {
+  return smem_bytes(rows, head_dim, elem_bytes_of(dtype), pages);
+}

@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.fusemax import (
     CUDA_DTYPES, NEG_INF, _exp, _ptr, _stream, check_cuda_operands,
 )
@@ -60,6 +61,48 @@ def _check_head_dims(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: head dims {[t.shape[-1] for t in tensors]}"
                          f" — the kernel is built for E == F in "
                          f"{CUDA_HEAD_DIMS}")
+
+
+def _check_vectors(name: str, **tensors: torch.Tensor) -> None:
+    """Raise unless each tensor starts on a 16-byte boundary and its rows
+    (last dim) are a multiple of 16 bytes apart: the K2/K3 kernels copy
+    16-byte vectors and have no scalar path."""
+    for label, t in tensors.items():
+        if t.data_ptr() % 16 or (t.stride(-2) * t.element_size()) % 16:
+            raise ValueError(
+                f"{name}: {label} must start on a 16-byte boundary with rows "
+                f"a multiple of 16 bytes apart (the kernel copies 16-byte "
+                f"vectors); it starts {t.data_ptr() % 16} bytes past one, "
+                f"rows {t.stride(-2) * t.element_size()} bytes apart")
+
+
+def _check_smem(name: str, rows: int, d: int, elem_bytes: int,
+                pages: int) -> None:
+    need = autotune.decode_smem_bytes(rows, d, elem_bytes, pages=pages)
+    if need > autotune.SMEM_BUDGET:
+        raise ValueError(f"{name}: {rows} rows at head dim {d} with a "
+                         f"{pages}-page split list need {need} B of shared "
+                         f"memory > {autotune.SMEM_BUDGET} B per block")
+
+
+def _check_smem_mirror(fn, name: str) -> None:
+    """Hold ``autotune.decode_smem_bytes`` to the kernel's own layout
+    (``<name>_smem_bytes`` of the library) once, when it is loaded."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    for dtype, code in CUDA_DTYPES.items():
+        eb = dtype.itemsize
+        for rows in (1, 4, 5, 64):
+            for d in CUDA_HEAD_DIMS:
+                for pages in (0, 8, 13):
+                    got = fn(rows, d, code, pages)
+                    want = autotune.decode_smem_bytes(rows, d, eb,
+                                                      pages=pages)
+                    if got != want:
+                        raise RuntimeError(
+                            f"{name}: kernel takes {got} B of shared memory "
+                            f"at rows={rows} d={d} {dtype} pages={pages}, "
+                            f"autotune.decode_smem_bytes says {want}")
 
 
 def _split_geometry(m: int, splits: int, block_k: int) -> tuple[int, int]:
@@ -307,6 +350,7 @@ def _partials_lib():
     max_rows = lib.decode_partials_max_rows
     max_rows.restype = ctypes.c_int
     max_rows.argtypes = []
+    _check_smem_mirror(lib.decode_partials_smem_bytes, "decode_partials")
     return fn, max_rows()
 
 
@@ -327,9 +371,11 @@ def decode_partials_cuda(
     rows_per_pos: Optional[int] = None,
 ):
     """Launch the CUDA split-K partials kernel on the current stream (no
-    sync).  Same contract as :func:`decode_partials_torch`."""
+    sync).  Same contract as :func:`decode_partials_torch`; q, k and v
+    start on 16-byte boundaries."""
     check_cuda_operands("decode_partials_cuda", q, k, v)
     _check_head_dims("decode_partials_cuda", q, k, v)
+    _check_vectors("decode_partials_cuda", q=q, k=k, v=v)
     bh, r, e = q.shape
     m = k.shape[1]
     if k.shape[0] != bh or v.shape[:2] != k.shape[:2]:
@@ -351,6 +397,7 @@ def decode_partials_cuda(
                          f"1..{max_rows}")
     if bh > 65535 or splits > 2**31 - 1:
         raise ValueError(f"grid ({splits}, {bh}) too large")
+    _check_smem("decode_partials_cuda", r, e, q.element_size(), 0)
     f32 = dict(dtype=torch.float32, device=q.device)
     pm = torch.empty((bh, splits, r), **f32)
     pl = torch.empty((bh, splits, r), **f32)
@@ -385,6 +432,8 @@ def _paged_lib():
     max_rows = lib.paged_decode_partials_max_rows
     max_rows.restype = ctypes.c_int
     max_rows.argtypes = []
+    _check_smem_mirror(lib.paged_decode_partials_smem_bytes,
+                       "paged_decode_partials")
     return fn, max_rows()
 
 
@@ -406,9 +455,12 @@ def paged_decode_partials_cuda(
 ):
     """Launch the CUDA paged split-K partials kernel
     (``csrc/paged_decode_partials.cu``) on the current stream (no sync).
-    Same contract as :func:`paged_decode_partials_torch`."""
+    Same contract as :func:`paged_decode_partials_torch`; q and the pages
+    start on 16-byte boundaries."""
     check_cuda_operands("paged_decode_partials_cuda", q, k_pages, v_pages)
     _check_head_dims("paged_decode_partials_cuda", q, k_pages, v_pages)
+    _check_vectors("paged_decode_partials_cuda", q=q, k_pages=k_pages,
+                   v_pages=v_pages)
     bh, r, e = q.shape
     n_pages, ps, hkv_p, f = v_pages.shape
     if k_pages.shape[:3] != v_pages.shape[:3] or hkv_p != hkv:
@@ -435,6 +487,8 @@ def paged_decode_partials_cuda(
                          f"1..{max_rows}")
     if bh > 65535:
         raise ValueError(f"grid ({splits}, {bh}) too large")
+    _check_smem("paged_decode_partials_cuda", r, e, q.element_size(),
+                split_pages)
     f32 = dict(dtype=torch.float32, device=q.device)
     pm = torch.empty((bh, splits, r), **f32)
     pl = torch.empty((bh, splits, r), **f32)
