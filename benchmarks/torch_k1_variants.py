@@ -5,12 +5,14 @@
 Builds ``src/repro_torch/kernels/csrc/fusemax_prefill.cu`` as it ships
 and in variants that each change one design choice (a textual edit of
 the shipped source, which raises when the source no longer holds the
-text it edits), all with ``nvcc`` in parallel into ``build/k1_variants/``.
-Then, fp32, on the CUDA device:
+text it edits), all with ``nvcc`` in parallel into ``build/k1_variants/``
+(each beside its ``-Xptxas -v`` report, ``<variant>.log``).  Then, fp32,
+on the CUDA device:
 
-* times every variant at the three shapes ``chip_smoke.py`` times K1 at
+* times every variant at the shapes ``chip_smoke.py`` times K1 at
   (granite-3-8b's prefill dispatch, DeepSeek-V3's ``mla_forward`` and its
-  absorbed tail), CUDA events over 20 launches after 3, in two rounds
+  absorbed tail, gemma2-9b's global and local layers), CUDA events over
+  20 launches after 3, in two rounds
   (the variants in order, then in reverse) so that a drift of the card
   shows;
 * runs every variant on stress inputs (scores in the hundreds, bits below
@@ -30,7 +32,11 @@ Variants:
   (576, 512);
 * ``kdepth8``       — score partials of 8 k-steps instead of 4;
 * ``tf32_1x``       — single-pass TF32 (hi·hi only), for the accuracy
-  and speed it gives up; never shipped.
+  and speed it gives up; never shipped;
+* ``tile256_128x64`` — gemma's (256, 256) on a 128 x 64 tile with two
+  warps a row group (128 accumulator floats a lane, 223,232 B of shared
+  memory) instead of the shipped 64 x 64 with four (64 floats, 138,240
+  B).
 
 Beside them it measures the rate ``mma.sync.m16n8k8`` TF32 reaches on
 this card with nothing else in the way (2 blocks of 8 warps a SM, 8
@@ -73,12 +79,14 @@ def _edit(src: str, old: str, new: str) -> str:
 
 
 def _tiles(src: str, tiles: dict) -> str:
+    """``src`` with the (BQ, BK, WF, MT) of each (E, F) in ``tiles``
+    replaced (the K chunk ``KC`` stays)."""
     for (e, f), (bq, bk, wf, mt) in tiles.items():
         src, n = re.subn(
-            r"struct PrefillTile<%d, %d> \{\n  static constexpr int [^;]*;"
-            % (e, f),
+            r"struct PrefillTile<%d, %d> \{\n  static constexpr int "
+            r"BQ = \d+, BK = \d+, WF = \d+, MT = \d+," % (e, f),
             "struct PrefillTile<%d, %d> {\n  static constexpr int BQ = %d, "
-            "BK = %d, WF = %d, MT = %d;" % (e, f, bq, bk, wf, mt), src)
+            "BK = %d, WF = %d, MT = %d," % (e, f, bq, bk, wf, mt), src)
         if n != 1:
             raise ValueError(f"no PrefillTile<{e}, {f}> in the source")
     return src
@@ -102,6 +110,7 @@ VARIANTS = {
     "tf32_1x": lambda s: _edit(_edit(
         s, "mma3<EXACT, EXACT>", "mma3<true, true>"),
         "mma3<false, EXACT>", "mma3<true, true>"),
+    "tile256_128x64": lambda s: _tiles(s, {(256, 256): (128, 64, 2, 2)}),
 }
 
 MMA_PEAK_SRC = r"""
@@ -137,14 +146,18 @@ extern "C" int mma_peak_launch(int blocks, int iters, void* out,
 }
 """
 
-#: (name, B·Hkv, P·G, M, E, F, group, q_offset): the shapes chip_smoke
-#: times K1 at
+#: (name, B·Hkv, P·G, M, E, F, group, q_offset[, window, softcap]): the
+#: shapes chip_smoke times K1 at
 SHAPES = [
     ("granite B4 Hq32 Hkv8 P=M=1024 d128", 32, 4096, 1024, 128, 128, 4, 0),
     ("mla_forward B4 H128 P=M=1024 E192 F128", 512, 1024, 1024, 192, 128,
      1, 0),
     ("absorbed B4 H128 in 1 group P=256 after 768 E576 F512", 4, 32768,
      1024, 576, 512, 128, 768),
+    ("gemma2 global B2 Hq16 Hkv8 P=M=8192 d256 softcap 50", 16, 16384, 8192,
+     256, 256, 2, 0, 0, 50.0),
+    ("gemma2 local B2 Hq16 Hkv8 P=M=8192 d256 window 4096 softcap 50", 16,
+     16384, 8192, 256, 256, 2, 0, 4096, 50.0),
 ]
 
 #: (name, B·Hkv, P·G, M, E, F, group, q_offset, inputs)
@@ -155,6 +168,7 @@ STRESS = [
     ("x + x*2^-12 E192 F128 P=M=1024", 8, 1024, 1024, 192, 128, 1, 0,
      "low_bits"),
     ("unit normals d128 g4 P=M=1024", 8, 4096, 1024, 128, 128, 4, 0, None),
+    ("q x30 d256 g2 P=M=512", 4, 1024, 512, 256, 256, 2, 0, "q_x30"),
 ]
 
 
@@ -177,6 +191,8 @@ def build(names: list[str]) -> tuple[dict, object]:
     libs = {}
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
+        with open(os.path.join(OUT_DIR, f"{name}.log"), "w") as fh:
+            fh.write(log)              # the -Xptxas -v report
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         libs[name] = ctypes.CDLL(lib)
@@ -210,12 +226,12 @@ def mma_rate(peak) -> dict:
                 accumulators_per_warp=8)
 
 
-def launch(fn, q, k, v, o, group, q_offset):
+def launch(fn, q, k, v, o, group, q_offset, window=0, softcap=0.0):
     bh, pg, e = q.shape
     m, f = v.shape[1], v.shape[2]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 0, e,
-             f, bh, pg, m, e ** -0.5, 1, 0, 0.0, q_offset, group, m, 0,
-             torch.cuda.current_stream().cuda_stream)
+             f, bh, pg, m, e ** -0.5, 1, window, softcap, q_offset, group,
+             m, 0, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: CUDA error {err}")
 
@@ -272,14 +288,14 @@ def main(argv=None) -> int:
 
     results = [dict(mma_rate(peak), device=smi)]
     print(json.dumps(results[0]), flush=True)
-    for name, bh, pg, m, e, f, group, q_offset in SHAPES:
+    for name, bh, pg, m, e, f, group, q_offset, *mask in SHAPES:
         q, k, v = rand(bh, pg, e), rand(bh, m, e), rand(bh, m, f)
         o = torch.empty(bh, pg, f, device="cuda")
         ms = {n: [] for n in fns}
         for order in (list(fns), list(fns)[::-1]):
             for n in order:
                 ms[n].append(time_ms(lambda: launch(fns[n], q, k, v, o,
-                                                    group, q_offset)))
+                                                    group, q_offset, *mask)))
         row = dict(kind="time", shape=name, device=smi, ms=ms)
         print(json.dumps(row), flush=True)
         results.append(row)

@@ -1,7 +1,8 @@
 """Where the time goes in the port's serving path, on the card.
 
     python benchmarks/torch_serve_profile.py [--cache-layout dense|paged]
-        [--arch granite-3-8b|deepseek-v3-671b] [--layers N] [--out PATH]
+        [--arch granite-3-8b|deepseek-v3-671b|gemma2-9b] [--layers N]
+        [--out PATH]
 
 Builds ``--arch`` at full width (all its layers unless ``--layers`` cuts
 the depth — ``--arch deepseek-v3-671b --layers 3`` is its dense prefix,
@@ -11,7 +12,9 @@ prompts of mixed length in [128, 1024] into a
 ``repro_torch.serving.ServeEngine`` on the ``--cache-layout`` (slots 8,
 max_len 2048; the paged layout with its default pool of 1024 pages of
 16 tokens and the prefix cache on) and runs one 16-step decode dispatch,
-after one untimed warm-up round of the same work.  Each phase runs twice: once timed with CUDA events around it (wall
+after one untimed warm-up round of the same work.  gemma2-9b runs its
+serve cell's traffic instead: 4 prompts uniform in [4200, 6000], past
+its 4096-token window, in 4 slots of max_len 8192.  Each phase runs twice: once timed with CUDA events around it (wall
 on the device's clock, no profiler attached) and once under
 ``torch.profiler`` for the per-kernel device time.  It prints one JSON
 object per phase — wall ms, device-busy ms (sum of kernel durations: the
@@ -118,7 +121,8 @@ def main(argv=None) -> list:
     ap.add_argument("--cache-layout", default="dense",
                     choices=("dense", "paged"))
     ap.add_argument("--arch", default="granite-3-8b",
-                    choices=("granite-3-8b", "deepseek-v3-671b"))
+                    choices=("granite-3-8b", "deepseek-v3-671b",
+                             "gemma2-9b"))
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth (default: all of the arch's)")
     ap.add_argument("--seed", type=int, default=0)
@@ -135,12 +139,15 @@ def main(argv=None) -> list:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
     model = tf.init(cfg, args.seed, rt, device="cuda")
+    # (slots, max_len, prompt lengths lo..hi): the arch's serve cell
+    slots, max_len, lo, hi = (4, 8192, 4200, 6000) \
+        if args.arch == "gemma2-9b" else (8, 2048, 128, 1024)
     rng = np.random.default_rng(args.seed)
-    lens = [int(x) for x in rng.integers(128, 1025, size=8)]
+    lens = [int(x) for x in rng.integers(lo, hi + 1, size=slots)]
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
 
     def fresh_engine():
-        eng = ServeEngine(cfg, model, slots=8, max_len=2048, rt=rt,
+        eng = ServeEngine(cfg, model, slots=slots, max_len=max_len, rt=rt,
                           cache_layout=args.cache_layout, device="cuda")
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=p, max_new_tokens=17))
@@ -148,6 +155,8 @@ def main(argv=None) -> list:
 
     results = []
     for rnd in ("warmup", "timed", "profiled"):
+        eng = None                       # one engine's caches at a time
+        torch.cuda.empty_cache()
         eng = fresh_engine()
         if rnd == "warmup":
             eng._admit()

@@ -13,31 +13,39 @@ JSON line (``"phase": ...``):
              (nvcc, in parallel) and the ptxas register / shared-memory
              report;
 3. kernels — every case of the prefill (K1, at the GQA head dims and at
-             DeepSeek's MLA (E, F) = (192, 128) and (576, 512), and cases
-             that stress its 3xTF32 split: scores in the hundreds, low
-             mantissa bits that matter, P = M = 1024), dense
-             split-K decode (K2), paged split-K decode (K3) and paged MLA
-             latent decode (K4) kernels against its plain torch version on
-             the same inputs, with its tolerance (K2 and K3 also at 64
-             query rows, 8-token pages, splits of exactly one chunk,
-             kv_len on both sides of chunk edges and bf16 d64 at P = 3;
-             and given an operand one element off a 16-byte boundary,
-             which they must refuse); K3 against K2 on a
-             permuted pool holding a dense cache's rows (``k3_vs_k2``) and
-             K4 on a permuted latent pool against K4 on the same rows in
-             identity page order (``k4_perm_vs_identity``), both equal bits
-             on every row with kv_len >= 1; then each kernel's time at the
-             shapes the granite-3-8b and DeepSeek-V3 main paths give it,
-             (``ms``: CUDA events around 20 back-to-back wrapper calls;
-             K2-K4 also ``device_ms``: the kernel's own duration from
+             DeepSeek's MLA (E, F) = (192, 128) and (576, 512), at the
+             smoke configs' (32, 32) and (48, 32) and gemma's (256, 256)
+             with causal masks, history offsets, windows, softcap 50 and a
+             ragged m_valid, and cases that stress its 3xTF32 split:
+             scores in the hundreds, low mantissa bits that matter, P = M
+             = 1024), dense split-K decode (K2), paged split-K decode (K3)
+             and paged MLA latent decode (K4) kernels against its plain
+             torch version on the same inputs, with its tolerance (K2 and
+             K3 also at 64 query rows, 8-token pages, splits of exactly
+             one chunk, kv_len on both sides of chunk edges, bf16 d64 at P
+             = 3, head dims 32 and 256 with softcap, kv_len 0 and 1 and
+             ring caches read at eff_len; K4 also at the smoke latent (32,
+             16) with 4 heads; and given an operand one element off a
+             16-byte boundary, or head dims they are not built for, which
+             they must refuse); K3 against K2 on a permuted pool holding a
+             dense cache's rows (``k3_vs_k2``, at head dims 128 and 256)
+             and K4 on a permuted latent pool against K4 on the same rows
+             in identity page order (``k4_perm_vs_identity``), both equal
+             bits on every row with kv_len >= 1; then each kernel's time at
+             the shapes the granite-3-8b, DeepSeek-V3 and gemma2-9b main
+             paths give it and at a smoke serving shape (``ms``: CUDA
+             events around 20 back-to-back wrapper calls; K2-K4 also
+             ``device_ms``: the kernel's own duration from
              ``torch.profiler`` over 20 more calls, without the wrapper's
              host time; K2 and K3 also ``host_ms``, the wrapper's host
              time per call), beside its plain version's, a library call's
-             (``library_ms``:
-             a yardstick the port never calls; for K1 also SDPA under
-             each fp32 backend and the one the default call ran) and the
-             least time the card could take (``bound_ms``; K1 against the
-             tensor cores' 3xTF32 rate, with the FP32 units' beside it);
+             (``library_ms``: a yardstick the port never calls; for K1
+             also SDPA under each fp32 backend and the one the default
+             call ran; SDPA has no softcap, so at gemma2's shapes it runs
+             the same masks without one) and the least time the card
+             could take (``bound_ms``, over the keys the causal and window
+             masks leave; K1 against the tensor cores' 3xTF32 rate, with
+             the FP32 units' beside it);
 4. model   — granite-3-8b at full width cut to 4 layers, fp32: prefill 4
              mixed-length prompts and decode 8 greedy steps with
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
@@ -51,18 +59,37 @@ JSON line (``"phase": ...``):
 6. serve_prefix — the launcher on the paged layout with a 256-token
              shared prefix against its prefix-cache-off leg: equal
              streams, tokens reused, the pool's invariants audited;
-7. model_mla — DeepSeek-V3's first three layers (MLA + dense FFN) at full
+7. model_gemma2 — gemma2-9b at full width cut to 4 layers (two local with
+             a 4096-token window, two global), fp32: prompts of 4600 and
+             5000 tokens, one prefilled whole and one in 2048-token
+             chunks, 8 decode steps past the window, dense and paged, with
+             ``attn_impl`` "cuda" and "torch": equal tokens, logits within
+             1e-4 of their scale, dense = paged;
+8. serve_gemma2 — the launcher (``--cache-layout both``) on all 42 layers
+             at full width (fp32, ~37 GB): 4 prompts of 4200-6000 tokens,
+             all past the window, 32 new tokens; the serve phase's checks,
+             K1 launched 42 x prefill dispatches, K2 / K3 42 x decode
+             steps;
+9. launcher_defaults — ``python -m repro_torch.launch.serve`` as
+             subprocesses from the repo root: with no flags (gemma2-9b-
+             smoke on the card), ``--cache-layout both``, granite-3-8b-
+             smoke paged and gemma-7b-smoke: exit code 0, kernels
+             launched, ``outputs_match`` where it compares layouts;
+10. model_mla — DeepSeek-V3's first three layers (MLA + dense FFN) at full
              width, fp32, on the paged layout: two prefill chunks (the
              second at an offset, the absorbed form) and 8 decode steps
              with ``attn_impl="cuda"`` and ``"torch"``;
-8. serve_mla — the launcher (``--cache-layout paged``) serving that tower:
+11. serve_mla — the launcher (``--cache-layout paged``) serving that tower:
              K4 launched 3 x decode steps and K1 3 x prefill dispatches in
              the timed run;
-9. serve_mla_prefix — that tower with a 256-token shared prefix against
+12. serve_mla_prefix — that tower with a 256-token shared prefix against
              its prefix-cache-off leg: equal streams, 3840 tokens reused;
-10. serve_mla_impls — a short trace on that tower with ``attn_impl``
+13. serve_mla_impls — a short trace on that tower with ``attn_impl``
              "cuda" and "torch": equal greedy streams;
-11. the ``kernels`` line (launches on the main paths, errors, times,
+14. model_mla_smoke — the model_mla check on the MLA smoke config (MoE
+             cut, as the launcher serves it): K1 at (48, 32), K4 at (32,
+             16);
+15. the ``kernels`` line (launches on the main paths, errors, times,
    bounds) and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises: the script then exits non-zero and prints no
@@ -186,6 +213,39 @@ def k1_cases(torch):
     ]
 
 
+def k1_dims_cases(torch):
+    """K1 at the head dims the smoke configs and gemma reach: (32, 32)
+    (every GQA ``-smoke`` config), (48, 32) (the MLA smoke config's
+    ``mla_forward``, one head a fiber, and its absorbed tail, the 4 heads
+    in one group) and (256, 256) (gemma-7b, gemma2-9b), in fp32 and bf16:
+    causal, causal with a history offset, a window of 100 (no multiple of
+    the 64-key tile) below M, softcap 50 with and without that window, and
+    a ragged ``m_valid``."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = []
+    for e, f, (hkv, g), (hkv_b, g_b) in (
+            (32, 32, (2, 2), (2, 2)), (48, 32, (1, 4), (4, 1)),
+            (256, 256, (2, 2), (2, 2))):
+        for dtype, (h, gg) in ((f32, (hkv, g)), (bf16, (hkv_b, g_b))):
+            dn = "fp32" if dtype == f32 else "bf16"
+            tag = f"{dn} E{e} F{f} g{gg}"
+            out += [
+                (f"{tag} causal", 2, h, gg, 150, 150, e, f, dtype,
+                 dict(causal=True)),
+                (f"{tag} causal q_offset=90", 1, h, gg, 70, 160, e, f, dtype,
+                 dict(causal=True, q_offset=90)),
+                (f"{tag} window=100 causal", 1, h, gg, 300, 300, e, f, dtype,
+                 dict(causal=True, window=100)),
+                (f"{tag} softcap=50 causal", 1, h, gg, 130, 130, e, f, dtype,
+                 dict(causal=True, softcap=50.0)),
+                (f"{tag} softcap=50 window=100 causal", 1, h, gg, 260, 260, e,
+                 f, dtype, dict(causal=True, window=100, softcap=50.0)),
+                (f"{tag} m_valid=200 of 256", 2, h, gg, 96, 256, e, f, dtype,
+                 dict(m_valid=200)),
+            ]
+    return out
+
+
 def k1_split_cases(torch):
     """K1 cases that stress the 3xTF32 split, each with how its inputs
     are made from unit normals: scores in the hundreds (q x 30), values
@@ -235,6 +295,7 @@ def run_k1_cases(torch, gen, fm, autotune) -> list:
     reference (``vs_f64``, not gated)."""
     rows = []
     cases = [c + (None, False) for c in k1_cases(torch)] + \
+        [c + (None, False) for c in k1_dims_cases(torch)] + \
         [c + (True,) for c in k1_split_cases(torch)]
     for name, b, hkv, g, p, m, e, f, dtype, kw, how, split in cases:
         tile = autotune.attention_params(p * g, m, e, f, impl="cuda")
@@ -292,6 +353,27 @@ def k2_cases(torch, ck: int):
                     4 * ck - 1, 4 * ck + 1], 2, 128, {}),
         ("bf16 d64 P=3 verify rows splits=4", 2, 2, 4, 3, 512, 64, bf16,
          [0, 300], 4, 128, {}),
+        # the smoke configs' head dim 32 and gemma's 256 (G = 2): softcap,
+        # kv_len 0 and 1, a ring cache (M = window) read at eff_len =
+        # min(kv_len, window), verify rows past one row block
+        ("fp32 d32 g2 softcap=50 kv_len 0,1 splits=4", 4, 2, 2, 1, 256, 32,
+         f32, [0, 1, 200, 256], 4, 128, dict(softcap=50.0)),
+        ("bf16 d32 g2 softcap=50 splits=2", 3, 2, 2, 1, 256, 32, bf16,
+         [1, 64, 256], 2, 128, dict(softcap=50.0)),
+        ("fp32 d32 ring of 64 at eff_len (kv_len past the window) splits=1",
+         4, 2, 2, 1, 64, 32, f32, [64, 64, 37, 1], 1, 64,
+         dict(softcap=50.0)),
+        ("bf16 d32 R=64 (P=16 G=4) splits=4", 2, 2, 4, 16, 256, 32, bf16,
+         [5, 200], 4, 128, {}),
+        ("fp32 d256 g2 softcap=50 kv_len 0,1 splits=4", 4, 4, 2, 1, 512, 256,
+         f32, [0, 1, 300, 512], 4, 128, dict(softcap=50.0)),
+        ("bf16 d256 g2 softcap=50 splits=4", 2, 4, 2, 1, 512, 256, bf16,
+         [511, 3], 4, 128, dict(softcap=50.0)),
+        ("fp32 d256 ring of 256 at eff_len (kv_len past the window) "
+         "splits=2", 3, 2, 2, 1, 256, 256, f32, [256, 256, 100], 2, 128,
+         dict(softcap=50.0)),
+        ("fp32 d256 R=16 (P=4 G=4) splits=4", 2, 2, 4, 4, 512, 256, f32,
+         [0, 400], 4, 128, {}),
     ]
 
 
@@ -365,6 +447,48 @@ def misaligned_cases(torch, gen, dec) -> list:
     return rows
 
 
+def unbuilt_dims_cases(torch, gen, fm, dec) -> list:
+    """Each kernel given CUDA tensors at head dims it is not built for must
+    raise, never fall back to its plain version: K1 at (E, F) = (96, 96),
+    K2 and K3 at D = 96, K4 at (r, rd) = (64, 16)."""
+    f32 = torch.float32
+    q = _rand(torch, gen, (2, 64, 96), f32)
+    kp = _rand(torch, gen, (4, 16, 2, 96), f32)
+    ql = _rand(torch, gen, (1, 4, 80), f32)
+    ckv = _rand(torch, gen, (4, 16, 64), f32)
+    kr = _rand(torch, gen, (4, 16, 16), f32)
+    table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(1, 4)
+    kv_len = torch.tensor([40], dtype=torch.int32, device="cuda")
+    dk = dict(scale=0.1, splits=1)
+    calls = [
+        ("fusemax_prefill", "(E, F) = (96, 96)",
+         lambda: fm.fusemax_attention_cuda(q, q, q, scale=0.1, block_q=128,
+                                           block_k=64)),
+        ("decode_partials", "D = 96", lambda: dec.decode_partials_cuda(
+            q[:, :4].contiguous(), q, q, kv_len, hkv=2, block_k=64, **dk)),
+        ("paged_decode_partials", "D = 96",
+         lambda: dec.paged_decode_partials_cuda(
+             q[:, :4].contiguous(), kp, kp, table, kv_len, hkv=2,
+             block_k=16, **dk)),
+        ("mla_paged_decode_partials", "(r, rd) = (64, 16)",
+         lambda: dec.mla_paged_decode_partials_cuda(
+             ql, ckv, kr, table, kv_len, block_k=16, **dk)),
+    ]
+    rows = []
+    for kernel, what, call in calls:
+        try:
+            call()
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        torch.cuda.synchronize()
+        rows.append(dict(kernel=kernel,
+                         case=f"unbuilt head dims {what} raise",
+                         raised=raised,
+                         ok=raised is not None and "built for" in raised))
+    return rows
+
+
 def _permuted_table(torch, gen, b, ps, w, n_pages, kvl, n_pos):
     """A block table of distinct random pages per row whose entries past
     the pages ``kv_len + n_pos - 1`` keys need hold the sentinel."""
@@ -424,6 +548,24 @@ def k3_cases(torch, ck: int):
           4 * ck + 1], 2, 16, {}),
         ("bf16 d64 P=3 verify ps16 splits=4", 2, 2, 4, 3, 16, 32, 80, 64,
          bf16, [5, 400], 4, 16, {}),
+        # head dims 32 and 256 (G = 2) on permuted pools: softcap, kv_len 0
+        # and 1, a ring class (W·ps = window) read at eff_len, verify rows
+        ("fp32 d32 ps16 softcap=50 kv_len 0,1 splits=4", 4, 2, 2, 1, 16, 16,
+         80, 32, f32, [0, 1, 100, 256], 4, 16, dict(softcap=50.0)),
+        ("bf16 d32 ps16 softcap=50 splits=2", 3, 2, 2, 1, 16, 8, 40, 32,
+         bf16, [128, 17, 1], 2, 16, dict(softcap=50.0)),
+        ("fp32 d32 ring W=4 (window 64) at eff_len splits=1", 4, 2, 2, 1, 16,
+         4, 24, 32, f32, [64, 64, 20, 0], 1, 16, dict(softcap=50.0)),
+        ("bf16 d32 R=64 (P=16 G=4) ps16 splits=4", 2, 2, 4, 16, 16, 16, 40,
+         32, bf16, [5, 200], 4, 16, {}),
+        ("fp32 d256 ps16 softcap=50 kv_len 0,1 splits=4", 4, 4, 2, 1, 16, 32,
+         160, 256, f32, [0, 1, 300, 512], 4, 16, dict(softcap=50.0)),
+        ("bf16 d256 ps16 softcap=50 splits=4", 2, 4, 2, 1, 16, 32, 80, 256,
+         bf16, [511, 3], 4, 16, dict(softcap=50.0)),
+        ("fp32 d256 ring W=16 (window 256) at eff_len splits=2", 3, 2, 2, 1,
+         16, 16, 60, 256, f32, [256, 256, 100], 2, 16, dict(softcap=50.0)),
+        ("fp32 d256 R=16 (P=4 G=4) ps16 splits=4", 2, 2, 4, 4, 16, 32, 80,
+         256, f32, [0, 400], 4, 16, {}),
     ]
 
 
@@ -454,13 +596,10 @@ def run_k3_cases(torch, gen, dec, autotune) -> list:
     return rows
 
 
-def granite_paged_data(torch, gen):
-    """A granite-3-8b decode step's data on both layouts: 8 slots, 32 q
-    over 8 kv heads, head dim 128, fp32, a 2048-token dense cache, and the
-    same rows scattered into a 1024-page pool (page_size 16, W 128) in a
-    random page order, table entries past each slot's kv_len holding the
-    sentinel."""
-    b, hq, hkv, m, d, ps = 8, 32, 8, 2048, 128, 16
+def paged_data(torch, gen, b, hq, hkv, m, d, ps=16):
+    """A decode step's data on both layouts, fp32: a dense cache of m slots
+    and the same rows scattered into a pool of b * m / ps pages in a random
+    page order (tables [b, m / ps])."""
     w = m // ps
     g = hq // hkv
     q = _rand(torch, gen, (b, hq, 1, d), torch.float32)
@@ -478,6 +617,19 @@ def granite_paged_data(torch, gen):
                 v=v, k_pages=k_pages, v_pages=v_pages, table=table)
 
 
+def granite_paged_data(torch, gen):
+    """A granite-3-8b decode step: 8 slots, 32 q over 8 kv heads, head dim
+    128, a 2048-token cache, a 1024-page pool (page_size 16, W 128)."""
+    return paged_data(torch, gen, 8, 32, 8, 2048, 128)
+
+
+def gemma2_paged_data(torch, gen, m=8192):
+    """A gemma2-9b decode step: 4 slots, 16 q over 8 kv heads, head dim
+    256, a global layer's 8192-token cache (or a local layer's ring of
+    4096) and its pool (page_size 16)."""
+    return paged_data(torch, gen, 4, 16, 8, m, 256)
+
+
 def with_sentinels(table, kvl, ps, n_pages):
     """``table`` with the entries past each row's kv_len set to the
     sentinel ``n_pages``."""
@@ -487,12 +639,14 @@ def with_sentinels(table, kvl, ps, n_pages):
     return t
 
 
-def k3_vs_k2(torch, gen, dec, autotune) -> dict:
-    """K3 on the permuted pool against K2 on the dense cache, both at 16
-    splits (K2's block_k 128, K3's 16): equal bits on every kv_len >= 1
-    row."""
-    x = granite_paged_data(torch, gen)
-    kvl = [2048, 1500, 1024, 700, 300, 64, 1, 0]
+def k3_vs_k2(torch, gen, dec, autotune, x=None,
+             kvl=(2048, 1500, 1024, 700, 300, 64, 1, 0),
+             case="k3_vs_k2") -> dict:
+    """K3 on the permuted pool against K2 on the dense cache at the tuned
+    splits (granite: 16, K2's block_k 128, K3's 16): equal bits on every
+    kv_len >= 1 row."""
+    x = granite_paged_data(torch, gen) if x is None else x
+    kvl = list(kvl)
     kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
     n_pages = x["k_pages"].shape[0]
     table = with_sentinels(x["table"], kvl, x["ps"], n_pages)
@@ -513,7 +667,7 @@ def k3_vs_k2(torch, gen, dec, autotune) -> dict:
     torch.cuda.synchronize()
     live = torch.tensor(kvl, device="cuda").repeat_interleave(hkv) >= 1
     diff = (out3 - out2).abs()
-    row = dict(kernel="paged_decode_partials", case="k3_vs_k2",
+    row = dict(kernel="paged_decode_partials", case=case, d=d,
                kv_len=kvl, splits=dense.splits, block_k_k2=dense.block_k,
                block_k_k3=paged.block_k,
                max_abs_diff_live=diff[live].max().item(),
@@ -522,15 +676,16 @@ def k3_vs_k2(torch, gen, dec, autotune) -> dict:
     return row
 
 
-def time_k3(torch, gen, dec, ops, autotune) -> dict:
-    """K3 at a granite-3-8b decode step: the data of :func:`k3_vs_k2`,
-    mixed kv_len, 16 splits; beside it K2 on the same rows in the dense
-    layout, and as the library yardstick ``gather_pages`` + SDPA on the
-    gathered view."""
+def time_k3(torch, gen, dec, ops, autotune, x=None,
+            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900)) -> dict:
+    """K3 at a decode step (by default granite-3-8b's: the data of
+    :func:`k3_vs_k2`, mixed kv_len, 16 splits); beside it K2 on the same
+    rows in the dense layout, and as the library yardstick
+    ``gather_pages`` + SDPA on the gathered view."""
     import torch.nn.functional as F
 
-    x = granite_paged_data(torch, gen)
-    kvl = [2048, 1500, 1024, 700, 300, 64, 1, 1900]
+    x = granite_paged_data(torch, gen) if x is None else x
+    kvl = list(kvl)
     kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
     n_pages = x["k_pages"].shape[0]
     table = with_sentinels(x["table"], kvl, x["ps"], n_pages)
@@ -603,19 +758,22 @@ def time_k3(torch, gen, dec, ops, autotune) -> dict:
 MLA_R, MLA_RD = 512, 64
 
 
-def _latent_inputs(torch, gen, b, h, p, ps, w, n_pages, dtype, kvl):
+def _latent_inputs(torch, gen, b, h, p, ps, w, n_pages, dtype, kvl,
+                   r=MLA_R, rd=MLA_RD):
     """Folded absorbed queries [b, p*h, r + rd], random latent pools and a
     :func:`_permuted_table`."""
-    q = _rand(torch, gen, (b, p * h, MLA_R + MLA_RD), dtype)
-    ckv = _rand(torch, gen, (n_pages, ps, MLA_R), dtype)
-    kr = _rand(torch, gen, (n_pages, ps, MLA_RD), dtype)
+    q = _rand(torch, gen, (b, p * h, r + rd), dtype)
+    ckv = _rand(torch, gen, (n_pages, ps, r), dtype)
+    kr = _rand(torch, gen, (n_pages, ps, rd), dtype)
     return q, ckv, kr, _permuted_table(torch, gen, b, ps, w, n_pages, kvl, p)
 
 
 def k4_cases(torch):
     """(name, b, heads, P, page_size, W, pool pages, dtype, kv_len, splits,
-    block_k, kwargs) for the paged MLA latent decode kernel at DeepSeek's
-    latent (r 512, rd 64)."""
+    block_k, kwargs[, (r, rd)]) for the paged MLA latent decode kernel at
+    DeepSeek's latent (r 512, rd 64) and its smoke config's (r 32, rd 16:
+    4 heads, so 4 real rows of a 32-row head block, and half the lanes
+    without a rope feature)."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         ("fp32 G128 ps16 kv_len 0,1,aligned,unaligned splits=4", 4, 128, 1,
@@ -634,17 +792,24 @@ def k4_cases(torch):
          f32, [100, 37], 1, 8, {}),
         ("fp32 G128 ps64 block_k=32 splits=2", 2, 128, 1, 64, 8, 20, f32,
          [400, 65], 2, 32, {}),
+        ("fp32 r32 rd16 G4 (R=4) kv_len 0,1 splits=4", 4, 4, 1, 16, 16, 80,
+         f32, [0, 1, 100, 256], 4, 16, {}, (32, 16)),
+        ("bf16 r32 rd16 G4 (R=4) softcap=50 splits=2", 3, 4, 1, 16, 8, 40,
+         bf16, [128, 17, 1], 2, 16, dict(softcap=50.0), (32, 16)),
+        ("fp32 r32 rd16 G4 P=2 verify splits=4", 2, 4, 2, 16, 16, 40, f32,
+         [5, 200], 4, 16, {}, (32, 16)),
     ]
 
 
 def run_k4_cases(torch, gen, dec) -> list:
     rows = []
-    for (name, b, h, p, ps, w, n_pages, dtype, kvl, splits, bk,
-         kw) in k4_cases(torch):
+    for (name, b, h, p, ps, w, n_pages, dtype, kvl, splits, bk, kw,
+         *dims) in k4_cases(torch):
+        r, rd = dims[0] if dims else (MLA_R, MLA_RD)
         q, ckv, kr, table = _latent_inputs(torch, gen, b, h, p, ps, w,
-                                           n_pages, dtype, kvl)
+                                           n_pages, dtype, kvl, r, rd)
         kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
-        args = dict(scale=(MLA_R + MLA_RD) ** -0.5, splits=splits,
+        args = dict(scale=(r + rd) ** -0.5, splits=splits,
                     block_k=bk, n_pos=p, rows_per_pos=h, **kw)
         out = dec.combine_partials(*dec.mla_paged_decode_partials_cuda(
             q, ckv, kr, table, kv_len, **args), dtype)
@@ -663,17 +828,18 @@ def run_k4_cases(torch, gen, dec) -> list:
     return rows
 
 
-def deepseek_decode_data(torch, gen, kvl):
-    """A DeepSeek-V3 decode step's latent data (fp32): 8 slots, 128 heads,
-    r 512, rd 64, page_size 16, W 128 (a 2048-token table), absorbed
-    queries, and the same latent rows in a pool of 1024 pages once in
-    identity page order and once permuted, table entries past each slot's
-    kv_len holding the sentinel."""
-    b, h, ps, w = 8, 128, 16, 128
+def deepseek_decode_data(torch, gen, kvl, b=8, h=128, w=128, r=MLA_R,
+                         rd=MLA_RD):
+    """A DeepSeek-V3 decode step's latent data (fp32): by default 8 slots,
+    128 heads, r 512, rd 64, page_size 16, W 128 (a 2048-token table),
+    absorbed queries, and the same latent rows in a pool of b * W pages
+    once in identity page order and once permuted, table entries past each
+    slot's kv_len holding the sentinel."""
+    ps = 16
     n_pages = b * w
-    q = _rand(torch, gen, (b, h, MLA_R + MLA_RD), torch.float32)
-    ckv = _rand(torch, gen, (n_pages, ps, MLA_R), torch.float32)
-    kr = _rand(torch, gen, (n_pages, ps, MLA_RD), torch.float32)
+    q = _rand(torch, gen, (b, h, r + rd), torch.float32)
+    ckv = _rand(torch, gen, (n_pages, ps, r), torch.float32)
+    kr = _rand(torch, gen, (n_pages, ps, rd), torch.float32)
     ident = torch.arange(n_pages, device="cuda", dtype=torch.int32)
     perm = torch.randperm(n_pages, generator=gen, device="cuda")
     ckv_p, kr_p = torch.empty_like(ckv), torch.empty_like(kr)
@@ -684,7 +850,7 @@ def deepseek_decode_data(torch, gen, kvl):
               "permuted": with_sentinels(
                   perm.to(torch.int32).reshape(b, w).contiguous(), kvl, ps,
                   n_pages)}
-    return dict(b=b, h=h, ps=ps, w=w, n_pages=n_pages, q=q,
+    return dict(b=b, h=h, ps=ps, w=w, n_pages=n_pages, q=q, r=r, rd=rd,
                 pools={"identity": (ckv, kr), "permuted": (ckv_p, kr_p)},
                 tables=tables,
                 kv_len=torch.tensor(kvl, dtype=torch.int32, device="cuda"))
@@ -714,22 +880,26 @@ def k4_perm_vs_identity(torch, gen, dec, autotune) -> dict:
     return row
 
 
-def time_k4(torch, gen, dec, ops, autotune) -> dict:
-    """K4 at a DeepSeek-V3 decode step: the data of
-    :func:`k4_perm_vs_identity` with the K2/K3 timing kv_len list, the
-    permuted pool, the tuned geometry; beside it K4 at 4 splits on the
-    same data (a fifth of the partials' bytes), and as the library
-    yardstick ``gather_pages`` + SDPA on the gathered view."""
+def time_k4(torch, gen, dec, ops, autotune,
+            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900), **dims) -> dict:
+    """K4 at a decode step (by default DeepSeek-V3's: the data of
+    :func:`k4_perm_vs_identity` with the K2/K3 timing kv_len list; ``dims``
+    as :func:`deepseek_decode_data` takes them), the permuted pool, the
+    tuned geometry; beside it K4 at 4 splits on the same data (a fifth of
+    the partials' bytes at DeepSeek's shape), and as the library yardstick
+    ``gather_pages`` + SDPA on the gathered view."""
     import torch.nn.functional as F
 
-    kvl = [2048, 1500, 1024, 700, 300, 64, 1, 1900]
-    x = deepseek_decode_data(torch, gen, kvl)
+    kvl = list(kvl)
+    x = deepseek_decode_data(torch, gen, kvl, b=len(kvl), **dims)
     b, h, ps, w = x["b"], x["h"], x["ps"], x["w"]
+    r, rd = x["r"], x["rd"]
     ckv, kr = x["pools"]["permuted"]
     table, kv_len, q = x["tables"]["permuted"], x["kv_len"], x["q"]
-    tuned = autotune.mla_paged_decode_params(w, ps, h, MLA_R, MLA_RD)
-    scale = (MLA_R + MLA_RD) ** -0.5
+    tuned = autotune.mla_paged_decode_params(w, ps, h, r, rd)
+    scale = (r + rd) ** -0.5
     args = dict(scale=scale, splits=tuned.splits, block_k=tuned.block_k)
+    splits4 = min(4, w)
     out = dec.combine_partials(*dec.mla_paged_decode_partials_cuda(
         q, ckv, kr, table, kv_len, **args), torch.float32)
     ref = dec.combine_partials(*dec.mla_paged_decode_partials_torch(
@@ -742,7 +912,7 @@ def time_k4(torch, gen, dec, ops, autotune) -> dict:
     plain_ms = time_ms(torch, lambda: dec.mla_paged_decode_partials_torch(
         q, ckv, kr, table, kv_len, **args), iters=5, warmup=1)
     ms_splits4 = time_ms(torch, lambda: dec.mla_paged_decode_partials_cuda(
-        q, ckv, kr, table, kv_len, scale=scale, splits=4,
+        q, ckv, kr, table, kv_len, scale=scale, splits=splits4,
         block_k=tuned.block_k))
     m = w * ps
     mask = (torch.arange(m, device="cuda")[None, :]
@@ -758,39 +928,43 @@ def time_k4(torch, gen, dec, ops, autotune) -> dict:
                 enable_gqa=True)
         except TypeError:
             return F.scaled_dot_product_attention(
-                q4, kg[:, None].expand(b, h, m, MLA_R + MLA_RD),
-                cg[:, None].expand(b, h, m, MLA_R), attn_mask=mask,
+                q4, kg[:, None].expand(b, h, m, r + rd),
+                cg[:, None].expand(b, h, m, r), attn_mask=mask,
                 scale=scale)
 
     library_ms = time_ms(torch, library)
     live = sum(kvl)
     # each valid latent row (ckv and krope) is read once, the queries, the
     # table and kv_len once, the fp32 partials written once
-    nbytes = (4 * live * (MLA_R + MLA_RD) + 4 * q.numel()
+    nbytes = (4 * live * (r + rd) + 4 * q.numel()
               + 4 * table.numel() + 4 * b
-              + 4 * b * tuned.splits * h * (MLA_R + 2))
+              + 4 * b * tuned.splits * h * (r + 2))
     # per valid key and head: r + rd multiply-adds for the score, r for
     # the value
-    flops = 2 * h * live * (2 * MLA_R + MLA_RD)
+    flops = 2 * h * live * (2 * r + rd)
     row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
-                      shape=f"B{b} H{h} r{MLA_R} rd{MLA_RD} page_size {ps} "
+                      shape=f"B{b} H{h} r{r} rd{rd} page_size {ps} "
                             f"W {w} pool {x['n_pages']} pages fp32 kv_len "
                             f"{kvl} splits {tuned.splits} block_k "
                             f"{tuned.block_k}")
     row["ms_splits4_same_data"] = ms_splits4
     row["device_ms"] = dev_ms
     row["device_share_of_bound"] = row["bound_ms"] / dev_ms
-    row["partials_bytes"] = 4 * b * tuned.splits * h * (MLA_R + 2)
-    row["latent_bytes"] = 4 * live * (MLA_R + MLA_RD)
+    row["partials_bytes"] = 4 * b * tuned.splits * h * (r + 2)
+    row["latent_bytes"] = 4 * live * (r + rd)
     return row
 
 
 def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
-                   q_offset, shape) -> dict:
-    """K1 at one prefill shape, causal with a history offset, fp32: the
-    kernel, its plain version, SDPA on the same inputs (by default and
-    under each fp32 backend), and both bounds: the FP32 units' and the
-    tensor cores' in 3xTF32, which is the one K1 runs against."""
+                   q_offset, shape, window=None, softcap=None) -> dict:
+    """K1 at one prefill shape, causal with a history offset (and a window
+    and a softcap where given), fp32: the kernel, its plain version, SDPA
+    on the same inputs (by default and under each fp32 backend; the window
+    as a boolean mask, and never a softcap, which SDPA has not: there it
+    is a yardstick of a neighbouring function), and both bounds: the FP32
+    units' and the tensor cores' in 3xTF32, which is the one K1 runs
+    against, over the (query, key) pairs the causal and window masks
+    leave."""
     g = hq // hkv
     q = _rand(torch, gen, (b, hq, p, e), torch.float32)
     k = _rand(torch, gen, (b, hkv, m, e), torch.float32)
@@ -800,7 +974,8 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
     k_f, v_f = k.reshape(b * hkv, m, e), v.reshape(b * hkv, m, f)
     tile = autotune.attention_params(p * g, m, e, f, impl="cuda")
     args = dict(scale=e ** -0.5, causal=True, group=g, q_offset=q_offset,
-                block_q=tile.block_q, block_k=tile.block_k)
+                block_q=tile.block_q, block_k=tile.block_k, window=window,
+                softcap=softcap)
     out = fm.fusemax_attention_cuda(q_f, k_f, v_f, **args)
     ref = fm.fusemax_attention_torch(q_f, k_f, v_f, **args)
     err, ok, _, _ = _err(torch, out, ref, "float32")
@@ -809,17 +984,23 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
                                                           **args))
     plain_ms = time_ms(torch, lambda: fm.fusemax_attention_torch(
         q_f, k_f, v_f, **args), iters=3, warmup=1)
-    if q_offset:
-        mask = (torch.arange(m, device="cuda")[None, :]
-                <= q_offset + torch.arange(p, device="cuda")[:, None])
+    if q_offset or window is not None:
+        kpos = torch.arange(m, device="cuda")[None, :]
+        qpos = q_offset + torch.arange(p, device="cuda")[:, None]
+        mask = kpos <= qpos
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
         sdpa_kw = dict(attn_mask=mask, scale=e ** -0.5)
     else:
         sdpa_kw = dict(is_causal=True, scale=e ** -0.5)
     library_ms = time_ms(torch, _sdpa_fn(torch, q, k, v, **sdpa_kw))
     backends = _sdpa_backends(torch, q, k, v, **sdpa_kw)
-    # query i attends q_offset + i + 1 keys; each pair costs e MACs for
-    # Q.K and f for P.V
-    pairs = p * q_offset + p * (p + 1) // 2
+    # query i attends min(q_offset + i + 1, window) keys; each pair costs
+    # e MACs for Q.K and f for P.V
+    seen = q_offset + 1 + torch.arange(p, dtype=torch.float64)
+    if window is not None:
+        seen = torch.clamp(seen, max=window)
+    pairs = int(seen.sum().item())
     flops = 2 * (e + f) * pairs * hq * b
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + b * hq * p * f)
     t_fp32 = flops / FP32_FLOPS * 1e3
@@ -833,6 +1014,10 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
                share_of_3xtf32_bound=max(t_3xtf32, t_bytes) / ms,
                flops=flops, bytes=nbytes, max_abs_err=err, ok=ok,
                tile=[tile.block_q, tile.block_k], **backends)
+    if softcap is not None:
+        row["library_note"] = (f"SDPA has no softcap: library_ms is the "
+                               f"same shapes and masks without softcap "
+                               f"{softcap}, a yardstick, not this function")
     return row
 
 
@@ -898,6 +1083,68 @@ def time_k1_mla(torch, gen, fm, autotune) -> dict:
               "E576 F512 fp32 causal")
     torch.cuda.empty_cache()
     return {"mla_forward": fwd, "mla_absorbed": tail}
+
+
+def time_gemma2(torch, gen, fm, dec, ops, autotune) -> dict:
+    """K1, K2 and K3 at gemma2-9b's shapes, fp32: K1 at a prefill dispatch
+    of 2 prompts of 8192 (16 q over 8 kv heads, head dim 256, causal,
+    softcap 50) on a local layer (window 4096) and a global one; K2 and K3
+    at a decode step of 4 slots on a global layer's 8192-token cache
+    (kv_len up to 8192, one of them 4096) and on a local layer's ring of
+    4096 read at eff_len = min(kv_len, 4096); K3 against K2 on the same
+    rows at head dim 256."""
+    out = {}
+    for where, window in (("gemma2_local", 4096), ("gemma2_global", None)):
+        out[f"fusemax_prefill@{where}"] = _time_k1_shape(
+            torch, gen, fm, autotune, b=2, hq=16, hkv=8, p=8192, m=8192,
+            e=256, f=256, q_offset=0, window=window, softcap=50.0,
+            shape=f"B2 Hq16 Hkv8 P=M=8192 d256 fp32 causal softcap 50"
+                  + (f" window {window}" if window else ""))
+        torch.cuda.empty_cache()
+    glob, ring = [8192, 5000, 4096, 1], [4096, 4096, 4096, 1]
+    for where, m, kvl in (("gemma2_global", 8192, glob),
+                          ("gemma2_ring", 4096, ring)):
+        out[f"decode_partials@{where}"] = time_k2(
+            torch, gen, dec, autotune, b=4, hq=16, hkv=8, m=m, d=256,
+            kvl=kvl)
+        out[f"paged_decode_partials@{where}"] = time_k3(
+            torch, gen, dec, ops, autotune,
+            x=gemma2_paged_data(torch, gen, m), kvl=kvl)
+        torch.cuda.empty_cache()
+    out["k3_vs_k2_d256"] = k3_vs_k2(
+        torch, gen, dec, autotune, x=gemma2_paged_data(torch, gen),
+        kvl=[8192, 5000, 1, 0], case="k3_vs_k2 d256 (gemma2)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_smoke(torch, gen, fm, dec, ops, autotune) -> dict:
+    """Each smoke instantiation at a smoke serving shape (4 slots, a
+    256-token cache): K1 at (32, 32) on gemma2-9b-smoke's local layer
+    (window 64, softcap 50) and at (48, 32) on the MLA smoke config's
+    ``mla_forward`` (one head a fiber), K2 and K3 at D = 32, K4 at (32,
+    16) with 4 heads."""
+    kvl = [256, 200, 64, 1]
+    out = {
+        "fusemax_prefill@smoke_32x32": _time_k1_shape(
+            torch, gen, fm, autotune, b=4, hq=4, hkv=2, p=256, m=256, e=32,
+            f=32, q_offset=0, window=64, softcap=50.0,
+            shape="B4 Hq4 Hkv2 P=M=256 d32 fp32 causal window 64 softcap 50"),
+        "fusemax_prefill@smoke_48x32": _time_k1_shape(
+            torch, gen, fm, autotune, b=4, hq=4, hkv=4, p=256, m=256, e=48,
+            f=32, q_offset=0,
+            shape="B4 H4 (one fiber each) P=M=256 E48 F32 fp32 causal"),
+        "decode_partials@smoke_d32": time_k2(
+            torch, gen, dec, autotune, b=4, hq=4, hkv=2, m=256, d=32,
+            kvl=kvl),
+        "paged_decode_partials@smoke_d32": time_k3(
+            torch, gen, dec, ops, autotune,
+            x=paged_data(torch, gen, 4, 4, 2, 256, 32), kvl=kvl),
+        "mla_paged_decode_partials@smoke_32x16": time_k4(
+            torch, gen, dec, ops, autotune, kvl=kvl, h=4, w=16, r=32, rd=16),
+    }
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -984,12 +1231,13 @@ def time_k1(torch, gen, fm, autotune) -> dict:
     return row
 
 
-def time_k2(torch, gen, dec, autotune) -> dict:
-    """K2 at a granite-3-8b decode step: 8 slots, 2048-slot cache, mixed
-    kv_len, 32 q heads over 8 kv heads, head dim 128, fp32."""
-    b, hq, hkv, m, d = 8, 32, 8, 2048, 128
+def time_k2(torch, gen, dec, autotune, b=8, hq=32, hkv=8, m=2048, d=128,
+            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900)) -> dict:
+    """K2 at a decode step, fp32, tuned splits; by default granite-3-8b's:
+    8 slots, 2048-slot cache, mixed kv_len, 32 q heads over 8 kv heads,
+    head dim 128."""
     g = hq // hkv
-    kvl = [2048, 1500, 1024, 700, 300, 64, 1, 1900]
+    kvl = list(kvl)
     q = _rand(torch, gen, (b, hq, 1, d), torch.float32)
     k = _rand(torch, gen, (b, hkv, m, d), torch.float32)
     v = _rand(torch, gen, (b, hkv, m, d), torch.float32)
@@ -1125,6 +1373,8 @@ def _counts(fm, dec) -> dict:
             "paged_decode_partials": dec.paged_decode_partials_cuda.launches,
             "mla_paged_decode_partials":
                 dec.mla_paged_decode_partials_cuda.launches,
+            "fusemax_prefill_windowed":
+                fm.fusemax_attention_cuda.launches_windowed,
             "fusemax_prefill_by_dims": {
                 f"{e}x{f}": n for (e, f), n in
                 fm.fusemax_attention_cuda.launches_by_dims.items()}}
@@ -1133,6 +1383,7 @@ def _counts(fm, dec) -> dict:
 def _zero_counts(fm, dec) -> None:
     fm.fusemax_attention_cuda.launches = 0
     fm.fusemax_attention_cuda.launches_by_dims.clear()
+    fm.fusemax_attention_cuda.launches_windowed = 0
     dec.decode_partials_cuda.launches = 0
     dec.paged_decode_partials_cuda.launches = 0
     dec.mla_paged_decode_partials_cuda.launches = 0
@@ -1227,6 +1478,261 @@ def phase_serve_prefix(torch, fm, dec, serve) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# gemma2-9b: sliding-window rings, attention and final softcaps
+# ---------------------------------------------------------------------------
+
+def _gemma2_prefill_rows(torch, tf, cfg, model, rt, caches, toks, lens,
+                         chunk, paged):
+    """Prefill each prompt into its own slot: row 0 whole, every later row
+    in ``chunk``-token pieces (the ring continuation reads its history
+    band).  Dense: through a one-row cache scattered into the slot row;
+    paged: straight into the pools through the slot's tables.  Returns the
+    last-token logits [rows, vocab]."""
+    out = []
+    for i, n in enumerate(lens):
+        pieces = [(0, n)] if i == 0 else \
+            [(o, min(chunk, n - o)) for o in range(0, n, chunk)]
+        slot = torch.tensor([i], device="cuda")
+        true_len = torch.tensor([n], dtype=torch.int32, device="cuda")
+        sub = caches if paged else tf.init_cache(cfg, 1, n, torch.float32,
+                                                 "cuda")
+        kw = dict(block_tables=paged, slot_ids=slot) if paged else {}
+        for off, c in pieces:
+            lg, sub = tf.prefill(cfg, model,
+                                 {"inputs": toks[i:i + 1, off:off + c]}, sub,
+                                 rt, kv_offset=off, true_len=true_len, **kw)
+        if not paged:
+            tf.scatter_cache_slots(cfg, caches, sub, slot)
+        out.append(lg)
+    return torch.cat(out)
+
+
+def phase_model_gemma2(torch, fm, dec) -> None:
+    """4 full-width gemma2-9b layers (local, global, local, global), fp32:
+    prompts of 4600 and 5000 tokens, one prefilled whole and one in
+    2048-token chunks, then 8 greedy decode steps, on the dense and the
+    paged layout, with ``attn_impl`` "cuda" and "torch" on the same
+    weights: logits within 1e-4 of their scale, equal tokens, and dense =
+    paged."""
+    from repro_torch.configs import get_config
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+
+    cfg = dataclasses.replace(get_config("gemma2-9b"), n_layers=4)
+    rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                   param_dtype=torch.float32)
+    rt_t = dataclasses.replace(rt_c, attn_impl="torch")
+    model = tf.init(cfg, 0, rt_c, device="cuda")
+    lens, chunk, ps, max_len = [4600, 5000], 2048, 16, 8192
+    window = cfg.layer_specs()[0].window
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (len(lens), max(lens)), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    b = len(lens)
+    widths = {"full": max_len // ps, f"w{window}": -(-window // ps)}
+    tables = {k: torch.randperm(b * w, generator=gen, device="cuda")
+              .to(torch.int32).reshape(b, w).contiguous()
+              for k, w in widths.items()}
+    streams, logits_all, launches = {}, {}, {}
+    for layout in ("dense", "paged"):
+        for name, rt in (("cuda", rt_c), ("torch", rt_t)):
+            _zero_counts(fm, dec)
+            paged = tables if layout == "paged" else None
+            caches = tf.init_paged_cache(
+                cfg, b, {k: b * w for k, w in widths.items()}, ps,
+                torch.float32, "cuda") if paged else \
+                tf.init_cache(cfg, b, max_len, torch.float32, "cuda")
+            lg = _gemma2_prefill_rows(torch, tf, cfg, model, rt, caches,
+                                      toks, lens, chunk, paged)
+            kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out, lgs = [], [lg]
+            for _ in range(8):
+                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+                out.append(nxt)
+                kv = kv + 1
+                lg, caches = tf.decode_step(cfg, model, nxt[:, None], caches,
+                                            kv, rt, block_tables=paged)
+                lgs.append(lg)
+            streams[layout, name] = torch.stack(out).cpu()
+            logits_all[layout, name] = torch.stack(lgs)
+            launches[layout, name] = _counts(fm, dec)
+            del caches
+    torch.cuda.synchronize()
+    rel_tol = 1e-4
+    res = {}
+    for layout in ("dense", "paged"):
+        c, t = logits_all[layout, "cuda"], logits_all[layout, "torch"]
+        res[layout] = dict(
+            logits_max_abs_diff=(c - t).abs().max().item(),
+            logits_max_abs=t.abs().max().item(),
+            token_match_rate=(streams[layout, "cuda"]
+                              == streams[layout, "torch"]).float().mean()
+            .item(),
+            finite=bool(torch.isfinite(c).all().item()),
+            cuda_launches=launches[layout, "cuda"],
+            torch_launches=launches[layout, "torch"])
+    dense_paged = (logits_all["dense", "cuda"]
+                   - logits_all["paged", "cuda"]).abs().max().item()
+    streams_equal = bool(torch.equal(streams["dense", "cuda"],
+                                     streams["paged", "cuda"]))
+    emit("model_gemma2", config="gemma2-9b n_layers=4 (local, global, "
+         "local, global) fp32", prompts=lens, window=window,
+         prefill=["whole", f"{chunk}-token chunks"], decode_steps=8,
+         rel_tol=rel_tol, layouts=res,
+         dense_vs_paged_logits_max_abs_diff=dense_paged,
+         dense_vs_paged_streams_equal=streams_equal)
+    for layout, r in res.items():
+        check(r["finite"], f"{layout}: non-finite logits in the gemma2 check")
+        check(r["logits_max_abs_diff"] <= rel_tol * r["logits_max_abs"],
+              f"gemma2 {layout}: cuda vs torch logits differ by "
+              f"{r['logits_max_abs_diff']} > {rel_tol} x "
+              f"{r['logits_max_abs']}")
+        check(r["token_match_rate"] == 1.0,
+              f"gemma2 {layout}: token match rate {r['token_match_rate']}")
+        n_k1 = r["cuda_launches"]["fusemax_prefill_by_dims"].get("256x256",
+                                                                 0)
+        # row 0 whole, row 1 in ceil(5000 / 2048) = 3 chunks, every layer
+        check(n_k1 == cfg.n_layers * (1 + 3),
+              f"gemma2 {layout}: K1 at 256x256 launched {n_k1} times")
+        dk = DECODE_KERNEL[layout]
+        check(r["cuda_launches"][dk] == cfg.n_layers * 8,
+              f"gemma2 {layout}: {dk} launched {r['cuda_launches'][dk]} "
+              f"times in 8 steps of {cfg.n_layers} layers")
+        check(all(n == 0 for k, n in r["torch_launches"].items()
+                  if k != "fusemax_prefill_by_dims"),
+              f"gemma2 {layout}: the torch path launched kernels")
+    check(streams_equal, "gemma2: dense and paged greedy streams differ")
+    check(dense_paged <= rel_tol * res["dense"]["logits_max_abs"],
+          f"gemma2: dense vs paged logits differ by {dense_paged}")
+    del model, logits_all
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+GEMMA2_SERVE_ARGS = ["--arch", "gemma2-9b", "--cache-layout", "both",
+                     "--requests", "4", "--slots", "4", "--prompt-len",
+                     "4200", "--prompt-len-max", "6000", "--new-tokens",
+                     "32", "--max-len", "8192", "--repeats", "1",
+                     "--json", ""]
+
+
+def phase_serve_gemma2(torch, fm, dec, serve) -> dict:
+    """The gemma2 main path: all 42 layers at full width (fp32), the
+    launcher on the dense then the paged layout (one leg's model and cache
+    resident at a time); every prompt is longer than the 4096 window, so
+    every ring wraps; prefill unembeds only the last token."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma2-9b")
+    lens = serve._trace_lens(serve._parser().parse_args(GEMMA2_SERVE_ARGS))
+    window = cfg.layer_specs()[0].window
+    check(min(lens) > window, f"prompts {lens} do not pass the window")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the gemma2 main path: counts set to 0 just before it, read just after
+    _zero_counts(fm, dec)
+    t0 = time.perf_counter()
+    metrics = serve.main(GEMMA2_SERVE_ARGS)
+    wall = time.perf_counter() - t0
+    launches = _counts(fm, dec)
+    peak = torch.cuda.max_memory_allocated()
+    legs = _check_legs(metrics, cfg.n_layers, 4, 32, cfg.vocab)
+    check("outputs_match" in metrics, "the gemma2 phase ran one layout")
+    weights = 4 * cfg.param_count()
+    leg_cache = legs["dense"]["cache_bytes"]
+    full_logits = 4 * 4 * 8192 * cfg.vocab        # [slots, bucket, vocab]
+    emit("serve_gemma2", args=" ".join(GEMMA2_SERVE_ARGS), seconds=wall,
+         prompt_lens=lens, window=window, legs=legs,
+         outputs_match=metrics["outputs_match"],
+         paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
+         main_path_launches=launches, max_memory_allocated=peak,
+         weights_bytes=weights, one_leg_cache_bytes=leg_cache,
+         full_prefill_logits_bytes=full_logits)
+    # the dense leg holds its slot caches and, while it prefills, the
+    # group's own cache of the same size: a second leg's pool resident
+    # beside them would take the peak past weights + 3 caches, and
+    # unembedding every prefilled token past weights + 2 caches + logits
+    check(peak < weights + 3 * leg_cache,
+          f"peak {peak} B: more than one leg's cache was resident")
+    check(peak < weights + 2 * leg_cache + full_logits,
+          f"peak {peak} B: prefill unembedded more than the last token")
+    for name in ("fusemax_prefill", "decode_partials",
+                 "paged_decode_partials"):
+        check(launches[name] > 0, f"{name} never launched on gemma2's path")
+    check(launches["fusemax_prefill_by_dims"].get("256x256", 0)
+          == launches["fusemax_prefill"],
+          f"K1 launches by dims {launches['fusemax_prefill_by_dims']}")
+    check(0 < launches["fusemax_prefill_windowed"]
+          < launches["fusemax_prefill"], "K1 never ran both layer kinds")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the launcher as a user runs it, from the repo root: no flags (now
+#: gemma2-9b-smoke on the card, dense: K1 at (32, 32), K2 at D = 32), both
+#: layouts, and two other smoke configs
+LAUNCHER_RUNS = [
+    [],
+    ["--cache-layout", "both"],
+    ["--arch", "granite-3-8b-smoke", "--cache-layout", "paged"],
+    ["--arch", "gemma-7b-smoke"],
+]
+
+
+def phase_launcher_defaults(torch) -> dict:
+    """Each :data:`LAUNCHER_RUNS` command as a subprocess from the repo
+    root: exit code 0, every layout's streams complete and, where the
+    launcher compares layouts, ``outputs_match``; its kernels launched."""
+    runs = []
+    out_json = os.path.join(ROOT, "BENCH_torch_serving.json")
+    for argv in LAUNCHER_RUNS:
+        if os.path.exists(out_json):
+            os.unlink(out_json)
+        env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        run = dict(argv=" ".join(argv) or "(no flags)", rc=proc.returncode,
+                   seconds=wall)
+        if proc.returncode == 0 and os.path.exists(out_json):
+            with open(out_json) as fh:
+                m = json.load(fh)
+            run.update(arch=m["arch"], layouts=list(m["layouts"]),
+                       tok_per_s=m["tok_per_s"],
+                       kernel_launches={lo: v["kernel_launches"]
+                                        for lo, v in m["layouts"].items()},
+                       device=m["device"])
+            if "outputs_match" in m:     # the launcher compared layouts
+                run["outputs_match"] = m["outputs_match"]
+        else:
+            run["stderr_tail"] = proc.stderr[-2000:]
+        runs.append(run)
+    if os.path.exists(out_json):
+        os.unlink(out_json)
+    emit("launcher_defaults", runs=runs)
+    for run in runs:
+        check(run["rc"] == 0, f"launcher {run['argv']} exited {run['rc']}: "
+                              f"{run.get('stderr_tail', '')[-600:]}")
+        check(run.get("outputs_match", True) is True,
+              f"launcher {run['argv']}: streams differ across layouts")
+        check(run["device"]["platform"] == "gpu",
+              f"launcher {run['argv']} ran on {run['device']}")
+        for lo, n in run["kernel_launches"].items():
+            check(n["fusemax_prefill"] > 0 and
+                  n[DECODE_KERNEL[lo]] > 0,
+                  f"launcher {run['argv']} {lo}: kernels not launched: {n}")
+    check(runs[0]["arch"] == "gemma2-9b-smoke",
+          f"the launcher's default arch is {runs[0]['arch']}")
+    return {"runs": runs}
+
+
+# ---------------------------------------------------------------------------
 # 7-10. DeepSeek-V3's MLA tower
 # ---------------------------------------------------------------------------
 
@@ -1239,15 +1745,24 @@ def deepseek_tower():
     return dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=3)
 
 
-def phase_model_mla(torch, fm, dec) -> None:
+def mla_smoke_tower():
+    """The MLA smoke config (r 32, rd 16, nope 32, v 32, 4 heads) with its
+    MoE cut to a dense FFN, as the launcher serves it and
+    tests/test_torch_mla.py holds it to the reference."""
+    from repro_torch.launch.serve import serve_config
+
+    return serve_config("deepseek-v3-671b-smoke")
+
+
+def phase_model_mla(torch, fm, dec, cfg=None, phase="model_mla") -> dict:
     """The tower on the paged layout with ``attn_impl`` "cuda" and "torch"
     on the same weights: two prefill chunks (the second at offset 256, the
-    absorbed form through K1 at (576, 512)) and 8 greedy decode steps
-    (K4)."""
+    absorbed form through K1 at (r + rd, r)) and 8 greedy decode steps
+    (K4).  Returns the cuda run's launches."""
     from repro_torch.model import transformer as tf
     from repro_torch.model.layers import Runtime
 
-    cfg = deepseek_tower()
+    cfg = deepseek_tower() if cfg is None else cfg
     rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
                    param_dtype=torch.float32)
     rt_t = dataclasses.replace(rt_c, attn_impl="torch")
@@ -1297,8 +1812,11 @@ def phase_model_mla(torch, fm, dec) -> None:
     match = (streams["cuda"] == streams["torch"]).float().mean().item()
     finite = bool(torch.isfinite(logits_all["cuda"]).all().item())
     rel_tol = 1e-4
-    emit("model_mla", config="deepseek-v3-671b n_layers=3 (dense prefix: "
-         "MLA + dense FFN) fp32, paged", prompts=lens,
+    m = cfg.mla
+    expanded = f"{m.nope_dim + m.rope_dim}x{m.v_dim}"
+    absorbed = f"{m.kv_lora_rank + m.rope_dim}x{m.kv_lora_rank}"
+    emit(phase, config=f"{cfg.name} n_layers={cfg.n_layers} (MLA + dense "
+         f"FFN) fp32, paged", prompts=lens,
          prefill_chunks=[[0, chunk], [chunk, 2 * chunk]], decode_steps=8,
          logits_max_abs_diff=diff, logits_max_abs=scale, rel_tol=rel_tol,
          token_match_rate=match, finite=finite, cuda_launches=launches)
@@ -1306,16 +1824,19 @@ def phase_model_mla(torch, fm, dec) -> None:
     check(diff <= rel_tol * scale,
           f"MLA cuda vs torch logits differ by {diff} > {rel_tol} x {scale}")
     check(match == 1.0, f"MLA greedy token match rate {match} < 1")
-    check(launches["mla_paged_decode_partials"] == 3 * 8,
+    n = cfg.n_layers
+    check(launches["mla_paged_decode_partials"] == n * 8,
           f"K4 launched {launches['mla_paged_decode_partials']} times in 8 "
-          f"decode steps of 3 layers")
-    check(launches["fusemax_prefill_by_dims"] == {"192x128": 3,
-                                                  "576x512": 3},
+          f"decode steps of {n} layers")
+    want = {expanded: n, absorbed: n} if expanded != absorbed \
+        else {expanded: 2 * n}
+    check(launches["fusemax_prefill_by_dims"] == want,
           f"K1 launches by dims {launches['fusemax_prefill_by_dims']}, "
-          f"expected 3 expanded + 3 absorbed")
+          f"expected {n} expanded + {n} absorbed")
     del model, logits_all
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
 
 
 MLA_SERVE_ARGS = ["--arch", "deepseek-v3-671b", "--cache-layout", "paged",
@@ -1470,6 +1991,7 @@ def main() -> int:
         run_k2_cases(torch, gen, dec, autotune) + \
         run_k3_cases(torch, gen, dec, autotune) + \
         misaligned_cases(torch, gen, dec) + \
+        unbuilt_dims_cases(torch, gen, fm, dec) + \
         run_k4_cases(torch, gen, dec)
     for r in rows:
         emit("kernel_case", **r)
@@ -1488,30 +2010,43 @@ def main() -> int:
     t1m = time_k1_mla(torch, gen, fm, autotune)
     for where, t in t1m.items():
         emit("kernel_time", kernel=f"fusemax_prefill@{where}", **t)
-    bad = [r["case"] for r in rows + [same, same4] if not r["ok"]]
+    tg = time_gemma2(torch, gen, fm, dec, ops, autotune)
+    same256 = tg.pop("k3_vs_k2_d256")
+    emit("kernel_case", **same256)
+    ts = time_smoke(torch, gen, fm, dec, ops, autotune)
+    for name, t in list(tg.items()) + list(ts.items()):
+        emit("kernel_time", kernel=name, **t)
+    bad = [r["case"] for r in rows + [same, same4, same256] if not r["ok"]]
     bad += [n for n, t in (("K1 timing shape", t1), ("K2 timing shape", t2),
                            ("K3 timing shape", t3), ("K4 timing shape", t4),
                            ("K1 mla_forward timing shape",
                             t1m["mla_forward"]),
                            ("K1 absorbed timing shape",
                             t1m["mla_absorbed"])) if not t["ok"]]
+    bad += [f"{n} timing shape" for n, t in list(tg.items())
+            + list(ts.items()) if not t["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     torch.cuda.empty_cache()
 
     phase_model(torch)
     launches = phase_serve(torch, fm, dec, serve)
     phase_serve_prefix(torch, fm, dec, serve)
-    # the granite phases have released their models; the DeepSeek tower
-    # (14.4 GB of fp32 weights) gets the card to itself
+    # each later model gets the card to itself: the granite phases have
+    # released theirs
     gc.collect()
     torch.cuda.empty_cache()
+    phase_model_gemma2(torch, fm, dec)
+    g2_launches = phase_serve_gemma2(torch, fm, dec, serve)
+    defaults = phase_launcher_defaults(torch)
     phase_model_mla(torch, fm, dec)
     mla_launches = phase_serve_mla(torch, fm, dec, serve)
     phase_serve_mla_prefix(torch, fm, dec, serve)
     phase_serve_mla_impls(torch, fm, dec)
+    smoke_mla = phase_model_mla(torch, fm, dec, cfg=mla_smoke_tower(),
+                                phase="model_mla_smoke")
 
     def entry(name, route, source, replaces, t, n_launches, kernel=None):
-        cases = [r["ok"] for r in rows + [same, same4]
+        cases = [r["ok"] for r in rows + [same, same4, same256]
                  if r["kernel"] == (kernel or name)]
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": n_launches,
@@ -1529,9 +2064,37 @@ def main() -> int:
                           kernel="fusemax_prefill"), **dims, **extra,
                     tile=t["tile"])
 
+    def decode_entry(name, src, tpu, t, n_launches, ring=None, **extra):
+        e = dict(entry(name, "cuda", src, tpu, t, n_launches,
+                       kernel=name.split("@")[0]), device_ms=t["device_ms"],
+                 **extra)
+        if ring is not None:     # the same kernel on a local layer's ring
+            e.update(ring_ms=ring["ms"], ring_device_ms=ring["device_ms"],
+                     ring_plain_ms=ring["plain_ms"],
+                     ring_bound_ms=ring["bound_ms"],
+                     ring_library_ms=ring["library_ms"],
+                     ring_max_abs_err=ring["max_abs_err"],
+                     ring_shape=ring["shape"])
+        return e
+
     k1_src = "src/repro_torch/kernels/csrc/fusemax_prefill.cu"
     k1_tpu = "src/repro/kernels/fusemax.py:102"
+    k2_src = "src/repro_torch/kernels/csrc/decode_partials.cu"
+    k2_tpu = "src/repro/kernels/decode.py:60"
+    k3_src = "src/repro_torch/kernels/csrc/paged_decode_partials.cu"
+    k3_tpu = "src/repro/kernels/decode.py:248"
+    k4_src = "src/repro_torch/kernels/csrc/mla_paged_decode_partials.cu"
+    k4_tpu = "src/repro/kernels/decode.py:608"
     by_dims = mla_launches["fusemax_prefill_by_dims"]
+    g2_k1 = g2_launches["fusemax_prefill_by_dims"].get("256x256", 0)
+    g2_local = g2_launches["fusemax_prefill_windowed"]
+    # the smoke GQA configs' launches over every launcher run (all at head
+    # dim 32) and the MLA smoke tower's (cuda run)
+    smoke = {k: sum(n[k] for run in defaults["runs"]
+                    for n in run["kernel_launches"].values())
+             for k in ("fusemax_prefill", "decode_partials",
+                       "paged_decode_partials")}
+    smoke_dims = smoke_mla["fusemax_prefill_by_dims"]
     print(json.dumps({"kernels": [
         k1_entry("fusemax_prefill", t1, launches["fusemax_prefill"],
                  e=128, f=128),
@@ -1560,6 +2123,36 @@ def main() -> int:
                  by_dims.get("192x128", 0), e=192, f=128),
         k1_entry("fusemax_prefill@mla_absorbed", t1m["mla_absorbed"],
                  by_dims.get("576x512", 0), e=576, f=512),
+        dict(k1_entry("fusemax_prefill@gemma2_local",
+                      tg["fusemax_prefill@gemma2_local"], g2_local, e=256,
+                      f=256), window=4096, softcap=50.0),
+        dict(k1_entry("fusemax_prefill@gemma2_global",
+                      tg["fusemax_prefill@gemma2_global"], g2_k1 - g2_local,
+                      e=256, f=256), softcap=50.0),
+        decode_entry("decode_partials@gemma2", k2_src, k2_tpu,
+                     tg["decode_partials@gemma2_global"],
+                     g2_launches["decode_partials"],
+                     ring=tg["decode_partials@gemma2_ring"]),
+        decode_entry("paged_decode_partials@gemma2", k3_src, k3_tpu,
+                     tg["paged_decode_partials@gemma2_global"],
+                     g2_launches["paged_decode_partials"],
+                     ring=tg["paged_decode_partials@gemma2_ring"],
+                     k3_vs_k2_max_abs_diff=same256["max_abs_diff_live"]),
+        k1_entry("fusemax_prefill@smoke_32x32",
+                 ts["fusemax_prefill@smoke_32x32"], smoke["fusemax_prefill"],
+                 e=32, f=32),
+        k1_entry("fusemax_prefill@smoke_48x32",
+                 ts["fusemax_prefill@smoke_48x32"],
+                 smoke_dims.get("48x32", 0), e=48, f=32),
+        decode_entry("decode_partials@smoke_d32", k2_src, k2_tpu,
+                     ts["decode_partials@smoke_d32"],
+                     smoke["decode_partials"]),
+        decode_entry("paged_decode_partials@smoke_d32", k3_src, k3_tpu,
+                     ts["paged_decode_partials@smoke_d32"],
+                     smoke["paged_decode_partials"]),
+        decode_entry("mla_paged_decode_partials@smoke_32x16", k4_src, k4_tpu,
+                     ts["mla_paged_decode_partials@smoke_32x16"],
+                     smoke_mla["mla_paged_decode_partials"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": info}), flush=True)
     return 0

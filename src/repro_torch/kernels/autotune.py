@@ -47,14 +47,19 @@ TILE_OVERHEAD = 4096
 SMEM_BUDGET = 232_448
 
 #: (E, F) head dims → the (BQ, BK) tile ``csrc/fusemax_prefill.cu`` is
-#: compiled for at those dims (its ``PrefillTile``): GQA heads of 64 and
-#: 128, DeepSeek's MLA prefill (nope 128 + rope 64 → v 128) and its
-#: absorbed latent attention (rank 512 + rope 64 → rank 512)
+#: compiled for at those dims (its ``PrefillTile``): GQA heads of 64, 128
+#: and 256 (gemma), DeepSeek's MLA prefill (nope 128 + rope 64 → v 128)
+#: and its absorbed latent attention (rank 512 + rope 64 → rank 512), and
+#: the smoke configs' GQA heads of 32 and MLA (nope 32 + rope 16 → v 32,
+#: and rank 32 + rope 16 → rank 32)
 CUDA_PREFILL_TILES = {
     (64, 64): (128, 64),
     (128, 128): (128, 64),
     (192, 128): (128, 64),
     (576, 512): (64, 64),
+    (256, 256): (64, 64),
+    (32, 32): (128, 64),
+    (48, 32): (128, 64),
 }
 
 #: (E, F) → the warps that share one row group of that tile (its ``WF``):
@@ -65,11 +70,17 @@ CUDA_PREFILL_WARP_SPLIT = {
     (128, 128): 2,
     (192, 128): 2,
     (576, 512): 4,
+    (256, 256): 4,
+    (32, 32): 1,
+    (48, 32): 1,
 }
 
-#: the prefill kernel's K chunk width (columns of E) and ring stages
-#: (``KC`` and ``NS`` in ``fusemax_prefill.cu``)
+#: the prefill kernel's K chunk width (columns of E, the tile's ``KC``):
+#: 64, or E where E is below 64 or no multiple of it
 PREFILL_K_CHUNK = 64
+CUDA_PREFILL_K_CHUNK = {(32, 32): 32, (48, 32): 48}
+
+#: the prefill kernel's ring stages (``NS`` in ``fusemax_prefill.cu``)
 PREFILL_STAGES = 3
 
 #: the split-K decode kernels' (K2, K3) keys per chunk, ring stages and
@@ -108,13 +119,14 @@ class DecodeParams:
     block_k: int
 
 
-def _prefill_v_chunk(block_k: int, f: int, elem_bytes: int) -> int:
+def _prefill_v_chunk(block_k: int, f: int, k_chunk: int,
+                     elem_bytes: int) -> int:
     """Keys of one V chunk (``v_chunk`` in the kernel): the largest power
     of two from 8 to ``block_k`` whose [keys x F] slab fits the ring slot
-    of a [block_k x PREFILL_K_CHUNK] K chunk."""
+    of a [block_k x k_chunk] K chunk."""
     pad = 16 // elem_bytes
     vk = block_k
-    while vk > 8 and vk * (f + pad) > block_k * (PREFILL_K_CHUNK + pad):
+    while vk > 8 and vk * (f + pad) > block_k * (k_chunk + pad):
         vk //= 2
     return vk
 
@@ -123,13 +135,14 @@ def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
                        warp_split: int, elem_bytes: int = 4) -> int:
     """Shared memory of one prefill block — must match ``Layout`` in
     ``fusemax_prefill.cu``: the Q tile, a ring of ``PREFILL_STAGES`` equal
-    slots (a [block_k x 64] K chunk or a [VK x F] V chunk), every row
-    padded by 16 bytes, and where ``warp_split`` warps share a row group
-    the fp32 probability tile (rows padded by 8 floats) and the row-max
-    exchange."""
+    slots (a [block_k x KC] K chunk, KC from ``CUDA_PREFILL_K_CHUNK``, or
+    a [VK x F] V chunk), every row padded by 16 bytes, and where
+    ``warp_split`` warps share a row group the fp32 probability tile (rows
+    padded by 8 floats) and the row-max exchange."""
     pad = 16 // elem_bytes
-    vk = _prefill_v_chunk(block_k, f, elem_bytes)
-    slot = max(block_k * (PREFILL_K_CHUNK + pad), vk * (f + pad))
+    kc = CUDA_PREFILL_K_CHUNK.get((e, f), PREFILL_K_CHUNK)
+    vk = _prefill_v_chunk(block_k, f, kc, elem_bytes)
+    slot = max(block_k * (kc + pad), vk * (f + pad))
     probs = (4 * block_q * (block_k + 8 + warp_split) if warp_split > 1
              else 0)
     return elem_bytes * (block_q * (e + pad) + PREFILL_STAGES * slot) + probs
@@ -138,7 +151,9 @@ def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
 def decode_row_block(rows: int) -> int:
     """Query rows one K2/K3 block serves (``row_block`` in the kernel): 4,
     or 8 when a fiber has more than 4 (a fiber of R rows takes
-    ceil(R / block) blocks per split)."""
+    ceil(R / block) blocks per split), at every head dim: at 256 the 8-row
+    block holds 128 query and accumulator floats a lane, which ptxas fits
+    in 200-203 registers without a spill."""
     return 4 if rows <= 4 else 8
 
 

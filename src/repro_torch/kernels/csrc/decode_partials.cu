@@ -12,7 +12,7 @@
 
 #include "decode_partials.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128 (E == F).
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64, 128 or 256 (E == F).
 // rows: folded query rows per fiber, 1..64.  window <= 0: no window;
 // softcap <= 0: no softcap.  q, k and v start on 16-byte boundaries (the
 // body copies 16-byte vectors).  Returns cudaGetLastError() after the

@@ -41,9 +41,10 @@
 //   16 keys, 32 KB at fp32 d128) leaves registers, not shared memory, to
 //   bound the blocks per SM; benchmarks/torch_decode_variants.py measures
 //   it against 3 stages and 32- or 64-key chunks;
-// * each lane owns D / 32 contiguous features of every query row its
-//   warp serves, and of their accumulators, in registers; a chunk's keys
-//   are split between WK warps, each with its own (m, l, acc), merged
+// * each lane owns D / 32 contiguous features (1 at D = 32, 8 at D =
+//   256) of every query row its warp serves, and of their accumulators,
+//   in registers; a chunk's keys are split between WK warps, each with
+//   its own (m, l, acc), merged
 //   once per split in shared memory (exact where a warp saw only masked
 //   keys: its m = NEG_INF meets a real maximum with a factor 0); scores
 //   are per-lane partial dots summed across the warp by a transposed
@@ -109,7 +110,9 @@ __device__ __forceinline__ float fexp(float x) {
 
 __host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
 
-// Query rows a block serves: 4, or 8 when a fiber has more than 4.
+// Query rows a block serves: 4, or 8 when a fiber has more than 4 (at D =
+// 256 the 8-row block holds 128 query and accumulator floats a lane:
+// ptxas gives it 200-203 registers and no spill).
 __host__ __device__ constexpr int row_block(int rows) {
   return rows <= 4 ? 4 : 8;
 }
@@ -221,6 +224,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // FPL contiguous features of a key row in shared memory, as fp32.
+__device__ __forceinline__ void load_feats(const float* p, float (&o)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
 __device__ __forceinline__ void load_feats(const float* p, float (&o)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
@@ -228,6 +237,21 @@ __device__ __forceinline__ void load_feats(const float* p, float (&o)[4]) {
 __device__ __forceinline__ void load_feats(const float* p, float (&o)[2]) {
   const float2 t = *reinterpret_cast<const float2*>(p);
   o[0] = t.x; o[1] = t.y;
+}
+__device__ __forceinline__ void load_feats(const float* p, float (&o)[1]) {
+  o[0] = *p;
+}
+__device__ __forceinline__ void load_feats(const __nv_bfloat16* p,
+                                           float (&o)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
 }
 __device__ __forceinline__ void load_feats(const __nv_bfloat16* p,
                                            float (&o)[4]) {
@@ -243,6 +267,10 @@ __device__ __forceinline__ void load_feats(const __nv_bfloat16* p,
   const float2 a =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   o[0] = a.x; o[1] = a.y;
+}
+__device__ __forceinline__ void load_feats(const __nv_bfloat16* p,
+                                           float (&o)[1]) {
+  o[0] = __bfloat162float(*p);
 }
 
 // Sum N per-lane values v[0..N-1] across the warp (a transposed
@@ -287,6 +315,9 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
   constexpr int VEC = 16 / sizeof(T);    // elements per 16-byte copy
   constexpr int VPR = D / VEC;           // copies per key row
   constexpr int TPK = NT / CK;           // threads that copy one key row
+  // copies per thread and key row; at bf16 D = 32 a row is 4 copies for
+  // 8 threads, and the upper half of them copies nothing
+  constexpr int CPT = (VPR + TPK - 1) / TPK;
   constexpr int RW = RB / (NW / WK);     // query rows per warp
   constexpr int KW = CK / WK;            // keys per warp and chunk
   constexpr int KG = KW < 32 / RW ? KW : 32 / RW;  // keys per score group
@@ -294,9 +325,11 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
   constexpr int NG = KW / KG;            // score groups per warp and chunk
   constexpr int SH = 5 - ilog2(NP);      // lane >> SH: a lane's dot
   constexpr int STAGE = 2 * CK * D;      // elements per ring stage
-  static_assert(D % 32 == 0 && (FPL == 2 || FPL == 4),
-                "lanes own 2 or 4 contiguous features");
-  static_assert(VPR % TPK == 0, "a key row's copies split evenly");
+  static_assert(D % 32 == 0 && (FPL == 1 || FPL == 2 || FPL == 4 ||
+                                 FPL == 8),
+                "lanes own 1, 2, 4 or 8 contiguous features");
+  static_assert(VPR % TPK == 0 || TPK % VPR == 0,
+                "a key row's copies split evenly over its threads");
   static_assert(RB % (NW / WK) == 0 && NP <= 32 && (NP & (NP - 1)) == 0 &&
                     KW % KG == 0,
                 "warps tile the rows; a score group fits the lanes");
@@ -338,11 +371,11 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
   const int ckey = tid / TPK, cvec = tid % TPK;
   auto fetch = [&](int ch) {
     const int c0 = kbeg + ch * CK;
-    if (ch < n_chunks && ckey < kend - c0) {
+    if (ch < n_chunks && ckey < kend - c0 && cvec < VPR) {
       const size_t r = kv.row(page_list, bh, split0, c0 + ckey);
       T* dst = ring + (ch % STAGES) * STAGE + ckey * D;
 #pragma unroll
-      for (int i = 0; i < VPR / TPK; ++i) {
+      for (int i = 0; i < CPT; ++i) {
         const int e = (cvec + TPK * i) * VEC;
         cp_async16(dst + e, kv.k + r + e);
         cp_async16(dst + CK * D + e, kv.v + r + e);
@@ -554,8 +587,8 @@ cudaError_t launch_partials(const void* q, const KV& kv, const void* kv_len,
 
 constexpr int elem_bytes_of(int dtype) { return dtype == 1 ? 2 : 4; }
 
-// Dispatch on (dtype: 0 = float32, 1 = bfloat16) x (head_dim: 64, 128) x
-// exp variant x row block, with the K/V layout KVT.
+// Dispatch on (dtype: 0 = float32, 1 = bfloat16) x (head_dim: 32, 64,
+// 128, 256) x exp variant x row block, with the K/V layout KVT.
 template <template <typename, int> class KVT>
 cudaError_t dispatch_partials(int dtype, int head_dim, int maccs,
                               const void* q, const KVSource& src,
@@ -580,6 +613,10 @@ cudaError_t dispatch_partials(int dtype, int head_dim, int maccs,
   if (dtype == 0 && head_dim == 64) REPRO_DISPATCH(float, 64)
   if (dtype == 1 && head_dim == 128) REPRO_DISPATCH(__nv_bfloat16, 128)
   if (dtype == 1 && head_dim == 64) REPRO_DISPATCH(__nv_bfloat16, 64)
+  if (dtype == 0 && head_dim == 256) REPRO_DISPATCH(float, 256)
+  if (dtype == 0 && head_dim == 32) REPRO_DISPATCH(float, 32)
+  if (dtype == 1 && head_dim == 256) REPRO_DISPATCH(__nv_bfloat16, 256)
+  if (dtype == 1 && head_dim == 32) REPRO_DISPATCH(__nv_bfloat16, 32)
 #undef REPRO_DISPATCH
 #undef REPRO_LAUNCH
   return cudaErrorInvalidValue;

@@ -48,13 +48,16 @@
 //   warps, which split each fragment for half as many mma, and it ran
 //   slower than the shared P of 32-row warps (PERF.md).
 // * K/V arrive by 16-byte cp.async into a 3-stage ring of equal slots:
-//   a key tile is E/64 K chunks [BK keys x 64] then BK/VK V chunks
+//   a key tile is E/KC K chunks [BK keys x KC] then BK/VK V chunks
 //   [VK keys x F], so (576, 512) streams K over E and V over keys, and
-//   chunk i + 2 is in flight while chunk i is computed.  Q stays in
-//   shared memory for the whole sweep.  Every row is padded by 16 bytes,
-//   which makes all fragment loads free of bank conflicts.
+//   chunk i + 2 is in flight while chunk i is computed.  KC is 64, or E
+//   itself where E is below 64 or no multiple of it (the smoke head dims
+//   32 and 48).  Q stays in shared memory for the whole sweep.  Every row
+//   is padded by 16 bytes, which makes all fragment loads free of bank
+//   conflicts.
 // * The tensor cores' fp32 accumulation truncates, so a score is summed
-//   in partials of KDEPTH k-steps that are added in IEEE fp32.
+//   in partials of at most KDEPTH k-steps that are added in IEEE fp32
+//   (at KC = 48 a chunk's 6 k-steps are a partial of 4 and one of 2).
 // * A key tile that every row of the block sees whole skips the masks;
 //   query tiles run heaviest first (under a causal mask the last tiles
 //   sweep the most keys), which shortens the tail of the grid.
@@ -65,6 +68,9 @@
 //   (128, 128) 128 x 64, WF 2, 8 warps:         157,696 B
 //   (192, 128) 128 x 64, WF 2, 8 warps:         190,464 B (mla_forward)
 //   (576, 512) 64 x 64,  WF 4, 8 warps:         220,160 B (absorbed)
+//   (256, 256) 64 x 64,  WF 4, 8 warps:         138,240 B (gemma)
+//   (32, 32)   128 x 64, WF 1, 4 warps, KC 32:   46,080 B (-smoke GQA)
+//   (48, 32)   128 x 64, WF 1, 4 warps, KC 48:   66,560 B (-smoke MLA)
 // (autotune.prefill_smem_bytes is the same formula), one block per SM
 // but at (64, 64).  The TPU's sequential M1 grid axis becomes the loop
 // over key tiles, and the TPU's per-tile skip becomes the loop bounds.
@@ -78,7 +84,6 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int KC = 64;  // K chunk width (columns of E)
 constexpr int NS = 3;   // ring stages
 // k-steps a score partial sum takes on the tensor cores before it is
 // added to the row's score in IEEE fp32: the mma accumulator truncates,
@@ -190,37 +195,47 @@ template <int N> __device__ __forceinline__ void cp_wait() {
 // The tile of each (E, F) instantiation: BQ query rows x BK keys; a row
 // group of 16 MT rows (MT m16 tiles, which share every K and V fragment
 // a warp loads and splits) is held by WF warps, each with F / WF
-// accumulator columns and the scores of BK / WF keys.
+// accumulator columns and the scores of BK / WF keys; KC columns of E
+// per K chunk.
 template <int E, int F> struct PrefillTile;
 template <> struct PrefillTile<64, 64> {
-  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2;
+  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2, KC = 64;
 };
 template <> struct PrefillTile<128, 128> {
-  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2;
+  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2, KC = 64;
 };
 template <> struct PrefillTile<192, 128> {
-  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2;
+  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2, KC = 64;
 };
 template <> struct PrefillTile<576, 512> {
-  static constexpr int BQ = 64, BK = 64, WF = 4, MT = 2;
+  static constexpr int BQ = 64, BK = 64, WF = 4, MT = 2, KC = 64;
+};
+template <> struct PrefillTile<256, 256> {
+  static constexpr int BQ = 64, BK = 64, WF = 4, MT = 2, KC = 64;
+};
+template <> struct PrefillTile<32, 32> {
+  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2, KC = 32;
+};
+template <> struct PrefillTile<48, 32> {
+  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2, KC = 48;
 };
 
 // keys of a V chunk: the largest power of two (8 <= VK <= BK) whose
 // [VK x F] slab fits the slot of a [BK x KC] K chunk
-constexpr int v_chunk(int bk, int f, int pad) {
+constexpr int v_chunk(int bk, int f, int kc, int pad) {
   int vk = bk;
-  while (vk > 8 && vk * (f + pad) > bk * (KC + pad)) vk /= 2;
+  while (vk > 8 && vk * (f + pad) > bk * (kc + pad)) vk /= 2;
   return vk;
 }
 
 template <typename T, int E, int F> struct Layout {
   using Tile = PrefillTile<E, F>;
   static constexpr int BQ = Tile::BQ, BK = Tile::BK, WF = Tile::WF,
-                       MT = Tile::MT;
+                       MT = Tile::MT, KC = Tile::KC;
   static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per cp.async
   static constexpr int PAD = VEC;          // 16 bytes a row: no bank conflicts
   static constexpr int QS = E + PAD, KS = KC + PAD, VS = F + PAD;
-  static constexpr int VK = v_chunk(BK, F, PAD);
+  static constexpr int VK = v_chunk(BK, F, KC, PAD);
   static constexpr int SLOT = BK * KS > VK * VS ? BK * KS : VK * VS;
   static constexpr int PS = BK + 8;        // fp32 probability tile stride
   static constexpr int NKC = E / KC, NVC = BK / VK, NCH = NKC + NVC;
@@ -228,7 +243,7 @@ template <typename T, int E, int F> struct Layout {
   static constexpr int BYTES =
       static_cast<int>(sizeof(T)) * (BQ * QS + NS * SLOT) +
       (WF > 1 ? 4 * (BQ * PS + BQ * WF) : 0);
-  static_assert(E % KC == 0 && KC % (8 * KDEPTH) == 0 &&
+  static_assert(E % KC == 0 && KC % 8 == 0 &&
                     BQ % (16 * MT) == 0 && BK % (8 * WF) == 0 &&
                     F % (8 * WF) == 0 && BK % VK == 0 && VK % 8 == 0,
                 "tile shapes");
@@ -244,6 +259,7 @@ __device__ __forceinline__ void issue_chunk(T* slot, const T* kb,
                                             int c, int tid) {
   using L = Layout<T, E, F>;
   if (c < L::NKC) {
+    constexpr int KC = L::KC;
     constexpr int VPR = KC / L::VEC;
     for (int i = tid; i < L::BK * VPR; i += L::NT) {
       const int r = i / VPR, x = i % VPR;
@@ -274,6 +290,8 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float softcap, int q_offset, int group, int m_valid) {
   using L = Layout<T, E, F>;
   constexpr int BQ = L::BQ, BK = L::BK, WF = L::WF, MT = L::MT, VK = L::VK;
+  constexpr int KC = L::KC;
+  constexpr int KSTEPS = KC / 8;  // k-steps of a K chunk
   constexpr int KW = BK / WF;   // keys whose scores one warp computes
   constexpr int NSB = KW / 8;   // score n-blocks a warp holds per m-tile
   constexpr int FW = F / WF;    // accumulator columns one warp holds
@@ -368,7 +386,7 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       issue(i + NS - 1);
       const T* kc = ring + (i % NS) * L::SLOT;
 #pragma unroll
-      for (int kp = 0; kp < KC / 8; kp += KDEPTH) {
+      for (int kp = 0; kp < KSTEPS; kp += KDEPTH) {
         float part[MT][NSB][4];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
@@ -377,7 +395,7 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int x = 0; x < 4; ++x) part[mt][j][x] = 0.f;
 #pragma unroll
-        for (int kk = kp; kk < kp + KDEPTH; ++kk) {
+        for (int kk = kp; kk < kp + KDEPTH && kk < KSTEPS; ++kk) {
           const int e0 = c * KC + kk * 8 + t4;
           uint32_t qh[MT][4], ql[MT][4];
 #pragma unroll
@@ -634,6 +652,9 @@ cudaError_t dispatch_dims(int e, int f, int maccs, const void* q,
   REPRO_DIMS(64, 64)
   REPRO_DIMS(192, 128)
   REPRO_DIMS(576, 512)
+  REPRO_DIMS(256, 256)
+  REPRO_DIMS(32, 32)
+  REPRO_DIMS(48, 32)
 #undef REPRO_DIMS
   return cudaErrorInvalidValue;
 }
@@ -641,8 +662,8 @@ cudaError_t dispatch_dims(int e, int f, int maccs, const void* q,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  (e, f): q/k head dim and v head dim,
-// one of (64, 64), (128, 128), (192, 128), (576, 512).  q, k, v and o
-// must be 16-byte aligned.
+// one of (64, 64), (128, 128), (192, 128), (576, 512), (256, 256),
+// (32, 32), (48, 32).  q, k, v and o must be 16-byte aligned.
 // window <= 0 means no window; softcap <= 0 means no softcap.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int fusemax_prefill(const void* q, const void* k, const void* v,
@@ -677,6 +698,9 @@ extern "C" int fusemax_prefill_tile(int e, int f, int* block_q,
   REPRO_TILE(64, 64)
   REPRO_TILE(192, 128)
   REPRO_TILE(576, 512)
+  REPRO_TILE(256, 256)
+  REPRO_TILE(32, 32)
+  REPRO_TILE(48, 32)
 #undef REPRO_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,8 +34,10 @@
 // What the design does about it: the 128 query rows do not fit one block
 // (128 x 576 fp32 = 295 KB), so the grid is (split, batch, head block)
 // with 32 rows per block, 4 per warp.  Each warp keeps its 4 query rows
-// in registers, each lane holding every 32nd feature (72 floats), and its
-// 4 x 512 accumulator likewise (64 floats a lane: lane l owns features l,
+// in registers, each lane holding every 32nd feature (72 floats; where
+// the rope width is below 32, as the smoke latent's 16, the lanes past it
+// hold no rope feature and add zeros), and its 4 x 512 accumulator
+// likewise (64 floats a lane: lane l owns features l,
 // l + 32, ...), so only the latent chunk lives in shared memory: 16 keys
 // of [ckv | krope] in the pool's dtype, double-buffered (2 x 37 KB fp32)
 // and filled by 16-byte cp.async copies (16 threads per key, one page
@@ -173,11 +175,11 @@ mla_paged_decode_partials_kernel(const T* __restrict__ q,
                                  float* __restrict__ pl,
                                  float* __restrict__ pnv, const MlaArgs a) {
   constexpr int E = RL + RR;    // score features: latent + rope
-  constexpr int EC = E / 32;    // query features per lane and row
   constexpr int FC = RL / 32;   // accumulator features per lane and row
+  constexpr int RC = (RR + 31) / 32;  // rope features per lane and row
+  constexpr int EC = FC + RC;   // query features per lane and row
   constexpr int NG = CK / KG;   // key groups per chunk
-  static_assert(RL % 32 == 0 && RR % 32 == 0,
-                "lanes stride the latent and rope features by 32");
+  static_assert(RL % 32 == 0, "lanes stride the latent features by 32");
   static_assert(RW * KG == 16, "reduce16 sums one (row, key) pair a lane");
   static_assert(RL % (16 / sizeof(T)) == 0 && RR % (16 / sizeof(T)) == 0,
                 "16-byte copies tile the latent and rope rows");
@@ -201,6 +203,14 @@ mla_paged_decode_partials_kernel(const T* __restrict__ q,
   const int kfin = split0 + t1 * a.block_k;
   const int n_chunks = (kfin - split0 + CK - 1) / CK;
 
+  // query feature j of this lane: latent lane + 32 j, then rope lane +
+  // 32 (j - FC), which exists only below RR
+  auto feat = [&](int j) {
+    return j < FC ? lane + 32 * j : RL + lane + 32 * (j - FC);
+  };
+  auto has = [&](int j) {
+    return RR % 32 == 0 || j < FC || lane + 32 * (j - FC) < RR;
+  };
   float qr[RW][EC], acc[RW][FC];
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
@@ -208,7 +218,7 @@ mla_paged_decode_partials_kernel(const T* __restrict__ q,
     const T* qrow = q + (static_cast<size_t>(b) * R + row) * E;
 #pragma unroll
     for (int j = 0; j < EC; ++j)
-      qr[i][j] = row < R ? to_f(qrow[lane + 32 * j]) : 0.f;
+      qr[i][j] = row < R && has(j) ? to_f(qrow[feat(j)]) : 0.f;
 #pragma unroll
     for (int j = 0; j < FC; ++j) acc[i][j] = 0.f;
   }
@@ -252,7 +262,7 @@ mla_paged_decode_partials_kernel(const T* __restrict__ q,
         float kv[KG];
 #pragma unroll
         for (int k = 0; k < KG; ++k)
-          kv[k] = to_f(kb[(g * KG + k) * E + lane + 32 * j]);
+          kv[k] = has(j) ? to_f(kb[(g * KG + k) * E + feat(j)]) : 0.f;
 #pragma unroll
         for (int i = 0; i < RW; ++i)
 #pragma unroll
@@ -356,18 +366,22 @@ cudaError_t dispatch(int rank, int rope_dim, int maccs, const void* q,
                      const void* block_table, const void* kv_len, void* pm,
                      void* pl, void* pnv, int b, const MlaArgs& a,
                      cudaStream_t st) {
-  if (rank == 512 && rope_dim == 64)
-    return maccs ? launch<T, 512, 64, true>(q, ckv, krope, block_table,
-                                            kv_len, pm, pl, pnv, b, a, st)
-                 : launch<T, 512, 64, false>(q, ckv, krope, block_table,
-                                             kv_len, pm, pl, pnv, b, a, st);
+#define REPRO_DIMS(RL, RR)                                                    \
+  if (rank == RL && rope_dim == RR)                                           \
+    return maccs ? launch<T, RL, RR, true>(q, ckv, krope, block_table,        \
+                                           kv_len, pm, pl, pnv, b, a, st)     \
+                 : launch<T, RL, RR, false>(q, ckv, krope, block_table,       \
+                                            kv_len, pm, pl, pnv, b, a, st);
+  REPRO_DIMS(512, 64)
+  REPRO_DIMS(32, 16)
+#undef REPRO_DIMS
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  (rank, rope_dim): (512, 64), the
-// DeepSeek-V3 latent.  q [b, rows, rank + rope_dim] (rows = n_pos * G);
+// DeepSeek-V3 latent, or (32, 16), its smoke config's.  q [b, rows, rank + rope_dim] (rows = n_pos * G);
 // ckv_pages [n_pages, page_size, rank]; krope_pages [n_pages, page_size,
 // rope_dim]; block_table [b, w] int32 (sentinel = n_pages); kv_len [b]
 // int32 -> pm, pl [b, splits, rows], pnv [b, splits, rows, rank] fp32.

@@ -24,7 +24,7 @@
 
 #include "decode_partials.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128 (E == F).
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64, 128 or 256 (E == F).
 // q [B*Hkv, rows, D]; k_pages / v_pages [n_pages, page_size, hkv, D];
 // block_table [B, w] int32 (sentinel = n_pages); kv_len [B] int32.
 // Splits are page-aligned: split_len = (w / splits) * page_size, and

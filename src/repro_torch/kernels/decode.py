@@ -50,9 +50,9 @@ from repro_torch.kernels.fusemax import (
 )
 
 #: head dims the GQA decode kernels (K2, K3) are instantiated for (E == F)
-CUDA_HEAD_DIMS = (64, 128)
+CUDA_HEAD_DIMS = (32, 64, 128, 256)
 #: (rank, rope_dim) latents the MLA decode kernel (K4) is instantiated for
-CUDA_MLA_DIMS = ((512, 64),)
+CUDA_MLA_DIMS = ((512, 64), (32, 16))
 
 
 def _check_head_dims(name: str, *tensors: torch.Tensor) -> None:

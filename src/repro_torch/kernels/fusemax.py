@@ -14,7 +14,8 @@ differ from F (DeepSeek's MLA: (192, 128) expanded, (576, 512) absorbed):
 * :func:`fusemax_attention_cuda` launches ``csrc/fusemax_prefill.cu``
   (both products on the tensor cores in error-compensated 3xTF32) and
   counts its launches in ``fusemax_attention_cuda.launches`` (and by
-  head dims in ``.launches_by_dims``).
+  head dims in ``.launches_by_dims``, those with a sliding window in
+  ``.launches_windowed``).
 
 ``NEG_INF`` is finite on purpose: a row fully masked inside a tile that
 runs accumulates ``exp(0) = 1`` terms, and the next valid tile's
@@ -279,9 +280,13 @@ def fusemax_attention_cuda(
     fusemax_attention_cuda.launches += 1
     by_dims = fusemax_attention_cuda.launches_by_dims
     by_dims[(e, f)] = by_dims.get((e, f), 0) + 1
+    if window is not None:
+        fusemax_attention_cuda.launches_windowed += 1
     return out
 
 
 fusemax_attention_cuda.launches = 0
 #: the same launches split by head dims (E, F): which instantiation ran
 fusemax_attention_cuda.launches_by_dims = {}
+#: the launches with a sliding window (local layers)
+fusemax_attention_cuda.launches_windowed = 0

@@ -239,6 +239,7 @@ def fusemax_decode_paged(
     block_table: torch.Tensor,  # [B, W] int page ids (sentinel = P_pages)
     kv_len: torch.Tensor,       # [B] valid logical lengths
     *,
+    capacity: Optional[int] = None,
     softcap: Optional[float] = None,
     scale: Optional[float] = None,
     impl: str = "auto",
@@ -246,15 +247,18 @@ def fusemax_decode_paged(
     block_k: Optional[int] = None,
     exp_impl: str = "native",
 ) -> torch.Tensor:
-    """Decode (P = 1) or verify rows (P > 1) against a *paged* KV cache
-    whose logical view is the whole table (global layers; the reference's
-    ring ``capacity`` comes with windowed layers, ROADMAP §1 item 2).
+    """Decode (P = 1) or verify rows (P > 1) against a *paged* KV cache.
 
-    "cuda" launches the paged kernel (pages found through the table inside
-    the kernel), "torch" its plain version — both with page-aligned
-    ``splits``/``block_k`` from :func:`autotune.paged_decode_params` when
-    left as ``None``; "ref" gathers the table's view and runs the 3-pass
-    oracle."""
+    ``capacity`` truncates the logical view to that many tokens: a ring
+    class (capacity = window, which may not fill the last page) read at
+    ``kv_len = min(kv_len, window)``; ``None`` is the whole table (global
+    layers).  "cuda" launches the paged kernel (pages found through the
+    table inside the kernel), "torch" its plain version — both with
+    page-aligned ``splits``/``block_k`` from
+    :func:`autotune.paged_decode_params` when left as ``None``, on the
+    whole table, where ``kv_len <= capacity`` masks the rest as the
+    reference's Pallas path does; "ref" gathers the table's view, cut to
+    ``capacity``, and runs the 3-pass oracle."""
     b, hq, p, e = q.shape
     n_pages, page_size, hkv, f = v_pages.shape
     w = block_table.shape[1]
@@ -263,8 +267,9 @@ def fusemax_decode_paged(
     impl = resolve_impl(impl, q)
 
     if impl == "ref":
-        k = gather_pages(k_pages, block_table).transpose(1, 2)
-        v = gather_pages(v_pages, block_table).transpose(1, 2)
+        cap = w * page_size if capacity is None else capacity
+        k = gather_pages(k_pages, block_table).transpose(1, 2)[:, :, :cap]
+        v = gather_pages(v_pages, block_table).transpose(1, 2)[:, :, :cap]
         return fusemax_decode(q, k, v, kv_len, softcap=softcap, scale=scale,
                               impl="ref")
 

@@ -1,6 +1,6 @@
 """Serving launcher: the continuous-batching engine over the FuseMax kernels.
 
-  python -m repro_torch.launch.serve --arch granite-3-8b-smoke --requests 6 \
+  python -m repro_torch.launch.serve --arch gemma2-9b-smoke --requests 6 \
       --slots 4 --max-len 256
 
 Port of ``repro.launch.serve`` for the dense and paged cache layouts:
@@ -277,7 +277,7 @@ _UNPORTED = (
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="granite-3-8b-smoke")
+    ap.add_argument("--arch", default="gemma2-9b-smoke")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand-written kernels) or cpu (their "
                          "plain torch versions)")

@@ -1,24 +1,33 @@
 """GQA and MLA attention on the FuseMax kernels.
 
-Port of the global-attention GQA paths of ``repro.model.attention`` and
-of its MLA paths on the paged layout.  GQA:
+Port of the GQA paths of ``repro.model.attention`` (global and
+sliding-window layers) and of its MLA paths on the paged layout.  GQA:
 ``wq [d, h, dh]``, ``wk``/``wv [d, hkv, dh]``, ``wo [h, dh, d]``; RoPE at
 the absolute position, applied before K is cached so reads need no
 rotation.  Attention runs through :mod:`repro_torch.kernels.ops` with
 ``Runtime.attn_impl``.
 
-Cache protocols (global layers):
+Cache protocols:
 
-* dense — ``{"k", "v": [B, Hkv, Mmax, dh]}``, one row per batch slot;
+* dense — ``{"k", "v": [B, Hkv, Mmax, dh]}``, one row per batch slot; a
+  sliding-window (local) layer keeps a *ring* of ``window`` slots instead,
+  token at position ``t`` in slot ``t % window``, and decode reads
+  ``min(kv_len, window)`` slots with no window mask (the ring holds
+  exactly the in-window keys);
 * paged — ``{"k_pages", "v_pages": [P + 1, page_size, Hkv, dh]}``: the
   pool's ``P`` pages plus one *sink* page at index ``P``.  Block tables
   (``[B, W]`` int32, host-managed by :mod:`repro_torch.serving.kv_cache`)
-  map logical token ``l`` to ``(table[b, l // page_size], l % page_size)``
-  and hold the sentinel id ``P`` where no page backs them.  The reference
-  drops masked and sentinel writes with a ``mode="drop"`` scatter; torch
-  has none, and a boolean-masked write would cost a device→host sync per
-  layer, so the port routes them into the sink page instead.  Every read
-  sees pages ``0..P-1`` only (sentinel reads clamp to ``P - 1``).
+  map logical token ``l = position % capacity`` to ``(table[b, l //
+  page_size], l % page_size)`` (capacity: the window for local layers,
+  whose table class ``"w<window>"`` is a ring of ``ceil(window /
+  page_size)`` pages; the table span for global ones) and hold the
+  sentinel id ``P`` where no page backs them.  The reference drops masked
+  and sentinel writes with a ``mode="drop"`` scatter; torch has none, and
+  a boolean-masked write would cost a device→host sync per layer, so the
+  port routes them into the sink page instead.  Every read sees pages
+  ``0..P-1`` only (sentinel reads clamp to ``P - 1``).  The dense ring
+  has no sink row: its masked writes (:func:`ring_write_masked`) select
+  per slot instead.
 
 The port updates caches *in place* (``index_put_`` / slice assignment)
 where the reference returns new arrays under buffer donation; every
@@ -35,8 +44,8 @@ through :func:`_mla_absorbed_attend`, K4 through
 [P + 1, page_size, r], "krope_pages": [P + 1, page_size, rd]}``, sink page
 included, in the "full" class.
 
-Not ported yet (ROADMAP "Modules still to port"): sliding-window ring
-caches, quantized pages, verify, MLA on the dense layout (item 5a).
+Not ported yet (ROADMAP "Modules still to port"): quantized pages,
+verify, MLA on the dense layout (item 5a).
 """
 from __future__ import annotations
 
@@ -54,10 +63,6 @@ from repro_torch.kernels.ops import (
 from repro_torch.model.layers import (
     Norm, Runtime, _param, apply_norm, normal_, rope,
 )
-
-
-_RING = ("windowed ring caches are not ported yet (ROADMAP §1 item 2, "
-         "windows and softcaps)")
 
 
 _MLA_DENSE = ("MLA on the dense cache layout is not ported yet (ROADMAP §1 "
@@ -111,6 +116,35 @@ def write_pages(pages: torch.Tensor, bt_rows: torch.Tensor,
     page, off = page_slots(pages, bt_rows, positions, capacity, valid)
     pages[page, off] = values.to(pages.dtype)
     return pages
+
+
+def ring_write_masked(kc: torch.Tensor, vc: torch.Tensor,
+                      k_new: torch.Tensor, v_new: torch.Tensor, off: int,
+                      true_len: Optional[torch.Tensor] = None):
+    """Write a prompt chunk's K/V ([B, Hkv, S, dh], positions [off, off +
+    S)) into a dense ring cache ([B, Hkv, slots, dh]) under length-bucket
+    padding, in place: per row, only positions that are real (< true_len;
+    ``None``: every position of the chunk) and not already evicted by this
+    chunk's own tail land — at most ``slots`` survivors, a contiguous run
+    of positions, so no two share a slot.  The reference drops the others
+    with a ``mode="drop"`` scatter; here each slot instead takes the one
+    surviving position that maps to it, if any, and keeps its old value
+    otherwise (no host sync).  Returns (kc, vc)."""
+    b, _, s_len, _ = k_new.shape
+    slots = kc.shape[2]
+    tl = torch.full((b, 1), off + s_len, device=kc.device) \
+        if true_len is None else true_len.to(kc.device).long()[:, None]
+    hi = torch.clamp(tl, max=off + s_len)                    # survivors
+    lo = torch.clamp(hi - slots, min=off)                    # [lo, hi)
+    slot = torch.arange(slots, device=kc.device)[None, :]    # [1, slots]
+    pos = lo + torch.remainder(slot - lo, slots)             # [B, slots]
+    keep = (pos < hi)[:, None, :, None]
+    idx = torch.clamp(pos - off, 0, s_len - 1)[:, None, :, None]
+    for cache, new in ((kc, k_new), (vc, v_new)):
+        src = torch.gather(new.to(cache.dtype), 2,
+                           idx.expand(-1, new.shape[1], -1, new.shape[3]))
+        cache.copy_(torch.where(keep, src, cache))
+    return kc, vc
 
 
 class GQA(nn.Module):
@@ -184,25 +218,37 @@ def gqa_init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def gqa_prefill_chunk(p: GQA, x: torch.Tensor, cache: dict, off: int,
-                      cfg: ModelConfig, spec: LayerSpec, rt: Runtime):
-    """Chunked-prefill continuation of a global layer: queries [off, off+S)
-    attend the cached history plus the chunk, whose K/V are written into
-    the cache first.  x: [B, S, d]."""
-    if spec.window is not None:
-        raise NotImplementedError(_RING)
+                      cfg: ModelConfig, spec: LayerSpec, rt: Runtime,
+                      true_len: Optional[torch.Tensor] = None):
+    """Chunked-prefill continuation: queries [off, off+S) attend the
+    cached history plus the chunk.  A global layer writes the chunk's K/V
+    into the cache first; a ring layer gathers its history band before
+    the writes land and attends it with the window (K1 at ``q_offset =
+    off - klo``), then writes the chunk into the ring, masked past each
+    row's ``true_len`` when the batch is bucket-padded.  x: [B, S, d]."""
     b, s_len, _ = x.shape
     positions = torch.arange(off, off + s_len, device=x.device).expand(
         b, s_len)
     q, k_new, v_new = _proj_qkv(p, x, cfg, positions)
     kc, vc = cache["k"], cache["v"]
-    kc[:, :, off:off + s_len] = k_new
-    vc[:, :, off:off + s_len] = v_new
+    kw = dict(causal=cfg.causal, softcap=cfg.attn_softcap,
+              impl=rt.attn_impl, block_q=rt.block_q, block_k=rt.block_k,
+              exp_impl=rt.exp_impl)
+    if spec.window is None:
+        kc[:, :, off:off + s_len] = k_new
+        vc[:, :, off:off + s_len] = v_new
+        out = fusemax_attention(q, kc[:, :, :off + s_len],
+                                vc[:, :, :off + s_len], q_offset=off, **kw)
+        return _out_proj(p, out), cache
+    # the still-needed history band [klo, off) from ring slots position %
+    # slots, gathered before the chunk's writes land
+    klo = max(0, off - spec.window + 1)
+    hist = torch.arange(klo, off, device=x.device) % kc.shape[2]
     out = fusemax_attention(
-        q, kc[:, :, :off + s_len], vc[:, :, :off + s_len],
-        causal=cfg.causal, softcap=cfg.attn_softcap, q_offset=off,
-        impl=rt.attn_impl, block_q=rt.block_q, block_k=rt.block_k,
-        exp_impl=rt.exp_impl,
-    )
+        q, torch.cat([kc[:, :, hist], k_new.to(kc.dtype)], dim=2),
+        torch.cat([vc[:, :, hist], v_new.to(vc.dtype)], dim=2),
+        window=spec.window, q_offset=off - klo, **kw)
+    ring_write_masked(kc, vc, k_new, v_new, off, true_len)
     return _out_proj(p, out), cache
 
 
@@ -210,9 +256,9 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, kv_len: torch.Tensor,
                cfg: ModelConfig, spec: LayerSpec, rt: Runtime):
     """One-token decode. x: [B, 1, d]; kv_len: [B] length *including* x.
     The new K/V land at slot ``(kv_len - 1) % slots`` (an empty slot with
-    kv_len = 0 writes the last slot, as in the reference)."""
-    if spec.window is not None:
-        raise NotImplementedError(_RING)
+    kv_len = 0 writes the last slot, as in the reference).  A ring layer
+    reads ``min(kv_len, slots)`` slots, all in its window, with no window
+    mask."""
     b = x.shape[0]
     pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
     q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, 1, dh]
@@ -221,8 +267,10 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, kv_len: torch.Tensor,
     bidx = torch.arange(b, device=x.device)
     cache["k"][bidx, :, slot] = k_new[:, :, 0].to(cache["k"].dtype)
     cache["v"][bidx, :, slot] = v_new[:, :, 0].to(cache["v"].dtype)
+    eff_len = kv_len if spec.window is None \
+        else torch.clamp(kv_len, max=slots)
     out = fusemax_decode(
-        q, cache["k"], cache["v"], kv_len,
+        q, cache["k"], cache["v"], eff_len,
         softcap=cfg.attn_softcap,
         impl=rt.attn_impl,
         splits=rt.decode_splits,
@@ -266,7 +314,8 @@ def _gqa_paged_attend(q: torch.Tensor, k_new: torch.Tensor,
     queries [off, off+S) attend the history gathered through the
     block-table rows plus the chunk's own K/V.  Returns the
     pre-projection output [B, H, S, F].  ``k_pages``/``v_pages`` are the
-    readable ``[P, ...]`` pools."""
+    readable ``[P, ...]`` pools; a ring layer (capacity ``cap``) reads
+    the band [klo, off) at logical indices ``position % cap``."""
     kw = dict(causal=cfg.causal, softcap=cfg.attn_softcap,
               impl=rt.attn_impl, block_q=rt.block_q, block_k=rt.block_k,
               exp_impl=rt.exp_impl)
@@ -274,7 +323,20 @@ def _gqa_paged_attend(q: torch.Tensor, k_new: torch.Tensor,
         # no history: attend the chunk itself (as gqa_forward does)
         return fusemax_attention(q, k_new, v_new, window=spec.window, **kw)
     if spec.window is not None:
-        raise NotImplementedError(_RING)
+        # ring continuation: the still-needed band, through the table
+        # rows (sentinel entries clamp to the last page, as gather_pages
+        # does; only bucket-padding rows read them)
+        w = spec.window
+        klo = max(0, off - w + 1)
+        ps = k_pages.shape[1]
+        l = torch.arange(klo, off, device=q.device) % cap
+        pg = torch.clamp(bt_rows.long()[:, l // ps], max=k_pages.shape[0] - 1)
+        k_hist = k_pages[pg, l % ps].transpose(1, 2)     # [B, Hkv, band, dh]
+        v_hist = v_pages[pg, l % ps].transpose(1, 2)
+        return fusemax_attention(
+            q, torch.cat([k_hist, k_new.to(k_hist.dtype)], dim=2),
+            torch.cat([v_hist, v_new.to(v_hist.dtype)], dim=2), window=w,
+            q_offset=off - klo, **kw)
     # gather only the pages the prefix occupies (plain torch indexing, as
     # the reference gathers in jnp outside any kernel), then K1 with the
     # history offset
@@ -346,9 +408,9 @@ def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
     logical tail, read through the block table.  Inactive slots
     (kv_len = 0) drop their writes (into the sink page).  ``slots``: this
     step's :func:`decode_slots`, when the caller shares them across
-    layers.  x: [B, 1, d]."""
-    if spec.window is not None:
-        raise NotImplementedError(_RING)
+    layers.  A ring layer writes at ``(kv_len - 1) % window`` and reads
+    ``min(kv_len, window)`` logical tokens of its class's table.  x: [B,
+    1, d]."""
     pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
     q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, 1, dh]
     page, off = decode_slots(cache, bt_rows, kv_len, spec) \
@@ -356,9 +418,12 @@ def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
     for name, new in (("k_pages", k_new), ("v_pages", v_new)):
         pages = cache[name]
         pages[page, off] = new.transpose(1, 2).to(pages.dtype)
+    cap = None if spec.window is None \
+        else _gqa_capacity(cache, bt_rows, spec)
+    eff_len = kv_len if cap is None else torch.clamp(kv_len, max=cap)
     out = fusemax_decode_paged(
         q, pool_pages(cache["k_pages"]), pool_pages(cache["v_pages"]),
-        bt_rows, kv_len,
+        bt_rows, eff_len, capacity=cap,
         softcap=cfg.attn_softcap,
         impl=rt.attn_impl,
         splits=rt.decode_splits,

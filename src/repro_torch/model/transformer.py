@@ -1,9 +1,9 @@
 """Decoder model: per-layer modules, forward, serving prefill and decode.
 
 Port of ``repro.model.transformer`` for the slices the port carries:
-every layer global attention — GQA on the dense or the paged layout, or
-DeepSeek's MLA on the paged layout — with a dense MLP, no softcaps, token
-front end.
+GQA attention, global or sliding-window (ring caches), on the dense or the
+paged layout, or DeepSeek's MLA on the paged layout — with a dense MLP,
+attention and final logit softcaps, token front end.
 The reference stacks the parameters of equal layers and ``lax.scan``s
 them; the port keeps one module per layer (the weight bridge unstacks)
 and loops in Python, and its caches are a flat per-layer list.
@@ -39,8 +39,6 @@ from repro_torch.model.layers import (
 
 #: where each unported feature stands in ROADMAP.md
 _ROADMAP = {
-    "window": "ROADMAP §1 item 2, windows and softcaps (gemma2-9b)",
-    "softcap": "ROADMAP §1 item 2, windows and softcaps (gemma2-9b)",
     "moe": "ROADMAP §1 item 5b, MoE",
     "ssm": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
     "frontend": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
@@ -49,8 +47,8 @@ _ROADMAP = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for any part of ``cfg`` outside the
-    ported slices: global GQA or MLA attention + dense MLP, no softcap,
-    token front end.  (MLA serves on the paged layout only:
+    ported slices: GQA (global or sliding-window) or MLA attention + dense
+    MLP, token front end.  (MLA serves on the paged layout only:
     :func:`init_cache` refuses it.)"""
     def no(what: str, detail: str):
         raise NotImplementedError(
@@ -58,15 +56,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
     if cfg.frontend != "tokens":
         no("frontend", f"the {cfg.frontend!r} front end")
-    if cfg.attn_softcap is not None or cfg.final_softcap is not None:
-        no("softcap", "logit softcapping")
     for spec in cfg.layer_specs():
         if spec.ssm is not None or spec.parallel_ssm:
             no("ssm", f"{spec.ssm} layers")
         if spec.attn not in ("gqa", "mla"):
             no("ssm", f"attention kind {spec.attn!r}")
-        if spec.window is not None:
-            no("window", "sliding-window attention")
         if spec.mlp == "moe":
             no("moe", "MoE layers")
         if spec.mlp != "dense":
@@ -294,14 +288,20 @@ def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
         raise NotImplementedError(attn_mod._MLA_DENSE)
     elif kv_offset:
         y, cache["attn"] = attn_mod.gqa_prefill_chunk(
-            p.attn, h, ac, kv_offset, cfg, spec, rt)
+            p.attn, h, ac, kv_offset, cfg, spec, rt, true_len)
     else:
         positions = torch.arange(s_len, device=x.device).expand(
             h.shape[0], s_len)
         qkv = attn_mod._proj_qkv(p.attn, h, cfg, positions)
         y = attn_mod.gqa_forward(p.attn, h, cfg, spec, rt, qkv=qkv)
-        ac["k"][:, :, :s_len] = qkv[1]
-        ac["v"][:, :, :s_len] = qkv[2]
+        if spec.window is not None:
+            # ring (+ bucket padding): each row keeps its last
+            # min(true_len, window) real positions
+            attn_mod.ring_write_masked(ac["k"], ac["v"], qkv[1], qkv[2], 0,
+                                       true_len)
+        else:
+            ac["k"][:, :, :s_len] = qkv[1]
+            ac["v"][:, :, :s_len] = qkv[2]
     x = _residual(p, x, y, cfg)
     return _mlp_block(p, x, cfg), cache
 

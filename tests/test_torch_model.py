@@ -44,6 +44,13 @@ def pair():
     return _pair("granite-3-8b-smoke")
 
 
+@pytest.fixture(scope="module")
+def gemma7():
+    """gemma-7b at smoke size: GeLU MLP, embeddings scaled by sqrt(d), a
+    tied head, one kv head per query head."""
+    return _pair("gemma-7b-smoke")
+
+
 def _tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab, (b, s)).astype(np.int32)
@@ -139,6 +146,15 @@ def test_prefill_and_decode_steps_match(pair, prefill_chunk):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
 
 
+def test_gemma7_forward_logits_match(gemma7):
+    test_forward_logits_match(gemma7)
+
+
+@pytest.mark.parametrize("prefill_chunk", [None, 8])
+def test_gemma7_prefill_and_decode_steps_match(gemma7, prefill_chunk):
+    test_prefill_and_decode_steps_match(gemma7, prefill_chunk)
+
+
 def test_decode_loop_greedy_streams_equal(pair):
     """The fused loop with ragged budgets (one slot empty, one finishing
     early): equal token blocks, steps, kv_len and remaining."""
@@ -223,7 +239,6 @@ def test_paged_prefill_and_decode_loop_match(pair, prefill_chunk):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("gemma2-9b-smoke", "windows"),
     ("deepseek-v3-671b-smoke", "MoE"),
     ("hymba-1.5b-smoke", "SSM"),
     ("musicgen-large-smoke", "front end"),

@@ -32,18 +32,27 @@ COUNTERS = ("prefill_dispatches", "decode_dispatches", "decode_steps",
             "tokens_decoded", "tokens_prefilled", "peak_live_tokens")
 
 
-@pytest.fixture(scope="module")
-def models():
-    params, _ = jtf.init(jax_get_config(NAME), jax.random.PRNGKey(0), JRT)
-    model = bridge.model_from_jax(get_config(NAME), jax.device_get(params),
+def _models(name):
+    params, _ = jtf.init(jax_get_config(name), jax.random.PRNGKey(0), JRT)
+    model = bridge.model_from_jax(get_config(name), jax.device_get(params),
                                   RT, device="cpu")
     return params, model
 
 
-def _serve_both(models, prompts, budgets, **engine_kw):
+@pytest.fixture(scope="module")
+def models():
+    return _models(NAME)
+
+
+@pytest.fixture(scope="module")
+def gemma7_models():
+    return _models("gemma-7b-smoke")
+
+
+def _serve_both(models, prompts, budgets, name=NAME, **engine_kw):
     params, model = models
-    jeng = JaxServeEngine(jax_get_config(NAME), params, rt=JRT, **engine_kw)
-    teng = ServeEngine(get_config(NAME), model, rt=RT, device="cpu",
+    jeng = JaxServeEngine(jax_get_config(name), params, rt=JRT, **engine_kw)
+    teng = ServeEngine(get_config(name), model, rt=RT, device="cpu",
                        **engine_kw)
     jreqs = [JaxRequest(rid=i, prompt=p, max_new_tokens=n)
              for i, (p, n) in enumerate(zip(prompts, budgets))]
@@ -87,6 +96,24 @@ def test_same_trace_same_streams_and_counters(models, engine_kw):
             np.testing.assert_allclose(c["attn"][name].numpy()[:, :, :last],
                                        ref[layer][:, :, :last],
                                        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_gemma7_same_trace_same_streams_and_counters(gemma7_models, layout):
+    """gemma-7b-smoke served by both engines on either layout: equal
+    greedy streams and counters."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (5, 17, 9, 30, 3, 12)]
+    budgets = [7, 3, 10, 5, 1, 6]
+    jeng, jreqs, teng, treqs = _serve_both(
+        gemma7_models, prompts, budgets, name="gemma-7b-smoke", slots=4,
+        max_len=64, decode_chunk=4, cache_layout=layout)
+    assert all(r.done for r in treqs)
+    assert [r.generated for r in treqs] == [r.generated for r in jreqs]
+    assert {k: teng.stats[k] for k in COUNTERS} == \
+        {k: jeng.stats[k] for k in COUNTERS}
+    assert teng.logits_finite()
 
 
 def test_warmup_resets_counters_and_keeps_streams(models):

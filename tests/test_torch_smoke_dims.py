@@ -1,0 +1,152 @@
+"""Every config the port admits runs on the card: its head dims are built.
+
+The CUDA kernels are compiled for a fixed set of head dims (K1's
+``CUDA_PREFILL_TILES``, K2/K3's ``CUDA_HEAD_DIMS``, K4's
+``CUDA_MLA_DIMS``), and a CUDA tensor at any other dim raises rather
+than falling back to the plain version.  So for each registered arch and
+its ``-smoke`` config that the launcher serves (``serve_config``: an MLA
+arch with its MoE cut) and ``check_supported`` admits, every (E, F) its
+prefill paths reach and every decode head dim / latent must be built, or
+the launcher's default device fails on the first prefill.  The tile
+choosers must resolve at those dims without raising.  Nothing here needs
+the card: the kernels themselves are held to their plain versions at
+these dims by ``chip_smoke.py``.
+"""
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.kernels import autotune, ops
+from repro_torch.kernels import decode as dec
+from repro_torch.launch import serve
+from repro_torch.model import transformer as tf
+
+NAMES = sorted(ARCHS) + sorted(n + "-smoke" for n in ARCHS)
+
+
+def _admitted(name):
+    cfg = serve.serve_config(name)
+    try:
+        tf.check_supported(cfg)
+    except NotImplementedError:
+        return None
+    return cfg
+
+
+def _kernel_dims(cfg):
+    """(prefill (E, F) pairs, GQA decode head dims, MLA (r, rd) latents)
+    the config's serving paths reach."""
+    prefill, heads, latents = set(), set(), set()
+    for spec in cfg.layer_specs():
+        if spec.attn == "mla":
+            m = cfg.mla
+            prefill.add((m.nope_dim + m.rope_dim, m.v_dim))      # expanded
+            prefill.add((m.kv_lora_rank + m.rope_dim, m.kv_lora_rank))
+            latents.add((m.kv_lora_rank, m.rope_dim))
+        else:
+            prefill.add((cfg.dh, cfg.dh))
+            heads.add(cfg.dh)
+    return prefill, heads, latents
+
+
+def test_the_admitted_configs_are_the_expected_ones():
+    """The guard below is not vacuous: the GQA archs, gemma2's windows and
+    softcaps, and DeepSeek's MLA (MoE cut) are all admitted, full width
+    and smoke."""
+    admitted = {n for n in NAMES if _admitted(n) is not None}
+    for base in ("granite-3-8b", "stablelm-1.6b", "gemma-7b", "gemma2-9b",
+                 "deepseek-v3-671b"):
+        assert {base, base + "-smoke"} <= admitted, base
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_every_admitted_config_has_its_kernels_built(name):
+    cfg = _admitted(name)
+    if cfg is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tf.check_supported(serve.serve_config(name))
+        return
+    prefill, heads, latents = _kernel_dims(cfg)
+    assert prefill <= set(autotune.CUDA_PREFILL_TILES), (name, prefill)
+    assert heads <= set(dec.CUDA_HEAD_DIMS), (name, heads)
+    assert latents <= set(dec.CUDA_MLA_DIMS), (name, latents)
+    g = cfg.n_heads // (1 if cfg.mla is not None else cfg.n_kv_heads)
+    for e, f in prefill:
+        tile = autotune.attention_params(1024 * g, 1024, e, f, impl="cuda")
+        assert (tile.block_q, tile.block_k) == \
+            autotune.CUDA_PREFILL_TILES[(e, f)]
+
+
+@pytest.mark.parametrize("e,f", [(32, 32), (48, 32), (256, 256)])
+def test_prefill_tile_resolves_and_fits(e, f):
+    tile = autotune.attention_params(4096, 1024, e, f, impl="cuda")
+    wf = autotune.CUDA_PREFILL_WARP_SPLIT[(e, f)]
+    assert autotune.prefill_smem_bytes(tile.block_q, tile.block_k, e, f,
+                                       wf) <= autotune.SMEM_BUDGET
+    assert autotune.prefill_smem_bytes(tile.block_q, tile.block_k, e, f, wf,
+                                       elem_bytes=2) <= autotune.SMEM_BUDGET
+
+
+def test_prefill_smem_mirror_at_the_new_dims():
+    """``prefill_smem_bytes`` at the new tiles, as the kernel's ``Layout``
+    counts them (fp32): (256, 256) on 64 x 64 with four warps a row group
+    138,240 B (its 128 x 64 alternative would take 223,232 B); the smoke
+    dims on 128 x 64 with K chunks of E itself, 46,080 B at (32, 32) and
+    66,560 B at (48, 32)."""
+    assert autotune.CUDA_PREFILL_TILES[(256, 256)] == (64, 64)
+    assert autotune.prefill_smem_bytes(64, 64, 256, 256, 4) == 138_240
+    assert autotune.prefill_smem_bytes(128, 64, 256, 256, 2) == 223_232
+    assert autotune.prefill_smem_bytes(128, 64, 32, 32, 1) == 46_080
+    assert autotune.prefill_smem_bytes(128, 64, 48, 32, 1) == 66_560
+    assert autotune.CUDA_PREFILL_K_CHUNK == {(32, 32): 32, (48, 32): 48}
+
+
+@pytest.mark.parametrize("d", [32, 256])
+def test_decode_tiles_resolve_at_the_new_head_dims(d):
+    for g in (2, 4):
+        dense = autotune.decode_params(8192, max(g, 8), d, d)
+        assert 8192 % dense.splits == 0
+        paged = autotune.paged_decode_params(512, 16, max(g, 8), d, d)
+        assert 512 % paged.splits == 0 and 16 % paged.block_k == 0
+    for eb in (4, 2):
+        for rows in (1, 2, 4, 5, 16, 64):
+            dec._check_smem("t", rows, d, eb, 2048)
+    # the ring (2 x 16 K and V rows) outweighs the merge of 8 rows at d256
+    assert autotune.decode_smem_bytes(4, 256, 4, pages=32) == 65_536 + 128
+    assert autotune.decode_smem_bytes(64, 256, 4) == 65_536
+    assert autotune.decode_smem_bytes(64, 32, 2) == 4 * 4 * 8 * 34
+
+
+def test_mla_latent_tiles_resolve_at_the_smoke_latent():
+    tuned = autotune.mla_paged_decode_params(32, 16, 8, 32, 16)
+    assert 32 % tuned.splits == 0 and 16 % tuned.block_k == 0
+    assert (32, 16) in dec.CUDA_MLA_DIMS
+
+
+def test_an_unbuilt_dim_raises_and_never_falls_back():
+    """A head dim the kernels are not built for is refused at the tile
+    choice and by the wrappers' checks; ``impl="cuda"`` on a CPU tensor
+    raises too — the plain version is never taken in the kernel's
+    place."""
+    with pytest.raises(ValueError, match=r"not \(96, 96\)"):
+        autotune.attention_params(64, 64, 96, 96, impl="cuda")
+    with pytest.raises(ValueError, match="built for"):
+        dec._check_head_dims("t", torch.zeros(2, 4, 96))
+    dec._check_head_dims("t", torch.zeros(2, 4, 256), torch.zeros(2, 8, 256))
+    q = torch.zeros(1, 2, 4, 96)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fusemax_attention(q, q, q, impl="cuda")
+
+
+def test_launcher_default_is_gemma2_smoke_and_serves():
+    """``python -m repro_torch.launch.serve`` with no flags serves
+    gemma2-9b-smoke, as the reference launcher does; on the CPU (the one
+    flag the card does not need) the trace completes."""
+    args = serve._parser().parse_args([])
+    assert (args.arch, args.device, args.cache_layout) == \
+        ("gemma2-9b-smoke", "cuda", "dense")
+    metrics = serve.main(["--device", "cpu", "--json", "", "--repeats", "1",
+                          "--no-warmup", "--cache-layout", "both"])
+    assert metrics["arch"] == "gemma2-9b-smoke"
+    assert metrics["outputs_match"] is True
+    assert [len(o) for o in metrics["_outputs"]] == [12] * 6
