@@ -211,9 +211,9 @@ def launcher(kind: str, fn, x: dict):
                 splits, m // splits, bk, 1, g, d ** -0.5, 0, 0.0, 0, stream)
     else:
         n_pages = x["k_pages"].shape[0]
-        args = (q, kp, vp, table, kv_len, pm_, pl_, pnv_, 0, d, bh, hkv, g,
-                n_pages, ps, w, splits, (w // splits) * ps, bk, 1, g,
-                d ** -0.5, 0.0, 0, stream)
+        args = (q, kp, vp, None, None, table, kv_len, pm_, pl_, pnv_, 0, 0,
+                d, bh, hkv, g, n_pages, ps, w, splits, (w // splits) * ps, bk,
+                1, g, d ** -0.5, 0.0, 0, stream)
 
     def run():
         err = fn(*args)

@@ -27,7 +27,12 @@ JSON line (``"phase": ...``):
              ring caches read at eff_len; K4 also at the smoke latent (32,
              16) with 4 heads; and given an operand one element off a
              16-byte boundary, or head dims they are not built for, which
-             they must refuse); K3 against K2 on a permuted pool holding a
+             they must refuse; K3 and K4 also on pools of fp8 e4m3 and
+             int8 codes with fp16 scales, against their plain versions and
+             against themselves on the fp32 pools the codes decode to,
+             which must give the same bits — ``k3_quant_vs_dequant``,
+             ``k4_quant_vs_dequant`` — and on code pools they are not built
+             for, which they must refuse); K3 against K2 on a permuted pool holding a
              dense cache's rows (``k3_vs_k2``, at head dims 128 and 256)
              and K4 on a permuted latent pool against K4 on the same rows
              in identity page order (``k4_perm_vs_identity``), both equal
@@ -59,6 +64,20 @@ JSON line (``"phase": ...``):
 6. serve_prefix — the launcher on the paged layout with a 256-token
              shared prefix against its prefix-cache-off leg: equal
              streams, tokens reused, the pool's invariants audited;
+6a. model_quant — the model check on fp8 e4m3 and int8 paged pools (two
+             prefill chunks, the second reading the dequantized history,
+             8 decode steps through K3's quantized branch);
+6b. serve_quant — the launcher on the serve cell's trace with
+             ``--cache-layout paged --kv-dtype fp8_e4m3`` and then ``int8``:
+             the quantized leg's peak resident KV against the fp32 leg's
+             (at most 27 %), ``quant_quality`` reported, K3's quantized
+             branch 40 x decode steps;
+6c. serve_swap — 40-layer granite-3-8b through ``ServeEngine`` on three
+             waves (a 256-token shared prefix, unrelated prompts that evict
+             it from a 320-page pool, the first wave again) with an 8 GiB
+             host swap tier, against a pool that never evicts, unquantized
+             and on fp8 pages: at least 16 demotions and promotions, prefix
+             hits, equal streams, the host ms of both;
 7. model_gemma2 — gemma2-9b at full width cut to 4 layers (two local with
              a 4096-token window, two global), fp32: prompts of 4600 and
              5000 tokens, one prefilled whole and one in 2048-token
@@ -86,6 +105,9 @@ JSON line (``"phase": ...``):
              its prefix-cache-off leg: equal streams, 3840 tokens reused;
 13. serve_mla_impls — a short trace on that tower with ``attn_impl``
              "cuda" and "torch": equal greedy streams;
+13a. serve_mla_quant — the tower with fp8 e4m3 latents: the launcher's
+             ``paged_quant`` leg (K4's quantized branch 3 x decode steps,
+             ``quant_quality``), then cuda vs torch streams on fp8 latents;
 14. model_mla_smoke — the model_mla check on the MLA smoke config (MoE
              cut, as the launcher serves it): K1 at (48, 32), K4 at (32,
              16);
@@ -955,6 +977,323 @@ def time_k4(torch, gen, dec, ops, autotune,
     return row
 
 
+# ---------------------------------------------------------------------------
+# quantized pages: K3's and K4's code branches
+# ---------------------------------------------------------------------------
+
+#: the code dtypes of quantized pools (``--kv-dtype``) and their short
+#: names in the kernel rows
+QUANT_KV = {"fp8_e4m3": "fp8", "int8": "int8"}
+
+
+def _quantized(torch, pools, kv_dtype):
+    """Per pool: (codes, fp16 scales, the fp32 pool they decode to),
+    through the port's ``quantize_kv`` (one scale per trailing vector)."""
+    from repro_torch.model.attention import (
+        dequantize_kv, kv_quant_dtype, quantize_kv,
+    )
+
+    qdt = kv_quant_dtype(kv_dtype)
+    out = []
+    for x in pools:
+        codes, scales = quantize_kv(x, qdt)
+        out.append((codes, scales, dequantize_kv(codes, scales)))
+    return out
+
+
+def run_k3q_cases(torch, gen, dec, autotune) -> tuple:
+    """K3 on quantized pools: every fp32 case of :func:`k3_cases` (head
+    dims 32-256, verify rows, ring classes at eff_len, softcap, kv_len 0,
+    permuted pools with sentinels) with its pools quantized to each code
+    dtype, against the plain version on the same codes and scales (fp32
+    tolerance), and against K3 on the fp32 pool the codes decode to at the
+    same splits, which must give the same bits (``k3_quant_vs_dequant``).
+    Returns (rows, the k3_quant_vs_dequant row)."""
+    rows, worst = [], {}
+    for (name, b, hkv, g, p, ps, w, n_pages, d, dtype, kvl, splits, bk,
+         kw) in k3_cases(torch, autotune.DECODE_CHUNK):
+        if dtype != torch.float32:
+            continue
+        q = _rand(torch, gen, (b * hkv, p * g, d), dtype)
+        k, v, table = _paged_inputs(torch, gen, b, hkv, ps, w, n_pages, d,
+                                    dtype, kvl, p)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        args = dict(scale=d ** -0.5, hkv=hkv, splits=splits, block_k=bk,
+                    n_pos=p, rows_per_pos=g, **kw)
+        for kv, short in QUANT_KV.items():
+            (kc, ks, kd), (vc, vs, vd) = _quantized(torch, (k, v), kv)
+            sc = dict(k_scale=ks, v_scale=vs)
+            out = dec.combine_partials(*dec.paged_decode_partials_cuda(
+                q, kc, vc, table, kv_len, **args, **sc), dtype)
+            ref = dec.combine_partials(*dec.paged_decode_partials_torch(
+                q, kc, vc, table, kv_len, **args, **sc), dtype)
+            deq = dec.combine_partials(*dec.paged_decode_partials_cuda(
+                q, kd, vd, table, kv_len, **args), dtype)
+            torch.cuda.synchronize()
+            err, ok, atol, rtol = _err(torch, out, ref, "float32")
+            if 0 in kvl and p == 1:
+                zero = torch.tensor(kvl, device="cuda").repeat_interleave(
+                    hkv) == 0
+                ok = ok and bool((out[zero] == 0).all().item())
+            same = (out - deq).abs().max().item()
+            worst[kv] = max(worst.get(kv, 0.0), same)
+            rows.append(dict(kernel=f"paged_decode_partials@{short}",
+                             case=name, dtype="float32", kv_dtype=kv,
+                             max_abs_err=err, atol=atol, rtol=rtol,
+                             vs_dequant_max_abs_diff=same, ok=ok))
+    top = max(worst.values())
+    return rows, dict(kernel="paged_decode_partials@quant",
+                      case="k3_quant_vs_dequant", cases=len(rows),
+                      max_abs_diff_by_kv_dtype=worst, max_abs_diff=top,
+                      ok=top == 0.0)
+
+
+def run_k4q_cases(torch, gen, dec) -> tuple:
+    """K4 on quantized latent pools: every fp32 case of :func:`k4_cases`
+    (DeepSeek's (512, 64) and the smoke (32, 16), verify rows, softcap,
+    sub-page tiles, kv_len 0) with its pools quantized to each code dtype
+    (one scale per token for the latent and one for the rope key), against
+    the plain version and against K4 on the decoded fp32 pools, which must
+    give the same bits (``k4_quant_vs_dequant``)."""
+    rows, worst = [], {}
+    for (name, b, h, p, ps, w, n_pages, dtype, kvl, splits, bk, kw,
+         *dims) in k4_cases(torch):
+        if dtype != torch.float32:
+            continue
+        r, rd = dims[0] if dims else (MLA_R, MLA_RD)
+        q, ckv, kr, table = _latent_inputs(torch, gen, b, h, p, ps, w,
+                                           n_pages, dtype, kvl, r, rd)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        args = dict(scale=(r + rd) ** -0.5, splits=splits, block_k=bk,
+                    n_pos=p, rows_per_pos=h, **kw)
+        for kv, short in QUANT_KV.items():
+            (cc, cs, cd), (rc, rs, rdq) = _quantized(torch, (ckv, kr), kv)
+            sc = dict(ckv_scale=cs, krope_scale=rs)
+            out = dec.combine_partials(*dec.mla_paged_decode_partials_cuda(
+                q, cc, rc, table, kv_len, **args, **sc), dtype)
+            ref = dec.combine_partials(*dec.mla_paged_decode_partials_torch(
+                q, cc, rc, table, kv_len, **args, **sc), dtype)
+            deq = dec.combine_partials(*dec.mla_paged_decode_partials_cuda(
+                q, cd, rdq, table, kv_len, **args), dtype)
+            torch.cuda.synchronize()
+            err, ok, atol, rtol = _err(torch, out, ref, "float32")
+            if 0 in kvl and p == 1:
+                zero = torch.tensor(kvl, device="cuda") == 0
+                ok = ok and bool((out[zero] == 0).all().item())
+            same = (out - deq).abs().max().item()
+            worst[kv] = max(worst.get(kv, 0.0), same)
+            rows.append(dict(kernel=f"mla_paged_decode_partials@{short}",
+                             case=name, dtype="float32", kv_dtype=kv,
+                             max_abs_err=err, atol=atol, rtol=rtol,
+                             vs_dequant_max_abs_diff=same, ok=ok))
+    top = max(worst.values())
+    return rows, dict(kernel="mla_paged_decode_partials@quant",
+                      case="k4_quant_vs_dequant", cases=len(rows),
+                      max_abs_diff_by_kv_dtype=worst, max_abs_diff=top,
+                      ok=top == 0.0)
+
+
+def quant_refusal_cases(torch, gen, dec) -> list:
+    """Code pools the kernels are not built for must raise on CUDA
+    tensors, never fall back: K3 with fp8 codes at D = 96, with int8 codes
+    and bf16 queries, and with codes but no scales; K4 with fp8 codes at
+    (r, rd) = (64, 16) and with bf16 queries."""
+    from repro_torch.model.attention import quantize_kv
+
+    f32, fp8 = torch.float32, torch.float8_e4m3fn
+    table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(1, 4)
+    kv_len = torch.tensor([40], dtype=torch.int32, device="cuda")
+    dk = dict(scale=0.1, splits=1, block_k=16)
+    q96 = _rand(torch, gen, (2, 4, 96), f32)
+    c96, s96 = quantize_kv(_rand(torch, gen, (4, 16, 2, 96), f32), fp8)
+    q128 = _rand(torch, gen, (2, 4, 128), f32)
+    c128, s128 = quantize_kv(_rand(torch, gen, (4, 16, 2, 128), f32),
+                             torch.int8)
+    ql = _rand(torch, gen, (1, 4, 80), f32)
+    cl, sl = quantize_kv(_rand(torch, gen, (4, 16, 64), f32), fp8)
+    cr, sr = quantize_kv(_rand(torch, gen, (4, 16, 16), f32), fp8)
+    qs = _rand(torch, gen, (1, 4, 48), f32)
+    cs, ss = quantize_kv(_rand(torch, gen, (4, 16, 32), f32), fp8)
+    calls = [
+        ("paged_decode_partials", "fp8 codes at D = 96",
+         lambda: dec.paged_decode_partials_cuda(
+             q96, c96, c96, table, kv_len, hkv=2, k_scale=s96, v_scale=s96,
+             **dk)),
+        ("paged_decode_partials", "int8 codes with bf16 queries",
+         lambda: dec.paged_decode_partials_cuda(
+             q128.to(torch.bfloat16), c128, c128, table, kv_len, hkv=2,
+             k_scale=s128, v_scale=s128, **dk)),
+        ("paged_decode_partials", "int8 codes without scales",
+         lambda: dec.paged_decode_partials_cuda(
+             q128, c128, c128, table, kv_len, hkv=2, **dk)),
+        ("mla_paged_decode_partials", "fp8 codes at (r, rd) = (64, 16)",
+         lambda: dec.mla_paged_decode_partials_cuda(
+             ql, cl, cr, table, kv_len, ckv_scale=sl, krope_scale=sr, **dk)),
+        ("mla_paged_decode_partials", "fp8 codes with bf16 queries",
+         lambda: dec.mla_paged_decode_partials_cuda(
+             qs.to(torch.bfloat16), cs, cr, table, kv_len, ckv_scale=ss,
+             krope_scale=sr, **dk)),
+    ]
+    rows = []
+    for kernel, what, call in calls:
+        try:
+            call()
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        torch.cuda.synchronize()
+        rows.append(dict(kernel=kernel, case=f"{what} raises",
+                         raised=raised, ok=raised is not None))
+    return rows
+
+
+def time_k3_quant(torch, gen, dec, ops, autotune, kv_dtype) -> dict:
+    """K3 on a quantized pool at granite-3-8b's decode step (the data of
+    :func:`time_k3` with its pools quantized to ``kv_dtype``): the kernel,
+    its plain version, and as the library yardstick ``gather_pages`` of
+    codes and scales, the dequantize and SDPA on the gathered view.  The
+    bound counts the codes and the 2-byte scales of every valid key."""
+    import torch.nn.functional as F
+
+    from repro_torch.model.attention import dequantize_kv
+
+    x = granite_paged_data(torch, gen)
+    kvl = [2048, 1500, 1024, 700, 300, 64, 1, 1900]
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    n_pages = x["k_pages"].shape[0]
+    table = with_sentinels(x["table"], kvl, x["ps"], n_pages)
+    b, hq, hkv, g, m, d, ps, w = (x[k] for k in
+                                  ("b", "hq", "hkv", "g", "m", "d", "ps", "w"))
+    (kc, ks, _), (vc, vs, _) = _quantized(
+        torch, (x["k_pages"], x["v_pages"]), kv_dtype)
+    tuned = autotune.paged_decode_params(w, ps, max(g, 8), d, d,
+                                         elem_bytes=kc.element_size())
+    q_f = x["q"].reshape(b * hkv, g, d)
+    args = dict(scale=d ** -0.5, hkv=hkv, splits=tuned.splits,
+                block_k=tuned.block_k, k_scale=ks, v_scale=vs)
+
+    def kernel():
+        return dec.paged_decode_partials_cuda(q_f, kc, vc, table, kv_len,
+                                              **args)
+
+    out = dec.combine_partials(*kernel(), torch.float32)
+    ref = dec.combine_partials(*dec.paged_decode_partials_torch(
+        q_f, kc, vc, table, kv_len, **args), torch.float32)
+    err, ok, _, _ = _err(torch, out, ref, "float32")
+    ms = time_ms(torch, kernel)
+    dev_ms = device_ms(torch, kernel, "PagedKV")
+    wrapper_ms = host_ms(torch, kernel)
+    plain_ms = time_ms(torch, lambda: dec.paged_decode_partials_torch(
+        q_f, kc, vc, table, kv_len, **args), iters=5, warmup=1)
+    mask = (torch.arange(m, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None, :]
+
+    def library():
+        kg = dequantize_kv(ops.gather_pages(kc, table),
+                           ops.gather_pages(ks, table)).transpose(1, 2)
+        vg = dequantize_kv(ops.gather_pages(vc, table),
+                           ops.gather_pages(vs, table)).transpose(1, 2)
+        try:
+            return F.scaled_dot_product_attention(
+                x["q"], kg, vg, attn_mask=mask, enable_gqa=True)
+        except TypeError:
+            return F.scaled_dot_product_attention(
+                x["q"], kg.repeat_interleave(g, dim=1),
+                vg.repeat_interleave(g, dim=1), attn_mask=mask)
+
+    library_ms = time_ms(torch, library)
+    live = sum(kvl)
+    # each valid key's K and V codes (1 byte a feature) and their fp16
+    # scales read once per kv head, the table and queries once, the fp32
+    # partials written once
+    nbytes = (live * hkv * 2 * (d + 2) + 4 * table.numel() + 4 * q_f.numel()
+              + 4 * b + 4 * b * hkv * tuned.splits * g * (d + 2))
+    # the dot products, and one dequantizing multiply per code
+    flops = 4 * d * live * hq + 2 * d * live * hkv
+    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
+                      shape=f"B{b} Hq{hq} Hkv{hkv} page_size {ps} W {w} pool "
+                            f"{n_pages} pages d{d} {kv_dtype} codes + fp16 "
+                            f"scales, fp32 queries, kv_len {kvl} splits "
+                            f"{tuned.splits} block_k {tuned.block_k}")
+    row.update(device_ms=dev_ms, host_ms=wrapper_ms,
+               device_share_of_bound=row["bound_ms"] / dev_ms)
+    torch.cuda.empty_cache()
+    return row
+
+
+def time_k4_quant(torch, gen, dec, ops, autotune, kv_dtype) -> dict:
+    """K4 on a quantized latent pool at DeepSeek-V3's decode step (the data
+    of :func:`time_k4` with both latent pools quantized to ``kv_dtype``):
+    the kernel, its plain version, and gather + dequantize + SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.model.attention import dequantize_kv
+
+    kvl = [2048, 1500, 1024, 700, 300, 64, 1, 1900]
+    x = deepseek_decode_data(torch, gen, kvl, b=len(kvl))
+    b, h, ps, w, r, rd = (x[k] for k in ("b", "h", "ps", "w", "r", "rd"))
+    ckv, kr = x["pools"]["permuted"]
+    (cc, cs, _), (rc, rs, _) = _quantized(torch, (ckv, kr), kv_dtype)
+    table, kv_len, q = x["tables"]["permuted"], x["kv_len"], x["q"]
+    tuned = autotune.mla_paged_decode_params(w, ps, h, r, rd,
+                                             elem_bytes=cc.element_size())
+    scale = (r + rd) ** -0.5
+    args = dict(scale=scale, splits=tuned.splits, block_k=tuned.block_k,
+                ckv_scale=cs, krope_scale=rs)
+
+    def kernel():
+        return dec.mla_paged_decode_partials_cuda(q, cc, rc, table, kv_len,
+                                                  **args)
+
+    out = dec.combine_partials(*kernel(), torch.float32)
+    ref = dec.combine_partials(*dec.mla_paged_decode_partials_torch(
+        q, cc, rc, table, kv_len, **args), torch.float32)
+    err, ok, _, _ = _err(torch, out, ref, "float32")
+    ms = time_ms(torch, kernel)
+    dev_ms = device_ms(torch, kernel, "mla_paged_decode_partials_kernel")
+    plain_ms = time_ms(torch, lambda: dec.mla_paged_decode_partials_torch(
+        q, cc, rc, table, kv_len, **args), iters=5, warmup=1)
+    m = w * ps
+    mask = (torch.arange(m, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    q4 = q[:, :, None]
+
+    def library():
+        cg = dequantize_kv(ops.gather_pages(cc, table),
+                           ops.gather_pages(cs, table))
+        kg = torch.cat([cg, dequantize_kv(ops.gather_pages(rc, table),
+                                          ops.gather_pages(rs, table))],
+                       dim=-1)
+        try:
+            return F.scaled_dot_product_attention(
+                q4, kg[:, None], cg[:, None], attn_mask=mask, scale=scale,
+                enable_gqa=True)
+        except TypeError:
+            return F.scaled_dot_product_attention(
+                q4, kg[:, None].expand(b, h, m, r + rd),
+                cg[:, None].expand(b, h, m, r), attn_mask=mask,
+                scale=scale)
+
+    library_ms = time_ms(torch, library)
+    live = sum(kvl)
+    # each valid key's latent and rope codes and their two fp16 scales read
+    # once, the queries, table and kv_len once, the fp32 partials written
+    # once
+    nbytes = (live * (r + rd + 4) + 4 * q.numel() + 4 * table.numel()
+              + 4 * b + 4 * b * tuned.splits * h * (r + 2))
+    flops = 2 * h * live * (2 * r + rd) + live * (r + rd)
+    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
+                      shape=f"B{b} H{h} r{r} rd{rd} page_size {ps} W {w} "
+                            f"pool {x['n_pages']} pages {kv_dtype} codes + "
+                            f"fp16 scales, fp32 queries, kv_len {kvl} "
+                            f"splits {tuned.splits} block_k "
+                            f"{tuned.block_k}")
+    row.update(device_ms=dev_ms,
+               device_share_of_bound=row["bound_ms"] / dev_ms)
+    torch.cuda.empty_cache()
+    return row
+
+
 def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
                    q_offset, shape, window=None, softcap=None) -> dict:
     """K1 at one prefill shape, causal with a history offset (and a window
@@ -1359,10 +1698,13 @@ PREFIX_ARGS = ["--arch", "granite-3-8b", "--cache-layout", "paged",
 
 #: the decode kernel each layout's decode steps launch (GQA models)
 DECODE_KERNEL = {"dense": "decode_partials", "paged": "paged_decode_partials",
-                 "paged_noprefix": "paged_decode_partials"}
+                 "paged_noprefix": "paged_decode_partials",
+                 "paged_swap": "paged_decode_partials",
+                 "paged_quant": "paged_decode_partials"}
 #: ... and on an MLA model (paged layout only)
 MLA_DECODE_KERNEL = {"paged": "mla_paged_decode_partials",
-                     "paged_noprefix": "mla_paged_decode_partials"}
+                     "paged_noprefix": "mla_paged_decode_partials",
+                     "paged_quant": "mla_paged_decode_partials"}
 DECODE_KERNELS = ("decode_partials", "paged_decode_partials",
                   "mla_paged_decode_partials")
 
@@ -1377,7 +1719,12 @@ def _counts(fm, dec) -> dict:
                 fm.fusemax_attention_cuda.launches_windowed,
             "fusemax_prefill_by_dims": {
                 f"{e}x{f}": n for (e, f), n in
-                fm.fusemax_attention_cuda.launches_by_dims.items()}}
+                fm.fusemax_attention_cuda.launches_by_dims.items()},
+            # the quantized pools' launches (part of the counts above)
+            "paged_decode_partials_by_kv_dtype":
+                dict(dec.paged_decode_partials_cuda.launches_by_code),
+            "mla_paged_decode_partials_by_kv_dtype":
+                dict(dec.mla_paged_decode_partials_cuda.launches_by_code)}
 
 
 def _zero_counts(fm, dec) -> None:
@@ -1387,6 +1734,8 @@ def _zero_counts(fm, dec) -> None:
     dec.decode_partials_cuda.launches = 0
     dec.paged_decode_partials_cuda.launches = 0
     dec.mla_paged_decode_partials_cuda.launches = 0
+    dec.paged_decode_partials_cuda.launches_by_code.clear()
+    dec.mla_paged_decode_partials_cuda.launches_by_code.clear()
 
 
 def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
@@ -1474,6 +1823,260 @@ def phase_serve_prefix(torch, fm, dec, serve) -> dict:
          invariants="checked by the launcher after each paged leg",
          launches=launches)
     check(reused > 0, "no prefix tokens reused on shared-prefix traffic")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# quantized pages and the host swap tier (granite-3-8b)
+# ---------------------------------------------------------------------------
+
+def phase_model_quant(torch, fm, dec) -> dict:
+    """granite-3-8b at full width cut to 4 layers on quantized paged pools
+    (each code dtype), ``attn_impl`` "cuda" and "torch" on the same
+    weights: prompts of 512, 333, 128 and 45 prefilled in two 256-token
+    chunks (the second reads the dequantized history), then 8 greedy
+    decode steps through K3's quantized branch.  Equal tokens, logits
+    within 1e-4 of their scale.  Returns the cuda runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=4)
+    rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                   param_dtype=torch.float32)
+    rt_t = dataclasses.replace(rt_c, attn_impl="torch")
+    model = tf.init(cfg, 0, rt_c, device="cuda")
+    lens = [512, 333, 128, 45]
+    b, chunk, ps, max_len = len(lens), 256, 16, 1024
+    w = max_len // ps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (b, 512), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    true_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(b * w, generator=gen, device="cuda")
+    tables = {"full": perm.to(torch.int32).reshape(b, w).contiguous()}
+    slot_ids = torch.arange(b, device="cuda")
+    rel_tol, per_dtype = 1e-4, {}
+    _zero_counts(fm, dec)
+    for kv in QUANT_KV:
+        streams, logits_all = {}, {}
+        for name, rt in (("cuda", rt_c), ("torch", rt_t)):
+            caches = tf.init_paged_cache(cfg, b, {"full": b * w}, ps,
+                                         torch.float32, "cuda", kv)
+            lg = torch.zeros((b, cfg.vocab), device="cuda")
+            for off in (0, chunk):
+                part, caches = tf.prefill(
+                    cfg, model, {"inputs": toks[:, off:off + chunk]}, caches,
+                    rt, kv_offset=off, true_len=true_len,
+                    block_tables=tables, slot_ids=slot_ids)
+                sel = (true_len - 1 >= off) & (true_len - 1 < off + chunk)
+                lg = torch.where(sel[:, None], part, lg)
+            kvl = true_len.clone()
+            out, lgs = [], [lg]
+            for _ in range(8):
+                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+                out.append(nxt)
+                kvl = kvl + 1
+                lg, caches = tf.decode_step(cfg, model, nxt[:, None], caches,
+                                            kvl, rt, block_tables=tables)
+                lgs.append(lg)
+            streams[name] = torch.stack(out).cpu()
+            logits_all[name] = torch.stack(lgs)
+            del caches
+        torch.cuda.synchronize()
+        diff = (logits_all["cuda"] - logits_all["torch"]).abs().max().item()
+        scale = logits_all["torch"].abs().max().item()
+        match = (streams["cuda"] == streams["torch"]).float().mean().item()
+        finite = bool(torch.isfinite(logits_all["cuda"]).all().item())
+        per_dtype[kv] = dict(logits_max_abs_diff=diff, logits_max_abs=scale,
+                             token_match_rate=match, finite=finite)
+        check(finite, f"{kv}: non-finite logits in the quantized model check")
+        check(diff <= rel_tol * scale,
+              f"{kv}: cuda vs torch logits differ by {diff} > {rel_tol} x "
+              f"{scale}")
+        check(match == 1.0, f"{kv}: greedy token match rate {match} < 1")
+    launches = _counts(fm, dec)
+    emit("model_quant", config="granite-3-8b n_layers=4 fp32 weights, "
+         "quantized paged pools", prompts=lens,
+         prefill_chunks=[[0, chunk], [chunk, 2 * chunk]], decode_steps=8,
+         rel_tol=rel_tol, by_kv_dtype=per_dtype, cuda_launches=launches)
+    by_code = launches["paged_decode_partials_by_kv_dtype"]
+    check(by_code == {kv: cfg.n_layers * 8 for kv in QUANT_KV},
+          f"K3's quantized branch launched {by_code}, expected "
+          f"{cfg.n_layers} x 8 decode steps per code dtype")
+    del model, logits_all
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _quant_args(kv_dtype: str, warmup: bool) -> list:
+    """The serve cell's trace on the paged layout with a quantized leg."""
+    args = ["--arch", "granite-3-8b", "--cache-layout", "paged",
+            "--kv-dtype", kv_dtype, "--requests", "16", "--slots", "8",
+            "--prompt-len", "128", "--prompt-len-max", "1024",
+            "--new-tokens", "64", "--max-len", "2048", "--page-size", "16",
+            "--repeats", "1", "--json", ""]
+    return args if warmup else args + ["--no-warmup"]
+
+
+def phase_serve_quant(torch, fm, dec, serve) -> dict:
+    """granite-3-8b at full width (40 layers, fp32 weights) serving the
+    serve cell's trace on the paged layout and on quantized pages, fp8
+    e4m3 then int8 (the launcher's ``paged_quant`` leg): per leg tok/s,
+    TTFT, peak resident KV bytes (the quantized leg's against the fp32
+    paged leg's: codes plus fp16 scales, 25.4 % at head dim 128), the
+    launcher's ``quant_quality`` (reported, not a gate), and K3 launched
+    40 x decode steps, through its quantized branch in the quantized leg.
+    Returns the launches of each run, by code dtype."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite-3-8b")
+    out, runs = {}, {}
+    for kv, warmup in (("fp8_e4m3", True), ("int8", False)):
+        args = _quant_args(kv, warmup)
+        # this code dtype's main path: counts set to 0 just before it
+        _zero_counts(fm, dec)
+        t0 = time.perf_counter()
+        metrics = serve.main(args)
+        wall = time.perf_counter() - t0
+        launches = _counts(fm, dec)
+        legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab)
+        quant = metrics["layouts"]["paged_quant"]
+        peak = {lo: m["memory"]["peak_resident_cache_bytes"]
+                for lo, m in metrics["layouts"].items()}
+        ratio = peak["paged_quant"] / peak["paged"]
+        steps = quant["dispatches"]["decode_steps"]
+        by_code = quant["kernel_launches_by_kv_dtype"][
+            "paged_decode_partials"]
+        emit("serve_quant", args=" ".join(args), kv_dtype=kv, seconds=wall,
+             legs=legs, peak_resident_cache_bytes=peak,
+             quant_over_fp32_peak_resident=ratio,
+             bytes_per_page={lo: m["memory"]["physical_cache_bytes"]
+                             // max(1, m["memory"]["num_pages"]["full"])
+                             for lo, m in metrics["layouts"].items()},
+             quant_quality=metrics["quant_quality"],
+             main_path_launches=launches)
+        check(by_code == {kv: cfg.n_layers * steps},
+              f"{kv}: K3's quantized branch launched {by_code} times in the "
+              f"quantized leg, expected {cfg.n_layers} x {steps} decode "
+              f"steps")
+        check(ratio <= 0.27, f"{kv}: quantized peak resident KV is "
+                             f"{ratio:.4f} of the fp32 leg's, above 0.27")
+        out[kv] = dict(tok_per_s=quant["tok_per_s"], ttft_s=quant["ttft_s"],
+                       ratio=ratio, quality=metrics["quant_quality"])
+        runs[kv] = launches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _swap_waves(cfg):
+    """The swap cell's traffic: wave 1, 8 prompts opening with the same 256
+    tokens (tails of 144-240); wave 2, 8 unrelated prompts of 400-560
+    tokens, which evict wave 1's chains from a 320-page pool; wave 3,
+    wave 1 resent.  Seed 0, 32 new tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, 256)
+    wave1 = [np.concatenate([shared, rng.integers(0, cfg.vocab, n)])
+             .astype(np.int32) for n in rng.integers(144, 241, 8)]
+    wave2 = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+             for n in rng.integers(400, 561, 8)]
+    return [wave1, wave2, [p.copy() for p in wave1]]
+
+
+SWAP_POOL_PAGES = 320
+SWAP_HOST_BYTES = 8 << 30
+
+
+def phase_serve_swap(torch, fm, dec) -> dict:
+    """granite-3-8b at full width (40 layers, fp32 weights) on the swap
+    cell's three waves (:func:`_swap_waves`) through ``ServeEngine``: a
+    320-page pool with an 8 GiB host swap tier against a pool that never
+    evicts (1024 pages), unquantized and with fp8 e4m3 pages.  Wave 2
+    must demote wave 1's chains (>= 16 pages) and wave 3 must promote them
+    back (>= 16 pages, prefix hits), and every stream must equal the
+    never-evicting pool's, bit for bit.  Reports the swap tier's host ms
+    of demotion and promotion."""
+    from repro_torch.configs import get_config
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_config("granite-3-8b")
+    rt = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                 param_dtype=torch.float32)
+    model = tf.init(cfg, 0, rt, device="cuda")
+    waves = _swap_waves(cfg)
+    result, runs = {}, {}
+    _zero_counts(fm, dec)
+    for kv in (None, "fp8_e4m3"):
+        streams = {}
+        for label, kw in (("never", {}),
+                          ("swap", dict(num_pages=SWAP_POOL_PAGES,
+                                        host_swap_bytes=SWAP_HOST_BYTES))):
+            engine = ServeEngine(cfg, model, slots=8, max_len=2048, rt=rt,
+                                 cache_layout="paged", page_size=16,
+                                 kv_dtype=kv, device="cuda", **kw)
+            out, wave_s = [], []
+            for w, prompts in enumerate(waves):
+                reqs = [Request(rid=100 * w + i, prompt=p,
+                                max_new_tokens=32)
+                        for i, p in enumerate(prompts)]
+                t0 = time.perf_counter()
+                for r in reqs:
+                    engine.submit(r)
+                engine.run()
+                torch.cuda.synchronize()
+                wave_s.append(time.perf_counter() - t0)
+                check(all(r.done and len(r.generated) == 32 for r in reqs),
+                      f"{kv} {label}: a request of wave {w + 1} did not "
+                      f"finish")
+                out.append([list(r.generated) for r in reqs])
+            engine.kv.check_invariants()
+            check(engine.logits_finite(), f"{kv} {label}: non-finite logits")
+            streams[label] = out
+            runs[(kv, label)] = dict(
+                wave_s=wave_s, stats=dict(engine.stats),
+                host_tier=engine.memory_stats()["host_tier"],
+                host_swap_ms=dict(engine.kv.swap_ms),
+                pool_pages=engine.kv.classes["full"].pool.num_pages,
+                bytes_per_page=engine.kv.classes["full"].bytes_per_page)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        swap = runs[(kv, "swap")]
+        name = kv or "fp32"
+        result[name] = dict(
+            streams_equal=streams["swap"] == streams["never"],
+            demotions=swap["host_tier"]["demotions"],
+            promotions=swap["host_tier"]["promotions"],
+            prefix_hits=swap["stats"]["prefix_hits"],
+            tokens_reused=swap["stats"]["tokens_reused"],
+            demote_host_ms=swap["host_swap_ms"]["demote"],
+            promote_host_ms=swap["host_swap_ms"]["promote"],
+            never=runs[(kv, "never")], swap=swap)
+    launches = _counts(fm, dec)
+    emit("serve_swap", config="granite-3-8b n_layers=40 fp32 weights",
+         waves=[[len(p) for p in w] for w in waves], new_tokens=32,
+         pool_pages=SWAP_POOL_PAGES, host_swap_bytes=SWAP_HOST_BYTES,
+         by_kv_dtype=result, launches=launches)
+    for name, r in result.items():
+        check(r["streams_equal"], f"{name}: swap-tier streams differ from "
+                                  f"the never-evicting pool's")
+        check(r["demotions"] >= 16 and r["promotions"] >= 16,
+              f"{name}: {r['demotions']} demotions, {r['promotions']} "
+              f"promotions (need >= 16 each)")
+        check(r["prefix_hits"] > 0, f"{name}: no prefix hit after the "
+                                    f"promotions")
+    check(launches["paged_decode_partials_by_kv_dtype"].get("fp8_e4m3", 0)
+          > 0, "the fp8 swap run never launched K3's quantized branch")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1599,8 +2202,8 @@ def phase_model_gemma2(torch, fm, dec) -> None:
         check(r["cuda_launches"][dk] == cfg.n_layers * 8,
               f"gemma2 {layout}: {dk} launched {r['cuda_launches'][dk]} "
               f"times in 8 steps of {cfg.n_layers} layers")
-        check(all(n == 0 for k, n in r["torch_launches"].items()
-                  if k != "fusemax_prefill_by_dims"),
+        check(all(n == 0 for n in r["torch_launches"].values()
+                  if not isinstance(n, dict)),
               f"gemma2 {layout}: the torch path launched kernels")
     check(streams_equal, "gemma2: dense and paged greedy streams differ")
     check(dense_paged <= rel_tol * res["dense"]["logits_max_abs"],
@@ -1951,12 +2554,84 @@ def phase_serve_mla_impls(torch, fm, dec) -> None:
           "cuda and torch attention give different greedy streams")
     check(launches["cuda"]["mla_paged_decode_partials"] > 0,
           "the cuda engine never launched K4")
-    check(all(n == 0 for k, n in launches["torch"].items()
-              if k != "fusemax_prefill_by_dims"),
+    check(all(n == 0 for n in launches["torch"].values()
+              if not isinstance(n, dict)),
           f"the torch engine launched kernels: {launches['torch']}")
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+MLA_QUANT_ARGS = MLA_SERVE_ARGS + ["--kv-dtype", "fp8_e4m3", "--no-warmup"]
+
+
+def phase_serve_mla_quant(torch, fm, dec, serve) -> dict:
+    """The tower with fp8 e4m3 latents: the launcher serving the serve
+    cell's trace on the paged layout and its ``paged_quant`` leg (K4's
+    quantized branch every decode step, 3 x decode steps; quant_quality
+    reported), then a short trace with ``attn_impl`` "cuda" and "torch"
+    on fp8 latents: equal greedy streams.  Returns the launcher run's
+    launches."""
+    import numpy as np
+
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = deepseek_tower()
+    _zero_counts(fm, dec)
+    t0 = time.perf_counter()
+    metrics = serve.main(MLA_QUANT_ARGS, cfg=cfg)
+    wall = time.perf_counter() - t0
+    launches = _counts(fm, dec)
+    legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab,
+                       MLA_DECODE_KERNEL)
+    quant = metrics["layouts"]["paged_quant"]
+    steps = quant["dispatches"]["decode_steps"]
+    by_code = quant["kernel_launches_by_kv_dtype"][
+        "mla_paged_decode_partials"]
+    peak = {lo: m["memory"]["peak_resident_cache_bytes"]
+            for lo, m in metrics["layouts"].items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                   param_dtype=torch.float32)
+    model = tf.init(cfg, 0, rt_c, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
+               for n in rng.integers(128, 257, size=4)]
+    streams = {}
+    for impl in ("cuda", "torch"):
+        engine = ServeEngine(cfg, model, slots=4, max_len=512,
+                             rt=dataclasses.replace(rt_c, attn_impl=impl),
+                             cache_layout="paged", page_size=16,
+                             kv_dtype="fp8_e4m3", device="cuda")
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        engine.run()
+        torch.cuda.synchronize()
+        check(engine.logits_finite(), f"{impl}: non-finite logits")
+        streams[impl] = [list(r.generated) for r in reqs]
+        del engine
+    emit("serve_mla_quant", args=" ".join(MLA_QUANT_ARGS),
+         config="deepseek-v3-671b n_layers=3, fp8 e4m3 latents",
+         seconds=wall, legs=legs, peak_resident_cache_bytes=peak,
+         quant_over_fp32_peak_resident=peak["paged_quant"] / peak["paged"],
+         quant_quality=metrics["quant_quality"],
+         impls_streams_equal=streams["cuda"] == streams["torch"],
+         main_path_launches=launches)
+    check(by_code == {"fp8_e4m3": cfg.n_layers * steps},
+          f"K4's quantized branch launched {by_code} times, expected "
+          f"{cfg.n_layers} x {steps} decode steps")
+    check(streams["cuda"] == streams["torch"],
+          "fp8 latents: cuda and torch attention give different streams")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1999,6 +2674,12 @@ def main() -> int:
     emit("kernel_case", **same)
     same4 = k4_perm_vs_identity(torch, gen, dec, autotune)
     emit("kernel_case", **same4)
+    k3q, same3q = run_k3q_cases(torch, gen, dec, autotune)
+    k4q, same4q = run_k4q_cases(torch, gen, dec)
+    refused = quant_refusal_cases(torch, gen, dec)
+    for r in k3q + k4q + refused + [same3q, same4q]:
+        emit("kernel_case", **r)
+    rows += k3q + k4q + refused
     t1 = time_k1(torch, gen, fm, autotune)
     emit("kernel_time", kernel="fusemax_prefill", **t1)
     t2 = time_k2(torch, gen, dec, autotune)
@@ -2014,9 +2695,14 @@ def main() -> int:
     same256 = tg.pop("k3_vs_k2_d256")
     emit("kernel_case", **same256)
     ts = time_smoke(torch, gen, fm, dec, ops, autotune)
-    for name, t in list(tg.items()) + list(ts.items()):
+    tq = {f"paged_decode_partials@{short}": time_k3_quant(
+        torch, gen, dec, ops, autotune, kv) for kv, short in QUANT_KV.items()}
+    tq["mla_paged_decode_partials@fp8"] = time_k4_quant(
+        torch, gen, dec, ops, autotune, "fp8_e4m3")
+    for name, t in list(tg.items()) + list(ts.items()) + list(tq.items()):
         emit("kernel_time", kernel=name, **t)
-    bad = [r["case"] for r in rows + [same, same4, same256] if not r["ok"]]
+    bad = [r["case"] for r in rows + [same, same4, same256, same3q, same4q]
+           if not r["ok"]]
     bad += [n for n, t in (("K1 timing shape", t1), ("K2 timing shape", t2),
                            ("K3 timing shape", t3), ("K4 timing shape", t4),
                            ("K1 mla_forward timing shape",
@@ -2024,13 +2710,18 @@ def main() -> int:
                            ("K1 absorbed timing shape",
                             t1m["mla_absorbed"])) if not t["ok"]]
     bad += [f"{n} timing shape" for n, t in list(tg.items())
-            + list(ts.items()) if not t["ok"]]
+            + list(ts.items()) + list(tq.items()) if not t["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     torch.cuda.empty_cache()
 
     phase_model(torch)
     launches = phase_serve(torch, fm, dec, serve)
     phase_serve_prefix(torch, fm, dec, serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_model_quant(torch, fm, dec)
+    quant_launches = phase_serve_quant(torch, fm, dec, serve)
+    phase_serve_swap(torch, fm, dec)
     # each later model gets the card to itself: the granite phases have
     # released theirs
     gc.collect()
@@ -2042,12 +2733,14 @@ def main() -> int:
     mla_launches = phase_serve_mla(torch, fm, dec, serve)
     phase_serve_mla_prefix(torch, fm, dec, serve)
     phase_serve_mla_impls(torch, fm, dec)
+    mla_quant_launches = phase_serve_mla_quant(torch, fm, dec, serve)
     smoke_mla = phase_model_mla(torch, fm, dec, cfg=mla_smoke_tower(),
                                 phase="model_mla_smoke")
 
     def entry(name, route, source, replaces, t, n_launches, kernel=None):
         cases = [r["ok"] for r in rows + [same, same4, same256]
                  if r["kernel"] == (kernel or name)]
+        check(n_launches > 0, f"{name} never launched on its main path")
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -2064,10 +2757,11 @@ def main() -> int:
                           kernel="fusemax_prefill"), **dims, **extra,
                     tile=t["tile"])
 
-    def decode_entry(name, src, tpu, t, n_launches, ring=None, **extra):
+    def decode_entry(name, src, tpu, t, n_launches, ring=None,
+                     cases_of=None, **extra):
         e = dict(entry(name, "cuda", src, tpu, t, n_launches,
-                       kernel=name.split("@")[0]), device_ms=t["device_ms"],
-                 **extra)
+                       kernel=cases_of or name.split("@")[0]),
+                 device_ms=t["device_ms"], **extra)
         if ring is not None:     # the same kernel on a local layer's ring
             e.update(ring_ms=ring["ms"], ring_device_ms=ring["device_ms"],
                      ring_plain_ms=ring["plain_ms"],
@@ -2153,6 +2847,27 @@ def main() -> int:
         decode_entry("mla_paged_decode_partials@smoke_32x16", k4_src, k4_tpu,
                      ts["mla_paged_decode_partials@smoke_32x16"],
                      smoke_mla["mla_paged_decode_partials"]),
+        # K3's and K4's quantized branches: launches from the serve_quant
+        # run of each code dtype and from serve_mla_quant
+        *(decode_entry(f"paged_decode_partials@{short}", k3_src, k3_tpu,
+                       tq[f"paged_decode_partials@{short}"],
+                       quant_launches[kv][
+                           "paged_decode_partials_by_kv_dtype"].get(kv, 0),
+                       cases_of=f"paged_decode_partials@{short}",
+                       kv_dtype=kv, host_ms=tq[
+                           f"paged_decode_partials@{short}"]["host_ms"],
+                       quant_vs_dequant_max_abs_diff=same3q[
+                           "max_abs_diff_by_kv_dtype"][kv])
+          for kv, short in QUANT_KV.items()),
+        decode_entry("mla_paged_decode_partials@fp8", k4_src, k4_tpu,
+                     tq["mla_paged_decode_partials@fp8"],
+                     mla_quant_launches[
+                         "mla_paged_decode_partials_by_kv_dtype"].get(
+                             "fp8_e4m3", 0),
+                     cases_of="mla_paged_decode_partials@fp8",
+                     kv_dtype="fp8_e4m3",
+                     quant_vs_dequant_max_abs_diff=same4q[
+                         "max_abs_diff_by_kv_dtype"]["fp8_e4m3"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": info}), flush=True)
     return 0

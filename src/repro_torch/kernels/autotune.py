@@ -159,17 +159,39 @@ def decode_row_block(rows: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def decode_smem_bytes(rows: int, d: int, elem_bytes: int = 4,
-                      stages: int = DECODE_STAGES, pages: int = 0) -> int:
+                      stages: int = DECODE_STAGES, pages: int = 0,
+                      scaled: bool = False) -> int:
     """Shared memory of one K2/K3 block — must match ``smem_bytes`` in
     ``csrc/decode_partials.cuh``: the ring of ``stages`` chunks of
-    ``DECODE_CHUNK`` K rows and as many V rows in the pool's dtype, which
-    the cross-warp merge (fp32 m, l and accumulator of every key warp and
-    row of the block) reuses after the walk, padded to 16 bytes; then the
-    split's page list, ``pages`` int32 ids (K3: ``split_len /
-    page_size``; K2: 0) padded to 4."""
+    ``DECODE_CHUNK`` K rows and as many V rows in the pool's dtype
+    (``elem_bytes`` 1 for the codes of a quantized pool), which the
+    cross-warp merge (fp32 m, l and accumulator of every key warp and row
+    of the block) reuses after the walk, padded to 16 bytes; with
+    ``scaled`` (a quantized pool) each stage's fp32 K and V scales of its
+    chunk's keys; then the split's page list, ``pages`` int32 ids (K3:
+    ``split_len / page_size``; K2: 0) padded to 4."""
     ring = stages * 2 * DECODE_CHUNK * d * elem_bytes
     merge = 4 * DECODE_KEY_WARPS * decode_row_block(rows) * (d + 2)
-    return _round_up(max(ring, merge), 16) + 4 * _round_up(pages, 4)
+    scales = 4 * stages * 2 * DECODE_CHUNK if scaled else 0
+    return _round_up(max(ring, merge), 16) + scales + 4 * _round_up(pages, 4)
+
+
+#: keys per shared-memory chunk of the MLA decode kernel (K4, ``CK`` in
+#: ``csrc/mla_paged_decode_partials.cu``), double-buffered
+MLA_DECODE_CHUNK = 16
+
+
+def mla_decode_smem_bytes(rank: int, rope_dim: int, elem_bytes: int = 4,
+                          scaled: bool = False) -> int:
+    """Shared memory of one K4 block — must match the kernel's: two
+    chunks of ``MLA_DECODE_CHUNK`` ``[ckv | krope]`` rows in the pool's
+    dtype (1-byte codes for a quantized pool: 576 bytes a key at (512,
+    64)), and with ``scaled`` each chunk's two fp32 scales per key (the
+    latent's and the rope key's) and one chunk dequantized to fp32."""
+    e = rank + rope_dim
+    rows = 2 * MLA_DECODE_CHUNK
+    scales = 8 * rows + 4 * MLA_DECODE_CHUNK * e if scaled else 0
+    return rows * e * elem_bytes + scales
 
 
 # ---------------------------------------------------------------------------

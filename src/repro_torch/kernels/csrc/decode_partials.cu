@@ -42,5 +42,5 @@ extern "C" int decode_partials_max_rows() { return MAXR; }
 // list, so `pages` is 0 on its launches).
 extern "C" int decode_partials_smem_bytes(int rows, int head_dim, int dtype,
                                           int pages) {
-  return smem_bytes(rows, head_dim, elem_bytes_of(dtype), pages);
+  return smem_bytes(rows, head_dim, elem_bytes_of(dtype), pages, false);
 }

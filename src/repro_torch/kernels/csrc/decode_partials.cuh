@@ -60,13 +60,29 @@
 // Scores, softmax and the accumulator update are true fp32 FMA; bf16 is
 // widened on the shared-memory read.  The partials are written without
 // the TPU's 128-lane padding.
+//
+// Quantized pools (K3 only, the TPU kernel's `quantized` branch): a
+// PagedKVT whose element type E differs from the queries' T holds int8
+// or fp8 e4m3 codes, with fp16 scale pools [n_pages, ps, Hkv] beside
+// them.  The codes ride the same 16-byte cp.async ring, 16 codes a copy
+// (VPR and TPK follow from bytes: a d32 code row is two copies).  A
+// token's scales are Hkv * 2 bytes apart, too narrow for cp.async, so
+// each chunk's CK K and V scales are plain loads into a per-stage slot
+// that the barrier publishing the chunk also publishes.  Each feature is
+// dequantized on its shared-memory read, float(code) * float(scale) —
+// exact in fp32 — and the fp32 FMA order is unchanged, so a quantized
+// launch gives the bits of an unquantized one on the dequantized pool.
 
 #pragma once
 
 #include <atomic>
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <math.h>
 
 namespace {
@@ -120,15 +136,19 @@ __host__ __device__ constexpr int row_block(int rows) {
 // Shared memory of one block (autotune.decode_smem_bytes is its twin):
 // the ring, STAGES x [K rows | V rows] of CK x D elements, which the
 // cross-warp merge ([WK][RB] m, [WK][RB] l, [WK][RB][D] acc, fp32)
-// reuses after the walk, then the split's page list.
+// reuses after the walk; on a quantized pool the scale slots, STAGES x
+// [K | V] x CK fp32; then the split's page list.
 __host__ __device__ constexpr int ring_bytes(int rb, int d, int elem_bytes) {
   return round16(STAGES * 2 * CK * d * elem_bytes > 4 * WK * rb * (d + 2)
                      ? STAGES * 2 * CK * d * elem_bytes
                      : 4 * WK * rb * (d + 2));
 }
+__host__ __device__ constexpr int scale_bytes(bool scaled) {
+  return scaled ? 4 * STAGES * 2 * CK : 0;
+}
 __host__ __device__ constexpr int smem_bytes(int rows, int d, int elem_bytes,
-                                             int pages) {
-  return ring_bytes(row_block(rows), d, elem_bytes) +
+                                             int pages, bool scaled) {
+  return ring_bytes(row_block(rows), d, elem_bytes) + scale_bytes(scaled) +
          4 * ((pages + 3) / 4 * 4);
 }
 
@@ -149,6 +169,8 @@ struct DecodeArgs {
 struct KVSource {
   const void* k;
   const void* v;
+  const void* k_scale;      // paged code pools only: fp16 [n_pages, ps, Hkv]
+  const void* v_scale;
   const int* block_table;   // paged only
   int m;                    // dense: cache slots per fiber
   int w, ps, n_pages, hkv;  // paged: table width, page size, pool pages
@@ -157,7 +179,9 @@ struct KVSource {
 // Dense cache [B*Hkv, M, D]: key row kpos of fiber bh.
 template <typename T, int D>
 struct DenseKV {
+  using Elem = T;                        // stored element
   static constexpr bool kPaged = false;
+  static constexpr bool kScaled = false;
   const T* k;
   const T* v;
   int m;
@@ -175,18 +199,26 @@ struct DenseKV {
 // Page pool [n_pages, ps, Hkv, D] behind a block table [B, W]: the split's
 // split_len / ps page ids (splits are page-aligned) sit in shared memory,
 // the sentinel id n_pages clamped to the last page (such keys lie past
-// kv_len, masked).
-template <typename T, int D>
-struct PagedKV {
+// kv_len, masked).  E is the stored element: T, or the int8 / fp8 e4m3
+// code of a quantized pool, whose fp16 scale of key row r (an element
+// offset, as row() returns it) is k_scale[r / D].
+template <typename T, int D, typename E>
+struct PagedKVT {
+  using Elem = E;
   static constexpr bool kPaged = true;
-  const T* k;
-  const T* v;
+  static constexpr bool kScaled = !std::is_same<T, E>::value;
+  const E* k;
+  const E* v;
+  const __half* k_scale;
+  const __half* v_scale;
   const int* block_table;
   int w, ps, n_pages, hkv;
   int split_pages;  // page-list entries
-  static PagedKV from(const KVSource& s, int split_len) {
-    return {static_cast<const T*>(s.k), static_cast<const T*>(s.v),
-            s.block_table, s.w, s.ps, s.n_pages, s.hkv, split_len / s.ps};
+  static PagedKVT from(const KVSource& s, int split_len) {
+    return {static_cast<const E*>(s.k), static_cast<const E*>(s.v),
+            static_cast<const __half*>(s.k_scale),
+            static_cast<const __half*>(s.v_scale), s.block_table, s.w, s.ps,
+            s.n_pages, s.hkv, split_len / s.ps};
   }
   int pages() const { return split_pages; }
   __device__ __forceinline__ void load_pages(int* list, int bh,
@@ -206,6 +238,15 @@ struct PagedKV {
     return ((static_cast<size_t>(page) * ps + (kq - pi * ps)) * hkv + h) * D;
   }
 };
+
+// The layouts dispatch_partials instantiates: pages in the queries'
+// dtype, and the two code pools.
+template <typename T, int D>
+using PagedKV = PagedKVT<T, D, T>;
+template <typename T, int D>
+using PagedInt8KV = PagedKVT<T, D, int8_t>;
+template <typename T, int D>
+using PagedFp8KV = PagedKVT<T, D, __nv_fp8_e4m3>;
 
 // 16-byte asynchronous copy global -> shared (sm_80+), bypassing L1.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -273,6 +314,45 @@ __device__ __forceinline__ void load_feats(const __nv_bfloat16* p,
   o[0] = __bfloat162float(*p);
 }
 
+// N contiguous 1-byte codes of a key row in shared memory (N-byte
+// aligned), as fp32: one vector load, then each byte converted exactly.
+__device__ __forceinline__ float code_to_f(int8_t, unsigned b) {
+  return static_cast<float>(static_cast<signed char>(b));
+}
+__device__ __forceinline__ float code_to_f(__nv_fp8_e4m3, unsigned b) {
+  const __half_raw h =
+      __nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(b), __NV_E4M3);
+  return __half2float(__half(h));
+}
+template <typename C, int N>
+__device__ __forceinline__ void load_codes(const C* p, float (&o)[N]) {
+  static_assert(sizeof(C) == 1 && N <= 8, "1-byte codes, up to 8 a lane");
+  unsigned w[2] = {0u, 0u};
+  if constexpr (N == 8) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    w[0] = t.x;
+    w[1] = t.y;
+  } else if constexpr (N == 4) {
+    w[0] = *reinterpret_cast<const unsigned*>(p);
+  } else if constexpr (N == 2) {
+    w[0] = *reinterpret_cast<const unsigned short*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const unsigned char*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    o[i] = code_to_f(C{}, (w[i / 4] >> (8 * (i % 4))) & 0xffu);
+}
+template <int N>
+__device__ __forceinline__ void load_feats(const int8_t* p, float (&o)[N]) {
+  load_codes(p, o);
+}
+template <int N>
+__device__ __forceinline__ void load_feats(const __nv_fp8_e4m3* p,
+                                           float (&o)[N]) {
+  load_codes(p, o);
+}
+
 // Sum N per-lane values v[0..N-1] across the warp (a transposed
 // butterfly: each of the log2(N) first steps sends half of the live values
 // and keeps the other half, the remaining steps are plain).  Lane l
@@ -311,8 +391,10 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
                        float* __restrict__ pm, float* __restrict__ pl,
                        float* __restrict__ pnv, const DecodeArgs a) {
   constexpr unsigned FULL = 0xffffffffu;
+  using S = typename KV::Elem;           // stored K/V element
+  constexpr bool SCALED = KV::kScaled;   // codes with fp16 scales
   constexpr int FPL = D / 32;            // features per lane
-  constexpr int VEC = 16 / sizeof(T);    // elements per 16-byte copy
+  constexpr int VEC = 16 / sizeof(S);    // elements per 16-byte copy
   constexpr int VPR = D / VEC;           // copies per key row
   constexpr int TPK = NT / CK;           // threads that copy one key row
   // copies per thread and key row; at bf16 D = 32 a row is 4 copies for
@@ -334,9 +416,12 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
                     KW % KG == 0,
                 "warps tile the rows; a score group fits the lanes");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  int* page_list =
-      reinterpret_cast<int*>(smem_raw + ring_bytes(RB, D, sizeof(T)));
+  S* ring = reinterpret_cast<S*>(smem_raw);
+  // quantized pools: [STAGES][K | V][CK] fp32 scales of each chunk's keys
+  float* scales =
+      reinterpret_cast<float*>(smem_raw + ring_bytes(RB, D, sizeof(S)));
+  int* page_list = reinterpret_cast<int*>(
+      smem_raw + ring_bytes(RB, D, sizeof(S)) + scale_bytes(SCALED));
 
   const int split = blockIdx.x;
   const int bh = blockIdx.y;
@@ -373,12 +458,23 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
     const int c0 = kbeg + ch * CK;
     if (ch < n_chunks && ckey < kend - c0 && cvec < VPR) {
       const size_t r = kv.row(page_list, bh, split0, c0 + ckey);
-      T* dst = ring + (ch % STAGES) * STAGE + ckey * D;
+      S* dst = ring + (ch % STAGES) * STAGE + ckey * D;
 #pragma unroll
       for (int i = 0; i < CPT; ++i) {
         const int e = (cvec + TPK * i) * VEC;
         cp_async16(dst + e, kv.k + r + e);
         cp_async16(dst + CK * D + e, kv.v + r + e);
+      }
+    }
+    if constexpr (SCALED) {
+      // thread t < CK loads key t's K scale, CK <= t < 2 CK key t - CK's
+      // V scale: plain loads, published by the barrier that publishes
+      // the chunk
+      const int key = tid % CK;
+      if (ch < n_chunks && tid < 2 * CK && key < kend - c0) {
+        const size_t r = kv.row(page_list, bh, split0, c0 + key) / D;
+        scales[(ch % STAGES) * 2 * CK + tid] =
+            __half2float(tid < CK ? kv.k_scale[r] : kv.v_scale[r]);
       }
     }
     cp_async_commit();  // always: one group per chunk slot
@@ -416,8 +512,10 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
     const int c0 = kbeg + ch * CK;
     const int nk = min(CK, kend - c0);
     if (kw0 >= nk) continue;  // warp-uniform: none of its keys, no update
-    const T* kb = ring + (ch % STAGES) * STAGE;
-    const T* vb = kb + CK * D;
+    const S* kb = ring + (ch % STAGES) * STAGE;
+    const S* vb = kb + CK * D;
+    const float* ksc = scales + (ch % STAGES) * 2 * CK;  // SCALED only
+    const float* vsc = ksc + CK;
 
     // scores: the lanes split the features, the warp's rows share each
     // key row, lane_sum sums a group's NP (row, key) dots across the lanes
@@ -433,6 +531,11 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
       for (int k = 0; k < KG; ++k) {
         float kf[FPL];
         load_feats(kb + (kw0 + g * KG + k) * D + lane * FPL, kf);
+        if constexpr (SCALED) {
+          const float sk = ksc[kw0 + g * KG + k];
+#pragma unroll
+          for (int j = 0; j < FPL; ++j) kf[j] *= sk;
+        }
 #pragma unroll
         for (int i = 0; i < RW; ++i)
 #pragma unroll
@@ -489,6 +592,11 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
         pc[i] = __shfl_sync(FULL, p[kk / KG], (i * KG + kk % KG) << SH);
       float vf[FPL];
       load_feats(vb + (kw0 + kk) * D + lane * FPL, vf);
+      if constexpr (SCALED) {
+        const float sv = vsc[kw0 + kk];
+#pragma unroll
+        for (int j = 0; j < FPL; ++j) vf[j] *= sv;
+      }
 #pragma unroll
       for (int i = 0; i < RW; ++i)
 #pragma unroll
@@ -587,9 +695,10 @@ cudaError_t launch_partials(const void* q, const KV& kv, const void* kv_len,
 
 constexpr int elem_bytes_of(int dtype) { return dtype == 1 ? 2 : 4; }
 
-// Dispatch on (dtype: 0 = float32, 1 = bfloat16) x (head_dim: 32, 64,
-// 128, 256) x exp variant x row block, with the K/V layout KVT.
-template <template <typename, int> class KVT>
+// Dispatch on (dtype: 0 = float32, 1 = bfloat16; BF16 = false builds
+// float32 only) x (head_dim: 32, 64, 128, 256) x exp variant x row block,
+// with the K/V layout KVT.
+template <template <typename, int> class KVT, bool BF16 = true>
 cudaError_t dispatch_partials(int dtype, int head_dim, int maccs,
                               const void* q, const KVSource& src,
                               const void* kv_len, void* pm, void* pl,
@@ -603,20 +712,24 @@ cudaError_t dispatch_partials(int dtype, int head_dim, int maccs,
                                             smem, a, st))
 #define REPRO_DISPATCH(T, D)                                                  \
   {                                                                           \
-    const KVT<T, D> kv = KVT<T, D>::from(src, a.split_len);                   \
-    const int smem = smem_bytes(a.R, D, sizeof(T), kv.pages());               \
+    using KV = KVT<T, D>;                                                     \
+    const KV kv = KV::from(src, a.split_len);                                 \
+    const int smem = smem_bytes(a.R, D, sizeof(typename KV::Elem),            \
+                                kv.pages(), KV::kScaled);                     \
     if (smem > SMEM_BUDGET) return cudaErrorInvalidValue;                     \
     return row_block(a.R) == 4 ? REPRO_LAUNCH(T, D, 4)                        \
                                : REPRO_LAUNCH(T, D, 8);                       \
   }
   if (dtype == 0 && head_dim == 128) REPRO_DISPATCH(float, 128)
   if (dtype == 0 && head_dim == 64) REPRO_DISPATCH(float, 64)
-  if (dtype == 1 && head_dim == 128) REPRO_DISPATCH(__nv_bfloat16, 128)
-  if (dtype == 1 && head_dim == 64) REPRO_DISPATCH(__nv_bfloat16, 64)
   if (dtype == 0 && head_dim == 256) REPRO_DISPATCH(float, 256)
   if (dtype == 0 && head_dim == 32) REPRO_DISPATCH(float, 32)
-  if (dtype == 1 && head_dim == 256) REPRO_DISPATCH(__nv_bfloat16, 256)
-  if (dtype == 1 && head_dim == 32) REPRO_DISPATCH(__nv_bfloat16, 32)
+  if constexpr (BF16) {
+    if (dtype == 1 && head_dim == 128) REPRO_DISPATCH(__nv_bfloat16, 128)
+    if (dtype == 1 && head_dim == 64) REPRO_DISPATCH(__nv_bfloat16, 64)
+    if (dtype == 1 && head_dim == 256) REPRO_DISPATCH(__nv_bfloat16, 256)
+    if (dtype == 1 && head_dim == 32) REPRO_DISPATCH(__nv_bfloat16, 32)
+  }
 #undef REPRO_DISPATCH
 #undef REPRO_LAUNCH
   return cudaErrorInvalidValue;

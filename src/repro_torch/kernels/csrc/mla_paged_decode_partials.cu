@@ -3,9 +3,11 @@
 //
 // Replaces: src/repro/kernels/decode.py:_mla_paged_decode_partials_kernel,
 // launched by fusemax_mla_decode_paged_pallas (the TPU kernel behind
-// ops.fusemax_mla_decode_paged), unquantized latent pools.  The per-token
-// scale tiles of quantized pools land with the quantized pages.  The
-// combine of the partials stays plain torch ops, as for K2 and K3.
+// ops.fusemax_mla_decode_paged), both of its branches: latent pools in the
+// queries' dtype, and quantized pools (int8 or fp8 e4m3 codes with one
+// fp16 scale per token for the latent and one for the rope key, the TPU
+// kernel's `quantized` ckv_scale / krope_scale tiles).  The combine of the
+// partials stays plain torch ops, as for K2 and K3.
 //
 // What it computes (the TPU kernel's function, not its block structure):
 // DeepSeek's absorbed-form decode with Hkv = 1 and every query head in
@@ -52,9 +54,29 @@
 // throughout; bf16 widened on the shared-memory read.  Tensor cores
 // (wgmma on the [32 x 576] x [576 x 16] score tile and the [32 x 16] x
 // [16 x 512] value tile) and TMA are left for a later change.
+//
+// Quantized pools: the codes ride the same chunk loader, 16 codes a
+// 16-byte copy (a (512, 64) key is 576 bytes, the smoke (32, 16) one 48;
+// both halves stay multiples of 16, so no vector straddles them), and the
+// two per-token scales of each key are plain loads by the key's first
+// copy thread — per key and page, as a chunk may straddle pages — into a
+// per-buffer slot the chunk's barrier publishes.  Every warp reads every
+// feature of a chunk, so the block dequantizes each chunk once, after it
+// lands: each thread turns 4-code words into float(code) * float(scale)
+// (exact in fp32) in an fp32 tile, and the score and value passes read
+// that tile as they read an fp32 pool's chunk, in the unchanged FMA order:
+// a quantized launch gives the bits of an unquantized one on the
+// dequantized pool.  The bound stays operations (the FMAs do not change);
+// the bytes fall to a quarter.
+
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <math.h>
 
 namespace {
@@ -70,6 +92,22 @@ constexpr float LOG2E = 1.4426950408889634f;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  const __nv_fp8_storage_t bits =
+      *reinterpret_cast<const __nv_fp8_storage_t*>(&x);
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(bits, __NV_E4M3)));
+}
+// The code whose byte is b.
+template <typename S>
+__device__ __forceinline__ S code_of(unsigned b) {
+  const unsigned char byte = static_cast<unsigned char>(b);
+  S s;
+  memcpy(&s, &byte, 1);
+  return s;
 }
 
 // exp(x) for x <= 0 with 6 multiply-adds (fusemax.py:_EXP2_COEFFS).
@@ -141,34 +179,81 @@ __device__ __forceinline__ float reduce16(const float (&v)[16], int lane) {
 }
 
 // Issue the asynchronous copy of chunk [c0, c0 + nk) of [ckv | krope] rows
-// into the shared buffer kt [CK][E]: 16 threads per key, one page lookup
-// each, 16-byte copies (a vector never straddles ckv and krope).
-template <typename T, int RL, int RR>
+// of element type S into the shared buffer kt [CK][E]: 16 threads per key,
+// one page lookup each, 16-byte copies (a vector never straddles ckv and
+// krope).  For code pools (SCALED) the key's first thread also loads its
+// two fp16 scales into sc [CK][2] (latent, rope) as fp32.
+template <typename S, int RL, int RR, bool SCALED>
 __device__ __forceinline__ void issue_chunk(
-    T* kt, const T* __restrict__ ckv, const T* __restrict__ krope,
+    S* kt, float* sc, const S* __restrict__ ckv, const S* __restrict__ krope,
+    const __half* __restrict__ ckv_scale,
+    const __half* __restrict__ krope_scale,
     const int* __restrict__ block_table, int b, int c0, int nk,
     const MlaArgs& a) {
   constexpr int E = RL + RR;
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(S);
   const int c = threadIdx.x >> 4;
   if (c >= nk) return;
   const int kpos = c0 + c;
   const int page = min(block_table[static_cast<size_t>(b) * a.w + kpos / a.ps],
                        a.n_pages - 1);
   const long long tok = static_cast<long long>(page) * a.ps + kpos % a.ps;
-  const T* src_c = ckv + tok * RL;
-  const T* src_r = krope + tok * RR;
+  const S* src_c = ckv + tok * RL;
+  const S* src_r = krope + tok * RR;
   for (int v = threadIdx.x & 15; v < E / VEC; v += 16) {
     const int e = v * VEC;
     cp_async16(kt + c * E + e, e < RL ? src_c + e : src_r + (e - RL));
   }
+  if constexpr (SCALED) {
+    if ((threadIdx.x & 15) == 0) {
+      sc[2 * c] = __half2float(ckv_scale[tok]);
+      sc[2 * c + 1] = __half2float(krope_scale[tok]);
+    }
+  }
 }
 
-template <typename T, int RL, int RR, bool MACCS>
+// Shared memory of one block (autotune.mla_decode_smem_bytes is its twin):
+// two chunks of CK [ckv | krope] rows of the stored element, then, for
+// code pools, two chunks of CK (latent, rope) fp32 scales and one
+// dequantized fp32 chunk.
+__host__ __device__ constexpr int mla_smem_bytes(int rank, int rope,
+                                                 int elem_bytes, bool scaled) {
+  return 2 * CK * (rank + rope) * elem_bytes +
+         (scaled ? 2 * CK * 2 * 4 + CK * (rank + rope) * 4 : 0);
+}
+
+// Dequantize the first nk keys of a landed code chunk kb [CK][E] with its
+// scales sc [CK][2] (latent, rope) into the fp32 tile out [CK][E]: each
+// thread takes 4-code words (a word never straddles a key or the
+// latent/rope boundary: E, RL and RR are multiples of 16).
+template <typename S, int RL, int RR>
+__device__ __forceinline__ void dequant_chunk(float* out, const S* kb,
+                                              const float* sc, int nk) {
+  constexpr int E = RL + RR;
+  static_assert(sizeof(S) == 1 && E % 4 == 0 && RL % 4 == 0, "4-code words");
+  const unsigned* words = reinterpret_cast<const unsigned*>(kb);
+  for (int w = threadIdx.x; w < nk * E / 4; w += NT) {
+    const int c = 4 * w / E, e = 4 * w - c * E;
+    const float s = sc[2 * c + (e < RL ? 0 : 1)];
+    const unsigned x = words[w];
+    float4 f;
+    f.x = to_f(code_of<S>(x & 0xffu)) * s;
+    f.y = to_f(code_of<S>((x >> 8) & 0xffu)) * s;
+    f.z = to_f(code_of<S>((x >> 16) & 0xffu)) * s;
+    f.w = to_f(code_of<S>(x >> 24)) * s;
+    *reinterpret_cast<float4*>(out + 4 * w) = f;
+  }
+}
+
+// T: the queries' element; S: the stored one (T, or an int8 / fp8 e4m3
+// code, whose per-token fp16 scales sit in ckv_scale / krope_scale).
+template <typename T, typename S, int RL, int RR, bool MACCS>
 __global__ void __launch_bounds__(NT)
 mla_paged_decode_partials_kernel(const T* __restrict__ q,
-                                 const T* __restrict__ ckv,
-                                 const T* __restrict__ krope,
+                                 const S* __restrict__ ckv,
+                                 const S* __restrict__ krope,
+                                 const __half* __restrict__ ckv_scale,
+                                 const __half* __restrict__ krope_scale,
                                  const int* __restrict__ block_table,
                                  const int* __restrict__ kv_len,
                                  float* __restrict__ pm,
@@ -179,12 +264,20 @@ mla_paged_decode_partials_kernel(const T* __restrict__ q,
   constexpr int RC = (RR + 31) / 32;  // rope features per lane and row
   constexpr int EC = FC + RC;   // query features per lane and row
   constexpr int NG = CK / KG;   // key groups per chunk
+  constexpr bool SCALED = !std::is_same<T, S>::value;
   static_assert(RL % 32 == 0, "lanes stride the latent features by 32");
   static_assert(RW * KG == 16, "reduce16 sums one (row, key) pair a lane");
-  static_assert(RL % (16 / sizeof(T)) == 0 && RR % (16 / sizeof(T)) == 0,
+  static_assert(RL % (16 / sizeof(S)) == 0 && RR % (16 / sizeof(S)) == 0,
                 "16-byte copies tile the latent and rope rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kt = reinterpret_cast<T*>(smem_raw);   // [2][CK][E] [ckv | krope] rows
+  S* kt = reinterpret_cast<S*>(smem_raw);   // [2][CK][E] [ckv | krope] rows
+  // code pools: [2][CK][2] fp32 (latent, rope) scales of each chunk's keys,
+  // then the chunk being computed, dequantized: [CK][E] fp32
+  float* sct = reinterpret_cast<float*>(smem_raw + 2 * CK * E * sizeof(S));
+  float* kdq = sct + 2 * CK * 2;
+  // what the score and value passes read: the landed chunk, or for code
+  // pools its dequantized tile
+  using Rd = typename std::conditional<SCALED, float, S>::type;
 
   const int split = blockIdx.x;
   const int b = blockIdx.y;
@@ -230,21 +323,31 @@ mla_paged_decode_partials_kernel(const T* __restrict__ q,
   float m_i = NEG_INF, l_i = 0.f;
 
   if (n_chunks > 0)
-    issue_chunk<T, RL, RR>(kt, ckv, krope, block_table, b, split0,
-                           min(CK, kfin - split0), a);
+    issue_chunk<S, RL, RR, SCALED>(kt, sct, ckv, krope, ckv_scale,
+                                   krope_scale, block_table, b, split0,
+                                   min(CK, kfin - split0), a);
   cp_async_commit();
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int c0 = split0 + ch * CK;
     const int nk = min(CK, kfin - c0);
-    const T* kb = kt + (ch & 1) * CK * E;
+    const S* kc = kt + (ch & 1) * CK * E;
     // the next chunk's copy overlaps this chunk's arithmetic
     if (ch + 1 < n_chunks)
-      issue_chunk<T, RL, RR>(kt + ((ch + 1) & 1) * CK * E, ckv, krope,
-                             block_table, b, c0 + CK,
-                             min(CK, kfin - c0 - CK), a);
+      issue_chunk<S, RL, RR, SCALED>(
+          kt + ((ch + 1) & 1) * CK * E, sct + ((ch + 1) & 1) * CK * 2, ckv,
+          krope, ckv_scale, krope_scale, block_table, b, c0 + CK,
+          min(CK, kfin - c0 - CK), a);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();  // this chunk's rows have landed for every thread
+    const Rd* kb;
+    if constexpr (SCALED) {
+      dequant_chunk<S, RL, RR>(kdq, kc, sct + (ch & 1) * CK * 2, nk);
+      __syncthreads();  // the dequantized chunk is complete
+      kb = kdq;
+    } else {
+      kb = kc;
+    }
 
     // scores, 4 keys at a time: the lanes split the features, the warp's
     // 4 rows share each key row, and reduce16 sums the 16 (row, key) dot
@@ -341,37 +444,45 @@ mla_paged_decode_partials_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int RL, int RR, bool MACCS>
-cudaError_t launch(const void* q, const void* ckv, const void* krope,
-                   const void* block_table, const void* kv_len, void* pm,
-                   void* pl, void* pnv, int b, const MlaArgs& a,
-                   cudaStream_t stream) {
-  constexpr int smem = 2 * CK * (RL + RR) * static_cast<int>(sizeof(T));
-  auto kern = mla_paged_decode_partials_kernel<T, RL, RR, MACCS>;
+// Where the pools live, as the C entry point receives them.
+struct MlaSource {
+  const void* ckv;
+  const void* krope;
+  const void* ckv_scale;    // code pools only: fp16 [n_pages, ps]
+  const void* krope_scale;
+  const void* block_table;
+  const void* kv_len;
+};
+
+template <typename T, typename S, int RL, int RR, bool MACCS>
+cudaError_t launch(const void* q, const MlaSource& src, void* pm, void* pl,
+                   void* pnv, int b, const MlaArgs& a, cudaStream_t stream) {
+  constexpr int smem = mla_smem_bytes(RL, RR, static_cast<int>(sizeof(S)),
+                                      !std::is_same<T, S>::value);
+  auto kern = mla_paged_decode_partials_kernel<T, S, RL, RR, MACCS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.splits, b, (a.rows + HB - 1) / HB);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ckv),
-      static_cast<const T*>(krope), static_cast<const int*>(block_table),
-      static_cast<const int*>(kv_len), static_cast<float*>(pm),
+      static_cast<const T*>(q), static_cast<const S*>(src.ckv),
+      static_cast<const S*>(src.krope),
+      static_cast<const __half*>(src.ckv_scale),
+      static_cast<const __half*>(src.krope_scale),
+      static_cast<const int*>(src.block_table),
+      static_cast<const int*>(src.kv_len), static_cast<float*>(pm),
       static_cast<float*>(pl), static_cast<float*>(pnv), a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t dispatch(int rank, int rope_dim, int maccs, const void* q,
-                     const void* ckv, const void* krope,
-                     const void* block_table, const void* kv_len, void* pm,
-                     void* pl, void* pnv, int b, const MlaArgs& a,
-                     cudaStream_t st) {
+                     const MlaSource& src, void* pm, void* pl, void* pnv,
+                     int b, const MlaArgs& a, cudaStream_t st) {
 #define REPRO_DIMS(RL, RR)                                                    \
   if (rank == RL && rope_dim == RR)                                           \
-    return maccs ? launch<T, RL, RR, true>(q, ckv, krope, block_table,        \
-                                           kv_len, pm, pl, pnv, b, a, st)     \
-                 : launch<T, RL, RR, false>(q, ckv, krope, block_table,       \
-                                            kv_len, pm, pl, pnv, b, a, st);
+    return maccs ? launch<T, S, RL, RR, true>(q, src, pm, pl, pnv, b, a, st)  \
+                 : launch<T, S, RL, RR, false>(q, src, pm, pl, pnv, b, a, st);
   REPRO_DIMS(512, 64)
   REPRO_DIMS(32, 16)
 #undef REPRO_DIMS
@@ -380,33 +491,53 @@ cudaError_t dispatch(int rank, int rope_dim, int maccs, const void* q,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  (rank, rope_dim): (512, 64), the
-// DeepSeek-V3 latent, or (32, 16), its smoke config's.  q [b, rows, rank + rope_dim] (rows = n_pos * G);
-// ckv_pages [n_pages, page_size, rank]; krope_pages [n_pages, page_size,
-// rope_dim]; block_table [b, w] int32 (sentinel = n_pages); kv_len [b]
-// int32 -> pm, pl [b, splits, rows], pnv [b, splits, rows, rank] fp32.
-// Splits are page-aligned: split_len = (w / splits) * page_size, and
-// page_size % block_k == 0.  softcap <= 0: no softcap.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 (the queries').  kv_code: 0 = the
+// pools hold the queries' dtype; 1 = int8 codes, 2 = fp8 e4m3 codes, with
+// fp16 scale pools ckv_scale / krope_scale [n_pages, page_size] (float32
+// queries only; null otherwise).  (rank, rope_dim): (512, 64), the
+// DeepSeek-V3 latent, or (32, 16), its smoke config's.  q [b, rows, rank +
+// rope_dim] (rows = n_pos * G); ckv_pages [n_pages, page_size, rank];
+// krope_pages [n_pages, page_size, rope_dim]; block_table [b, w] int32
+// (sentinel = n_pages); kv_len [b] int32 -> pm, pl [b, splits, rows], pnv
+// [b, splits, rows, rank] fp32.  Splits are page-aligned: split_len = (w /
+// splits) * page_size, and page_size % block_k == 0.  softcap <= 0: no
+// softcap.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mla_paged_decode_partials(
     const void* q, const void* ckv_pages, const void* krope_pages,
-    const void* block_table, const void* kv_len, void* pm, void* pl,
-    void* pnv, int dtype, int rank, int rope_dim, int b, int rows,
-    int n_pages, int page_size, int w, int splits, int split_len,
-    int block_k, int n_pos, int rows_per_pos, float scale, float softcap,
-    int exp_maccs, void* stream) {
+    const void* ckv_scale, const void* krope_scale, const void* block_table,
+    const void* kv_len, void* pm, void* pl, void* pnv, int dtype,
+    int kv_code, int rank, int rope_dim, int b, int rows, int n_pages,
+    int page_size, int w, int splits, int split_len, int block_k, int n_pos,
+    int rows_per_pos, float scale, float softcap, int exp_maccs,
+    void* stream) {
   const MlaArgs a{rows,   n_pages,   page_size, w,            splits,
                   split_len, block_k, n_pos,     rows_per_pos, scale,
                   softcap};
+  const MlaSource src{ckv_pages, krope_pages, ckv_scale,
+                      krope_scale, block_table, kv_len};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(dispatch<float>(
-        rank, rope_dim, exp_maccs, q, ckv_pages, krope_pages, block_table,
-        kv_len, pm, pl, pnv, b, a, st));
-  if (dtype == 1)
-    return static_cast<int>(dispatch<__nv_bfloat16>(
-        rank, rope_dim, exp_maccs, q, ckv_pages, krope_pages, block_table,
-        kv_len, pm, pl, pnv, b, a, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_code != 0 && (dtype != 0 || !ckv_scale || !krope_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kv_code == 0 && dtype == 0)
+    err = dispatch<float, float>(rank, rope_dim, exp_maccs, q, src, pm, pl,
+                                 pnv, b, a, st);
+  else if (kv_code == 0 && dtype == 1)
+    err = dispatch<__nv_bfloat16, __nv_bfloat16>(
+        rank, rope_dim, exp_maccs, q, src, pm, pl, pnv, b, a, st);
+  else if (kv_code == 1)
+    err = dispatch<float, int8_t>(rank, rope_dim, exp_maccs, q, src, pm, pl,
+                                  pnv, b, a, st);
+  else if (kv_code == 2)
+    err = dispatch<float, __nv_fp8_e4m3>(rank, rope_dim, exp_maccs, q, src,
+                                         pm, pl, pnv, b, a, st);
+  return static_cast<int>(err);
 }
 
+// Dynamic shared memory of one launch at (rank, rope_dim), dtype and
+// kv_code as for the launch (autotune.mla_decode_smem_bytes mirrors it).
+extern "C" int mla_paged_decode_partials_smem_bytes(int rank, int rope_dim,
+                                                    int dtype, int kv_code) {
+  const int elem = kv_code ? 1 : (dtype == 1 ? 2 : 4);
+  return mla_smem_bytes(rank, rope_dim, elem, kv_code != 0);
+}

@@ -35,6 +35,15 @@ have one fiber per sequence (Hkv = 1, every head in the group): q ``[B,
 R, r + rd]`` against ckv pages ``[P, page_size, r]`` and krope pages
 ``[P, page_size, rd]``; the score is ``q[:r]·ckv + q[r:]·krope`` and the
 latent tile is also the value, so acc is ``[B, S, R, r]``.
+
+Quantized pools (pages of fp8 e4m3 or int8 codes, ``QUANT_CODES``) pass
+their fp16 scale pools — K3: ``k_scale`` / ``v_scale [P, page_size,
+Hkv]``, K4: ``ckv_scale`` / ``krope_scale [P, page_size]``.  The plain
+versions dequantize each gathered tile, ``code.float() * scale.float()``,
+and then run the unchanged sweep; the kernels dequantize on their
+shared-memory read.  The product is exact in fp32, so a quantized call
+gives the same bits as the unquantized one on the dequantized pool at the
+same splits.
 """
 from __future__ import annotations
 
@@ -53,6 +62,12 @@ from repro_torch.kernels.fusemax import (
 CUDA_HEAD_DIMS = (32, 64, 128, 256)
 #: (rank, rope_dim) latents the MLA decode kernel (K4) is instantiated for
 CUDA_MLA_DIMS = ((512, 64), (32, 16))
+#: code dtypes of quantized pools, by their code in K3's and K4's C
+#: interface (0: the pages hold the queries' dtype); K3 and K4 are built
+#: for them with fp32 queries, at every head dim / latent above
+QUANT_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+#: the launch counters' names of the code dtypes
+QUANT_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8_e4m3"}
 
 
 def _check_head_dims(name: str, *tensors: torch.Tensor) -> None:
@@ -77,32 +92,95 @@ def _check_vectors(name: str, **tensors: torch.Tensor) -> None:
 
 
 def _check_smem(name: str, rows: int, d: int, elem_bytes: int,
-                pages: int) -> None:
-    need = autotune.decode_smem_bytes(rows, d, elem_bytes, pages=pages)
+                pages: int, scaled: bool = False) -> None:
+    need = autotune.decode_smem_bytes(rows, d, elem_bytes, pages=pages,
+                                      scaled=scaled)
     if need > autotune.SMEM_BUDGET:
         raise ValueError(f"{name}: {rows} rows at head dim {d} with a "
                          f"{pages}-page split list need {need} B of shared "
                          f"memory > {autotune.SMEM_BUDGET} B per block")
 
 
-def _check_smem_mirror(fn, name: str) -> None:
+def _check_smem_mirror(fn, name: str, codes: bool = False) -> None:
     """Hold ``autotune.decode_smem_bytes`` to the kernel's own layout
-    (``<name>_smem_bytes`` of the library) once, when it is loaded."""
+    (``<name>_smem_bytes`` of the library) once, when it is loaded; with
+    ``codes`` also at the 1-byte code pools and their scale slots (the
+    entry point then takes the code as a fifth argument)."""
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4
-    for dtype, code in CUDA_DTYPES.items():
-        eb = dtype.itemsize
+    fn.argtypes = [ctypes.c_int] * (5 if codes else 4)
+    kinds = [(code, 0, dtype.itemsize, False)
+             for dtype, code in CUDA_DTYPES.items()]
+    if codes:
+        kinds += [(0, kv_code, 1, True) for kv_code in QUANT_CODES.values()]
+    for code, kv_code, eb, scaled in kinds:
         for rows in (1, 4, 5, 64):
             for d in CUDA_HEAD_DIMS:
                 for pages in (0, 8, 13):
-                    got = fn(rows, d, code, pages)
-                    want = autotune.decode_smem_bytes(rows, d, eb,
-                                                      pages=pages)
+                    got = fn(rows, d, code, pages, kv_code) if codes \
+                        else fn(rows, d, code, pages)
+                    want = autotune.decode_smem_bytes(
+                        rows, d, eb, pages=pages, scaled=scaled)
                     if got != want:
                         raise RuntimeError(
                             f"{name}: kernel takes {got} B of shared memory "
-                            f"at rows={rows} d={d} {dtype} pages={pages}, "
+                            f"at rows={rows} d={d} dtype code {code} kv code "
+                            f"{kv_code} pages={pages}, "
                             f"autotune.decode_smem_bytes says {want}")
+
+
+def _check_scales(name: str, pages: torch.Tensor, scales, shape) -> int:
+    """The kv code of a launch: 0 for pages in the queries' dtype (no
+    scales), else the pages' code dtype's, after checking that both scale
+    pools are contiguous fp16 CUDA tensors of ``shape`` on the pages'
+    device.  Raises on a quantized pool without its scales, or scales on
+    an unquantized one."""
+    quantized = pages.dtype in QUANT_CODES
+    given = [t is not None for t in scales]
+    if not quantized and not any(given):
+        return 0
+    if not quantized or not all(given):
+        raise ValueError(f"{name}: pages of {pages.dtype} with "
+                         f"{sum(given)} of 2 scale pools — code pools "
+                         f"({list(QUANT_CODES)}) take both, others none")
+    for t in scales:
+        if t.dtype != torch.float16 or t.device != pages.device \
+                or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: scale pools must be contiguous fp16 "
+                             f"{tuple(shape)} on {pages.device}; got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return QUANT_CODES[pages.dtype]
+
+
+def _check_code_pools(name: str, q: torch.Tensor, *pools: torch.Tensor):
+    """The checks of :func:`check_cuda_operands` for a quantized launch:
+    fp32 queries (the only quantized instantiation) and contiguous code
+    pools of one dtype on q's device."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"{name}: quantized pools are built for fp32 "
+                         f"queries, not {q.dtype}")
+    check_cuda_operands(name, q)
+    for t in pools:
+        if t.device != q.device or t.dtype != pools[0].dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: code pools must be contiguous, of one "
+                             f"dtype, on {q.device}")
+
+
+def _count(wrapper, pages: torch.Tensor) -> None:
+    """Add one launch to ``wrapper``'s counters: ``launches`` always,
+    ``launches_by_code[name]`` on a quantized pool."""
+    wrapper.launches += 1
+    if pages.dtype in QUANT_NAMES:
+        key = QUANT_NAMES[pages.dtype]
+        wrapper.launches_by_code[key] = \
+            wrapper.launches_by_code.get(key, 0) + 1
+
+
+def _dequant_tile(tile: torch.Tensor, scale: Optional[torch.Tensor]):
+    """A gathered K/V tile (or table view) as fp32: codes × their scales,
+    one per trailing vector (exact), or the tile itself on an unquantized
+    pool."""
+    return tile if scale is None else tile.float() * scale.float()[..., None]
 
 
 def _split_geometry(m: int, splits: int, block_k: int) -> tuple[int, int]:
@@ -235,13 +313,16 @@ def paged_decode_partials_torch(
     exp_impl: str = "native",
     n_pos: int = 1,
     rows_per_pos: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # [P, page_size, Hkv] fp16
+    v_scale: Optional[torch.Tensor] = None,
 ):
     """Plain paged split-K partials, mirroring
     ``_paged_decode_partials_kernel``: tile ``t`` of split ``s`` is the
     ``block_k`` keys at offset ``(t % (ps/block_k))·block_k`` of page
     ``block_table[b, s·W/S + t // (ps/block_k)]``, the sentinel clamped to
     ``P - 1`` (those keys lie past ``kv_len`` and are masked); masks and
-    the tile-run rule use the logical token index."""
+    the tile-run rule use the logical token index.  A quantized pool's
+    tiles are dequantized with the same lookup into its scale pools."""
     bh, r, e = q.shape
     n_pages, ps, hkv_p, f = v_pages.shape
     b, w = block_table.shape
@@ -260,8 +341,11 @@ def paged_decode_partials_torch(
         page = bt[:, slot0 + t // bpp]                        # [B, S]
         off = (t % bpp) * block_k
         # [B, S, bk, Hkv, E] → [B·Hkv, S, bk, E]
-        kt = k_pages[:, off:off + block_k][page]
-        vt = v_pages[:, off:off + block_k][page]
+        sl = slice(off, off + block_k)
+        kt = _dequant_tile(k_pages[:, sl][page],
+                           None if k_scale is None else k_scale[:, sl][page])
+        vt = _dequant_tile(v_pages[:, sl][page],
+                           None if v_scale is None else v_scale[:, sl][page])
         return (kt.permute(0, 3, 1, 2, 4).reshape(bh, splits, block_k, e),
                 vt.permute(0, 3, 1, 2, 4).reshape(bh, splits, block_k, f))
 
@@ -286,12 +370,15 @@ def mla_paged_decode_partials_torch(
     exp_impl: str = "native",
     n_pos: int = 1,
     rows_per_pos: Optional[int] = None,
+    ckv_scale: Optional[torch.Tensor] = None,     # [P, page_size] fp16
+    krope_scale: Optional[torch.Tensor] = None,
 ):
     """Plain paged MLA partials in latent space, mirroring
     ``_mla_paged_decode_partials_kernel``: the paged sweep of
     :func:`paged_decode_partials_torch` with one fiber per sequence, the
     key tile ``[ckv | krope]`` (one dot over both halves, which the TPU
-    kernel sums as two) and the ckv tile as the value tile."""
+    kernel sums as two) and the ckv tile as the value tile.  A quantized
+    pool's tiles are dequantized with their per-token scales."""
     b, r, e = q.shape
     n_pages, ps, rank = ckv_pages.shape
     bt_b, w = block_table.shape
@@ -312,8 +399,13 @@ def mla_paged_decode_partials_torch(
     def tiles(t):
         page = bt[:, slot0 + t // bpp]                        # [B, S]
         off = (t % bpp) * block_k
-        ckv_t = ckv_pages[:, off:off + block_k][page]         # [B,S,bk,r]
-        kr_t = krope_pages[:, off:off + block_k][page]        # [B,S,bk,rd]
+        sl = slice(off, off + block_k)
+        ckv_t = _dequant_tile(                                # [B,S,bk,r]
+            ckv_pages[:, sl][page],
+            None if ckv_scale is None else ckv_scale[:, sl][page])
+        kr_t = _dequant_tile(                                 # [B,S,bk,rd]
+            krope_pages[:, sl][page],
+            None if krope_scale is None else krope_scale[:, sl][page])
         return torch.cat([ckv_t, kr_t], dim=-1), ckv_t
 
     return _sweep_partials(
@@ -426,14 +518,14 @@ def _paged_lib():
     lib = _build.load("paged_decode_partials")
     fn = lib.paged_decode_partials
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     max_rows = lib.paged_decode_partials_max_rows
     max_rows.restype = ctypes.c_int
     max_rows.argtypes = []
     _check_smem_mirror(lib.paged_decode_partials_smem_bytes,
-                       "paged_decode_partials")
+                       "paged_decode_partials", codes=True)
     return fn, max_rows()
 
 
@@ -452,25 +544,33 @@ def paged_decode_partials_cuda(
     exp_impl: str = "native",
     n_pos: int = 1,
     rows_per_pos: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # [P, page_size, Hkv] fp16
+    v_scale: Optional[torch.Tensor] = None,
 ):
     """Launch the CUDA paged split-K partials kernel
     (``csrc/paged_decode_partials.cu``) on the current stream (no sync).
     Same contract as :func:`paged_decode_partials_torch`; q and the pages
-    start on 16-byte boundaries."""
-    check_cuda_operands("paged_decode_partials_cuda", q, k_pages, v_pages)
-    _check_head_dims("paged_decode_partials_cuda", q, k_pages, v_pages)
-    _check_vectors("paged_decode_partials_cuda", q=q, k_pages=k_pages,
-                   v_pages=v_pages)
+    start on 16-byte boundaries.  Pages of int8 or fp8 e4m3 codes take
+    their scale pools and fp32 queries (``launches_by_code`` counts those
+    launches by code dtype); any other combination raises."""
+    name = "paged_decode_partials_cuda"
+    kv_code = _check_scales(name, k_pages, (k_scale, v_scale),
+                            k_pages.shape[:3])
+    if kv_code:
+        _check_code_pools(name, q, k_pages, v_pages)
+    else:
+        check_cuda_operands(name, q, k_pages, v_pages)
+    _check_head_dims(name, q, k_pages, v_pages)
+    _check_vectors(name, q=q, k_pages=k_pages, v_pages=v_pages)
     bh, r, e = q.shape
     n_pages, ps, hkv_p, f = v_pages.shape
     if k_pages.shape[:3] != v_pages.shape[:3] or hkv_p != hkv:
-        raise ValueError(f"paged_decode_partials_cuda: k_pages "
-                         f"{tuple(k_pages.shape)}, v_pages "
+        raise ValueError(f"{name}: k_pages {tuple(k_pages.shape)}, v_pages "
                          f"{tuple(v_pages.shape)}, hkv={hkv}")
-    for name, t in (("block_table", block_table), ("kv_len", kv_len)):
+    for label, t in (("block_table", block_table), ("kv_len", kv_len)):
         if t.dtype != torch.int32 or t.device != q.device \
                 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+            raise ValueError(f"{label} must be a contiguous int32 tensor on "
                              f"{q.device}; got {t.dtype} on {t.device}")
     b, w = block_table.shape
     if bh != b * hkv or kv_len.shape != (b,):
@@ -487,26 +587,30 @@ def paged_decode_partials_cuda(
                          f"1..{max_rows}")
     if bh > 65535:
         raise ValueError(f"grid ({splits}, {bh}) too large")
-    _check_smem("paged_decode_partials_cuda", r, e, q.element_size(),
-                split_pages)
+    _check_smem(name, r, e, k_pages.element_size(), split_pages,
+                scaled=bool(kv_code))
     f32 = dict(dtype=torch.float32, device=q.device)
     pm = torch.empty((bh, splits, r), **f32)
     pl = torch.empty((bh, splits, r), **f32)
     pnv = torch.empty((bh, splits, r, f), **f32)
-    err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
+    no_scale = ctypes.c_void_p(0)
+    err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages),
+             _ptr(k_scale) if kv_code else no_scale,
+             _ptr(v_scale) if kv_code else no_scale, _ptr(block_table),
              _ptr(kv_len), _ptr(pm), _ptr(pl), _ptr(pnv),
-             CUDA_DTYPES[q.dtype], e, bh, hkv, r, n_pages, ps, w, splits,
-             split_pages * ps, block_k, n_pos, rows_per_pos, float(scale),
-             0.0 if softcap is None else float(softcap),
+             CUDA_DTYPES[q.dtype], kv_code, e, bh, hkv, r, n_pages, ps, w,
+             splits, split_pages * ps, block_k, n_pos, rows_per_pos,
+             float(scale), 0.0 if softcap is None else float(softcap),
              int(exp_impl == "maccs"), _stream(q.device))
     if err != 0:
         raise RuntimeError(
             f"paged_decode_partials launch failed: CUDA error {err}")
-    paged_decode_partials_cuda.launches += 1
+    _count(paged_decode_partials_cuda, k_pages)
     return pm, pl, pnv
 
 
 paged_decode_partials_cuda.launches = 0
+paged_decode_partials_cuda.launches_by_code = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -514,11 +618,31 @@ def _mla_lib():
     """The MLA paged kernel's entry point — builds at first use."""
     from repro_torch.kernels import _build
 
-    fn = _build.load("mla_paged_decode_partials").mla_paged_decode_partials
+    lib = _build.load("mla_paged_decode_partials")
+    fn = lib.mla_paged_decode_partials
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
+    smem = lib.mla_paged_decode_partials_smem_bytes
+    smem.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int] * 4
+    # hold autotune.mla_decode_smem_bytes to the kernel's own layout
+    for rank, rope in CUDA_MLA_DIMS:
+        for dtype, code in CUDA_DTYPES.items():
+            kinds = [(code, 0, dtype.itemsize, False)]
+            if dtype == torch.float32:
+                kinds += [(code, kv, 1, True) for kv in QUANT_CODES.values()]
+            for c, kv, eb, scaled in kinds:
+                got = smem(rank, rope, c, kv)
+                want = autotune.mla_decode_smem_bytes(rank, rope, eb,
+                                                      scaled=scaled)
+                if got != want:
+                    raise RuntimeError(
+                        f"mla_paged_decode_partials: kernel takes {got} B of "
+                        f"shared memory at ({rank}, {rope}) dtype code {c} "
+                        f"kv code {kv}, autotune.mla_decode_smem_bytes says "
+                        f"{want}")
     return fn
 
 
@@ -536,30 +660,39 @@ def mla_paged_decode_partials_cuda(
     exp_impl: str = "native",
     n_pos: int = 1,
     rows_per_pos: Optional[int] = None,
+    ckv_scale: Optional[torch.Tensor] = None,     # [P, page_size] fp16
+    krope_scale: Optional[torch.Tensor] = None,
 ):
     """Launch the CUDA paged MLA partials kernel
     (``csrc/mla_paged_decode_partials.cu``) on the current stream (no
-    sync).  Same contract as :func:`mla_paged_decode_partials_torch`."""
-    check_cuda_operands("mla_paged_decode_partials_cuda", q, ckv_pages,
-                        krope_pages)
+    sync).  Same contract as :func:`mla_paged_decode_partials_torch`.
+    Latent pools of int8 or fp8 e4m3 codes take their scale pools and
+    fp32 queries (``launches_by_code`` counts those launches by code
+    dtype); any other combination raises."""
+    name = "mla_paged_decode_partials_cuda"
+    kv_code = _check_scales(name, ckv_pages, (ckv_scale, krope_scale),
+                            ckv_pages.shape[:2])
+    if kv_code:
+        _check_code_pools(name, q, ckv_pages, krope_pages)
+    else:
+        check_cuda_operands(name, q, ckv_pages, krope_pages)
     b, r, e = q.shape
     n_pages, ps, rank = ckv_pages.shape
     rope_dim = krope_pages.shape[-1]
     if (rank, rope_dim) not in CUDA_MLA_DIMS or e != rank + rope_dim \
             or krope_pages.shape[:2] != ckv_pages.shape[:2]:
-        raise ValueError(f"mla_paged_decode_partials_cuda: q "
-                         f"{tuple(q.shape)}, ckv pages "
+        raise ValueError(f"{name}: q {tuple(q.shape)}, ckv pages "
                          f"{tuple(ckv_pages.shape)}, krope pages "
                          f"{tuple(krope_pages.shape)} — the kernel is "
                          f"built for (rank, rope_dim) in {CUDA_MLA_DIMS}")
-    for name, t in (("block_table", block_table), ("kv_len", kv_len)):
+    for label, t in (("block_table", block_table), ("kv_len", kv_len)):
         if t.dtype != torch.int32 or t.device != q.device \
                 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+            raise ValueError(f"{label} must be a contiguous int32 tensor on "
                              f"{q.device}; got {t.dtype} on {t.device}")
-    for name, t in (("ckv_pages", ckv_pages), ("krope_pages", krope_pages)):
+    for label, t in (("ckv_pages", ckv_pages), ("krope_pages", krope_pages)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (the "
+            raise ValueError(f"{label} must start on a 16-byte boundary (the "
                              f"kernel copies 16-byte vectors)")
     w = block_table.shape[1]
     if block_table.shape[0] != b or kv_len.shape != (b,):
@@ -580,17 +713,21 @@ def mla_paged_decode_partials_cuda(
     pm = torch.empty((b, splits, r), **f32)
     pl = torch.empty((b, splits, r), **f32)
     pnv = torch.empty((b, splits, r, rank), **f32)
-    err = fn(_ptr(q), _ptr(ckv_pages), _ptr(krope_pages), _ptr(block_table),
+    no_scale = ctypes.c_void_p(0)
+    err = fn(_ptr(q), _ptr(ckv_pages), _ptr(krope_pages),
+             _ptr(ckv_scale) if kv_code else no_scale,
+             _ptr(krope_scale) if kv_code else no_scale, _ptr(block_table),
              _ptr(kv_len), _ptr(pm), _ptr(pl), _ptr(pnv),
-             CUDA_DTYPES[q.dtype], rank, rope_dim, b, r, n_pages, ps, w,
-             splits, split_pages * ps, block_k, n_pos, rows_per_pos,
+             CUDA_DTYPES[q.dtype], kv_code, rank, rope_dim, b, r, n_pages,
+             ps, w, splits, split_pages * ps, block_k, n_pos, rows_per_pos,
              float(scale), 0.0 if softcap is None else float(softcap),
              int(exp_impl == "maccs"), _stream(q.device))
     if err != 0:
         raise RuntimeError(
             f"mla_paged_decode_partials launch failed: CUDA error {err}")
-    mla_paged_decode_partials_cuda.launches += 1
+    _count(mla_paged_decode_partials_cuda, ckv_pages)
     return pm, pl, pnv
 
 
 mla_paged_decode_partials_cuda.launches = 0
+mla_paged_decode_partials_cuda.launches_by_code = {}

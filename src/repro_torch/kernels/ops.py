@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.kernels import autotune, ref as _ref
 from repro_torch.kernels.decode import (
-    combine_partials, decode_partials_cuda, decode_partials_torch,
+    _dequant_tile, combine_partials, decode_partials_cuda,
+    decode_partials_torch,
     mla_paged_decode_partials_cuda, mla_paged_decode_partials_torch,
     paged_decode_partials_cuda, paged_decode_partials_torch,
 )
@@ -246,6 +247,8 @@ def fusemax_decode_paged(
     splits: Optional[int] = None,
     block_k: Optional[int] = None,
     exp_impl: str = "native",
+    k_scale: Optional[torch.Tensor] = None,   # [P_pages, page_size, Hkv]
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode (P = 1) or verify rows (P > 1) against a *paged* KV cache.
 
@@ -258,7 +261,13 @@ def fusemax_decode_paged(
     :func:`autotune.paged_decode_params` when left as ``None``, on the
     whole table, where ``kv_len <= capacity`` masks the rest as the
     reference's Pallas path does; "ref" gathers the table's view, cut to
-    ``capacity``, and runs the 3-pass oracle."""
+    ``capacity``, and runs the 3-pass oracle.
+
+    ``k_scale`` / ``v_scale`` (fp16, one per token and kv head) mark the
+    pools as quantized (int8 or fp8 e4m3 codes): "ref" dequantizes the
+    gathered view before delegating, "cuda" and "torch" take them into K3
+    and its plain version, which dequantize each tile.  The split geometry
+    comes from the code's 1-byte elements, as the reference's does."""
     b, hq, p, e = q.shape
     n_pages, page_size, hkv, f = v_pages.shape
     w = block_table.shape[1]
@@ -268,8 +277,13 @@ def fusemax_decode_paged(
 
     if impl == "ref":
         cap = w * page_size if capacity is None else capacity
-        k = gather_pages(k_pages, block_table).transpose(1, 2)[:, :, :cap]
-        v = gather_pages(v_pages, block_table).transpose(1, 2)[:, :, :cap]
+        k = gather_pages(k_pages, block_table)
+        v = gather_pages(v_pages, block_table)
+        if k_scale is not None:
+            k = _dequant_tile(k, gather_pages(k_scale, block_table))
+            v = _dequant_tile(v, gather_pages(v_scale, block_table))
+        k = k.transpose(1, 2)[:, :, :cap]
+        v = v.transpose(1, 2)[:, :, :cap]
         return fusemax_decode(q, k, v, kv_len, softcap=softcap, scale=scale,
                               impl="ref")
 
@@ -290,7 +304,7 @@ def fusemax_decode_paged(
     q_f = _fold_decode_q(q, b, hkv, group, e)
     kw = dict(scale=scale, softcap=softcap, hkv=hkv, splits=splits,
               block_k=block_k, exp_impl=exp_impl, n_pos=p,
-              rows_per_pos=group)
+              rows_per_pos=group, k_scale=k_scale, v_scale=v_scale)
     if impl == "cuda":
         pm, pl, pnv = paged_decode_partials_cuda(
             q_f.contiguous(), k_pages, v_pages,
@@ -331,12 +345,12 @@ def fusemax_mla_decode_paged(
     instead; the two agree within fp32 summation order, except that a
     ``kv_len = 0`` row is 0 here and a mean of the latents there).  "ref"
     gathers the table's view and runs the 3-pass oracle.  Quantized pools
-    (``ckv_scale`` / ``krope_scale``) are not ported yet."""
-    if ckv_scale is not None or krope_scale is not None:
-        raise NotImplementedError(
-            "quantized latent pools (ckv_scale / krope_scale) are not "
-            "ported to repro_torch yet (ROADMAP §1 item 4, quantized pages "
-            "and host swap)")
+    (int8 or fp8 e4m3 codes) pass ``ckv_scale`` / ``krope_scale`` (fp16,
+    one per token): "ref" dequantizes the gathered view, "cuda" and
+    "torch" take them into K4 and its plain version."""
+    if (ckv_scale is None) != (krope_scale is None):
+        raise ValueError("a quantized latent pool takes both ckv_scale and "
+                         "krope_scale")
     b, hq, p, e = q.shape
     n_pages, page_size, rank = ckv_pages.shape
     rope_dim = krope_pages.shape[-1]
@@ -349,6 +363,9 @@ def fusemax_mla_decode_paged(
     if impl == "ref":
         ckv = gather_pages(ckv_pages, block_table)          # [B, W·ps, r]
         kr = gather_pages(krope_pages, block_table)
+        if ckv_scale is not None:
+            ckv = _dequant_tile(ckv, gather_pages(ckv_scale, block_table))
+            kr = _dequant_tile(kr, gather_pages(krope_scale, block_table))
         k = torch.cat([ckv, kr], dim=-1)[:, None]
         return fusemax_decode(q, k, ckv[:, None], kv_len, softcap=softcap,
                               scale=scale, impl="ref")
@@ -369,7 +386,8 @@ def fusemax_mla_decode_paged(
                                       f=rank)
     q_f = _fold_decode_q(q, b, 1, hq, e)                     # [B, P·H, e]
     kw = dict(scale=scale, softcap=softcap, splits=splits, block_k=block_k,
-              exp_impl=exp_impl, n_pos=p, rows_per_pos=hq)
+              exp_impl=exp_impl, n_pos=p, rows_per_pos=hq,
+              ckv_scale=ckv_scale, krope_scale=krope_scale)
     if impl == "cuda":
         pm, pl, pnv = mla_paged_decode_partials_cuda(
             q_f.contiguous(), ckv_pages, krope_pages,

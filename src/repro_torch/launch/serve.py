@@ -20,6 +20,19 @@ cache off (``paged_noprefix``), which joins ``outputs_match``.  Every
 paged leg ends with the pool's invariant audit
 (``PagedKVCache.check_invariants``), which raises on a violation.
 
+Quantized pages and the host swap tier (paged layouts): ``--kv-dtype
+fp8_e4m3|int8`` serves the trace once more on a quantized pool
+(``paged_quant``); quantization changes the numbers, so that leg stays
+out of ``outputs_match`` and its greedy streams are compared with the
+exact paged leg under ``quant_quality``.  ``--host-swap-gb G`` serves a
+``paged_swap`` leg whose evicted prefix chains demote to G GiB of host
+memory and promote back on a hit — lossless, so it joins
+``outputs_match`` — and, with ``--kv-dtype``, gives the quantized leg the
+swap tier too.  ``--pool-mb M`` sizes every paged leg's full pool from M
+MiB instead of ``--num-pages`` (a quantized leg gets about 3.9x the
+pages).  Each leg with the swap tier reports its host time in
+``host_swap_ms``.
+
 MLA archs serve on the paged layout only (``--cache-layout dense|both``
 exits naming ROADMAP §1 item 5a); ``deepseek-v3-671b[-smoke]`` serves
 with its MoE cut — every FFN dense, as its first ``first_k_dense``
@@ -28,8 +41,7 @@ layers are — until MoE is ported (item 5b), and the JSON says so
 
 The reference's other legs take the same flags here and exit with the
 ROADMAP item that ports them: ``--speculate``/``--duplicates``,
-``--kv-dtype``/``--pool-mb``/``--host-swap-gb``, ``--mesh`` and
-``--async``/``--dp``.  ``--no-compile-cache`` is accepted and does
+``--mesh`` and ``--async``/``--dp``.  ``--no-compile-cache`` is accepted and does
 nothing (XLA's cache has no counterpart here).
 """
 from __future__ import annotations
@@ -84,6 +96,19 @@ def kernel_launches() -> dict:
                 mla_paged_decode_partials_cuda.launches}
 
 
+def quant_kernel_launches() -> dict:
+    """Launches so far of the decode kernels on quantized pools, by code
+    dtype (part of :func:`kernel_launches`' counts)."""
+    return {"paged_decode_partials":
+                dict(paged_decode_partials_cuda.launches_by_code),
+            "mla_paged_decode_partials":
+                dict(mla_paged_decode_partials_cuda.launches_by_code)}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
 def serve_config(arch: str) -> ModelConfig:
     """The config the launcher serves for ``arch``: an MLA arch with MoE
     layers is served with its MoE cut (every FFN a dense one of ``d_ff``,
@@ -101,14 +126,22 @@ def _sync(device: torch.device) -> None:
 
 
 def _serve_one_layout(args, cfg, model, rt, layout: str,
-                      prefix_caching: bool = True) -> dict:
+                      prefix_caching: bool = True,
+                      kv_dtype: Optional[str] = None,
+                      host_swap_bytes: int = 0) -> dict:
+    pool_bytes = None
+    if layout == "paged" and args.pool_mb:
+        # a byte budget: a quantized leg gets more pages from the same bytes
+        pool_bytes = int(args.pool_mb * (1 << 20))
     engine = ServeEngine(cfg, model, slots=args.slots, max_len=args.max_len,
                          rt=rt, temperature=args.temperature,
                          decode_chunk=args.decode_chunk,
                          prefill_chunk=args.prefill_chunk,
                          cache_layout=layout, page_size=args.page_size,
                          num_pages=args.num_pages,
-                         prefix_caching=prefix_caching, device=args.device,
+                         prefix_caching=prefix_caching, kv_dtype=kv_dtype,
+                         pool_bytes=pool_bytes,
+                         host_swap_bytes=host_swap_bytes, device=args.device,
                          seed=args.seed)
     lens = _trace_lens(args)
     warmup_s = None
@@ -127,6 +160,9 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
         sp = args.shared_prefix_len
         shared = rng.integers(0, cfg.vocab, size=(sp,)) if sp else None
         launches0 = kernel_launches()
+        quant0 = quant_kernel_launches()
+        if engine.kv is not None:
+            engine.kv.swap_ms = {k: 0.0 for k in engine.kv.swap_ms}
         t0 = time.perf_counter()
         reqs = []
         for rid, plen in enumerate(lens):
@@ -140,11 +176,14 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
             engine.submit(req)
         engine.run()
         _sync(engine.device)
-        launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+        launches = _delta(kernel_launches(), launches0)
+        quant = {k: _delta(v, quant0[k])
+                 for k, v in quant_kernel_launches().items()}
+        swap_ms = None if engine.kv is None else dict(engine.kv.swap_ms)
         runs.append((time.perf_counter() - t0, dict(engine.stats), reqs,
-                     launches))
+                     launches, quant, swap_ms))
     runs.sort(key=lambda r: r[0])
-    dt, stats, reqs, launches = runs[len(runs) // 2]
+    dt, stats, reqs, launches, quant, swap_ms = runs[len(runs) // 2]
     engine.stats.update(stats)
 
     total_new = sum(len(r.generated) for r in reqs)
@@ -191,8 +230,12 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
         "preemptions": stats["preemptions"],
         "peak_live_tokens": stats["peak_live_tokens"],
         "memory": memory,
-        # CUDA kernel launches during the reported run (0 on the CPU)
+        # CUDA kernel launches during the reported run (0 on the CPU), and
+        # those on quantized pools by code dtype
         "kernel_launches": launches,
+        "kernel_launches_by_kv_dtype": quant,
+        # host ms of the swap tier's demotions and promotions in that run
+        "host_swap_ms": swap_ms,
         "logits_finite": finite,
         "_outputs": [list(r.generated) for r in reqs],
     }
@@ -211,16 +254,34 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
     model = tf.init(cfg, args.seed, rt, device=args.device)
     layouts = ["dense", "paged"] if args.cache_layout == "both" \
         else [args.cache_layout]
-    per_layout = {lo: _serve_one_layout(
-        args, cfg, model, rt, lo, prefix_caching=not args.no_prefix_cache)
-        for lo in layouts}
-    if args.shared_prefix_len and "paged" in layouts \
-            and not args.no_prefix_cache:
+    prefix = not args.no_prefix_cache
+    per_layout = {lo: _serve_one_layout(args, cfg, model, rt, lo,
+                                        prefix_caching=prefix)
+                  for lo in layouts}
+    if args.shared_prefix_len and "paged" in layouts and prefix:
         # shared-prefix trace mode: the paged layout once more with the
         # prefix cache off — greedy streams must be identical either way
         per_layout["paged_noprefix"] = _serve_one_layout(
             args, cfg, model, rt, "paged", prefix_caching=False)
         layouts = layouts + ["paged_noprefix"]
+    swap_bytes = int((args.host_swap_gb or 0) * (1 << 30))
+    if swap_bytes and "paged" in per_layout:
+        # the swap tier is lossless (pages round-trip bit for bit through
+        # host memory), so this leg joins outputs_match
+        per_layout["paged_swap"] = _serve_one_layout(
+            args, cfg, model, rt, "paged", prefix_caching=prefix,
+            host_swap_bytes=swap_bytes)
+        layouts = layouts + ["paged_swap"]
+    quant_leg = None
+    if args.kv_dtype and "paged" in per_layout:
+        # quantized pages change the numbers: this leg stays out of
+        # outputs_match and its drift from the exact paged leg is reported
+        # as quant_quality; with --host-swap-gb it carries the swap tier
+        quant_leg = "paged_quant"
+        per_layout[quant_leg] = _serve_one_layout(
+            args, cfg, model, rt, "paged", prefix_caching=prefix,
+            kv_dtype=args.kv_dtype, host_swap_bytes=swap_bytes)
+        layouts = layouts + [quant_leg]
     outputs = {lo: per_layout[lo].pop("_outputs") for lo in layouts}
     metrics = {
         "arch": args.arch,
@@ -240,13 +301,30 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
                     if k != "cache_layout"})
     metrics["cache_layout"] = args.cache_layout
     metrics["shared_prefix_len"] = args.shared_prefix_len
-    metrics["kv_dtype"] = None
-    metrics["pool_mb"] = None
-    metrics["host_swap_gb"] = 0
+    metrics["kv_dtype"] = args.kv_dtype
+    metrics["pool_mb"] = args.pool_mb
+    metrics["host_swap_gb"] = args.host_swap_gb or 0
     metrics["layouts"] = per_layout
-    if len(layouts) >= 2:
+    match_legs = [lo for lo in layouts if lo != quant_leg]
+    if len(match_legs) >= 2:
         metrics["outputs_match"] = all(
-            outputs[lo] == outputs[layouts[0]] for lo in layouts[1:])
+            outputs[lo] == outputs[match_legs[0]] for lo in match_legs[1:])
+    if quant_leg is not None:
+        # the quantized leg's greedy-stream drift from the exact paged leg:
+        # the positionwise token match rate and the streams that survive
+        ref, q = outputs["paged"], outputs[quant_leg]
+        tot = hit = exact = 0
+        for a, b in zip(ref, q):
+            tot += max(len(a), len(b))
+            hit += sum(1 for x, y in zip(a, b) if x == y)
+            exact += int(a == b)
+        metrics["quant_quality"] = {
+            "kv_dtype": args.kv_dtype,
+            "vs_layout": "paged",
+            "token_match_rate": round(hit / max(1, tot), 4),
+            "exact_streams": exact,
+            "streams": len(ref),
+        }
     if "dense" in per_layout and "paged" in per_layout:
         d, p = per_layout["dense"], per_layout["paged"]
         metrics["paged_vs_dense_tok_per_s"] = round(
@@ -263,12 +341,6 @@ _UNPORTED = (
      "--speculate", "§1 item 3, speculation"),
     (lambda a: bool(a.duplicates), "--duplicates",
      "§1 item 3, speculation"),
-    (lambda a: a.kv_dtype is not None, "--kv-dtype",
-     "§1 item 4, quantized pages and host swap"),
-    (lambda a: a.pool_mb is not None, "--pool-mb",
-     "§1 item 4, quantized pages and host swap"),
-    (lambda a: bool(a.host_swap_gb), "--host-swap-gb",
-     "§1 item 4, quantized pages and host swap"),
     (lambda a: bool(a.mesh), "--mesh", "§1 item 8, device-sharded pool"),
     (lambda a: a.run_async, "--async", "§1 item 7, async front end and dp"),
     (lambda a: a.dp > 1, "--dp", "§1 item 7, async front end and dp"),
@@ -318,9 +390,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--speculate", type=int, default=None, metavar="K")
     ap.add_argument("--no-speculate", action="store_true")
     ap.add_argument("--duplicates", type=int, default=0, metavar="N")
-    ap.add_argument("--kv-dtype", default=None, choices=("fp8_e4m3", "int8"))
-    ap.add_argument("--pool-mb", type=float, default=None)
-    ap.add_argument("--host-swap-gb", type=float, default=0)
+    ap.add_argument("--kv-dtype", default=None, choices=("fp8_e4m3", "int8"),
+                    help="also serve the paged layout on pages of these "
+                         "codes with fp16 scales ('paged_quant', out of "
+                         "outputs_match; its drift under 'quant_quality')")
+    ap.add_argument("--pool-mb", type=float, default=None,
+                    help="full-class pool budget in MiB for the paged legs "
+                         "(overrides --num-pages): a quantized leg gets "
+                         "more pages from the same bytes")
+    ap.add_argument("--host-swap-gb", type=float, default=0,
+                    help="host swap tier of this many GiB: evicted prefix "
+                         "pages demote to host memory and promote back on "
+                         "a hit; adds a lossless 'paged_swap' leg to "
+                         "outputs_match")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--async", dest="run_async", action="store_true")
     ap.add_argument("--arrival-rate", type=float, default=4.0)
@@ -372,6 +454,15 @@ def main(argv: Optional[list] = None,
               f"({mem['bytes_per_live_token']} B/live-token), "
               f"physical {mem['physical_cache_bytes']} B, "
               f"preemptions {m['preemptions']}")
+        ht = mem.get("host_tier")
+        if ht and ht.get("enabled"):
+            print(f"    host swap tier: {ht['demotions']} demotions, "
+                  f"{ht['promotions']} promotions (hit rate "
+                  f"{ht['promote_hit_rate']:.2f}), {ht['host_drops']} "
+                  f"drops, {ht['demoted_pages']} pages "
+                  f"({ht['demoted_bytes']} B) resident on host; host ms "
+                  f"demote {m['host_swap_ms']['demote']:.2f}, promote "
+                  f"{m['host_swap_ms']['promote']:.2f}")
         pf = m["prefix"]
         if pf["tokens_reused"]:
             print(f"    prefix cache: {pf['hits']} hits "
@@ -383,6 +474,11 @@ def main(argv: Optional[list] = None,
     if "outputs_match" in metrics:
         print(f"  greedy outputs match across layouts: "
               f"{metrics['outputs_match']}")
+    qq = metrics.get("quant_quality")
+    if qq:
+        print(f"  quantized leg ({qq['kv_dtype']}): token match rate "
+              f"{qq['token_match_rate']} vs {qq['vs_layout']}, "
+              f"{qq['exact_streams']}/{qq['streams']} streams exact")
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(metrics, fh, indent=1)

@@ -44,8 +44,22 @@ through :func:`_mla_absorbed_attend`, K4 through
 [P + 1, page_size, r], "krope_pages": [P + 1, page_size, rd]}``, sink page
 included, in the "full" class.
 
-Not ported yet (ROADMAP "Modules still to port"): quantized pages,
-verify, MLA on the dense layout (item 5a).
+Quantized page pools (``kv_dtype`` "fp8_e4m3" or "int8"): the pages hold
+codes in ``torch.float8_e4m3fn`` / ``torch.int8`` and a parallel fp16
+*scale pool* rides beside each — ``k_scale`` / ``v_scale [P + 1,
+page_size, Hkv]`` for GQA (one scale per token and kv head),
+``ckv_scale`` / ``krope_scale [P + 1, page_size]`` for MLA (one per
+latent and per rope vector).  :func:`quantize_kv` is symmetric per token
+over the feature axis, with the scale rounded to fp16 *before* the codes
+are computed, so codes and scales equal the reference's bit for bit.
+Dequantization happens where pages are read (K3 / K4, and the gathered
+history of a prefill chunk), never in storage: COW copies, swap blobs
+and the prefix hash all see raw codes.  A continuation chunk attends its
+own K/V quant-round-tripped, as the reference does, so it sees exactly
+what later reads reconstruct.
+
+Not ported yet (ROADMAP "Modules still to port"): verify, MLA on the
+dense layout (item 5a).
 """
 from __future__ import annotations
 
@@ -68,6 +82,59 @@ from repro_torch.model.layers import (
 _MLA_DENSE = ("MLA on the dense cache layout is not ported yet (ROADMAP §1 "
               "item 5a, MLA on the dense layout); serve MLA models with "
               "cache_layout='paged'")
+
+
+# ---------------------------------------------------------------------------
+# KV-page quantization
+# ---------------------------------------------------------------------------
+
+#: fp16's smallest subnormal, 2**-24: the floor of a stored scale (torch's
+#: ``finfo`` has no ``smallest_subnormal``)
+FP16_SMALLEST_SUBNORMAL = 2.0 ** -24
+
+
+def kv_quant_dtype(kv_dtype: Optional[str]) -> Optional[torch.dtype]:
+    """Resolve a ``kv_dtype`` name to its storage dtype (None → None)."""
+    if kv_dtype is None:
+        return None
+    if kv_dtype == "fp8_e4m3":
+        return torch.float8_e4m3fn
+    if kv_dtype == "int8":
+        return torch.int8
+    raise ValueError(f"unknown kv_dtype {kv_dtype!r} (fp8_e4m3 | int8)")
+
+
+def _kv_qmax(qdtype: torch.dtype) -> float:
+    """Largest magnitude of the storage grid: 127 for int8, 448 for fp8
+    e4m3."""
+    return 127.0 if qdtype == torch.int8 else 448.0
+
+
+def quantize_kv(values: torch.Tensor, qdtype: torch.dtype):
+    """Symmetric per-token quantization over the trailing feature axis:
+    ``[..., feat]`` → (codes ``[..., feat]`` in ``qdtype``, scales
+    ``[...]`` fp16) with ``scale = amax / qmax`` (1 for an all-zero
+    token), rounded to fp16 before the codes are computed and floored at
+    fp16's smallest subnormal.  int8 rounds half to even, as
+    ``jnp.round`` does; fp8 takes the cast's rounding after the clip to
+    ±448."""
+    v32 = values.float()
+    qmax = _kv_qmax(qdtype)
+    amax = v32.abs().amax(dim=-1)
+    scale = torch.where(amax > 0.0, amax / qmax,
+                        torch.ones_like(amax)).to(torch.float16)
+    scale = torch.clamp_min(scale, FP16_SMALLEST_SUBNORMAL)
+    q = v32 / scale.float()[..., None]
+    if qdtype == torch.int8:
+        q = torch.round(q)
+    return torch.clamp(q, -qmax, qmax).to(qdtype), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`: ``q [..., feat] × scale [...]``,
+    the product taken in fp32 (exact: at most 8 x 11 significant bits)."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
 
 
 def paged_cache_key(spec: LayerSpec) -> str:
@@ -286,14 +353,19 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, kv_len: torch.Tensor,
 def gqa_init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                          dtype, device, kv_dtype: Optional[str] = None
                          ) -> dict:
-    """A layer's page pool: ``num_pages`` pages plus the sink page."""
-    if kv_dtype is not None:
-        raise NotImplementedError(
-            "quantized page pools are not ported yet (ROADMAP §1 item 4, "
-            "quantized pages and host swap)")
+    """A layer's page pool: ``num_pages`` pages plus the sink page; with
+    ``kv_dtype`` the pages hold codes and fp16 scale pools ride beside
+    them (sink page included)."""
     shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.dh)
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    qdt = kv_quant_dtype(kv_dtype)
+    if qdt is None:
+        return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+                "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    ones = dict(dtype=torch.float16, device=device)
+    return {"k_pages": torch.zeros(shape, dtype=qdt, device=device),
+            "v_pages": torch.zeros(shape, dtype=qdt, device=device),
+            "k_scale": torch.ones(shape[:-1], **ones),
+            "v_scale": torch.ones(shape[:-1], **ones)}
 
 
 def _gqa_capacity(cache: dict, bt_rows: torch.Tensor,
@@ -309,13 +381,19 @@ def _gqa_paged_attend(q: torch.Tensor, k_new: torch.Tensor,
                       v_new: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, bt_rows: torch.Tensor,
                       off: int, cap: int, cfg: ModelConfig,
-                      spec: LayerSpec, rt: Runtime) -> torch.Tensor:
+                      spec: LayerSpec, rt: Runtime,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Attention of a paged prefill chunk *before* its writes land:
     queries [off, off+S) attend the history gathered through the
     block-table rows plus the chunk's own K/V.  Returns the
     pre-projection output [B, H, S, F].  ``k_pages``/``v_pages`` are the
     readable ``[P, ...]`` pools; a ring layer (capacity ``cap``) reads
-    the band [klo, off) at logical indices ``position % cap``."""
+    the band [klo, off) at logical indices ``position % cap``.  A
+    quantized pool passes its readable scale pools too: the gathered
+    history is dequantized here (the caller passes the chunk's K/V
+    quant-round-tripped)."""
     kw = dict(causal=cfg.causal, softcap=cfg.attn_softcap,
               impl=rt.attn_impl, block_q=rt.block_q, block_k=rt.block_k,
               exp_impl=rt.exp_impl)
@@ -333,6 +411,11 @@ def _gqa_paged_attend(q: torch.Tensor, k_new: torch.Tensor,
         pg = torch.clamp(bt_rows.long()[:, l // ps], max=k_pages.shape[0] - 1)
         k_hist = k_pages[pg, l % ps].transpose(1, 2)     # [B, Hkv, band, dh]
         v_hist = v_pages[pg, l % ps].transpose(1, 2)
+        if k_scale is not None:
+            k_hist = dequantize_kv(
+                k_hist, k_scale[pg, l % ps].transpose(1, 2), k_new.dtype)
+            v_hist = dequantize_kv(
+                v_hist, v_scale[pg, l % ps].transpose(1, 2), v_new.dtype)
         return fusemax_attention(
             q, torch.cat([k_hist, k_new.to(k_hist.dtype)], dim=2),
             torch.cat([v_hist, v_new.to(v_hist.dtype)], dim=2), window=w,
@@ -343,9 +426,38 @@ def _gqa_paged_attend(q: torch.Tensor, k_new: torch.Tensor,
     hp = -(-off // k_pages.shape[1])
     k_hist = gather_pages(k_pages, bt_rows[:, :hp]).transpose(1, 2)
     v_hist = gather_pages(v_pages, bt_rows[:, :hp]).transpose(1, 2)
-    k = torch.cat([k_hist[:, :, :off], k_new.to(k_hist.dtype)], dim=2)
-    v = torch.cat([v_hist[:, :, :off], v_new.to(v_hist.dtype)], dim=2)
+    k_hist, v_hist = k_hist[:, :, :off], v_hist[:, :, :off]
+    if k_scale is not None:
+        k_hist = dequantize_kv(k_hist, gather_pages(
+            k_scale, bt_rows[:, :hp]).transpose(1, 2)[:, :, :off],
+            k_new.dtype)
+        v_hist = dequantize_kv(v_hist, gather_pages(
+            v_scale, bt_rows[:, :hp]).transpose(1, 2)[:, :, :off],
+            v_new.dtype)
+    k = torch.cat([k_hist, k_new.to(k_hist.dtype)], dim=2)
+    v = torch.cat([v_hist, v_new.to(v_hist.dtype)], dim=2)
     return fusemax_attention(q, k, v, q_offset=off, **kw)
+
+
+def _gqa_quant_new(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor):
+    """Quantize a chunk's fresh K/V ([B, Hkv, S, dh]) to the pool's
+    storage dtype → (k_q, k_s, v_q, v_s, k_att, v_att): codes and
+    per-(token, head) scales for the page writes, and the round-tripped
+    values the chunk attends (what later reads reconstruct).  An
+    unquantized pool returns the inputs with None scales."""
+    if "k_scale" not in cache:
+        return k_new, None, v_new, None, k_new, v_new
+    qdt = cache["k_pages"].dtype
+    k_q, k_s = quantize_kv(k_new, qdt)
+    v_q, v_s = quantize_kv(v_new, qdt)
+    return (k_q, k_s, v_q, v_s, dequantize_kv(k_q, k_s, k_new.dtype),
+            dequantize_kv(v_q, v_s, v_new.dtype))
+
+
+def _readable_scales(cache: dict, *names: str) -> list:
+    """The readable ``[P, ...]`` views of a pool's scale pools (None each
+    for an unquantized pool)."""
+    return [pool_pages(cache[n]) if n in cache else None for n in names]
 
 
 def gqa_prefill_paged(p: GQA, x: torch.Tensor, cache: dict,
@@ -369,18 +481,23 @@ def gqa_prefill_paged(p: GQA, x: torch.Tensor, cache: dict,
     valid = valid.expand(b, s_len)
 
     q, k_new, v_new = _proj_qkv(p, x, cfg, positions)
+    k_q, k_s, v_q, v_s, k_att, v_att = _gqa_quant_new(cache, k_new, v_new)
     if off == 0:
+        # the first chunk attends its K/V as computed, as the reference's
+        # gqa_forward does (quantized or not)
         y = gqa_forward(p, x, cfg, spec, rt, qkv=(q, k_new, v_new))
     else:
-        out = _gqa_paged_attend(q, k_new, v_new,
+        ks, vs = _readable_scales(cache, "k_scale", "v_scale")
+        out = _gqa_paged_attend(q, k_att, v_att,
                                 pool_pages(cache["k_pages"]),
                                 pool_pages(cache["v_pages"]), bt_rows, off,
-                                cap, cfg, spec, rt)
+                                cap, cfg, spec, rt, k_scale=ks, v_scale=vs)
         y = _out_proj(p, out)
-    write_pages(cache["k_pages"], bt_rows, positions, k_new.transpose(1, 2),
-                cap, valid)
-    write_pages(cache["v_pages"], bt_rows, positions, v_new.transpose(1, 2),
-                cap, valid)
+    for name, new in (("k_pages", k_q), ("v_pages", v_q), ("k_scale", k_s),
+                      ("v_scale", v_s)):
+        if new is not None:
+            write_pages(cache[name], bt_rows, positions, new.transpose(1, 2),
+                        cap, valid)
     return y, cache
 
 
@@ -415,12 +532,16 @@ def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
     q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, 1, dh]
     page, off = decode_slots(cache, bt_rows, kv_len, spec) \
         if slots is None else slots
-    for name, new in (("k_pages", k_new), ("v_pages", v_new)):
-        pages = cache[name]
-        pages[page, off] = new.transpose(1, 2).to(pages.dtype)
+    k_q, k_s, v_q, v_s, _, _ = _gqa_quant_new(cache, k_new, v_new)
+    for name, new in (("k_pages", k_q), ("v_pages", v_q), ("k_scale", k_s),
+                      ("v_scale", v_s)):
+        if new is not None:
+            pages = cache[name]
+            pages[page, off] = new.transpose(1, 2).to(pages.dtype)
     cap = None if spec.window is None \
         else _gqa_capacity(cache, bt_rows, spec)
     eff_len = kv_len if cap is None else torch.clamp(kv_len, max=cap)
+    ks, vs = _readable_scales(cache, "k_scale", "v_scale")
     out = fusemax_decode_paged(
         q, pool_pages(cache["k_pages"]), pool_pages(cache["v_pages"]),
         bt_rows, eff_len, capacity=cap,
@@ -428,6 +549,7 @@ def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
         impl=rt.attn_impl,
         splits=rt.decode_splits,
         exp_impl=rt.exp_impl,
+        k_scale=ks, v_scale=vs,
     )                                                    # [B, H, 1, dh]
     return _out_proj(p, out), cache
 
@@ -551,17 +673,46 @@ def mla_init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                          dtype, device, kv_dtype: Optional[str] = None
                          ) -> dict:
     """A layer's latent page pools: ``num_pages`` pages plus the sink
-    page."""
-    if kv_dtype is not None:
-        raise NotImplementedError(
-            "quantized page pools are not ported yet (ROADMAP §1 item 4, "
-            "quantized pages and host swap)")
+    page; with ``kv_dtype`` the pools hold codes and per-token fp16 scale
+    pools ride beside them."""
     m = cfg.mla
-    nk = dict(dtype=dtype, device=device)
-    return {"ckv_pages": torch.zeros((num_pages + 1, page_size,
-                                      m.kv_lora_rank), **nk),
-            "krope_pages": torch.zeros((num_pages + 1, page_size,
-                                        m.rope_dim), **nk)}
+    qdt = kv_quant_dtype(kv_dtype)
+    nk = dict(dtype=dtype if qdt is None else qdt, device=device)
+    cache = {"ckv_pages": torch.zeros((num_pages + 1, page_size,
+                                       m.kv_lora_rank), **nk),
+             "krope_pages": torch.zeros((num_pages + 1, page_size,
+                                         m.rope_dim), **nk)}
+    if qdt is not None:
+        for name in ("ckv_scale", "krope_scale"):
+            cache[name] = torch.ones((num_pages + 1, page_size),
+                                     dtype=torch.float16, device=device)
+    return cache
+
+
+def _mla_quant_new(cache: dict, ckv_new: torch.Tensor,
+                   krope_new: torch.Tensor):
+    """Quantize a chunk's fresh latents ([B, S, r] / [B, S, rd]) to the
+    pool's storage dtype with one scale per token and vector → (ckv_q,
+    ckv_s, kr_q, kr_s); an unquantized pool passes them through with None
+    scales."""
+    if "ckv_scale" not in cache:
+        return ckv_new, None, krope_new, None
+    qdt = cache["ckv_pages"].dtype
+    ckv_q, ckv_s = quantize_kv(ckv_new, qdt)
+    kr_q, kr_s = quantize_kv(krope_new, qdt)
+    return ckv_q, ckv_s, kr_q, kr_s
+
+
+def _mla_write(cache: dict, bt_rows: torch.Tensor, positions: torch.Tensor,
+               cap: int, valid: Optional[torch.Tensor],
+               ckv_new: torch.Tensor, krope_new: torch.Tensor) -> None:
+    """Write a chunk's latents (quantized first on a quantized pool, with
+    their scales) into the pools through the block-table rows."""
+    ckv_q, ckv_s, kr_q, kr_s = _mla_quant_new(cache, ckv_new, krope_new)
+    for name, new in (("ckv_pages", ckv_q), ("krope_pages", kr_q),
+                      ("ckv_scale", ckv_s), ("krope_scale", kr_s)):
+        if new is not None:
+            write_pages(cache[name], bt_rows, positions, new, cap, valid)
 
 
 def mla_prefill_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
@@ -572,34 +723,38 @@ def mla_prefill_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
     ``true_len`` and by ``cached_len`` (positions below it live in pages
     mapped from the prefix index: read, never rewritten).  At ``off ==
     0`` the chunk attends itself in the expanded form
-    (:func:`mla_forward`); a continuation (``off > 0``: chunked prefill or
-    a prefix-cache hit) attends, in absorbed form
-    (:func:`_mla_absorbed_attend`), the latents of positions ``[0, off +
-    S)`` gathered through ``bt_rows`` after the chunk's writes — as the
-    reference reads them, so a position the masks kept from being
-    written is read from its page.  x: [B, S, d]."""
+    (:func:`mla_forward`, on the latents as computed); a continuation
+    (``off > 0``: chunked prefill or a prefix-cache hit) attends, in
+    absorbed form (:func:`_mla_absorbed_attend`), the latents of
+    positions ``[0, off + S)`` gathered through ``bt_rows`` after the
+    chunk's writes — as the reference reads them, so a position the masks
+    kept from being written is read from its page, and on a quantized
+    pool every latent is read back dequantized.  x: [B, S, d]."""
     b, s_len, _ = x.shape
     positions = torch.arange(off, off + s_len, device=x.device).expand(
         b, s_len)
     latent = _mla_qkv_latent(p, x, cfg, positions)
     q_nope, q_rope, ckv_new, krope_new = latent
-    ckv_pages, krope_pages = cache["ckv_pages"], cache["krope_pages"]
-    ps = ckv_pages.shape[1]
+    ps = cache["ckv_pages"].shape[1]
     cap = bt_rows.shape[1] * ps
     valid = positions[:1] < true_len.to(x.device).long()[:, None]
     if cached_len is not None:
         valid = valid & (positions >= cached_len.to(x.device)[:, None])
     valid = valid.expand(b, s_len)
-    write_pages(ckv_pages, bt_rows, positions, ckv_new, cap, valid)
-    write_pages(krope_pages, bt_rows, positions, krope_new, cap, valid)
+    _mla_write(cache, bt_rows, positions, cap, valid, ckv_new, krope_new)
     if off == 0:
         return mla_forward(p, x, cfg, spec, rt, latent=latent), cache
     # gather only the pages the history and the chunk occupy (plain torch
     # indexing, as the reference gathers in jnp outside any kernel)
     tot = off + s_len
     hp = -(-tot // ps)
-    ckv = gather_pages(pool_pages(ckv_pages), bt_rows[:, :hp])[:, :tot]
-    krope = gather_pages(pool_pages(krope_pages), bt_rows[:, :hp])[:, :tot]
+    rows = bt_rows[:, :hp]
+    ckv, krope = (gather_pages(pool_pages(cache[n]), rows)[:, :tot]
+                  for n in ("ckv_pages", "krope_pages"))
+    if "ckv_scale" in cache:
+        ckv, krope = (dequantize_kv(v, gather_pages(
+            pool_pages(cache[n]), rows)[:, :tot], x.dtype)
+            for v, n in ((ckv, "ckv_scale"), (krope, "krope_scale")))
     out = _mla_absorbed_attend(p, q_nope, q_rope, ckv, krope, off, cfg, rt)
     return _out_proj(p, out), cache
 
@@ -617,17 +772,22 @@ def mla_decode_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv_latent(p, x, cfg, pos)
     page, off = decode_slots(cache, bt_rows, kv_len, spec) \
         if slots is None else slots
-    for name, new in (("ckv_pages", ckv_new), ("krope_pages", krope_new)):
-        pages = cache[name]
-        pages[page, off] = new.to(pages.dtype)
+    ckv_q, ckv_s, kr_q, kr_s = _mla_quant_new(cache, ckv_new, krope_new)
+    for name, new in (("ckv_pages", ckv_q), ("krope_pages", kr_q),
+                      ("ckv_scale", ckv_s), ("krope_scale", kr_s)):
+        if new is not None:
+            pages = cache[name]
+            pages[page, off] = new.to(pages.dtype)
     dt = x.dtype
     q_eff = torch.einsum("bhse,rhe->bhsr", q_nope, p.w_uk.to(dt))
     q_cat = torch.cat([q_eff, q_rope], dim=-1)           # [B, H, 1, r+rd]
+    cs, ks = _readable_scales(cache, "ckv_scale", "krope_scale")
     out_lat = fusemax_mla_decode_paged(
         q_cat, pool_pages(cache["ckv_pages"]),
         pool_pages(cache["krope_pages"]), bt_rows, kv_len,
         scale=_mla_scale(cfg), softcap=cfg.attn_softcap,
         impl=rt.attn_impl, exp_impl=rt.exp_impl,
+        ckv_scale=cs, krope_scale=ks,
     )                                                    # [B, H, 1, r]
     out = torch.einsum("bhsr,rhe->bhse", out_lat, p.w_uv.to(dt))
     return _out_proj(p, out), cache

@@ -19,7 +19,12 @@ ragged lengths themselves.  Finished slots refill from the queue.
   pages enter a token-hash prefix index; later prompts sharing the prefix
   map them at admission and prefill only the tail (``stats``:
   ``prefix_hits`` / ``tokens_reused`` / ``cow_copies``), and greedy
-  streams stay identical with the cache on or off.
+  streams stay identical with the cache on or off.  The paged layout also
+  takes ``kv_dtype`` (pages of fp8 e4m3 or int8 codes with fp16 scales),
+  ``pool_bytes`` (the full pool sized from a byte budget) and
+  ``host_swap_bytes`` (evicted prefix chains demote to host memory and
+  promote back on a hit, the copies staged before any COW copy or
+  prefill of the admission batch).
 * **Batched bucketed prefill** — admitted prompts pad to power-of-two
   length buckets and each (shared-prefix offset, bucket) group runs as
   ONE prefill — dense: over a fresh per-group cache of the bucket's
@@ -41,8 +46,7 @@ steps exactly as the reference does, so the two engines can be held to
 the same counters on the same trace.
 
 Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md):
-``speculate``, ``kv_dtype`` / ``pool_bytes`` / ``host_swap_bytes``
-(quantized pages / swap) and ``mesh`` (sharded pool).
+``speculate`` and ``mesh`` (sharded pool).
 """
 from __future__ import annotations
 
@@ -58,7 +62,7 @@ from repro_torch.kernels.autotune import next_pow2
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime, resolve_device
 from repro_torch.serving.kv_cache import (
-    _QUANT, _SHARD, _SPEC, PagedKVCache, _not_ported,
+    _SHARD, _SPEC, PagedKVCache, _not_ported,
 )
 
 
@@ -100,9 +104,12 @@ class ServeEngine:
             raise ValueError(f"unknown cache_layout: {cache_layout!r}")
         if speculate is not None:
             raise _not_ported("speculative decoding", _SPEC)
-        if kv_dtype is not None or pool_bytes is not None or host_swap_bytes:
-            raise _not_ported("kv_dtype / pool_bytes / host_swap_bytes",
-                              _QUANT)
+        if cache_layout != "paged" and (kv_dtype is not None
+                                        or pool_bytes is not None
+                                        or host_swap_bytes):
+            raise ValueError(
+                "kv_dtype / pool_bytes / host_swap_bytes quantize and swap "
+                "*pages* — they require cache_layout='paged'")
         if mesh is not None:
             raise _not_ported("the device-sharded pool (mesh=)", _SHARD)
         self.device = resolve_device(device)
@@ -124,8 +131,13 @@ class ServeEngine:
             self.kv = PagedKVCache(cfg, slots, max_len, dtype,
                                    page_size=page_size, num_pages=num_pages,
                                    prefix_caching=prefix_caching,
+                                   kv_dtype=kv_dtype, pool_bytes=pool_bytes,
+                                   host_swap_bytes=host_swap_bytes,
                                    device=self.device)
             self.caches = self.kv.caches
+            # the swap tier copies page contents out at demotion time: hand
+            # it the engine's live cache list
+            self.kv.cache_source = lambda: self.caches
         else:
             self.kv = None
             self.caches = tf.init_cache(cfg, slots, max_len, dtype,
@@ -296,6 +308,7 @@ class ServeEngine:
         so a group that writes fresh prefix pages runs before one that
         reads them."""
         admitted: list = []
+        staged_promotes: list = []
         for i in range(self.slots):
             if self.active[i] is not None or not self.queue:
                 continue
@@ -306,6 +319,12 @@ class ServeEngine:
                 info = self.kv.admit(i, tokens, len(tokens) + 1)
                 if info is None:
                     break                # head-of-line waits for pages
+                if info["promotes"]:
+                    # host→device copies of the matched demoted pages: issue
+                    # them now, so they overlap the rest of the admission;
+                    # they land before any COW copy or prefill below
+                    staged_promotes.extend(
+                        self.kv.start_promote(info["promotes"]))
                 cached = info["cached_len"]
                 cow_pairs = info["cow_pairs"]
                 if info["reused"]:
@@ -317,6 +336,8 @@ class ServeEngine:
             self._admit_seq += 1
             self._order[i] = self._admit_seq
             admitted.append((i, req, tokens, cached, cow_pairs))
+        if staged_promotes:
+            self.caches = self.kv.apply_promote(self.caches, staged_promotes)
         if not admitted:
             return
         by_group: dict = {}

@@ -1,7 +1,8 @@
 """Paged KV cache: page pool + per-slot block tables + automatic prefix
 cache.
 
-Port of ``repro.serving.kv_cache`` for the unquantized, unsharded pool.
+Port of ``repro.serving.kv_cache`` for the unsharded pool, quantized
+pages and the host swap tier included.
 The host side (free lists, refcounts, block tables, the prefix index) is
 Python and numpy as in the reference, line for line where it can be, so
 the same admit / grow / release sequence gives the same tables and
@@ -29,17 +30,33 @@ counters; the page arrays are torch tensors on the engine's device.
   the pool runs short.  A shared page is never written: the one page a
   tail prefill could touch (a prompt exactly covered by its hit) is
   copied first (:meth:`PagedKVCache.apply_cow`).
+* Quantized pages (``kv_dtype`` "fp8_e4m3" / "int8"): every layer's pages
+  hold codes with fp16 scale pools beside them
+  (:func:`repro_torch.model.attention.gqa_init_paged_cache`), and a page
+  costs its honest bytes, codes plus scales; ``pool_bytes`` sizes the
+  full class from a byte budget, so a quantized pool gets about 3.9x the
+  pages of an fp32 one.
+* The host swap tier (``host_swap_bytes``): under pool pressure the
+  prefix index *demotes* an evicted chain to host memory instead of
+  dropping it — each page's contents across every full-class layer (codes
+  and scales as they are) copied into one pinned host buffer of its bytes,
+  one device→host copy per page after one gather on the device — up to the
+  byte cap, dropping LRU demoted chains to make room (HBM → host → drop).
+  A later prefix hit on a demoted chain promotes it back into fresh pool
+  pages with non-blocking host→device copies on the current stream (a
+  copy instead of a recompute): :meth:`PagedKVCache.start_promote` issues
+  them during admission, :meth:`PagedKVCache.apply_promote` keeps the host
+  buffers alive until the copies complete.  The engine wires
+  ``cache_source`` to its live caches.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): quantized pools, byte-budget sizing and the host swap tier
-(``kv_dtype``, ``pool_bytes``, ``host_swap_bytes``, ``start_promote``,
-``apply_promote``) — item 4; speculative draft pages (``reserve_draft``,
-``commit_draft``, ``drop_draft``) — item 3; the device-sharded pool
-(``shard``) — item 8.
+item): speculative draft pages (``reserve_draft``, ``commit_draft``,
+``drop_draft``) — item 3; the device-sharded pool (``shard``) — item 8.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,7 +64,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.model import transformer as tf
-from repro_torch.model.attention import paged_cache_key
+from repro_torch.model.attention import kv_quant_dtype, paged_cache_key
 from repro_torch.model.layers import resolve_device
 
 
@@ -60,7 +77,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
-_QUANT = "§1 item 4, quantized pages and host swap"
 _SPEC = "§1 item 3, speculation"
 _SHARD = "§1 item 8, device-sharded pool"
 
@@ -156,10 +172,18 @@ class _PrefixEntry:
     """One full page of the prefix index.  ``key`` (its dict key) is the
     chained hash of every token up to and including this page;
     ``parent`` is the previous page's chain hash (None at depth 0).  The
-    index holds its own pool reference on ``page``."""
+    index holds its own pool reference on ``page``.
+
+    With the host swap tier an entry may be *demoted*: ``page == -1`` and
+    ``host`` holds the page's contents in host memory (one flat byte
+    buffer of the page's ``bytes_per_page``: every full-class layer leaf's
+    page in :meth:`PagedKVCache._full_leaves` order).  A demoted entry
+    stays matchable; a prefix hit promotes it back into a fresh pool
+    page."""
     page: int
     parent: Optional[int]
     last_used: int
+    host: Optional[list] = None
 
 
 class PagedKVCache:
@@ -172,7 +196,10 @@ class PagedKVCache:
     dispatch.  ``num_pages`` sizes the *full* class pool; the default
     equals the dense layout's capacity (``slots × max_len / page_size``
     pages) — shrink it to serve in less memory, at the cost of admission
-    back-pressure and (worst case) preemption."""
+    back-pressure and (worst case) preemption.  ``kv_dtype`` stores the
+    pages quantized, ``pool_bytes`` sizes the full class from a byte
+    budget instead, and ``host_swap_bytes`` turns on the host swap tier
+    (it needs the prefix cache)."""
 
     def __init__(self, cfg: ModelConfig, slots: int, max_len: int, dtype,
                  *, page_size: int = 16,
@@ -183,9 +210,6 @@ class PagedKVCache:
                  pool_bytes: Optional[int] = None,
                  host_swap_bytes: int = 0,
                  device="cuda"):
-        if kv_dtype is not None or pool_bytes is not None or host_swap_bytes:
-            raise _not_ported("kv_dtype / pool_bytes / host_swap_bytes",
-                              _QUANT)
         if shard is not None:
             raise _not_ported("the device-sharded pool (shard=)", _SHARD)
         if page_size < 1:
@@ -198,11 +222,14 @@ class PagedKVCache:
         self.slots = slots
         self.max_len = max_len
         self.page_size = page_size
-        self.kv_dtype = None
         self.device = resolve_device(device)
 
+        # capacity classes; the scale elems are a quantized pool's fp16
+        # scale-pool entries (one per token and kv head for GQA, one per
+        # latent and one per rope vector for MLA)
         caps: Dict[str, int] = {}
         per_layer_page_elems: Dict[str, int] = {}
+        per_layer_scale_elems: Dict[str, int] = {}
         has_ssm = has_moe = False
         for spec in cfg.layer_specs():
             if spec.mlp == "moe":
@@ -213,21 +240,37 @@ class PagedKVCache:
                     else max_len
                 per_layer_page_elems[key] = per_layer_page_elems.get(key, 0) \
                     + 2 * page_size * cfg.n_kv_heads * cfg.dh
+                per_layer_scale_elems[key] = \
+                    per_layer_scale_elems.get(key, 0) \
+                    + 2 * page_size * cfg.n_kv_heads
             elif spec.attn == "mla":
                 # one latent [r] and one shared rope key [rd] per token
                 caps["full"] = max_len
                 per_layer_page_elems["full"] = \
                     per_layer_page_elems.get("full", 0) + page_size * (
                         cfg.mla.kv_lora_rank + cfg.mla.rope_dim)
+                per_layer_scale_elems["full"] = \
+                    per_layer_scale_elems.get("full", 0) + 2 * page_size
             if spec.ssm is not None:
                 has_ssm = True
 
-        itemsize = torch.empty((), dtype=dtype).element_size()
+        qdt = kv_quant_dtype(kv_dtype)
+        self.kv_dtype = kv_dtype
+        itemsize = torch.empty((), dtype=dtype if qdt is None
+                               else qdt).element_size()
         self.classes: Dict[str, _CacheClass] = {}
         pool_sizes: Dict[str, int] = {}
         for key, cap in caps.items():
             width = _ceil_div(cap, page_size)
-            if key == "full" and num_pages is not None:
+            # honest per-page bytes: the codes plus their fp16 scales
+            bpp = per_layer_page_elems[key] * itemsize
+            if qdt is not None:
+                bpp += per_layer_scale_elems[key] * 2
+            if key == "full" and pool_bytes is not None:
+                # byte-budget sizing: a quantized pool gets ~3.9x the pages
+                # of an fp32 one from the same budget
+                n = max(1, pool_bytes // bpp)
+            elif key == "full" and num_pages is not None:
                 n = num_pages
             else:
                 n = slots * width            # dense-equivalent capacity
@@ -240,7 +283,7 @@ class PagedKVCache:
                 # not backed by an owned page
                 table=np.full((slots, width), n, np.int32),
                 owned=[[] for _ in range(slots)],
-                bytes_per_page=per_layer_page_elems[key] * itemsize,
+                bytes_per_page=bpp,
             )
 
         # prefix reuse needs every class addressed from position zero and
@@ -250,10 +293,24 @@ class PagedKVCache:
         self.prefix_enabled = bool(prefix_caching) and self.prefix_supported
         self._prefix: Dict[int, _PrefixEntry] = {}
         self._prefix_tick = 0
-        self.stats = {"prefix_evictions": 0}
+        self.stats = {"prefix_evictions": 0, "demotions": 0,
+                      "promotions": 0, "host_drops": 0, "reregistered": 0}
+
+        # host swap tier: index-only prefix pages demote to host memory (up
+        # to host_swap_bytes) instead of dropping, and promote back on a
+        # hit.  ``cache_source`` (the owner's live cache list) must be wired
+        # before demotion can copy page contents; without it eviction is
+        # the plain LRU drop.  ``swap_ms`` accumulates the host time of
+        # demotions and promotions.
+        self.host_swap_bytes = int(host_swap_bytes)
+        self.swap_enabled = self.host_swap_bytes > 0 and self.prefix_enabled
+        self._host_bytes = 0
+        self.cache_source = None
+        self._inflight: list = []          # (event, host buffers) of copies
+        self.swap_ms = {"demote": 0.0, "promote": 0.0}
 
         self.caches = tf.init_paged_cache(cfg, slots, pool_sizes, page_size,
-                                          dtype, self.device)
+                                          dtype, self.device, kv_dtype)
         # the pools as the reference sizes them: the sink pages are the
         # port's drop target, not pool capacity
         self._physical_page_bytes = sum(
@@ -286,7 +343,7 @@ class PagedKVCache:
         if key != "full" or not self.prefix_enabled:
             return 0
         return sum(1 for e in self._prefix.values()
-                   if c.pool.refcount(e.page) == 1)
+                   if e.page >= 0 and c.pool.refcount(e.page) == 1)
 
     def can_grow(self, slot: int, kv_target: int) -> bool:
         return all(
@@ -390,6 +447,15 @@ class PagedKVCache:
         for i, h in enumerate(hashes):
             e = self._prefix.get(h)
             if e is not None:
+                if e.page < 0 and i < len(row):
+                    # a fresh prefill just rebuilt this demoted page on the
+                    # device: point the entry at the resident copy and drop
+                    # the host copy (no transfer; the recompute happened)
+                    self.classes["full"].pool.ref(row[i])
+                    e.page = row[i]
+                    e.host = None
+                    self._host_bytes -= self.classes["full"].bytes_per_page
+                    self.stats["reregistered"] += 1
                 e.last_used = self._tick()
                 continue
             self.classes["full"].pool.ref(row[i])
@@ -397,9 +463,38 @@ class PagedKVCache:
                 page=row[i], parent=hashes[i - 1] if i else None,
                 last_used=self._tick())
 
+    def _full_leaves(self, caches: list) -> List[torch.Tensor]:
+        """Every full-class layer leaf of ``caches`` (data pools and, when
+        quantized, scale pools), in the order host copies keep: layer
+        order, then sorted leaf names."""
+        return [c["attn"][name]
+                for spec, c in zip(self.cfg.layer_specs(), caches)
+                if paged_cache_key(spec) == "full"
+                for name in sorted(c["attn"])]
+
+    def _page_blobs(self, pages: List[int]) -> List[torch.Tensor]:
+        """Copy pages to host memory: per page one flat byte buffer of its
+        ``bytes_per_page`` (pinned on a CUDA pool) holding every
+        full-class leaf's page in :meth:`_full_leaves` order.  One indexed
+        read per leaf and one ``torch.cat`` lay the pages out on the
+        device, then one non-blocking device→host copy per page on the
+        current stream.  No host code reads the buffers: the stream orders
+        the copies before any later write of the freed pages and before
+        the promotion that copies them back."""
+        leaves = self._full_leaves(self.cache_source())
+        pinned = self.device.type == "cuda"
+        idx = torch.tensor(pages, device=self.device)
+        n = len(pages)
+        flat = torch.cat([a[idx].reshape(n, -1).view(torch.uint8)
+                          for a in leaves], dim=1)
+        return [torch.empty(row.shape, dtype=torch.uint8,
+                            pin_memory=pinned).copy_(row, non_blocking=pinned)
+                for row in flat]
+
     def _drop_subtree(self, c: _CacheClass, root: int) -> None:
         """Drop an index entry and every descendant (they are matchable
-        only through it); their pages drop the index's reference."""
+        only through it): resident pages drop the index's reference, host
+        copies release their swap-tier bytes."""
         stack = [root]
         while stack:
             h = stack.pop()
@@ -408,19 +503,43 @@ class PagedKVCache:
                 continue
             stack.extend(h2 for h2, e2 in self._prefix.items()
                          if e2.parent == h)
-            c.pool.unref(e.page)
-            self.stats["prefix_evictions"] += 1
+            if e.page >= 0:
+                c.pool.unref(e.page)
+                self.stats["prefix_evictions"] += 1
+            else:
+                self._host_bytes -= c.bytes_per_page
+                self.stats["host_drops"] += 1
+
+    def _host_make_room(self, c: _CacheClass, bytes_needed: int,
+                        exclude: frozenset) -> bool:
+        """The last rung of HBM → host → drop: drop LRU demoted chains
+        until ``bytes_needed`` more bytes fit under the host byte cap."""
+        while self._host_bytes + bytes_needed > self.host_swap_bytes:
+            victim = None
+            for h, e in self._prefix.items():
+                if h in exclude or e.page >= 0:
+                    continue
+                if victim is None or \
+                        e.last_used < self._prefix[victim].last_used:
+                    victim = h
+            if victim is None:
+                return False
+            self._drop_subtree(c, victim)
+        return True
 
     def _evict_prefix(self, c: _CacheClass, need: int,
                       protect: frozenset = frozenset()) -> bool:
         """Free index-only pages (LRU) until ``need`` pages are free.
         Evicting an entry takes its whole subtree along; entries in
         ``protect`` (the chain an in-flight admission just matched) are
-        never chosen as victims."""
+        never chosen as victims.  With the host swap tier the subtree's
+        resident pages are *demoted* (copied to host memory, entries kept
+        with ``page = -1``) when they fit under the host cap after
+        dropping LRU demoted chains, and dropped otherwise."""
         while c.pool.free_pages < need:
             victim = None
             for h, e in self._prefix.items():
-                if h in protect:
+                if h in protect or e.page < 0:
                     continue
                 if c.pool.refcount(e.page) == 1 and (
                         victim is None
@@ -428,17 +547,46 @@ class PagedKVCache:
                     victim = h
             if victim is None:
                 return False
-            self._drop_subtree(c, victim)
+            stack, subtree = [victim], []
+            while stack:
+                h = stack.pop()
+                if h not in self._prefix or h in subtree:
+                    continue
+                subtree.append(h)
+                stack.extend(h2 for h2, e2 in self._prefix.items()
+                             if e2.parent == h)
+            resident = [h for h in subtree if self._prefix[h].page >= 0]
+            demote = (self.swap_enabled and self.cache_source is not None
+                      and self._host_make_room(
+                          c, len(resident) * c.bytes_per_page,
+                          exclude=protect | frozenset(subtree)))
+            if demote:
+                t0 = time.perf_counter()
+                blobs = self._page_blobs(
+                    [self._prefix[h].page for h in resident])
+                for h, host in zip(resident, blobs):
+                    e = self._prefix[h]
+                    e.host = host
+                    c.pool.unref(e.page)
+                    e.page = -1
+                    self._host_bytes += c.bytes_per_page
+                    self.stats["demotions"] += 1
+                self.swap_ms["demote"] += (time.perf_counter() - t0) * 1e3
+            else:
+                self._drop_subtree(c, victim)
         return True
 
     def clear_prefix(self) -> int:
         """Drop every index entry (e.g. after engine warmup, or to drain
-        the pool).  Returns the number of entries dropped."""
+        the pool), the host swap tier's demoted entries too.  Returns the
+        number of entries dropped."""
         n = len(self._prefix)
         c = self.classes.get("full")
         for e in self._prefix.values():
-            c.pool.unref(e.page)
+            if e.page >= 0:
+                c.pool.unref(e.page)
         self._prefix.clear()
+        self._host_bytes = 0
         return n
 
     def _match(self, hashes: List[int]) -> int:
@@ -483,8 +631,14 @@ class PagedKVCache:
 
         All-or-nothing: returns None (state unchanged) when the pool is
         short even after LRU eviction; otherwise ``{"cached_len",
-        "reused", "cow_pairs", "promotes"}`` (``promotes`` is always empty:
-        no host tier)."""
+        "reused", "cow_pairs", "promotes"}``.
+
+        When the matched chain ends in demoted entries (host swap tier),
+        each gets a fresh pool page and ``promotes`` lists ``(dst_page,
+        host copy)``: the engine passes them to :meth:`start_promote` and
+        :meth:`apply_promote` before any COW copy or prefill reads them.
+        If the pool cannot hold the promotions even after eviction, the
+        match falls back to the resident prefix."""
         if not self.prefix_enabled:
             if not self.grow(slot, kv_target):
                 return None
@@ -497,16 +651,42 @@ class PagedKVCache:
         n_tok = len(tokens)
         hashes = self._chain_hashes(tokens)
         m = self._match(hashes)
+        # demotion is subtree-wise, so the demoted part of the matched
+        # chain is a contiguous tail after the resident prefix
+        n_res = 0
+        while n_res < m and self._prefix[hashes[n_res]].page >= 0:
+            n_res += 1
+        n_dem = 0
+        while n_res + n_dem < m and \
+                self._prefix[hashes[n_res + n_dem]].page < 0:
+            n_dem += 1
+        m = n_res + n_dem
         need_width = self.pages_needed("full", kv_target)
-        cow = m > 0 and m * self.page_size == n_tok
-        cached_len = n_tok - 1 if cow else m * self.page_size
-        fresh = need_width - m + (1 if cow else 0)
-        if not (fresh <= c.pool.free_pages or self._evict_prefix(
-                c, fresh, protect=frozenset(hashes[:m]))):
+        while True:
+            cow = m > 0 and m * self.page_size == n_tok
+            cached_len = n_tok - 1 if cow else m * self.page_size
+            fresh = need_width - m + (1 if cow else 0)
+            if fresh + n_dem <= c.pool.free_pages or self._evict_prefix(
+                    c, fresh + n_dem, protect=frozenset(hashes[:m])):
+                break
+            if n_dem:
+                # no room to promote the demoted tail: fall back to the
+                # resident prefix (the tail stays on the host tier)
+                m, n_dem = n_res, 0
+                continue
             return None
+        prom = c.pool.alloc(n_dem) if n_dem else []
         got = c.pool.alloc(fresh)
-        if got is None:                      # pragma: no cover - guarded
+        if got is None or prom is None:      # pragma: no cover - guarded
             return None
+        promotes = []
+        for j, h in enumerate(hashes[n_res:m]):
+            e = self._prefix[h]
+            e.page = prom[j]                 # alloc's reference becomes
+            promotes.append((prom[j], e.host))   # the index's own
+            e.host = None
+            self._host_bytes -= c.bytes_per_page
+            self.stats["promotions"] += 1
         shared = []
         for h in hashes[:m]:
             e = self._prefix[h]
@@ -531,7 +711,7 @@ class PagedKVCache:
         return {"cached_len": cached_len,
                 "reused": cached_len if m else 0,
                 "cow_pairs": cow_pairs,
-                "promotes": []}
+                "promotes": promotes}
 
     def apply_cow(self, caches: list,
                   cow_pairs: List[Tuple[str, int, int]]) -> list:
@@ -553,11 +733,49 @@ class PagedKVCache:
             self.classes[key].pool.unref(src)
         return caches
 
-    def start_promote(self, promotes):
-        raise _not_ported("the host swap tier (start_promote)", _QUANT)
+    def start_promote(self, promotes: List[Tuple[int, list]]
+                      ) -> List[Tuple[int, list]]:
+        """Issue the host→device copies of promotions from :meth:`admit`:
+        ``pages[dst] = host copy`` for every full-class leaf, each a
+        non-blocking host→device copy per page into a staging buffer on
+        the current stream, then one indexed write per leaf into the pool
+        pages, so they overlap the rest of the admission on the host and
+        land before any later kernel on the stream reads the pages.
+        Returns ``promotes`` for :meth:`apply_promote`."""
+        t0 = time.perf_counter()
+        leaves = self._full_leaves(self.cache_source())
+        cuda = self.device.type == "cuda"
+        n = len(promotes)
+        staging = torch.empty((n, self.classes["full"].bytes_per_page),
+                              dtype=torch.uint8, device=self.device)
+        for row, (_, host) in zip(staging, promotes):
+            row.copy_(host, non_blocking=cuda)
+        dst = torch.tensor([d for d, _ in promotes], device=self.device)
+        at = 0
+        for a in leaves:                # one indexed write per leaf
+            nb = a[0].numel() * a.element_size()
+            a[dst] = staging[:, at:at + nb].view(a.dtype).view(
+                n, *a.shape[1:])
+            at += nb
+        self.swap_ms["promote"] += (time.perf_counter() - t0) * 1e3
+        return promotes
 
-    def apply_promote(self, caches, promotes):
-        raise _not_ported("the host swap tier (apply_promote)", _QUANT)
+    def apply_promote(self, caches: list,
+                      promotes: List[Tuple[int, list]]) -> list:
+        """Complete promotions issued by :meth:`start_promote`, before any
+        COW copy or prefill of the admission batch: the copies wrote the
+        pool pages directly and the stream orders them first, so what is
+        left is the host copies' lifetime — on a CUDA pool they are kept
+        until an event recorded after the copies has completed (buffers of
+        earlier promotions whose event has are released here).  Returns
+        ``caches`` (updated in place)."""
+        if self.device.type == "cuda":
+            self._inflight = [(ev, bufs) for ev, bufs in self._inflight
+                              if not ev.query()]
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._inflight.append((ev, [host for _, host in promotes]))
+        return caches
 
     # -- invariants ---------------------------------------------------------
 
@@ -574,8 +792,12 @@ class PagedKVCache:
         * block tables: row ``[: live]`` mirrors ``owned`` in order, no
           live row holds the sentinel, every row past the live extent
           *is* the sentinel;
-        * prefix index: entries point at in-range pages and parent chains
-          are closed under the index.
+        * prefix index: entries point at in-range pages, parent chains
+          are closed under the index, resident entries hold no host copy
+          and demoted ones hold one;
+        * host tier: the accounted bytes equal demoted pages × page bytes;
+        * quantized pools: every code pool holds the pool's code dtype and
+          its fp16 scale pool covers the same pages, slots and heads.
         """
         for key, c in self.classes.items():
             pool = c.pool
@@ -599,7 +821,8 @@ class PagedKVCache:
                     expected[p] = expected.get(p, 0) + 1
             if key == "full":
                 for e in self._prefix.values():
-                    expected[e.page] = expected.get(e.page, 0) + 1
+                    if e.page >= 0:
+                        expected[e.page] = expected.get(e.page, 0) + 1
             assert expected == pool._refcount, \
                 f"class '{key}': refcounts {pool._refcount} != expected " \
                 f"{expected} from slot rows + prefix index"
@@ -617,11 +840,40 @@ class PagedKVCache:
                     f"class '{key}' slot {slot}: unbacked row not sentinel"
 
         full = self.classes.get("full")
+        demoted = 0
         for h, e in self._prefix.items():
-            assert 0 <= e.page < full.pool.num_pages, \
+            assert e.page < full.pool.num_pages, \
                 f"prefix entry {h}: page {e.page} out of range"
             assert e.parent is None or e.parent in self._prefix, \
                 f"prefix entry {h}: orphaned (parent evicted from index)"
+            if e.page >= 0:
+                assert e.host is None, \
+                    f"prefix entry {h}: resident but still holds a host copy"
+            else:
+                demoted += 1
+                assert e.host is not None, \
+                    f"prefix entry {h}: demoted without a host copy"
+        host_bytes = 0 if full is None else demoted * full.bytes_per_page
+        assert self._host_bytes == host_bytes, \
+            f"host tier accounts {self._host_bytes} bytes, {demoted} " \
+            f"demoted page(s) imply {host_bytes}"
+
+        qdt = kv_quant_dtype(self.kv_dtype)
+        if qdt is not None:
+            for c in self.caches:
+                a = c["attn"]
+                for data, scale in (("k_pages", "k_scale"),
+                                    ("v_pages", "v_scale"),
+                                    ("ckv_pages", "ckv_scale"),
+                                    ("krope_pages", "krope_scale")):
+                    if data not in a:
+                        continue
+                    assert a[data].dtype == qdt, \
+                        f"'{data}' holds {a[data].dtype}, not {qdt}"
+                    assert scale in a and a[scale].dtype == torch.float16 \
+                        and a[scale].shape == a[data].shape[:-1], \
+                        f"'{scale}' does not cover '{data}' " \
+                        f"{tuple(a[data].shape[:-1])}"
 
     # -- accounting ---------------------------------------------------------
 
@@ -658,6 +910,7 @@ class PagedKVCache:
         full = self.classes.get("full")
         prefix_only = 0 if full is None else \
             self._evictable_pages("full", full)
+        demoted = sum(1 for e in self._prefix.values() if e.page < 0)
         return {
             "page_size": self.page_size,
             "kv_dtype": self.kv_dtype,
@@ -684,14 +937,15 @@ class PagedKVCache:
                 "evictions": self.stats["prefix_evictions"],
             },
             "host_tier": {
-                "enabled": False,
-                "capacity_bytes": 0,
-                "demoted_pages": 0,
-                "demoted_bytes": 0,
-                "demotions": 0,
-                "promotions": 0,
-                "host_drops": 0,
-                "reregistered": 0,
-                "promote_hit_rate": 0.0,
+                "enabled": self.swap_enabled,
+                "capacity_bytes": self.host_swap_bytes,
+                "demoted_pages": demoted,
+                "demoted_bytes": self._host_bytes,
+                "demotions": self.stats["demotions"],
+                "promotions": self.stats["promotions"],
+                "host_drops": self.stats["host_drops"],
+                "reregistered": self.stats["reregistered"],
+                "promote_hit_rate": self.stats["promotions"]
+                    / max(1, self.stats["demotions"]),
             },
         }

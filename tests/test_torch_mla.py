@@ -183,12 +183,14 @@ def test_mla_autotune_matches_reference(w, ps, g, rank, rope):
 
 
 def test_mla_decode_scales_and_cpu_tensors_raise():
+    """A latent pool given one scale pool of two raises (quantized pools
+    take both, tests/test_torch_quant_swap.py); the CUDA path refuses CPU
+    tensors."""
     q, ckv, kr, bt, kv_len = (torch.from_numpy(a) for a in _latent_inputs(
         3, 2, 4, 1, 32, 16, 8, 4, 10, [5, 9]))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="both"):
         ops.fusemax_mla_decode_paged(q, ckv, kr, bt, kv_len, impl="torch",
-                                     ckv_scale=torch.ones(10, 8),
-                                     krope_scale=torch.ones(10, 8))
+                                     ckv_scale=torch.ones(10, 8))
     with pytest.raises(ValueError, match="CUDA"):
         ops.fusemax_mla_decode_paged(q, ckv, kr, bt, kv_len, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):

@@ -690,10 +690,7 @@ def test_warmup_leaves_an_empty_index_and_the_same_streams(models):
     (lambda kv: kv.reserve_draft(0, 1, 2), "speculation"),
     (lambda kv: kv.commit_draft(0, 1), "speculation"),
     (lambda kv: kv.drop_draft(0), "speculation"),
-    (lambda kv: kv.start_promote([]), "quantized pages"),
-    (lambda kv: kv.apply_promote(kv.caches, []), "quantized pages"),
-], ids=["reserve_draft", "commit_draft", "drop_draft", "start_promote",
-        "apply_promote"])
+], ids=["reserve_draft", "commit_draft", "drop_draft"])
 def test_unported_pool_methods_name_their_roadmap_item(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call(_kv(slots=1, max_len=32, page_size=16))
@@ -706,9 +703,6 @@ def test_pool_defaults_to_cuda_and_never_drifts_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kv_dtype="int8"), "quantized pages"),
-    (dict(pool_bytes=1 << 20), "quantized pages"),
-    (dict(host_swap_bytes=1 << 20), "quantized pages"),
     (dict(shard=object()), "sharded pool"),
 ])
 def test_unported_pool_options_name_their_roadmap_item(kw, item):

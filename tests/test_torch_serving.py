@@ -149,7 +149,6 @@ def test_engine_defaults_to_cuda_and_never_drifts_to_cpu(models,
 
 @pytest.mark.parametrize("kw,item", [
     (dict(speculate=4), "speculation"),
-    (dict(kv_dtype="int8"), "quantized pages"),
     (dict(mesh=object()), "sharded pool"),
 ])
 def test_unported_engine_options_raise(models, kw, item):
@@ -196,7 +195,6 @@ def test_launcher_trace_lengths_match_reference(argv):
 
 @pytest.mark.parametrize("flag,item", [
     (["--speculate", "4"], "speculation"),
-    (["--kv-dtype", "int8"], "quantized pages"),
     (["--mesh", "tp=2"], "sharded pool"),
     (["--async"], "async"),
 ])

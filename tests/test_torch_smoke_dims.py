@@ -11,6 +11,11 @@ the launcher's default device fails on the first prefill.  The tile
 choosers must resolve at those dims without raising.  Nothing here needs
 the card: the kernels themselves are held to their plain versions at
 these dims by ``chip_smoke.py``.
+
+Quantized pages (``kv_dtype`` fp8_e4m3 / int8) take K3's and K4's code
+instantiations, built for fp32 queries at every one of those head dims
+and latents: each admitted config's quantized pool must reach a built
+(dim, code) pair whose shared memory fits, and an unbuilt pair raises.
 """
 import pytest
 import torch
@@ -19,7 +24,9 @@ from repro_torch.configs import ARCHS
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import decode as dec
 from repro_torch.launch import serve
+from repro_torch.model import attention as attn
 from repro_torch.model import transformer as tf
+from repro_torch.serving.kv_cache import PagedKVCache
 
 NAMES = sorted(ARCHS) + sorted(n + "-smoke" for n in ARCHS)
 
@@ -136,6 +143,74 @@ def test_an_unbuilt_dim_raises_and_never_falls_back():
     q = torch.zeros(1, 2, 4, 96)
     with pytest.raises(ValueError, match="CUDA"):
         ops.fusemax_attention(q, q, q, impl="cuda")
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8_e4m3", "int8"])
+@pytest.mark.parametrize("name", NAMES)
+def test_every_admitted_config_has_its_quantized_kernels_built(name,
+                                                               kv_dtype):
+    """Every config the launcher admits, under each ``kv_dtype``: its
+    decode head dims / latents have K3's / K4's code instantiation (fp32
+    queries, the serving dtype), their shared memory fits one block with
+    1-byte codes and scale slots at every row count, and a one-page
+    quantized pool of the config builds with honest page bytes."""
+    cfg = _admitted(name)
+    if cfg is None:
+        return
+    _, heads, latents = _kernel_dims(cfg)
+    code = attn.kv_quant_dtype(kv_dtype)
+    assert code in dec.QUANT_CODES
+    assert heads <= set(dec.CUDA_HEAD_DIMS), (name, heads)
+    assert latents <= set(dec.CUDA_MLA_DIMS), (name, latents)
+    for d in heads:
+        for rows in (1, 4, 5, 64):
+            dec._check_smem("t", rows, d, 1, 2048, scaled=True)
+    for r, rd in latents:
+        assert autotune.mla_decode_smem_bytes(r, rd, 1, scaled=True) \
+            <= autotune.SMEM_BUDGET
+    kv = PagedKVCache(cfg, 1, 16, torch.float32, page_size=16,
+                      kv_dtype=kv_dtype, device="cpu")
+    kv.check_invariants()
+    for key, c in kv.classes.items():
+        layers = [s for s in cfg.layer_specs()
+                  if attn.paged_cache_key(s) == key]
+        per_token = sum(cfg.mla.kv_lora_rank + cfg.mla.rope_dim + 4
+                        if s.attn == "mla"
+                        else 2 * cfg.n_kv_heads * (cfg.dh + 2)
+                        for s in layers)
+        assert c.bytes_per_page == 16 * per_token, (name, key)
+
+
+def test_an_unbuilt_code_pair_raises_and_never_falls_back():
+    """Code pools at an unbuilt head dim, with bf16 queries, or without
+    their scales are refused before any launch; the decode shared-memory
+    mirror counts 1-byte codes and the scale slots."""
+    with pytest.raises(ValueError, match="built for"):
+        dec._check_head_dims("t", torch.zeros(2, 4, 96),
+                             torch.zeros(4, 16, 2, 96,
+                                         dtype=torch.float8_e4m3fn))
+    with pytest.raises(ValueError, match="fp32 queries"):
+        dec._check_code_pools("t", torch.zeros(2, 4, 128,
+                                               dtype=torch.bfloat16),
+                              torch.zeros(4, 16, 2, 128, dtype=torch.int8))
+    codes = torch.zeros(4, 16, 2, 128, dtype=torch.int8)
+    with pytest.raises(ValueError, match="scale pools"):
+        dec._check_scales("t", codes, (None, None), codes.shape[:3])
+    with pytest.raises(ValueError, match="scale pools"):
+        dec._check_scales("t", torch.zeros(4, 16, 2, 128),
+                          (torch.ones(4, 16, 2, dtype=torch.float16), None),
+                          codes.shape[:3])
+    ones = torch.ones(4, 16, 2, dtype=torch.float16)
+    assert dec._check_scales("t", codes, (ones, ones), codes.shape[:3]) == 1
+    # granite: the merge of 4 rows outweighs a ring of 1-byte codes; the
+    # scale slots add 2 stages x (K, V) x 16 keys of fp32
+    assert autotune.decode_smem_bytes(4, 128, 1, pages=8) == 8_320 + 32
+    assert autotune.decode_smem_bytes(4, 128, 1, pages=8, scaled=True) \
+        == 8_320 + 256 + 32
+    # K4: two code chunks, their scales and one dequantized fp32 chunk
+    assert autotune.mla_decode_smem_bytes(512, 64, 1, scaled=True) \
+        == 32 * 576 + 256 + 16 * 576 * 4
+    assert autotune.mla_decode_smem_bytes(512, 64) == 32 * 576 * 4
 
 
 def test_launcher_default_is_gemma2_smoke_and_serves():
