@@ -6,7 +6,7 @@
 
 Builds ``--arch`` at full width (all its layers unless ``--layers`` cuts
 the depth — ``--arch deepseek-v3-671b --layers 3`` is its dense prefix,
-MLA + dense FFN, served on the paged layout only; fp32, random weights
+MLA + dense FFN, on either layout; fp32, random weights
 from ``--seed``) on the CUDA device, admits 8
 prompts of mixed length in [128, 1024] into a
 ``repro_torch.serving.ServeEngine`` on the ``--cache-layout`` (slots 8,
@@ -19,7 +19,8 @@ on the device's clock, no profiler attached) and once under
 ``torch.profiler`` for the per-kernel device time.  It prints one JSON
 object per phase — wall ms, device-busy ms (sum of kernel durations: the
 kernels of one stream do not overlap), the idle share, and the device
-time grouped by layer (K1 prefill attention, K2/K3/K4 decode partials,
+time grouped by layer (K1 prefill attention, K2/K3/K4 decode partials
+and K2's dense latent branch,
 matrix products, indexing and cache writes, reductions, elementwise and
 other)
 with the top kernels, and the number of kernels per decode step — and
@@ -52,6 +53,8 @@ def _group(name: str) -> str:
         return "K1 prefill attention"
     if "mla_paged_decode_partials" in n:
         return "K4 MLA paged decode partials"
+    if "latent_decode_partials" in n:
+        return "K2 MLA dense latent decode partials"
     if "pagedkv" in n:                 # the K3 instantiations of the body
         return "K3 paged decode partials"
     if "decode_partials" in n:
@@ -132,9 +135,6 @@ def main(argv=None) -> list:
         raise SystemExit("torch_serve_profile: needs a CUDA device")
 
     cfg = get_config(args.arch)
-    if cfg.mla is not None and args.cache_layout != "paged":
-        raise SystemExit("torch_serve_profile: MLA serves on the paged "
-                         "layout only (ROADMAP §1 item 5a)")
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)

@@ -9,7 +9,8 @@ JSON line (``"phase": ...``):
 
 1. device  — ``nvidia-smi`` name and power limit (also printed raw on a
              line of its own), torch and CUDA versions;
-2. build   — seconds to build the four kernels from ``kernels/csrc``
+2. build   — seconds to build the five kernel libraries from
+             ``kernels/csrc``
              (nvcc, in parallel) and the ptxas register / shared-memory
              report;
 3. kernels — every case of the prefill (K1, at the GQA head dims and at
@@ -18,8 +19,12 @@ JSON line (``"phase": ...``):
              with causal masks, history offsets, windows, softcap 50 and a
              ragged m_valid, and cases that stress its 3xTF32 split:
              scores in the hundreds, low mantissa bits that matter, P = M
-             = 1024), dense split-K decode (K2), paged split-K decode (K3)
-             and paged MLA latent decode (K4) kernels against its plain
+             = 1024), dense split-K decode (K2), paged split-K decode (K3),
+             paged MLA latent decode (K4) and K2's E != F branch, MLA decode
+             on the dense latent cache (``latent_decode_partials``: 128
+             rows at (r, rd) = (512, 64), 4 at (32, 16), kv_len 0, 1, on
+             both sides of a chunk edge and M, one-chunk splits, softcap
+             50, P = 3 verify, bf16) kernels against its plain
              torch version on the same inputs, with its tolerance (K2 and
              K3 also at 64 query rows, 8-token pages, splits of exactly
              one chunk, kv_len on both sides of chunk edges, bf16 d64 at P
@@ -35,7 +40,9 @@ JSON line (``"phase": ...``):
              for, which they must refuse); K3 against K2 on a permuted pool holding a
              dense cache's rows (``k3_vs_k2``, at head dims 128 and 256)
              and K4 on a permuted latent pool against K4 on the same rows
-             in identity page order (``k4_perm_vs_identity``), both equal
+             in identity page order (``k4_perm_vs_identity``), and the
+             dense latent kernel against K4 on a permuted pool holding its
+             rows (``k2latent_vs_k4``), all equal
              bits on every row with kv_len >= 1; then each kernel's time at
              the shapes the granite-3-8b, DeepSeek-V3 and gemma2-9b main
              paths give it and at a smoke serving shape (``ms``: CUDA
@@ -92,15 +99,18 @@ JSON line (``"phase": ...``):
 9. launcher_defaults — ``python -m repro_torch.launch.serve`` as
              subprocesses from the repo root: with no flags (gemma2-9b-
              smoke on the card), ``--cache-layout both``, granite-3-8b-
-             smoke paged and gemma-7b-smoke: exit code 0, kernels
-             launched, ``outputs_match`` where it compares layouts;
+             smoke paged, gemma-7b-smoke and deepseek-v3-671b-smoke on
+             the default dense layout: exit code 0, kernels launched,
+             ``outputs_match`` where it compares layouts;
 10. model_mla — DeepSeek-V3's first three layers (MLA + dense FFN) at full
-             width, fp32, on the paged layout: two prefill chunks (the
-             second at an offset, the absorbed form) and 8 decode steps
-             with ``attn_impl="cuda"`` and ``"torch"``;
-11. serve_mla — the launcher (``--cache-layout paged``) serving that tower:
-             K4 launched 3 x decode steps and K1 3 x prefill dispatches in
-             the timed run;
+             width, fp32, on the dense and the paged layout: two prefill
+             chunks (the second at an offset, the absorbed form) and 8
+             decode steps with ``attn_impl="cuda"`` and ``"torch"``; dense
+             streams equal to paged;
+11. serve_mla — the launcher (``--cache-layout both``) serving that tower:
+             ``outputs_match``, and in each leg's timed run K1 3 x prefill
+             dispatches and the leg's decode kernel (dense: K2's latent
+             branch; paged: K4) 3 x decode steps;
 12. serve_mla_prefix — that tower with a 256-token shared prefix against
              its prefix-cache-off leg: equal streams, 3840 tokens reused;
 13. serve_mla_impls — a short trace on that tower with ``attn_impl``
@@ -109,8 +119,8 @@ JSON line (``"phase": ...``):
              ``paged_quant`` leg (K4's quantized branch 3 x decode steps,
              ``quant_quality``), then cuda vs torch streams on fp8 latents;
 14. model_mla_smoke — the model_mla check on the MLA smoke config (MoE
-             cut, as the launcher serves it): K1 at (48, 32), K4 at (32,
-             16);
+             cut, as the launcher serves it): K1 at (48, 32), K4 and K2's
+             latent branch at (32, 16);
 15. the ``kernels`` line (launches on the main paths, errors, times,
    bounds) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -454,6 +464,14 @@ def misaligned_cases(torch, gen, dec) -> list:
              q, kp, _misaligned(torch, kp), table, kv_len, block_k=ps,
              **common)),
     ]
+    # the dense latent kernel (K2's E != F branch), krope off by one float
+    ql = _rand(torch, gen, (b, 128, MLA_R + MLA_RD), torch.float32)
+    ckv = _rand(torch, gen, (b, m, MLA_R), torch.float32)
+    kr = _rand(torch, gen, (b, m, MLA_RD), torch.float32)
+    calls.append(("latent_decode_partials", "krope",
+                  lambda: dec.latent_decode_partials_cuda(
+                      ql, ckv, _misaligned(torch, kr), kv_len, scale=0.05,
+                      splits=1, block_k=64)))
     rows = []
     for kernel, what, call in calls:
         try:
@@ -472,7 +490,8 @@ def misaligned_cases(torch, gen, dec) -> list:
 def unbuilt_dims_cases(torch, gen, fm, dec) -> list:
     """Each kernel given CUDA tensors at head dims it is not built for must
     raise, never fall back to its plain version: K1 at (E, F) = (96, 96),
-    K2 and K3 at D = 96, K4 at (r, rd) = (64, 16)."""
+    K2 and K3 at D = 96, K4 at (r, rd) = (64, 16), K2's dense latent
+    branch at (r, rd) = (48, 16)."""
     f32 = torch.float32
     q = _rand(torch, gen, (2, 64, 96), f32)
     kp = _rand(torch, gen, (4, 16, 2, 96), f32)
@@ -495,6 +514,10 @@ def unbuilt_dims_cases(torch, gen, fm, dec) -> list:
         ("mla_paged_decode_partials", "(r, rd) = (64, 16)",
          lambda: dec.mla_paged_decode_partials_cuda(
              ql, ckv, kr, table, kv_len, block_k=16, **dk)),
+        ("latent_decode_partials", "(r, rd) = (48, 16)",
+         lambda: dec.latent_decode_partials_cuda(
+             ql[..., :64].contiguous(), ckv[:1, :, :48].contiguous(),
+             kr[:1], kv_len, block_k=16, **dk)),
     ]
     rows = []
     for kernel, what, call in calls:
@@ -974,6 +997,180 @@ def time_k4(torch, gen, dec, ops, autotune,
     row["device_share_of_bound"] = row["bound_ms"] / dev_ms
     row["partials_bytes"] = 4 * b * tuned.splits * h * (r + 2)
     row["latent_bytes"] = 4 * live * (r + rd)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# K2's E != F branch: MLA decode on the dense latent cache
+# ---------------------------------------------------------------------------
+
+def latent_cases(torch):
+    """(name, b, heads, P, M, dtype, kv_len, splits, block_k, kwargs[,
+    (r, rd)]) for the dense latent kernel at DeepSeek's latent (r 512, rd
+    64: 128 heads, 128 query rows a step, P = 3 verify 384) and its smoke
+    config's (r 32, rd 16: 4 heads, 4 and 12 rows): kv_len 0, 1, on both
+    sides of a 16-key chunk edge and M; splits of exactly one chunk;
+    softcap 50; bf16 queries and latents."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    edges = [0, 1, 15, 16, 17]
+    return [
+        ("fp32 G128 kv_len 0,1,15,16,17,M M256 splits=4", 6, 128, 1, 256,
+         f32, edges + [256], 4, 64, {}),
+        ("fp32 G128 one-chunk splits (split_len 16) splits=8", 3, 128, 1,
+         128, f32, [128, 40, 9], 8, 16, {}),
+        ("fp32 G128 softcap=50 exp=maccs M2048 tuned splits=16", 2, 128, 1,
+         2048, f32, [2048, 3], 16, 128, dict(softcap=50.0,
+                                              exp_impl="maccs")),
+        ("fp32 G128 P=3 verify (384 rows) splits=4", 3, 128, 3, 256, f32,
+         [0, 5, 250], 4, 64, {}),
+        ("bf16 G128 kv_len 1,M,unaligned,0 splits=8", 4, 128, 1, 512, bf16,
+         [1, 512, 300, 0], 8, 64, {}),
+        ("bf16 G128 P=3 verify splits=2", 2, 128, 3, 128, bf16, [17, 100],
+         2, 64, {}),
+        ("fp32 G100 (not a multiple of the 32-row head block) splits=2", 3,
+         100, 1, 128, f32, [7, 128, 100], 2, 64, {}),
+        ("fp32 r32 rd16 G4 (R=4) kv_len 0,1,15,16,17,M splits=4", 6, 4, 1,
+         64, f32, edges + [64], 4, 16, {}, (32, 16)),
+        ("fp32 r32 rd16 G4 one-chunk splits softcap=50 splits=8", 2, 4, 1,
+         128, f32, [128, 33], 8, 16, dict(softcap=50.0), (32, 16)),
+        ("fp32 r32 rd16 G4 P=3 verify (12 rows) splits=4", 3, 4, 3, 64, f32,
+         [0, 16, 60], 4, 16, {}, (32, 16)),
+        ("bf16 r32 rd16 G4 softcap=50 splits=2", 3, 4, 1, 256, bf16,
+         [256, 17, 1], 2, 64, dict(softcap=50.0), (32, 16)),
+    ]
+
+
+def run_latent_cases(torch, gen, dec) -> list:
+    rows = []
+    for (name, b, h, p, m, dtype, kvl, splits, bk, kw,
+         *dims) in latent_cases(torch):
+        r, rd = dims[0] if dims else (MLA_R, MLA_RD)
+        q = _rand(torch, gen, (b, p * h, r + rd), dtype)
+        ckv = _rand(torch, gen, (b, m, r), dtype)
+        kr = _rand(torch, gen, (b, m, rd), dtype)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        args = dict(scale=(r + rd) ** -0.5, splits=splits, block_k=bk,
+                    n_pos=p, rows_per_pos=h, **kw)
+        out = dec.combine_partials(*dec.latent_decode_partials_cuda(
+            q, ckv, kr, kv_len, **args), dtype)
+        ref = dec.combine_partials(*dec.latent_decode_partials_torch(
+            q, ckv, kr, kv_len, **args), dtype)
+        torch.cuda.synchronize()
+        dn = str(dtype).split(".")[1]
+        err, ok, atol, rtol = _err(torch, out, ref, dn)
+        if 0 in kvl and p == 1:
+            # kv_len = 0 decodes to exactly 0 (no tile runs), as on the TPU
+            zero = torch.tensor(kvl, device="cuda") == 0
+            ok = ok and bool((out[zero] == 0).all().item())
+        rows.append(dict(kernel="latent_decode_partials", case=name,
+                         dtype=dn, rows=p * h, max_abs_err=err, atol=atol,
+                         rtol=rtol, ok=ok))
+    return rows
+
+
+def _dense_latents(x):
+    """The dense latent cache [B, M, r] / [B, M, rd] that
+    :func:`deepseek_decode_data`'s identity-order pool holds (slot b owns
+    pages b * W .. b * W + W - 1)."""
+    ckv, kr = x["pools"]["identity"]
+    m = x["w"] * x["ps"]
+    return ckv.reshape(x["b"], m, x["r"]), kr.reshape(x["b"], m, x["rd"])
+
+
+def k2latent_vs_k4(torch, gen, dec, autotune) -> dict:
+    """The dense latent kernel on a DeepSeek decode step's rows against K4
+    on a permuted pool holding the same rows, at the same splits (each
+    with its own tuned block_k): equal bits on every kv_len >= 1 row —
+    the two policies share one body."""
+    kvl = [2048, 1500, 1024, 700, 300, 64, 1, 0]
+    x = deepseek_decode_data(torch, gen, kvl)
+    ckv, kr = _dense_latents(x)
+    m = ckv.shape[1]
+    paged = autotune.mla_paged_decode_params(x["w"], x["ps"], x["h"], MLA_R,
+                                             MLA_RD)
+    dense = autotune.decode_params(m, x["h"], MLA_R + MLA_RD, MLA_R)
+    check(dense.splits == paged.splits,
+          f"dense {dense} and paged {paged} splits differ")
+    scale = (MLA_R + MLA_RD) ** -0.5
+    out4 = dec.combine_partials(*dec.mla_paged_decode_partials_cuda(
+        x["q"], *x["pools"]["permuted"], x["tables"]["permuted"],
+        x["kv_len"], scale=scale, splits=paged.splits,
+        block_k=paged.block_k), torch.float32)
+    out2 = dec.combine_partials(*dec.latent_decode_partials_cuda(
+        x["q"], ckv, kr, x["kv_len"], scale=scale, splits=dense.splits,
+        block_k=dense.block_k), torch.float32)
+    torch.cuda.synchronize()
+    live = x["kv_len"] >= 1
+    diff = (out2 - out4).abs()
+    row = dict(kernel="latent_decode_partials", case="k2latent_vs_k4",
+               kv_len=kvl, splits=dense.splits, block_k_dense=dense.block_k,
+               block_k_k4=paged.block_k,
+               max_abs_diff_live=diff[live].max().item(),
+               max_abs_diff_all=diff.max().item())
+    row["ok"] = row["max_abs_diff_live"] == 0.0
+    return row
+
+
+def time_latent(torch, gen, dec, autotune,
+                kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900),
+                **dims) -> dict:
+    """The dense latent kernel at a decode step: :func:`time_k4`'s data
+    read as a dense cache (by default DeepSeek-V3's: M 2048, 128 heads),
+    the tuned geometry; as the library yardstick SDPA on the dense view
+    (the concatenation [ckv | krope] built in the call, no gather)."""
+    import torch.nn.functional as F
+
+    kvl = list(kvl)
+    x = deepseek_decode_data(torch, gen, kvl, b=len(kvl), **dims)
+    b, h, r, rd = x["b"], x["h"], x["r"], x["rd"]
+    ckv, kr = _dense_latents(x)
+    m = ckv.shape[1]
+    q, kv_len = x["q"], x["kv_len"]
+    tuned = autotune.decode_params(m, max(h, 8), r + rd, r)
+    scale = (r + rd) ** -0.5
+    args = dict(scale=scale, splits=tuned.splits, block_k=tuned.block_k)
+    out = dec.combine_partials(*dec.latent_decode_partials_cuda(
+        q, ckv, kr, kv_len, **args), torch.float32)
+    ref = dec.combine_partials(*dec.latent_decode_partials_torch(
+        q, ckv, kr, kv_len, **args), torch.float32)
+    err, ok, _, _ = _err(torch, out, ref, "float32")
+    ms = time_ms(torch, lambda: dec.latent_decode_partials_cuda(
+        q, ckv, kr, kv_len, **args))
+    dev_ms = device_ms(torch, lambda: dec.latent_decode_partials_cuda(
+        q, ckv, kr, kv_len, **args), "latent_decode_partials_kernel")
+    plain_ms = time_ms(torch, lambda: dec.latent_decode_partials_torch(
+        q, ckv, kr, kv_len, **args), iters=5, warmup=1)
+    mask = (torch.arange(m, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    q4 = q[:, :, None]                                  # [B, H, 1, r + rd]
+
+    def library():
+        kg = torch.cat([ckv, kr], dim=-1)
+        try:
+            return F.scaled_dot_product_attention(
+                q4, kg[:, None], ckv[:, None], attn_mask=mask, scale=scale,
+                enable_gqa=True)
+        except TypeError:
+            return F.scaled_dot_product_attention(
+                q4, kg[:, None].expand(b, h, m, r + rd),
+                ckv[:, None].expand(b, h, m, r), attn_mask=mask,
+                scale=scale)
+
+    library_ms = time_ms(torch, library)
+    live = sum(kvl)
+    # each valid latent row (ckv and krope) is read once, the queries and
+    # kv_len once, the fp32 partials written once
+    nbytes = (4 * live * (r + rd) + 4 * q.numel() + 4 * b
+              + 4 * b * tuned.splits * h * (r + 2))
+    # per valid key and head: r + rd multiply-adds for the score, r for
+    # the value
+    flops = 2 * h * live * (2 * r + rd)
+    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
+                      shape=f"B{b} H{h} r{r} rd{rd} dense M{m} fp32 kv_len "
+                            f"{kvl} splits {tuned.splits} block_k "
+                            f"{tuned.block_k}")
+    row["device_ms"] = dev_ms
+    row["device_share_of_bound"] = row["bound_ms"] / dev_ms
     return row
 
 
@@ -1461,8 +1658,8 @@ def time_smoke(torch, gen, fm, dec, ops, autotune) -> dict:
     """Each smoke instantiation at a smoke serving shape (4 slots, a
     256-token cache): K1 at (32, 32) on gemma2-9b-smoke's local layer
     (window 64, softcap 50) and at (48, 32) on the MLA smoke config's
-    ``mla_forward`` (one head a fiber), K2 and K3 at D = 32, K4 at (32,
-    16) with 4 heads."""
+    ``mla_forward`` (one head a fiber), K2 and K3 at D = 32, K4 and K2's
+    dense latent branch at (32, 16) with 4 heads."""
     kvl = [256, 200, 64, 1]
     out = {
         "fusemax_prefill@smoke_32x32": _time_k1_shape(
@@ -1481,6 +1678,8 @@ def time_smoke(torch, gen, fm, dec, ops, autotune) -> dict:
             x=paged_data(torch, gen, 4, 4, 2, 256, 32), kvl=kvl),
         "mla_paged_decode_partials@smoke_32x16": time_k4(
             torch, gen, dec, ops, autotune, kvl=kvl, h=4, w=16, r=32, rd=16),
+        "decode_partials@latent_smoke_32x16": time_latent(
+            torch, gen, dec, autotune, kvl=kvl, h=4, w=16, r=32, rd=16),
     }
     torch.cuda.empty_cache()
     return out
@@ -1701,12 +1900,13 @@ DECODE_KERNEL = {"dense": "decode_partials", "paged": "paged_decode_partials",
                  "paged_noprefix": "paged_decode_partials",
                  "paged_swap": "paged_decode_partials",
                  "paged_quant": "paged_decode_partials"}
-#: ... and on an MLA model (paged layout only)
-MLA_DECODE_KERNEL = {"paged": "mla_paged_decode_partials",
+#: ... and on an MLA model (dense: K2's E != F branch; paged: K4)
+MLA_DECODE_KERNEL = {"dense": "latent_decode_partials",
+                     "paged": "mla_paged_decode_partials",
                      "paged_noprefix": "mla_paged_decode_partials",
                      "paged_quant": "mla_paged_decode_partials"}
 DECODE_KERNELS = ("decode_partials", "paged_decode_partials",
-                  "mla_paged_decode_partials")
+                  "mla_paged_decode_partials", "latent_decode_partials")
 
 
 def _counts(fm, dec) -> dict:
@@ -1715,6 +1915,7 @@ def _counts(fm, dec) -> dict:
             "paged_decode_partials": dec.paged_decode_partials_cuda.launches,
             "mla_paged_decode_partials":
                 dec.mla_paged_decode_partials_cuda.launches,
+            "latent_decode_partials": dec.latent_decode_partials_cuda.launches,
             "fusemax_prefill_windowed":
                 fm.fusemax_attention_cuda.launches_windowed,
             "fusemax_prefill_by_dims": {
@@ -1734,6 +1935,7 @@ def _zero_counts(fm, dec) -> None:
     dec.decode_partials_cuda.launches = 0
     dec.paged_decode_partials_cuda.launches = 0
     dec.mla_paged_decode_partials_cuda.launches = 0
+    dec.latent_decode_partials_cuda.launches = 0
     dec.paged_decode_partials_cuda.launches_by_code.clear()
     dec.mla_paged_decode_partials_cuda.launches_by_code.clear()
 
@@ -1743,8 +1945,8 @@ def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
     """Per layout: every stream complete and in the vocabulary, logits
     finite, and each kernel launched once per layer per dispatch (K1) or
     decode step (``decode_kernel[layout]``: K2 on the dense layout, K3 on
-    the paged one, K4 on an MLA model's paged one), the other decode
-    kernels never."""
+    the paged one; on an MLA model K2's dense latent branch and K4), the
+    other decode kernels never."""
     legs = {}
     for lo, m in metrics["layouts"].items():
         disp, timed = m["dispatches"], m["kernel_launches"]
@@ -2276,19 +2478,24 @@ def phase_serve_gemma2(torch, fm, dec, serve) -> dict:
 
 #: the launcher as a user runs it, from the repo root: no flags (now
 #: gemma2-9b-smoke on the card, dense: K1 at (32, 32), K2 at D = 32), both
-#: layouts, and two other smoke configs
+#: layouts, two other smoke configs, and the MLA smoke config on the
+#: default (dense) layout: K1 at (48, 32), K2's latent branch at (32, 16)
 LAUNCHER_RUNS = [
     [],
     ["--cache-layout", "both"],
     ["--arch", "granite-3-8b-smoke", "--cache-layout", "paged"],
     ["--arch", "gemma-7b-smoke"],
+    ["--arch", "deepseek-v3-671b-smoke"],
 ]
 
 
 def phase_launcher_defaults(torch) -> dict:
     """Each :data:`LAUNCHER_RUNS` command as a subprocess from the repo
     root: exit code 0, every layout's streams complete and, where the
-    launcher compares layouts, ``outputs_match``; its kernels launched."""
+    launcher compares layouts, ``outputs_match``; its kernels launched
+    (an MLA arch's decode kernels: :data:`MLA_DECODE_KERNEL`)."""
+    from repro_torch.configs import get_config
+
     runs = []
     out_json = os.path.join(ROOT, "BENCH_torch_serving.json")
     for argv in LAUNCHER_RUNS:
@@ -2306,7 +2513,9 @@ def phase_launcher_defaults(torch) -> dict:
         if proc.returncode == 0 and os.path.exists(out_json):
             with open(out_json) as fh:
                 m = json.load(fh)
-            run.update(arch=m["arch"], layouts=list(m["layouts"]),
+            run.update(arch=m["arch"],
+                       mla=get_config(m["arch"]).mla is not None,
+                       layouts=list(m["layouts"]),
                        tok_per_s=m["tok_per_s"],
                        kernel_launches={lo: v["kernel_launches"]
                                         for lo, v in m["layouts"].items()},
@@ -2326,12 +2535,15 @@ def phase_launcher_defaults(torch) -> dict:
               f"launcher {run['argv']}: streams differ across layouts")
         check(run["device"]["platform"] == "gpu",
               f"launcher {run['argv']} ran on {run['device']}")
+        kmap = MLA_DECODE_KERNEL if run["mla"] else DECODE_KERNEL
         for lo, n in run["kernel_launches"].items():
-            check(n["fusemax_prefill"] > 0 and
-                  n[DECODE_KERNEL[lo]] > 0,
+            check(n["fusemax_prefill"] > 0 and n[kmap[lo]] > 0,
                   f"launcher {run['argv']} {lo}: kernels not launched: {n}")
     check(runs[0]["arch"] == "gemma2-9b-smoke",
           f"the launcher's default arch is {runs[0]['arch']}")
+    check(runs[-1]["mla"] and runs[-1]["layouts"] == ["dense"],
+          f"the MLA smoke run served {runs[-1]['layouts']}, not the "
+          f"default dense layout")
     return {"runs": runs}
 
 
@@ -2358,10 +2570,13 @@ def mla_smoke_tower():
 
 
 def phase_model_mla(torch, fm, dec, cfg=None, phase="model_mla") -> dict:
-    """The tower on the paged layout with ``attn_impl`` "cuda" and "torch"
-    on the same weights: two prefill chunks (the second at offset 256, the
-    absorbed form through K1 at (r + rd, r)) and 8 greedy decode steps
-    (K4).  Returns the cuda run's launches."""
+    """The tower on the dense and on the paged layout, each with
+    ``attn_impl`` "cuda" and "torch" on the same weights: two prefill
+    chunks (the second at offset 256, the absorbed form through K1 at
+    (r + rd, r)) and 8 greedy decode steps (dense: K2's E != F branch;
+    paged: K4).  Logits within 1e-4 of their scale cuda vs torch, equal
+    streams, and the dense streams equal to the paged ones.  Returns the
+    cuda runs' launches by layout."""
     from repro_torch.model import transformer as tf
     from repro_torch.model.layers import Runtime
 
@@ -2382,67 +2597,96 @@ def phase_model_mla(torch, fm, dec, cfg=None, phase="model_mla") -> dict:
     perm = torch.randperm(b * w, generator=gen, device="cuda")
     tables = {"full": perm.to(torch.int32).reshape(b, w).contiguous()}
     slot_ids = torch.arange(b, device="cuda")
-    streams, logits_all = {}, {}
-    _zero_counts(fm, dec)
-    for name, rt in (("cuda", rt_c), ("torch", rt_t)):
-        caches = tf.init_paged_cache(cfg, b, {"full": b * w}, ps,
-                                     torch.float32, "cuda")
-        lg = torch.zeros((b, cfg.vocab), device="cuda")
-        for off in (0, chunk):
-            part, caches = tf.prefill(
-                cfg, model, {"inputs": toks[:, off:off + chunk]}, caches, rt,
-                kv_offset=off, true_len=true_len, block_tables=tables,
-                slot_ids=slot_ids)
-            sel = (true_len - 1 >= off) & (true_len - 1 < off + chunk)
-            lg = torch.where(sel[:, None], part, lg)
-        kv = true_len.clone()
-        out, lgs = [], [lg]
-        for _ in range(8):
-            nxt = torch.argmax(lg, dim=-1).to(torch.int32)
-            out.append(nxt)
-            kv = kv + 1
-            lg, caches = tf.decode_step(cfg, model, nxt[:, None], caches, kv,
-                                        rt, block_tables=tables)
-            lgs.append(lg)
-        streams[name] = torch.stack(out).cpu()
-        logits_all[name] = torch.stack(lgs)
-        del caches
-        if name == "cuda":
-            launches = _counts(fm, dec)
+    streams, logits_all, launches = {}, {}, {}
+    for layout in ("dense", "paged"):
+        for name, rt in (("cuda", rt_c), ("torch", rt_t)):
+            _zero_counts(fm, dec)
+            if layout == "paged":
+                caches = tf.init_paged_cache(cfg, b, {"full": b * w}, ps,
+                                             torch.float32, "cuda")
+                pkw = dict(block_tables=tables, slot_ids=slot_ids)
+                dkw = dict(block_tables=tables)
+            else:
+                caches = tf.init_cache(cfg, b, max_len, torch.float32,
+                                       "cuda")
+                pkw, dkw = {}, {}
+            lg = torch.zeros((b, cfg.vocab), device="cuda")
+            for off in (0, chunk):
+                part, caches = tf.prefill(
+                    cfg, model, {"inputs": toks[:, off:off + chunk]}, caches,
+                    rt, kv_offset=off, true_len=true_len, **pkw)
+                sel = (true_len - 1 >= off) & (true_len - 1 < off + chunk)
+                lg = torch.where(sel[:, None], part, lg)
+            kv = true_len.clone()
+            out, lgs = [], [lg]
+            for _ in range(8):
+                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+                out.append(nxt)
+                kv = kv + 1
+                lg, caches = tf.decode_step(cfg, model, nxt[:, None], caches,
+                                            kv, rt, **dkw)
+                lgs.append(lg)
+            streams[layout, name] = torch.stack(out).cpu()
+            logits_all[layout, name] = torch.stack(lgs)
+            del caches
+            if name == "cuda":
+                launches[layout] = _counts(fm, dec)
     torch.cuda.synchronize()
-    diff = (logits_all["cuda"] - logits_all["torch"]).abs().max().item()
-    scale = logits_all["torch"].abs().max().item()
-    match = (streams["cuda"] == streams["torch"]).float().mean().item()
-    finite = bool(torch.isfinite(logits_all["cuda"]).all().item())
     rel_tol = 1e-4
     m = cfg.mla
     expanded = f"{m.nope_dim + m.rope_dim}x{m.v_dim}"
     absorbed = f"{m.kv_lora_rank + m.rope_dim}x{m.kv_lora_rank}"
-    emit(phase, config=f"{cfg.name} n_layers={cfg.n_layers} (MLA + dense "
-         f"FFN) fp32, paged", prompts=lens,
-         prefill_chunks=[[0, chunk], [chunk, 2 * chunk]], decode_steps=8,
-         logits_max_abs_diff=diff, logits_max_abs=scale, rel_tol=rel_tol,
-         token_match_rate=match, finite=finite, cuda_launches=launches)
-    check(finite, "non-finite logits in the MLA model cross-check")
-    check(diff <= rel_tol * scale,
-          f"MLA cuda vs torch logits differ by {diff} > {rel_tol} x {scale}")
-    check(match == 1.0, f"MLA greedy token match rate {match} < 1")
     n = cfg.n_layers
-    check(launches["mla_paged_decode_partials"] == n * 8,
-          f"K4 launched {launches['mla_paged_decode_partials']} times in 8 "
-          f"decode steps of {n} layers")
     want = {expanded: n, absorbed: n} if expanded != absorbed \
         else {expanded: 2 * n}
-    check(launches["fusemax_prefill_by_dims"] == want,
-          f"K1 launches by dims {launches['fusemax_prefill_by_dims']}, "
-          f"expected {n} expanded + {n} absorbed")
+    by_layout = {}
+    for layout, kernel in (("dense", "latent_decode_partials"),
+                           ("paged", "mla_paged_decode_partials")):
+        lc, lt = logits_all[layout, "cuda"], logits_all[layout, "torch"]
+        by_layout[layout] = dict(
+            logits_max_abs_diff=(lc - lt).abs().max().item(),
+            logits_max_abs=lt.abs().max().item(),
+            token_match_rate=(streams[layout, "cuda"]
+                              == streams[layout, "torch"]).float().mean()
+            .item(),
+            finite=bool(torch.isfinite(lc).all().item()),
+            cuda_launches=launches[layout], decode_kernel=kernel)
+    dense_eq_paged = bool((streams["dense", "cuda"]
+                           == streams["paged", "cuda"]).all().item())
+    emit(phase, config=f"{cfg.name} n_layers={cfg.n_layers} (MLA + dense "
+         f"FFN) fp32, dense and paged", prompts=lens,
+         prefill_chunks=[[0, chunk], [chunk, 2 * chunk]], decode_steps=8,
+         rel_tol=rel_tol, layouts=by_layout,
+         dense_streams_equal_paged=dense_eq_paged)
+    for layout, r in by_layout.items():
+        check(r["finite"], f"{layout}: non-finite logits in the MLA model "
+                           f"cross-check")
+        check(r["logits_max_abs_diff"] <= rel_tol * r["logits_max_abs"],
+              f"{layout}: MLA cuda vs torch logits differ by "
+              f"{r['logits_max_abs_diff']} > {rel_tol} x "
+              f"{r['logits_max_abs']}")
+        check(r["token_match_rate"] == 1.0,
+              f"{layout}: MLA greedy token match rate "
+              f"{r['token_match_rate']} < 1")
+        got = launches[layout]
+        for kernel in ("latent_decode_partials", "mla_paged_decode_partials"):
+            expect = n * 8 if kernel == r["decode_kernel"] else 0
+            check(got[kernel] == expect,
+                  f"{layout}: {kernel} launched {got[kernel]} times in 8 "
+                  f"decode steps of {n} layers, expected {expect}")
+        check(got["fusemax_prefill_by_dims"] == want,
+              f"{layout}: K1 launches by dims "
+              f"{got['fusemax_prefill_by_dims']}, expected {n} expanded + "
+              f"{n} absorbed")
+    check(dense_eq_paged, "MLA greedy streams differ between the dense and "
+                          "the paged layout")
     del model, logits_all
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-MLA_SERVE_ARGS = ["--arch", "deepseek-v3-671b", "--cache-layout", "paged",
+MLA_SERVE_ARGS = ["--arch", "deepseek-v3-671b", "--cache-layout", "both",
                   "--requests", "16", "--slots", "8", "--prompt-len", "128",
                   "--prompt-len-max", "1024", "--new-tokens", "64",
                   "--max-len", "2048", "--page-size", "16", "--repeats", "1",
@@ -2457,8 +2701,10 @@ MLA_PREFIX_ARGS = ["--arch", "deepseek-v3-671b", "--cache-layout", "paged",
 
 
 def phase_serve_mla(torch, fm, dec, serve) -> dict:
-    """The MLA main path: the launcher serving the tower on the paged
-    layout (the serve cell's traffic)."""
+    """The MLA main path: the launcher serving the tower on the dense and
+    the paged layout (the serve cell's traffic): equal streams, and in
+    each leg's timed run K1 3 x prefill dispatches and its decode kernel
+    (dense: K2's E != F branch; paged: K4) 3 x decode steps."""
     cfg = deepseek_tower()
     torch.cuda.reset_peak_memory_stats()
     # the MLA main path: counts set to 0 just before it, read just after
@@ -2469,11 +2715,18 @@ def phase_serve_mla(torch, fm, dec, serve) -> dict:
     launches = _counts(fm, dec)
     legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab,
                        MLA_DECODE_KERNEL)
+    check(list(metrics["layouts"]) == ["dense", "paged"],
+          f"serve_mla served {list(metrics['layouts'])}")
     emit("serve_mla", args=" ".join(MLA_SERVE_ARGS),
          config="deepseek-v3-671b n_layers=3", seconds=wall, legs=legs,
+         outputs_match=metrics["outputs_match"],
+         paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
          main_path_launches=launches,
          max_memory_allocated=torch.cuda.max_memory_allocated())
-    for name in ("fusemax_prefill", "mla_paged_decode_partials"):
+    check(metrics["outputs_match"] is True,
+          "MLA greedy streams differ between the dense and paged legs")
+    for name in ("fusemax_prefill", "mla_paged_decode_partials",
+                 "latent_decode_partials"):
         check(launches[name] > 0, f"{name} never launched on the MLA path")
     for dims in ("192x128", "576x512"):
         check(launches["fusemax_prefill_by_dims"].get(dims, 0) > 0,
@@ -2562,7 +2815,8 @@ def phase_serve_mla_impls(torch, fm, dec) -> None:
     torch.cuda.empty_cache()
 
 
-MLA_QUANT_ARGS = MLA_SERVE_ARGS + ["--kv-dtype", "fp8_e4m3", "--no-warmup"]
+MLA_QUANT_ARGS = [("paged" if a == "both" else a) for a in MLA_SERVE_ARGS] \
+    + ["--kv-dtype", "fp8_e4m3", "--no-warmup"]
 
 
 def phase_serve_mla_quant(torch, fm, dec, serve) -> dict:
@@ -2667,13 +2921,16 @@ def main() -> int:
         run_k3_cases(torch, gen, dec, autotune) + \
         misaligned_cases(torch, gen, dec) + \
         unbuilt_dims_cases(torch, gen, fm, dec) + \
-        run_k4_cases(torch, gen, dec)
+        run_k4_cases(torch, gen, dec) + \
+        run_latent_cases(torch, gen, dec)
     for r in rows:
         emit("kernel_case", **r)
     same = k3_vs_k2(torch, gen, dec, autotune)
     emit("kernel_case", **same)
     same4 = k4_perm_vs_identity(torch, gen, dec, autotune)
     emit("kernel_case", **same4)
+    same2l = k2latent_vs_k4(torch, gen, dec, autotune)
+    emit("kernel_case", **same2l)
     k3q, same3q = run_k3q_cases(torch, gen, dec, autotune)
     k4q, same4q = run_k4q_cases(torch, gen, dec)
     refused = quant_refusal_cases(torch, gen, dec)
@@ -2688,6 +2945,8 @@ def main() -> int:
     emit("kernel_time", kernel="paged_decode_partials", **t3)
     t4 = time_k4(torch, gen, dec, ops, autotune)
     emit("kernel_time", kernel="mla_paged_decode_partials", **t4)
+    t2l = time_latent(torch, gen, dec, autotune)
+    emit("kernel_time", kernel="decode_partials@latent_576x512", **t2l)
     t1m = time_k1_mla(torch, gen, fm, autotune)
     for where, t in t1m.items():
         emit("kernel_time", kernel=f"fusemax_prefill@{where}", **t)
@@ -2701,10 +2960,11 @@ def main() -> int:
         torch, gen, dec, ops, autotune, "fp8_e4m3")
     for name, t in list(tg.items()) + list(ts.items()) + list(tq.items()):
         emit("kernel_time", kernel=name, **t)
-    bad = [r["case"] for r in rows + [same, same4, same256, same3q, same4q]
-           if not r["ok"]]
+    bad = [r["case"] for r in rows + [same, same4, same2l, same256, same3q,
+                                      same4q] if not r["ok"]]
     bad += [n for n, t in (("K1 timing shape", t1), ("K2 timing shape", t2),
                            ("K3 timing shape", t3), ("K4 timing shape", t4),
+                           ("K2 latent timing shape", t2l),
                            ("K1 mla_forward timing shape",
                             t1m["mla_forward"]),
                            ("K1 absorbed timing shape",
@@ -2738,7 +2998,7 @@ def main() -> int:
                                 phase="model_mla_smoke")
 
     def entry(name, route, source, replaces, t, n_launches, kernel=None):
-        cases = [r["ok"] for r in rows + [same, same4, same256]
+        cases = [r["ok"] for r in rows + [same, same4, same2l, same256]
                  if r["kernel"] == (kernel or name)]
         check(n_launches > 0, f"{name} never launched on its main path")
         return {"name": name, "route": route, "source": source,
@@ -2779,16 +3039,23 @@ def main() -> int:
     k3_tpu = "src/repro/kernels/decode.py:248"
     k4_src = "src/repro_torch/kernels/csrc/mla_paged_decode_partials.cu"
     k4_tpu = "src/repro/kernels/decode.py:608"
+    k2l_src = "src/repro_torch/kernels/csrc/latent_decode_partials.cu"
     by_dims = mla_launches["fusemax_prefill_by_dims"]
     g2_k1 = g2_launches["fusemax_prefill_by_dims"].get("256x256", 0)
     g2_local = g2_launches["fusemax_prefill_windowed"]
-    # the smoke GQA configs' launches over every launcher run (all at head
-    # dim 32) and the MLA smoke tower's (cuda run)
-    smoke = {k: sum(n[k] for run in defaults["runs"]
+    # the smoke GQA configs' launches over the launcher's GQA runs (all at
+    # head dim 32); the MLA smoke config's over its launcher run and the
+    # MLA smoke tower's cuda runs (both layouts)
+    smoke = {k: sum(n[k] for run in defaults["runs"] if not run["mla"]
                     for n in run["kernel_launches"].values())
              for k in ("fusemax_prefill", "decode_partials",
                        "paged_decode_partials")}
-    smoke_dims = smoke_mla["fusemax_prefill_by_dims"]
+    smoke_latent = sum(n["latent_decode_partials"]
+                       for run in defaults["runs"] if run["mla"]
+                       for n in run["kernel_launches"].values()) \
+        + smoke_mla["dense"]["latent_decode_partials"]
+    smoke_dims = {k: sum(smoke_mla[lo]["fusemax_prefill_by_dims"].get(k, 0)
+                         for lo in smoke_mla) for k in ("48x32",)}
     print(json.dumps({"kernels": [
         k1_entry("fusemax_prefill", t1, launches["fusemax_prefill"],
                  e=128, f=128),
@@ -2846,7 +3113,16 @@ def main() -> int:
                      smoke["paged_decode_partials"]),
         decode_entry("mla_paged_decode_partials@smoke_32x16", k4_src, k4_tpu,
                      ts["mla_paged_decode_partials@smoke_32x16"],
-                     smoke_mla["mla_paged_decode_partials"]),
+                     smoke_mla["paged"]["mla_paged_decode_partials"]),
+        # K2's E != F branch: MLA decode on the dense latent cache
+        decode_entry("decode_partials@latent_576x512", k2l_src, k2_tpu, t2l,
+                     mla_launches["latent_decode_partials"],
+                     cases_of="latent_decode_partials",
+                     k2latent_vs_k4_max_abs_diff=same2l[
+                         "max_abs_diff_live"]),
+        decode_entry("decode_partials@latent_smoke_32x16", k2l_src, k2_tpu,
+                     ts["decode_partials@latent_smoke_32x16"], smoke_latent,
+                     cases_of="latent_decode_partials"),
         # K3's and K4's quantized branches: launches from the serve_quant
         # run of each code dtype and from serve_mla_quant
         *(decode_entry(f"paged_decode_partials@{short}", k3_src, k3_tpu,

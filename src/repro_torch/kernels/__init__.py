@@ -1,9 +1,9 @@
 """FuseMax attention kernels for Hopper, with their plain torch versions.
 
 ``fusemax.py``  — 1-pass prefill attention: CUDA wrapper + plain version
-``decode.py``   — split-K decode partials, dense, paged and paged MLA
-                  latent: CUDA wrappers + plain versions, and the torch
-                  combine
+``decode.py``   — split-K decode partials, dense, paged, and MLA latent
+                  (paged and dense): CUDA wrappers + plain versions, and
+                  the torch combine
 ``ops.py``      — public ops (GQA folding, tile choice, impl dispatch)
 ``autotune.py`` — modeled tile / split selection
 ``ref.py``      — 3-pass fp32 oracles
@@ -16,6 +16,7 @@ from repro_torch.kernels.autotune import (
 )
 from repro_torch.kernels.decode import (
     combine_partials, decode_partials_cuda, decode_partials_torch,
+    latent_decode_partials_cuda, latent_decode_partials_torch,
     mla_paged_decode_partials_cuda, mla_paged_decode_partials_torch,
     paged_decode_partials_cuda, paged_decode_partials_torch,
 )
@@ -23,8 +24,8 @@ from repro_torch.kernels.fusemax import (
     exp_maccs, fusemax_attention_cuda, fusemax_attention_torch,
 )
 from repro_torch.kernels.ops import (
-    KERNEL_CASCADES, fusemax_attention, fusemax_decode, fusemax_decode_paged,
-    fusemax_mla_decode_paged, gather_pages,
+    KERNEL_CASCADES, fusemax_attention, fusemax_decode, fusemax_decode_latent,
+    fusemax_decode_paged, fusemax_mla_decode_paged, gather_pages,
 )
 from repro_torch.kernels.ref import decode_reference, mha_reference
 
@@ -33,8 +34,10 @@ __all__ = [
     "attention_params", "autotune", "combine_partials", "decode_params",
     "decode_partials_cuda", "decode_partials_torch", "decode_reference",
     "exp_maccs", "fusemax_attention", "fusemax_attention_cuda",
-    "fusemax_attention_torch", "fusemax_decode", "fusemax_decode_paged",
-    "fusemax_mla_decode_paged", "gather_pages", "mha_reference",
+    "fusemax_attention_torch", "fusemax_decode", "fusemax_decode_latent",
+    "fusemax_decode_paged", "fusemax_mla_decode_paged", "gather_pages",
+    "latent_decode_partials_cuda", "latent_decode_partials_torch",
+    "mha_reference",
     "mla_paged_decode_params", "mla_paged_decode_partials_cuda",
     "mla_paged_decode_partials_torch", "paged_decode_params",
     "paged_decode_partials_cuda", "paged_decode_partials_torch",

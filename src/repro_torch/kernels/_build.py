@@ -35,6 +35,7 @@ SOURCES = {
     "decode_partials": "decode_partials.cu",
     "paged_decode_partials": "paged_decode_partials.cu",
     "mla_paged_decode_partials": "mla_paged_decode_partials.cu",
+    "latent_decode_partials": "latent_decode_partials.cu",
 }
 
 NVCC_FLAGS = [

@@ -13,7 +13,11 @@ sequence, so the 1-pass cascade runs twice:
    and DeepSeek's latent-space MLA decode over a latent page pool with
    :func:`mla_paged_decode_partials_torch` or
    :func:`mla_paged_decode_partials_cuda`
-   (``csrc/mla_paged_decode_partials.cu``); each CUDA wrapper counts its
+   (``csrc/mla_paged_decode_partials.cu``) or over a dense latent cache
+   with :func:`latent_decode_partials_torch` or
+   :func:`latent_decode_partials_cuda` (``csrc/latent_decode_partials.cu``,
+   the dense kernel's E ≠ F branch; the two latent kernels share one body,
+   ``csrc/mla_decode_partials.cuh``); each CUDA wrapper counts its
    launches in ``<wrapper>.launches``;
 2. :func:`combine_partials` merges them with the associative running-max
    algebra of Eqs. 48-52, in plain torch ops as the reference keeps it in
@@ -34,7 +38,11 @@ page-aligned and its key tiles lie inside one page.  The MLA partials
 have one fiber per sequence (Hkv = 1, every head in the group): q ``[B,
 R, r + rd]`` against ckv pages ``[P, page_size, r]`` and krope pages
 ``[P, page_size, rd]``; the score is ``q[:r]·ckv + q[r:]·krope`` and the
-latent tile is also the value, so acc is ``[B, S, R, r]``.
+latent tile is also the value, so acc is ``[B, S, R, r]``.  The dense
+latent partials take ckv ``[B, M, r]`` and krope ``[B, M, rd]`` with the
+dense split geometry: they are the dense partials of ``q`` against K =
+``[ckv | krope]`` and V = ``ckv`` with Hkv = 1, the only E ≠ F call the
+reference makes of its dense kernel (its MLA decode and verify).
 
 Quantized pools (pages of fp8 e4m3 or int8 codes, ``QUANT_CODES``) pass
 their fp16 scale pools — K3: ``k_scale`` / ``v_scale [P, page_size,
@@ -62,6 +70,9 @@ from repro_torch.kernels.fusemax import (
 CUDA_HEAD_DIMS = (32, 64, 128, 256)
 #: (rank, rope_dim) latents the MLA decode kernel (K4) is instantiated for
 CUDA_MLA_DIMS = ((512, 64), (32, 16))
+#: (rank, rope_dim) latents the dense latent kernel (K2's E ≠ F branch) is
+#: instantiated for, with fp32 and bf16 queries
+CUDA_LATENT_DIMS = ((512, 64), (32, 16))
 #: code dtypes of quantized pools, by their code in K3's and K4's C
 #: interface (0: the pages hold the queries' dtype); K3 and K4 are built
 #: for them with fp32 queries, at every head dim / latent above
@@ -415,6 +426,30 @@ def mla_paged_decode_partials_torch(
         else rows_per_pos, f=rank)
 
 
+def latent_decode_partials_torch(
+    q: torch.Tensor,        # [B, R, r + rd]
+    ckv: torch.Tensor,      # [B, M, r]
+    krope: torch.Tensor,    # [B, M, rd]
+    kv_len: torch.Tensor,   # [B] int
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    splits: int,
+    block_k: int,
+    exp_impl: str = "native",
+    n_pos: int = 1,
+    rows_per_pos: Optional[int] = None,
+):
+    """Plain dense latent partials: :func:`decode_partials_torch` with one
+    fiber per sequence (Hkv = 1) on K = ``[ckv | krope]`` and V = ``ckv``
+    — what ``_decode_partials_kernel`` computes at the reference's dense
+    MLA call sites."""
+    return decode_partials_torch(
+        q, torch.cat([ckv, krope], dim=-1), ckv, kv_len, scale=scale,
+        softcap=softcap, hkv=1, splits=splits, block_k=block_k,
+        exp_impl=exp_impl, n_pos=n_pos, rows_per_pos=rows_per_pos)
+
+
 def combine_partials(pm: torch.Tensor, pl: torch.Tensor, pnv: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
     """Combine split-K partials (associative running-max algebra,
@@ -731,3 +766,101 @@ def mla_paged_decode_partials_cuda(
 
 mla_paged_decode_partials_cuda.launches = 0
 mla_paged_decode_partials_cuda.launches_by_code = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _latent_lib():
+    """The dense latent kernel's entry point — builds at first use."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load("latent_decode_partials")
+    fn = lib.latent_decode_partials
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    smem = lib.latent_decode_partials_smem_bytes
+    smem.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int] * 3
+    # hold autotune.mla_decode_smem_bytes to the kernel's own layout
+    for rank, rope in CUDA_LATENT_DIMS:
+        for dtype, code in CUDA_DTYPES.items():
+            got = smem(rank, rope, code)
+            want = autotune.mla_decode_smem_bytes(rank, rope, dtype.itemsize)
+            if got != want:
+                raise RuntimeError(
+                    f"latent_decode_partials: kernel takes {got} B of shared "
+                    f"memory at ({rank}, {rope}) dtype code {code}, "
+                    f"autotune.mla_decode_smem_bytes says {want}")
+    return fn
+
+
+def latent_decode_partials_cuda(
+    q: torch.Tensor,        # [B, R, r + rd]
+    ckv: torch.Tensor,      # [B, M, r]
+    krope: torch.Tensor,    # [B, M, rd]
+    kv_len: torch.Tensor,   # [B] int32 on the same device
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    splits: int,
+    block_k: int,
+    exp_impl: str = "native",
+    n_pos: int = 1,
+    rows_per_pos: Optional[int] = None,
+):
+    """Launch the CUDA dense latent partials kernel
+    (``csrc/latent_decode_partials.cu``) on the current stream (no sync).
+    Same contract as :func:`latent_decode_partials_torch`; q, ckv and
+    krope are contiguous and start on 16-byte boundaries, at a latent in
+    :data:`CUDA_LATENT_DIMS`; anything else raises."""
+    name = "latent_decode_partials_cuda"
+    check_cuda_operands(name, q, ckv, krope)
+    b, r, e = q.shape
+    _, m, rank = ckv.shape
+    rope_dim = krope.shape[-1]
+    if (rank, rope_dim) not in CUDA_LATENT_DIMS or e != rank + rope_dim:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, ckv "
+                         f"{tuple(ckv.shape)}, krope {tuple(krope.shape)} — "
+                         f"the kernel is built for (rank, rope_dim) in "
+                         f"{CUDA_LATENT_DIMS}")
+    if ckv.shape[0] != b or krope.shape[:2] != ckv.shape[:2]:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, ckv "
+                         f"{tuple(ckv.shape)}, krope {tuple(krope.shape)}")
+    _check_vectors(name, q=q, ckv=ckv, krope=krope)
+    if kv_len.dtype != torch.int32 or kv_len.device != q.device \
+            or not kv_len.is_contiguous() or kv_len.shape != (b,):
+        raise ValueError(f"kv_len must be a contiguous int32 [B] tensor on "
+                         f"{q.device}; got {kv_len.dtype} "
+                         f"{tuple(kv_len.shape)} on {kv_len.device}")
+    if exp_impl not in ("native", "maccs"):
+        raise ValueError(f"unknown exp_impl {exp_impl!r}")
+    rows_per_pos = r // n_pos if rows_per_pos is None else rows_per_pos
+    if r < 1 or n_pos < 1 or rows_per_pos < 1:
+        raise ValueError(f"{r} query rows, n_pos={n_pos}, "
+                         f"rows_per_pos={rows_per_pos}")
+    split_len, block_k = _split_geometry(m, splits, block_k)
+    if b > 65535 or -(-r // 32) > 65535:
+        raise ValueError(f"grid ({splits}, {b}, {-(-r // 32)}) too large")
+    need = autotune.mla_decode_smem_bytes(rank, rope_dim, q.element_size())
+    if need > autotune.SMEM_BUDGET:
+        raise ValueError(f"{name}: ({rank}, {rope_dim}) needs {need} B of "
+                         f"shared memory > {autotune.SMEM_BUDGET} B per block")
+    fn = _latent_lib()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    pm = torch.empty((b, splits, r), **f32)
+    pl = torch.empty((b, splits, r), **f32)
+    pnv = torch.empty((b, splits, r, rank), **f32)
+    err = fn(_ptr(q), _ptr(ckv), _ptr(krope), _ptr(kv_len), _ptr(pm),
+             _ptr(pl), _ptr(pnv), CUDA_DTYPES[q.dtype], rank, rope_dim, b, r,
+             m, splits, split_len, block_k, n_pos, rows_per_pos,
+             float(scale), 0.0 if softcap is None else float(softcap),
+             int(exp_impl == "maccs"), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(
+            f"latent_decode_partials launch failed: CUDA error {err}")
+    latent_decode_partials_cuda.launches += 1
+    return pm, pl, pnv
+
+
+latent_decode_partials_cuda.launches = 0

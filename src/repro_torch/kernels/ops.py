@@ -1,7 +1,5 @@
 """Public attention ops: GQA folding, tile choice and dispatch around the
-FuseMax kernels.  Port of ``repro.kernels.ops`` (its MLA part as far as
-the paged latent decode; the dense-layout MLA executors wait for ROADMAP
-§1 item 5a).
+FuseMax kernels.  Port of ``repro.kernels.ops``.
 
 ``fusemax_attention``    — [B, Hq, P, E] × [B, Hkv, M, E/F] → [B, Hq, P, F].
 ``fusemax_decode``       — one-token (or P-row verify) queries against a
@@ -10,6 +8,9 @@ the paged latent decode; the dense-layout MLA executors wait for ROADMAP
   table (``gather_pages`` materializes the table's view for the ref path).
 ``fusemax_mla_decode_paged`` — DeepSeek's absorbed-form decode in latent
   space against a latent page pool (Hkv = 1, every head in the group).
+``fusemax_decode_latent`` — the same against a dense latent cache: the
+  reference's ``fusemax_decode`` on ``[ckv | krope]`` and ``ckv``, without
+  building the concatenation.
 
 ``impl``:
   "cuda"   the hand-written Hopper kernel; raises on a CPU tensor,
@@ -28,7 +29,8 @@ import torch
 from repro_torch.kernels import autotune, ref as _ref
 from repro_torch.kernels.decode import (
     _dequant_tile, combine_partials, decode_partials_cuda,
-    decode_partials_torch,
+    decode_partials_torch, latent_decode_partials_cuda,
+    latent_decode_partials_torch,
     mla_paged_decode_partials_cuda, mla_paged_decode_partials_torch,
     paged_decode_partials_cuda, paged_decode_partials_torch,
 )
@@ -39,7 +41,8 @@ from repro_torch.kernels.fusemax import (
 # Every public op dispatches to exactly one declared cascade of the
 # reference (``repro.kernels.ops.KERNEL_CASCADES``); the port names the
 # builders by dotted path so it never imports the JAX package, and
-# tests/test_torch_kernels.py checks the two maps agree.
+# tests/test_torch_kernels.py checks the two maps agree (a port-only op
+# through the reference op it implements, ``REFERENCE_OP``).
 KERNEL_CASCADES = {
     "mha_reference": "repro.kernels.ref.reference_cascade",
     "decode_reference": "repro.kernels.ref.reference_cascade",
@@ -52,7 +55,14 @@ KERNEL_CASCADES = {
     "fusemax_decode_paged[p>1]": "repro.kernels.decode.verify_chain_cascade",
     "fusemax_mla_decode_paged[p>1]":
         "repro.kernels.decode.mla_verify_chain_cascade",
+    "fusemax_decode_latent": "repro.kernels.decode.decode_splitk_cascade",
+    "fusemax_decode_latent[p>1]":
+        "repro.kernels.decode.verify_chain_cascade",
 }
+
+#: port-only ops → the reference op each implements
+REFERENCE_OP = {"fusemax_decode_latent": "fusemax_decode",
+                "fusemax_decode_latent[p>1]": "fusemax_decode[p>1]"}
 
 IMPLS = ("cuda", "torch", "ref", "auto")
 
@@ -153,6 +163,23 @@ def _unfold_decode_out(out: torch.Tensor, b: int, hkv: int, group: int,
             .reshape(b, hkv * group, p, f))
 
 
+def _decode_geometry(m: int, group: int, e: int, f: int, p: int,
+                     splits: Optional[int], block_k: Optional[int]):
+    """(splits, block_k) of a dense split-K decode as the reference's
+    ``fusemax_decode`` resolves them: the tuned pair from
+    :func:`autotune.decode_params` where left as ``None``, splits cut to a
+    divisor of M, and the verify rows' ``block_k`` clamp."""
+    if splits is None or block_k is None:
+        tuned = autotune.decode_params(m, max(group, 8), e, f)
+        splits = tuned.splits if splits is None else splits
+        block_k = tuned.block_k if block_k is None else block_k
+    splits = max(1, min(splits, m // min(m, block_k)))
+    while m % splits:
+        splits -= 1
+    return splits, autotune.verify_block_k(block_k, p=p, g=max(group, 8),
+                                           e=e, f=f)
+
+
 def fusemax_decode(
     q: torch.Tensor,         # [B, Hq, P, E]
     k: torch.Tensor,         # [B, Hkv, M, E]  (cache, padded to M slots)
@@ -183,14 +210,6 @@ def fusemax_decode(
     scale = scale if scale is not None else 1.0 / (e ** 0.5)
     impl = resolve_impl(impl, q)
 
-    if splits is None or block_k is None:
-        tuned = autotune.decode_params(m, max(group, 8), e, f)
-        splits = tuned.splits if splits is None else splits
-        block_k = tuned.block_k if block_k is None else block_k
-    splits = max(1, min(splits, m // min(m, block_k)))
-    while m % splits:
-        splits -= 1
-
     if impl == "ref":
         if p == 1:
             return _ref.decode_reference(
@@ -201,8 +220,7 @@ def fusemax_decode(
                 for j in range(p)]
         return torch.cat(outs, dim=2)
 
-    block_k = autotune.verify_block_k(block_k, p=p, g=max(group, 8), e=e,
-                                      f=f)
+    splits, block_k = _decode_geometry(m, group, e, f, p, splits, block_k)
     q_f = _fold_decode_q(q, b, hkv, group, e)
     k_f = k.reshape(b * hkv, m, e)
     v_f = v.reshape(b * hkv, m, f)
@@ -217,6 +235,58 @@ def fusemax_decode(
         pm, pl, pnv = decode_partials_torch(q_f, k_f, v_f, kv_len, **kw)
     out = combine_partials(pm, pl, pnv, q.dtype)
     return _unfold_decode_out(out, b, hkv, group, f, p=p)
+
+
+def fusemax_decode_latent(
+    q: torch.Tensor,        # [B, H, P, rank + rope_dim] absorbed q_cat
+    ckv: torch.Tensor,      # [B, M, rank]  (dense latent cache)
+    krope: torch.Tensor,    # [B, M, rope_dim]
+    kv_len: torch.Tensor,   # [B] valid lengths (the query is kv_len-1)
+    *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+    impl: str = "auto",
+    splits: Optional[int] = None,
+    block_k: Optional[int] = None,
+    exp_impl: str = "native",
+) -> torch.Tensor:
+    """MLA decode (P = 1) or verify rows (P > 1) against a dense *latent*
+    cache: the reference's ``fusemax_decode(q, [ckv | krope][:, None],
+    ckv[:, None], kv_len)``, every head in the one group, returning the
+    latent output ``[B, H, P, rank]`` for the caller's W_uv lift.
+
+    ``splits`` / ``block_k`` left as ``None`` come from
+    :func:`autotune.decode_params` at (E, F) = (rank + rope_dim, rank), as
+    the reference's op resolves them.  "cuda" launches the dense latent
+    kernel on ckv and krope where they lie, "torch" its plain version (K2's
+    sweep on the concatenation), "ref" the 3-pass oracle on the
+    concatenation."""
+    b, hq, p, e = q.shape
+    _, m, rank = ckv.shape
+    rope_dim = krope.shape[-1]
+    if e != rank + rope_dim:
+        raise ValueError(f"q last dim {e} != rank {rank} + rope {rope_dim}")
+    scale = scale if scale is not None else 1.0 / (e ** 0.5)
+    impl = resolve_impl(impl, q)
+
+    if impl == "ref":
+        k = torch.cat([ckv, krope], dim=-1)[:, None]
+        return fusemax_decode(q, k, ckv[:, None], kv_len, softcap=softcap,
+                              scale=scale, impl="ref")
+
+    splits, block_k = _decode_geometry(m, hq, e, rank, p, splits, block_k)
+    q_f = _fold_decode_q(q, b, 1, hq, e)                     # [B, P·H, e]
+    kw = dict(scale=scale, softcap=softcap, splits=splits, block_k=block_k,
+              exp_impl=exp_impl, n_pos=p, rows_per_pos=hq)
+    if impl == "cuda":
+        pm, pl, pnv = latent_decode_partials_cuda(
+            q_f.contiguous(), ckv, krope,
+            kv_len.to(device=q.device, dtype=torch.int32).contiguous(), **kw)
+    else:
+        pm, pl, pnv = latent_decode_partials_torch(q_f, ckv, krope, kv_len,
+                                                   **kw)
+    out = combine_partials(pm, pl, pnv, q.dtype)
+    return _unfold_decode_out(out, b, 1, hq, rank, p=p)
 
 
 def gather_pages(pages: torch.Tensor,

@@ -33,9 +33,10 @@ MiB instead of ``--num-pages`` (a quantized leg gets about 3.9x the
 pages).  Each leg with the swap tier reports its host time in
 ``host_swap_ms``.
 
-MLA archs serve on the paged layout only (``--cache-layout dense|both``
-exits naming ROADMAP §1 item 5a); ``deepseek-v3-671b[-smoke]`` serves
-with its MoE cut — every FFN dense, as its first ``first_k_dense``
+MLA archs serve on both layouts (dense: the latent cache through K2's
+E ≠ F branch; paged: K4), and ``--cache-layout both`` holds their
+streams to each other in ``outputs_match``; ``deepseek-v3-671b[-smoke]``
+serves with its MoE cut — every FFN dense, as its first ``first_k_dense``
 layers are — until MoE is ported (item 5b), and the JSON says so
 (``moe_cut``).
 
@@ -57,8 +58,8 @@ import torch
 
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.kernels.decode import (
-    decode_partials_cuda, mla_paged_decode_partials_cuda,
-    paged_decode_partials_cuda,
+    decode_partials_cuda, latent_decode_partials_cuda,
+    mla_paged_decode_partials_cuda, paged_decode_partials_cuda,
 )
 from repro_torch.kernels.fusemax import fusemax_attention_cuda
 from repro_torch.model import transformer as tf
@@ -93,7 +94,8 @@ def kernel_launches() -> dict:
             "decode_partials": decode_partials_cuda.launches,
             "paged_decode_partials": paged_decode_partials_cuda.launches,
             "mla_paged_decode_partials":
-                mla_paged_decode_partials_cuda.launches}
+                mla_paged_decode_partials_cuda.launches,
+            "latent_decode_partials": latent_decode_partials_cuda.launches}
 
 
 def quant_kernel_launches() -> dict:
@@ -429,12 +431,6 @@ def main(argv: Optional[list] = None,
         if is_set(args):
             raise SystemExit(f"{flag} is not ported to repro_torch yet "
                              f"(ROADMAP {item})")
-    mla = (cfg if cfg is not None else get_config(args.arch)).mla
-    if mla is not None and args.cache_layout != "paged":
-        raise SystemExit(
-            f"--cache-layout {args.cache_layout} on the MLA arch "
-            f"{args.arch} is not ported to repro_torch yet (ROADMAP §1 item "
-            f"5a, MLA on the dense layout); use --cache-layout paged")
     metrics = serve_bench(args, cfg)
     hidden = {k: metrics.pop(k) for k in ("_outputs", "_outputs_by_layout")}
     print(f"served {metrics['requests']} requests "

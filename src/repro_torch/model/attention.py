@@ -1,7 +1,8 @@
 """GQA and MLA attention on the FuseMax kernels.
 
 Port of the GQA paths of ``repro.model.attention`` (global and
-sliding-window layers) and of its MLA paths on the paged layout.  GQA:
+sliding-window layers) and of its MLA paths on the dense and the paged
+layout.  GQA:
 ``wq [d, h, dh]``, ``wk``/``wv [d, hkv, dh]``, ``wo [h, dh, d]``; RoPE at
 the absolute position, applied before K is cached so reads need no
 rotation.  Attention runs through :mod:`repro_torch.kernels.ops` with
@@ -9,7 +10,8 @@ rotation.  Attention runs through :mod:`repro_torch.kernels.ops` with
 
 Cache protocols:
 
-* dense — ``{"k", "v": [B, Hkv, Mmax, dh]}``, one row per batch slot; a
+* dense — ``{"k", "v": [B, Hkv, Mmax, dh]}`` (MLA: ``{"ckv": [B, Mmax,
+  r], "krope": [B, Mmax, rd]}``), one row per batch slot; a
   sliding-window (local) layer keeps a *ring* of ``window`` slots instead,
   token at position ``t`` in slot ``t % window``, and decode reads
   ``min(kv_len, window)`` slots with no window mask (the ring holds
@@ -39,8 +41,10 @@ latent ``ckv = kv_norm(x w_dkv[:, :r])`` plus a shared rope key.  A
 prompt's first chunk runs the per-head expanded form (:func:`mla_forward`,
 K1 at (E, F) = (nope + rope, v)); a continuation chunk and every decode
 step run the absorbed form against the latent history (K1 at (r + rd, r)
-through :func:`_mla_absorbed_attend`, K4 through
-``ops.fusemax_mla_decode_paged``).  Its paged pool is ``{"ckv_pages":
+through :func:`_mla_absorbed_attend`; decode through
+``ops.fusemax_decode_latent``, K2's E ≠ F branch, on the dense latent
+cache, or K4 through ``ops.fusemax_mla_decode_paged``).  Its paged pool
+is ``{"ckv_pages":
 [P + 1, page_size, r], "krope_pages": [P + 1, page_size, rd]}``, sink page
 included, in the "full" class.
 
@@ -58,8 +62,7 @@ and the prefix hash all see raw codes.  A continuation chunk attends its
 own K/V quant-round-tripped, as the reference does, so it sees exactly
 what later reads reconstruct.
 
-Not ported yet (ROADMAP "Modules still to port"): verify, MLA on the
-dense layout (item 5a).
+Not ported yet (ROADMAP "Modules still to port"): verify.
 """
 from __future__ import annotations
 
@@ -71,17 +74,12 @@ from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.ops import (
-    fusemax_attention, fusemax_decode, fusemax_decode_paged,
-    fusemax_mla_decode_paged, gather_pages,
+    fusemax_attention, fusemax_decode, fusemax_decode_latent,
+    fusemax_decode_paged, fusemax_mla_decode_paged, gather_pages,
 )
 from repro_torch.model.layers import (
     Norm, Runtime, _param, apply_norm, normal_, rope,
 )
-
-
-_MLA_DENSE = ("MLA on the dense cache layout is not ported yet (ROADMAP §1 "
-              "item 5a, MLA on the dense layout); serve MLA models with "
-              "cache_layout='paged'")
 
 
 # ---------------------------------------------------------------------------
@@ -667,6 +665,64 @@ def _mla_absorbed_attend(p: MLAAttention, q_nope: torch.Tensor,
         block_k=rt.block_k, exp_impl=rt.exp_impl,
     )                                                    # [B, H, S, r]
     return torch.einsum("bhsr,rhe->bhse", out_lat, p.w_uv.to(dt))
+
+
+def mla_prefill_chunk(p: MLAAttention, x: torch.Tensor, cache: dict,
+                      off: int, cfg: ModelConfig, spec: LayerSpec,
+                      rt: Runtime):
+    """Chunked-prefill continuation on the dense latent cache: the chunk's
+    latents land at [off, off + S) and its queries attend the cached
+    prefix plus the chunk in absorbed form (:func:`_mla_absorbed_attend`,
+    K1 at (r + rd, r)), so the history stays [tot, r + rd] per sequence.
+    x: [B, S, d]."""
+    b, s_len, _ = x.shape
+    positions = torch.arange(off, off + s_len, device=x.device).expand(
+        b, s_len)
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_latent(p, x, cfg,
+                                                         positions)
+    cache["ckv"][:, off:off + s_len] = ckv_new.to(cache["ckv"].dtype)
+    cache["krope"][:, off:off + s_len] = krope_new.to(cache["krope"].dtype)
+    tot = off + s_len
+    out = _mla_absorbed_attend(p, q_nope, q_rope, cache["ckv"][:, :tot],
+                               cache["krope"][:, :tot], off, cfg, rt)
+    return _out_proj(p, out), cache
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> dict:
+    """A layer's dense latent cache: ``ckv [batch, max_len, r]`` and
+    ``krope [batch, max_len, rd]``."""
+    m = cfg.mla
+    nk = dict(dtype=dtype, device=device)
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), **nk),
+            "krope": torch.zeros((batch, max_len, m.rope_dim), **nk)}
+
+
+def mla_decode(p: MLAAttention, x: torch.Tensor, cache: dict,
+               kv_len: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
+               rt: Runtime):
+    """Absorbed-form decode on the dense latent cache: write the step's
+    latents at ``kv_len - 1`` (an empty slot with kv_len = 0 writes the
+    last row, as in the reference), then ``ops.fusemax_decode_latent``
+    (K2's E ≠ F branch: Hkv = 1, every head in the group) and the W_uv /
+    ``wo`` lifts.  x: [B, 1, d]; kv_len: [B] length *including* x."""
+    b = x.shape[0]
+    pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_latent(p, x, cfg, pos)
+    slot = pos[:, 0] % cache["ckv"].shape[1]
+    bidx = torch.arange(b, device=x.device)
+    cache["ckv"][bidx, slot] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][bidx, slot] = krope_new[:, 0].to(cache["krope"].dtype)
+    dt = x.dtype
+    q_eff = torch.einsum("bhse,rhe->bhsr", q_nope, p.w_uk.to(dt))
+    q_cat = torch.cat([q_eff, q_rope], dim=-1)           # [B, H, 1, r+rd]
+    out_lat = fusemax_decode_latent(
+        q_cat, cache["ckv"], cache["krope"], kv_len,
+        scale=_mla_scale(cfg), softcap=cfg.attn_softcap,
+        impl=rt.attn_impl, splits=rt.decode_splits, exp_impl=rt.exp_impl,
+    )                                                    # [B, H, 1, r]
+    out = torch.einsum("bhsr,rhe->bhse", out_lat, p.w_uv.to(dt))
+    return _out_proj(p, out), cache
 
 
 def mla_init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,

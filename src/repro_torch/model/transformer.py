@@ -1,8 +1,8 @@
 """Decoder model: per-layer modules, forward, serving prefill and decode.
 
 Port of ``repro.model.transformer`` for the slices the port carries:
-GQA attention, global or sliding-window (ring caches), on the dense or the
-paged layout, or DeepSeek's MLA on the paged layout — with a dense MLP,
+GQA attention, global or sliding-window (ring caches), or DeepSeek's MLA,
+on the dense or the paged layout — with a dense MLP,
 attention and final logit softcaps, token front end.
 The reference stacks the parameters of equal layers and ``lax.scan``s
 them; the port keeps one module per layer (the weight bridge unstacks)
@@ -48,8 +48,7 @@ _ROADMAP = {
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for any part of ``cfg`` outside the
     ported slices: GQA (global or sliding-window) or MLA attention + dense
-    MLP, token front end.  (MLA serves on the paged layout only:
-    :func:`init_cache` refuses it.)"""
+    MLP, token front end, on either cache layout."""
     def no(what: str, detail: str):
         raise NotImplementedError(
             f"{cfg.name}: {detail} is not ported yet ({_ROADMAP[what]})")
@@ -167,11 +166,11 @@ def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
         y, cache["attn"] = decode_paged(
             p.attn, h, cache["attn"], block_tables[key], kv_len, cfg, spec,
             rt, slots=None if slots is None else slots.get(key))
-    elif spec.attn == "mla":
-        raise NotImplementedError(attn_mod._MLA_DENSE)
     else:
-        y, cache["attn"] = attn_mod.gqa_decode(p.attn, h, cache["attn"],
-                                               kv_len, cfg, spec, rt)
+        decode = attn_mod.mla_decode if spec.attn == "mla" \
+            else attn_mod.gqa_decode
+        y, cache["attn"] = decode(p.attn, h, cache["attn"], kv_len, cfg,
+                                  spec, rt)
     x = _residual(p, x, y, cfg)
     return _mlp_block(p, x, cfg), cache
 
@@ -205,13 +204,16 @@ def forward(cfg: ModelConfig, model: Model, batch: dict,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> list:
-    """Per-layer dense caches ``[{"attn": {"k", "v"}}, ...]``.  MLA layers
-    have no dense cache in the port yet (ROADMAP §1 item 5a)."""
-    if any(spec.attn == "mla" for spec in cfg.layer_specs()):
-        raise NotImplementedError(f"{cfg.name}: {attn_mod._MLA_DENSE}")
-    return [{"attn": attn_mod.gqa_init_cache(cfg, spec, batch, max_len,
-                                             dtype, device)}
-            for spec in cfg.layer_specs()]
+    """Per-layer dense caches ``[{"attn": {"k", "v"}}, ...]`` (MLA layers:
+    ``{"ckv", "krope"}``)."""
+    def cache(spec):
+        if spec.attn == "mla":
+            return attn_mod.mla_init_cache(cfg, batch, max_len, dtype,
+                                           device)
+        return attn_mod.gqa_init_cache(cfg, spec, batch, max_len, dtype,
+                                       device)
+
+    return [{"attn": cache(spec)} for spec in cfg.layer_specs()]
 
 
 def init_paged_cache(cfg: ModelConfig, slots: int, num_pages: dict,
@@ -284,8 +286,18 @@ def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
         y, cache["attn"] = prefill_paged(
             p.attn, h, ac, bt_rows[attn_mod.paged_cache_key(spec)],
             kv_offset, cfg, spec, rt, true_len, cached_len)
+    elif spec.attn == "mla" and kv_offset:
+        y, cache["attn"] = attn_mod.mla_prefill_chunk(
+            p.attn, h, ac, kv_offset, cfg, spec, rt)
     elif spec.attn == "mla":
-        raise NotImplementedError(attn_mod._MLA_DENSE)
+        # the chunk attends itself in the expanded form; its latents, all
+        # s_len of them as the reference writes them, land in the cache
+        positions = torch.arange(s_len, device=x.device).expand(
+            h.shape[0], s_len)
+        latent = attn_mod._mla_qkv_latent(p.attn, h, cfg, positions)
+        y = attn_mod.mla_forward(p.attn, h, cfg, spec, rt, latent=latent)
+        ac["ckv"][:, :s_len] = latent[2]
+        ac["krope"][:, :s_len] = latent[3]
     elif kv_offset:
         y, cache["attn"] = attn_mod.gqa_prefill_chunk(
             p.attn, h, ac, kv_offset, cfg, spec, rt, true_len)
@@ -354,15 +366,19 @@ def scatter_cache_slots(cfg: ModelConfig, caches: list, sub: list,
     possibly shorter than the slots' rows) into batch rows ``slot_ids``
     ([N]) of ``caches``, in place: positions past ``sub``'s length are
     zeroed, so each slot row ends exactly as the reference's full-row
-    scatter of a ``max_len`` mini-cache leaves it.  Returns ``caches``."""
-    idx = slot_ids.to(device=caches[0]["attn"]["k"].device, dtype=torch.long)
+    scatter of a ``max_len`` mini-cache leaves it.  Every cache tensor
+    (GQA ``k`` / ``v`` with the sequence on axis 2, MLA ``ckv`` /
+    ``krope`` with it on axis 1) lands in the leading corner of its slot
+    row.  Returns ``caches``."""
+    idx = None
     for c, s in zip(caches, sub):
-        for name in ("k", "v"):
-            dst, src = c["attn"][name], s["attn"][name]
-            n = src.shape[2]
+        for name, dst in c["attn"].items():
+            src = s["attn"][name]
+            if idx is None:
+                idx = slot_ids.to(device=dst.device, dtype=torch.long)
             row = torch.zeros((idx.numel(), *dst.shape[1:]), dtype=dst.dtype,
                               device=dst.device)
-            row[:, :, :n] = src
+            row[tuple(slice(0, n) for n in src.shape)] = src
             dst.index_copy_(0, idx, row)
     return caches
 

@@ -1,9 +1,8 @@
 """Serving engine: batched bucketed prefill + fused multi-step decode on the
 dense or the paged cache layout.
 
-Port of ``repro.serving.ServeEngine`` (both layouts, no speculation;
-MLA models on the paged layout only — the dense layout refuses them at
-construction, ROADMAP §1 item 5a).  A
+Port of ``repro.serving.ServeEngine`` (both layouts, GQA and MLA models,
+no speculation).  A
 fixed set of slots holds requests (continuous batching); each slot has
 its own ``kv_len``; decode advances the whole batch through
 :func:`transformer.decode_loop`, whose split-K decode kernels handle the

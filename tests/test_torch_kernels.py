@@ -263,8 +263,11 @@ def test_cuda_tile_fits_shared_memory():
 
 
 def test_kernel_cascades_name_the_reference_builders():
+    """Each port op names its reference op's cascade builder; a port-only
+    op (the dense latent decode) resolves through the reference op it
+    implements."""
     for name, dotted in ops.KERNEL_CASCADES.items():
-        builder = jax_ops.KERNEL_CASCADES[name]
+        builder = jax_ops.KERNEL_CASCADES[ops.REFERENCE_OP.get(name, name)]
         assert dotted == f"{builder.__module__}.{builder.__qualname__}", name
 
 

@@ -422,18 +422,6 @@ def test_moe_raises_naming_item_5b():
         tf.init(get_config(NAME), 0, RT, device="cpu")
 
 
-def test_mla_on_the_dense_layout_raises_naming_item_5a(models, tmp_path):
-    cfg, _, _, model = models
-    with pytest.raises(NotImplementedError, match="item 5a"):
-        ServeEngine(cfg, model, slots=2, max_len=32, rt=RT, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5a"):
-        tf.init_cache(cfg, 2, 32, torch.float32, "cpu")
-    for layout in ("dense", "both"):
-        with pytest.raises(SystemExit, match="item 5a"):
-            serve.main(["--device", "cpu", "--arch", NAME, "--cache-layout",
-                        layout, "--json", str(tmp_path / "x.json")])
-
-
 def test_launcher_serves_the_mla_arch_with_its_moe_cut(tmp_path):
     out = tmp_path / "bench.json"
     metrics = serve.main(["--device", "cpu", "--arch", NAME,
@@ -448,7 +436,8 @@ def test_launcher_serves_the_mla_arch_with_its_moe_cut(tmp_path):
     assert saved["layouts"]["paged"]["prefix"]["tokens_reused"] > 0
     assert saved["kernel_launches"] == {
         "fusemax_prefill": 0, "decode_partials": 0,
-        "paged_decode_partials": 0, "mla_paged_decode_partials": 0}
+        "paged_decode_partials": 0, "mla_paged_decode_partials": 0,
+        "latent_decode_partials": 0}
     assert all(len(o) == 4 for o in metrics["_outputs"])
     # with its MoE cut the launcher serves the dense-FFN tower the tests
     # hold to the reference

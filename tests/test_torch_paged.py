@@ -732,7 +732,8 @@ def test_launcher_both_layouts_match_and_keep_the_reference_schema(
     assert saved["layouts"]["paged"]["prefix"]["tokens_reused"] > 0
     assert saved["layouts"]["paged"]["kernel_launches"] == {
         "fusemax_prefill": 0, "decode_partials": 0,
-        "paged_decode_partials": 0, "mla_paged_decode_partials": 0}
+        "paged_decode_partials": 0, "mla_paged_decode_partials": 0,
+        "latent_decode_partials": 0}
     ref = jax_serve.main(["--json", str(tmp_path / "ref.json")] + ARGV)
     assert set(ref) <= set(saved), set(ref) - set(saved)
     assert ref["outputs_match"] is True

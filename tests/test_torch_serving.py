@@ -171,7 +171,8 @@ def test_launcher_on_cpu_writes_the_reference_schema(tmp_path):
     assert saved["kernel_launches"] == {"fusemax_prefill": 0,
                                         "decode_partials": 0,
                                         "paged_decode_partials": 0,
-                                        "mla_paged_decode_partials": 0}
+                                        "mla_paged_decode_partials": 0,
+                                        "latent_decode_partials": 0}
     for key in ("tok_per_s", "ttft_s", "steps_per_s", "dispatches",
                 "memory", "layouts", "prefix", "wall_s", "warmup_s"):
         assert key in saved, key

@@ -2,12 +2,15 @@
 
 The CUDA kernels are compiled for a fixed set of head dims (K1's
 ``CUDA_PREFILL_TILES``, K2/K3's ``CUDA_HEAD_DIMS``, K4's
-``CUDA_MLA_DIMS``), and a CUDA tensor at any other dim raises rather
+``CUDA_MLA_DIMS``, K2's dense latent branch's ``CUDA_LATENT_DIMS``), and
+a CUDA tensor at any other dim raises rather
 than falling back to the plain version.  So for each registered arch and
 its ``-smoke`` config that the launcher serves (``serve_config``: an MLA
 arch with its MoE cut) and ``check_supported`` admits, every (E, F) its
-prefill paths reach and every decode head dim / latent must be built, or
-the launcher's default device fails on the first prefill.  The tile
+prefill paths reach and every decode head dim / latent must be built on
+both cache layouts (an MLA latent: K4 on the paged one, K2's latent
+branch on the dense one), or the launcher's default device fails on the
+first prefill or decode step.  The tile
 choosers must resolve at those dims without raising.  Nothing here needs
 the card: the kernels themselves are held to their plain versions at
 these dims by ``chip_smoke.py``.
@@ -77,6 +80,10 @@ def test_every_admitted_config_has_its_kernels_built(name):
     assert prefill <= set(autotune.CUDA_PREFILL_TILES), (name, prefill)
     assert heads <= set(dec.CUDA_HEAD_DIMS), (name, heads)
     assert latents <= set(dec.CUDA_MLA_DIMS), (name, latents)
+    assert latents <= set(dec.CUDA_LATENT_DIMS), (name, latents)
+    for r, rd in latents:          # the dense latent decode's geometry
+        tuned = autotune.decode_params(2048, max(cfg.n_heads, 8), r + rd, r)
+        assert 2048 % tuned.splits == 0
     g = cfg.n_heads // (1 if cfg.mla is not None else cfg.n_kv_heads)
     for e, f in prefill:
         tile = autotune.attention_params(1024 * g, 1024, e, f, impl="cuda")
@@ -130,6 +137,23 @@ def test_mla_latent_tiles_resolve_at_the_smoke_latent():
     assert (32, 16) in dec.CUDA_MLA_DIMS
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_latent_smem_twin_matches_the_kernel_layout(dtype):
+    """The dense latent kernel takes K4's unquantized shared-memory layout,
+    which ``autotune.mla_decode_smem_bytes`` mirrors: two 16-key chunks of
+    [ckv | krope] rows in the latents' dtype (``mla_smem_bytes`` in
+    ``csrc/mla_decode_partials.cuh``; the wrapper holds the twin to the
+    library's ``latent_decode_partials_smem_bytes`` when it loads).  Every
+    built latent fits one block."""
+    eb = dtype.itemsize
+    want = {(512, 64): 2 * 16 * 576 * eb, (32, 16): 2 * 16 * 48 * eb}
+    assert set(want) == set(dec.CUDA_LATENT_DIMS)
+    for (r, rd), nbytes in want.items():
+        assert autotune.mla_decode_smem_bytes(r, rd, eb) == nbytes
+        assert nbytes <= autotune.SMEM_BUDGET
+    assert autotune.mla_decode_smem_bytes(512, 64, 4) == 73_728
+
+
 def test_an_unbuilt_dim_raises_and_never_falls_back():
     """A head dim the kernels are not built for is refused at the tile
     choice and by the wrappers' checks; ``impl="cuda"`` on a CPU tensor
@@ -143,6 +167,11 @@ def test_an_unbuilt_dim_raises_and_never_falls_back():
     q = torch.zeros(1, 2, 4, 96)
     with pytest.raises(ValueError, match="CUDA"):
         ops.fusemax_attention(q, q, q, impl="cuda")
+    ql, ckv, kr = torch.zeros(1, 4, 1, 64), torch.zeros(1, 16, 48), \
+        torch.zeros(1, 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fusemax_decode_latent(ql, ckv, kr, torch.tensor([3]),
+                                  impl="cuda")
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp8_e4m3", "int8"])
