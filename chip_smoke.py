@@ -12,7 +12,8 @@ JSON line (``"phase": ...``):
 2. build   — seconds to build the five kernel libraries from
              ``kernels/csrc``
              (nvcc, in parallel) and the ptxas register / shared-memory
-             report;
+             report; every instantiation of the latent decode body (K4 and
+             K2's E != F branch) must be there without a spill;
 3. kernels — every case of the prefill (K1, at the GQA head dims and at
              DeepSeek's MLA (E, F) = (192, 128) and (576, 512), at the
              smoke configs' (32, 32) and (48, 32) and gemma's (256, 256)
@@ -24,7 +25,11 @@ JSON line (``"phase": ...``):
              on the dense latent cache (``latent_decode_partials``: 128
              rows at (r, rd) = (512, 64), 4 at (32, 16), kv_len 0, 1, on
              both sides of a chunk edge and M, one-chunk splits, softcap
-             50, P = 3 verify, bf16) kernels against its plain
+             50, P = 3 verify, bf16, and cases of both latent kernels
+             that stress their 3xTF32 split: scores in the hundreds, low
+             mantissa bits, 384 rows at P = 3, 8-token pages that every
+             chunk straddles, one split of 512 keys, each with its float64
+             distance) kernels against its plain
              torch version on the same inputs, with its tolerance (K2 and
              K3 also at 64 query rows, 8-token pages, splits of exactly
              one chunk, kv_len on both sides of chunk edges, bf16 d64 at P
@@ -56,8 +61,9 @@ JSON line (``"phase": ...``):
              call ran; SDPA has no softcap, so at gemma2's shapes it runs
              the same masks without one) and the least time the card
              could take (``bound_ms``, over the keys the causal and window
-             masks leave; K1 against the tensor cores' 3xTF32 rate, with
-             the FP32 units' beside it);
+             masks leave; K1, K4 and K2's latent branch against the tensor
+             cores' 3xTF32 rate, with the FP32 units' beside it); K4 also
+             at a long context (8 slots of 16384 tokens);
 4. model   — granite-3-8b at full width cut to 4 layers, fp32: prefill 4
              mixed-length prompts and decode 8 greedy steps with
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
@@ -142,9 +148,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32
-#: non-tensor FLOP/s (K2, K3 and K4 multiply on the FP32 units) and TF32
-#: tensor-core FLOP/s (K1 runs both products in 3xTF32: three TF32
-#: products per fp32 product)
+#: non-tensor FLOP/s (K2 and K3 multiply on the FP32 units) and TF32
+#: tensor-core FLOP/s (K1 and the latent body of K4 and K2's E != F branch
+#: run both products in 3xTF32: three TF32 products per fp32 product)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
@@ -817,8 +823,8 @@ def k4_cases(torch):
     """(name, b, heads, P, page_size, W, pool pages, dtype, kv_len, splits,
     block_k, kwargs[, (r, rd)]) for the paged MLA latent decode kernel at
     DeepSeek's latent (r 512, rd 64) and its smoke config's (r 32, rd 16:
-    4 heads, so 4 real rows of a 32-row head block, and half the lanes
-    without a rope feature)."""
+    4 heads, so 4 real rows of a 32-row head block, and 6 score k-steps
+    for the 8 warps)."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         ("fp32 G128 ps16 kv_len 0,1,aligned,unaligned splits=4", 4, 128, 1,
@@ -926,13 +932,17 @@ def k4_perm_vs_identity(torch, gen, dec, autotune) -> dict:
 
 
 def time_k4(torch, gen, dec, ops, autotune,
-            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900), **dims) -> dict:
+            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900), with_library=True,
+            **dims) -> dict:
     """K4 at a decode step (by default DeepSeek-V3's: the data of
     :func:`k4_perm_vs_identity` with the K2/K3 timing kv_len list; ``dims``
     as :func:`deepseek_decode_data` takes them), the permuted pool, the
     tuned geometry; beside it K4 at 4 splits on the same data (a fifth of
     the partials' bytes at DeepSeek's shape), and as the library yardstick
-    ``gather_pages`` + SDPA on the gathered view."""
+    ``gather_pages`` + SDPA on the gathered view (``with_library=False``:
+    none, at the long-context shape, where SDPA would expand the 128
+    heads' keys).  The bound is the tensor cores' 3xTF32 rate, with the
+    FP32 units' beside it."""
     import torch.nn.functional as F
 
     kvl = list(kvl)
@@ -977,7 +987,7 @@ def time_k4(torch, gen, dec, ops, autotune,
                 cg[:, None].expand(b, h, m, r), attn_mask=mask,
                 scale=scale)
 
-    library_ms = time_ms(torch, library)
+    library_ms = time_ms(torch, library) if with_library else None
     live = sum(kvl)
     # each valid latent row (ckv and krope) is read once, the queries, the
     # table and kv_len once, the fp32 partials written once
@@ -985,13 +995,14 @@ def time_k4(torch, gen, dec, ops, autotune,
               + 4 * table.numel() + 4 * b
               + 4 * b * tuned.splits * h * (r + 2))
     # per valid key and head: r + rd multiply-adds for the score, r for
-    # the value
+    # the value, both on the tensor cores
     flops = 2 * h * live * (2 * r + rd)
-    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
+    kv_desc = (f"{len(kvl)} x {kvl[0]}" if len(set(kvl)) == 1 else kvl)
+    row = _timing_row(ms, plain_ms, library_ms, 0, nbytes, err, ok,
                       shape=f"B{b} H{h} r{r} rd{rd} page_size {ps} "
                             f"W {w} pool {x['n_pages']} pages fp32 kv_len "
-                            f"{kvl} splits {tuned.splits} block_k "
-                            f"{tuned.block_k}")
+                            f"{kv_desc} splits {tuned.splits} block_k "
+                            f"{tuned.block_k}", tf32x3_flops=flops)
     row["ms_splits4_same_data"] = ms_splits4
     row["device_ms"] = dev_ms
     row["device_share_of_bound"] = row["bound_ms"] / dev_ms
@@ -1111,6 +1122,94 @@ def k2latent_vs_k4(torch, gen, dec, autotune) -> dict:
     return row
 
 
+def latent_split_cases():
+    """Cases of both latent kernels that stress the 3xTF32 split of the
+    latent body, fp32 at DeepSeek's latent with 128 heads: (name, layout,
+    b, P, page_size (paged) or M (dense), W (paged), kv_len, splits,
+    block_k, how the inputs are made from unit normals — scores in the
+    hundreds (q x 30), bits below TF32's mantissa that matter (x + x *
+    2^-12), or plain).  kv_len is off the 16-key chunk everywhere; the
+    8-token pages make every chunk straddle two pages of a permuted
+    table; one dense split sweeps 512 keys (32 chunks)."""
+    return [
+        ("fp32 q x30 (scores in the hundreds) G128 ps16 kv_len 333,77",
+         "paged", 2, 1, 16, 32, [333, 77], 4, 16, "q_x30"),
+        ("fp32 x + x*2^-12 G128 P=3 verify (384 rows) ps16", "paged", 2, 3,
+         16, 16, [250, 37], 4, 16, "low_bits"),
+        ("fp32 x + x*2^-12 G128 ps8 (each chunk straddles two pages)",
+         "paged", 2, 1, 8, 64, [333, 100], 4, 8, "low_bits"),
+        ("fp32 q x30 (scores in the hundreds) G128 M512 kv_len 333,77",
+         "dense", 2, 1, 512, None, [333, 77], 4, 128, "q_x30"),
+        ("fp32 x + x*2^-12 G128 P=3 verify (384 rows) M256", "dense", 2, 3,
+         256, None, [250, 37], 4, 64, "low_bits"),
+        ("fp32 x + x*2^-12 G128 one split of 512 keys M512", "dense", 2, 1,
+         512, None, [500, 511], 1, 128, "low_bits"),
+    ]
+
+
+def _latent_ref64(torch, q, ckv, kr, kv_len, scale, rows_per_pos, n_pos):
+    """Softmax attention in float64 on a dense latent view [B, M, r] / [B,
+    M, rd]: row i sees the keys below kv_len + i // rows_per_pos (n_pos
+    > 1) or kv_len; every row sees at least one key."""
+    k = torch.cat([ckv, kr], dim=-1).double()
+    s = torch.einsum("bre,bke->brk", q.double(), k) * scale
+    rows = torch.arange(q.shape[1], device="cuda")
+    lim = kv_len[:, None].long() + (rows // rows_per_pos if n_pos > 1
+                                    else 0 * rows)[None, :]
+    s = s.masked_fill(torch.arange(k.shape[1], device="cuda")[None, None, :]
+                      >= lim[:, :, None], float("-inf"))
+    return torch.einsum("brk,bkf->brf", torch.softmax(s, -1), ckv.double())
+
+
+def run_latent_split_cases(torch, gen, dec) -> list:
+    """Every :func:`latent_split_cases` case against its plain version,
+    with the kernel's and the plain version's distance to a float64
+    reference (``vs_f64``, not gated)."""
+    rows = []
+    h, r, rd = 128, MLA_R, MLA_RD
+    scale = (r + rd) ** -0.5
+    for (name, layout, b, p, ps_or_m, w, kvl, splits, bk,
+         how) in latent_split_cases():
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        args = dict(scale=scale, splits=splits, block_k=bk, n_pos=p,
+                    rows_per_pos=h)
+        if layout == "paged":
+            ps = ps_or_m
+            q, ckv, kr, table = _latent_inputs(
+                torch, gen, b, h, p, ps, w, b * w, torch.float32, kvl)
+            q, ckv, kr = _prep(q, ckv, kr, how)
+            out = dec.mla_paged_decode_partials_cuda(q, ckv, kr, table,
+                                                     kv_len, **args)
+            ref = dec.mla_paged_decode_partials_torch(q, ckv, kr, table,
+                                                      kv_len, **args)
+            tb = table.long().clamp(max=b * w - 1)
+            dense = (ckv[tb].reshape(b, w * ps, r),
+                     kr[tb].reshape(b, w * ps, rd))
+            kernel = "mla_paged_decode_partials"
+        else:
+            m = ps_or_m
+            q, ckv, kr = _prep(
+                _rand(torch, gen, (b, p * h, r + rd), torch.float32),
+                _rand(torch, gen, (b, m, r), torch.float32),
+                _rand(torch, gen, (b, m, rd), torch.float32), how)
+            out = dec.latent_decode_partials_cuda(q, ckv, kr, kv_len, **args)
+            ref = dec.latent_decode_partials_torch(q, ckv, kr, kv_len, **args)
+            dense = (ckv, kr)
+            kernel = "latent_decode_partials"
+        out = dec.combine_partials(*out, torch.float32)
+        ref = dec.combine_partials(*ref, torch.float32)
+        torch.cuda.synchronize()
+        err, ok, atol, rtol = _err(torch, out, ref, "float32")
+        r64 = _latent_ref64(torch, q, *dense, kv_len, scale, h, p)
+        rows.append(dict(kernel=kernel, case=name, dtype="float32",
+                         rows=p * h, max_abs_err=err, atol=atol, rtol=rtol,
+                         ok=ok, vs_f64={
+                             "kernel": (out.double() - r64).abs().max().item(),
+                             "plain": (ref.double() - r64).abs().max().item()}))
+        del r64
+    return rows
+
+
 def time_latent(torch, gen, dec, autotune,
                 kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900),
                 **dims) -> dict:
@@ -1163,12 +1262,12 @@ def time_latent(torch, gen, dec, autotune,
     nbytes = (4 * live * (r + rd) + 4 * q.numel() + 4 * b
               + 4 * b * tuned.splits * h * (r + 2))
     # per valid key and head: r + rd multiply-adds for the score, r for
-    # the value
+    # the value, both on the tensor cores
     flops = 2 * h * live * (2 * r + rd)
-    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
+    row = _timing_row(ms, plain_ms, library_ms, 0, nbytes, err, ok,
                       shape=f"B{b} H{h} r{r} rd{rd} dense M{m} fp32 kv_len "
                             f"{kvl} splits {tuned.splits} block_k "
-                            f"{tuned.block_k}")
+                            f"{tuned.block_k}", tf32x3_flops=flops)
     row["device_ms"] = dev_ms
     row["device_share_of_bound"] = row["bound_ms"] / dev_ms
     return row
@@ -1478,8 +1577,11 @@ def time_k4_quant(torch, gen, dec, ops, autotune, kv_dtype) -> dict:
     # once
     nbytes = (live * (r + rd + 4) + 4 * q.numel() + 4 * table.numel()
               + 4 * b + 4 * b * tuned.splits * h * (r + 2))
-    flops = 2 * h * live * (2 * r + rd) + live * (r + rd)
-    row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
+    # the products on the tensor cores, the dequantizing multiplies on the
+    # FP32 units
+    flops = 2 * h * live * (2 * r + rd)
+    row = _timing_row(ms, plain_ms, library_ms, live * (r + rd), nbytes, err,
+                      ok, tf32x3_flops=flops,
                       shape=f"B{b} H{h} r{r} rd{rd} page_size {ps} W {w} "
                             f"pool {x['n_pages']} pages {kv_dtype} codes + "
                             f"fp16 scales, fp32 queries, kv_len {kvl} "
@@ -1815,13 +1917,26 @@ def time_k2(torch, gen, dec, autotune, b=8, hq=32, hkv=8, m=2048, d=128,
                 device_share_of_bound=row["bound_ms"] / dev_ms)
 
 
-def _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok, shape):
-    t_ops = flops / FP32_FLOPS * 1e3
+def _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok, shape,
+                tf32x3_flops=0):
+    """A timing row's bound: ``flops`` on the FP32 units and
+    ``tf32x3_flops`` on the tensor cores in 3xTF32 (three TF32 products
+    per fp32 product), against the bytes; with tensor-core work also the
+    bound the same products would have on the FP32 units
+    (``bound_ms_fp32``) and its parts."""
+    t_ops = (flops / FP32_FLOPS + 3 * tf32x3_flops / TF32_FLOPS) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flops=flops, bytes=nbytes, max_abs_err=err, ok=ok)
+    row = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops=flops + tf32x3_flops, bytes=nbytes, max_abs_err=err,
+               ok=ok)
+    if tf32x3_flops:
+        t_fp32 = (flops + tf32x3_flops) / FP32_FLOPS * 1e3
+        row.update(bound_ms_3xtf32=max(t_ops, t_bytes),
+                   bound_ms_fp32=max(t_fp32, t_bytes), ops_ms_3xtf32=t_ops,
+                   bytes_ms=t_bytes)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2911,8 +3026,18 @@ def main() -> int:
     info = phase_device(torch, serve)
 
     secs = _build.timed_build()
+    ptxas = _build.ptxas_report()
     emit("build", seconds=secs, build_dir=os.path.relpath(
-        _build.build_dir(), ROOT), ptxas=_build.ptxas_report())
+        _build.build_dir(), ROOT), ptxas=ptxas)
+    # the latent body keeps its accumulators and query fragments in
+    # registers: a spill would put them in local memory
+    spills = [f"{inst}: {line}" for lib in ("mla_paged_decode_partials",
+                                            "latent_decode_partials")
+              for inst, line in ptxas[lib].items()
+              if "0 bytes spill stores, 0 bytes spill loads" not in line]
+    check(len(ptxas["mla_paged_decode_partials"]) == 16
+          and len(ptxas["latent_decode_partials"]) == 8 and not spills,
+          f"latent decode instantiations missing or spilling: {spills}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2922,7 +3047,8 @@ def main() -> int:
         misaligned_cases(torch, gen, dec) + \
         unbuilt_dims_cases(torch, gen, fm, dec) + \
         run_k4_cases(torch, gen, dec) + \
-        run_latent_cases(torch, gen, dec)
+        run_latent_cases(torch, gen, dec) + \
+        run_latent_split_cases(torch, gen, dec)
     for r in rows:
         emit("kernel_case", **r)
     same = k3_vs_k2(torch, gen, dec, autotune)
@@ -2945,6 +3071,14 @@ def main() -> int:
     emit("kernel_time", kernel="paged_decode_partials", **t3)
     t4 = time_k4(torch, gen, dec, ops, autotune)
     emit("kernel_time", kernel="mla_paged_decode_partials", **t4)
+    # K4 at a long context: 8 slots of 16384 tokens (302 MB of fp32
+    # latents), where the latent body's work grows and the projections'
+    # does not
+    t4long = time_k4(torch, gen, dec, ops, autotune, kvl=[16384] * 8,
+                     with_library=False, w=1024)
+    emit("kernel_time", kernel="mla_paged_decode_partials@long_16k",
+         **t4long)
+    torch.cuda.empty_cache()
     t2l = time_latent(torch, gen, dec, autotune)
     emit("kernel_time", kernel="decode_partials@latent_576x512", **t2l)
     t1m = time_k1_mla(torch, gen, fm, autotune)
@@ -2964,6 +3098,7 @@ def main() -> int:
                                       same4q] if not r["ok"]]
     bad += [n for n, t in (("K1 timing shape", t1), ("K2 timing shape", t2),
                            ("K3 timing shape", t3), ("K4 timing shape", t4),
+                           ("K4 long-context timing shape", t4long),
                            ("K2 latent timing shape", t2l),
                            ("K1 mla_forward timing shape",
                             t1m["mla_forward"]),
@@ -3021,7 +3156,10 @@ def main() -> int:
                      cases_of=None, **extra):
         e = dict(entry(name, "cuda", src, tpu, t, n_launches,
                        kernel=cases_of or name.split("@")[0]),
-                 device_ms=t["device_ms"], **extra)
+                 device_ms=t["device_ms"], **extra,
+                 **{key: t[key] for key in ("bound_ms_fp32",
+                                            "bound_ms_3xtf32", "bytes_ms")
+                    if key in t})
         if ring is not None:     # the same kernel on a local layer's ring
             e.update(ring_ms=ring["ms"], ring_device_ms=ring["device_ms"],
                      ring_plain_ms=ring["plain_ms"],
@@ -3077,9 +3215,14 @@ def main() -> int:
                    "mla_paged_decode_partials.cu",
                    "src/repro/kernels/decode.py:608", t4,
                    mla_launches["mla_paged_decode_partials"]),
-             device_ms=t4["device_ms"],
+             device_ms=t4["device_ms"], bound_ms_fp32=t4["bound_ms_fp32"],
+             bytes_ms=t4["bytes_ms"],
              ms_splits4_same_data=t4["ms_splits4_same_data"],
-             k4_perm_vs_identity_max_abs_diff=same4["max_abs_diff_live"]),
+             k4_perm_vs_identity_max_abs_diff=same4["max_abs_diff_live"],
+             long_context={key: t4long[key] for key in (
+                 "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                 "bound_by", "bound_ms_fp32", "device_share_of_bound",
+                 "max_abs_err")}),
         k1_entry("fusemax_prefill@mla_forward", t1m["mla_forward"],
                  by_dims.get("192x128", 0), e=192, f=128),
         k1_entry("fusemax_prefill@mla_absorbed", t1m["mla_absorbed"],

@@ -176,22 +176,38 @@ def decode_smem_bytes(rows: int, d: int, elem_bytes: int = 4,
     return _round_up(max(ring, merge), 16) + scales + 4 * _round_up(pages, 4)
 
 
-#: keys per shared-memory chunk of the MLA decode kernel (K4, ``CK`` in
-#: ``csrc/mla_paged_decode_partials.cu``), double-buffered
+#: keys per shared-memory chunk of the MLA latent decode body (K4 and
+#: K2's E ≠ F branch, ``CK`` in ``csrc/mla_decode_partials.cuh``)
 MLA_DECODE_CHUNK = 16
+#: its cp.async ring stages (``NS``), query rows per block (the head
+#: block, ``HB``) and warps splitting the score's k-steps (``ES``)
+MLA_DECODE_STAGES = 3
+MLA_DECODE_ROWS = 32
+MLA_DECODE_SCORE_WARPS = 8
 
 
 def mla_decode_smem_bytes(rank: int, rope_dim: int, elem_bytes: int = 4,
                           scaled: bool = False) -> int:
-    """Shared memory of one K4 block — must match the kernel's: two
-    chunks of ``MLA_DECODE_CHUNK`` ``[ckv | krope]`` rows in the pool's
-    dtype (1-byte codes for a quantized pool: 576 bytes a key at (512,
-    64)), and with ``scaled`` each chunk's two fp32 scales per key (the
-    latent's and the rope key's) and one chunk dequantized to fp32."""
+    """Shared memory of one MLA latent decode block — must match
+    ``mla_smem_bytes`` in ``csrc/mla_decode_partials.cuh``: the ring of
+    ``MLA_DECODE_STAGES`` chunks of ``MLA_DECODE_CHUNK`` ``[ckv | krope]``
+    rows in the pool's dtype, each row padded by 16 bytes (1-byte codes
+    for a quantized pool: 592 bytes a key at (512, 64)); with ``scaled``
+    each stage's two fp32 scales per key (the latent's and the rope
+    key's) and one chunk dequantized to fp32 (rows padded by 4 floats);
+    the head block's ``MLA_DECODE_ROWS`` query rows padded by 16 bytes
+    (fp32 beside a quantized pool, else the pool's dtype); then the score
+    warps' fp32 partials of the head block, its fp32 P (rows of
+    ``MLA_DECODE_CHUNK + 8`` words each) and its fp32 rescale factors."""
     e = rank + rope_dim
-    rows = 2 * MLA_DECODE_CHUNK
-    scales = 8 * rows + 4 * MLA_DECODE_CHUNK * e if scaled else 0
-    return rows * e * elem_bytes + scales
+    ck, rows = MLA_DECODE_CHUNK, MLA_DECODE_ROWS
+    ring = MLA_DECODE_STAGES * ck * (e + 16 // elem_bytes) * elem_bytes
+    scales = (4 * MLA_DECODE_STAGES * ck * 2 + 4 * ck * (e + 4)
+              if scaled else 0)
+    qb = 4 if scaled else elem_bytes
+    queries = rows * (e + 16 // qb) * qb
+    tiles = 4 * ((MLA_DECODE_SCORE_WARPS + 1) * rows * (ck + 8) + rows)
+    return ring + scales + queries + tiles
 
 
 # ---------------------------------------------------------------------------

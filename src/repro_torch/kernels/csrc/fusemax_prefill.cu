@@ -58,6 +58,8 @@
 // * The tensor cores' fp32 accumulation truncates, so a score is summed
 //   in partials of at most KDEPTH k-steps that are added in IEEE fp32
 //   (at KC = 48 a chunk's 6 k-steps are a partial of 4 and one of 2).
+//   The split, the mma and KDEPTH are in tf32x3.cuh, which the MLA latent
+//   decode body shares.
 // * A key tile that every row of the block sees whole skips the masks;
 //   query tiles run heaviest first (under a causal mask the last tiles
 //   sweep the most keys), which shortens the tail of the grid.
@@ -80,16 +82,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NS = 3;   // ring stages
-// k-steps a score partial sum takes on the tensor cores before it is
-// added to the row's score in IEEE fp32: the mma accumulator truncates,
-// so a deep chain on a large sum drifts (at E = 576 with scores in the
-// hundreds, one chain over all 72 k-steps broke the fp32 tolerance)
-constexpr int KDEPTH = 4;
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -119,56 +118,6 @@ __device__ __forceinline__ float exp_maccs(float x) {
 template <bool MACCS>
 __device__ __forceinline__ float fexp(float x) {
   return MACCS ? exp_maccs(x) : expf(x);
-}
-
-// ---- tensor-core 3xTF32 ---------------------------------------------------
-
-// cvt.rna.tf32.f32 on the integer pipe: round the 13 dropped mantissa
-// bits to nearest, ties away from zero (the same bits as the cvt, which
-// runs at a fraction of the rate), for every finite x
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo (+ what lo's rounding drops), each a TF32 value
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// A shared-memory operand split for the tensor cores; a widened bf16 is
-// exact in TF32, so its lo part is 0 (and never multiplied).
-__device__ __forceinline__ void load_split(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  split(x, hi, lo);
-}
-__device__ __forceinline__ void load_split(__nv_bfloat16 x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(__bfloat162float(x));
-  lo = 0u;
-}
-
-// d (16x8) += a (16x8, row) * b (8x8, col), TF32 in, fp32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a·b in 3xTF32: lo·hi + hi·lo + hi·hi, small terms first.  An
-// operand that is exact in TF32 (A_EXACT / B_EXACT) has lo = 0, and the
-// product with it is skipped.
-template <bool A_EXACT, bool B_EXACT>
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  if constexpr (!A_EXACT) mma(d, al, bh0, bh1);
-  if constexpr (!B_EXACT) mma(d, ah, bl0, bl1);
-  mma(d, ah, bh0, bh1);
 }
 
 // ---- cp.async --------------------------------------------------------------

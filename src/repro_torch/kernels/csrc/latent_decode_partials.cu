@@ -14,8 +14,9 @@
 // call site.  The combine of the partials stays plain torch ops, as for
 // K2.
 //
-// The kernel body, what bounds it (operations: 128 heads share each
-// latent row) and what its design does about that are in
+// The kernel body (both products on the tensor cores in 3xTF32), what
+// bounds it (bytes at DeepSeek's decode step: the latents and the fp32
+// partials) and what its design does about that are in
 // mla_decode_partials.cuh, which the paged latent kernel (K4) shares; this
 // file binds it to the dense layout (DenseLatent: token kpos of sequence b
 // is row b * M + kpos), so on a pool whose pages hold these rows K4 at the

@@ -9,8 +9,9 @@
 // kernel's `quantized` ckv_scale / krope_scale tiles).  The combine of the
 // partials stays plain torch ops, as for K2 and K3.
 //
-// The kernel body, what bounds it and what its design does about that are
-// in mla_decode_partials.cuh, which the dense latent kernel
+// The kernel body (both products on the tensor cores in 3xTF32), what
+// bounds it and what its design does about that are in
+// mla_decode_partials.cuh, which the dense latent kernel
 // (latent_decode_partials.cu) shares; this file binds it to the latent
 // page pools ckv [P, ps, r] and krope [P, ps, rd] behind a block table
 // [B, W] (PagedLatent): each split of split_len = (W / splits) * ps

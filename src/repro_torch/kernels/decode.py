@@ -741,8 +741,9 @@ def mla_paged_decode_partials_cuda(
         raise ValueError(f"{r} query rows, n_pos={n_pos}, "
                          f"rows_per_pos={rows_per_pos}")
     split_pages, block_k = _paged_geometry(w, ps, splits, block_k)
-    if b > 65535 or -(-r // 32) > 65535:
-        raise ValueError(f"grid ({splits}, {b}, {-(-r // 32)}) too large")
+    head_blocks = -(-r // autotune.MLA_DECODE_ROWS)
+    if b > 65535 or head_blocks > 65535:
+        raise ValueError(f"grid ({splits}, {b}, {head_blocks}) too large")
     fn = _mla_lib()
     f32 = dict(dtype=torch.float32, device=q.device)
     pm = torch.empty((b, splits, r), **f32)
@@ -840,8 +841,9 @@ def latent_decode_partials_cuda(
         raise ValueError(f"{r} query rows, n_pos={n_pos}, "
                          f"rows_per_pos={rows_per_pos}")
     split_len, block_k = _split_geometry(m, splits, block_k)
-    if b > 65535 or -(-r // 32) > 65535:
-        raise ValueError(f"grid ({splits}, {b}, {-(-r // 32)}) too large")
+    head_blocks = -(-r // autotune.MLA_DECODE_ROWS)
+    if b > 65535 or head_blocks > 65535:
+        raise ValueError(f"grid ({splits}, {b}, {head_blocks}) too large")
     need = autotune.mla_decode_smem_bytes(rank, rope_dim, q.element_size())
     if need > autotune.SMEM_BUDGET:
         raise ValueError(f"{name}: ({rank}, {rope_dim}) needs {need} B of "

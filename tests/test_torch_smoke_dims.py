@@ -140,18 +140,23 @@ def test_mla_latent_tiles_resolve_at_the_smoke_latent():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_latent_smem_twin_matches_the_kernel_layout(dtype):
     """The dense latent kernel takes K4's unquantized shared-memory layout,
-    which ``autotune.mla_decode_smem_bytes`` mirrors: two 16-key chunks of
-    [ckv | krope] rows in the latents' dtype (``mla_smem_bytes`` in
-    ``csrc/mla_decode_partials.cuh``; the wrapper holds the twin to the
-    library's ``latent_decode_partials_smem_bytes`` when it loads).  Every
-    built latent fits one block."""
+    which ``autotune.mla_decode_smem_bytes`` mirrors: a ring of three
+    16-key chunks of [ckv | krope] rows in the latents' dtype, each row
+    padded by 16 bytes, the 32 query rows of the head block (padded
+    alike), then the 8 score warps' fp32 partials, P (rows of 16 + 8
+    words) and 32 rescale factors
+    (``mla_smem_bytes`` in ``csrc/mla_decode_partials.cuh``; the wrapper
+    holds the twin to the library's ``latent_decode_partials_smem_bytes``
+    when it loads).  Every built latent fits one block."""
     eb = dtype.itemsize
-    want = {(512, 64): 2 * 16 * 576 * eb, (32, 16): 2 * 16 * 48 * eb}
+    tiles = 4 * ((8 + 1) * 32 * 24 + 32)
+    want = {(512, 64): (3 * 16 + 32) * (576 * eb + 16) + tiles,
+            (32, 16): (3 * 16 + 32) * (48 * eb + 16) + tiles}
     assert set(want) == set(dec.CUDA_LATENT_DIMS)
     for (r, rd), nbytes in want.items():
         assert autotune.mla_decode_smem_bytes(r, rd, eb) == nbytes
         assert nbytes <= autotune.SMEM_BUDGET
-    assert autotune.mla_decode_smem_bytes(512, 64, 4) == 73_728
+    assert autotune.mla_decode_smem_bytes(512, 64, 4) == 213_376
 
 
 def test_an_unbuilt_dim_raises_and_never_falls_back():
@@ -236,10 +241,14 @@ def test_an_unbuilt_code_pair_raises_and_never_falls_back():
     assert autotune.decode_smem_bytes(4, 128, 1, pages=8) == 8_320 + 32
     assert autotune.decode_smem_bytes(4, 128, 1, pages=8, scaled=True) \
         == 8_320 + 256 + 32
-    # K4: two code chunks, their scales and one dequantized fp32 chunk
+    # K4: three code chunks (rows padded by 16 bytes), their scales, one
+    # dequantized fp32 chunk (rows padded by 4 floats), the 32 fp32 query
+    # rows of the head block and its score / P tiles
+    tiles = 4 * ((8 + 1) * 32 * 24 + 32)
     assert autotune.mla_decode_smem_bytes(512, 64, 1, scaled=True) \
-        == 32 * 576 + 256 + 16 * 576 * 4
-    assert autotune.mla_decode_smem_bytes(512, 64) == 32 * 576 * 4
+        == 3 * 16 * 592 + 384 + 16 * 580 * 4 + 32 * 580 * 4 + tiles
+    assert autotune.mla_decode_smem_bytes(512, 64) \
+        == (3 * 16 + 32) * 580 * 4 + tiles
 
 
 def test_launcher_default_is_gemma2_smoke_and_serves():
