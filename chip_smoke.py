@@ -63,7 +63,12 @@ JSON line (``"phase": ...``):
              could take (``bound_ms``, over the keys the causal and window
              masks leave; K1, K4 and K2's latent branch against the tensor
              cores' 3xTF32 rate, with the FP32 units' beside it); K4 also
-             at a long context (8 slots of 16384 tokens);
+             at a long context (8 slots of 16384 tokens, its library call
+             SDPA with the 128 heads on the query axis of the one latent
+             kv head); and the verify shapes of the speculative paths: K2
+             and K3 at granite's chain of P = 13 (52 rows a fiber), K4 and
+             K2's latent branch at DeepSeek's P = 5 (640 rows), each also
+             among the kernel cases (K3 and K4 on fp8 and int8 pools too);
 4. model   — granite-3-8b at full width cut to 4 layers, fp32: prefill 4
              mixed-length prompts and decode 8 greedy steps with
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
@@ -77,15 +82,31 @@ JSON line (``"phase": ...``):
 6. serve_prefix — the launcher on the paged layout with a 256-token
              shared prefix against its prefix-cache-off leg: equal
              streams, tokens reused, the pool's invariants audited;
-6a. model_quant — the model check on fp8 e4m3 and int8 paged pools (two
+6a. model_spec — granite-3-8b at full width cut to 4 layers: ``verify_step``
+             on a P = 13 chain (k = 12, 52 K2 / K3 rows) against 13
+             sequential ``decode_step`` calls, dense and paged, ``attn_impl``
+             "cuda" and "torch": argmax equal at every chain position,
+             logits within 1e-4 of their scale; the attention read's own
+             verify-vs-stepwise distance reported;
+6b. serve_spec — speculative decoding on all 40 layers: the launcher with
+             ``--cache-layout both --speculate 12 --duplicates 8`` (8
+             prompts of 128-512 tokens and their 8 resends, 64 new
+             tokens): streams equal across ``dense``, ``paged`` and
+             ``paged_nospec`` (else the first divergent position and the
+             non-speculative logits' top-2 gap there, then a failure),
+             drafts accepted, no draft page left, and in each speculative
+             leg's timed run K2 (dense) / K3 (paged) launched at n_pos = 13
+             40 x verify dispatches; accept rate, committed tokens a
+             dispatch and the spec / non-spec tok/s reported;
+6c. model_quant — the model check on fp8 e4m3 and int8 paged pools (two
              prefill chunks, the second reading the dequantized history,
              8 decode steps through K3's quantized branch);
-6b. serve_quant — the launcher on the serve cell's trace with
+6d. serve_quant — the launcher on the serve cell's trace with
              ``--cache-layout paged --kv-dtype fp8_e4m3`` and then ``int8``:
              the quantized leg's peak resident KV against the fp32 leg's
              (at most 27 %), ``quant_quality`` reported, K3's quantized
              branch 40 x decode steps;
-6c. serve_swap — 40-layer granite-3-8b through ``ServeEngine`` on three
+6e. serve_swap — 40-layer granite-3-8b through ``ServeEngine`` on three
              waves (a 256-token shared prefix, unrelated prompts that evict
              it from a 320-page pool, the first wave again) with an 8 GiB
              host swap tier, against a pool that never evicts, unquantized
@@ -124,11 +145,16 @@ JSON line (``"phase": ...``):
 13a. serve_mla_quant — the tower with fp8 e4m3 latents: the launcher's
              ``paged_quant`` leg (K4's quantized branch 3 x decode steps,
              ``quant_quality``), then cuda vs torch streams on fp8 latents;
+13b. serve_mla_spec — the serve_spec checks on the tower with
+             ``--speculate 4``: K2's latent branch (dense) and K4 (paged)
+             at n_pos = 5 (640 rows), 3 x verify dispatches;
 14. model_mla_smoke — the model_mla check on the MLA smoke config (MoE
              cut, as the launcher serves it): K1 at (48, 32), K4 and K2's
              latent branch at (32, 16);
-15. the ``kernels`` line (launches on the main paths, errors, times,
-   bounds) and, last, ``{"ok": true, "device": {...}}``.
+15. the ``kernels`` line (launches on the main paths, K2 / K3 / K4 / K2's
+   latent branch split by n_pos == 1 (decode steps) and n_pos > 1 (verify
+   chains), errors, times, bounds) and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Any failed phase raises: the script then exits non-zero and prints no
 result line.  It also exits non-zero when no CUDA card is visible or when
@@ -415,10 +441,22 @@ def k2_cases(torch, ck: int):
     ]
 
 
-def run_k2_cases(torch, gen, dec, autotune) -> list:
+def k2_spec_cases(torch, ck: int):
+    """:func:`k2_cases` rows at the speculative paths' verify shapes:
+    granite's k = 12 drafts, P = 13 chain positions x G = 4 = 52 rows, its
+    chains across chunk edges and up to the end of the cache.  They draw
+    their inputs from a generator of their own (``main``), so every case
+    above keeps its inputs."""
+    return [
+        ("fp32 P=13 G=4 d128 granite verify (52 rows) splits=4", 4, 2, 4,
+         13, 512, 128, torch.float32, [1, ck - 5, 200, 500], 4, 128, {}),
+    ]
+
+
+def run_k2_cases(torch, gen, dec, autotune, cases=None) -> list:
     rows = []
     for (name, b, hkv, g, p, m, d, dtype, kvl, splits, bk,
-         kw) in k2_cases(torch, autotune.DECODE_CHUNK):
+         kw) in cases or k2_cases(torch, autotune.DECODE_CHUNK):
         q = _rand(torch, gen, (b * hkv, p * g, d), dtype)
         k = _rand(torch, gen, (b * hkv, m, d), dtype)
         v = _rand(torch, gen, (b * hkv, m, d), dtype)
@@ -620,10 +658,21 @@ def k3_cases(torch, ck: int):
     ]
 
 
-def run_k3_cases(torch, gen, dec, autotune) -> list:
+def k3_spec_cases(torch, ck: int):
+    """:func:`k3_cases` rows at granite's verify shape (52 rows), chains
+    across page and chunk edges; also run on fp8 and int8 pools (as
+    :func:`k2_spec_cases`, from their own generator)."""
+    return [
+        ("fp32 P=13 G=4 ps16 d128 granite verify (52 rows) splits=4", 4, 2,
+         4, 13, 16, 32, 110, 128, torch.float32, [1, 10, ck - 5, 500], 4,
+         16, {}),
+    ]
+
+
+def run_k3_cases(torch, gen, dec, autotune, cases=None) -> list:
     rows = []
     for (name, b, hkv, g, p, ps, w, n_pages, d, dtype, kvl, splits, bk,
-         kw) in k3_cases(torch, autotune.DECODE_CHUNK):
+         kw) in cases or k3_cases(torch, autotune.DECODE_CHUNK):
         q = _rand(torch, gen, (b * hkv, p * g, d), dtype)
         k, v, table = _paged_inputs(torch, gen, b, hkv, ps, w, n_pages, d,
                                     dtype, kvl, p)
@@ -728,25 +777,32 @@ def k3_vs_k2(torch, gen, dec, autotune, x=None,
 
 
 def time_k3(torch, gen, dec, ops, autotune, x=None,
-            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900)) -> dict:
+            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900), p=1) -> dict:
     """K3 at a decode step (by default granite-3-8b's: the data of
     :func:`k3_vs_k2`, mixed kv_len, 16 splits); beside it K2 on the same
     rows in the dense layout, and as the library yardstick
-    ``gather_pages`` + SDPA on the gathered view."""
+    ``gather_pages`` + SDPA on the gathered view.  ``p`` > 1: a
+    speculative verify of P chain positions (as :func:`time_k2`), each
+    table backing its slot's chain."""
     import torch.nn.functional as F
 
     x = granite_paged_data(torch, gen) if x is None else x
     kvl = list(kvl)
     kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
     n_pages = x["k_pages"].shape[0]
-    table = with_sentinels(x["table"], kvl, x["ps"], n_pages)
     b, hq, hkv, g, m, d, ps, w = (x[k] for k in
                                   ("b", "hq", "hkv", "g", "m", "d", "ps", "w"))
+    table = with_sentinels(x["table"], [min(n + p - 1, m) for n in kvl],
+                           ps, n_pages)
     tuned = autotune.paged_decode_params(w, ps, max(g, 8), d, d)
     dense = autotune.decode_params(m, max(g, 8), d, d)
-    q_f = x["q"].reshape(b * hkv, g, d)
+    q4 = x["q"] if p == 1 else _rand(torch, gen, (b, hq, p, d),
+                                     torch.float32)
+    q_f = ops._fold_decode_q(q4, b, hkv, g, d).contiguous()
+    vbk = dict(p=p, g=max(g, 8), e=d, f=d)
     args = dict(scale=d ** -0.5, hkv=hkv, splits=tuned.splits,
-                block_k=tuned.block_k)
+                block_k=autotune.verify_block_k(tuned.block_k, **vbk),
+                n_pos=p, rows_per_pos=g)
     kp, vp = x["k_pages"], x["v_pages"]
     out = dec.combine_partials(*dec.paged_decode_partials_cuda(
         q_f, kp, vp, table, kv_len, **args), torch.float32)
@@ -766,36 +822,38 @@ def time_k3(torch, gen, dec, ops, autotune, x=None,
     def k2():
         return dec.decode_partials_cuda(
             q_f, k_f, v_f, kv_len, scale=d ** -0.5, hkv=hkv,
-            splits=dense.splits, block_k=dense.block_k)
+            splits=dense.splits,
+            block_k=autotune.verify_block_k(dense.block_k, **vbk), n_pos=p,
+            rows_per_pos=g)
 
     k2_ms = time_ms(torch, k2)
     k2_dev_ms = device_ms(torch, k2, "DenseKV")
-    mask = (torch.arange(m, device="cuda")[None, :]
-            < kv_len[:, None])[:, None, None, :]
+    mask = _verify_mask(torch, kv_len, p, m)
 
     def library():
         kg = ops.gather_pages(kp, table).transpose(1, 2)
         vg = ops.gather_pages(vp, table).transpose(1, 2)
         try:
             return F.scaled_dot_product_attention(
-                x["q"], kg, vg, attn_mask=mask, enable_gqa=True)
+                q4, kg, vg, attn_mask=mask, enable_gqa=True)
         except TypeError:
             rep = hq // hkv
             return F.scaled_dot_product_attention(
-                x["q"], kg.repeat_interleave(rep, dim=1),
+                q4, kg.repeat_interleave(rep, dim=1),
                 vg.repeat_interleave(rep, dim=1), attn_mask=mask)
 
     library_ms = time_ms(torch, library)
-    live = sum(kvl)
+    reads, pairs = _verify_keys(kvl, p, m)
     # each valid key is read once (K and V rows of every kv head), the
     # table and queries once, the fp32 partials written once
-    nbytes = (4 * 2 * live * hkv * d + 4 * table.numel() + 4 * q_f.numel()
-              + 4 * b + 4 * b * hkv * tuned.splits * g * (d + 2))
-    flops = 4 * d * live * hq
+    nbytes = (4 * 2 * reads * hkv * d + 4 * table.numel() + 4 * q_f.numel()
+              + 4 * b + 4 * b * hkv * tuned.splits * p * g * (d + 2))
+    flops = 4 * d * pairs * hq
     row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
                       shape=f"B{b} Hq{hq} Hkv{hkv} page_size {ps} W {w} pool "
                             f"{n_pages} pages d{d} fp32 kv_len {kvl} splits "
-                            f"{tuned.splits} block_k {tuned.block_k}")
+                            f"{tuned.splits} block_k {args['block_k']}"
+                            + (f" P={p} ({p * g} rows)" if p > 1 else ""))
     row["k2_ms_same_data"] = k2_ms
     row["device_ms"] = dev_ms
     row["host_ms"] = wrapper_ms
@@ -852,10 +910,22 @@ def k4_cases(torch):
     ]
 
 
-def run_k4_cases(torch, gen, dec) -> list:
+def k4_spec_cases(torch):
+    """:func:`k4_cases` rows at DeepSeek's verify shape: k = 4 drafts, P = 5
+    x 128 heads = 640 rows, chains that end on, cross and start at page
+    (and 16-key chunk) edges; also run on fp8 and int8 pools (as
+    :func:`k2_spec_cases`, from their own generator)."""
+    return [
+        ("fp32 G128 P=5 verify (640 rows) around page edges splits=4", 6,
+         128, 5, 16, 32, 120, torch.float32, [1, 12, 15, 16, 17, 300], 4,
+         16, {}),
+    ]
+
+
+def run_k4_cases(torch, gen, dec, cases=None) -> list:
     rows = []
     for (name, b, h, p, ps, w, n_pages, dtype, kvl, splits, bk, kw,
-         *dims) in k4_cases(torch):
+         *dims) in cases or k4_cases(torch):
         r, rd = dims[0] if dims else (MLA_R, MLA_RD)
         q, ckv, kr, table = _latent_inputs(torch, gen, b, h, p, ps, w,
                                            n_pages, dtype, kvl, r, rd)
@@ -931,29 +1001,77 @@ def k4_perm_vs_identity(torch, gen, dec, autotune) -> dict:
     return row
 
 
+def _latent_library(torch, ops, q, ckv, kr, kv_len, p: int, h: int,
+                    scale: float, table=None, fold_heads: bool = False):
+    """The library yardstick of a latent kernel: one SDPA call on the
+    latents (gathered through ``table`` on the paged pool, the dense cache
+    as it is) with [ckv | krope] built in the call.  ``q`` is the folded
+    ``[B, P·H, r + rd]``.  MLA's absorbed attention has ONE kv head:
+    ``fold_heads`` passes the P·H query rows along the query axis of that
+    one head (q ``[B, 1, P·H, r + rd]``, a per-row mask), so nothing is
+    expanded; otherwise the heads go to the head axis against
+    ``enable_gqa``."""
+    import torch.nn.functional as F
+
+    b, rows, e = q.shape
+    r = ckv.shape[-1]
+    m = (table.shape[1] * ckv.shape[1]) if table is not None \
+        else ckv.shape[1]
+    if fold_heads:
+        qs, mask = q[:, None], _verify_mask(torch, kv_len, p, m, h)
+    else:
+        qs = q.reshape(b, p, h, e).transpose(1, 2)        # [B, H, P, e]
+        mask = _verify_mask(torch, kv_len, p, m)
+
+    def library():
+        cg = ckv if table is None else ops.gather_pages(ckv, table)
+        kg = torch.cat([cg, kr if table is None
+                        else ops.gather_pages(kr, table)], dim=-1)
+        if fold_heads:
+            return F.scaled_dot_product_attention(
+                qs, kg[:, None], cg[:, None], attn_mask=mask, scale=scale)
+        try:
+            return F.scaled_dot_product_attention(
+                qs, kg[:, None], cg[:, None], attn_mask=mask, scale=scale,
+                enable_gqa=True)
+        except TypeError:
+            return F.scaled_dot_product_attention(
+                qs, kg[:, None].expand(b, h, m, e),
+                cg[:, None].expand(b, h, m, r), attn_mask=mask, scale=scale)
+
+    return library
+
+
 def time_k4(torch, gen, dec, ops, autotune,
-            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900), with_library=True,
-            **dims) -> dict:
+            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900), fold_heads=False,
+            p=1, **dims) -> dict:
     """K4 at a decode step (by default DeepSeek-V3's: the data of
     :func:`k4_perm_vs_identity` with the K2/K3 timing kv_len list; ``dims``
     as :func:`deepseek_decode_data` takes them), the permuted pool, the
     tuned geometry; beside it K4 at 4 splits on the same data (a fifth of
     the partials' bytes at DeepSeek's shape), and as the library yardstick
-    ``gather_pages`` + SDPA on the gathered view (``with_library=False``:
-    none, at the long-context shape, where SDPA would expand the 128
-    heads' keys).  The bound is the tensor cores' 3xTF32 rate, with the
-    FP32 units' beside it."""
-    import torch.nn.functional as F
-
+    ``gather_pages`` + SDPA on the gathered view (:func:`_latent_library`;
+    ``fold_heads`` at the long-context shape).  ``p`` > 1: a speculative
+    verify of P chain positions, P·H rows, each table backing its slot's
+    chain.  The bound is the tensor cores' 3xTF32 rate, with the FP32
+    units' beside it."""
     kvl = list(kvl)
-    x = deepseek_decode_data(torch, gen, kvl, b=len(kvl), **dims)
+    w_ = dims.get("w", 128)
+    x = deepseek_decode_data(torch, gen, [min(n + p - 1, 16 * w_)
+                                          for n in kvl], b=len(kvl), **dims)
     b, h, ps, w = x["b"], x["h"], x["ps"], x["w"]
     r, rd = x["r"], x["rd"]
     ckv, kr = x["pools"]["permuted"]
-    table, kv_len, q = x["tables"]["permuted"], x["kv_len"], x["q"]
+    table = x["tables"]["permuted"]
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    q = x["q"] if p == 1 else _rand(torch, gen, (b, p * h, r + rd),
+                                    torch.float32)
     tuned = autotune.mla_paged_decode_params(w, ps, h, r, rd)
     scale = (r + rd) ** -0.5
-    args = dict(scale=scale, splits=tuned.splits, block_k=tuned.block_k)
+    args = dict(scale=scale, splits=tuned.splits,
+                block_k=autotune.verify_block_k(tuned.block_k, p=p,
+                                                g=max(h, 8), e=r + rd, f=r),
+                n_pos=p, rows_per_pos=h)
     splits4 = min(4, w)
     out = dec.combine_partials(*dec.mla_paged_decode_partials_cuda(
         q, ckv, kr, table, kv_len, **args), torch.float32)
@@ -967,47 +1085,34 @@ def time_k4(torch, gen, dec, ops, autotune,
     plain_ms = time_ms(torch, lambda: dec.mla_paged_decode_partials_torch(
         q, ckv, kr, table, kv_len, **args), iters=5, warmup=1)
     ms_splits4 = time_ms(torch, lambda: dec.mla_paged_decode_partials_cuda(
-        q, ckv, kr, table, kv_len, scale=scale, splits=splits4,
-        block_k=tuned.block_k))
-    m = w * ps
-    mask = (torch.arange(m, device="cuda")[None, :]
-            < kv_len[:, None])[:, None, None, :]
-    q4 = q[:, :, None]                                  # [B, H, 1, r + rd]
-
-    def library():
-        cg = ops.gather_pages(ckv, table)               # [B, M, r]
-        kg = torch.cat([cg, ops.gather_pages(kr, table)], dim=-1)
-        try:
-            return F.scaled_dot_product_attention(
-                q4, kg[:, None], cg[:, None], attn_mask=mask, scale=scale,
-                enable_gqa=True)
-        except TypeError:
-            return F.scaled_dot_product_attention(
-                q4, kg[:, None].expand(b, h, m, r + rd),
-                cg[:, None].expand(b, h, m, r), attn_mask=mask,
-                scale=scale)
-
-    library_ms = time_ms(torch, library) if with_library else None
-    live = sum(kvl)
+        q, ckv, kr, table, kv_len, **dict(args, splits=splits4)))
+    library = _latent_library(torch, ops, q, ckv, kr, kv_len, p, h, scale,
+                              table=table, fold_heads=fold_heads)
+    library_ms = time_ms(torch, library)
+    reads, pairs = _verify_keys(kvl, p, w * ps)
     # each valid latent row (ckv and krope) is read once, the queries, the
     # table and kv_len once, the fp32 partials written once
-    nbytes = (4 * live * (r + rd) + 4 * q.numel()
+    nbytes = (4 * reads * (r + rd) + 4 * q.numel()
               + 4 * table.numel() + 4 * b
-              + 4 * b * tuned.splits * h * (r + 2))
-    # per valid key and head: r + rd multiply-adds for the score, r for
-    # the value, both on the tensor cores
-    flops = 2 * h * live * (2 * r + rd)
+              + 4 * b * tuned.splits * p * h * (r + 2))
+    # per valid (key, query row): r + rd multiply-adds for the score, r
+    # for the value, both on the tensor cores
+    flops = 2 * h * pairs * (2 * r + rd)
     kv_desc = (f"{len(kvl)} x {kvl[0]}" if len(set(kvl)) == 1 else kvl)
     row = _timing_row(ms, plain_ms, library_ms, 0, nbytes, err, ok,
                       shape=f"B{b} H{h} r{r} rd{rd} page_size {ps} "
                             f"W {w} pool {x['n_pages']} pages fp32 kv_len "
                             f"{kv_desc} splits {tuned.splits} block_k "
-                            f"{tuned.block_k}", tf32x3_flops=flops)
+                            f"{args['block_k']}"
+                            + (f" P={p} ({p * h} rows)" if p > 1 else ""),
+                      tf32x3_flops=flops)
     row["ms_splits4_same_data"] = ms_splits4
     row["device_ms"] = dev_ms
     row["device_share_of_bound"] = row["bound_ms"] / dev_ms
-    row["partials_bytes"] = 4 * b * tuned.splits * h * (r + 2)
-    row["latent_bytes"] = 4 * live * (r + rd)
+    row["partials_bytes"] = 4 * b * tuned.splits * p * h * (r + 2)
+    row["latent_bytes"] = 4 * reads * (r + rd)
+    if fold_heads:
+        row["library"] = "SDPA, the P·H query rows on the one latent kv head"
     return row
 
 
@@ -1051,10 +1156,20 @@ def latent_cases(torch):
     ]
 
 
-def run_latent_cases(torch, gen, dec) -> list:
+def latent_spec_cases(torch):
+    """:func:`latent_cases` rows at DeepSeek's verify shape on the dense
+    cache: P = 5, 640 rows, chains around 16-key chunk edges and up to M
+    (as :func:`k2_spec_cases`, from their own generator)."""
+    return [
+        ("fp32 G128 P=5 verify (640 rows) around chunk edges splits=4", 6,
+         128, 5, 256, torch.float32, [1, 12, 15, 16, 17, 252], 4, 64, {}),
+    ]
+
+
+def run_latent_cases(torch, gen, dec, cases=None) -> list:
     rows = []
     for (name, b, h, p, m, dtype, kvl, splits, bk, kw,
-         *dims) in latent_cases(torch):
+         *dims) in cases or latent_cases(torch):
         r, rd = dims[0] if dims else (MLA_R, MLA_RD)
         q = _rand(torch, gen, (b, p * h, r + rd), dtype)
         ckv = _rand(torch, gen, (b, m, r), dtype)
@@ -1211,23 +1326,29 @@ def run_latent_split_cases(torch, gen, dec) -> list:
 
 
 def time_latent(torch, gen, dec, autotune,
-                kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900),
+                kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900), p=1,
                 **dims) -> dict:
     """The dense latent kernel at a decode step: :func:`time_k4`'s data
     read as a dense cache (by default DeepSeek-V3's: M 2048, 128 heads),
     the tuned geometry; as the library yardstick SDPA on the dense view
-    (the concatenation [ckv | krope] built in the call, no gather)."""
-    import torch.nn.functional as F
+    (the concatenation [ckv | krope] built in the call, no gather).
+    ``p`` > 1: a speculative verify of P chain positions, P·H rows."""
+    from repro_torch.kernels import ops
 
     kvl = list(kvl)
     x = deepseek_decode_data(torch, gen, kvl, b=len(kvl), **dims)
     b, h, r, rd = x["b"], x["h"], x["r"], x["rd"]
     ckv, kr = _dense_latents(x)
     m = ckv.shape[1]
-    q, kv_len = x["q"], x["kv_len"]
+    kv_len = x["kv_len"]
+    q = x["q"] if p == 1 else _rand(torch, gen, (b, p * h, r + rd),
+                                    torch.float32)
     tuned = autotune.decode_params(m, max(h, 8), r + rd, r)
     scale = (r + rd) ** -0.5
-    args = dict(scale=scale, splits=tuned.splits, block_k=tuned.block_k)
+    args = dict(scale=scale, splits=tuned.splits,
+                block_k=autotune.verify_block_k(tuned.block_k, p=p,
+                                                g=max(h, 8), e=r + rd, f=r),
+                n_pos=p, rows_per_pos=h)
     out = dec.combine_partials(*dec.latent_decode_partials_cuda(
         q, ckv, kr, kv_len, **args), torch.float32)
     ref = dec.combine_partials(*dec.latent_decode_partials_torch(
@@ -1239,35 +1360,22 @@ def time_latent(torch, gen, dec, autotune,
         q, ckv, kr, kv_len, **args), "latent_decode_partials_kernel")
     plain_ms = time_ms(torch, lambda: dec.latent_decode_partials_torch(
         q, ckv, kr, kv_len, **args), iters=5, warmup=1)
-    mask = (torch.arange(m, device="cuda")[None, :]
-            < kv_len[:, None])[:, None, None, :]
-    q4 = q[:, :, None]                                  # [B, H, 1, r + rd]
-
-    def library():
-        kg = torch.cat([ckv, kr], dim=-1)
-        try:
-            return F.scaled_dot_product_attention(
-                q4, kg[:, None], ckv[:, None], attn_mask=mask, scale=scale,
-                enable_gqa=True)
-        except TypeError:
-            return F.scaled_dot_product_attention(
-                q4, kg[:, None].expand(b, h, m, r + rd),
-                ckv[:, None].expand(b, h, m, r), attn_mask=mask,
-                scale=scale)
-
-    library_ms = time_ms(torch, library)
-    live = sum(kvl)
+    library_ms = time_ms(torch, _latent_library(torch, ops, q, ckv, kr,
+                                                kv_len, p, h, scale))
+    reads, pairs = _verify_keys(kvl, p, m)
     # each valid latent row (ckv and krope) is read once, the queries and
     # kv_len once, the fp32 partials written once
-    nbytes = (4 * live * (r + rd) + 4 * q.numel() + 4 * b
-              + 4 * b * tuned.splits * h * (r + 2))
-    # per valid key and head: r + rd multiply-adds for the score, r for
-    # the value, both on the tensor cores
-    flops = 2 * h * live * (2 * r + rd)
+    nbytes = (4 * reads * (r + rd) + 4 * q.numel() + 4 * b
+              + 4 * b * tuned.splits * p * h * (r + 2))
+    # per valid (key, query row): r + rd multiply-adds for the score, r
+    # for the value, both on the tensor cores
+    flops = 2 * h * pairs * (2 * r + rd)
     row = _timing_row(ms, plain_ms, library_ms, 0, nbytes, err, ok,
                       shape=f"B{b} H{h} r{r} rd{rd} dense M{m} fp32 kv_len "
                             f"{kvl} splits {tuned.splits} block_k "
-                            f"{tuned.block_k}", tf32x3_flops=flops)
+                            f"{args['block_k']}"
+                            + (f" P={p} ({p * h} rows)" if p > 1 else ""),
+                      tf32x3_flops=flops)
     row["device_ms"] = dev_ms
     row["device_share_of_bound"] = row["bound_ms"] / dev_ms
     return row
@@ -1297,7 +1405,7 @@ def _quantized(torch, pools, kv_dtype):
     return out
 
 
-def run_k3q_cases(torch, gen, dec, autotune) -> tuple:
+def run_k3q_cases(torch, gen, dec, autotune, cases=None) -> tuple:
     """K3 on quantized pools: every fp32 case of :func:`k3_cases` (head
     dims 32-256, verify rows, ring classes at eff_len, softcap, kv_len 0,
     permuted pools with sentinels) with its pools quantized to each code
@@ -1307,7 +1415,7 @@ def run_k3q_cases(torch, gen, dec, autotune) -> tuple:
     Returns (rows, the k3_quant_vs_dequant row)."""
     rows, worst = [], {}
     for (name, b, hkv, g, p, ps, w, n_pages, d, dtype, kvl, splits, bk,
-         kw) in k3_cases(torch, autotune.DECODE_CHUNK):
+         kw) in cases or k3_cases(torch, autotune.DECODE_CHUNK):
         if dtype != torch.float32:
             continue
         q = _rand(torch, gen, (b * hkv, p * g, d), dtype)
@@ -1344,7 +1452,7 @@ def run_k3q_cases(torch, gen, dec, autotune) -> tuple:
                       ok=top == 0.0)
 
 
-def run_k4q_cases(torch, gen, dec) -> tuple:
+def run_k4q_cases(torch, gen, dec, cases=None) -> tuple:
     """K4 on quantized latent pools: every fp32 case of :func:`k4_cases`
     (DeepSeek's (512, 64) and the smoke (32, 16), verify rows, softcap,
     sub-page tiles, kv_len 0) with its pools quantized to each code dtype
@@ -1353,7 +1461,7 @@ def run_k4q_cases(torch, gen, dec) -> tuple:
     give the same bits (``k4_quant_vs_dequant``)."""
     rows, worst = [], {}
     for (name, b, h, p, ps, w, n_pages, dtype, kvl, splits, bk, kw,
-         *dims) in k4_cases(torch):
+         *dims) in cases or k4_cases(torch):
         if dtype != torch.float32:
             continue
         r, rd = dims[0] if dims else (MLA_R, MLA_RD)
@@ -1871,22 +1979,47 @@ def time_k1(torch, gen, fm, autotune) -> dict:
     return row
 
 
+def _verify_keys(kvl, p: int, m: int) -> tuple:
+    """(keys read, query-key pairs) of P verify rows per slot: row j of a
+    slot with kv_len n attends its first min(n + j, m) keys, and the P
+    rows together read the first min(n + p - 1, m) once."""
+    reads = sum(min(n + p - 1, m) for n in kvl)
+    pairs = sum(min(n + j, m) for n in kvl for j in range(p))
+    return reads, pairs
+
+
+def _verify_mask(torch, kv_len, p: int, m: int, rows_per_pos: int = 1):
+    """SDPA's boolean mask for P verify rows ([B, 1, P·rows_per_pos, m]):
+    query row i sits at chain position i // rows_per_pos."""
+    pos = torch.arange(p * rows_per_pos, device="cuda") // rows_per_pos
+    lim = kv_len[:, None].long() + pos[None, :]
+    return (torch.arange(m, device="cuda")[None, None, :]
+            < lim[..., None])[:, None]
+
+
 def time_k2(torch, gen, dec, autotune, b=8, hq=32, hkv=8, m=2048, d=128,
-            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900)) -> dict:
+            kvl=(2048, 1500, 1024, 700, 300, 64, 1, 1900), p=1) -> dict:
     """K2 at a decode step, fp32, tuned splits; by default granite-3-8b's:
     8 slots, 2048-slot cache, mixed kv_len, 32 q heads over 8 kv heads,
-    head dim 128."""
+    head dim 128.  ``p`` > 1: a speculative verify of P chain positions
+    (P·G rows a fiber, ``block_k`` clamped for verify rows as the model
+    path clamps it); the library yardstick then takes the P queries with
+    their causal mask."""
+    from repro_torch.kernels import ops
+
     g = hq // hkv
     kvl = list(kvl)
-    q = _rand(torch, gen, (b, hq, 1, d), torch.float32)
+    q = _rand(torch, gen, (b, hq, p, d), torch.float32)
     k = _rand(torch, gen, (b, hkv, m, d), torch.float32)
     v = _rand(torch, gen, (b, hkv, m, d), torch.float32)
     kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
     tuned = autotune.decode_params(m, max(g, 8), d, d)
-    q_f = q.reshape(b * hkv, g, d)
+    q_f = ops._fold_decode_q(q, b, hkv, g, d).contiguous()
     k_f, v_f = k.reshape(b * hkv, m, d), v.reshape(b * hkv, m, d)
     args = dict(scale=d ** -0.5, hkv=hkv, splits=tuned.splits,
-                block_k=tuned.block_k)
+                block_k=autotune.verify_block_k(tuned.block_k, p=p,
+                                                g=max(g, 8), e=d, f=d),
+                n_pos=p, rows_per_pos=g)
     out = dec.combine_partials(*dec.decode_partials_cuda(
         q_f, k_f, v_f, kv_len, **args), torch.float32)
     ref = dec.combine_partials(*dec.decode_partials_torch(
@@ -1900,19 +2033,20 @@ def time_k2(torch, gen, dec, autotune, b=8, hq=32, hkv=8, m=2048, d=128,
         q_f, k_f, v_f, kv_len, **args))
     plain_ms = time_ms(torch, lambda: dec.decode_partials_torch(
         q_f, k_f, v_f, kv_len, **args), iters=5, warmup=1)
-    mask = (torch.arange(m, device="cuda")[None, :]
-            < kv_len[:, None])[:, None, None, :]
+    mask = _verify_mask(torch, kv_len, p, m)
     library_ms = time_ms(torch, _sdpa_fn(torch, q, k, v, attn_mask=mask))
-    live = sum(kvl)
+    reads, pairs = _verify_keys(kvl, p, m)
     # each valid key is read once (K and V rows of every kv head), the
-    # queries once, the fp32 partials written once
-    nbytes = (4 * 2 * live * hkv * d + 4 * q.numel() + 4 * b
-              + 4 * b * hkv * tuned.splits * g * (d + 2))
-    flops = 4 * d * live * hq
+    # queries once, the fp32 partials written once; every query row
+    # attends the keys below its chain position
+    nbytes = (4 * 2 * reads * hkv * d + 4 * q.numel() + 4 * b
+              + 4 * b * hkv * tuned.splits * p * g * (d + 2))
+    flops = 4 * d * pairs * hq
     row = _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok,
                       shape=f"B{b} Hq{hq} Hkv{hkv} M{m} d{d} fp32 kv_len "
                             f"{kvl} splits {tuned.splits} block_k "
-                            f"{tuned.block_k}")
+                            f"{args['block_k']}"
+                            + (f" P={p} ({p * g} rows)" if p > 1 else ""))
     return dict(row, device_ms=dev_ms, host_ms=wrapper_ms,
                 device_share_of_bound=row["bound_ms"] / dev_ms)
 
@@ -2013,12 +2147,14 @@ PREFIX_ARGS = ["--arch", "granite-3-8b", "--cache-layout", "paged",
 #: the decode kernel each layout's decode steps launch (GQA models)
 DECODE_KERNEL = {"dense": "decode_partials", "paged": "paged_decode_partials",
                  "paged_noprefix": "paged_decode_partials",
+                 "paged_nospec": "paged_decode_partials",
                  "paged_swap": "paged_decode_partials",
                  "paged_quant": "paged_decode_partials"}
 #: ... and on an MLA model (dense: K2's E != F branch; paged: K4)
 MLA_DECODE_KERNEL = {"dense": "latent_decode_partials",
                      "paged": "mla_paged_decode_partials",
                      "paged_noprefix": "mla_paged_decode_partials",
+                     "paged_nospec": "mla_paged_decode_partials",
                      "paged_quant": "mla_paged_decode_partials"}
 DECODE_KERNELS = ("decode_partials", "paged_decode_partials",
                   "mla_paged_decode_partials", "latent_decode_partials")
@@ -2040,7 +2176,11 @@ def _counts(fm, dec) -> dict:
             "paged_decode_partials_by_kv_dtype":
                 dict(dec.paged_decode_partials_cuda.launches_by_code),
             "mla_paged_decode_partials_by_kv_dtype":
-                dict(dec.mla_paged_decode_partials_cuda.launches_by_code)}
+                dict(dec.mla_paged_decode_partials_cuda.launches_by_code),
+            # the decode kernels' launches by draft positions (1: decode
+            # steps; P > 1: speculative verify chains)
+            "by_n_pos": {k: dict(getattr(dec, k + "_cuda").launches_by_n_pos)
+                         for k in DECODE_KERNELS}}
 
 
 def _zero_counts(fm, dec) -> None:
@@ -2053,6 +2193,8 @@ def _zero_counts(fm, dec) -> None:
     dec.latent_decode_partials_cuda.launches = 0
     dec.paged_decode_partials_cuda.launches_by_code.clear()
     dec.mla_paged_decode_partials_cuda.launches_by_code.clear()
+    for k in DECODE_KERNELS:
+        getattr(dec, k + "_cuda").launches_by_n_pos.clear()
 
 
 def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
@@ -2140,6 +2282,269 @@ def phase_serve_prefix(torch, fm, dec, serve) -> dict:
          invariants="checked by the launcher after each paged leg",
          launches=launches)
     check(reused > 0, "no prefix tokens reused on shared-prefix traffic")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: verify chains through the P > 1 branches
+# ---------------------------------------------------------------------------
+
+#: granite's chain: k = 12 drafts, P = 13 positions x G = 4 = 52 rows of
+#: K2 / K3 (of their 64); DeepSeek's: k = 4, P = 5 x 128 heads = 640 rows
+GRANITE_SPEC_K, MLA_SPEC_K = 12, 4
+
+
+def _clone_caches(caches: list) -> list:
+    return [{"attn": {n: t.clone() for n, t in c["attn"].items()}}
+            for c in caches]
+
+
+def phase_model_spec(torch, fm, dec) -> dict:
+    """granite-3-8b at full width cut to 4 layers: prompts of 512, 333, 128
+    and 45 tokens, then ``verify_step`` on a P = 13 chain (k = 12, 52 K2 /
+    K3 rows a fiber) against 13 sequential ``decode_step`` calls on the
+    same prefilled cache, dense and paged, with ``attn_impl`` "cuda" and
+    "torch".  Gates: argmax equal at every chain position, logits within
+    1e-4 of their scale (verify vs stepwise, and cuda vs torch).
+    Reported: the attention read's own distance, verify rows against the
+    single-token calls on the cache the steps left (layer 0, random
+    queries), which is 0.0 where the split geometry is the same."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.model import attention as attn
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=4)
+    rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                   param_dtype=torch.float32)
+    rt_t = dataclasses.replace(rt_c, attn_impl="torch")
+    model = tf.init(cfg, 0, rt_c, device="cuda")
+    lens = [512, 333, 128, 45]
+    b, p, ps, max_len = len(lens), GRANITE_SPEC_K + 1, 16, 1024
+    w = max_len // ps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (b, 512), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    chain = torch.randint(0, cfg.vocab, (b, p), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    q_read = _rand(torch, gen, (b, cfg.n_heads, p, cfg.dh), torch.float32)
+    true_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kv0 = true_len + 1                  # counts chain position 0
+    span = torch.full((b,), p, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(b * w, generator=gen, device="cuda")
+    tables = {"full": perm.to(torch.int32).reshape(b, w).contiguous()}
+    rel_tol, res, verify_logits = 1e-4, {}, {}
+    _zero_counts(fm, dec)
+    for layout in ("dense", "paged"):
+        bt = None if layout == "dense" else tables
+        for name, rt in (("cuda", rt_c), ("torch", rt_t)):
+            if bt is None:
+                caches = tf.init_cache(cfg, b, max_len, torch.float32,
+                                       "cuda")
+                kw = {}
+            else:
+                caches = tf.init_paged_cache(cfg, b, {"full": b * w}, ps,
+                                             torch.float32, "cuda")
+                kw = dict(block_tables=bt, slot_ids=torch.arange(
+                    b, device="cuda"))
+            _, caches = tf.prefill(cfg, model, {"inputs": toks}, caches, rt,
+                                   true_len=true_len, **kw)
+            lv, ver = tf.verify_step(cfg, model, chain, _clone_caches(caches),
+                                     kv0, span, rt, block_tables=bt)
+            steps = []
+            for j in range(p):
+                lg, caches = tf.decode_step(cfg, model, chain[:, j:j + 1],
+                                            caches, kv0 + j, rt,
+                                            block_tables=bt)
+                steps.append(lg)
+            ls = torch.stack(steps, dim=1)                 # [B, P, vocab]
+            a = caches[0]["attn"]
+            if bt is None:
+                one = ops.fusemax_decode(q_read, a["k"], a["v"], kv0,
+                                         impl=rt.attn_impl)
+                each = [ops.fusemax_decode(q_read[:, :, j:j + 1], a["k"],
+                                           a["v"], kv0 + j,
+                                           impl=rt.attn_impl)
+                        for j in range(p)]
+            else:
+                kp, vp = (attn.pool_pages(a[n]) for n in ("k_pages",
+                                                          "v_pages"))
+                one = ops.fusemax_decode_paged(q_read, kp, vp, bt["full"],
+                                               kv0, impl=rt.attn_impl)
+                each = [ops.fusemax_decode_paged(
+                    q_read[:, :, j:j + 1], kp, vp, bt["full"], kv0 + j,
+                    impl=rt.attn_impl) for j in range(p)]
+            read = (one - torch.cat(each, dim=2)).abs().max().item()
+            torch.cuda.synchronize()
+            diff = (lv - ls).abs().max().item()
+            scale = ls.abs().max().item()
+            same = bool((lv.argmax(-1) == ls.argmax(-1)).all().item())
+            res[f"{layout}/{name}"] = dict(
+                verify_vs_stepwise_logits_max_abs_diff=diff,
+                logits_max_abs=scale, argmax_equal=same,
+                attention_read_max_abs_diff=read,
+                finite=bool(torch.isfinite(lv).all().item()))
+            verify_logits[(layout, name)] = lv
+            check(res[f"{layout}/{name}"]["finite"],
+                  f"model_spec {layout}/{name}: non-finite verify logits")
+            check(same, f"model_spec {layout}/{name}: verify argmax differs "
+                        f"from stepwise decode")
+            check(diff <= rel_tol * scale,
+                  f"model_spec {layout}/{name}: verify vs stepwise logits "
+                  f"differ by {diff} > {rel_tol} x {scale}")
+            del caches, ver
+    impls = {}
+    for layout in ("dense", "paged"):
+        c, t = verify_logits[(layout, "cuda")], verify_logits[(layout,
+                                                               "torch")]
+        diff = (c - t).abs().max().item()
+        scale = t.abs().max().item()
+        same = bool((c.argmax(-1) == t.argmax(-1)).all().item())
+        impls[layout] = dict(logits_max_abs_diff=diff, logits_max_abs=scale,
+                             argmax_equal=same)
+        check(same and diff <= rel_tol * scale,
+              f"model_spec {layout}: cuda vs torch verify logits differ by "
+              f"{diff} (scale {scale}), argmax equal {same}")
+    launches = _counts(fm, dec)
+    emit("model_spec", config="granite-3-8b n_layers=4 fp32", prompts=lens,
+         chain_positions=p, rows_per_fiber=p * cfg.n_heads // cfg.n_kv_heads,
+         rel_tol=rel_tol, runs=res, cuda_vs_torch=impls,
+         cuda_launches_by_n_pos=launches["by_n_pos"])
+    for k in ("decode_partials", "paged_decode_partials"):
+        check(launches["by_n_pos"][k].get(p, 0) > 0,
+              f"{k} never launched at n_pos = {p}")
+    del model, verify_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+SPEC_ARGS = ["--arch", "granite-3-8b", "--cache-layout", "both",
+             "--requests", "8", "--slots", "8", "--prompt-len", "128",
+             "--prompt-len-max", "512", "--new-tokens", "64", "--max-len",
+             "2048", "--page-size", "16", "--speculate",
+             str(GRANITE_SPEC_K), "--duplicates", "8", "--repeats", "1",
+             "--no-warmup", "--json", ""]
+
+
+def _trace_prompts(serve, argv, vocab: int) -> list:
+    """The prompts the launcher serves for ``argv`` (its seeded trace, the
+    duplicates resending the first ones)."""
+    import numpy as np
+
+    args = serve._parser().parse_args(argv)
+    lens = serve._trace_lens(args)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, vocab, size=(n,)).astype(np.int32)
+               for n in lens]
+    return prompts + [prompts[j % len(prompts)]
+                      for j in range(args.duplicates)]
+
+
+def _first_divergence(torch, serve, argv, cfg, outputs: dict,
+                      base: str) -> dict:
+    """Where a leg's greedy stream first leaves ``base``'s: the leg, the
+    request, the position, both tokens, and the top-2 gap of the base
+    leg's logits there (a fresh forward pass of the same seeded model on
+    the prompt and the base stream before that position)."""
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+
+    for leg, outs in outputs.items():
+        for i, (a, o) in enumerate(zip(outputs[base], outs)):
+            j = next((j for j, (x, y) in enumerate(zip(a, o)) if x != y),
+                     None)
+            if j is None:
+                continue
+            prompt = _trace_prompts(serve, argv, cfg.vocab)[i]
+            rt = Runtime(activation_dtype=torch.float32,
+                         param_dtype=torch.float32)
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = tf.init(cfg, 0, rt, device="cuda")
+            ids = torch.tensor(list(prompt) + a[:j], dtype=torch.int32,
+                               device="cuda")[None]
+            top = tf.forward(cfg, model, {"inputs": ids}, rt)[0, -1] \
+                .topk(2).values
+            del model
+            return dict(leg=leg, base=base, request=i, position=j,
+                        base_token=a[j], leg_token=o[j],
+                        base_top2_gap=(top[0] - top[1]).item())
+    return {}
+
+
+def _check_spec_legs(torch, serve, argv, cfg, metrics, p: int,
+                     decode_kernel: dict, phase: str) -> dict:
+    """The gates of a speculative serve: equal streams across the
+    speculative legs and ``paged_nospec`` (or the first divergence and its
+    top-2 gap, then a failure), drafts accepted, the pool drained of draft
+    pages, and in each speculative leg's timed run the decode kernel
+    launched at ``n_pos = p`` exactly once per layer and verify dispatch
+    (and never at another n_pos > 1); the non-speculative leg never at
+    n_pos > 1."""
+    if metrics.get("outputs_match") is not True:
+        where = _first_divergence(torch, serve, argv, cfg,
+                                  metrics["_outputs_by_layout"],
+                                  "paged_nospec")
+        emit(phase + "_divergence", **where)
+        check(False, f"{phase}: greedy streams differ: {where}")
+    out = {}
+    for lo, m in metrics["layouts"].items():
+        k = decode_kernel[lo]
+        by_n = m["kernel_launches_by_n_pos"][k]
+        verify = {n: c for n, c in by_n.items() if n > 1}
+        sp = m.get("speculation")
+        out[lo] = dict(speculation=sp, launches_by_n_pos={
+            str(n): c for n, c in sorted(by_n.items())},
+            draft_pages=m["memory"].get("draft_pages"))
+        if lo.endswith("_nospec"):
+            check(not verify, f"{phase} {lo}: {k} launched at {verify}")
+            continue
+        check(sp["dispatches"] > 0 and sp["accepted"] > 0,
+              f"{phase} {lo}: speculation {sp}")
+        check(verify == {p: cfg.n_layers * sp["dispatches"]},
+              f"{phase} {lo}: {k} launched {verify} at n_pos > 1, expected "
+              f"{{{p}: {cfg.n_layers} x {sp['dispatches']} verify "
+              f"dispatches}}")
+        if lo != "dense":
+            check(m["memory"]["draft_pages"] == {"full": 0},
+                  f"{phase} {lo}: draft pages left {m['memory']}")
+    return out
+
+
+def phase_serve_spec(torch, fm, dec, serve) -> dict:
+    """Speculative decoding on all 40 layers of granite-3-8b: the launcher
+    with ``--cache-layout both --speculate 12 --duplicates 8`` (8 prompts
+    of 128-512 tokens, then their 8 resends, which FIFO admission sends
+    after the originals complete: the cross-request drafting traffic of
+    repeated or popular queries), 64 new tokens, 8 slots: the dense and
+    paged legs speculative through K2 / K3 at n_pos = 13, ``paged_nospec``
+    the same trace without; streams equal across the three."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite-3-8b")
+    torch.cuda.reset_peak_memory_stats()
+    # a main path of this slice: counts set to 0 just before, read after
+    _zero_counts(fm, dec)
+    t0 = time.perf_counter()
+    metrics = serve.main(SPEC_ARGS)
+    wall = time.perf_counter() - t0
+    launches = _counts(fm, dec)
+    check(list(metrics["layouts"]) == ["dense", "paged", "paged_nospec"],
+          f"serve_spec served {list(metrics['layouts'])}")
+    spec = _check_spec_legs(torch, serve, SPEC_ARGS, cfg, metrics,
+                            GRANITE_SPEC_K + 1, DECODE_KERNEL, "serve_spec")
+    legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab)
+    emit("serve_spec", args=" ".join(SPEC_ARGS), seconds=wall, legs=legs,
+         speculation_by_leg=spec, speculation=metrics["speculation"],
+         outputs_match=metrics["outputs_match"],
+         invariants="checked by the launcher after each paged leg",
+         main_path_launches=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2934,6 +3339,44 @@ MLA_QUANT_ARGS = [("paged" if a == "both" else a) for a in MLA_SERVE_ARGS] \
     + ["--kv-dtype", "fp8_e4m3", "--no-warmup"]
 
 
+MLA_SPEC_ARGS = ["--arch", "deepseek-v3-671b", "--cache-layout", "both",
+                 "--requests", "8", "--slots", "8", "--prompt-len", "128",
+                 "--prompt-len-max", "512", "--new-tokens", "64",
+                 "--max-len", "2048", "--page-size", "16", "--speculate",
+                 str(MLA_SPEC_K), "--duplicates", "8", "--repeats", "1",
+                 "--no-warmup", "--json", ""]
+
+
+def phase_serve_mla_spec(torch, fm, dec, serve) -> dict:
+    """Speculative decoding on DeepSeek-V3's 3-layer tower (MoE cut): the
+    launcher with ``--cache-layout both --speculate 4 --duplicates 8`` on
+    the serve_spec trace; the dense leg verifies through K2's latent
+    branch and the paged leg through K4, both at P = 5 (640 rows); streams
+    equal to ``paged_nospec``'s."""
+    cfg = deepseek_tower()
+    _zero_counts(fm, dec)
+    t0 = time.perf_counter()
+    metrics = serve.main(MLA_SPEC_ARGS, cfg=cfg)
+    wall = time.perf_counter() - t0
+    launches = _counts(fm, dec)
+    check(list(metrics["layouts"]) == ["dense", "paged", "paged_nospec"],
+          f"serve_mla_spec served {list(metrics['layouts'])}")
+    spec = _check_spec_legs(torch, serve, MLA_SPEC_ARGS, cfg, metrics,
+                            MLA_SPEC_K + 1, MLA_DECODE_KERNEL,
+                            "serve_mla_spec")
+    legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab,
+                       MLA_DECODE_KERNEL)
+    emit("serve_mla_spec", args=" ".join(MLA_SPEC_ARGS),
+         config="deepseek-v3-671b n_layers=3", seconds=wall, legs=legs,
+         speculation_by_leg=spec, speculation=metrics["speculation"],
+         outputs_match=metrics["outputs_match"],
+         invariants="checked by the launcher after each paged leg",
+         main_path_launches=launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_serve_mla_quant(torch, fm, dec, serve) -> dict:
     """The tower with fp8 e4m3 latents: the launcher serving the serve
     cell's trace on the paged layout and its ``paged_quant`` leg (K4's
@@ -3075,7 +3518,7 @@ def main() -> int:
     # latents), where the latent body's work grows and the projections'
     # does not
     t4long = time_k4(torch, gen, dec, ops, autotune, kvl=[16384] * 8,
-                     with_library=False, w=1024)
+                     fold_heads=True, w=1024)
     emit("kernel_time", kernel="mla_paged_decode_partials@long_16k",
          **t4long)
     torch.cuda.empty_cache()
@@ -3090,12 +3533,50 @@ def main() -> int:
     ts = time_smoke(torch, gen, fm, dec, ops, autotune)
     tq = {f"paged_decode_partials@{short}": time_k3_quant(
         torch, gen, dec, ops, autotune, kv) for kv, short in QUANT_KV.items()}
-    tq["mla_paged_decode_partials@fp8"] = time_k4_quant(
-        torch, gen, dec, ops, autotune, "fp8_e4m3")
+    # K4 on both code dtypes (int8 latents serve on no main path: timed,
+    # not in the kernels line)
+    for kv, short in QUANT_KV.items():
+        tq[f"mla_paged_decode_partials@{short}"] = time_k4_quant(
+            torch, gen, dec, ops, autotune, kv)
     for name, t in list(tg.items()) + list(ts.items()) + list(tq.items()):
         emit("kernel_time", kernel=name, **t)
+    # the verify shapes of the speculative paths — granite's chain of 13
+    # (52 rows a fiber) on K2 and K3, DeepSeek's chain of 5 (640 rows) on
+    # K4 and K2's latent branch: their cases (K3 and K4 also on code
+    # pools) and timing rows, from a generator of their own, so every
+    # row above keeps its inputs
+    gen_spec = torch.Generator(device="cuda")
+    gen_spec.manual_seed(20)
+    ck = autotune.DECODE_CHUNK
+    spec_rows = run_k2_cases(torch, gen_spec, dec, autotune,
+                             k2_spec_cases(torch, ck)) + \
+        run_k3_cases(torch, gen_spec, dec, autotune,
+                     k3_spec_cases(torch, ck)) + \
+        run_k4_cases(torch, gen_spec, dec, k4_spec_cases(torch)) + \
+        run_latent_cases(torch, gen_spec, dec, latent_spec_cases(torch))
+    k3qv, same3qv = run_k3q_cases(torch, gen_spec, dec, autotune,
+                                  k3_spec_cases(torch, ck))
+    k4qv, same4qv = run_k4q_cases(torch, gen_spec, dec, k4_spec_cases(torch))
+    same3qv["case"] += " (verify shapes)"
+    same4qv["case"] += " (verify shapes)"
+    spec_rows += k3qv + k4qv
+    for r in spec_rows + [same3qv, same4qv]:
+        emit("kernel_case", **r)
+    rows += spec_rows
+    gp, mp = GRANITE_SPEC_K + 1, MLA_SPEC_K + 1
+    tv = {f"decode_partials@verify_p{gp}": time_k2(
+              torch, gen_spec, dec, autotune, p=gp),
+          f"paged_decode_partials@verify_p{gp}": time_k3(
+              torch, gen_spec, dec, ops, autotune, p=gp),
+          f"mla_paged_decode_partials@verify_p{mp}": time_k4(
+              torch, gen_spec, dec, ops, autotune, p=mp),
+          f"decode_partials@latent_verify_p{mp}": time_latent(
+              torch, gen_spec, dec, autotune, p=mp)}
+    for name, t in tv.items():
+        emit("kernel_time", kernel=name, **t)
     bad = [r["case"] for r in rows + [same, same4, same2l, same256, same3q,
-                                      same4q] if not r["ok"]]
+                                      same4q, same3qv, same4qv]
+           if not r["ok"]]
     bad += [n for n, t in (("K1 timing shape", t1), ("K2 timing shape", t2),
                            ("K3 timing shape", t3), ("K4 timing shape", t4),
                            ("K4 long-context timing shape", t4long),
@@ -3105,7 +3586,8 @@ def main() -> int:
                            ("K1 absorbed timing shape",
                             t1m["mla_absorbed"])) if not t["ok"]]
     bad += [f"{n} timing shape" for n, t in list(tg.items())
-            + list(ts.items()) + list(tq.items()) if not t["ok"]]
+            + list(ts.items()) + list(tq.items()) + list(tv.items())
+            if not t["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     torch.cuda.empty_cache()
 
@@ -3114,6 +3596,8 @@ def main() -> int:
     phase_serve_prefix(torch, fm, dec, serve)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_model_spec(torch, fm, dec)
+    spec_launches = phase_serve_spec(torch, fm, dec, serve)
     phase_model_quant(torch, fm, dec)
     quant_launches = phase_serve_quant(torch, fm, dec, serve)
     phase_serve_swap(torch, fm, dec)
@@ -3129,6 +3613,7 @@ def main() -> int:
     phase_serve_mla_prefix(torch, fm, dec, serve)
     phase_serve_mla_impls(torch, fm, dec)
     mla_quant_launches = phase_serve_mla_quant(torch, fm, dec, serve)
+    mla_spec_launches = phase_serve_mla_spec(torch, fm, dec, serve)
     smoke_mla = phase_model_mla(torch, fm, dec, cfg=mla_smoke_tower(),
                                 phase="model_mla_smoke")
 
@@ -3151,6 +3636,15 @@ def main() -> int:
         return dict(entry(name, "cuda", k1_src, k1_tpu, t, n_launches,
                           kernel="fusemax_prefill"), **dims, **extra,
                     tile=t["tile"])
+
+    def by_n_pos(kernel, step_run, verify_run):
+        """A decode kernel's launches split by draft positions: decode steps
+        (n_pos == 1) on its main decode path, verify chains (n_pos > 1) on
+        its speculative path."""
+        return {"launches_n_pos_1": step_run["by_n_pos"][kernel].get(1, 0),
+                "launches_n_pos_gt_1": {
+                    str(n): c for n, c in
+                    verify_run["by_n_pos"][kernel].items() if n > 1}}
 
     def decode_entry(name, src, tpu, t, n_launches, ring=None,
                      cases_of=None, **extra):
@@ -3201,12 +3695,14 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/decode_partials.cu",
                    "src/repro/kernels/decode.py:60", t2,
                    launches["decode_partials"]),
-             device_ms=t2["device_ms"]),
+             device_ms=t2["device_ms"],
+             **by_n_pos("decode_partials", launches, spec_launches)),
         dict(entry("paged_decode_partials", "cuda",
                    "src/repro_torch/kernels/csrc/paged_decode_partials.cu",
                    "src/repro/kernels/decode.py:248", t3,
                    launches["paged_decode_partials"]),
              device_ms=t3["device_ms"],
+             **by_n_pos("paged_decode_partials", launches, spec_launches),
              k2_ms_same_data=t3["k2_ms_same_data"],
              k2_device_ms_same_data=t3["k2_device_ms_same_data"],
              k3_vs_k2_max_abs_diff=same["max_abs_diff_live"]),
@@ -3217,12 +3713,14 @@ def main() -> int:
                    mla_launches["mla_paged_decode_partials"]),
              device_ms=t4["device_ms"], bound_ms_fp32=t4["bound_ms_fp32"],
              bytes_ms=t4["bytes_ms"],
+             **by_n_pos("mla_paged_decode_partials", mla_launches,
+                        mla_spec_launches),
              ms_splits4_same_data=t4["ms_splits4_same_data"],
              k4_perm_vs_identity_max_abs_diff=same4["max_abs_diff_live"],
              long_context={key: t4long[key] for key in (
                  "shape", "ms", "device_ms", "plain_ms", "bound_ms",
                  "bound_by", "bound_ms_fp32", "device_share_of_bound",
-                 "max_abs_err")}),
+                 "library_ms", "library", "max_abs_err")}),
         k1_entry("fusemax_prefill@mla_forward", t1m["mla_forward"],
                  by_dims.get("192x128", 0), e=192, f=128),
         k1_entry("fusemax_prefill@mla_absorbed", t1m["mla_absorbed"],
@@ -3262,7 +3760,30 @@ def main() -> int:
                      mla_launches["latent_decode_partials"],
                      cases_of="latent_decode_partials",
                      k2latent_vs_k4_max_abs_diff=same2l[
-                         "max_abs_diff_live"]),
+                         "max_abs_diff_live"],
+                     **by_n_pos("latent_decode_partials", mla_launches,
+                                mla_spec_launches)),
+        # the verify chains of the speculative paths (launches: that
+        # path's at n_pos = P)
+        decode_entry(f"decode_partials@verify_p{gp}", k2_src, k2_tpu,
+                     tv[f"decode_partials@verify_p{gp}"],
+                     spec_launches["by_n_pos"]["decode_partials"].get(gp, 0),
+                     n_pos=gp, host_ms=tv[
+                         f"decode_partials@verify_p{gp}"]["host_ms"]),
+        decode_entry(f"paged_decode_partials@verify_p{gp}", k3_src, k3_tpu,
+                     tv[f"paged_decode_partials@verify_p{gp}"],
+                     spec_launches["by_n_pos"]["paged_decode_partials"].get(
+                         gp, 0), n_pos=gp, host_ms=tv[
+                         f"paged_decode_partials@verify_p{gp}"]["host_ms"]),
+        decode_entry(f"mla_paged_decode_partials@verify_p{mp}", k4_src,
+                     k4_tpu, tv[f"mla_paged_decode_partials@verify_p{mp}"],
+                     mla_spec_launches["by_n_pos"][
+                         "mla_paged_decode_partials"].get(mp, 0), n_pos=mp),
+        decode_entry(f"decode_partials@latent_verify_p{mp}", k2l_src, k2_tpu,
+                     tv[f"decode_partials@latent_verify_p{mp}"],
+                     mla_spec_launches["by_n_pos"][
+                         "latent_decode_partials"].get(mp, 0), n_pos=mp,
+                     cases_of="latent_decode_partials"),
         decode_entry("decode_partials@latent_smoke_32x16", k2l_src, k2_tpu,
                      ts["decode_partials@latent_smoke_32x16"], smoke_latent,
                      cases_of="latent_decode_partials"),

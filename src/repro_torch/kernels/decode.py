@@ -18,7 +18,9 @@ sequence, so the 1-pass cascade runs twice:
    :func:`latent_decode_partials_cuda` (``csrc/latent_decode_partials.cu``,
    the dense kernel's E ≠ F branch; the two latent kernels share one body,
    ``csrc/mla_decode_partials.cuh``); each CUDA wrapper counts its
-   launches in ``<wrapper>.launches``;
+   launches in ``<wrapper>.launches`` and, by draft positions (1 for a
+   decode step, P for a verify chain), in
+   ``<wrapper>.launches_by_n_pos``;
 2. :func:`combine_partials` merges them with the associative running-max
    algebra of Eqs. 48-52, in plain torch ops as the reference keeps it in
    jnp outside its ``pallas_call``.
@@ -79,6 +81,10 @@ CUDA_LATENT_DIMS = ((512, 64), (32, 16))
 QUANT_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 #: the launch counters' names of the code dtypes
 QUANT_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8_e4m3"}
+#: most folded query rows (P·G) a fiber of K2 and K3 takes — the kernels'
+#: ``MAXR``, held to the libraries' own report when they load; K4 and K2's
+#: latent branch take any count
+CUDA_MAX_ROWS = 64
 
 
 def _check_head_dims(name: str, *tensors: torch.Tensor) -> None:
@@ -177,11 +183,15 @@ def _check_code_pools(name: str, q: torch.Tensor, *pools: torch.Tensor):
                              f"dtype, on {q.device}")
 
 
-def _count(wrapper, pages: torch.Tensor) -> None:
-    """Add one launch to ``wrapper``'s counters: ``launches`` always,
-    ``launches_by_code[name]`` on a quantized pool."""
+def _count(wrapper, n_pos: int, pages: Optional[torch.Tensor] = None
+           ) -> None:
+    """Add one launch to ``wrapper``'s counters: ``launches`` and
+    ``launches_by_n_pos[n_pos]`` always, ``launches_by_code[name]`` on a
+    quantized pool."""
     wrapper.launches += 1
-    if pages.dtype in QUANT_NAMES:
+    wrapper.launches_by_n_pos[n_pos] = \
+        wrapper.launches_by_n_pos.get(n_pos, 0) + 1
+    if pages is not None and pages.dtype in QUANT_NAMES:
         key = QUANT_NAMES[pages.dtype]
         wrapper.launches_by_code[key] = \
             wrapper.launches_by_code.get(key, 0) + 1
@@ -462,6 +472,15 @@ def combine_partials(pm: torch.Tensor, pl: torch.Tensor, pnv: torch.Tensor,
     return (rnv / rd[..., None]).to(dtype)
 
 
+def _check_max_rows(name: str, got: int) -> int:
+    """Hold :data:`CUDA_MAX_ROWS` (the engine's limit on draft chains) to
+    a loaded library's own row limit."""
+    if got != CUDA_MAX_ROWS:
+        raise RuntimeError(f"{name}: the kernel takes {got} query rows, "
+                           f"CUDA_MAX_ROWS says {CUDA_MAX_ROWS}")
+    return got
+
+
 @functools.lru_cache(maxsize=None)
 def _partials_lib():
     """(kernel entry point, most query rows it takes) — builds at first
@@ -478,7 +497,7 @@ def _partials_lib():
     max_rows.restype = ctypes.c_int
     max_rows.argtypes = []
     _check_smem_mirror(lib.decode_partials_smem_bytes, "decode_partials")
-    return fn, max_rows()
+    return fn, _check_max_rows("decode_partials", max_rows())
 
 
 def decode_partials_cuda(
@@ -537,11 +556,12 @@ def decode_partials_cuda(
              int(exp_impl == "maccs"), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"decode_partials launch failed: CUDA error {err}")
-    decode_partials_cuda.launches += 1
+    _count(decode_partials_cuda, n_pos)
     return pm, pl, pnv
 
 
 decode_partials_cuda.launches = 0
+decode_partials_cuda.launches_by_n_pos = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -561,7 +581,7 @@ def _paged_lib():
     max_rows.argtypes = []
     _check_smem_mirror(lib.paged_decode_partials_smem_bytes,
                        "paged_decode_partials", codes=True)
-    return fn, max_rows()
+    return fn, _check_max_rows("paged_decode_partials", max_rows())
 
 
 def paged_decode_partials_cuda(
@@ -640,12 +660,13 @@ def paged_decode_partials_cuda(
     if err != 0:
         raise RuntimeError(
             f"paged_decode_partials launch failed: CUDA error {err}")
-    _count(paged_decode_partials_cuda, k_pages)
+    _count(paged_decode_partials_cuda, n_pos, k_pages)
     return pm, pl, pnv
 
 
 paged_decode_partials_cuda.launches = 0
 paged_decode_partials_cuda.launches_by_code = {}
+paged_decode_partials_cuda.launches_by_n_pos = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -761,12 +782,13 @@ def mla_paged_decode_partials_cuda(
     if err != 0:
         raise RuntimeError(
             f"mla_paged_decode_partials launch failed: CUDA error {err}")
-    _count(mla_paged_decode_partials_cuda, ckv_pages)
+    _count(mla_paged_decode_partials_cuda, n_pos, ckv_pages)
     return pm, pl, pnv
 
 
 mla_paged_decode_partials_cuda.launches = 0
 mla_paged_decode_partials_cuda.launches_by_code = {}
+mla_paged_decode_partials_cuda.launches_by_n_pos = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -861,8 +883,9 @@ def latent_decode_partials_cuda(
     if err != 0:
         raise RuntimeError(
             f"latent_decode_partials launch failed: CUDA error {err}")
-    latent_decode_partials_cuda.launches += 1
+    _count(latent_decode_partials_cuda, n_pos)
     return pm, pl, pnv
 
 
 latent_decode_partials_cuda.launches = 0
+latent_decode_partials_cuda.launches_by_n_pos = {}

@@ -33,6 +33,19 @@ MiB instead of ``--num-pages`` (a quantized leg gets about 3.9x the
 pages).  Each leg with the swap tier reports its host time in
 ``host_swap_ms``.
 
+Speculative decoding: ``--speculate K`` serves every leg with an n-gram
+proposer drafting K tokens a slot and one verify dispatch per step
+(greedy only, on archs whose every layer is global GQA or MLA attention
+with a dense MLP; on the card K ≤ 64 / G - 1 for a GQA arch with G query
+heads per kv head), and serves the primary layout (paged when served)
+once more without it, ``<layout>_nospec``, which joins ``outputs_match``;
+each speculative leg reports a ``speculation`` block (drafts proposed
+and accepted, committed tokens per dispatch) and the top level
+``spec_vs_base_tok_per_s``.  ``--duplicates N`` appends N requests that
+resend earlier prompts verbatim (FIFO admission sends each after its
+original completes: the traffic where cross-request drafting pays);
+``--no-speculate`` overrides ``--speculate``.
+
 MLA archs serve on both layouts (dense: the latent cache through K2's
 E ≠ F branch; paged: K4), and ``--cache-layout both`` holds their
 streams to each other in ``outputs_match``; ``deepseek-v3-671b[-smoke]``
@@ -41,9 +54,9 @@ layers are — until MoE is ported (item 5b), and the JSON says so
 (``moe_cut``).
 
 The reference's other legs take the same flags here and exit with the
-ROADMAP item that ports them: ``--speculate``/``--duplicates``,
-``--mesh`` and ``--async``/``--dp``.  ``--no-compile-cache`` is accepted and does
-nothing (XLA's cache has no counterpart here).
+ROADMAP item that ports them: ``--mesh`` and ``--async``/``--dp``.
+``--no-compile-cache`` is accepted and does nothing (XLA's cache has no
+counterpart here).
 """
 from __future__ import annotations
 
@@ -64,7 +77,9 @@ from repro_torch.kernels.decode import (
 from repro_torch.kernels.fusemax import fusemax_attention_cuda
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime
-from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.engine import (
+    Request, ServeEngine, speculation_refusal,
+)
 
 
 def _trace_lens(args) -> list:
@@ -107,6 +122,16 @@ def quant_kernel_launches() -> dict:
                 dict(mla_paged_decode_partials_cuda.launches_by_code)}
 
 
+def n_pos_kernel_launches() -> dict:
+    """Launches so far of each decode kernel by draft positions: ``1`` a
+    decode step, ``P`` a verify chain (part of :func:`kernel_launches`'
+    counts)."""
+    return {w.__name__.removesuffix("_cuda"): dict(w.launches_by_n_pos)
+            for w in (decode_partials_cuda, paged_decode_partials_cuda,
+                      mla_paged_decode_partials_cuda,
+                      latent_decode_partials_cuda)}
+
+
 def _delta(after: dict, before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in after.items()}
 
@@ -129,6 +154,7 @@ def _sync(device: torch.device) -> None:
 
 def _serve_one_layout(args, cfg, model, rt, layout: str,
                       prefix_caching: bool = True,
+                      speculate: Optional[int] = None,
                       kv_dtype: Optional[str] = None,
                       host_swap_bytes: int = 0) -> dict:
     pool_bytes = None
@@ -141,7 +167,8 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
                          prefill_chunk=args.prefill_chunk,
                          cache_layout=layout, page_size=args.page_size,
                          num_pages=args.num_pages,
-                         prefix_caching=prefix_caching, kv_dtype=kv_dtype,
+                         prefix_caching=prefix_caching,
+                         speculate=speculate, kv_dtype=kv_dtype,
                          pool_bytes=pool_bytes,
                          host_swap_bytes=host_swap_bytes, device=args.device,
                          seed=args.seed)
@@ -156,13 +183,18 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
         for k in engine.stats:
             engine.stats[k] = 0
         # each repeat serves the identical trace: a warm index would absorb
-        # runs 2..N, so every run starts from an empty one
+        # runs 2..N, so every run starts from an empty one — and so does
+        # the proposer, whose warm table would report same-trace-rerun
+        # acceptance instead of the duplicate traffic's
         engine.clear_prefix_cache()
+        if engine.proposer is not None:
+            engine.proposer.clear()
         rng = np.random.default_rng(args.seed)
         sp = args.shared_prefix_len
         shared = rng.integers(0, cfg.vocab, size=(sp,)) if sp else None
         launches0 = kernel_launches()
         quant0 = quant_kernel_launches()
+        n_pos0 = n_pos_kernel_launches()
         if engine.kv is not None:
             engine.kv.swap_ms = {k: 0.0 for k in engine.kv.swap_ms}
         t0 = time.perf_counter()
@@ -176,16 +208,27 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
                           max_new_tokens=args.new_tokens)
             reqs.append(req)
             engine.submit(req)
+        for j in range(args.duplicates):
+            # duplicate traffic: resend earlier prompts verbatim (FIFO
+            # admission sends a duplicate after its original completed —
+            # the cross-request drafting workload)
+            req = Request(rid=len(lens) + j,
+                          prompt=reqs[j % len(lens)].prompt.copy(),
+                          max_new_tokens=args.new_tokens)
+            reqs.append(req)
+            engine.submit(req)
         engine.run()
         _sync(engine.device)
         launches = _delta(kernel_launches(), launches0)
         quant = {k: _delta(v, quant0[k])
                  for k, v in quant_kernel_launches().items()}
+        n_pos = {k: {n: c for n, c in _delta(v, n_pos0[k]).items() if c}
+                 for k, v in n_pos_kernel_launches().items()}
         swap_ms = None if engine.kv is None else dict(engine.kv.swap_ms)
         runs.append((time.perf_counter() - t0, dict(engine.stats), reqs,
-                     launches, quant, swap_ms))
+                     launches, quant, n_pos, swap_ms))
     runs.sort(key=lambda r: r[0])
-    dt, stats, reqs, launches, quant, swap_ms = runs[len(runs) // 2]
+    dt, stats, reqs, launches, quant, n_pos, swap_ms = runs[len(runs) // 2]
     engine.stats.update(stats)
 
     total_new = sum(len(r.generated) for r in reqs)
@@ -194,6 +237,7 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
     memory = engine.memory_stats()
     finite = engine.logits_finite()
     prefix_on = engine.kv is not None and engine.kv.prefix_enabled
+    spec_k = engine.spec_k
     if engine.kv is not None:
         # the trace has drained: a quiescent point, so the pool's host
         # state must audit clean (raises AssertionError otherwise)
@@ -201,7 +245,7 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
     del engine                   # free this layout's caches before the next
     if torch.device(args.device).type == "cuda":
         torch.cuda.empty_cache()
-    return {
+    out = {
         "cache_layout": layout,
         "prefix_caching": prefix_on,
         "prefix": {
@@ -236,11 +280,44 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
         # those on quantized pools by code dtype
         "kernel_launches": launches,
         "kernel_launches_by_kv_dtype": quant,
+        # the decode kernels' launches by draft positions (1: decode steps,
+        # k + 1: verify dispatches)
+        "kernel_launches_by_n_pos": n_pos,
         # host ms of the swap tier's demotions and promotions in that run
         "host_swap_ms": swap_ms,
         "logits_finite": finite,
         "_outputs": [list(r.generated) for r in reqs],
     }
+    if spec_k is not None:
+        out["speculation"] = {
+            "k": spec_k,
+            "dispatches": stats["spec_dispatches"],
+            "proposed": stats["spec_proposed"],
+            "accepted": stats["spec_accepted"],
+            "accept_rate": round(
+                stats["spec_accepted"] / max(1, stats["spec_proposed"]), 3),
+            # committed tokens per model evaluation (every decode dispatch,
+            # speculative or not, is one): what has to beat 1.0 for
+            # speculation to pay
+            "accepted_per_dispatch": round(
+                stats["tokens_decoded"] / max(1, stats["decode_dispatches"]),
+                3),
+        }
+    return out
+
+
+def speculation_arg(args, cfg: ModelConfig) -> Optional[int]:
+    """The ``--speculate`` K the legs serve with (None: off); a K the
+    engine would refuse exits here, before the model is built."""
+    spec = None if args.no_speculate else args.speculate
+    if spec is None:
+        return None
+    why = speculation_refusal(cfg, spec, temperature=args.temperature,
+                              cuda=torch.device(args.device).type == "cuda")
+    if why is not None:
+        raise SystemExit(f"--speculate {spec} refused for {args.arch}: "
+                         f"{why}")
+    return spec
 
 
 def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
@@ -252,27 +329,38 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
     if cfg is None:
         cfg = serve_config(args.arch)
         moe_cut = cfg != get_config(args.arch)
+    spec = speculation_arg(args, cfg)
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
     model = tf.init(cfg, args.seed, rt, device=args.device)
     layouts = ["dense", "paged"] if args.cache_layout == "both" \
         else [args.cache_layout]
     prefix = not args.no_prefix_cache
     per_layout = {lo: _serve_one_layout(args, cfg, model, rt, lo,
-                                        prefix_caching=prefix)
+                                        prefix_caching=prefix,
+                                        speculate=spec)
                   for lo in layouts}
     if args.shared_prefix_len and "paged" in layouts and prefix:
         # shared-prefix trace mode: the paged layout once more with the
         # prefix cache off — greedy streams must be identical either way
         per_layout["paged_noprefix"] = _serve_one_layout(
-            args, cfg, model, rt, "paged", prefix_caching=False)
+            args, cfg, model, rt, "paged", prefix_caching=False,
+            speculate=spec)
         layouts = layouts + ["paged_noprefix"]
+    base_lo = "paged" if "paged" in layouts else layouts[0]
+    if spec is not None:
+        # the speculation A/B: the identical trace once more WITHOUT
+        # speculation on the primary layout — outputs_match then holds
+        # spec to non-spec streams, and the tok/s ratio is the speedup
+        per_layout[base_lo + "_nospec"] = _serve_one_layout(
+            args, cfg, model, rt, base_lo, prefix_caching=prefix)
+        layouts = layouts + [base_lo + "_nospec"]
     swap_bytes = int((args.host_swap_gb or 0) * (1 << 30))
     if swap_bytes and "paged" in per_layout:
         # the swap tier is lossless (pages round-trip bit for bit through
         # host memory), so this leg joins outputs_match
         per_layout["paged_swap"] = _serve_one_layout(
             args, cfg, model, rt, "paged", prefix_caching=prefix,
-            host_swap_bytes=swap_bytes)
+            speculate=spec, host_swap_bytes=swap_bytes)
         layouts = layouts + ["paged_swap"]
     quant_leg = None
     if args.kv_dtype and "paged" in per_layout:
@@ -282,7 +370,8 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
         quant_leg = "paged_quant"
         per_layout[quant_leg] = _serve_one_layout(
             args, cfg, model, rt, "paged", prefix_caching=prefix,
-            kv_dtype=args.kv_dtype, host_swap_bytes=swap_bytes)
+            speculate=spec, kv_dtype=args.kv_dtype,
+            host_swap_bytes=swap_bytes)
         layouts = layouts + [quant_leg]
     outputs = {lo: per_layout[lo].pop("_outputs") for lo in layouts}
     metrics = {
@@ -331,6 +420,14 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
         d, p = per_layout["dense"], per_layout["paged"]
         metrics["paged_vs_dense_tok_per_s"] = round(
             p["tok_per_s"] / max(d["tok_per_s"], 1e-9), 3)
+    if spec is not None:
+        metrics["duplicates"] = args.duplicates
+        metrics["speculation"] = dict(
+            per_layout[base_lo]["speculation"],
+            spec_vs_base_tok_per_s=round(
+                per_layout[base_lo]["tok_per_s"]
+                / max(per_layout[base_lo + "_nospec"]["tok_per_s"], 1e-9),
+                3))
     metrics["device"] = device_info(torch.device(args.device))
     metrics["_outputs"] = outputs[layouts[0]]
     metrics["_outputs_by_layout"] = outputs
@@ -339,10 +436,6 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
 
 #: flags of legs not ported yet → (is it set?, ROADMAP item)
 _UNPORTED = (
-    (lambda a: a.speculate is not None and not a.no_speculate,
-     "--speculate", "§1 item 3, speculation"),
-    (lambda a: bool(a.duplicates), "--duplicates",
-     "§1 item 3, speculation"),
     (lambda a: bool(a.mesh), "--mesh", "§1 item 8, device-sharded pool"),
     (lambda a: a.run_async, "--async", "§1 item 7, async front end and dp"),
     (lambda a: a.dp > 1, "--dp", "§1 item 7, async front end and dp"),
@@ -389,9 +482,17 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable automatic prefix caching on the paged "
                          "layout")
-    ap.add_argument("--speculate", type=int, default=None, metavar="K")
-    ap.add_argument("--no-speculate", action="store_true")
-    ap.add_argument("--duplicates", type=int, default=0, metavar="N")
+    ap.add_argument("--speculate", type=int, default=None, metavar="K",
+                    help="speculative decoding (greedy only): draft K "
+                         "tokens a slot with the n-gram proposer and verify "
+                         "the chain in one dispatch; adds a "
+                         "'<layout>_nospec' leg on the same trace, which "
+                         "joins outputs_match")
+    ap.add_argument("--no-speculate", action="store_true",
+                    help="force speculation off (overrides --speculate)")
+    ap.add_argument("--duplicates", type=int, default=0, metavar="N",
+                    help="trace mode: append N requests resending earlier "
+                         "prompts verbatim (cycling over the originals)")
     ap.add_argument("--kv-dtype", default=None, choices=("fp8_e4m3", "int8"),
                     help="also serve the paged layout on pages of these "
                          "codes with fp16 scales ('paged_quant', out of "
@@ -475,6 +576,12 @@ def main(argv: Optional[list] = None,
         print(f"  quantized leg ({qq['kv_dtype']}): token match rate "
               f"{qq['token_match_rate']} vs {qq['vs_layout']}, "
               f"{qq['exact_streams']}/{qq['streams']} streams exact")
+    sp = metrics.get("speculation")
+    if sp:
+        print(f"  speculation k={sp['k']}: accept rate {sp['accept_rate']} "
+              f"({sp['accepted']}/{sp['proposed']} drafts), "
+              f"{sp['accepted_per_dispatch']} committed tokens/dispatch, "
+              f"spec/base tok/s = {sp['spec_vs_base_tok_per_s']}")
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(metrics, fh, indent=1)

@@ -62,7 +62,15 @@ and the prefix hash all see raw codes.  A continuation chunk attends its
 own K/V quant-round-tripped, as the reference does, so it sees exactly
 what later reads reconstruct.
 
-Not ported yet (ROADMAP "Modules still to port"): verify.
+Speculative verify (:func:`gqa_verify`, :func:`gqa_verify_paged`,
+:func:`mla_verify`, :func:`mla_verify_paged`) scores a P-token chain in
+one call: chain position j sits at ``kv_len - 1 + j`` and attends keys
+``< kv_len + j`` through the same kernels as decode, at P·G (GQA) or
+P·H (MLA) query rows.  Positions at or past a row's ``span`` must not
+land: on the pages they go to the sink page; the dense cache has no sink
+row, so :func:`write_chain_dense` writes a window of distinct in-range
+slots per row, each keeping its old value where no kept position maps to
+it.
 """
 from __future__ import annotations
 
@@ -181,6 +189,31 @@ def write_pages(pages: torch.Tensor, bt_rows: torch.Tensor,
     page, off = page_slots(pages, bt_rows, positions, capacity, valid)
     pages[page, off] = values.to(pages.dtype)
     return pages
+
+
+def write_chain_dense(cache: torch.Tensor, new: torch.Tensor,
+                      kv_len: torch.Tensor, span: torch.Tensor) -> None:
+    """Write a verify chain into a dense cache, in place: ``cache [B, M,
+    *tail]`` (sequence on axis 1; a transposed view writes through),
+    ``new [B, P, *tail]``, chain position j at ``kv_len - 1 + j``, kept
+    where ``j < span`` and the position is below M — the reference's
+    ``mode="drop"`` scatter without a host sync.  Each row rewrites the
+    ``min(P, M)`` distinct slots from ``clamp(kv_len - 1, 0, M - P)``,
+    which hold every kept position; a slot no kept position maps to takes
+    its old value back, so no two writes of a row share a slot (a CUDA
+    ``index_put`` with duplicate indices has no defined winner)."""
+    b, m = cache.shape[:2]
+    p = new.shape[1]
+    w = min(p, m)
+    dev = cache.device
+    first = (kv_len.to(dev).long() - 1)[:, None]             # [B, 1]
+    idx = torch.clamp(first, 0, m - w) + torch.arange(w, device=dev)
+    j = idx - first                                          # chain pos
+    keep = (j >= 0) & (j < span.to(dev).long()[:, None])     # [B, W]
+    bidx = torch.arange(b, device=dev)[:, None]
+    src = new[bidx, torch.clamp(j, 0, p - 1)].to(cache.dtype)
+    keep = keep.view(b, w, *([1] * (new.dim() - 2)))
+    cache[bidx, idx] = torch.where(keep, src, cache[bidx, idx])
 
 
 def ring_write_masked(kc: torch.Tensor, vc: torch.Tensor,
@@ -552,6 +585,76 @@ def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
     return _out_proj(p, out), cache
 
 
+def _chain_positions(kv_len: torch.Tensor, pq: int) -> torch.Tensor:
+    """Absolute positions of a P-token verify chain: ``kv_len - 1 + j``
+    ([B, P]; ``kv_len`` counts chain position 0)."""
+    return (kv_len.long() - 1)[:, None] + torch.arange(pq,
+                                                       device=kv_len.device)
+
+
+def gqa_verify(p: GQA, x: torch.Tensor, cache: dict, kv_len: torch.Tensor,
+               span: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
+               rt: Runtime):
+    """Speculative verify on the dense cache: score a P-token chain in one
+    call.  x: [B, P, d]; chain position j sits at ``kv_len - 1 + j``
+    (``kv_len`` counts the cache *including* chain position 0, as
+    :func:`gqa_decode`'s does); ``span``: [B] real chain positions per
+    row — K/V past it never land (:func:`write_chain_dense`), so rejected
+    drafts leave the cache as it was, and outputs past it are garbage the
+    engine ignores.  Global attention only (the engine gates windows
+    off); K2 at P·G rows."""
+    pos = _chain_positions(kv_len, x.shape[1])           # [B, P]
+    q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, P, dh]
+    write_chain_dense(cache["k"].transpose(1, 2), k_new.transpose(1, 2),
+                      kv_len, span)
+    write_chain_dense(cache["v"].transpose(1, 2), v_new.transpose(1, 2),
+                      kv_len, span)
+    out = fusemax_decode(
+        q, cache["k"], cache["v"], kv_len,
+        softcap=cfg.attn_softcap,
+        impl=rt.attn_impl,
+        splits=rt.decode_splits,
+        exp_impl=rt.exp_impl,
+    )                                                    # [B, H, P, dh]
+    return _out_proj(p, out), cache
+
+
+def gqa_verify_paged(p: GQA, x: torch.Tensor, cache: dict,
+                     bt_rows: torch.Tensor, kv_len: torch.Tensor,
+                     span: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
+                     rt: Runtime):
+    """Paged :func:`gqa_verify`: the chain's K/V land through the block
+    table (its tail rows are the slot's scratch draft pages — see
+    ``PagedKVCache.reserve_draft``; positions past ``span`` and inactive
+    rows go to the sink page), and K3 reads them back through the same
+    table at P·G rows.  A quantized pool takes the chain's codes and
+    per-(token, head) scales, so every read of the chain, its own
+    included, sees the quant-round-tripped values."""
+    pq = x.shape[1]
+    pos = _chain_positions(kv_len, pq)                   # [B, P]
+    q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, P, dh]
+    cap = _gqa_capacity(cache, bt_rows, spec)
+    valid = (torch.arange(pq, device=x.device)[None]
+             < span.to(x.device)[:, None]) & (kv_len > 0)[:, None]
+    k_q, k_s, v_q, v_s, _, _ = _gqa_quant_new(cache, k_new, v_new)
+    for name, new in (("k_pages", k_q), ("v_pages", v_q), ("k_scale", k_s),
+                      ("v_scale", v_s)):
+        if new is not None:
+            write_pages(cache[name], bt_rows, pos, new.transpose(1, 2), cap,
+                        valid)
+    ks, vs = _readable_scales(cache, "k_scale", "v_scale")
+    out = fusemax_decode_paged(
+        q, pool_pages(cache["k_pages"]), pool_pages(cache["v_pages"]),
+        bt_rows, kv_len,
+        softcap=cfg.attn_softcap,
+        impl=rt.attn_impl,
+        splits=rt.decode_splits,
+        exp_impl=rt.exp_impl,
+        k_scale=ks, v_scale=vs,
+    )                                                    # [B, H, P, dh]
+    return _out_proj(p, out), cache
+
+
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek multi-head latent attention) — paged layout
 # ---------------------------------------------------------------------------
@@ -725,6 +828,30 @@ def mla_decode(p: MLAAttention, x: torch.Tensor, cache: dict,
     return _out_proj(p, out), cache
 
 
+def mla_verify(p: MLAAttention, x: torch.Tensor, cache: dict,
+               kv_len: torch.Tensor, span: torch.Tensor, cfg: ModelConfig,
+               spec: LayerSpec, rt: Runtime):
+    """Speculative verify in latent space on the dense cache: the P-chain
+    analogue of :func:`mla_decode` (chain contract in :func:`gqa_verify`):
+    the chain's latents land where kept (:func:`write_chain_dense`), then
+    K2's E ≠ F branch at P·H rows and the W_uv / ``wo`` lifts.  x: [B, P,
+    d]."""
+    pos = _chain_positions(kv_len, x.shape[1])           # [B, P]
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_latent(p, x, cfg, pos)
+    write_chain_dense(cache["ckv"], ckv_new, kv_len, span)
+    write_chain_dense(cache["krope"], krope_new, kv_len, span)
+    dt = x.dtype
+    q_eff = torch.einsum("bhse,rhe->bhsr", q_nope, p.w_uk.to(dt))
+    q_cat = torch.cat([q_eff, q_rope], dim=-1)           # [B, H, P, r+rd]
+    out_lat = fusemax_decode_latent(
+        q_cat, cache["ckv"], cache["krope"], kv_len,
+        scale=_mla_scale(cfg), softcap=cfg.attn_softcap,
+        impl=rt.attn_impl, splits=rt.decode_splits, exp_impl=rt.exp_impl,
+    )                                                    # [B, H, P, r]
+    out = torch.einsum("bhsr,rhe->bhse", out_lat, p.w_uv.to(dt))
+    return _out_proj(p, out), cache
+
+
 def mla_init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                          dtype, device, kv_dtype: Optional[str] = None
                          ) -> dict:
@@ -845,5 +972,36 @@ def mla_decode_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
         impl=rt.attn_impl, exp_impl=rt.exp_impl,
         ckv_scale=cs, krope_scale=ks,
     )                                                    # [B, H, 1, r]
+    out = torch.einsum("bhsr,rhe->bhse", out_lat, p.w_uv.to(dt))
+    return _out_proj(p, out), cache
+
+
+def mla_verify_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
+                     bt_rows: torch.Tensor, kv_len: torch.Tensor,
+                     span: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
+                     rt: Runtime):
+    """Paged latent-space verify: the P-chain analogue of
+    :func:`mla_decode_paged` (chain contract in :func:`gqa_verify`): the
+    chain's latents (codes and per-token scales on a quantized pool) land
+    in the slot's scratch draft pages through the block table, masked
+    positions in the sink page, then K4 at ``n_pos = P``.  x: [B, P, d]."""
+    pq = x.shape[1]
+    pos = _chain_positions(kv_len, pq)                   # [B, P]
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_latent(p, x, cfg, pos)
+    cap = bt_rows.shape[1] * cache["ckv_pages"].shape[1]
+    valid = (torch.arange(pq, device=x.device)[None]
+             < span.to(x.device)[:, None]) & (kv_len > 0)[:, None]
+    _mla_write(cache, bt_rows, pos, cap, valid, ckv_new, krope_new)
+    dt = x.dtype
+    q_eff = torch.einsum("bhse,rhe->bhsr", q_nope, p.w_uk.to(dt))
+    q_cat = torch.cat([q_eff, q_rope], dim=-1)           # [B, H, P, r+rd]
+    cs, ks = _readable_scales(cache, "ckv_scale", "krope_scale")
+    out_lat = fusemax_mla_decode_paged(
+        q_cat, pool_pages(cache["ckv_pages"]),
+        pool_pages(cache["krope_pages"]), bt_rows, kv_len,
+        scale=_mla_scale(cfg), softcap=cfg.attn_softcap,
+        impl=rt.attn_impl, exp_impl=rt.exp_impl,
+        ckv_scale=cs, krope_scale=ks,
+    )                                                    # [B, H, P, r]
     out = torch.einsum("bhsr,rhe->bhse", out_lat, p.w_uv.to(dt))
     return _out_proj(p, out), cache

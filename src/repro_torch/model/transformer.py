@@ -16,11 +16,15 @@ Entry points:
   ``prefill``          → (last-token logits, caches)
   ``decode_step``      → (logits, caches)
   ``decode_loop``      → fused multi-step greedy / sampled decode
+  ``layer_verify``     → one layer of a P-token speculative verify
+  ``verify_step``      → (logits [B, P, vocab], caches) of a draft chain
+  ``speculative_step`` → fused speculate→verify→accept step (greedy)
   ``scatter_cache_slots`` → land a batched prefill in its slot rows
   ``copy_cache_pages`` → copy-on-write of shared prefix pages
 
 ``block_tables`` (``{"full": [slots, W] int32}`` on the device) selects
-the paged layout in ``prefill`` / ``decode_step`` / ``decode_loop``.
+the paged layout in ``prefill`` / ``decode_step`` / ``decode_loop`` /
+``verify_step`` / ``speculative_step``.
 """
 from __future__ import annotations
 
@@ -175,6 +179,34 @@ def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
     return _mlp_block(p, x, cfg), cache
 
 
+def layer_verify(p: Layer, x: torch.Tensor, cache: dict,
+                 kv_len: torch.Tensor, span: torch.Tensor, cfg: ModelConfig,
+                 spec: LayerSpec, rt: Runtime,
+                 block_tables: Optional[dict] = None):
+    """P-position speculative verify through one layer (the chain analogue
+    of :func:`layer_decode`; x: [B, P, d]).  Global attention only: a ring
+    holds a trailing window, which a partly rejected chain would leave
+    with phantom writes, so the engine never speculates on one."""
+    if spec.window is not None:
+        raise ValueError("speculative verify does not support sliding-"
+                         "window layers")
+    h = apply_norm(p.ln1, x, cfg.norm)
+    if block_tables is not None:
+        verify_paged = attn_mod.mla_verify_paged if spec.attn == "mla" \
+            else attn_mod.gqa_verify_paged
+        y, cache["attn"] = verify_paged(
+            p.attn, h, cache["attn"],
+            block_tables[attn_mod.paged_cache_key(spec)], kv_len, span, cfg,
+            spec, rt)
+    else:
+        verify = attn_mod.mla_verify if spec.attn == "mla" \
+            else attn_mod.gqa_verify
+        y, cache["attn"] = verify(p.attn, h, cache["attn"], kv_len, span,
+                                  cfg, spec, rt)
+    x = _residual(p, x, y, cfg)
+    return _mlp_block(p, x, cfg), cache
+
+
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
@@ -268,6 +300,87 @@ def decode_step(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
         x, _ = layer_decode(p, x, c, kv_len, cfg, spec, rt, block_tables,
                             slots)
     return _logits(cfg, model, x[:, 0]), caches
+
+
+@torch.no_grad()
+def verify_step(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
+                caches: list, kv_len: torch.Tensor, span: torch.Tensor,
+                rt: Runtime = Runtime(),
+                block_tables: Optional[dict] = None):
+    """Score a P-token draft chain in one dispatch.
+
+    tokens: [B, P] int — chain position 0 is the model's own next token
+    (the base decode step), positions 1..P-1 the drafts.  kv_len: [B]
+    cache length *including* chain position 0; position j sits at
+    ``kv_len - 1 + j`` and attends keys ``< kv_len + j``.  span: [B] real
+    chain positions per row (writes past it never land, outputs past it
+    are ignored).  Caches update in place.  Returns (logits [B, P,
+    vocab], caches): ``logits[:, j]`` is what :func:`decode_step` returns
+    after committing ``tokens[:, :j+1]`` — the attention reads run the
+    single-token split geometry (splits keyed on M, never on P), and the
+    [B, P, d] projections and MLP match the [B, 1, d] ones to fp32
+    summation order, so the greedy argmax the accept rule reads agrees."""
+    x = _embed_inputs(cfg, model, tokens, rt)
+    for spec, p, c in zip(cfg.layer_specs(), model.layers, caches):
+        x, _ = layer_verify(p, x, c, kv_len, span, cfg, spec, rt,
+                            block_tables)
+    return _logits(cfg, model, x), caches
+
+
+@torch.no_grad()
+def speculative_step(cfg: ModelConfig, model: Model,
+                     last_logits: torch.Tensor, drafts: torch.Tensor,
+                     caches: list, kv_len: torch.Tensor,
+                     remaining: torch.Tensor, rt: Runtime = Runtime(),
+                     block_tables: Optional[dict] = None):
+    """One fused speculate→verify→accept step (greedy).
+
+    last_logits: [B, vocab] — each slot's logits over its last committed
+    token.  drafts: [B, P-1] proposer guesses for the tokens *after* the
+    model's next one.  kv_len: [B] committed lengths (not counting the
+    next token); remaining: [B] tokens each slot may still emit (0 =
+    spent).
+
+    The chain fed to :func:`verify_step` is ``[argmax(last_logits),
+    drafts]``: position 0 is the ordinary decode step, so a fully rejected
+    draft still commits one token.  A draft is accepted while each equals
+    the argmax of the previous position's verify logits, so every
+    committed token is the model's own argmax and the stream equals
+    token-by-token :func:`decode_step`.
+
+    Returns (tokens [P, B], advance [B], kv_len, remaining, last_logits,
+    caches), all on the device: ``tokens[:advance[i], i]`` is slot i's
+    committed chain, and the state equals ``advance[i]`` steps of the
+    base loop."""
+    b = last_logits.shape[0]
+    p_total = drafts.shape[1] + 1
+    dev = last_logits.device
+    kv_len = kv_len.to(device=dev, dtype=torch.int32)
+    remaining = remaining.to(device=dev, dtype=torch.int32)
+    active = remaining > 0
+    nxt = torch.argmax(last_logits, dim=-1).to(torch.int32)
+    nxt = torch.where(active, nxt, torch.zeros_like(nxt))
+    fed = torch.cat([nxt[:, None], drafts.to(device=dev, dtype=torch.int32)],
+                    dim=1)                               # [B, P]
+    span = torch.where(active, torch.clamp(remaining, max=p_total),
+                       torch.zeros_like(remaining))
+    kv0 = kv_len + active.to(torch.int32)                # incl. position 0
+
+    logits, caches = verify_step(cfg, model, fed, caches, kv0, span, rt,
+                                 block_tables)
+
+    guess = torch.argmax(logits, dim=-1).to(torch.int32)        # [B, P]
+    ok = (fed[:, 1:] == guess[:, :-1]) & (
+        torch.arange(1, p_total, device=dev)[None] < span[:, None])
+    acc = torch.cumprod(ok.to(torch.int32), dim=1)
+    advance = torch.where(active, 1 + acc.sum(dim=1, dtype=torch.int32),
+                          torch.zeros_like(remaining))
+    new_last = logits[torch.arange(b, device=dev),
+                      torch.clamp(advance.long() - 1, min=0)]
+    last_logits = torch.where(active[:, None],
+                              new_last.to(last_logits.dtype), last_logits)
+    return (fed.T, advance, kv_len + advance, remaining - advance,
+            last_logits, caches)
 
 
 def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,

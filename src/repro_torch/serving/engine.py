@@ -2,11 +2,10 @@
 dense or the paged cache layout.
 
 Port of ``repro.serving.ServeEngine`` (both layouts, GQA and MLA models,
-no speculation).  A
-fixed set of slots holds requests (continuous batching); each slot has
-its own ``kv_len``; decode advances the whole batch through
-:func:`transformer.decode_loop`, whose split-K decode kernels handle the
-ragged lengths themselves.  Finished slots refill from the queue.
+speculative decoding).  A fixed set of slots holds requests (continuous
+batching); each slot has its own ``kv_len``; decode advances the whole
+batch through :func:`transformer.decode_loop`, whose split-K decode
+kernels handle the ragged lengths themselves.  Finished slots refill from the queue.
 
 * **Layouts** — ``"dense"``: per-slot ``[slots, max_len]`` rows, admission
   needs a free slot.  ``"paged"``: a page pool with per-slot block tables
@@ -38,14 +37,24 @@ ragged lengths themselves.  Finished slots refill from the queue.
   so the reported TTFT is a first-token latency.  On the paged layout
   every slot's pages for the whole chunk are grown before the dispatch,
   so the block tables go to the device once per dispatch.
+* **Speculative decoding** (``speculate=k``, greedy only, on models whose
+  every layer is global GQA or MLA attention with a dense MLP —
+  :func:`speculation_supported`) — an n-gram proposer
+  (:mod:`repro_torch.serving.speculate`) drafts up to k tokens per slot
+  from the slot's own history and from completed streams, and ONE verify
+  dispatch (:func:`transformer.speculative_step`) scores the k + 1 chain
+  positions of every slot and commits the accepted prefix, with one host
+  sync.  On the paged layout the chain's K/V land in scratch tail pages
+  that commit or roll back by block-table surgery.  Greedy streams equal
+  the non-speculative engine's.
 
 The reference donates its cache buffers to each jit'd call; the port
 updates the caches in place instead.  ``stats`` counts dispatches and
 steps exactly as the reference does, so the two engines can be held to
 the same counters on the same trace.
 
-Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md):
-``speculate`` and ``mesh`` (sharded pool).
+Not ported yet (raises ``NotImplementedError``, see ROADMAP.md): ``mesh``
+(the sharded pool).
 """
 from __future__ import annotations
 
@@ -58,11 +67,57 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.autotune import next_pow2
+from repro_torch.kernels.decode import CUDA_MAX_ROWS
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime, resolve_device
-from repro_torch.serving.kv_cache import (
-    _SHARD, _SPEC, PagedKVCache, _not_ported,
-)
+from repro_torch.serving.kv_cache import _SHARD, PagedKVCache, _not_ported
+from repro_torch.serving.speculate import NGramProposer
+
+
+def speculation_supported(cfg: ModelConfig) -> bool:
+    """True when every layer is global GQA/MLA attention + dense MLP (the
+    reference's gate).  A verify dispatch scores the chain against state
+    addressed by absolute position: a windowed ring holds only a trailing
+    window (a partly rejected chain would leave phantom ring writes), SSM
+    state cannot roll back, and MoE expert capacity depends on the chunk
+    length, so a P-token verify would route differently than P single
+    steps."""
+    return all(s.attn in ("gqa", "mla") and s.window is None
+               and s.mlp == "dense" and s.ssm is None
+               and not s.parallel_ssm
+               for s in cfg.layer_specs())
+
+
+def speculation_refusal(cfg: ModelConfig, k: int, *, temperature: float,
+                        cuda: bool) -> Optional[str]:
+    """Why ``speculate=k`` cannot serve ``cfg``, or None: the reference's
+    gates (k >= 1, greedy only, :func:`speculation_supported`) and, on the
+    CUDA kernels (``cuda``), their row limit — K2 and K3 take at most
+    :data:`CUDA_MAX_ROWS` folded query rows a fiber and a GQA verify folds
+    (k + 1) · G of them (G query heads a kv head); K4 and K2's latent
+    branch, and the plain versions, take any count."""
+    if k < 1:
+        return f"need speculate >= 1, got {k}"
+    if temperature > 0.0:
+        return ("speculative decoding is greedy-only: the accept rule "
+                "commits a draft token iff it equals the model's own "
+                "argmax, which reproduces the non-speculative stream only "
+                "at temperature=0")
+    if not speculation_supported(cfg):
+        return ("speculative decoding needs every layer to be global "
+                "GQA/MLA attention with a dense MLP (no sliding windows, "
+                "SSM state, or MoE routing — see speculation_supported)")
+    if not cuda or all(s.attn == "mla" for s in cfg.layer_specs()):
+        return None
+    group = cfg.n_heads // cfg.n_kv_heads
+    rows = (k + 1) * group
+    if rows <= CUDA_MAX_ROWS:
+        return None
+    return (f"speculate={k} verifies {k + 1} chain positions x {group} "
+            f"query heads per kv head = {rows} rows per fiber, but the "
+            f"CUDA decode kernels (K2, K3) take at most {CUDA_MAX_ROWS}: "
+            f"use speculate <= {CUDA_MAX_ROWS // group - 1} on "
+            f"{cfg.name}")
 
 
 @dataclasses.dataclass
@@ -101,8 +156,6 @@ class ServeEngine:
                  seed: int = 0):
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache_layout: {cache_layout!r}")
-        if speculate is not None:
-            raise _not_ported("speculative decoding", _SPEC)
         if cache_layout != "paged" and (kv_dtype is not None
                                         or pool_bytes is not None
                                         or host_swap_bytes):
@@ -112,6 +165,21 @@ class ServeEngine:
         if mesh is not None:
             raise _not_ported("the device-sharded pool (mesh=)", _SHARD)
         self.device = resolve_device(device)
+        self.spec_k = None
+        self.proposer = None
+        if speculate is not None:
+            k = int(speculate)
+            why = speculation_refusal(
+                cfg, k, temperature=temperature,
+                cuda=rt.attn_impl == "cuda" or (
+                    rt.attn_impl == "auto" and self.device.type == "cuda"))
+            if why is not None:
+                raise ValueError(why)
+            self.spec_k = k
+            # proposal position 0 guesses the model's *next* token, which
+            # the chain takes from the model itself, so k drafts need k + 1
+            # proposed positions (propose(...)[1:] is the chain)
+            self.proposer = NGramProposer(k=k + 1)
         param_dev = model.embed.table.device
         if param_dev.type != self.device.type:
             raise ValueError(f"model on {param_dev}, engine on {self.device}")
@@ -268,6 +336,10 @@ class ServeEngine:
             if self.kv is not None:
                 self.kv.clear_prefix()
                 self.kv.reset_peaks()
+            if self.proposer is not None:
+                # real traffic must not draft from (or get fake acceptance
+                # on) the all-zero warmup streams
+                self.proposer.clear()
         finally:
             if self.kv is not None:
                 self.kv.prefix_enabled = prefix_was
@@ -335,6 +407,10 @@ class ServeEngine:
             self._admit_seq += 1
             self._order[i] = self._admit_seq
             admitted.append((i, req, tokens, cached, cow_pairs))
+            if self.proposer is not None:
+                # (re-)open the request's draft history with the full
+                # resume stream: a preemption replay starts clean
+                self.proposer.begin(req.rid, tokens)
         if staged_promotes:
             self.caches = self.kv.apply_promote(self.caches, staged_promotes)
         if not admitted:
@@ -422,6 +498,13 @@ class ServeEngine:
         act = [i for i, r in enumerate(self.active) if r is not None]
         if not act:
             return
+        if self.spec_k is not None and \
+                all(self.active[i].generated for i in act):
+            # one verify dispatch commits up to k + 1 tokens a slot; when
+            # the pool cannot back every slot's draft span, the base loop
+            # runs and _ensure_pages applies the usual back-pressure
+            if self._spec_step(act):
+                return
         if any(not self.active[i].generated for i in act):
             # freshly admitted slot: one step first, so its first token
             # reaches the host at once (TTFT is a first-token latency)
@@ -457,16 +540,106 @@ class ServeEngine:
             if take > 0:
                 if not req.generated and req.ttft is None:
                     req.ttft = now - getattr(req, "_t_submit", now)
-                req.generated.extend(int(t) for t in toks[:take, i])
+                got = [int(t) for t in toks[:take, i]]
+                req.generated.extend(got)
                 self.stats["tokens_decoded"] += take
+                if self.proposer is not None:
+                    self.proposer.extend(req.rid, got)
             if self.remaining[i] <= 0:
-                req.done = True
-                self.active[i] = None
-                self.kv_len[i] = 0
-                if self.kv is not None:
-                    # completion: the slot's full pages go to the prefix
-                    # index instead of the free list
-                    self.kv.release(i, tokens=self._resume_tokens(req))
+                self._retire(i)
+
+    def _retire(self, i: int) -> None:
+        """A slot's request is complete: close its draft history (indexed
+        for later requests) and free the slot — its full pages go to the
+        prefix index instead of the free list."""
+        req = self.active[i]
+        req.done = True
+        self.active[i] = None
+        self.kv_len[i] = 0
+        if self.proposer is not None:
+            self.proposer.finish(req.rid)
+        if self.kv is not None:
+            self.kv.release(i, tokens=self._resume_tokens(req))
+
+    def _spec_step(self, act: list) -> bool:
+        """One fused speculate→verify→accept dispatch: score a (k + 1)-
+        token chain (the model's own next token + the proposer's k drafts)
+        per active slot and commit the accepted prefix.
+
+        On the paged layout the chain's K/V land in scratch tail pages
+        reserved first (:meth:`PagedKVCache.reserve_draft`); accepting is
+        block-table surgery (``commit_draft``), with no K/V copies or
+        recompute.  One host sync, on the committed tokens and advances.
+        Returns False — nothing dispatched, nothing left staged — when the
+        pool cannot back every active slot's draft span even after prefix
+        eviction."""
+        k = self.spec_k
+        p_total = k + 1
+        drafts = np.zeros((self.slots, k), np.int32)
+        proposed = np.zeros((self.slots,), np.int64)
+        for i in act:
+            # proposal position 0 guesses the model's next token, which the
+            # chain takes from the model: the drafts are the tail; unfilled
+            # positions stay 0 (a wrong draft just fails the accept rule)
+            d = self.proposer.propose(self.active[i].rid)[1:]
+            n = min(len(d), k)
+            drafts[i, :n] = d[:n]
+            proposed[i] = n
+        if self.kv is not None:
+            staged, pairs, short = [], [], False
+            for i in act:
+                span = int(min(p_total, self.remaining[i]))
+                res = self.kv.reserve_draft(
+                    i, int(self.kv_len[i]), int(self.kv_len[i]) + span)
+                if res is None:
+                    short = True
+                    break
+                staged.append(i)
+                pairs.extend(res)
+            if pairs:
+                # a COW pair stands on its own (the slot's reference already
+                # moved to the copy), so it applies even when a later slot's
+                # reservation fails and the dispatch is abandoned
+                self.caches = self.kv.apply_cow(self.caches, pairs)
+                self.stats["cow_copies"] += len(pairs)
+            if short:
+                for i in staged:
+                    self.kv.drop_draft(i)
+                return False
+        dev = self.device
+        toks, advance, _, _, self._last_logits, self.caches = \
+            tf.speculative_step(
+                self.cfg, self.model, self._last_logits,
+                torch.from_numpy(drafts).to(dev), self.caches,
+                torch.from_numpy(self.kv_len).to(dev),
+                torch.from_numpy(self.remaining).to(dev), self.rt,
+                block_tables=None if self.kv is None else self.kv.tables())
+        self.stats["decode_dispatches"] += 1
+        self.stats["spec_dispatches"] += 1
+        self.stats["decode_steps"] += 1          # one model evaluation
+        self._finite &= torch.isfinite(self._last_logits).all()
+
+        # one sync: the committed chains [P, slots] and their lengths
+        host = torch.cat([toks, advance[None]]).cpu().numpy()
+        toks, advance = host[:-1], host[-1].astype(np.int32)
+        self.kv_len = self.kv_len + advance
+        self.remaining = self.remaining - advance
+        self._sync_live_peak()
+        for i in act:
+            req = self.active[i]
+            adv = int(advance[i])
+            self.stats["spec_proposed"] += int(proposed[i])
+            self.stats["spec_accepted"] += max(0, adv - 1)
+            if self.kv is not None:
+                self.kv.commit_draft(i, int(self.kv_len[i]))
+            if adv > 0:
+                got = [int(t) for t in toks[:adv, i]]
+                req.generated.extend(got)
+                self.stats["tokens_decoded"] += adv
+                self.proposer.extend(req.rid, got)
+            if self.remaining[i] <= 0:
+                self._retire(i)
+        return True
 
     def step(self) -> None:
         """Admit waiting requests, then run one fused decode dispatch."""

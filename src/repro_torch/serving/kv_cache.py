@@ -48,10 +48,17 @@ counters; the page arrays are torch tensors on the engine's device.
   them during admission, :meth:`PagedKVCache.apply_promote` keeps the host
   buffers alive until the copies complete.  The engine wires
   ``cache_source`` to its live caches.
+* Speculative drafts: a verify dispatch writes its chain's K/V into
+  *scratch* tail pages mapped after the slot's owned pages
+  (:meth:`PagedKVCache.reserve_draft`, copy-on-write of a shared boundary
+  page included); :meth:`PagedKVCache.commit_draft` promotes the scratch
+  pages the accepted tokens cover into the owned set and drops the rest,
+  :meth:`PagedKVCache.drop_draft` drops them all — block-table surgery,
+  no K/V copies.  Scratch pages never enter the prefix index and are
+  drained by ``release`` (preemption).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): speculative draft pages (``reserve_draft``, ``commit_draft``,
-``drop_draft``) — item 3; the device-sharded pool (``shard``) — item 8.
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+the device-sharded pool (``shard``) — item 8.
 """
 from __future__ import annotations
 
@@ -77,7 +84,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
-_SPEC = "§1 item 3, speculation"
 _SHARD = "§1 item 8, device-sharded pool"
 
 
@@ -165,6 +171,11 @@ class _CacheClass:
     owned: List[List[int]]           # per-slot pages, logical order
     bytes_per_page: int              # across every layer of the class
     peak_live_pages: int = 0         # distinct pages referenced by slots
+    # per-slot speculative scratch tail pages: mapped into the table rows
+    # after ``owned`` while a draft is in flight, promoted into ``owned``
+    # by commit_draft or unref'd by drop_draft / release — never registered
+    # in the prefix index, never counted as resident
+    scratch: List[List[int]] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -284,6 +295,7 @@ class PagedKVCache:
                 table=np.full((slots, width), n, np.int32),
                 owned=[[] for _ in range(slots)],
                 bytes_per_page=bpp,
+                scratch=[[] for _ in range(slots)],
             )
 
         # prefix reuse needs every class addressed from position zero and
@@ -355,6 +367,10 @@ class PagedKVCache:
         """Extend ``slot``'s tables to cover ``kv_target`` tokens in every
         class.  All-or-nothing: returns False (state unchanged) when any
         pool is short even after evicting reusable-prefix pages."""
+        if any(c.scratch[slot] for c in self.classes.values()):
+            raise RuntimeError(
+                f"grow of slot {slot} with a staged draft: commit or drop "
+                f"the draft first (its table rows overlap the growth)")
         if not self.can_grow(slot, kv_target):
             return False
         for key, c in self.classes.items():
@@ -374,7 +390,11 @@ class PagedKVCache:
         """Drop every page reference the slot owns and reset its table
         rows to the sentinel.  With ``tokens`` (the slot's full token
         stream, completion path) the slot's full pages are first
-        registered into the prefix index, which takes its own reference."""
+        registered into the prefix index, which takes its own reference.
+        A staged draft is drained first (the preemption contract: in-flight
+        scratch pages are unref'd before the request requeues, and never
+        reach the prefix index)."""
+        self.drop_draft(slot)
         if tokens is not None and self.prefix_enabled:
             c = self.classes["full"]
             if c.owned[slot]:
@@ -395,10 +415,11 @@ class PagedKVCache:
     def tables(self) -> Dict[str, torch.Tensor]:
         """Device block tables for one dispatch (one small int32 upload
         per class).  Asserts the sentinel invariant: a live table row
-        never holds the sentinel — only unbacked rows do."""
+        (owned page or staged draft scratch) never holds the sentinel —
+        only unbacked rows do."""
         for k, c in self.classes.items():
             for slot, owned in enumerate(c.owned):
-                live = len(owned)
+                live = len(owned) + len(c.scratch[slot])
                 if live and int(c.table[slot, :live].max()) \
                         >= c.pool.num_pages:
                     raise AssertionError(
@@ -410,14 +431,89 @@ class PagedKVCache:
 
     # -- speculative drafts -------------------------------------------------
 
-    def reserve_draft(self, slot: int, kv_len: int, kv_target: int):
-        raise _not_ported("speculative draft pages (reserve_draft)", _SPEC)
+    def reserve_draft(self, slot: int, kv_len: int, kv_target: int
+                      ) -> Optional[List[Tuple[str, int, int]]]:
+        """Stage scratch pages so chain positions ``[kv_len, kv_target)``
+        are writable: the draft's K/V lands in tail pages mapped into the
+        slot's table rows *after* its owned pages, so a rejected draft
+        rolls back by dropping references — no K/V copies.
+
+        Owned boundary pages the draft would write (the partly filled last
+        page, when shared with the prefix index or another slot) are
+        copied on write as in :meth:`admit`: the returned pairs go through
+        :meth:`apply_cow` before the verify dispatch.  All-or-nothing:
+        returns None (state unchanged) when any pool is short even after
+        LRU prefix eviction (which demotes to the host swap tier where it
+        has room).  Scratch pages never enter the prefix index until
+        :meth:`commit_draft` promotes them into ``owned``."""
+        if any(c.scratch[slot] for c in self.classes.values()):
+            raise RuntimeError(f"slot {slot} already has a staged draft")
+        ps = self.page_size
+        plan: Dict[str, Tuple[int, List[int]]] = {}
+        for key, c in self.classes.items():
+            need = self.pages_needed(key, kv_target)
+            have = len(c.owned[slot])
+            n_scratch = max(0, need - have)
+            first = min(kv_len, c.capacity) // ps
+            cow_idx = [i for i in range(first, have)
+                       if c.pool.refcount(c.owned[slot][i]) > 1]
+            plan[key] = (n_scratch, cow_idx)
+            fresh = n_scratch + len(cow_idx)
+            if fresh > c.pool.free_pages + self._evictable_pages(key, c):
+                return None
+        pairs: List[Tuple[str, int, int]] = []
+        for key, c in self.classes.items():
+            n_scratch, cow_idx = plan[key]
+            fresh = n_scratch + len(cow_idx)
+            if fresh > c.pool.free_pages:
+                self._evict_prefix(c, fresh)
+            for i in cow_idx:
+                src = c.owned[slot][i]
+                dst = c.pool.alloc(1)[0]
+                # the slot's reference on src moves to the pair (apply_cow
+                # unrefs it); the slot owns the copy target
+                pairs.append((key, src, dst))
+                c.owned[slot][i] = dst
+                c.table[slot, i] = dst
+            got = c.pool.alloc(n_scratch)
+            have = len(c.owned[slot])
+            c.table[slot, have:have + n_scratch] = got
+            c.scratch[slot] = got
+        return pairs
 
     def commit_draft(self, slot: int, kv_len_new: int) -> None:
-        raise _not_ported("speculative draft pages (commit_draft)", _SPEC)
+        """Accept a draft prefix by block-table surgery: the scratch pages
+        covering ``kv_len_new`` tokens are promoted into ``owned`` (their
+        single reference moves — no copy), the rejected tail's pages drop
+        their references, and rows past the new extent reset to the
+        sentinel."""
+        for c in self.classes.values():
+            need = _ceil_div(min(kv_len_new, c.capacity), self.page_size)
+            keep = max(0, need - len(c.owned[slot]))
+            if keep > len(c.scratch[slot]):
+                raise RuntimeError(
+                    f"commit of {kv_len_new} tokens needs {keep} scratch "
+                    f"pages but slot {slot} staged "
+                    f"{len(c.scratch[slot])}")
+            kept, dropped = c.scratch[slot][:keep], c.scratch[slot][keep:]
+            c.owned[slot].extend(kept)
+            for p in dropped:
+                c.pool.unref(p)
+            c.scratch[slot] = []
+            c.table[slot, len(c.owned[slot]):] = self._sentinel(c)
+        self._touch_peaks()
 
     def drop_draft(self, slot: int) -> None:
-        raise _not_ported("speculative draft pages (drop_draft)", _SPEC)
+        """Roll back a staged draft entirely: unref every scratch page and
+        reset its table rows (the preemption path through
+        :meth:`release`).  Idempotent."""
+        for c in self.classes.values():
+            if not c.scratch[slot]:
+                continue
+            for p in c.scratch[slot]:
+                c.pool.unref(p)
+            c.scratch[slot] = []
+            c.table[slot, len(c.owned[slot]):] = self._sentinel(c)
 
     # -- prefix cache -------------------------------------------------------
 
@@ -646,7 +742,7 @@ class PagedKVCache:
                     "promotes": []}
 
         c = self.classes["full"]
-        if c.owned[slot]:
+        if c.owned[slot] or c.scratch[slot]:
             raise RuntimeError(f"admit into non-empty slot {slot}")
         n_tok = len(tokens)
         hashes = self._chain_hashes(tokens)
@@ -788,10 +884,11 @@ class PagedKVCache:
         * free list: in range, duplicate-free, disjoint from the
           refcounted set, and together they account for every page;
         * refcounts: every page's count equals its multiplicity across
-          slot ``owned`` rows + (full class) one per prefix-index entry;
-        * block tables: row ``[: live]`` mirrors ``owned`` in order, no
-          live row holds the sentinel, every row past the live extent
-          *is* the sentinel;
+          slot ``owned`` rows + staged draft ``scratch`` rows + (full
+          class) one per prefix-index entry;
+        * block tables: row ``[: live]`` mirrors ``owned + scratch`` in
+          order, no live row holds the sentinel, every row past the live
+          extent *is* the sentinel;
         * prefix index: entries point at in-range pages, parent chains
           are closed under the index, resident entries hold no host copy
           and demoted ones hold one;
@@ -816,9 +913,10 @@ class PagedKVCache:
                 f"class '{key}': allocated page with refcount <= 0"
 
             expected: Dict[int, int] = {}
-            for row in c.owned:
-                for p in row:
-                    expected[p] = expected.get(p, 0) + 1
+            for rows in (c.owned, c.scratch):
+                for row in rows:
+                    for p in row:
+                        expected[p] = expected.get(p, 0) + 1
             if key == "full":
                 for e in self._prefix.values():
                     if e.page >= 0:
@@ -829,13 +927,13 @@ class PagedKVCache:
 
             sent = self._sentinel(c)
             for slot in range(self.slots):
-                live = c.owned[slot]
+                live = c.owned[slot] + c.scratch[slot]
                 row = c.table[slot]
                 assert all(p < sent for p in live), \
                     f"class '{key}' slot {slot}: live row holds sentinel"
                 assert list(row[:len(live)]) == live, \
                     f"class '{key}' slot {slot}: table row " \
-                    f"{list(row[:len(live)])} != owned {live}"
+                    f"{list(row[:len(live)])} != owned+scratch {live}"
                 assert all(int(p) == sent for p in row[len(live):]), \
                     f"class '{key}' slot {slot}: unbacked row not sentinel"
 
@@ -901,7 +999,10 @@ class PagedKVCache:
         prefix pages count once); reusable-prefix pages held only by the
         index are reported separately.  Physical = the whole pool, in the
         reference's schema (the sink page each layer keeps is not pool
-        capacity and is not counted)."""
+        capacity and is not counted).  In-flight speculative scratch pages
+        are not resident (they are promoted or dropped within the step, and
+        counting them would count the accepted ones twice): they report as
+        ``draft_pages``."""
         live = {k: self._live_pages(c) for k, c in self.classes.items()}
         resident = sum(live[k] * c.bytes_per_page
                        for k, c in self.classes.items())
@@ -924,7 +1025,8 @@ class PagedKVCache:
                                 for k, c in self.classes.items()},
             "resident_cache_bytes": resident,
             "peak_resident_cache_bytes": peak,
-            "draft_pages": {k: 0 for k in self.classes},
+            "draft_pages": {k: sum(len(s) for s in c.scratch)
+                            for k, c in self.classes.items()},
             "physical_cache_bytes": self._physical_page_bytes,
             "ssm_state_bytes": self._state_bytes,
             "sharding": None,

@@ -59,8 +59,8 @@ def _chip_smoke():
 
 
 CS = _chip_smoke()
-K2_CASES = CS.k2_cases(torch, CK)
-K3_CASES = CS.k3_cases(torch, CK)
+K2_CASES = CS.k2_cases(torch, CK) + CS.k2_spec_cases(torch, CK)
+K3_CASES = CS.k3_cases(torch, CK) + CS.k3_spec_cases(torch, CK)
 
 
 def walk(q, kv_rows, kv_len, *, hkv, splits, split_len, block_k, scale,

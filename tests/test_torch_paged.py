@@ -686,16 +686,6 @@ def test_warmup_leaves_an_empty_index_and_the_same_streams(models):
     assert [r.generated for r in reqs] == cold
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda kv: kv.reserve_draft(0, 1, 2), "speculation"),
-    (lambda kv: kv.commit_draft(0, 1), "speculation"),
-    (lambda kv: kv.drop_draft(0), "speculation"),
-], ids=["reserve_draft", "commit_draft", "drop_draft"])
-def test_unported_pool_methods_name_their_roadmap_item(call, item):
-    with pytest.raises(NotImplementedError, match=item):
-        call(_kv(slots=1, max_len=32, page_size=16))
-
-
 def test_pool_defaults_to_cuda_and_never_drifts_to_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

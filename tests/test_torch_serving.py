@@ -148,9 +148,8 @@ def test_engine_defaults_to_cuda_and_never_drifts_to_cpu(models,
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(speculate=4), "speculation"),
     (dict(mesh=object()), "sharded pool"),
-])
+], ids=["kw1-sharded pool"])
 def test_unported_engine_options_raise(models, kw, item):
     _, model = models
     with pytest.raises(NotImplementedError, match=item):
@@ -195,10 +194,9 @@ def test_launcher_trace_lengths_match_reference(argv):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--speculate", "4"], "speculation"),
     (["--mesh", "tp=2"], "sharded pool"),
     (["--async"], "async"),
-])
+], ids=["flag1-sharded pool", "flag2-async"])
 def test_launcher_unported_flags_name_their_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=item):
         serve.main(["--device", "cpu", "--json", ""] + flag)
