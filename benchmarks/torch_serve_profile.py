@@ -6,7 +6,8 @@
 
 Builds ``--arch`` at full width (all its layers unless ``--layers`` cuts
 the depth — ``--arch deepseek-v3-671b --layers 3`` is its dense prefix,
-MLA + dense FFN, on either layout; fp32, random weights
+MLA + dense FFN, ``--layers 4`` adds its first MoE layer, 256 experts
+of 2048, top-8, one shared, on either layout; fp32, random weights
 from ``--seed``) on the CUDA device, admits 8
 prompts of mixed length in [128, 1024] into a
 ``repro_torch.serving.ServeEngine`` on the ``--cache-layout`` (slots 8,
@@ -23,7 +24,9 @@ time grouped by layer (K1 prefill attention, K2/K3/K4 decode partials
 and K2's dense latent branch,
 matrix products, indexing and cache writes, reductions, elementwise and
 other)
-with the top kernels, and the number of kernels per decode step — and
+with the top kernels, the top operators by device time with their input
+shapes (``top_ops``: which product is an expert's, and whether a copy
+moves a weight), and the number of kernels per decode step — and
 writes them all to ``--out``.
 """
 from __future__ import annotations
@@ -69,22 +72,34 @@ def _group(name: str) -> str:
     return "elementwise / other"
 
 
-def _profile(fn) -> dict:
-    """Device time by kernel over one call of ``fn``."""
+def _device_us(ev, self_only: bool = False) -> float:
+    name = ("self_" if self_only else "") + "device_time_total"
+    if hasattr(ev, name):
+        return getattr(ev, name)
+    return getattr(ev, name.replace("device", "cuda"))
+
+
+def _profile(fn) -> tuple:
+    """Device time by kernel over one call of ``fn``, and the operators
+    whose kernels took the most device time, by input shapes."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
     kernels: dict = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = ev.device_time_total if hasattr(ev, "device_time_total") \
-                else ev.cuda_time_total
             k = kernels.setdefault(ev.name, [0.0, 0])
-            k[0] += us / 1e3
+            k[0] += _device_us(ev) / 1e3
             k[1] += 1
-    return kernels
+    ops = [{"op": a.key, "input_shapes": str(a.input_shapes)[:160],
+            "device_ms": _device_us(a, self_only=True) / 1e3,
+            "calls": a.count}
+           for a in prof.key_averages(group_by_input_shape=True)
+           if a.key.startswith("aten::") and _device_us(a, True) > 0]
+    ops.sort(key=lambda o: -o["device_ms"])
+    return kernels, ops[:16]
 
 
 def _timed(fn) -> float:
@@ -98,7 +113,9 @@ def _timed(fn) -> float:
     return t0.elapsed_time(t1)
 
 
-def _summary(phase: str, wall_ms: float, kernels: dict, extra: dict) -> dict:
+def _summary(phase: str, wall_ms: float, profiled: tuple,
+             extra: dict) -> dict:
+    kernels, ops = profiled
     busy = sum(v[0] for v in kernels.values())
     groups: dict = {}
     for name, (ms, n) in kernels.items():
@@ -115,6 +132,7 @@ def _summary(phase: str, wall_ms: float, kernels: dict, extra: dict) -> dict:
                                         key=lambda kv: -kv[1][0])},
         "top_kernels": [{"name": n[:120], "ms": v[0], "launches": v[1]}
                         for n, v in top],
+        "top_ops": ops,
         **extra,
     }
 
@@ -191,8 +209,8 @@ def main(argv=None) -> list:
                                           ms_per_step=t_chunk / steps,
                                           host_ms=host_chunk,
                                           kernels_per_step=sum(
-                                              v[1] for v in k_chunk.values())
-                                          / steps)))
+                                              v[1] for v in k_chunk[0]
+                                              .values()) / steps)))
     for r in results:
         print(json.dumps(r))
     if args.out:

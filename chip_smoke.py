@@ -69,6 +69,9 @@ JSON line (``"phase": ...``):
              and K3 at granite's chain of P = 13 (52 rows a fiber), K4 and
              K2's latent branch at DeepSeek's P = 5 (640 rows), each also
              among the kernel cases (K3 and K4 on fp8 and int8 pools too);
+             and K2 and K3 past 64 rows a fiber, at P = 17 and 32 (68 and
+             128 rows): cases, timing rows, and the verify read against
+             P single-token reads of the same queries (equal bits);
 4. model   — granite-3-8b at full width cut to 4 layers, fp32: prefill 4
              mixed-length prompts and decode 8 greedy steps with
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
@@ -98,6 +101,10 @@ JSON line (``"phase": ...``):
              leg's timed run K2 (dense) / K3 (paged) launched at n_pos = 13
              40 x verify dispatches; accept rate, committed tokens a
              dispatch and the spec / non-spec tok/s reported;
+6b'. serve_spec_rows — granite-3-8b at full width cut to 4 layers, the
+             serve_spec trace with ``--speculate 16`` and ``31`` (P = 17
+             and 32: 68 and 128 rows a fiber): the serve_spec checks, K2 /
+             K3 launched at n_pos = P 4 x verify dispatches;
 6c. model_quant — the model check on fp8 e4m3 and int8 paged pools (two
              prefill chunks, the second reading the dequantized history,
              8 decode steps through K3's quantized branch);
@@ -148,9 +155,20 @@ JSON line (``"phase": ...``):
 13b. serve_mla_spec — the serve_spec checks on the tower with
              ``--speculate 4``: K2's latent branch (dense) and K4 (paged)
              at n_pos = 5 (640 rows), 3 x verify dispatches;
-14. model_mla_smoke — the model_mla check on the MLA smoke config (MoE
-             cut, as the launcher serves it): K1 at (48, 32), K4 and K2's
-             latent branch at (32, 16);
+13c. model_moe — the model_mla check on DeepSeek-V3 at full width cut to
+             4 layers, the fourth its first MoE layer (256 experts of
+             2048, top-8, one shared, sigmoid router; 60.4 GB fp32, every
+             earlier model freed first), flip-aware: a real token whose
+             expert picks differ cuda vs torch is a router flip, which
+             fails at a margin (k-th minus (k+1)-th score) >= 1e-5 and
+             otherwise takes its row out of the logits check;
+13d. serve_moe — the launcher on that tower with the serve_mla trace
+             (``--cache-layout both``): dense = paged streams, tok/s,
+             TTFT, peak allocated bytes, K1 / K2's latent branch / K4
+             launches;
+14. model_mla_smoke — the model_mla check on the MLA smoke config with
+             its MoE cut: K1 at (48, 32), K4 and K2's latent branch at
+             (32, 16);
 15. the ``kernels`` line (launches on the main paths, K2 / K3 / K4 / K2's
    latent branch split by n_pos == 1 (decode steps) and n_pos > 1 (verify
    chains), errors, times, bounds) and, last, ``{"ok": true, "device":
@@ -667,6 +685,74 @@ def k3_spec_cases(torch, ck: int):
          4, 13, 16, 32, 110, 128, torch.float32, [1, 10, ck - 5, 500], 4,
          16, {}),
     ]
+
+
+def k2_rows_cases(torch, ck: int):
+    """:func:`k2_cases` rows past 64 query rows a fiber (fault F2 closed):
+    granite's k = 16 and k = 31 chains, P = 17 and 32 x G = 4 = 68 and 128
+    rows, 9 and 16 row blocks of 8, chains across chunk edges and up to
+    the end of the cache.  They draw from a generator of their own
+    (``main``), so every earlier case keeps its inputs."""
+    f32 = torch.float32
+    return [
+        ("fp32 R=68 (P=17 G=4) d128 verify past 64 rows splits=4", 3, 2, 4,
+         17, 512, 128, f32, [1, ck - 5, 480], 4, 128, {}),
+        ("fp32 R=128 (P=32 G=4) d128 verify past 64 rows splits=4", 2, 2,
+         4, 32, 512, 128, f32, [0, 470], 4, 128, {}),
+    ]
+
+
+def k3_rows_cases(torch, ck: int):
+    """:func:`k3_cases` rows at 68 and 128 query rows a fiber (as
+    :func:`k2_rows_cases`), chains across page and chunk edges."""
+    f32 = torch.float32
+    return [
+        ("fp32 R=68 (P=17 G=4) ps16 d128 verify past 64 rows splits=4", 3,
+         2, 4, 17, 16, 32, 110, 128, f32, [1, ck + 3, 470], 4, 16, {}),
+        ("fp32 R=128 (P=32 G=4) ps16 d128 verify past 64 rows splits=4", 2,
+         2, 4, 32, 16, 32, 80, 128, f32, [5, 460], 4, 16, {}),
+    ]
+
+
+def verify_vs_single(torch, gen, dec, p: int,
+                     kvl=(1, 37, 200, 470)) -> list:
+    """K2 and K3 reading a P-position verify chain (P x G = 4 rows a
+    fiber) against P single-token reads of the same queries, position j
+    at kv_len + j: the same splits (keyed on M) and block_k, so equal bits
+    on every fiber with kv_len >= 1 (0.0) — the bit identity the accept
+    rule of speculative decoding rests on, past 64 rows."""
+    x = paged_data(torch, gen, len(kvl), 16, 4, 512, 128)
+    b, hkv, g, m, d, ps = (x[k] for k in ("b", "hkv", "g", "m", "d", "ps"))
+    kvl = list(kvl)
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    table = with_sentinels(x["table"], [n + p - 1 for n in kvl], ps,
+                           x["k_pages"].shape[0])
+    q = _rand(torch, gen, (b * hkv, p * g, d), torch.float32)
+    k_f, v_f = x["k"].reshape(b * hkv, m, d), x["v"].reshape(b * hkv, m, d)
+    common = dict(scale=d ** -0.5, hkv=hkv, splits=4, rows_per_pos=g)
+
+    def k2(qq, kl, n):
+        return dec.combine_partials(*dec.decode_partials_cuda(
+            qq, k_f, v_f, kl, block_k=128, n_pos=n, **common),
+            torch.float32)
+
+    def k3(qq, kl, n):
+        return dec.combine_partials(*dec.paged_decode_partials_cuda(
+            qq, x["k_pages"], x["v_pages"], table, kl, block_k=16, n_pos=n,
+            **common), torch.float32)
+
+    rows = []
+    for kernel, read in (("decode_partials", k2),
+                         ("paged_decode_partials", k3)):
+        chain = read(q, kv_len, p)
+        single = torch.cat([read(q[:, j * g:(j + 1) * g].contiguous(),
+                                 kv_len + j, 1) for j in range(p)], dim=1)
+        torch.cuda.synchronize()
+        diff = (chain - single).abs().max().item()
+        rows.append(dict(kernel=kernel, case=f"verify P={p} ({p * g} rows) "
+                         f"vs {p} single-token reads", kv_len=kvl,
+                         max_abs_diff_live=diff, ok=diff == 0.0))
+    return rows
 
 
 def run_k3_cases(torch, gen, dec, autotune, cases=None) -> list:
@@ -2548,6 +2634,56 @@ def phase_serve_spec(torch, fm, dec, serve) -> dict:
     return launches
 
 
+#: speculation lengths past K2/K3's old 64-row limit (fault F2): granite's
+#: G = 4 folds k + 1 = 17 and 32 chain positions into 68 and 128 rows
+ROWS_SPEC_KS = (16, 31)
+
+
+def _rows_spec_args(k: int) -> list:
+    """The serve_spec trace and legs at ``--speculate k``."""
+    argv = list(SPEC_ARGS)
+    argv[argv.index("--speculate") + 1] = str(k)
+    return argv
+
+
+def phase_serve_spec_rows(torch, fm, dec, serve) -> dict:
+    """Speculation past 64 verify rows a fiber: granite-3-8b at full width
+    cut to 4 layers, the serve_spec trace with ``--speculate 16`` (P = 17,
+    68 rows) and then ``--speculate 31`` (P = 32, 128 rows), ``--cache-
+    layout both``: streams equal across dense, paged and ``paged_nospec``,
+    and K2 (dense) / K3 (paged) launched at n_pos = P 4 x verify
+    dispatches.  Returns the launches by speculation length."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=4)
+    out, by_k = {}, {}
+    for k in ROWS_SPEC_KS:
+        argv = _rows_spec_args(k)
+        # a main path of this slice: counts set to 0 just before, read after
+        _zero_counts(fm, dec)
+        t0 = time.perf_counter()
+        metrics = serve.main(argv, cfg=cfg)
+        wall = time.perf_counter() - t0
+        launches = _counts(fm, dec)
+        check(list(metrics["layouts"]) == ["dense", "paged", "paged_nospec"],
+              f"serve_spec_rows served {list(metrics['layouts'])}")
+        spec = _check_spec_legs(torch, serve, argv, cfg, metrics, k + 1,
+                                DECODE_KERNEL, "serve_spec_rows")
+        legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab)
+        by_k[k] = dict(args=" ".join(argv), seconds=wall,
+                       rows_per_fiber=(k + 1) * 4, legs=legs,
+                       speculation_by_leg=spec,
+                       speculation=metrics["speculation"],
+                       outputs_match=metrics["outputs_match"],
+                       main_path_launches=launches)
+        out[k + 1] = launches
+    emit("serve_spec_rows", config="granite-3-8b n_layers=4 fp32",
+         by_speculate=by_k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # quantized pages and the host swap tier (granite-3-8b)
 # ---------------------------------------------------------------------------
@@ -3082,11 +3218,79 @@ def deepseek_tower():
 
 def mla_smoke_tower():
     """The MLA smoke config (r 32, rd 16, nope 32, v 32, 4 heads) with its
-    MoE cut to a dense FFN, as the launcher serves it and
-    tests/test_torch_mla.py holds it to the reference."""
-    from repro_torch.launch.serve import serve_config
+    MoE cut to a dense FFN, as tests/test_torch_mla.py holds it to the
+    reference: the phase holds the smoke kernels (the launcher serves the
+    config with its experts in ``launcher_defaults``)."""
+    from repro_torch.configs import get_config
 
-    return serve_config("deepseek-v3-671b-smoke")
+    return dataclasses.replace(get_config("deepseek-v3-671b-smoke"),
+                               moe=None, family="dense")
+
+
+def moe_tower():
+    """DeepSeek-V3 at full width cut to 4 layers: its dense prefix (layers
+    0-2) and its first MoE layer (layer 3: 256 routed experts of 7168 ->
+    2048 -> 7168, top-8, one shared expert, a sigmoid router, capacity
+    factor 1.25); 60.4 GB of fp32 weights.  The MTP head is never built."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4)
+
+
+class _RouteLog:
+    """Every MoE call's expert picks (each token's top-k, sorted) and
+    boundary margin (its k-th minus its (k+1)-th router score), kept on
+    the device: ``repro_torch.model.moe.moe_ffn`` is wrapped on entry and
+    restored on exit."""
+
+    def __init__(self, torch):
+        from repro_torch.model import moe
+
+        self.torch, self.moe, self.calls = torch, moe, []
+
+    def __enter__(self):
+        torch, real = self.torch, self.moe.moe_ffn
+        self.real = real
+
+        def recorded(p, x, cfg):
+            mo = cfg.moe
+            logits = x.float() @ p.router
+            scores = torch.sigmoid(logits) if mo.router == "sigmoid" \
+                else torch.softmax(logits, dim=-1)
+            top = torch.sort(scores, dim=-1, descending=True, stable=True)
+            k = mo.top_k
+            self.calls.append((top.indices[..., :k].sort(dim=-1).values,
+                               top.values[..., k - 1] - top.values[..., k]))
+            return real(p, x, cfg)
+
+        self.moe.moe_ffn = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_ffn = self.real
+        return False
+
+
+def _router_flips(calls_a: list, calls_b: list, real: list) -> dict:
+    """Two runs' expert picks compared call by call: a flip is a real
+    token (``real[i]``: [B, S] bool) whose picked set differs.  Rows are
+    independent (each is its own capacity group and attends only itself),
+    so a flip touches its row alone; a row's first flipped call counts,
+    and its later calls, which follow from that flip, are skipped.
+    Returns the rows touched, the flips and their margins in run b."""
+    check(len(calls_a) == len(calls_b) == len(real),
+          f"MoE calls {len(calls_a)} / {len(calls_b)} / {len(real)}")
+    touched, margins = set(), []
+    for (pa, _), (pb, mb), live in zip(calls_a, calls_b, real):
+        diff = ((pa != pb).any(-1) & live).cpu()
+        mb = mb.cpu()
+        newly = [r for r in range(diff.shape[0])
+                 if r not in touched and bool(diff[r].any())]
+        for r in newly:
+            margins += mb[r][diff[r]].tolist()
+        touched.update(newly)
+    return dict(rows=sorted(touched), flips=len(margins),
+                margins=sorted(margins))
 
 
 def phase_model_mla(torch, fm, dec, cfg=None, phase="model_mla") -> dict:
@@ -3095,12 +3299,18 @@ def phase_model_mla(torch, fm, dec, cfg=None, phase="model_mla") -> dict:
     chunks (the second at offset 256, the absorbed form through K1 at
     (r + rd, r)) and 8 greedy decode steps (dense: K2's E != F branch;
     paged: K4).  Logits within 1e-4 of their scale cuda vs torch, equal
-    streams, and the dense streams equal to the paged ones.  Returns the
-    cuda runs' launches by layout."""
+    streams, and the dense streams equal to the paged ones.  On a tower
+    with MoE layers the cuda vs torch check is flip-aware: the sigmoid
+    router turns ulp-level differences into other expert picks where a
+    token's k-th and (k+1)-th scores lie that close, so every real token
+    whose picks differ is counted with its margin in the torch run; any
+    margin >= 1e-5 fails, and the logits and tokens are held on the rows
+    no flip touched.  Returns the cuda runs' launches by layout."""
     from repro_torch.model import transformer as tf
     from repro_torch.model.layers import Runtime
 
     cfg = deepseek_tower() if cfg is None else cfg
+    n_moe = sum(s.mlp == "moe" for s in cfg.layer_specs())
     rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
                    param_dtype=torch.float32)
     rt_t = dataclasses.replace(rt_c, attn_impl="torch")
@@ -3117,35 +3327,38 @@ def phase_model_mla(torch, fm, dec, cfg=None, phase="model_mla") -> dict:
     perm = torch.randperm(b * w, generator=gen, device="cuda")
     tables = {"full": perm.to(torch.int32).reshape(b, w).contiguous()}
     slot_ids = torch.arange(b, device="cuda")
-    streams, logits_all, launches = {}, {}, {}
+    streams, logits_all, launches, routes = {}, {}, {}, {}
     for layout in ("dense", "paged"):
         for name, rt in (("cuda", rt_c), ("torch", rt_t)):
             _zero_counts(fm, dec)
-            if layout == "paged":
-                caches = tf.init_paged_cache(cfg, b, {"full": b * w}, ps,
-                                             torch.float32, "cuda")
-                pkw = dict(block_tables=tables, slot_ids=slot_ids)
-                dkw = dict(block_tables=tables)
-            else:
-                caches = tf.init_cache(cfg, b, max_len, torch.float32,
-                                       "cuda")
-                pkw, dkw = {}, {}
-            lg = torch.zeros((b, cfg.vocab), device="cuda")
-            for off in (0, chunk):
-                part, caches = tf.prefill(
-                    cfg, model, {"inputs": toks[:, off:off + chunk]}, caches,
-                    rt, kv_offset=off, true_len=true_len, **pkw)
-                sel = (true_len - 1 >= off) & (true_len - 1 < off + chunk)
-                lg = torch.where(sel[:, None], part, lg)
-            kv = true_len.clone()
-            out, lgs = [], [lg]
-            for _ in range(8):
-                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
-                out.append(nxt)
-                kv = kv + 1
-                lg, caches = tf.decode_step(cfg, model, nxt[:, None], caches,
-                                            kv, rt, **dkw)
-                lgs.append(lg)
+            with _RouteLog(torch) as log:
+                if layout == "paged":
+                    caches = tf.init_paged_cache(
+                        cfg, b, {"full": b * w}, ps, torch.float32, "cuda")
+                    pkw = dict(block_tables=tables, slot_ids=slot_ids)
+                    dkw = dict(block_tables=tables)
+                else:
+                    caches = tf.init_cache(cfg, b, max_len, torch.float32,
+                                           "cuda")
+                    pkw, dkw = {}, {}
+                lg = torch.zeros((b, cfg.vocab), device="cuda")
+                for off in (0, chunk):
+                    part, caches = tf.prefill(
+                        cfg, model, {"inputs": toks[:, off:off + chunk]},
+                        caches, rt, kv_offset=off, true_len=true_len, **pkw)
+                    sel = (true_len - 1 >= off) \
+                        & (true_len - 1 < off + chunk)
+                    lg = torch.where(sel[:, None], part, lg)
+                kv = true_len.clone()
+                out, lgs = [], [lg]
+                for _ in range(8):
+                    nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+                    out.append(nxt)
+                    kv = kv + 1
+                    lg, caches = tf.decode_step(cfg, model, nxt[:, None],
+                                                caches, kv, rt, **dkw)
+                    lgs.append(lg)
+            routes[layout, name] = log.calls
             streams[layout, name] = torch.stack(out).cpu()
             logits_all[layout, name] = torch.stack(lgs)
             del caches
@@ -3159,28 +3372,57 @@ def phase_model_mla(torch, fm, dec, cfg=None, phase="model_mla") -> dict:
     n = cfg.n_layers
     want = {expanded: n, absorbed: n} if expanded != absorbed \
         else {expanded: 2 * n}
+    # the real tokens of each MoE call: the two prefill chunks' positions
+    # below each row's length, then every decode step's
+    pos = torch.arange(chunk, device="cuda")
+    real = [pos[None] + off < true_len[:, None] for off in (0, chunk)
+            for _ in range(n_moe)] \
+        + [torch.ones((b, 1), dtype=torch.bool, device="cuda")] * (8 * n_moe)
     by_layout = {}
     for layout, kernel in (("dense", "latent_decode_partials"),
                            ("paged", "mla_paged_decode_partials")):
+        # a router flip between the impls touches its row alone: the
+        # logits and tokens are held on the rows no flip touched
+        flips = _router_flips(routes[layout, "cuda"],
+                              routes[layout, "torch"], real) if n_moe \
+            else dict(rows=[], flips=0, margins=[])
+        live = [r for r in range(b) if r not in flips["rows"]]
         lc, lt = logits_all[layout, "cuda"], logits_all[layout, "torch"]
         by_layout[layout] = dict(
-            logits_max_abs_diff=(lc - lt).abs().max().item(),
+            logits_max_abs_diff=(lc[:, live] - lt[:, live]).abs().max()
+            .item() if live else None,
             logits_max_abs=lt.abs().max().item(),
-            token_match_rate=(streams[layout, "cuda"]
-                              == streams[layout, "torch"]).float().mean()
-            .item(),
+            token_match_rate=(streams[layout, "cuda"][:, live]
+                              == streams[layout, "torch"][:, live]).float()
+            .mean().item() if live else None,
             finite=bool(torch.isfinite(lc).all().item()),
             cuda_launches=launches[layout], decode_kernel=kernel)
+        if n_moe:
+            by_layout[layout].update(
+                router_flips=flips["flips"], rows_touched=flips["rows"],
+                largest_flip_margin=max(flips["margins"], default=None),
+                flip_margins=flips["margins"][:16],
+                smallest_margin_torch=min(c[1].min().item() for c in
+                                          routes[layout, "torch"]),
+                moe_calls=len(routes[layout, "torch"]))
     dense_eq_paged = bool((streams["dense", "cuda"]
                            == streams["paged", "cuda"]).all().item())
-    emit(phase, config=f"{cfg.name} n_layers={cfg.n_layers} (MLA + dense "
-         f"FFN) fp32, dense and paged", prompts=lens,
+    ffn = f"{n_moe} MoE layer(s)" if n_moe else "dense FFN"
+    emit(phase, config=f"{cfg.name} n_layers={cfg.n_layers} (MLA + {ffn}) "
+         f"fp32, dense and paged", prompts=lens,
          prefill_chunks=[[0, chunk], [chunk, 2 * chunk]], decode_steps=8,
          rel_tol=rel_tol, layouts=by_layout,
          dense_streams_equal_paged=dense_eq_paged)
     for layout, r in by_layout.items():
         check(r["finite"], f"{layout}: non-finite logits in the MLA model "
                            f"cross-check")
+        if n_moe:
+            big = r["largest_flip_margin"]
+            check(big is None or big < 1e-5,
+                  f"{layout}: a router flip cuda vs torch at margin {big} "
+                  f">= 1e-5")
+            check(len(r["rows_touched"]) < b,
+                  f"{layout}: router flips touch every row")
         check(r["logits_max_abs_diff"] <= rel_tol * r["logits_max_abs"],
               f"{layout}: MLA cuda vs torch logits differ by "
               f"{r['logits_max_abs_diff']} > {rel_tol} x "
@@ -3372,6 +3614,45 @@ def phase_serve_mla_spec(torch, fm, dec, serve) -> dict:
          outputs_match=metrics["outputs_match"],
          invariants="checked by the launcher after each paged leg",
          main_path_launches=launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_moe(torch, fm, dec, serve) -> dict:
+    """The MoE tower (:func:`moe_tower`, 4 layers, the fourth DeepSeek's
+    first MoE layer) through the launcher on the serve_mla trace
+    (``--cache-layout both``): dense = paged streams token for token (both
+    run the same prefill, K2's latent branch equals K4 bit for bit, and an
+    MoE layer routes each row alone), tok/s, TTFT, the peak allocated
+    bytes, and in each leg's timed run K1 4 x prefill dispatches and its
+    decode kernel 4 x decode steps."""
+    cfg = moe_tower()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the MoE main path: counts set to 0 just before it, read just after
+    _zero_counts(fm, dec)
+    t0 = time.perf_counter()
+    metrics = serve.main(MLA_SERVE_ARGS, cfg=cfg)
+    wall = time.perf_counter() - t0
+    launches = _counts(fm, dec)
+    legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab,
+                       MLA_DECODE_KERNEL)
+    check(list(metrics["layouts"]) == ["dense", "paged"],
+          f"serve_moe served {list(metrics['layouts'])}")
+    emit("serve_moe", args=" ".join(MLA_SERVE_ARGS),
+         config="deepseek-v3-671b n_layers=4 (layers 0-2 dense FFN, layer 3 "
+                "MoE: 256 experts top-8 + 1 shared, sigmoid router, cf 1.25)",
+         seconds=wall, legs=legs, outputs_match=metrics["outputs_match"],
+         paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
+         main_path_launches=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    check(metrics["outputs_match"] is True,
+          "MoE tower greedy streams differ between the dense and paged legs")
+    for name in ("fusemax_prefill", "mla_paged_decode_partials",
+                 "latent_decode_partials"):
+        check(launches[name] > 0, f"{name} never launched on the MoE path")
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3574,8 +3855,30 @@ def main() -> int:
               torch, gen_spec, dec, autotune, p=mp)}
     for name, t in tv.items():
         emit("kernel_time", kernel=name, **t)
-    bad = [r["case"] for r in rows + [same, same4, same2l, same256, same3q,
-                                      same4q, same3qv, same4qv]
+    # K2 and K3 past 64 rows a fiber (fault F2 closed): granite's chains of
+    # 17 and 32 (68 and 128 rows), their cases, the verify read against
+    # single-token reads and timing rows, from a generator of their own
+    gen_rows = torch.Generator(device="cuda")
+    gen_rows.manual_seed(21)
+    rows_rows = run_k2_cases(torch, gen_rows, dec, autotune,
+                             k2_rows_cases(torch, ck)) + \
+        run_k3_cases(torch, gen_rows, dec, autotune,
+                     k3_rows_cases(torch, ck))
+    rows_same = [r for k in ROWS_SPEC_KS
+                 for r in verify_vs_single(torch, gen_rows, dec, k + 1)]
+    for r in rows_rows + rows_same:
+        emit("kernel_case", **r)
+    rows += rows_rows
+    for k in ROWS_SPEC_KS:
+        tv[f"decode_partials@verify_p{k + 1}"] = time_k2(
+            torch, gen_rows, dec, autotune, p=k + 1)
+        tv[f"paged_decode_partials@verify_p{k + 1}"] = time_k3(
+            torch, gen_rows, dec, ops, autotune, p=k + 1)
+        for kern in ("decode_partials", "paged_decode_partials"):
+            name = f"{kern}@verify_p{k + 1}"
+            emit("kernel_time", kernel=name, **tv[name])
+    bad = [r["case"] for r in rows + rows_same + [
+        same, same4, same2l, same256, same3q, same4q, same3qv, same4qv]
            if not r["ok"]]
     bad += [n for n, t in (("K1 timing shape", t1), ("K2 timing shape", t2),
                            ("K3 timing shape", t3), ("K4 timing shape", t4),
@@ -3598,6 +3901,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_model_spec(torch, fm, dec)
     spec_launches = phase_serve_spec(torch, fm, dec, serve)
+    rows_launches = phase_serve_spec_rows(torch, fm, dec, serve)
     phase_model_quant(torch, fm, dec)
     quant_launches = phase_serve_quant(torch, fm, dec, serve)
     phase_serve_swap(torch, fm, dec)
@@ -3614,6 +3918,11 @@ def main() -> int:
     phase_serve_mla_impls(torch, fm, dec)
     mla_quant_launches = phase_serve_mla_quant(torch, fm, dec, serve)
     mla_spec_launches = phase_serve_mla_spec(torch, fm, dec, serve)
+    # the MoE tower holds 56 GiB of weights: every earlier model is gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_model_mla(torch, fm, dec, cfg=moe_tower(), phase="model_moe")
+    phase_serve_moe(torch, fm, dec, serve)
     smoke_mla = phase_model_mla(torch, fm, dec, cfg=mla_smoke_tower(),
                                 phase="model_mla_smoke")
 
@@ -3775,6 +4084,15 @@ def main() -> int:
                      spec_launches["by_n_pos"]["paged_decode_partials"].get(
                          gp, 0), n_pos=gp, host_ms=tv[
                          f"paged_decode_partials@verify_p{gp}"]["host_ms"]),
+        # past 64 rows a fiber (launches: serve_spec_rows' at n_pos = P)
+        *(decode_entry(f"{kern}@verify_p{k + 1}", src, tpu,
+                       tv[f"{kern}@verify_p{k + 1}"],
+                       rows_launches[k + 1]["by_n_pos"][kern].get(k + 1, 0),
+                       n_pos=k + 1, rows_per_fiber=4 * (k + 1),
+                       host_ms=tv[f"{kern}@verify_p{k + 1}"]["host_ms"])
+          for k in ROWS_SPEC_KS
+          for kern, src, tpu in (("decode_partials", k2_src, k2_tpu),
+                                 ("paged_decode_partials", k3_src, k3_tpu))),
         decode_entry(f"mla_paged_decode_partials@verify_p{mp}", k4_src,
                      k4_tpu, tv[f"mla_paged_decode_partials@verify_p{mp}"],
                      mla_spec_launches["by_n_pos"][

@@ -10,7 +10,10 @@ so the two round-trip.
 
 The leaves map one to one under the reference's names, GQA
 (``wq``/``wk``/``wv``/``wo``) and MLA (``w_dq``, ``w_uq``, ``w_dkv``,
-``w_uk``, ``w_uv``, ``wo``, ``q_norm.scale``, ``kv_norm.scale``) alike.
+``w_uk``, ``w_uv``, ``wo``, ``q_norm.scale``, ``kv_norm.scale``) alike,
+and so do a dense MLP's (``mlp.*``) and an MoE layer's (``moe.router``,
+``moe.wi_gate`` / ``wi_up`` [E, d, ff], ``moe.wo`` and the shared
+experts' ``moe.shared.*``).
 DeepSeek's multi-token-prediction head (``params["mtp"]``, present when
 ``cfg.n_mtp > 0``) is left out on purpose: only the reference's training
 loss runs it, serving never does, and the port builds no such module.

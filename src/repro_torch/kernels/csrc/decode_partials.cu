@@ -13,7 +13,7 @@
 #include "decode_partials.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64, 128 or 256 (E == F).
-// rows: folded query rows per fiber, 1..64.  window <= 0: no window;
+// rows: folded query rows per fiber, 1..max_rows().  window <= 0: no window;
 // softcap <= 0: no softcap.  q, k and v start on 16-byte boundaries (the
 // body copies 16-byte vectors).  Returns cudaGetLastError() after the
 // launch.
@@ -35,7 +35,8 @@ extern "C" int decode_partials(const void* q, const void* k, const void* v,
       static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int decode_partials_max_rows() { return MAXR; }
+// Most folded query rows a fiber takes (the grid's row-block limit).
+extern "C" int decode_partials_max_rows() { return max_rows(); }
 
 // Dynamic shared memory one launch with `rows` query rows per fiber takes
 // (autotune.decode_smem_bytes mirrors it; the dense layout has no page

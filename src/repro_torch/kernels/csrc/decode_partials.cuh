@@ -92,7 +92,7 @@ constexpr int NW = NT / 32;   // warps per block
 constexpr int CK = 16;        // keys per chunk (one ring stage)
 constexpr int STAGES = 2;     // chunks the ring holds
 constexpr int WK = 4;         // warps that split a chunk's keys
-constexpr int MAXR = 64;      // most folded query rows per fiber
+constexpr int MAX_ROW_BLOCKS = 65535;  // grid.z: row blocks of one fiber
 constexpr int SMEM_BUDGET = 232448;  // dynamic shared memory of one block
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -131,6 +131,15 @@ __host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
 // ptxas gives it 200-203 registers and no spill).
 __host__ __device__ constexpr int row_block(int rows) {
   return rows <= 4 ? 4 : 8;
+}
+
+// Most folded query rows (P * G) a fiber takes: one block per RB of them on
+// grid.z, whose limit is the only bound.  Nothing in the body assumes fewer:
+// the merge's [WK][RB] state, the query load and the chain limit
+// kvl + row / rows_per_pos all index by row_base + (row within the block),
+// and the partials by (bh * splits + split) * R + row.
+__host__ __device__ constexpr int max_rows() {
+  return MAX_ROW_BLOCKS * row_block(MAX_ROW_BLOCKS);
 }
 
 // Shared memory of one block (autotune.decode_smem_bytes is its twin):
@@ -704,7 +713,7 @@ cudaError_t dispatch_partials(int dtype, int head_dim, int maccs,
                               const void* kv_len, void* pm, void* pl,
                               void* pnv, int bh, const DecodeArgs& a,
                               cudaStream_t st) {
-  if (a.R < 1 || a.R > MAXR) return cudaErrorInvalidValue;
+  if (a.R < 1 || a.R > max_rows()) return cudaErrorInvalidValue;
 #define REPRO_LAUNCH(T, D, RB)                                                \
   (maccs ? launch_partials<T, D, true, RB>(q, kv, kv_len, pm, pl, pnv, bh,    \
                                            smem, a, st)                       \

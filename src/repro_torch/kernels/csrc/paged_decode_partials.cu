@@ -73,7 +73,8 @@ extern "C" int paged_decode_partials(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int paged_decode_partials_max_rows() { return MAXR; }
+// Most folded query rows a fiber takes (the grid's row-block limit).
+extern "C" int paged_decode_partials_max_rows() { return max_rows(); }
 
 // Dynamic shared memory one launch takes: `pages` = split_len / page_size
 // page-list entries; kv_code as for the launch (1-byte codes and their

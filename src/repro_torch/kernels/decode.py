@@ -81,10 +81,11 @@ CUDA_LATENT_DIMS = ((512, 64), (32, 16))
 QUANT_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 #: the launch counters' names of the code dtypes
 QUANT_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8_e4m3"}
-#: most folded query rows (P·G) a fiber of K2 and K3 takes — the kernels'
-#: ``MAXR``, held to the libraries' own report when they load; K4 and K2's
-#: latent branch take any count
-CUDA_MAX_ROWS = 64
+#: most folded query rows (P·G) a fiber of K2 and K3 takes: one block per
+#: 8 of them on grid.z, whose 65535 is the only bound (the kernels'
+#: ``max_rows()``, held to the libraries' own report when they load); K4
+#: and K2's latent branch take any count
+CUDA_MAX_ROWS = 65535 * 8
 
 
 def _check_head_dims(name: str, *tensors: torch.Tensor) -> None:
@@ -473,8 +474,7 @@ def combine_partials(pm: torch.Tensor, pl: torch.Tensor, pnv: torch.Tensor,
 
 
 def _check_max_rows(name: str, got: int) -> int:
-    """Hold :data:`CUDA_MAX_ROWS` (the engine's limit on draft chains) to
-    a loaded library's own row limit."""
+    """Hold :data:`CUDA_MAX_ROWS` to a loaded library's own row limit."""
     if got != CUDA_MAX_ROWS:
         raise RuntimeError(f"{name}: the kernel takes {got} query rows, "
                            f"CUDA_MAX_ROWS says {CUDA_MAX_ROWS}")

@@ -36,8 +36,7 @@ pages).  Each leg with the swap tier reports its host time in
 Speculative decoding: ``--speculate K`` serves every leg with an n-gram
 proposer drafting K tokens a slot and one verify dispatch per step
 (greedy only, on archs whose every layer is global GQA or MLA attention
-with a dense MLP; on the card K ≤ 64 / G - 1 for a GQA arch with G query
-heads per kv head), and serves the primary layout (paged when served)
+with a dense MLP), and serves the primary layout (paged when served)
 once more without it, ``<layout>_nospec``, which joins ``outputs_match``;
 each speculative leg reports a ``speculation`` block (drafts proposed
 and accepted, committed tokens per dispatch) and the top level
@@ -48,10 +47,10 @@ original completes: the traffic where cross-request drafting pays);
 
 MLA archs serve on both layouts (dense: the latent cache through K2's
 E ≠ F branch; paged: K4), and ``--cache-layout both`` holds their
-streams to each other in ``outputs_match``; ``deepseek-v3-671b[-smoke]``
-serves with its MoE cut — every FFN dense, as its first ``first_k_dense``
-layers are — until MoE is ported (item 5b), and the JSON says so
-(``moe_cut``).
+streams to each other in ``outputs_match``.  MoE archs
+(``deepseek-v3-671b``, ``llama4-maverick-400b-a17b``) serve their expert
+layers (``repro_torch.model.moe``); as in the reference they take no
+prefix cache and no ``--speculate``.
 
 The reference's other legs take the same flags here and exit with the
 ROADMAP item that ports them: ``--mesh`` and ``--async``/``--dp``.
@@ -61,7 +60,6 @@ counterpart here).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 from typing import Optional
@@ -134,17 +132,6 @@ def n_pos_kernel_launches() -> dict:
 
 def _delta(after: dict, before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in after.items()}
-
-
-def serve_config(arch: str) -> ModelConfig:
-    """The config the launcher serves for ``arch``: an MLA arch with MoE
-    layers is served with its MoE cut (every FFN a dense one of ``d_ff``,
-    as in its dense prefix) because MoE is not ported yet (ROADMAP §1
-    item 5b); every other arch as registered."""
-    cfg = get_config(arch)
-    if cfg.mla is not None and cfg.moe is not None:
-        cfg = dataclasses.replace(cfg, moe=None, family="dense")
-    return cfg
 
 
 def _sync(device: torch.device) -> None:
@@ -312,8 +299,7 @@ def speculation_arg(args, cfg: ModelConfig) -> Optional[int]:
     spec = None if args.no_speculate else args.speculate
     if spec is None:
         return None
-    why = speculation_refusal(cfg, spec, temperature=args.temperature,
-                              cuda=torch.device(args.device).type == "cuda")
+    why = speculation_refusal(cfg, spec, temperature=args.temperature)
     if why is not None:
         raise SystemExit(f"--speculate {spec} refused for {args.arch}: "
                          f"{why}")
@@ -325,10 +311,8 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
     metrics (``_outputs`` holds the generated streams, in request order).
     ``cfg`` overrides the config ``args.arch`` names (a library caller's
     cut of a registered arch, e.g. fewer layers)."""
-    moe_cut = False
     if cfg is None:
-        cfg = serve_config(args.arch)
-        moe_cut = cfg != get_config(args.arch)
+        cfg = get_config(args.arch)
     spec = speculation_arg(args, cfg)
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
     model = tf.init(cfg, args.seed, rt, device=args.device)
@@ -377,7 +361,6 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
     metrics = {
         "arch": args.arch,
         "n_layers": cfg.n_layers,
-        "moe_cut": moe_cut,
         "requests": args.requests,
         "slots": args.slots,
         "prompt_len": args.prompt_len,
@@ -541,9 +524,7 @@ def main(argv: Optional[list] = None,
           f"{metrics['dispatches']['decode']} decode dispatches, "
           f"{metrics['dispatches']['prefill']} prefill dispatches, "
           f"TTFT p50 {metrics['ttft_s']['p50']}s) on "
-          f"{metrics['device']['kind']}"
-          + (" — MoE cut: every FFN dense (ROADMAP §1 item 5b)"
-             if metrics["moe_cut"] else ""))
+          f"{metrics['device']['kind']}")
     for lo, m in metrics["layouts"].items():
         mem = m["memory"]
         print(f"  {lo}: {m['tok_per_s']:.1f} tok/s, peak resident "

@@ -2,8 +2,9 @@
 
 Port of ``repro.model.transformer`` for the slices the port carries:
 GQA attention, global or sliding-window (ring caches), or DeepSeek's MLA,
-on the dense or the paged layout — with a dense MLP,
-attention and final logit softcaps, token front end.
+on the dense or the paged layout — with a dense MLP or a mixture of
+experts (:mod:`repro_torch.model.moe`), attention and final logit
+softcaps, token front end.
 The reference stacks the parameters of equal layers and ``lax.scan``s
 them; the port keeps one module per layer (the weight bridge unstacks)
 and loops in Python, and its caches are a flat per-layer list.
@@ -36,6 +37,7 @@ from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.model import attention as attn_mod
+from repro_torch.model import moe as moe_mod
 from repro_torch.model.layers import (
     MLP, Embedding, Norm, Runtime, apply_norm, embed, mlp, resolve_device,
     softcap, unembed,
@@ -43,7 +45,6 @@ from repro_torch.model.layers import (
 
 #: where each unported feature stands in ROADMAP.md
 _ROADMAP = {
-    "moe": "ROADMAP §1 item 5b, MoE",
     "ssm": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
     "frontend": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
 }
@@ -51,8 +52,8 @@ _ROADMAP = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for any part of ``cfg`` outside the
-    ported slices: GQA (global or sliding-window) or MLA attention + dense
-    MLP, token front end, on either cache layout."""
+    ported slices: GQA (global or sliding-window) or MLA attention + a
+    dense MLP or MoE, token front end, on either cache layout."""
     def no(what: str, detail: str):
         raise NotImplementedError(
             f"{cfg.name}: {detail} is not ported yet ({_ROADMAP[what]})")
@@ -64,10 +65,8 @@ def check_supported(cfg: ModelConfig) -> None:
             no("ssm", f"{spec.ssm} layers")
         if spec.attn not in ("gqa", "mla"):
             no("ssm", f"attention kind {spec.attn!r}")
-        if spec.mlp == "moe":
-            no("moe", "MoE layers")
-        if spec.mlp != "dense":
-            no("moe", f"mlp kind {spec.mlp!r}")
+        if spec.mlp not in ("dense", "moe"):
+            no("ssm", f"mlp kind {spec.mlp!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +74,7 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One decoder layer: ln1, attn, [post1], ln2, mlp, [post2]."""
+    """One decoder layer: ln1, attn, [post1], ln2, mlp or moe, [post2]."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, *, dtype, device,
                  gen: Optional[torch.Generator] = None):
@@ -88,7 +87,10 @@ class Layer(nn.Module):
         if cfg.post_norm:
             self.post1 = Norm(cfg.d_model, cfg.norm, **nk)
         self.ln2 = Norm(cfg.d_model, cfg.norm, **nk)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, gen=gen, **nk)
+        if spec.mlp == "moe":
+            self.moe = moe_mod.MoE(cfg, gen=gen, **nk)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, gen=gen, **nk)
         if cfg.post_norm:
             self.post2 = Norm(cfg.d_model, cfg.norm, **nk)
 
@@ -129,9 +131,17 @@ def init(cfg: ModelConfig, seed: int = 0, rt: Runtime = Runtime(),
 # Layers
 # ---------------------------------------------------------------------------
 
-def _mlp_block(p: Layer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_block(p: Layer, x: torch.Tensor, cfg: ModelConfig,
+               spec: LayerSpec) -> torch.Tensor:
+    """The FFN half of a layer, dense or MoE.  An MoE layer routes each
+    batch row of x [B, S, d] as one capacity group of S tokens: the S a
+    caller passes (a prefill bucket, a decode step's 1) sets the capacity,
+    as in the reference."""
     h2 = apply_norm(p.ln2, x, cfg.norm)
-    y2 = mlp(p.mlp, h2, cfg.mlp_act)
+    if spec.mlp == "moe":
+        y2 = moe_mod.moe_ffn(p.moe, h2, cfg)
+    else:
+        y2 = mlp(p.mlp, h2, cfg.mlp_act)
     if cfg.post_norm:
         y2 = apply_norm(p.post2, y2, cfg.norm)
     return x + y2
@@ -151,7 +161,7 @@ def layer_forward(p: Layer, x: torch.Tensor, cfg: ModelConfig,
     attend = attn_mod.mla_forward if spec.attn == "mla" \
         else attn_mod.gqa_forward
     x = _residual(p, x, attend(p.attn, h, cfg, spec, rt), cfg)
-    return _mlp_block(p, x, cfg)
+    return _mlp_block(p, x, cfg, spec)
 
 
 def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
@@ -176,7 +186,7 @@ def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
         y, cache["attn"] = decode(p.attn, h, cache["attn"], kv_len, cfg,
                                   spec, rt)
     x = _residual(p, x, y, cfg)
-    return _mlp_block(p, x, cfg), cache
+    return _mlp_block(p, x, cfg, spec), cache
 
 
 def layer_verify(p: Layer, x: torch.Tensor, cache: dict,
@@ -204,7 +214,7 @@ def layer_verify(p: Layer, x: torch.Tensor, cache: dict,
         y, cache["attn"] = verify(p.attn, h, cache["attn"], kv_len, span,
                                   cfg, spec, rt)
     x = _residual(p, x, y, cfg)
-    return _mlp_block(p, x, cfg), cache
+    return _mlp_block(p, x, cfg, spec), cache
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +438,7 @@ def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
             ac["k"][:, :, :s_len] = qkv[1]
             ac["v"][:, :, :s_len] = qkv[2]
     x = _residual(p, x, y, cfg)
-    return _mlp_block(p, x, cfg), cache
+    return _mlp_block(p, x, cfg, spec), cache
 
 
 @torch.no_grad()

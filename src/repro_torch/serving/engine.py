@@ -67,7 +67,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.autotune import next_pow2
-from repro_torch.kernels.decode import CUDA_MAX_ROWS
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime, resolve_device
 from repro_torch.serving.kv_cache import _SHARD, PagedKVCache, _not_ported
@@ -88,14 +87,12 @@ def speculation_supported(cfg: ModelConfig) -> bool:
                for s in cfg.layer_specs())
 
 
-def speculation_refusal(cfg: ModelConfig, k: int, *, temperature: float,
-                        cuda: bool) -> Optional[str]:
+def speculation_refusal(cfg: ModelConfig, k: int, *,
+                        temperature: float) -> Optional[str]:
     """Why ``speculate=k`` cannot serve ``cfg``, or None: the reference's
-    gates (k >= 1, greedy only, :func:`speculation_supported`) and, on the
-    CUDA kernels (``cuda``), their row limit — K2 and K3 take at most
-    :data:`CUDA_MAX_ROWS` folded query rows a fiber and a GQA verify folds
-    (k + 1) · G of them (G query heads a kv head); K4 and K2's latent
-    branch, and the plain versions, take any count."""
+    gates — k >= 1, greedy only, :func:`speculation_supported`.  The CUDA
+    kernels take a verify chain of any length (K2 and K3 up to
+    ``CUDA_MAX_ROWS`` folded rows a fiber, the grid's limit)."""
     if k < 1:
         return f"need speculate >= 1, got {k}"
     if temperature > 0.0:
@@ -107,17 +104,7 @@ def speculation_refusal(cfg: ModelConfig, k: int, *, temperature: float,
         return ("speculative decoding needs every layer to be global "
                 "GQA/MLA attention with a dense MLP (no sliding windows, "
                 "SSM state, or MoE routing — see speculation_supported)")
-    if not cuda or all(s.attn == "mla" for s in cfg.layer_specs()):
-        return None
-    group = cfg.n_heads // cfg.n_kv_heads
-    rows = (k + 1) * group
-    if rows <= CUDA_MAX_ROWS:
-        return None
-    return (f"speculate={k} verifies {k + 1} chain positions x {group} "
-            f"query heads per kv head = {rows} rows per fiber, but the "
-            f"CUDA decode kernels (K2, K3) take at most {CUDA_MAX_ROWS}: "
-            f"use speculate <= {CUDA_MAX_ROWS // group - 1} on "
-            f"{cfg.name}")
+    return None
 
 
 @dataclasses.dataclass
@@ -169,10 +156,7 @@ class ServeEngine:
         self.proposer = None
         if speculate is not None:
             k = int(speculate)
-            why = speculation_refusal(
-                cfg, k, temperature=temperature,
-                cuda=rt.attn_impl == "cuda" or (
-                    rt.attn_impl == "auto" and self.device.type == "cuda"))
+            why = speculation_refusal(cfg, k, temperature=temperature)
             if why is not None:
                 raise ValueError(why)
             self.spec_k = k

@@ -10,9 +10,10 @@ the model paths with the reference's layers on bridged weights; the
 serving engine with the reference engine on the same traces.  Inputs come
 from numpy with a seed.  The model is ``deepseek-v3-671b-smoke`` with its
 MoE swapped for a dense FFN (``moe=None, family="dense"``, no MTP head),
-as tests/test_mla_paged.py serves it: MoE is not ported, and the absorbed
-form is exact math but not exact floats, which a top-k router would turn
-into different expert picks.
+as tests/test_mla_paged.py serves it: the absorbed form is exact math but
+not exact floats, which a top-k router would turn into different expert
+picks (the MoE tower itself is held to the reference by
+tests/test_torch_moe.py).
 
 Tolerances: fp32 paths differ only in summation order — unit-scale
 attention outputs agree to rtol = atol = 1e-5 (K4 sums its score over
@@ -414,15 +415,33 @@ def test_pool_bytes_per_page_equal_the_reference():
 
 
 # ---------------------------------------------------------------------------
-# what stays unported raises, naming its ROADMAP item
+# the MoE tower builds and serves; what stays unported raises
 # ---------------------------------------------------------------------------
 
 def test_moe_raises_naming_item_5b():
-    with pytest.raises(NotImplementedError, match="item 5b, MoE"):
-        tf.init(get_config(NAME), 0, RT, device="cpu")
+    """MoE is ported (item 5b): the MLA smoke config builds with its
+    expert layers (layer 0 dense, layers 1-3 MoE with a shared expert);
+    an SSM config still raises, naming its item 6."""
+    cfg = get_config(NAME)
+    model = tf.init(cfg, 0, RT, device="cpu")
+    kinds = [s.mlp for s in cfg.layer_specs()]
+    assert kinds == ["dense", "moe", "moe", "moe"]
+    for layer, kind in zip(model.layers, kinds):
+        assert hasattr(layer, "moe") == (kind == "moe")
+        assert hasattr(layer, "mlp") == (kind == "dense")
+    moe = model.layers[1].moe
+    assert tuple(moe.wi_gate.shape) == (cfg.moe.n_experts, cfg.d_model,
+                                        cfg.moe.d_ff_expert)
+    assert moe.router.dtype == torch.float32 and hasattr(moe, "shared")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tf.init(get_config("hymba-1.5b-smoke"), 0, RT, device="cpu")
 
 
 def test_launcher_serves_the_mla_arch_with_its_moe_cut(tmp_path):
+    """The launcher serves the MLA smoke config with its expert layers,
+    no cut: the JSON has no ``moe_cut`` key, the paged leg and its
+    prefix-cache-off twin give equal streams, and, as in the reference,
+    an MoE arch takes no prefix cache (nothing reused)."""
     out = tmp_path / "bench.json"
     metrics = serve.main(["--device", "cpu", "--arch", NAME,
                           "--cache-layout", "paged", "--requests", "4",
@@ -431,19 +450,15 @@ def test_launcher_serves_the_mla_arch_with_its_moe_cut(tmp_path):
                           "30", "--new-tokens", "4", "--repeats", "1",
                           "--shared-prefix-len", "16", "--json", str(out)])
     saved = json.loads(out.read_text())
-    assert saved["moe_cut"] is True and saved["n_layers"] == 4
+    assert "moe_cut" not in saved and saved["n_layers"] == 4
+    assert list(saved["layouts"]) == ["paged", "paged_noprefix"]
     assert saved["outputs_match"] is True
-    assert saved["layouts"]["paged"]["prefix"]["tokens_reused"] > 0
+    assert saved["layouts"]["paged"]["prefix"]["tokens_reused"] == 0
     assert saved["kernel_launches"] == {
         "fusemax_prefill": 0, "decode_partials": 0,
         "paged_decode_partials": 0, "mla_paged_decode_partials": 0,
         "latent_decode_partials": 0}
     assert all(len(o) == 4 for o in metrics["_outputs"])
-    # with its MoE cut the launcher serves the dense-FFN tower the tests
-    # hold to the reference
-    cut = serve.serve_config(NAME)
-    assert cut.moe is None and cut.mla == get_config(NAME).mla
-    assert all(s.mlp == "dense" for s in cut.layer_specs())
 
 
 # ---------------------------------------------------------------------------

@@ -368,7 +368,7 @@ def test_launcher_serves_the_mla_arch_on_the_dense_layout(tmp_path, layout):
                           "10", "--prompt-len-max", "30", "--new-tokens",
                           "4", "--repeats", "1", "--json", str(out)])
     saved = json.loads(out.read_text())
-    assert saved["moe_cut"] is True and saved["cache_layout"] == layout
+    assert "moe_cut" not in saved and saved["cache_layout"] == layout
     assert list(saved["layouts"]) == \
         (["dense"] if layout == "dense" else ["dense", "paged"])
     if layout == "both":

@@ -245,6 +245,13 @@ def test_paged_prefill_and_decode_loop_match(pair, prefill_chunk):
     ("llama4-maverick-400b-a17b-smoke", "MoE"),
 ])
 def test_unported_configs_raise(name, item):
+    """A config with a part not ported yet raises naming its ROADMAP item.
+    MoE (item 5b) is ported since: its configs now build, with their
+    expert layers (tests/test_torch_moe.py holds them to the reference)."""
+    if item == "MoE":
+        model = tf.init(get_config(name), 0, RT, device="cpu")
+        assert any(hasattr(layer, "moe") for layer in model.layers)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
         tf.init(get_config(name), 0, RT, device="cpu")
     assert item in str(exc.value)

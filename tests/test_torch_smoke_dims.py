@@ -5,8 +5,8 @@ The CUDA kernels are compiled for a fixed set of head dims (K1's
 ``CUDA_MLA_DIMS``, K2's dense latent branch's ``CUDA_LATENT_DIMS``), and
 a CUDA tensor at any other dim raises rather
 than falling back to the plain version.  So for each registered arch and
-its ``-smoke`` config that the launcher serves (``serve_config``: an MLA
-arch with its MoE cut) and ``check_supported`` admits, every (E, F) its
+its ``-smoke`` config that ``check_supported`` admits (the launcher
+serves each as registered), every (E, F) its
 prefill paths reach and every decode head dim / latent must be built on
 both cache layouts (an MLA latent: K4 on the paged one, K2's latent
 branch on the dense one), or the launcher's default device fails on the
@@ -23,7 +23,7 @@ and latents: each admitted config's quantized pool must reach a built
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import decode as dec
 from repro_torch.launch import serve
@@ -35,7 +35,7 @@ NAMES = sorted(ARCHS) + sorted(n + "-smoke" for n in ARCHS)
 
 
 def _admitted(name):
-    cfg = serve.serve_config(name)
+    cfg = get_config(name)
     try:
         tf.check_supported(cfg)
     except NotImplementedError:
@@ -61,11 +61,11 @@ def _kernel_dims(cfg):
 
 def test_the_admitted_configs_are_the_expected_ones():
     """The guard below is not vacuous: the GQA archs, gemma2's windows and
-    softcaps, and DeepSeek's MLA (MoE cut) are all admitted, full width
-    and smoke."""
+    softcaps, DeepSeek's MLA with its MoE layers and llama4's GQA MoE are
+    all admitted, full width and smoke."""
     admitted = {n for n in NAMES if _admitted(n) is not None}
     for base in ("granite-3-8b", "stablelm-1.6b", "gemma-7b", "gemma2-9b",
-                 "deepseek-v3-671b"):
+                 "deepseek-v3-671b", "llama4-maverick-400b-a17b"):
         assert {base, base + "-smoke"} <= admitted, base
 
 
@@ -74,7 +74,7 @@ def test_every_admitted_config_has_its_kernels_built(name):
     cfg = _admitted(name)
     if cfg is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.check_supported(serve.serve_config(name))
+            tf.check_supported(get_config(name))
         return
     prefill, heads, latents = _kernel_dims(cfg)
     assert prefill <= set(autotune.CUDA_PREFILL_TILES), (name, prefill)

@@ -10,7 +10,7 @@ engine's and the reference's speculative engine's, and its dispatch and
 speculation counters the reference's.  Also: preemption on a pool too
 small for every slot's draft (no page leaks), fp8 pages (speculative =
 non-speculative), the gates (greedy only, global GQA / MLA + dense MLP,
-k >= 1, and the CUDA kernels' row limit), and the launcher's
+k >= 1; chains of any length, F2 closed), and the launcher's
 ``--speculate`` / ``--duplicates`` legs.
 """
 import jax
@@ -211,32 +211,45 @@ def jax_serve_supported(name: str) -> bool:
 
 
 def test_row_limit_refuses_k_at_construction(gqa_pair):
-    """K2 and K3 take at most 64 rows a fiber: on the CUDA kernels a GQA
-    model refuses k with (k + 1)·G > 64 when the engine or the launcher is
-    built, naming the limit (granite: G = 4, k <= 15); MLA (K4, K2's
-    latent branch) and the plain versions take any k."""
+    """Fault F2 closed: K2 and K3 take any number of folded rows a fiber
+    (up to the grid's CUDA_MAX_ROWS), so ``speculate=k`` is refused only
+    by the reference's gates.  Granite's k = 16 (17 chain positions x G 4
+    = 68 rows) and k = 31 (128 rows) are admitted, on the CUDA kernels
+    too, as the reference serves them; an MoE config is still refused,
+    with the reference's reason."""
     granite = get_config("granite-3-8b")
-    assert CUDA_MAX_ROWS == 64
-    kw = dict(temperature=0.0, cuda=True)
-    assert speculation_refusal(granite, 15, **kw) is None
-    why = speculation_refusal(granite, 16, **kw)
-    assert "68 rows" in why and "at most 64" in why and "<= 15" in why
-    assert speculation_refusal(granite, 16, temperature=0.0,
-                               cuda=False) is None
+    assert CUDA_MAX_ROWS == 65535 * 8
+    for k in (15, 16, 31, 100):
+        assert speculation_refusal(granite, k, temperature=0.0) is None
     assert speculation_refusal(ModelConfig(**MLA_KW,
                                            mla=MLAConfig(**MLA_LATENT)),
-                               100, **kw) is None
+                               100, temperature=0.0) is None
     smoke = get_config("granite-3-8b-smoke")       # G = 4
+    assert smoke.n_heads // smoke.n_kv_heads == 4
     model = gqa_pair[3]
     cuda_rt = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
                       param_dtype=torch.float32)
-    with pytest.raises(ValueError, match="at most 64"):
-        ServeEngine(get_config(GQA), model, slots=2, max_len=64,
-                    rt=cuda_rt, device="cpu", speculate=64)
+    eng = ServeEngine(get_config(GQA), model, slots=2, max_len=64,
+                      rt=cuda_rt, device="cpu", speculate=16)
+    assert eng.spec_k == 16 and eng.proposer.k == 17
+    moe = get_config("deepseek-v3-671b-smoke")
+    assert not speculation_supported(moe) and not jax_serve_supported(
+        moe.name)
+    why = speculation_refusal(moe, 4, temperature=0.0)
+    assert "MoE routing" in why and "speculation_supported" in why
     # the launcher refuses before it builds anything (its device is cuda)
-    with pytest.raises(SystemExit, match="at most 64"):
-        serve.main(["--arch", smoke.name, "--speculate", "16", "--json",
-                    ""])
+    with pytest.raises(SystemExit, match="MoE routing"):
+        serve.main(["--arch", moe.name, "--speculate", "4", "--json", ""])
+    # and serves granite's k = 16: 68 verify rows a fiber, streams equal
+    # to its non-speculative leg
+    got = serve.main(["--device", "cpu", "--arch", smoke.name,
+                      "--cache-layout", "both", "--requests", "2",
+                      "--slots", "2", "--max-len", "64", "--prompt-len",
+                      "6", "--prompt-len-max", "12", "--new-tokens", "8",
+                      "--no-warmup", "--speculate", "16", "--duplicates",
+                      "2", "--json", ""])
+    assert got["outputs_match"] is True
+    assert got["speculation"]["k"] == 16
     with pytest.raises(SystemExit, match="greedy-only"):
         serve.main(["--device", "cpu", "--arch", GQA, "--speculate", "2",
                     "--temperature", "0.5", "--json", ""])
