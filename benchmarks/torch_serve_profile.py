@@ -1,8 +1,8 @@
 """Where the time goes in the port's serving path, on the card.
 
     python benchmarks/torch_serve_profile.py [--cache-layout dense|paged]
-        [--arch granite-3-8b|deepseek-v3-671b|gemma2-9b] [--layers N]
-        [--out PATH]
+        [--arch granite-3-8b|deepseek-v3-671b|gemma2-9b|hymba-1.5b]
+        [--layers N] [--out PATH]
 
 Builds ``--arch`` at full width (all its layers unless ``--layers`` cuts
 the depth — ``--arch deepseek-v3-671b --layers 3`` is its dense prefix,
@@ -15,7 +15,12 @@ max_len 2048; the paged layout with its default pool of 1024 pages of
 16 tokens and the prefix cache on) and runs one 16-step decode dispatch,
 after one untimed warm-up round of the same work.  gemma2-9b runs its
 serve cell's traffic instead: 4 prompts uniform in [4200, 6000], past
-its 4096-token window, in 4 slots of max_len 8192.  Each phase runs twice: once timed with CUDA events around it (wall
+its 4096-token window, in 4 slots of max_len 8192.  hymba-1.5b (32
+layers, attention beside Mamba) admits 8 prompts uniform in [513, 1024]:
+its prefill phase is one dispatch of the 1024-token bucket, whose SSM
+layers step every token (``ssm_ms``: the device time of the kernels
+launched inside the transformer's ``"ssm"`` profiler ranges, the SSM
+products included).  Each phase runs twice: once timed with CUDA events around it (wall
 on the device's clock, no profiler attached) and once under
 ``torch.profiler`` for the per-kernel device time.  It prints one JSON
 object per phase — wall ms, device-busy ms (sum of kernel durations: the
@@ -88,18 +93,25 @@ def _profile(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
     kernels: dict = {}
+    ssm = [0.0, 0]
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.name == tf.SSM_RANGE:  # the range's device-side marker
+                continue
             k = kernels.setdefault(ev.name, [0.0, 0])
             k[0] += _device_us(ev) / 1e3
             k[1] += 1
+        elif ev.name == tf.SSM_RANGE:
+            # a CPU range: its device time is its launches' kernels'
+            ssm[0] += _device_us(ev) / 1e3
+            ssm[1] += 1
     ops = [{"op": a.key, "input_shapes": str(a.input_shapes)[:160],
             "device_ms": _device_us(a, self_only=True) / 1e3,
             "calls": a.count}
            for a in prof.key_averages(group_by_input_shape=True)
            if a.key.startswith("aten::") and _device_us(a, True) > 0]
     ops.sort(key=lambda o: -o["device_ms"])
-    return kernels, ops[:16]
+    return kernels, ops[:16], ssm
 
 
 def _timed(fn) -> float:
@@ -115,7 +127,7 @@ def _timed(fn) -> float:
 
 def _summary(phase: str, wall_ms: float, profiled: tuple,
              extra: dict) -> dict:
-    kernels, ops = profiled
+    kernels, ops, ssm = profiled
     busy = sum(v[0] for v in kernels.values())
     groups: dict = {}
     for name, (ms, n) in kernels.items():
@@ -133,6 +145,8 @@ def _summary(phase: str, wall_ms: float, profiled: tuple,
         "top_kernels": [{"name": n[:120], "ms": v[0], "launches": v[1]}
                         for n, v in top],
         "top_ops": ops,
+        "ssm_ms": ssm[0], "ssm_calls": ssm[1],
+        "ssm_share_of_busy": ssm[0] / busy if busy else None,
         **extra,
     }
 
@@ -143,7 +157,7 @@ def main(argv=None) -> list:
                     choices=("dense", "paged"))
     ap.add_argument("--arch", default="granite-3-8b",
                     choices=("granite-3-8b", "deepseek-v3-671b",
-                             "gemma2-9b"))
+                             "gemma2-9b", "hymba-1.5b"))
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth (default: all of the arch's)")
     ap.add_argument("--seed", type=int, default=0)
@@ -158,8 +172,10 @@ def main(argv=None) -> list:
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
     model = tf.init(cfg, args.seed, rt, device="cuda")
     # (slots, max_len, prompt lengths lo..hi): the arch's serve cell
-    slots, max_len, lo, hi = (4, 8192, 4200, 6000) \
-        if args.arch == "gemma2-9b" else (8, 2048, 128, 1024)
+    slots, max_len, lo, hi = {
+        "gemma2-9b": (4, 8192, 4200, 6000),
+        "hymba-1.5b": (8, 2048, 513, 1024)}.get(args.arch,
+                                                (8, 2048, 128, 1024))
     rng = np.random.default_rng(args.seed)
     lens = [int(x) for x in rng.integers(lo, hi + 1, size=slots)]
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]

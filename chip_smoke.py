@@ -71,7 +71,11 @@ JSON line (``"phase": ...``):
              among the kernel cases (K3 and K4 on fp8 and int8 pools too);
              and K2 and K3 past 64 rows a fiber, at P = 17 and 32 (68 and
              128 rows): cases, timing rows, and the verify read against
-             P single-token reads of the same queries (equal bits);
+             P single-token reads of the same queries (equal bits); and
+             hymba-1.5b's shapes (G = 5, head dim 64, window 1024): K1
+             cases and timing rows on a windowed and a global layer (with
+             the kernel's device time), K2 and K3 on a global cache and a
+             ring read at eff_len;
 4. model   — granite-3-8b at full width cut to 4 layers, fp32: prefill 4
              mixed-length prompts and decode 8 greedy steps with
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
@@ -133,9 +137,12 @@ JSON line (``"phase": ...``):
 9. launcher_defaults — ``python -m repro_torch.launch.serve`` as
              subprocesses from the repo root: with no flags (gemma2-9b-
              smoke on the card), ``--cache-layout both``, granite-3-8b-
-             smoke paged, gemma-7b-smoke and deepseek-v3-671b-smoke on
-             the default dense layout: exit code 0, kernels launched,
-             ``outputs_match`` where it compares layouts;
+             smoke paged, gemma-7b-smoke, hymba-1.5b-smoke and
+             xlstm-125m-smoke on both layouts and deepseek-v3-671b-smoke
+             on the default dense layout: exit code 0, kernels launched
+             (xlstm: none), ``outputs_match`` where it compares layouts;
+             and pixtral-12b-smoke, which it must refuse (non-zero exit,
+             the message that it serves token prompts only);
 10. model_mla — DeepSeek-V3's first three layers (MLA + dense FFN) at full
              width, fp32, on the dense and the paged layout: two prefill
              chunks (the second at an offset, the absorbed form) and 8
@@ -169,7 +176,29 @@ JSON line (``"phase": ...``):
 14. model_mla_smoke — the model_mla check on the MLA smoke config with
              its MoE cut: K1 at (48, 32), K4 and K2's latent branch at
              (32, 16);
-15. the ``kernels`` line (launches on the main paths, K2 / K3 / K4 / K2's
+15. model_hybrid — hymba-1.5b at full width cut to 4 layers (global,
+             two windowed of 1024, global; Mamba beside attention in each),
+             fp32: prompts of 1300 and 1800 tokens, one prefilled whole
+             and one in 512-token chunks, 8 decode steps, dense and paged,
+             ``attn_impl`` "cuda" and "torch": equal tokens, logits within
+             1e-4 of their scale, dense = paged; and the hoisted SSM
+             prefill against the literal one (the reference's
+             ``_prefill_ssm``, a step call a token) on the same rows,
+             padding and a continuation chunk included, within 1e-5 of
+             scale;
+16. serve_hymba — the launcher (``--cache-layout both``) on all 32
+             hymba-1.5b layers at full width: 16 requests of 512-1536
+             tokens, 32 new; the serve phase's checks (K1 32 x prefill
+             dispatches, K2 / K3 32 x decode steps), the SSM state bytes
+             (32 x 8 slots x (3200·16 + 3·3200) x 4 B), tok/s and TTFT;
+17. serve_xlstm — the launcher on xlstm-125m at full width, the same
+             trace, both layouts: equal streams, no attention kernel
+             launched, no resident KV, the SSM state bytes;
+18. model_frontends — musicgen-large at full width cut to 4 layers
+             (frames, layernorm, GeLU, MHA at d64) and pixtral-12b-smoke
+             (patches): ``forward``, ``prefill`` and ``decode_step`` on
+             seeded embeddings, cuda vs torch within 1e-4 of scale;
+19. the ``kernels`` line (launches on the main paths, K2 / K3 / K4 / K2's
    latent branch split by n_pos == 1 (decode steps) and n_pos > 1 (verify
    chains), errors, times, bounds) and, last, ``{"ok": true, "device":
    {...}}``.
@@ -371,12 +400,14 @@ def _causal_ref64(torch, q, k, v, scale, group, q_offset):
     return torch.einsum("brk,bkf->brf", torch.softmax(s, -1), v.double())
 
 
-def run_k1_cases(torch, gen, fm, autotune) -> list:
-    """Every K1 case against its plain version; the split cases also
-    report the kernel's and the plain version's distance to a float64
-    reference (``vs_f64``, not gated)."""
+def run_k1_cases(torch, gen, fm, autotune, cases=None) -> list:
+    """Every K1 case (``cases``: these instead, in :func:`k1_cases`'
+    form) against its plain version; the split cases also report the
+    kernel's and the plain version's distance to a float64 reference
+    (``vs_f64``, not gated)."""
     rows = []
-    cases = [c + (None, False) for c in k1_cases(torch)] + \
+    cases = [c + (None, False) for c in cases] if cases is not None else \
+        [c + (None, False) for c in k1_cases(torch)] + \
         [c + (None, False) for c in k1_dims_cases(torch)] + \
         [c + (True,) for c in k1_split_cases(torch)]
     for name, b, hkv, g, p, m, e, f, dtype, kw, how, split in cases:
@@ -1788,7 +1819,8 @@ def time_k4_quant(torch, gen, dec, ops, autotune, kv_dtype) -> dict:
 
 
 def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
-                   q_offset, shape, window=None, softcap=None) -> dict:
+                   q_offset, shape, window=None, softcap=None,
+                   with_device_ms=False) -> dict:
     """K1 at one prefill shape, causal with a history offset (and a window
     and a softcap where given), fp32: the kernel, its plain version, SDPA
     on the same inputs (by default and under each fp32 backend; the window
@@ -1796,7 +1828,8 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
     is a yardstick of a neighbouring function), and both bounds: the FP32
     units' and the tensor cores' in 3xTF32, which is the one K1 runs
     against, over the (query, key) pairs the causal and window masks
-    leave."""
+    leave.  ``with_device_ms``: also the kernel's own device time from
+    the profiler (:func:`device_ms`)."""
     g = hq // hkv
     q = _rand(torch, gen, (b, hq, p, e), torch.float32)
     k = _rand(torch, gen, (b, hkv, m, e), torch.float32)
@@ -1846,6 +1879,10 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
                share_of_3xtf32_bound=max(t_3xtf32, t_bytes) / ms,
                flops=flops, bytes=nbytes, max_abs_err=err, ok=ok,
                tile=[tile.block_q, tile.block_k], **backends)
+    if with_device_ms:
+        row["device_ms"] = device_ms(torch, lambda: fm.fusemax_attention_cuda(
+            q_f, k_f, v_f, **args), "fusemax_prefill")
+        row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
     if softcap is not None:
         row["library_note"] = (f"SDPA has no softcap: library_ms is the "
                                f"same shapes and masks without softcap "
@@ -3134,27 +3171,36 @@ def phase_serve_gemma2(torch, fm, dec, serve) -> dict:
 
 #: the launcher as a user runs it, from the repo root: no flags (now
 #: gemma2-9b-smoke on the card, dense: K1 at (32, 32), K2 at D = 32), both
-#: layouts, two other smoke configs, and the MLA smoke config on the
-#: default (dense) layout: K1 at (48, 32), K2's latent branch at (32, 16)
+#: layouts, two other smoke configs, the hybrid and the SSM smoke configs
+#: on both layouts (hymba: K1 / K2 / K3 at d32 beside Mamba; xlstm: no
+#: attention kernel), and the MLA smoke config on the default (dense)
+#: layout: K1 at (48, 32), K2's latent branch at (32, 16)
 LAUNCHER_RUNS = [
     [],
     ["--cache-layout", "both"],
     ["--arch", "granite-3-8b-smoke", "--cache-layout", "paged"],
     ["--arch", "gemma-7b-smoke"],
+    ["--arch", "hymba-1.5b-smoke", "--cache-layout", "both"],
+    ["--arch", "xlstm-125m-smoke", "--cache-layout", "both"],
     ["--arch", "deepseek-v3-671b-smoke"],
 ]
+#: ... and an arch it must refuse, with the message that says why (a
+#: patch front end takes embeddings, not token prompts)
+LAUNCHER_REFUSED = [(["--arch", "pixtral-12b-smoke"], "token prompts")]
 
 
 def phase_launcher_defaults(torch) -> dict:
     """Each :data:`LAUNCHER_RUNS` command as a subprocess from the repo
     root: exit code 0, every layout's streams complete and, where the
     launcher compares layouts, ``outputs_match``; its kernels launched
-    (an MLA arch's decode kernels: :data:`MLA_DECODE_KERNEL`)."""
+    (an MLA arch's decode kernels: :data:`MLA_DECODE_KERNEL`; an arch
+    without attention: none).  Each :data:`LAUNCHER_REFUSED` command
+    exits non-zero with its message and writes no result."""
     from repro_torch.configs import get_config
 
     runs = []
     out_json = os.path.join(ROOT, "BENCH_torch_serving.json")
-    for argv in LAUNCHER_RUNS:
+    for argv in LAUNCHER_RUNS + [a for a, _ in LAUNCHER_REFUSED]:
         if os.path.exists(out_json):
             os.unlink(out_json)
         env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
@@ -3171,6 +3217,8 @@ def phase_launcher_defaults(torch) -> dict:
                 m = json.load(fh)
             run.update(arch=m["arch"],
                        mla=get_config(m["arch"]).mla is not None,
+                       attention=any(sp.attn != "none" for sp in get_config(
+                           m["arch"]).layer_specs()),
                        layouts=list(m["layouts"]),
                        tok_per_s=m["tok_per_s"],
                        kernel_launches={lo: v["kernel_launches"]
@@ -3183,7 +3231,12 @@ def phase_launcher_defaults(torch) -> dict:
         runs.append(run)
     if os.path.exists(out_json):
         os.unlink(out_json)
-    emit("launcher_defaults", runs=runs)
+    refused, runs = runs[len(LAUNCHER_RUNS):], runs[:len(LAUNCHER_RUNS)]
+    emit("launcher_defaults", runs=runs, refused=refused)
+    for run, (_, msg) in zip(refused, LAUNCHER_REFUSED):
+        check(run["rc"] != 0 and msg in run.get("stderr_tail", ""),
+              f"launcher {run['argv']} was not refused: rc {run['rc']}, "
+              f"{run.get('stderr_tail', '')[-400:]}")
     for run in runs:
         check(run["rc"] == 0, f"launcher {run['argv']} exited {run['rc']}: "
                               f"{run.get('stderr_tail', '')[-600:]}")
@@ -3193,6 +3246,10 @@ def phase_launcher_defaults(torch) -> dict:
               f"launcher {run['argv']} ran on {run['device']}")
         kmap = MLA_DECODE_KERNEL if run["mla"] else DECODE_KERNEL
         for lo, n in run["kernel_launches"].items():
+            if not run["attention"]:
+                check(not any(n.values()), f"launcher {run['argv']} {lo}: "
+                                           f"kernels launched: {n}")
+                continue
             check(n["fusemax_prefill"] > 0 and n[kmap[lo]] > 0,
                   f"launcher {run['argv']} {lo}: kernels not launched: {n}")
     check(runs[0]["arch"] == "gemma2-9b-smoke",
@@ -3729,6 +3786,444 @@ def phase_serve_mla_quant(torch, fm, dec, serve) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 15-19. hymba-1.5b (attention beside Mamba, G = 5), xlstm-125m (mLSTM /
+# sLSTM, no attention) and the frame / patch front ends
+# ---------------------------------------------------------------------------
+
+def k1_hymba_cases(torch):
+    """K1 at hymba-1.5b's (64, 64) with its group of 5 (25 q over 5 kv
+    heads), fp32 and bf16: a windowed layer (window 1024) with a history
+    offset and queries past the window, one whole past the window, and a
+    global layer with an offset.  They draw from a generator of their
+    own (``main``), so every earlier case keeps its inputs."""
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        out += [
+            (f"{dn} hymba E64 G5 window=1024 q_offset=900 causal", 1, 5, 5,
+             400, 1300, 64, 64, dtype,
+             dict(causal=True, window=1024, q_offset=900)),
+            (f"{dn} hymba E64 G5 window=1024 causal P=M=1300", 1, 5, 5,
+             1300, 1300, 64, 64, dtype, dict(causal=True, window=1024)),
+            (f"{dn} hymba E64 G5 global q_offset=512 causal", 2, 5, 5, 300,
+             812, 64, 64, dtype, dict(causal=True, q_offset=512)),
+        ]
+    return out
+
+
+def k2_hymba_cases(torch):
+    """K2 at hymba's d64 with G = 5: a global layer's 2048-token cache
+    (kv_len 0 and 1 among them) and a windowed layer's ring of 1024 read
+    at eff_len = min(kv_len, 1024), fp32 and bf16 (as :func:`k2_cases`)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("fp32 hymba d64 G5 global kv_len 0,1 splits=4", 4, 5, 5, 1, 2048,
+         64, f32, [0, 1, 1300, 2048], 4, 128, {}),
+        ("bf16 hymba d64 G5 global splits=8", 2, 5, 5, 1, 2048, 64, bf16,
+         [2047, 513], 8, 128, {}),
+        ("fp32 hymba d64 G5 ring of 1024 at eff_len (kv_len past the "
+         "window) splits=4", 4, 5, 5, 1, 1024, 64, f32, [1024, 1024, 700, 1],
+         4, 128, {}),
+        ("bf16 hymba d64 G5 ring of 1024 at eff_len splits=2", 2, 5, 5, 1,
+         1024, 64, bf16, [1024, 37], 2, 128, {}),
+    ]
+
+
+def k3_hymba_cases(torch):
+    """K3 at hymba's d64 with G = 5 on permuted pools: the "full" class
+    (W 128 pages of 16) and the "w1024" ring class (W 64) read at eff_len
+    (as :func:`k3_cases`)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("fp32 hymba ps16 d64 G5 global kv_len 0,1 splits=8", 4, 5, 5, 1,
+         16, 128, 600, 64, f32, [0, 1, 1300, 2048], 8, 16, {}),
+        ("bf16 hymba ps16 d64 G5 global splits=4", 2, 5, 5, 1, 16, 128, 300,
+         64, bf16, [2047, 513], 4, 16, {}),
+        ("fp32 hymba ring W=64 (window 1024) at eff_len ps16 splits=4", 4,
+         5, 5, 1, 16, 64, 300, 64, f32, [1024, 1024, 700, 1], 4, 16, {}),
+    ]
+
+
+#: a hymba-1.5b decode step's kv_len (8 slots of the serve trace's
+#: lengths) on a global layer, and the same slots' rings of 1024 at
+#: eff_len
+HYMBA_KVL = [2048, 1536, 1300, 1024, 700, 513, 1, 1900]
+
+
+def time_hymba(torch, gen, fm, dec, ops, autotune) -> dict:
+    """K1, K2 and K3 at hymba-1.5b's shapes, fp32, G = 5 (25 q over 5 kv
+    heads), head dim 64: K1 at a 2048-bucket prefill dispatch of 4 rows
+    on a windowed layer (window 1024) and a global one, with its device
+    time; K2 and K3 at a decode step of 8 slots on a global layer's
+    2048-token cache and on a windowed layer's ring of 1024 read at
+    eff_len (K3 on pools of page_size 16, W 128 and 64)."""
+    out = {}
+    for where, window in (("hymba_local", 1024), ("hymba_global", None)):
+        out[f"fusemax_prefill@{where}"] = _time_k1_shape(
+            torch, gen, fm, autotune, b=4, hq=25, hkv=5, p=2048, m=2048,
+            e=64, f=64, q_offset=0, window=window, with_device_ms=True,
+            shape="B4 Hq25 Hkv5 P=M=2048 d64 fp32 causal"
+                  + (f" window {window}" if window else ""))
+        torch.cuda.empty_cache()
+    ring = [min(n, 1024) for n in HYMBA_KVL]
+    for where, m, kvl in (("hymba_global", 2048, HYMBA_KVL),
+                          ("hymba_ring", 1024, ring)):
+        out[f"decode_partials@{where}"] = time_k2(
+            torch, gen, dec, autotune, b=8, hq=25, hkv=5, m=m, d=64,
+            kvl=kvl)
+        out[f"paged_decode_partials@{where}"] = time_k3(
+            torch, gen, dec, ops, autotune,
+            x=paged_data(torch, gen, 8, 25, 5, m, 64), kvl=kvl)
+        torch.cuda.empty_cache()
+    return out
+
+
+def hymba_tower():
+    """hymba-1.5b at full width (d 1600, 25 / 5 heads of 64, d_ff 5504,
+    Mamba d_inner 3200, state 16, dt_rank 100, conv 4) cut to 4 layers:
+    global, two windowed (1024), global."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("hymba-1.5b"), n_layers=4,
+                               hybrid_global_layers=(0, 3))
+
+
+def _ssm_prefill_literal_vs_hoisted(torch, tf, cfg, model) -> dict:
+    """The hoisted SSM prefill against the literal one on the same rows
+    of the tower's first layer (its Mamba at full width): a 1024-token
+    chunk of 2 rows whose prompts (1300, 1800) run past it, then the
+    continuation chunk at kv_offset 1024 from the handed-off state, where
+    both prompts end and the bucket's padding follows (masked stepping).
+    Outputs (padding included) and every state leaf, max abs distance
+    over the outputs' scale."""
+    from repro_torch.model import ssm as ssm_mod
+    from repro_torch.model.layers import Runtime, apply_norm
+
+    rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
+    spec = cfg.layer_specs()[0]
+    p = model.layers[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    x = torch.randn((2, 2048, cfg.d_model), generator=gen, device="cuda")
+    h = apply_norm(p.ln1, x, cfg.norm)
+    true_len = torch.tensor([1300, 1800], dtype=torch.int32, device="cuda")
+    out = {}
+    for form, prefill in (("literal", tf._prefill_ssm_literal),
+                          ("hoisted", tf._prefill_ssm)):
+        st = ssm_mod.INIT_STATE[spec.ssm](cfg, 2, torch.float32, "cuda")
+        ys = []
+        t0 = time.perf_counter()
+        for off in (0, 1024):
+            y, st = prefill(p.ssm, h[:, off:off + 1024], st, cfg, spec, rt,
+                            true_len, off)
+            ys.append(y)
+        torch.cuda.synchronize()
+        out[form] = (torch.cat(ys, dim=1), st, time.perf_counter() - t0)
+    (ya, sa, ta), (yb, sb, tb) = out["literal"], out["hoisted"]
+    scale = ya.abs().max().item()
+    return dict(
+        rows=2, chunks=[[0, 1024], [1024, 2048]], true_len=[1300, 1800],
+        y_max_abs_diff=(ya - yb).abs().max().item(), y_max_abs=scale,
+        state_max_abs_diff={k: (sa[k] - sb[k]).abs().max().item()
+                            for k in sa},
+        state_max_abs={k: sa[k].abs().max().item() for k in sa},
+        literal_s=ta, hoisted_s=tb)
+
+
+def phase_model_hybrid(torch, fm, dec) -> None:
+    """hymba-1.5b at full width cut to 4 layers (:func:`hymba_tower`),
+    fp32: prompts of 1300 and 1800 tokens (past the 1024 window), one
+    prefilled whole and one in 512-token chunks, then 8 greedy decode
+    steps, on the dense and the paged layout, with ``attn_impl`` "cuda"
+    and "torch": equal tokens, logits within 1e-4 of their scale, dense =
+    paged; K1 at (64, 64) G = 5, K2 / K3 at d64.  Then the hoisted SSM
+    prefill against the literal one, within 1e-5 of scale."""
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+
+    cfg = hymba_tower()
+    rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                   param_dtype=torch.float32)
+    rt_t = dataclasses.replace(rt_c, attn_impl="torch")
+    model = tf.init(cfg, 0, rt_c, device="cuda")
+    lens, chunk, ps, max_len = [1300, 1800], 512, 16, 2048
+    window = cfg.layer_specs()[1].window
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (len(lens), max(lens)), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    b = len(lens)
+    widths = {"full": max_len // ps, f"w{window}": -(-window // ps)}
+    tables = {k: torch.randperm(b * w, generator=gen, device="cuda")
+              .to(torch.int32).reshape(b, w).contiguous()
+              for k, w in widths.items()}
+    streams, logits_all, launches = {}, {}, {}
+    t0 = time.perf_counter()
+    for layout in ("dense", "paged"):
+        for name, rt in (("cuda", rt_c), ("torch", rt_t)):
+            _zero_counts(fm, dec)
+            paged = tables if layout == "paged" else None
+            caches = tf.init_paged_cache(
+                cfg, b, {k: b * w for k, w in widths.items()}, ps,
+                torch.float32, "cuda") if paged else \
+                tf.init_cache(cfg, b, max_len, torch.float32, "cuda")
+            lg = _gemma2_prefill_rows(torch, tf, cfg, model, rt, caches,
+                                      toks, lens, chunk, paged)
+            kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out, lgs = [], [lg]
+            for _ in range(8):
+                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+                out.append(nxt)
+                kv = kv + 1
+                lg, caches = tf.decode_step(cfg, model, nxt[:, None], caches,
+                                            kv, rt, block_tables=paged)
+                lgs.append(lg)
+            streams[layout, name] = torch.stack(out).cpu()
+            logits_all[layout, name] = torch.stack(lgs)
+            launches[layout, name] = _counts(fm, dec)
+            del caches
+    torch.cuda.synchronize()
+    model_s = time.perf_counter() - t0
+    rel_tol, ssm_tol = 1e-4, 1e-5
+    res = {}
+    for layout in ("dense", "paged"):
+        c, t = logits_all[layout, "cuda"], logits_all[layout, "torch"]
+        res[layout] = dict(
+            logits_max_abs_diff=(c - t).abs().max().item(),
+            logits_max_abs=t.abs().max().item(),
+            token_match_rate=(streams[layout, "cuda"]
+                              == streams[layout, "torch"]).float().mean()
+            .item(),
+            finite=bool(torch.isfinite(c).all().item()),
+            cuda_launches=launches[layout, "cuda"],
+            torch_launches=launches[layout, "torch"])
+    dense_paged = (logits_all["dense", "cuda"]
+                   - logits_all["paged", "cuda"]).abs().max().item()
+    streams_equal = bool(torch.equal(streams["dense", "cuda"],
+                                     streams["paged", "cuda"]))
+    ssm = _ssm_prefill_literal_vs_hoisted(torch, tf, cfg, model)
+    emit("model_hybrid", config="hymba-1.5b n_layers=4 (global, w1024, "
+         "w1024, global) fp32", prompts=lens, window=window,
+         prefill=["whole", f"{chunk}-token chunks"], decode_steps=8,
+         rel_tol=rel_tol, layouts=res, seconds=model_s,
+         dense_vs_paged_logits_max_abs_diff=dense_paged,
+         dense_vs_paged_streams_equal=streams_equal,
+         ssm_prefill_hoisted_vs_literal=dict(ssm, rel_tol=ssm_tol))
+    for layout, r in res.items():
+        check(r["finite"], f"{layout}: non-finite logits in the hymba check")
+        check(r["logits_max_abs_diff"] <= rel_tol * r["logits_max_abs"],
+              f"hymba {layout}: cuda vs torch logits differ by "
+              f"{r['logits_max_abs_diff']} > {rel_tol} x "
+              f"{r['logits_max_abs']}")
+        check(r["token_match_rate"] == 1.0,
+              f"hymba {layout}: token match rate {r['token_match_rate']}")
+        n_k1 = r["cuda_launches"]["fusemax_prefill_by_dims"].get("64x64", 0)
+        # row 0 whole, row 1 in ceil(1800 / 512) = 4 chunks, every layer
+        check(n_k1 == cfg.n_layers * (1 + 4),
+              f"hymba {layout}: K1 at 64x64 launched {n_k1} times")
+        dk = DECODE_KERNEL[layout]
+        check(r["cuda_launches"][dk] == cfg.n_layers * 8,
+              f"hymba {layout}: {dk} launched {r['cuda_launches'][dk]} "
+              f"times in 8 steps of {cfg.n_layers} layers")
+        check(all(n == 0 for n in r["torch_launches"].values()
+                  if not isinstance(n, dict)),
+              f"hymba {layout}: the torch path launched kernels")
+    check(streams_equal, "hymba: dense and paged greedy streams differ")
+    check(dense_paged <= rel_tol * res["dense"]["logits_max_abs"],
+          f"hymba: dense vs paged logits differ by {dense_paged}")
+    check(ssm["y_max_abs_diff"] <= ssm_tol * ssm["y_max_abs"],
+          f"hymba: hoisted vs literal SSM prefill outputs differ by "
+          f"{ssm['y_max_abs_diff']} > {ssm_tol} x {ssm['y_max_abs']}")
+    for k, d in ssm["state_max_abs_diff"].items():
+        check(d <= ssm_tol * max(ssm["state_max_abs"][k], 1.0),
+              f"hymba: hoisted vs literal SSM state '{k}' differs by {d}")
+    del model, logits_all
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve_trace_args(arch: str) -> list:
+    """The hybrid serve cell: 16 requests with prompts uniform in [512,
+    1536] (some past hymba's 1024 window), 32 new tokens, 8 slots,
+    max_len 2048, both layouts."""
+    return ["--arch", arch, "--cache-layout", "both", "--requests", "16",
+            "--slots", "8", "--prompt-len", "512", "--prompt-len-max",
+            "1536", "--new-tokens", "32", "--max-len", "2048", "--repeats",
+            "1", "--json", ""]
+
+
+HYMBA_SERVE_ARGS = _serve_trace_args("hymba-1.5b")
+XLSTM_SERVE_ARGS = _serve_trace_args("xlstm-125m")
+
+
+def _ssm_legs(metrics) -> dict:
+    """Per leg: tok/s, TTFT, the SSM state bytes and resident KV."""
+    return {lo: dict(tok_per_s=m["tok_per_s"], ttft_s=m["ttft_s"],
+                     wall_s=m["wall_s"], warmup_s=m["warmup_s"],
+                     dispatches=m["dispatches"],
+                     ssm_state_bytes=m["memory"]["ssm_state_bytes"],
+                     peak_resident_cache_bytes=m["memory"][
+                         "peak_resident_cache_bytes"])
+            for lo, m in metrics["layouts"].items()}
+
+
+def phase_serve_hymba(torch, fm, dec, serve) -> dict:
+    """The hybrid main path: all 32 hymba-1.5b layers at full width (fp32,
+    6.4 GB), the launcher on both layouts (:data:`HYMBA_SERVE_ARGS`):
+    equal streams, every request its tokens, finite logits, and in each
+    leg's timed run K1 launched 32 x prefill dispatches and K2 (dense) /
+    K3 (paged) 32 x decode steps; tok/s, TTFT, peak allocated and the
+    SSM state bytes reported (32 layers x 8 slots x (3200·16 + 3·3200)
+    x 4 B)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("hymba-1.5b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the hybrid main path: counts set to 0 just before it, read just after
+    _zero_counts(fm, dec)
+    t0 = time.perf_counter()
+    metrics = serve.main(HYMBA_SERVE_ARGS)
+    wall = time.perf_counter() - t0
+    launches = _counts(fm, dec)
+    legs = _check_legs(metrics, cfg.n_layers, 16, 32, cfg.vocab)
+    di, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
+    want_ssm = cfg.n_layers * 8 * (di * n + (cfg.ssm.conv_dim - 1) * di) * 4
+    emit("serve_hymba", args=" ".join(HYMBA_SERVE_ARGS), seconds=wall,
+         legs=legs, ssm=_ssm_legs(metrics),
+         outputs_match=metrics["outputs_match"],
+         paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
+         main_path_launches=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         ssm_state_bytes_expected=want_ssm)
+    check("outputs_match" in metrics, "the hymba phase ran one layout")
+    for lo, m in metrics["layouts"].items():
+        check(m["memory"]["ssm_state_bytes"] == want_ssm,
+              f"hymba {lo}: ssm_state_bytes {m['memory']['ssm_state_bytes']}"
+              f" != {want_ssm}")
+    for name in ("fusemax_prefill", "decode_partials",
+                 "paged_decode_partials"):
+        check(launches[name] > 0, f"{name} never launched on hymba's path")
+    check(launches["fusemax_prefill_by_dims"].get("64x64", 0)
+          == launches["fusemax_prefill"],
+          f"K1 launches by dims {launches['fusemax_prefill_by_dims']}")
+    check(0 < launches["fusemax_prefill_windowed"]
+          < launches["fusemax_prefill"], "K1 never ran both layer kinds")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_xlstm(torch, fm, dec, serve) -> dict:
+    """xlstm-125m at full width (12 layers, mLSTM d_inner 1536 with head
+    dim 384, sLSTM at layers 1 and 9; no attention), the launcher on the
+    hybrid serve trace, both layouts: equal streams, every request its
+    tokens, no attention kernel launched, no resident KV."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("xlstm-125m")
+    _zero_counts(fm, dec)
+    t0 = time.perf_counter()
+    metrics = serve.main(XLSTM_SERVE_ARGS)
+    wall = time.perf_counter() - t0
+    launches = _counts(fm, dec)
+    # no attention layer: every kernel count must stay 0
+    legs = _check_legs(metrics, 0, 16, 32, cfg.vocab)
+    emit("serve_xlstm", args=" ".join(XLSTM_SERVE_ARGS), seconds=wall,
+         legs=legs, ssm=_ssm_legs(metrics),
+         outputs_match=metrics["outputs_match"],
+         paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
+         main_path_launches=launches)
+    check("outputs_match" in metrics, "the xlstm phase ran one layout")
+    check(all(launches[k] == 0 for k in ("fusemax_prefill",)
+              + DECODE_KERNELS), f"xlstm launched attention kernels: "
+                                 f"{launches}")
+    for lo, m in metrics["layouts"].items():
+        check(m["memory"]["peak_resident_cache_bytes"] == 0
+              and m["memory"]["ssm_state_bytes"] > 0,
+              f"xlstm {lo}: resident KV / SSM state {m['memory']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_model_frontends(torch, fm, dec) -> None:
+    """The frame and patch front ends at the model level, fp32:
+    musicgen-large at full width cut to 4 layers (frames, layernorm,
+    tanh-GeLU, MHA at head dim 64, G = 1) and pixtral-12b-smoke (patches,
+    GQA at head dim 32): ``forward`` on 2 x 256 seeded embeddings, a
+    prefill of their first 240 and 16 decode steps on the rest, with
+    ``attn_impl`` "cuda" and "torch": logits within 1e-4 of their scale,
+    prefill + decode within 2e-3 of ``forward`` (the reference's own
+    check), K1 and K2 launched on the cuda runs only."""
+    from repro_torch.configs import get_config
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+
+    rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                   param_dtype=torch.float32)
+    rt_t = dataclasses.replace(rt_c, attn_impl="torch")
+    rel_tol = 1e-4
+    out = {}
+    for cfg in (dataclasses.replace(get_config("musicgen-large"),
+                                    n_layers=4),
+                get_config("pixtral-12b-smoke")):
+        model = tf.init(cfg, 0, rt_c, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4)
+        b, s, s_pref = 2, 256, 240
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+        res = {}
+        for name, rt in (("cuda", rt_c), ("torch", rt_t)):
+            _zero_counts(fm, dec)
+            full = tf.forward(cfg, model, {"inputs": x}, rt)
+            caches = tf.init_cache(cfg, b, s, torch.float32, "cuda")
+            lg, caches = tf.prefill(cfg, model, {"inputs": x[:, :s_pref]},
+                                    caches, rt)
+            steps = [lg]
+            for t in range(s_pref, s):
+                kv = torch.full((b,), t + 1, dtype=torch.int32,
+                                device="cuda")
+                lg, caches = tf.decode_step(cfg, model, x[:, t:t + 1],
+                                            caches, kv, rt)
+                steps.append(lg)
+            res[name] = (full, torch.stack(steps, dim=1), _counts(fm, dec))
+        (fc, sc, nc), (ft, st, nt) = res["cuda"], res["torch"]
+        scale = ft.abs().max().item()
+        out[cfg.name] = dict(
+            frontend=cfg.frontend, n_layers=cfg.n_layers,
+            forward_max_abs_diff=(fc - ft).abs().max().item(),
+            serve_max_abs_diff=(sc - st).abs().max().item(),
+            serve_vs_forward=(sc - fc[:, s_pref - 1:]).abs().max().item(),
+            logits_max_abs=scale,
+            finite=bool(torch.isfinite(fc).all() and torch.isfinite(sc)
+                        .all()),
+            cuda_launches={k: nc[k] for k in ("fusemax_prefill",
+                                              "decode_partials")},
+            torch_launches={k: nt[k] for k in ("fusemax_prefill",
+                                               "decode_partials")})
+        del model, res, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("model_frontends", rel_tol=rel_tol, prefill=240, decode_steps=16,
+         models=out)
+    for name, r in out.items():
+        check(r["finite"], f"{name}: non-finite logits")
+        for key in ("forward_max_abs_diff", "serve_max_abs_diff"):
+            check(r[key] <= rel_tol * r["logits_max_abs"],
+                  f"{name}: cuda vs torch {key} {r[key]} > {rel_tol} x "
+                  f"{r['logits_max_abs']}")
+        check(r["serve_vs_forward"] <= 2e-3 * r["logits_max_abs"],
+              f"{name}: prefill + decode vs forward {r['serve_vs_forward']}")
+        check(r["cuda_launches"]["fusemax_prefill"] > 0
+              and r["cuda_launches"]["decode_partials"] > 0
+              and not any(r["torch_launches"].values()),
+              f"{name}: launches {r['cuda_launches']} / "
+              f"{r['torch_launches']}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3877,6 +4372,20 @@ def main() -> int:
         for kern in ("decode_partials", "paged_decode_partials"):
             name = f"{kern}@verify_p{k + 1}"
             emit("kernel_time", kernel=name, **tv[name])
+    # hymba-1.5b's shapes (G = 5, head dim 64, window 1024): K1, K2 and K3
+    # cases and timing rows, from a generator of their own
+    gen_h = torch.Generator(device="cuda")
+    gen_h.manual_seed(22)
+    rows_h = run_k1_cases(torch, gen_h, fm, autotune,
+                          k1_hymba_cases(torch)) + \
+        run_k2_cases(torch, gen_h, dec, autotune, k2_hymba_cases(torch)) + \
+        run_k3_cases(torch, gen_h, dec, autotune, k3_hymba_cases(torch))
+    for r in rows_h:
+        emit("kernel_case", **r)
+    rows += rows_h
+    th = time_hymba(torch, gen_h, fm, dec, ops, autotune)
+    for name, t in th.items():
+        emit("kernel_time", kernel=name, **t)
     bad = [r["case"] for r in rows + rows_same + [
         same, same4, same2l, same256, same3q, same4q, same3qv, same4qv]
            if not r["ok"]]
@@ -3890,7 +4399,7 @@ def main() -> int:
                             t1m["mla_absorbed"])) if not t["ok"]]
     bad += [f"{n} timing shape" for n, t in list(tg.items())
             + list(ts.items()) + list(tq.items()) + list(tv.items())
-            if not t["ok"]]
+            + list(th.items()) if not t["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     torch.cuda.empty_cache()
 
@@ -3912,6 +4421,11 @@ def main() -> int:
     phase_model_gemma2(torch, fm, dec)
     g2_launches = phase_serve_gemma2(torch, fm, dec, serve)
     defaults = phase_launcher_defaults(torch)
+    # the hybrid, SSM and front-end models: each gets the card to itself
+    phase_model_hybrid(torch, fm, dec)
+    hymba_launches = phase_serve_hymba(torch, fm, dec, serve)
+    phase_serve_xlstm(torch, fm, dec, serve)
+    phase_model_frontends(torch, fm, dec)
     phase_model_mla(torch, fm, dec)
     mla_launches = phase_serve_mla(torch, fm, dec, serve)
     phase_serve_mla_prefix(torch, fm, dec, serve)
@@ -4049,6 +4563,27 @@ def main() -> int:
                      g2_launches["paged_decode_partials"],
                      ring=tg["paged_decode_partials@gemma2_ring"],
                      k3_vs_k2_max_abs_diff=same256["max_abs_diff_live"]),
+        # hymba-1.5b: G = 5, head dim 64, window 1024 on 29 of 32 layers
+        # (launches: serve_hymba's)
+        dict(k1_entry("fusemax_prefill@hymba_local",
+                      th["fusemax_prefill@hymba_local"],
+                      hymba_launches["fusemax_prefill_windowed"], e=64,
+                      f=64), window=1024, group=5,
+             device_ms=th["fusemax_prefill@hymba_local"]["device_ms"]),
+        dict(k1_entry("fusemax_prefill@hymba_global",
+                      th["fusemax_prefill@hymba_global"],
+                      hymba_launches["fusemax_prefill"]
+                      - hymba_launches["fusemax_prefill_windowed"], e=64,
+                      f=64), group=5,
+             device_ms=th["fusemax_prefill@hymba_global"]["device_ms"]),
+        decode_entry("decode_partials@hymba", k2_src, k2_tpu,
+                     th["decode_partials@hymba_global"],
+                     hymba_launches["decode_partials"], group=5,
+                     ring=th["decode_partials@hymba_ring"]),
+        decode_entry("paged_decode_partials@hymba", k3_src, k3_tpu,
+                     th["paged_decode_partials@hymba_global"],
+                     hymba_launches["paged_decode_partials"], group=5,
+                     ring=th["paged_decode_partials@hymba_ring"]),
         k1_entry("fusemax_prefill@smoke_32x32",
                  ts["fusemax_prefill@smoke_32x32"], smoke["fusemax_prefill"],
                  e=32, f=32),

@@ -11,9 +11,11 @@ so the two round-trip.
 The leaves map one to one under the reference's names, GQA
 (``wq``/``wk``/``wv``/``wo``) and MLA (``w_dq``, ``w_uq``, ``w_dkv``,
 ``w_uk``, ``w_uv``, ``wo``, ``q_norm.scale``, ``kv_norm.scale``) alike,
-and so do a dense MLP's (``mlp.*``) and an MoE layer's (``moe.router``,
+and so do a dense MLP's (``mlp.*``), an MoE layer's (``moe.router``,
 ``moe.wi_gate`` / ``wi_up`` [E, d, ff], ``moe.wo`` and the shared
-experts' ``moe.shared.*``).
+experts' ``moe.shared.*``), a recurrent mixer's (``ssm.*``: Mamba's
+``w_in`` … ``w_out``, mLSTM's and sLSTM's gates, norms and projections)
+and a frame / patch front end's ``frontend_proj.w``.
 DeepSeek's multi-token-prediction head (``params["mtp"]``, present when
 ``cfg.n_mtp > 0``) is left out on purpose: only the reference's training
 loss runs it, serving never does, and the port builds no such module.
@@ -54,13 +56,15 @@ def _layer_slices(cfg: ModelConfig):
 
 def state_from_jax(cfg: ModelConfig, params: Any) -> dict[str, np.ndarray]:
     """The port's state dict (numpy leaves) from a JAX params tree.  Reads
-    ``embed``, ``unembed``, ``final_norm`` and ``runs``; ``mtp`` (the
-    training-only MTP head) is skipped, see the module docstring."""
+    ``embed``, ``unembed``, ``frontend_proj``, ``final_norm`` and
+    ``runs``; ``mtp`` (the training-only MTP head) is skipped, see the
+    module docstring."""
     check_supported(cfg)
     state: dict[str, np.ndarray] = {}
     _flat("embed", params["embed"], state)
-    if "unembed" in params:
-        _flat("unembed", params["unembed"], state)
+    for name in ("unembed", "frontend_proj"):
+        if name in params:
+            _flat(name, params[name], state)
     _flat("final_norm", params["final_norm"], state)
     for layer, i, j, r, reps in _layer_slices(cfg):
         p = params["runs"][i][j]
@@ -118,6 +122,8 @@ def jax_from_model(cfg: ModelConfig, model: Model) -> dict:
     tree: dict = {"embed": nest("embed"), "final_norm": nest("final_norm")}
     if "unembed.table" in state:
         tree["unembed"] = nest("unembed")
+    if "frontend_proj.w" in state:
+        tree["frontend_proj"] = nest("frontend_proj")
     runs: list = [[None] * len(pattern) for pattern, _ in cfg.runs()]
     per_pos: dict = {}
     for layer, i, j, r, reps in _layer_slices(cfg):

@@ -45,6 +45,13 @@ resend earlier prompts verbatim (FIFO admission sends each after its
 original completes: the traffic where cross-request drafting pays);
 ``--no-speculate`` overrides ``--speculate``.
 
+SSM and hybrid archs (``xlstm-125m``, ``hymba-1.5b``) serve on both
+layouts, their recurrent state dense per slot beside the pages; as in the
+reference they take no prefix cache and no ``--speculate``.  The frame and
+patch front ends (``musicgen-large``, ``pixtral-12b``) take embeddings,
+not token prompts: the launcher refuses them and names the model-level
+entry points that take them.
+
 MLA archs serve on both layouts (dense: the latent cache through K2's
 E ≠ F branch; paged: K4), and ``--cache-layout both`` holds their
 streams to each other in ``outputs_match``.  MoE archs
@@ -313,6 +320,15 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
     cut of a registered arch, e.g. fewer layers)."""
     if cfg is None:
         cfg = get_config(args.arch)
+    if cfg.frontend != "tokens":
+        # the reference's launcher fails on these configs (its engine
+        # embeds the synthetic token prompts through frontend_proj)
+        raise SystemExit(
+            f"--arch {args.arch}: the {cfg.frontend!r} front end takes "
+            f"precomputed [B, S, d] embeddings, and the serving engine "
+            f"serves token prompts only; run it at the model level "
+            f"(repro_torch.model.transformer.forward / prefill / "
+            f"decode_step)")
     spec = speculation_arg(args, cfg)
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
     model = tf.init(cfg, args.seed, rt, device=args.device)

@@ -137,6 +137,13 @@ class Norm(nn.Module):
 
 def apply_norm(p: Norm, x: torch.Tensor, kind: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:
+    return norm(x, p.scale, p.bias, kind, eps)
+
+
+def norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+         kind: str = "rmsnorm", eps: float = 1e-6) -> torch.Tensor:
+    """rmsnorm / layernorm in fp32 with ``(1 + scale)`` and an optional
+    bias (the reference's ``apply_norm`` on ``{"scale", "bias"}``)."""
     xf = x.float()
     if kind == "rmsnorm":
         var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -147,9 +154,9 @@ def apply_norm(p: Norm, x: torch.Tensor, kind: str = "rmsnorm",
         y = (xf - mu) * torch.rsqrt(var + eps)
     else:
         raise ValueError(kind)
-    y = y * (1.0 + p.scale.float())
-    if p.bias is not None:
-        y = y + p.bias.float()
+    y = y * (1.0 + scale.float())
+    if bias is not None:
+        y = y + bias.float()
     return y.to(x.dtype)
 
 

@@ -1,10 +1,14 @@
 """Decoder model: per-layer modules, forward, serving prefill and decode.
 
-Port of ``repro.model.transformer`` for the slices the port carries:
-GQA attention, global or sliding-window (ring caches), or DeepSeek's MLA,
-on the dense or the paged layout — with a dense MLP or a mixture of
-experts (:mod:`repro_torch.model.moe`), attention and final logit
-softcaps, token front end.
+Port of ``repro.model.transformer``: GQA attention, global or
+sliding-window (ring caches), or DeepSeek's MLA, on the dense or the paged
+layout — with a dense MLP or a mixture of experts
+(:mod:`repro_torch.model.moe`), attention and final logit softcaps; the
+recurrent mixers of :mod:`repro_torch.model.ssm` (Mamba beside attention in
+a hybrid layer, whose two branches are mean-fused; mLSTM / sLSTM layers
+with no attention and no MLP), their per-slot state in the caches of both
+layouts; and the token front end or precomputed frame / patch embeddings
+(``frontend_proj``).
 The reference stacks the parameters of equal layers and ``lax.scan``s
 them; the port keeps one module per layer (the weight bridge unstacks)
 and loops in Python, and its caches are a flat per-layer list.
@@ -38,35 +42,35 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.model import attention as attn_mod
 from repro_torch.model import moe as moe_mod
+from repro_torch.model import ssm as ssm_mod
 from repro_torch.model.layers import (
-    MLP, Embedding, Norm, Runtime, apply_norm, embed, mlp, resolve_device,
-    softcap, unembed,
+    MLP, Dense, Embedding, Norm, Runtime, apply_norm, dense, embed, mlp,
+    resolve_device, softcap, unembed,
 )
 
-#: where each unported feature stands in ROADMAP.md
-_ROADMAP = {
-    "ssm": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
-    "frontend": "ROADMAP §1 item 6, SSM, hybrid and the remaining front ends",
-}
+
+#: the profiler range around every SSM call (a layer's prefill or decode
+#: step), so a trace can tell the mixers' kernels from the rest
+SSM_RANGE = "ssm"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for any part of ``cfg`` outside the
-    ported slices: GQA (global or sliding-window) or MLA attention + a
-    dense MLP or MoE, token front end, on either cache layout."""
-    def no(what: str, detail: str):
-        raise NotImplementedError(
-            f"{cfg.name}: {detail} is not ported yet ({_ROADMAP[what]})")
+    """Raise NotImplementedError for a part of ``cfg`` the port has no
+    module for: every kind the registry's configs use is ported (GQA / MLA
+    / no attention, dense / MoE / no MLP, Mamba / mLSTM / sLSTM, the
+    token, frame and patch front ends)."""
+    def no(detail: str):
+        raise NotImplementedError(f"{cfg.name}: {detail} has no port")
 
-    if cfg.frontend != "tokens":
-        no("frontend", f"the {cfg.frontend!r} front end")
+    if cfg.frontend not in ("tokens", "frames", "patches"):
+        no(f"the {cfg.frontend!r} front end")
     for spec in cfg.layer_specs():
-        if spec.ssm is not None or spec.parallel_ssm:
-            no("ssm", f"{spec.ssm} layers")
-        if spec.attn not in ("gqa", "mla"):
-            no("ssm", f"attention kind {spec.attn!r}")
-        if spec.mlp not in ("dense", "moe"):
-            no("ssm", f"mlp kind {spec.mlp!r}")
+        if spec.attn not in ("gqa", "mla", "none"):
+            no(f"attention kind {spec.attn!r}")
+        if spec.mlp not in ("dense", "moe", "none"):
+            no(f"mlp kind {spec.mlp!r}")
+        if spec.ssm not in (None, "mamba", "mlstm", "slstm"):
+            no(f"ssm kind {spec.ssm!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -74,30 +78,37 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One decoder layer: ln1, attn, [post1], ln2, mlp or moe, [post2]."""
+    """One decoder layer: ln1, [attn], [ssm], [post1], then (unless the
+    spec has no MLP) ln2, mlp or moe, [post2] — the reference's
+    ``layer_init``."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, *, dtype, device,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
         nk = dict(dtype=dtype, device=device)
         self.ln1 = Norm(cfg.d_model, cfg.norm, **nk)
-        init_attn = attn_mod.mla_init if spec.attn == "mla" \
-            else attn_mod.gqa_init
-        self.attn = init_attn(cfg, gen=gen, **nk)
-        if cfg.post_norm:
+        if spec.attn != "none":
+            init_attn = attn_mod.mla_init if spec.attn == "mla" \
+                else attn_mod.gqa_init
+            self.attn = init_attn(cfg, gen=gen, **nk)
+        if spec.ssm is not None:
+            self.ssm = ssm_mod.ssm_init(cfg, spec.ssm, gen=gen, **nk)
+        if cfg.post_norm and (spec.attn != "none" or spec.ssm is not None):
             self.post1 = Norm(cfg.d_model, cfg.norm, **nk)
-        self.ln2 = Norm(cfg.d_model, cfg.norm, **nk)
-        if spec.mlp == "moe":
-            self.moe = moe_mod.MoE(cfg, gen=gen, **nk)
-        else:
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, gen=gen, **nk)
-        if cfg.post_norm:
-            self.post2 = Norm(cfg.d_model, cfg.norm, **nk)
+        if spec.mlp != "none":
+            self.ln2 = Norm(cfg.d_model, cfg.norm, **nk)
+            if spec.mlp == "moe":
+                self.moe = moe_mod.MoE(cfg, gen=gen, **nk)
+            else:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, gen=gen, **nk)
+            if cfg.post_norm:
+                self.post2 = Norm(cfg.d_model, cfg.norm, **nk)
 
 
 class Model(nn.Module):
-    """All parameters: ``embed``, [``unembed``], ``layers`` (one module per
-    layer, in depth order), ``final_norm``."""
+    """All parameters: ``embed``, [``unembed``], [``frontend_proj`` — the
+    [d, d] projection of precomputed frame / patch embeddings],
+    ``layers`` (one module per layer, in depth order), ``final_norm``."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device,
                  gen: Optional[torch.Generator] = None):
@@ -107,6 +118,9 @@ class Model(nn.Module):
         self.embed = Embedding(cfg.vocab, cfg.d_model, gen=gen, **nk)
         if not cfg.tie_embeddings:
             self.unembed = Embedding(cfg.vocab, cfg.d_model, gen=gen, **nk)
+        if cfg.frontend != "tokens":
+            self.frontend_proj = Dense(cfg.d_model, (cfg.d_model,), gen=gen,
+                                       **nk)
         self.layers = nn.ModuleList(
             Layer(cfg, spec, gen=gen, **nk) for spec in cfg.layer_specs())
         self.final_norm = Norm(cfg.d_model, cfg.norm, **nk)
@@ -133,10 +147,12 @@ def init(cfg: ModelConfig, seed: int = 0, rt: Runtime = Runtime(),
 
 def _mlp_block(p: Layer, x: torch.Tensor, cfg: ModelConfig,
                spec: LayerSpec) -> torch.Tensor:
-    """The FFN half of a layer, dense or MoE.  An MoE layer routes each
-    batch row of x [B, S, d] as one capacity group of S tokens: the S a
-    caller passes (a prefill bucket, a decode step's 1) sets the capacity,
-    as in the reference."""
+    """The FFN half of a layer, dense or MoE (none: x as is).  An MoE
+    layer routes each batch row of x [B, S, d] as one capacity group of S
+    tokens: the S a caller passes (a prefill bucket, a decode step's 1)
+    sets the capacity, as in the reference."""
+    if spec.mlp == "none":
+        return x
     h2 = apply_norm(p.ln2, x, cfg.norm)
     if spec.mlp == "moe":
         y2 = moe_mod.moe_ffn(p.moe, h2, cfg)
@@ -147,9 +163,17 @@ def _mlp_block(p: Layer, x: torch.Tensor, cfg: ModelConfig,
     return x + y2
 
 
-def _residual(p: Layer, x: torch.Tensor, y: torch.Tensor,
+def _residual(p: Layer, x: torch.Tensor, parts: list,
               cfg: ModelConfig) -> torch.Tensor:
-    if cfg.post_norm:
+    """x plus the mixer output: one part as is, a hybrid layer's two
+    (attention first, then the SSM) mean-fused as the reference's
+    ``sum(parts) / len(parts)``."""
+    y = parts[0]
+    for part in parts[1:]:
+        y = y + part
+    if len(parts) > 1:
+        y = y / len(parts)
+    if hasattr(p, "post1"):
         y = apply_norm(p.post1, y, cfg.norm)
     return x + y
 
@@ -158,9 +182,14 @@ def layer_forward(p: Layer, x: torch.Tensor, cfg: ModelConfig,
                   spec: LayerSpec, rt: Runtime) -> torch.Tensor:
     """Training / prefill-shape layer. x: [B, S, d]."""
     h = apply_norm(p.ln1, x, cfg.norm)
-    attend = attn_mod.mla_forward if spec.attn == "mla" \
-        else attn_mod.gqa_forward
-    x = _residual(p, x, attend(p.attn, h, cfg, spec, rt), cfg)
+    parts = []
+    if spec.attn != "none":
+        attend = attn_mod.mla_forward if spec.attn == "mla" \
+            else attn_mod.gqa_forward
+        parts.append(attend(p.attn, h, cfg, spec, rt))
+    if spec.ssm is not None:
+        parts.append(ssm_mod.FORWARD[spec.ssm](p.ssm, h, cfg, rt))
+    x = _residual(p, x, parts, cfg)
     return _mlp_block(p, x, cfg, spec)
 
 
@@ -171,21 +200,32 @@ def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
     """One-token decode. x: [B, 1, d]; kv_len includes the current token.
     With ``block_tables`` the layer reads and writes its page pool through
     its class's table (``slots``: the step's write positions per class,
-    shared by the class's layers; computed here when absent)."""
+    shared by the class's layers; computed here when absent).  An SSM
+    steps its per-slot state (``cache["ssm"]``, dense on either layout);
+    the state of a slot the decode loop masks moves too, and admission
+    resets it, as in the reference."""
     h = apply_norm(p.ln1, x, cfg.norm)
-    if block_tables is not None:
+    parts = []
+    if spec.attn != "none" and block_tables is not None:
         key = attn_mod.paged_cache_key(spec)
         decode_paged = attn_mod.mla_decode_paged if spec.attn == "mla" \
             else attn_mod.gqa_decode_paged
         y, cache["attn"] = decode_paged(
             p.attn, h, cache["attn"], block_tables[key], kv_len, cfg, spec,
             rt, slots=None if slots is None else slots.get(key))
-    else:
+        parts.append(y)
+    elif spec.attn != "none":
         decode = attn_mod.mla_decode if spec.attn == "mla" \
             else attn_mod.gqa_decode
         y, cache["attn"] = decode(p.attn, h, cache["attn"], kv_len, cfg,
                                   spec, rt)
-    x = _residual(p, x, y, cfg)
+        parts.append(y)
+    if spec.ssm is not None:
+        with torch.profiler.record_function(SSM_RANGE):
+            y, cache["ssm"] = ssm_mod.STEP[spec.ssm](p.ssm, h, cache["ssm"],
+                                                     cfg, rt)
+        parts.append(y)
+    x = _residual(p, x, parts, cfg)
     return _mlp_block(p, x, cfg, spec), cache
 
 
@@ -196,7 +236,10 @@ def layer_verify(p: Layer, x: torch.Tensor, cache: dict,
     """P-position speculative verify through one layer (the chain analogue
     of :func:`layer_decode`; x: [B, P, d]).  Global attention only: a ring
     holds a trailing window, which a partly rejected chain would leave
-    with phantom writes, so the engine never speculates on one."""
+    with phantom writes, and SSM state cannot be rolled back by page
+    surgery, so the engine never speculates on either."""
+    if spec.ssm is not None:
+        raise ValueError("speculative verify does not support SSM layers")
     if spec.window is not None:
         raise ValueError("speculative verify does not support sliding-"
                          "window layers")
@@ -213,7 +256,7 @@ def layer_verify(p: Layer, x: torch.Tensor, cache: dict,
             else attn_mod.gqa_verify
         y, cache["attn"] = verify(p.attn, h, cache["attn"], kv_len, span,
                                   cfg, spec, rt)
-    x = _residual(p, x, y, cfg)
+    x = _residual(p, x, [y], cfg)
     return _mlp_block(p, x, cfg, spec), cache
 
 
@@ -221,9 +264,14 @@ def layer_verify(p: Layer, x: torch.Tensor, cache: dict,
 # Model
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
+def _embed_inputs(cfg: ModelConfig, model: Model, inputs: torch.Tensor,
                   rt: Runtime) -> torch.Tensor:
-    x = embed(model.embed, tokens, rt.activation_dtype)
+    """Token ids [B, S] through the embedding, or (frame / patch front
+    ends) precomputed embeddings [B, S, d] through ``frontend_proj``."""
+    if cfg.frontend == "tokens":
+        x = embed(model.embed, inputs, rt.activation_dtype)
+    else:
+        x = dense(model.frontend_proj, inputs.to(rt.activation_dtype))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -247,15 +295,23 @@ def forward(cfg: ModelConfig, model: Model, batch: dict,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> list:
     """Per-layer dense caches ``[{"attn": {"k", "v"}}, ...]`` (MLA layers:
-    ``{"ckv", "krope"}``)."""
+    ``{"ckv", "krope"}``), and an SSM layer's state under ``"ssm"``
+    (Mamba ``{"h", "conv"}``, mLSTM ``{"c", "n", "m", "conv"}``, sLSTM
+    ``{"c", "n", "m", "h"}``, batch first)."""
     def cache(spec):
+        c = {}
         if spec.attn == "mla":
-            return attn_mod.mla_init_cache(cfg, batch, max_len, dtype,
-                                           device)
-        return attn_mod.gqa_init_cache(cfg, spec, batch, max_len, dtype,
-                                       device)
+            c["attn"] = attn_mod.mla_init_cache(cfg, batch, max_len, dtype,
+                                                device)
+        elif spec.attn == "gqa":
+            c["attn"] = attn_mod.gqa_init_cache(cfg, spec, batch, max_len,
+                                                dtype, device)
+        if spec.ssm is not None:
+            c["ssm"] = ssm_mod.INIT_STATE[spec.ssm](cfg, batch, dtype,
+                                                    device)
+        return c
 
-    return [{"attn": cache(spec)} for spec in cfg.layer_specs()]
+    return [cache(spec) for spec in cfg.layer_specs()]
 
 
 def init_paged_cache(cfg: ModelConfig, slots: int, num_pages: dict,
@@ -266,15 +322,23 @@ def init_paged_cache(cfg: ModelConfig, slots: int, num_pages: dict,
     ``num_pages`` keyed like the block tables ("full" / "w<window>").
     Every layer owns its pages; the tables (one per class, shared by the
     class's layers) are managed by
-    :class:`repro_torch.serving.kv_cache.PagedKVCache`.  ``slots`` would
-    size per-slot SSM state, which this slice does not port."""
+    :class:`repro_torch.serving.kv_cache.PagedKVCache`.  An SSM layer's
+    state stays dense per slot (``"ssm"``, ``slots`` rows, as in
+    :func:`init_cache`): it is O(1) a slot."""
     def pool(spec):
-        init_pool = attn_mod.mla_init_paged_cache if spec.attn == "mla" \
-            else attn_mod.gqa_init_paged_cache
-        return init_pool(cfg, num_pages[attn_mod.paged_cache_key(spec)],
-                         page_size, dtype, device, kv_dtype=kv_dtype)
+        c = {}
+        if spec.attn != "none":
+            init_pool = attn_mod.mla_init_paged_cache \
+                if spec.attn == "mla" else attn_mod.gqa_init_paged_cache
+            c["attn"] = init_pool(
+                cfg, num_pages[attn_mod.paged_cache_key(spec)], page_size,
+                dtype, device, kv_dtype=kv_dtype)
+        if spec.ssm is not None:
+            c["ssm"] = ssm_mod.INIT_STATE[spec.ssm](cfg, slots, dtype,
+                                                    device)
+        return c
 
-    return [{"attn": pool(spec)} for spec in cfg.layer_specs()]
+    return [pool(spec) for spec in cfg.layer_specs()]
 
 
 def copy_cache_pages(cfg: ModelConfig, caches: list, key: str,
@@ -284,7 +348,7 @@ def copy_cache_pages(cfg: ModelConfig, caches: list, key: str,
     indexed copy per pool and layer for all pairs at once (copy-on-write
     of shared prefix pages).  Returns ``caches``."""
     for spec, c in zip(cfg.layer_specs(), caches):
-        if attn_mod.paged_cache_key(spec) != key:
+        if "attn" not in c or attn_mod.paged_cache_key(spec) != key:
             continue
         for a in c["attn"].values():
             a[dst] = a[src]
@@ -295,14 +359,15 @@ def copy_cache_pages(cfg: ModelConfig, caches: list, key: str,
 def decode_step(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
                 caches: list, kv_len: torch.Tensor, rt: Runtime = Runtime(),
                 block_tables: Optional[dict] = None):
-    """One decode step for the whole batch.  tokens: [B, 1] int; kv_len:
-    [B] sequence length *including* the current token.  ``block_tables``
+    """One decode step for the whole batch.  tokens: [B, 1] int, or
+    [B, 1, d] embeddings on a frame / patch front end; kv_len: [B]
+    sequence length *including* the current token.  ``block_tables``
     selects the paged layout.  Caches update in place.  Returns (logits
     [B, vocab], caches)."""
     x = _embed_inputs(cfg, model, tokens, rt)
     slots: dict = {}
     for spec, p, c in zip(cfg.layer_specs(), model.layers, caches):
-        if block_tables is not None:
+        if block_tables is not None and "attn" in c:
             key = attn_mod.paged_cache_key(spec)
             if key not in slots:      # one write index per class and step
                 slots[key] = attn_mod.decode_slots(
@@ -393,15 +458,11 @@ def speculative_step(cfg: ModelConfig, model: Model,
             last_logits, caches)
 
 
-def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
-                   spec: LayerSpec, rt: Runtime, s_len: int,
-                   kv_offset: int = 0, true_len=None, bt_rows=None,
-                   cached_len=None):
-    """Layer forward that also fills the cache: positions [kv_offset,
-    kv_offset + S).  With ``kv_offset > 0`` (chunked-prefill or prefix-hit
-    continuation) queries attend the cached history.  ``bt_rows`` (the
-    rows' block tables by class) selects the paged layout."""
-    h = apply_norm(p.ln1, x, cfg.norm)
+def _prefill_attn(p: Layer, h: torch.Tensor, cache: dict, cfg: ModelConfig,
+                  spec: LayerSpec, rt: Runtime, s_len: int, kv_offset: int,
+                  true_len, bt_rows, cached_len) -> torch.Tensor:
+    """The attention branch of :func:`_prefill_layer`: its output, its
+    cache filled."""
     ac = cache["attn"]
     if bt_rows is not None:
         prefill_paged = attn_mod.mla_prefill_paged if spec.attn == "mla" \
@@ -415,7 +476,7 @@ def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     elif spec.attn == "mla":
         # the chunk attends itself in the expanded form; its latents, all
         # s_len of them as the reference writes them, land in the cache
-        positions = torch.arange(s_len, device=x.device).expand(
+        positions = torch.arange(s_len, device=h.device).expand(
             h.shape[0], s_len)
         latent = attn_mod._mla_qkv_latent(p.attn, h, cfg, positions)
         y = attn_mod.mla_forward(p.attn, h, cfg, spec, rt, latent=latent)
@@ -425,7 +486,7 @@ def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
         y, cache["attn"] = attn_mod.gqa_prefill_chunk(
             p.attn, h, ac, kv_offset, cfg, spec, rt, true_len)
     else:
-        positions = torch.arange(s_len, device=x.device).expand(
+        positions = torch.arange(s_len, device=h.device).expand(
             h.shape[0], s_len)
         qkv = attn_mod._proj_qkv(p.attn, h, cfg, positions)
         y = attn_mod.gqa_forward(p.attn, h, cfg, spec, rt, qkv=qkv)
@@ -437,8 +498,93 @@ def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
         else:
             ac["k"][:, :, :s_len] = qkv[1]
             ac["v"][:, :, :s_len] = qkv[2]
-    x = _residual(p, x, y, cfg)
+    return y
+
+
+def _prefill_ssm(p: nn.Module, h: torch.Tensor, state: dict,
+                 cfg: ModelConfig, spec: LayerSpec, rt: Runtime,
+                 true_len=None, kv_offset: int = 0):
+    """The SSM over a prompt chunk with exact state handoff, as the
+    reference's ``_prefill_ssm``: :data:`repro_torch.model.ssm.PREFILL`
+    runs its step recurrence with the state-independent products computed
+    for the whole chunk, and masked stepping — a row whose real prompt
+    ended before global position ``kv_offset + t`` keeps its state frozen
+    through the padded tail, so the handed-off state is the state after
+    its last real token.  :func:`_prefill_ssm_literal` is the plain
+    version it is held to.  Returns (y [B, S, d], state)."""
+    n_real = None if true_len is None else \
+        true_len.to(h.device).long() - kv_offset
+    return ssm_mod.PREFILL[spec.ssm](p, h, state, cfg, n_real)
+
+
+def _prefill_ssm_literal(p: nn.Module, h: torch.Tensor, state: dict,
+                         cfg: ModelConfig, spec: LayerSpec, rt: Runtime,
+                         true_len=None, kv_offset: int = 0):
+    """The reference's ``_prefill_ssm`` as it is written: one ``*_step``
+    call a token, the state frozen by ``torch.where`` past each row's
+    ``true_len``."""
+    step = ssm_mod.STEP[spec.ssm]
+    ys = []
+    for t in range(h.shape[1]):
+        y, st_new = step(p, h[:, t:t + 1], state, cfg, rt)
+        if true_len is not None:
+            keep = (kv_offset + t) < true_len.to(h.device)          # [B]
+            st_new = {k: torch.where(
+                keep.reshape((-1,) + (1,) * (v.ndim - 1)), v, state[k])
+                for k, v in st_new.items()}
+        state = st_new
+        ys.append(y[:, 0])
+    return torch.stack(ys, dim=1), state
+
+
+def _prefill_layer(p: Layer, x: torch.Tensor, cache: dict, cfg: ModelConfig,
+                   spec: LayerSpec, rt: Runtime, s_len: int,
+                   kv_offset: int = 0, true_len=None, bt_rows=None,
+                   cached_len=None, slot_ids=None):
+    """Layer forward that also fills the cache: positions [kv_offset,
+    kv_offset + S).  With ``kv_offset > 0`` (chunked-prefill or prefix-hit
+    continuation) queries attend the cached history.  ``bt_rows`` (the
+    rows' block tables by class) selects the paged layout, where an SSM's
+    state lives in the slot rows ``slot_ids`` of the [slots, ...] state:
+    gathered (fresh at ``kv_offset == 0``, admission), stepped, scattered
+    back.  On the dense layout an SSM continues from ``cache["ssm"]``."""
+    h = apply_norm(p.ln1, x, cfg.norm)
+    parts = []
+    if spec.attn != "none":
+        parts.append(_prefill_attn(p, h, cache, cfg, spec, rt, s_len,
+                                   kv_offset, true_len, bt_rows, cached_len))
+    if spec.ssm is not None:
+        parts.append(_prefill_ssm_rows(p, h, cache, cfg, spec, rt, kv_offset,
+                                       true_len, bt_rows is not None,
+                                       slot_ids))
+    x = _residual(p, x, parts, cfg)
     return _mlp_block(p, x, cfg, spec), cache
+
+
+def _prefill_ssm_rows(p: Layer, h: torch.Tensor, cache: dict,
+                      cfg: ModelConfig, spec: LayerSpec, rt: Runtime,
+                      kv_offset: int, true_len, paged: bool,
+                      slot_ids) -> torch.Tensor:
+    """The SSM branch of :func:`_prefill_layer`: its output; its state
+    handed off into the cache."""
+    with torch.profiler.record_function(SSM_RANGE):
+        if paged:
+            full = cache["ssm"]
+            if kv_offset == 0:
+                dtype = full["conv"].dtype if "conv" in full \
+                    else torch.float32
+                state = ssm_mod.INIT_STATE[spec.ssm](cfg, h.shape[0], dtype,
+                                                     h.device)
+            else:
+                state = {k: v[slot_ids] for k, v in full.items()}
+            y, st = _prefill_ssm(p.ssm, h, state, cfg, spec, rt, true_len,
+                                 kv_offset)
+            for k, v in full.items():
+                v.index_copy_(0, slot_ids, st[k].to(v.dtype))
+        else:
+            y, cache["ssm"] = _prefill_ssm(p.ssm, h, cache["ssm"], cfg,
+                                           spec, rt, true_len, kv_offset)
+    return y
 
 
 @torch.no_grad()
@@ -462,10 +608,15 @@ def prefill(cfg: ModelConfig, model: Model, batch: dict, caches: list,
     ``block_tables`` + ``slot_ids`` switch to the paged layout: K/V
     scatter into the page pools through ``block_tables[...][slot_ids]``
     (no mini-cache), masked past each row's ``true_len`` and below its
-    ``cached_len`` ([B]: the shared-prefix pages it maps read-only)."""
+    ``cached_len`` ([B]: the shared-prefix pages it maps read-only).
+
+    SSM layers step their state past each row's real tokens frozen
+    (masked stepping, :func:`_prefill_ssm`).  ``batch["inputs"]`` holds
+    token ids [B, S], or [B, S, d] embeddings on a frame / patch front
+    end."""
     x = _embed_inputs(cfg, model, batch["inputs"], rt)
     s_len = x.shape[1]
-    bt_rows = None
+    bt_rows = idx = None
     if slot_ids is not None:
         if true_len is None:
             true_len = torch.full((x.shape[0],), kv_offset + s_len,
@@ -474,7 +625,7 @@ def prefill(cfg: ModelConfig, model: Model, batch: dict, caches: list,
         bt_rows = {k: t[idx] for k, t in block_tables.items()}
     for spec, p, c in zip(cfg.layer_specs(), model.layers, caches):
         x, _ = _prefill_layer(p, x, c, cfg, spec, rt, s_len, kv_offset,
-                              true_len, bt_rows, cached_len)
+                              true_len, bt_rows, cached_len, idx)
     if true_len is None:
         last = x[:, -1]
     else:
@@ -492,17 +643,20 @@ def scatter_cache_slots(cfg: ModelConfig, caches: list, sub: list,
     scatter of a ``max_len`` mini-cache leaves it.  Every cache tensor
     (GQA ``k`` / ``v`` with the sequence on axis 2, MLA ``ckv`` /
     ``krope`` with it on axis 1) lands in the leading corner of its slot
-    row.  Returns ``caches``."""
-    idx = None
+    row; SSM state (no sequence axis) replaces the slot's row whole, so
+    admission starts the slot from the prefill's state.  Returns
+    ``caches``."""
+    idx = slot_ids.to(dtype=torch.long)
     for c, s in zip(caches, sub):
-        for name, dst in c["attn"].items():
+        for name, dst in c.get("ssm", {}).items():
+            dst.index_copy_(0, idx.to(dst.device),
+                            s["ssm"][name].to(dst.dtype))
+        for name, dst in c.get("attn", {}).items():
             src = s["attn"][name]
-            if idx is None:
-                idx = slot_ids.to(device=dst.device, dtype=torch.long)
             row = torch.zeros((idx.numel(), *dst.shape[1:]), dtype=dst.dtype,
                               device=dst.device)
             row[tuple(slice(0, n) for n in src.shape)] = src
-            dst.index_copy_(0, idx, row)
+            dst.index_copy_(0, idx.to(dst.device), row)
     return caches
 
 

@@ -2,7 +2,7 @@
 dense or the paged cache layout.
 
 Port of ``repro.serving.ServeEngine`` (both layouts, GQA and MLA models,
-speculative decoding).  A fixed set of slots holds requests (continuous
+MoE, the SSM and hybrid models, speculative decoding).  A fixed set of slots holds requests (continuous
 batching); each slot has its own ``kv_len``; decode advances the whole
 batch through :func:`transformer.decode_loop`, whose split-K decode
 kernels handle the ragged lengths themselves.  Finished slots refill from the queue.
@@ -151,6 +151,10 @@ class ServeEngine:
                 "*pages* — they require cache_layout='paged'")
         if mesh is not None:
             raise _not_ported("the device-sharded pool (mesh=)", _SHARD)
+        if cfg.frontend != "tokens":
+            raise ValueError(
+                f"{cfg.name}: the {cfg.frontend!r} front end takes [B, S, d] "
+                f"embeddings; the engine serves token prompts only")
         self.device = resolve_device(device)
         self.spec_k = None
         self.proposer = None
@@ -659,13 +663,17 @@ class ServeEngine:
                 tokens_reused=self.stats["tokens_reused"],
                 cow_copies=self.stats["cow_copies"])
             return m
-        attn = sum(t.numel() * t.element_size()
-                   for c in self.caches for t in c["attn"].values())
+        # as the paged accounting: attention caches apart from the O(slots)
+        # SSM state, so the layout A/B compares like with like
+        attn, ssm = (sum(t.numel() * t.element_size()
+                         for c in self.caches
+                         for t in c.get(part, {}).values())
+                     for part in ("attn", "ssm"))
         return {
             "layout": "dense",
             "resident_cache_bytes": attn,
             "peak_resident_cache_bytes": attn,
             "physical_cache_bytes": attn,
-            "ssm_state_bytes": 0,
+            "ssm_state_bytes": ssm,
             "bytes_per_live_token": round(attn / peak_live, 1),
         }

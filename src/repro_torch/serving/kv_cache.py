@@ -328,7 +328,11 @@ class PagedKVCache:
         self._physical_page_bytes = sum(
             c.pool.num_pages * c.bytes_per_page
             for c in self.classes.values())
-        self._state_bytes = 0               # SSM slot state: not ported
+        # SSM slot state: dense per slot, O(slots) and independent of the
+        # sequence length, counted apart from the pages
+        self._state_bytes = sum(t.numel() * t.element_size()
+                                for c in self.caches
+                                for t in c.get("ssm", {}).values())
 
     # -- allocation ---------------------------------------------------------
 
@@ -565,7 +569,7 @@ class PagedKVCache:
         order, then sorted leaf names."""
         return [c["attn"][name]
                 for spec, c in zip(self.cfg.layer_specs(), caches)
-                if paged_cache_key(spec) == "full"
+                if "attn" in c and paged_cache_key(spec) == "full"
                 for name in sorted(c["attn"])]
 
     def _page_blobs(self, pages: List[int]) -> List[torch.Tensor]:
@@ -959,7 +963,7 @@ class PagedKVCache:
         qdt = kv_quant_dtype(self.kv_dtype)
         if qdt is not None:
             for c in self.caches:
-                a = c["attn"]
+                a = c.get("attn", {})
                 for data, scale in (("k_pages", "k_scale"),
                                     ("v_pages", "v_scale"),
                                     ("ckv_pages", "ckv_scale"),

@@ -13,7 +13,9 @@ work in plain torch (:func:`walk`) and holds it
 1. to the plain versions (``decode_partials_torch``,
    ``paged_decode_partials_torch``) and, after the combine, to the
    reference's Pallas kernels in interpret mode, on ``chip_smoke.py``'s K2
-   and K3 case lists (68 and 128 verify rows a fiber among them) at small
+   and K3 case lists (68 and 128 verify rows a fiber among them, and
+   hymba-1.5b's G = 5 at d64 on a 2048-token cache and a ring of 1024
+   read at eff_len) at small
    sizes (kv heads cut to 2; bf16 cases take
    bf16-valued fp32 inputs, the values the kernels widen to fp32):
    the partials m and l within rtol = atol = 1e-5 (l within rtol 3e-5
@@ -61,9 +63,9 @@ def _chip_smoke():
 
 CS = _chip_smoke()
 K2_CASES = CS.k2_cases(torch, CK) + CS.k2_spec_cases(torch, CK) \
-    + CS.k2_rows_cases(torch, CK)
+    + CS.k2_rows_cases(torch, CK) + CS.k2_hymba_cases(torch)
 K3_CASES = CS.k3_cases(torch, CK) + CS.k3_spec_cases(torch, CK) \
-    + CS.k3_rows_cases(torch, CK)
+    + CS.k3_rows_cases(torch, CK) + CS.k3_hymba_cases(torch)
 
 
 def walk(q, kv_rows, kv_len, *, hkv, splits, split_len, block_k, scale,

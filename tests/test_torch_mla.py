@@ -421,7 +421,7 @@ def test_pool_bytes_per_page_equal_the_reference():
 def test_moe_raises_naming_item_5b():
     """MoE is ported (item 5b): the MLA smoke config builds with its
     expert layers (layer 0 dense, layers 1-3 MoE with a shared expert);
-    an SSM config still raises, naming its item 6."""
+    an SSM config builds too since item 6, with its Mamba branches."""
     cfg = get_config(NAME)
     model = tf.init(cfg, 0, RT, device="cpu")
     kinds = [s.mlp for s in cfg.layer_specs()]
@@ -433,8 +433,8 @@ def test_moe_raises_naming_item_5b():
     assert tuple(moe.wi_gate.shape) == (cfg.moe.n_experts, cfg.d_model,
                                         cfg.moe.d_ff_expert)
     assert moe.router.dtype == torch.float32 and hasattr(moe, "shared")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tf.init(get_config("hymba-1.5b-smoke"), 0, RT, device="cpu")
+    hymba = tf.init(get_config("hymba-1.5b-smoke"), 0, RT, device="cpu")
+    assert all(hasattr(layer, "ssm") for layer in hymba.layers)
 
 
 def test_launcher_serves_the_mla_arch_with_its_moe_cut(tmp_path):

@@ -245,16 +245,19 @@ def test_paged_prefill_and_decode_loop_match(pair, prefill_chunk):
     ("llama4-maverick-400b-a17b-smoke", "MoE"),
 ])
 def test_unported_configs_raise(name, item):
-    """A config with a part not ported yet raises naming its ROADMAP item.
-    MoE (item 5b) is ported since: its configs now build, with their
-    expert layers (tests/test_torch_moe.py holds them to the reference)."""
-    if item == "MoE":
-        model = tf.init(get_config(name), 0, RT, device="cpu")
-        assert any(hasattr(layer, "moe") for layer in model.layers)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-        tf.init(get_config(name), 0, RT, device="cpu")
-    assert item in str(exc.value)
+    """The configs that once raised naming their ROADMAP item now build
+    with the part that was missing: MoE (item 5b) with its expert layers,
+    the SSM hybrid and the frame front end (item 6) with their ``ssm``
+    modules and ``frontend_proj`` (tests/test_torch_moe.py and
+    tests/test_torch_hybrid.py hold them to the reference)."""
+    model = tf.init(get_config(name), 0, RT, device="cpu")
+    part = {"MoE": lambda: any(hasattr(layer, "moe")
+                               for layer in model.layers),
+            "SSM": lambda: all(hasattr(layer, "ssm")
+                               for layer in model.layers),
+            "front end": lambda: tuple(model.frontend_proj.w.shape) == (
+                get_config(name).d_model,) * 2}[item]
+    assert part()
 
 
 def test_init_defaults_to_cuda_and_never_drifts_to_cpu(monkeypatch):

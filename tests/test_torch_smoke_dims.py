@@ -48,6 +48,8 @@ def _kernel_dims(cfg):
     the config's serving paths reach."""
     prefill, heads, latents = set(), set(), set()
     for spec in cfg.layer_specs():
+        if spec.attn == "none":          # an SSM layer: no attention kernel
+            continue
         if spec.attn == "mla":
             m = cfg.mla
             prefill.add((m.nope_dim + m.rope_dim, m.v_dim))      # expanded
@@ -61,11 +63,13 @@ def _kernel_dims(cfg):
 
 def test_the_admitted_configs_are_the_expected_ones():
     """The guard below is not vacuous: the GQA archs, gemma2's windows and
-    softcaps, DeepSeek's MLA with its MoE layers and llama4's GQA MoE are
+    softcaps, DeepSeek's MLA with its MoE layers, llama4's GQA MoE,
+    hymba's attention beside Mamba and xlstm's attention-free stack are
     all admitted, full width and smoke."""
     admitted = {n for n in NAMES if _admitted(n) is not None}
     for base in ("granite-3-8b", "stablelm-1.6b", "gemma-7b", "gemma2-9b",
-                 "deepseek-v3-671b", "llama4-maverick-400b-a17b"):
+                 "deepseek-v3-671b", "llama4-maverick-400b-a17b",
+                 "hymba-1.5b", "xlstm-125m"):
         assert {base, base + "-smoke"} <= admitted, base
 
 
