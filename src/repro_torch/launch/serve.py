@@ -59,10 +59,25 @@ streams to each other in ``outputs_match``.  MoE archs
 layers (``repro_torch.model.moe``); as in the reference they take no
 prefix cache and no ``--speculate``.
 
-The reference's other legs take the same flags here and exit with the
-ROADMAP item that ports them: ``--mesh`` and ``--async``/``--dp``.
-``--no-compile-cache`` is accepted and does nothing (XLA's cache has no
-counterpart here).
+Open-loop async serving (``--async``): the seeded trace (every
+``--long-every``-th prompt ``--long-prompt-len`` tokens long with its own
+``--long-new-tokens`` budget) arrives as Poisson traffic at
+``--arrival-rate`` and is served by :class:`AsyncServeEngine` on the
+dense layout, the paged layout with the prefix cache off
+(``paged_noprefix``) and on (``paged``), each prompt in
+``--prefill-quantum``-token slices between decode dispatches on the
+paged legs, and by the synchronous paged engine on the same arrivals
+(``sync_open_loop``); ``outputs_match`` holds every leg's greedy streams
+to the synchronous engine's, and the paged leg's TTFT / ITL tails are
+set beside the synchronous one's (``itl_p95_sync_over_async``).  ``--dp
+N`` serves the trace once more through N paged replicas sharing the one
+model behind the prefix-affinity router, at ``--dp-arrival-rate``.
+Each leg reports its dispatches, kernel launches, ``logits_finite`` and
+the device; the JSON goes to ``BENCH_torch_serving_async.json``.
+
+The reference's ``--mesh`` takes the same flag here and exits with the
+ROADMAP item that ports it.  ``--no-compile-cache`` is accepted and does
+nothing (XLA's cache has no counterpart here).
 """
 from __future__ import annotations
 
@@ -84,6 +99,10 @@ from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime
 from repro_torch.serving.engine import (
     Request, ServeEngine, speculation_refusal,
+)
+from repro_torch.serving.scheduler import (
+    AsyncRequest, AsyncServeEngine, DataParallelAsyncEngine, WallClock,
+    latency_metrics, poisson_arrivals, serve_open_loop,
 )
 
 
@@ -237,8 +256,7 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
         # state must audit clean (raises AssertionError otherwise)
         engine.kv.check_invariants()
     del engine                   # free this layout's caches before the next
-    if torch.device(args.device).type == "cuda":
-        torch.cuda.empty_cache()
+    _empty_cache(args.device)
     out = {
         "cache_layout": layout,
         "prefix_caching": prefix_on,
@@ -313,11 +331,9 @@ def speculation_arg(args, cfg: ModelConfig) -> Optional[int]:
     return spec
 
 
-def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
-    """Build the model and engine, serve the synthetic trace, return the
-    metrics (``_outputs`` holds the generated streams, in request order).
-    ``cfg`` overrides the config ``args.arch`` names (a library caller's
-    cut of a registered arch, e.g. fewer layers)."""
+def _token_config(args, cfg: Optional[ModelConfig]) -> ModelConfig:
+    """``cfg``, or the config ``args.arch`` names; exits on an arch whose
+    front end does not take token prompts."""
     if cfg is None:
         cfg = get_config(args.arch)
     if cfg.frontend != "tokens":
@@ -329,6 +345,15 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
             f"serves token prompts only; run it at the model level "
             f"(repro_torch.model.transformer.forward / prefill / "
             f"decode_step)")
+    return cfg
+
+
+def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
+    """Build the model and engine, serve the synthetic trace, return the
+    metrics (``_outputs`` holds the generated streams, in request order).
+    ``cfg`` overrides the config ``args.arch`` names (a library caller's
+    cut of a registered arch, e.g. fewer layers)."""
+    cfg = _token_config(args, cfg)
     spec = speculation_arg(args, cfg)
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
     model = tf.init(cfg, args.seed, rt, device=args.device)
@@ -433,11 +458,227 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
     return metrics
 
 
+def _async_trace(args, cfg) -> tuple:
+    """The open-loop trace: (prompts, decode budgets).  The usual seeded
+    trace (shared prefix / mixed lengths supported), with every
+    ``--long-every``-th request replaced by a ``--long-prompt-len``
+    prompt with its own ``--long-new-tokens`` budget — short interactive
+    streams decode while long-prompt jobs keep arriving, and a
+    synchronous engine's whole-prompt admission prefill stalls every
+    in-flight stream (the interleave stress case)."""
+    rng = np.random.default_rng(args.seed)
+    lens = _trace_lens(args)
+    budgets = [args.new_tokens] * len(lens)
+    if args.long_prompt_len:
+        k = max(2, args.long_every or 3)
+        long_new = args.long_new_tokens or args.new_tokens
+        for i in range(len(lens)):
+            if i % k == k - 1:
+                lens[i] = args.long_prompt_len
+                budgets[i] = long_new
+    sp = args.shared_prefix_len
+    shared = rng.integers(0, cfg.vocab, size=(sp,)) if sp else None
+    prompts = []
+    for plen in lens:
+        tail = rng.integers(0, cfg.vocab, size=(plen - sp,)) if sp \
+            else rng.integers(0, cfg.vocab, size=(plen,))
+        prompts.append(
+            (np.concatenate([shared, tail]) if sp else tail)
+            .astype(np.int32))
+    return prompts, budgets
+
+
+def _fresh_requests(prompts, budgets, arrivals, t0) -> list:
+    return [AsyncRequest(rid=i, prompt=p.copy(), max_new_tokens=int(b),
+                         arrival=t0 + float(a))
+            for i, (p, b, a) in enumerate(zip(prompts, budgets,
+                                              arrivals))]
+
+
+def _async_engine(args, cfg, model, rt, *, layout, prefix_caching,
+                  clock=None) -> AsyncServeEngine:
+    return AsyncServeEngine(
+        cfg, model, slots=args.slots, max_len=args.max_len, rt=rt,
+        temperature=args.temperature, decode_chunk=args.decode_chunk,
+        prefill_chunk=args.prefill_chunk, cache_layout=layout,
+        page_size=args.page_size, num_pages=args.num_pages,
+        prefix_caching=prefix_caching, prefill_quantum=args.prefill_quantum,
+        clock=clock, device=args.device, seed=args.seed)
+
+
+def _leg_summary(engines, reqs, launches: dict) -> dict:
+    """The reference's per-leg summary (latency tails, dispatches,
+    preemptions, reuse; summed over replicas) with the leg's kernel
+    launches, whether every logits block stayed finite, and the device."""
+    out = latency_metrics(reqs)
+    out["dispatches"] = {
+        k: sum(e.stats[s] for e in engines) for k, s in (
+            ("prefill", "prefill_dispatches"),
+            ("decode", "decode_dispatches"),
+            ("decode_steps", "decode_steps"))}
+    out["preemptions"] = sum(e.stats["preemptions"] for e in engines)
+    out["tokens_reused"] = sum(e.stats["tokens_reused"] for e in engines)
+    out["kernel_launches"] = launches
+    out["logits_finite"] = all(e.logits_finite() for e in engines)
+    out["device"] = device_info(engines[0].device)
+    for e in engines:
+        if e.kv is not None:
+            # the trace has drained: the pool's host state must audit clean
+            e.kv.check_invariants()
+    return out
+
+
+def _timed_serve(device: torch.device, serve) -> dict:
+    """Run ``serve()`` and return the kernel launches it made."""
+    _sync(device)
+    launches0 = kernel_launches()
+    serve()
+    _sync(device)
+    return _delta(kernel_launches(), launches0)
+
+
+def serve_async_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
+    """Open-loop async serving bench: the same seeded Poisson arrival
+    trace served through (a) the async engine on dense / paged /
+    paged+prefix — greedy streams held to a synchronous engine's
+    (``outputs_match``), (b) the synchronous engine open-loop on the
+    paged+prefix layout for the tail-latency comparison
+    (``itl_p95_sync_over_async``), and (c, ``--dp N``) N replicas behind
+    the prefix-affinity router for the routed prefix reuse.  ``cfg`` as
+    in :func:`serve_bench`."""
+    if args.speculate and not args.no_speculate:
+        raise SystemExit("--speculate does not combine with --async yet "
+                         "(the fused verify dispatch conflicts with "
+                         "mid-prefill slots)")
+    cfg = _token_config(args, cfg)
+    rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
+    model = tf.init(cfg, args.seed, rt, device=args.device)
+    prompts, budgets = _async_trace(args, cfg)
+    lens = sorted({len(p) for p in prompts})
+    arr = poisson_arrivals(args.arrival_rate, len(prompts), seed=args.seed)
+
+    # every leg's greedy streams must equal the synchronous engine's:
+    # scheduling changes when a token is computed, never what
+    outputs, timed = {}, {}
+    legs = {"dense": ("dense", False),
+            "paged_noprefix": ("paged", False),
+            "paged": ("paged", True)}
+    for name, (layout, prefix) in legs.items():
+        eng = _async_engine(args, cfg, model, rt, layout=layout,
+                            prefix_caching=prefix)
+        warm = None
+        if not args.no_warmup:
+            warm = round(eng.warmup(lens), 4)
+        reqs = _fresh_requests(prompts, budgets, arr, eng.clock.now())
+        launches = _timed_serve(eng.device, lambda: eng.serve_trace(reqs))
+        outputs[name] = [list(r.generated) for r in reqs]
+        timed[name] = _leg_summary([eng], reqs, launches)
+        timed[name]["warmup_s"] = warm
+        timed[name]["interleave"] = eng.interleave
+        del eng                  # free this leg's caches before the next
+        _empty_cache(args.device)
+
+    sync_ref = ServeEngine(
+        cfg, model, slots=args.slots, max_len=args.max_len, rt=rt,
+        temperature=args.temperature, decode_chunk=args.decode_chunk,
+        prefill_chunk=args.prefill_chunk, cache_layout="paged",
+        page_size=args.page_size, num_pages=args.num_pages,
+        prefix_caching=True, device=args.device, seed=args.seed)
+    if not args.no_warmup:
+        sync_ref.warmup(lens)
+    sync_clock = WallClock()
+    sreqs = _fresh_requests(prompts, budgets, arr, sync_clock.now())
+    launches = _timed_serve(sync_ref.device, lambda: serve_open_loop(
+        sync_ref, sreqs, clock=sync_clock))
+    outputs["sync"] = [list(r.generated) for r in sreqs]
+    outputs_match = all(outputs[n] == outputs["sync"] for n in legs)
+    sync_lat = _leg_summary([sync_ref], sreqs, launches)
+    del sync_ref
+    _empty_cache(args.device)
+
+    a = timed["paged"]
+    ratio = None
+    if a["itl_s"]["p95"] and sync_lat["itl_s"]["p95"]:
+        ratio = round(sync_lat["itl_s"]["p95"] / a["itl_s"]["p95"], 3)
+
+    metrics = {
+        "arch": args.arch,
+        "n_layers": cfg.n_layers,
+        "mode": "async_open_loop",
+        "requests": len(prompts),
+        "slots": args.slots,
+        "arrival_rate": args.arrival_rate,
+        "seed": args.seed,
+        "prompt_len": args.prompt_len,
+        "long_prompt_len": args.long_prompt_len or 0,
+        "long_every": args.long_every or 3,
+        "shared_prefix_len": args.shared_prefix_len,
+        "new_tokens": args.new_tokens,
+        "decode_chunk": args.decode_chunk,
+        "prefill_quantum": args.prefill_quantum or (args.prefill_chunk
+                                                    or 32),
+        "page_size": args.page_size,
+        "outputs_match": outputs_match,
+        "async": a,
+        "async_legs": timed,
+        "sync_open_loop": sync_lat,
+        "itl_p95_sync_over_async": ratio,
+        "tok_per_s": a["tok_per_s"],
+        "ttft_s": a["ttft_s"],
+        "device": device_info(torch.device(args.device)),
+    }
+
+    if args.dp > 1:
+        # the reference's tp = 1 case: every replica on the one device
+        # (make_replica_meshes(dp, 1) gives no mesh), sharing the model's
+        # weights and owning its own page pool
+        clock = WallClock()
+        engines = []
+        for _ in range(args.dp):
+            e = _async_engine(args, cfg, model, rt, layout="paged",
+                              prefix_caching=True, clock=clock)
+            if not args.no_warmup:
+                e.warmup(lens)
+            engines.append(e)
+        dpe = DataParallelAsyncEngine(engines)
+        # arrival-time routing is the point: the prefix index evolves as
+        # earlier requests prefill, so a lower rate gives each arrival a
+        # registered prefix to match
+        dp_rate = args.dp_arrival_rate or args.arrival_rate
+        dp_arr = poisson_arrivals(dp_rate, len(prompts), seed=args.seed)
+        dreqs = _fresh_requests(prompts, budgets, dp_arr, clock.now())
+        launches = _timed_serve(engines[0].device,
+                                lambda: dpe.serve_trace(dreqs))
+        outputs["dp"] = [list(r.generated) for r in dreqs]
+        leg = _leg_summary(engines, dreqs, launches)
+        metrics["dp"] = dict(
+            dpe.stats_summary(),
+            tp=1,
+            arrival_rate=dp_rate,
+            latency=latency_metrics(dreqs),
+            outputs_match=outputs["dp"] == outputs["sync"],
+            dispatches=leg["dispatches"],
+            preemptions=leg["preemptions"],
+            kernel_launches=launches,
+            logits_finite=leg["logits_finite"],
+            device=leg["device"],
+        )
+        metrics["outputs_match"] = outputs_match and \
+            metrics["dp"]["outputs_match"]
+        del dpe, engines, e
+        _empty_cache(args.device)
+    metrics["_outputs_by_leg"] = outputs
+    return metrics
+
+
+def _empty_cache(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 #: flags of legs not ported yet → (is it set?, ROADMAP item)
 _UNPORTED = (
     (lambda a: bool(a.mesh), "--mesh", "§1 item 8, device-sharded pool"),
-    (lambda a: a.run_async, "--async", "§1 item 7, async front end and dp"),
-    (lambda a: a.dp > 1, "--dp", "§1 item 7, async front end and dp"),
 )
 
 
@@ -506,14 +747,33 @@ def _parser() -> argparse.ArgumentParser:
                          "a hit; adds a lossless 'paged_swap' leg to "
                          "outputs_match")
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--async", dest="run_async", action="store_true")
-    ap.add_argument("--arrival-rate", type=float, default=4.0)
-    ap.add_argument("--prefill-quantum", type=int, default=None)
-    ap.add_argument("--long-prompt-len", type=int, default=0)
-    ap.add_argument("--long-every", type=int, default=3)
-    ap.add_argument("--long-new-tokens", type=int, default=None)
-    ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("--dp-arrival-rate", type=float, default=None)
+    ap.add_argument("--async", dest="run_async", action="store_true",
+                    help="open-loop async serving: seeded Poisson arrivals "
+                         "at --arrival-rate, per-token timestamps, prefill "
+                         "quanta interleaved with decode; reports TTFT / "
+                         "ITL tails and holds every leg's greedy streams to "
+                         "the synchronous engine's (writes "
+                         "BENCH_torch_serving_async.json unless --json "
+                         "overrides)")
+    ap.add_argument("--arrival-rate", type=float, default=4.0,
+                    help="offered load in requests/s for --async")
+    ap.add_argument("--prefill-quantum", type=int, default=None,
+                    help="tokens per interleaved prefill slice on the "
+                         "async engine (default: --prefill-chunk or 32)")
+    ap.add_argument("--long-prompt-len", type=int, default=0,
+                    help="async trace: every --long-every-th request gets "
+                         "a prompt this long")
+    ap.add_argument("--long-every", type=int, default=3,
+                    help="period of long prompts in the async trace")
+    ap.add_argument("--long-new-tokens", type=int, default=None,
+                    help="decode budget of the long-prompt requests "
+                         "(default: --new-tokens)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="async: serve the trace once more through N paged "
+                         "replicas behind the prefix-affinity router")
+    ap.add_argument("--dp-arrival-rate", type=float, default=None,
+                    help="offered load of the --dp leg (default: "
+                         "--arrival-rate)")
     ap.add_argument("--json", default="BENCH_torch_serving.json",
                     help="write metrics here ('' to disable)")
     ap.add_argument("--no-compile-cache", action="store_true")
@@ -531,6 +791,8 @@ def main(argv: Optional[list] = None,
         if is_set(args):
             raise SystemExit(f"{flag} is not ported to repro_torch yet "
                              f"(ROADMAP {item})")
+    if args.run_async:
+        return _main_async(args, cfg)
     metrics = serve_bench(args, cfg)
     hidden = {k: metrics.pop(k) for k in ("_outputs", "_outputs_by_layout")}
     print(f"served {metrics['requests']} requests "
@@ -583,6 +845,35 @@ def main(argv: Optional[list] = None,
         with open(args.json, "w") as fh:
             json.dump(metrics, fh, indent=1)
     metrics.update(hidden)
+    return metrics
+
+
+def _main_async(args, cfg: Optional[ModelConfig]) -> dict:
+    if args.json == "BENCH_torch_serving.json":
+        args.json = "BENCH_torch_serving_async.json"
+    metrics = serve_async_bench(args, cfg)
+    hidden = metrics.pop("_outputs_by_leg")
+    a, s = metrics["async"], metrics["sync_open_loop"]
+    print(f"async open-loop @ {metrics['arrival_rate']} req/s: "
+          f"{a['served']}/{a['requests']} served, "
+          f"{a['tok_per_s']:.1f} tok/s, TTFT p95 "
+          f"{a['ttft_s']['p95']}s, ITL p95 {a['itl_s']['p95']}s "
+          f"(sync open-loop ITL p95 {s['itl_s']['p95']}s → "
+          f"sync/async = {metrics['itl_p95_sync_over_async']}) on "
+          f"{metrics['device']['kind']}")
+    print(f"  greedy streams match sync engine: "
+          f"{metrics['outputs_match']}")
+    dp = metrics.get("dp")
+    if dp:
+        print(f"  dp={dp['dp']} routed: tokens_reused "
+              f"{dp['tokens_reused']} (per replica "
+              f"{[p['tokens_reused'] for p in dp['per_replica']]}), "
+              f"routing {dp['routing']['prefix_routed']} by prefix / "
+              f"{dp['routing']['load_routed']} by load")
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump(metrics, fh, indent=1)
+    metrics["_outputs_by_leg"] = hidden
     return metrics
 
 

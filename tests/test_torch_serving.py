@@ -195,7 +195,7 @@ def test_launcher_trace_lengths_match_reference(argv):
 
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "tp=2"], "sharded pool"),
-    (["--async"], "async"),
+    (["--async", "--dp", "2", "--mesh", "tp=2"], "sharded pool"),
 ], ids=["flag1-sharded pool", "flag2-async"])
 def test_launcher_unported_flags_name_their_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=item):
