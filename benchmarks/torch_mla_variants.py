@@ -238,7 +238,7 @@ def launcher(fn, x: dict):
             x["tables"]["permuted"].data_ptr(), x["kv_len"].data_ptr(),
             pm.data_ptr(), pl.data_ptr(), pnv.data_ptr(), 0, 0, R, RD, b, H,
             x["n_pages"], ps, w, tuned.splits, (w // tuned.splits) * ps,
-            tuned.block_k, 1, H, (R + RD) ** -0.5, 0.0, 0, stream)
+            tuned.block_k, 1, H, (R + RD) ** -0.5, 0.0, 0, stream, 0)
 
     def run():
         err = fn(*args)

@@ -79,20 +79,35 @@ JSON line (``"phase": ...``):
              the kernel's device time), K2 and K3 on a global cache and a
              ring read at eff_len; and serve_async's shapes: K1 at a
              one-row 128-token quantum after 896 tokens, K3 at a decode
-             step beside rows parked mid-prefill.  The latent
-             split-stress cases pass two gates: kernel vs plain within
-             the fp32 tolerance, and the kernel no farther from a float64
-             reference than the plain version plus ``F64_SLACK``;
+             step beside rows parked mid-prefill; and the device-sharded
+             pool's kernel branches: K1 (a granite chunk after 896 tokens)
+             and K3 (granite's timing data at tp 2, 4 and 8, fp32 and fp8
+             pools; gemma2's d256 ring at tp 2) on kv-head shards,
+             concatenated against the whole call (exactly 0.0), the latent
+             body's page strips at DeepSeek's decode step (16 splits, tp 2
+             and 4, fp32 and fp8) on the rank-complete view (the dense
+             latent kernel) and on the pool (K4), each strip against its
+             plain version and float64, the strips combined against K4
+             (``strips_vs_k4``, 0.0), and timing rows of one head shard and
+             one strip.  The latent
+             split-stress and strip cases pass two gates: kernel vs plain
+             within the fp32 tolerance, and the kernel no farther from a
+             float64 reference than the plain version plus
+             ``F64_SLACK``;
 4. model   — granite-3-8b at full width cut to 4 layers, fp32: prefill 4
              mixed-length prompts and decode 8 greedy steps with
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
              logits difference and token match rate;
-5. serve   — ``repro_torch.launch.serve.main --cache-layout both`` on the
-             full 40-layer granite-3-8b (fp32): greedy streams equal on
-             the dense and the paged layout, every request gets its
-             tokens, logits stay finite, and in each leg's timed run K1
-             launched 40 x prefill dispatches and K2 (dense) or K3 (paged)
-             40 x decode steps;
+5. serve   — ``repro_torch.launch.serve.main --cache-layout both --mesh
+             tp=2`` on the full 40-layer granite-3-8b (fp32), the mesh
+             two shards on cuda:0: greedy streams equal on the dense
+             layout, the paged one and the paged pool sharded on the kv
+             heads (``paged_sharded``), every request gets its tokens,
+             logits stay finite, and in each leg's timed run K1 launched
+             40 x prefill dispatches and K2 (dense) or K3 (paged) 40 x
+             decode steps, on the sharded leg 2 x 40 x each; its per-device
+             bytes x 2 equal to the totals and the shard tensors' bytes
+             making up the pool; ``sharded_vs_paged_tok_per_s``;
 6. serve_prefix — the launcher on the paged layout with a 256-token
              shared prefix against its prefix-cache-off leg: equal
              streams, tokens reused, the pool's invariants audited;
@@ -168,10 +183,13 @@ JSON line (``"phase": ...``):
              chunks (the second at an offset, the absorbed form) and 8
              decode steps with ``attn_impl="cuda"`` and ``"torch"``; dense
              streams equal to paged;
-11. serve_mla — the launcher (``--cache-layout both``) serving that tower:
-             ``outputs_match``, and in each leg's timed run K1 3 x prefill
-             dispatches and the leg's decode kernel (dense: K2's latent
-             branch; paged: K4) 3 x decode steps;
+11. serve_mla — the launcher (``--cache-layout both --mesh tp=2``)
+             serving that tower: ``outputs_match`` over dense, paged and
+             the pool sharded on the latent rank, and in each leg's timed
+             run K1 3 x prefill dispatches and the leg's decode kernel
+             (dense: K2's latent branch; paged: K4; sharded: the latent
+             kernel on each shard's page strip, 2 x 3) x decode steps; the
+             serve phase's sharding checks;
 12. serve_mla_prefix — that tower with a 256-token shared prefix against
              its prefix-cache-off leg: equal streams, 3840 tokens reused;
 13. serve_mla_impls — a short trace on that tower with ``attn_impl``
@@ -211,7 +229,8 @@ JSON line (``"phase": ...``):
              tokens, 32 new; the serve phase's checks (K1 32 x prefill
              dispatches, K2 / K3 32 x decode steps), the SSM state bytes
              (32 x 8 slots x (3200·16 + 3·3200) x 4 B), tok/s and TTFT;
-17. serve_xlstm — the launcher on xlstm-125m at full width, the same
+17. serve_xlstm — the launcher on xlstm-125m at full width cut to 6
+             layers (sLSTM at one: the full model's 5:1 mix), the same
              trace, both layouts: equal streams, no attention kernel
              launched, no resident KV, the SSM state bytes;
 18. model_frontends — musicgen-large at full width cut to 4 layers
@@ -220,7 +239,8 @@ JSON line (``"phase": ...``):
              seeded embeddings, cuda vs torch within 1e-4 of scale;
 19. the ``kernels`` line (launches on the main paths, K2 / K3 / K4 / K2's
    latent branch split by n_pos == 1 (decode steps) and n_pos > 1 (verify
-   chains), errors, times, bounds) and, last, ``{"ok": true, "device":
+   chains), K3 on head shards and the latent strips from the sharded
+   legs, errors, times, bounds) and, last, ``{"ok": true, "device":
    {...}}``.
 
 Any failed phase raises: the script then exits non-zero and prints no
@@ -236,6 +256,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -2262,6 +2283,287 @@ def _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok, shape,
 
 
 # ---------------------------------------------------------------------------
+# the device-sharded pool: K1 / K3 on head shards, the latent page strips
+# ---------------------------------------------------------------------------
+
+#: the shard counts of the head-shard and page-strip kernel cases
+K3_SHARD_TPS = (2, 4, 8)
+STRIP_TPS = (2, 4)
+#: the timing rows' kv_len (the K2 / K3 / K4 timing list)
+TIMING_KVL = (2048, 1500, 1024, 700, 300, 64, 1, 1900)
+
+
+def _heads(t, dim: int, d: int, tp: int):
+    """Shard ``d`` of ``tp`` of ``t`` along ``dim``, contiguous (a sharded
+    pool keeps each shard as a tensor of its own)."""
+    n = t.shape[dim]
+    return t.narrow(dim, d * n // tp, n // tp).contiguous()
+
+
+def head_shard_data(x: dict, tp: int, d: int = 0) -> dict:
+    """Shard ``d`` of :func:`paged_data`'s decode step on a pool split on
+    the kv-head axis: its query heads (a group each kv head), its kv
+    heads of the dense cache and of the pages, the same table."""
+    return dict(x, hq=x["hq"] // tp, hkv=x["hkv"] // tp,
+                q=_heads(x["q"], 1, d, tp), k=_heads(x["k"], 1, d, tp),
+                v=_heads(x["v"], 1, d, tp),
+                k_pages=_heads(x["k_pages"], 2, d, tp),
+                v_pages=_heads(x["v_pages"], 2, d, tp))
+
+
+def k3_head_shard_cases(torch, gen, ops) -> list:
+    """K3 on each kv-head shard of granite's K3 data (8 slots, 32 / 8
+    heads, d128, a 1024-page permuted pool, the timing kv_len) at tp 2, 4
+    and 8, on the fp32 pool and on fp8 codes, and of gemma2's d256 ring
+    (read at eff_len) at tp 2: the shards' outputs concatenated on the
+    heads against K3 on the whole pool, exactly 0.0 (K3's tiles and splits
+    never see Hkv)."""
+    rows = []
+    kvl = list(TIMING_KVL)
+    for data, name, tps, lens, codes in (
+            (granite_paged_data(torch, gen), "granite d128", K3_SHARD_TPS,
+             kvl, (None, "fp8_e4m3")),
+            (gemma2_paged_data(torch, gen, 4096), "gemma2 d256 ring of 4096",
+             (2,), [4096, 4096, 4096, 1], (None,))):
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        table = with_sentinels(data["table"], lens, data["ps"],
+                               data["k_pages"].shape[0])
+        for code in codes:
+            kp, vp, ks, vs = data["k_pages"], data["v_pages"], None, None
+            if code is not None:
+                (kp, ks, _), (vp, vs, _) = _quantized(torch, (kp, vp), code)
+            whole = ops.fusemax_decode_paged(data["q"], kp, vp, table,
+                                             kv_len, impl="cuda", k_scale=ks,
+                                             v_scale=vs)
+            for tp in tps:
+                parts = [ops.fusemax_decode_paged(
+                    _heads(data["q"], 1, d, tp), _heads(kp, 2, d, tp),
+                    _heads(vp, 2, d, tp), table, kv_len, impl="cuda",
+                    k_scale=None if ks is None else _heads(ks, 2, d, tp),
+                    v_scale=None if vs is None else _heads(vs, 2, d, tp))
+                    for d in range(tp)]
+                diff = (torch.cat(parts, dim=1) - whole).abs().max().item()
+                rows.append(dict(
+                    kernel="paged_decode_partials@head_shards",
+                    case=f"K3 on {tp} head shards vs the whole pool, {name}"
+                         f", {code or 'fp32'}", tp=tp, kv_len=lens,
+                    max_abs_diff=diff, ok=diff == 0.0))
+            del whole
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k1_head_shard_cases(torch, gen, ops) -> list:
+    """K1 on each head shard (tp 2, 4 and 8) of a granite prefill chunk:
+    2 rows, 32 / 8 heads, d128, 128 queries after 896 tokens of history
+    (M 1024), causal: the shards concatenated against K1 on every head,
+    exactly 0.0 (K1's tiles never see Hkv)."""
+    q = _rand(torch, gen, (2, 32, 128, 128), torch.float32)
+    k = _rand(torch, gen, (2, 8, 1024, 128), torch.float32)
+    v = _rand(torch, gen, (2, 8, 1024, 128), torch.float32)
+    kw = dict(causal=True, q_offset=896, impl="cuda")
+    whole = ops.fusemax_attention(q, k, v, **kw)
+    rows = []
+    for tp in K3_SHARD_TPS:
+        parts = [ops.fusemax_attention(_heads(q, 1, d, tp),
+                                       _heads(k, 1, d, tp),
+                                       _heads(v, 1, d, tp), **kw)
+                 for d in range(tp)]
+        diff = (torch.cat(parts, dim=1) - whole).abs().max().item()
+        rows.append(dict(kernel="fusemax_prefill", case=f"K1 on {tp} head "
+                         f"shards vs every head, B2 Hq32 Hkv8 P=128 after "
+                         f"896 d128 causal", tp=tp, max_abs_diff=diff,
+                         ok=diff == 0.0))
+    return rows
+
+
+def _strip_ref64(torch, q, ckv, kr, kv_len, scale, lo, hi):
+    """Float64 softmax attention of a strip: the keys in [lo, hi) below
+    kv_len of a dense latent view; rows with no such key are None."""
+    k = torch.cat([ckv[:, lo:hi], kr[:, lo:hi]], dim=-1).double()
+    s = torch.einsum("bre,bke->brk", q.double(), k) * scale
+    keys = torch.arange(lo, hi, device="cuda")
+    s = s.masked_fill((keys[None, :] >= kv_len[:, None].long())[:, None, :],
+                      float("-inf"))
+    out = torch.einsum("brk,bkf->brf", torch.softmax(s, -1),
+                       ckv[:, lo:hi].double())
+    return out, kv_len > lo
+
+
+def strip_data(torch, gen, dec, code=None):
+    """DeepSeek's decode-step latents (8 slots, 128 heads, r 512, rd 64,
+    W 128, the permuted pool, the timing kv_len) as a sharded decode sees
+    them: q [B, H, 1, r + rd], the pools (codes and scales on ``code``),
+    the table, and the rank-complete view of the table (dequantized on a
+    code pool)."""
+    from repro_torch.kernels import ops
+    from repro_torch.model.attention import dequantize_kv
+
+    kvl = list(TIMING_KVL)
+    x = deepseek_decode_data(torch, gen, kvl)
+    b, h, r, rd = x["b"], x["h"], x["r"], x["rd"]
+    ckv, kr = x["pools"]["permuted"]
+    table = x["tables"]["permuted"]
+    cs = krs = None
+    if code is not None:
+        (ckv, cs, _), (kr, krs, _) = _quantized(torch, (ckv, kr), code)
+    view_c, view_k = ops.gather_pages(ckv, table), ops.gather_pages(kr, table)
+    if code is not None:
+        view_c = dequantize_kv(view_c, ops.gather_pages(cs, table))
+        view_k = dequantize_kv(view_k, ops.gather_pages(krs, table))
+    return dict(x, kvl=kvl, q4=x["q"].reshape(b, h, 1, r + rd), ckv=ckv,
+                kr=kr, cs=cs, krs=krs, table=table, view=(view_c, view_k),
+                code=code)
+
+
+def latent_strip_cases(torch, gen, dec) -> list:
+    """The latent body's page strips at DeepSeek's decode step (16 splits)
+    at tp 2 and 4, fp32 and fp8 latents: every strip on the rank-complete
+    view (the dense latent kernel, what the sharded decode launches) and
+    on the pool (K4) against its plain version (within the latent cases'
+    fp32 tolerance, and no farther from float64 than the plain version
+    plus ``F64_SLACK``); the strips combined in order against K4 on the
+    whole table (``strips_vs_k4``: on fp8 the strips sweep the dequantized
+    view where K4 dequantizes in its tiles; both 0.0 expected)."""
+    from repro_torch.kernels import ops
+
+    rows = []
+    for code in (None, "fp8_e4m3"):
+        x = strip_data(torch, gen, dec, code)
+        b, h, ps, w, r, rd = (x[k] for k in ("b", "h", "ps", "w", "r", "rd"))
+        q4, kv_len, table = x["q4"], x["kv_len"], x["table"]
+        scale = (r + rd) ** -0.5
+        whole = ops.fusemax_mla_decode_paged(
+            q4, x["ckv"], x["kr"], table, kv_len, impl="cuda",
+            ckv_scale=x["cs"], krope_scale=x["krs"])
+        for tp in STRIP_TPS:
+            splits, block_k, strips = ops.mla_strips(
+                w, ps, h, r, rd, tp, elem_bytes=x["ckv"].element_size())
+            for src, label in (("view", "latent_decode_partials@strip"),
+                               ("pool", "mla_paged_decode_partials@strip")):
+                parts = []
+                for d, (first, n) in enumerate(strips):
+                    kw = dict(splits=splits, block_k=block_k,
+                              split_first=first, n_splits=n, scale=scale)
+                    if src == "view":
+                        args = (q4, *x["view"], kv_len)
+                    else:
+                        args = (q4, x["ckv"], x["kr"], kv_len)
+                        kw.update(block_table=table, ckv_scale=x["cs"],
+                                  krope_scale=x["krs"])
+                    got = ops.fusemax_mla_decode_strip(*args, impl="cuda",
+                                                       **kw)
+                    plain = ops.fusemax_mla_decode_strip(*args, impl="torch",
+                                                         **kw)
+                    parts.append(got)
+                    out = ops.combine_strips([got], q4)[:, :, 0]
+                    ref = ops.combine_strips([plain], q4)[:, :, 0]
+                    torch.cuda.synchronize()
+                    err, ok, atol, rtol = _err(torch, out, ref, "float32")
+                    lo, hi = first * (w // splits) * ps, \
+                        (first + n) * (w // splits) * ps
+                    r64, live = _strip_ref64(torch, q4[:, :, 0], *x["view"],
+                                             kv_len, scale, lo, hi)
+                    vs = {"kernel": (out.double() - r64)[live].abs().max()
+                          .item(), "plain": (ref.double() - r64)[live].abs()
+                          .max().item()}
+                    f64_ok = vs["kernel"] <= vs["plain"] + F64_SLACK
+                    rows.append(dict(
+                        kernel=label, case=f"strip {d} of {tp} (splits "
+                        f"{first}..{first + n - 1} of {splits}, keys "
+                        f"{lo}..{hi - 1}) on the {src}, {code or 'fp32'}",
+                        tp=tp, max_abs_err=err, atol=atol, rtol=rtol,
+                        ok=ok and f64_ok, ok_vs_plain=ok, ok_vs_f64=f64_ok,
+                        f64_slack=F64_SLACK, vs_f64=vs))
+                    del r64
+                diff = (ops.combine_strips(parts, q4) - whole).abs()
+                rows.append(dict(
+                    kernel=label, case=f"strips_vs_k4: {tp} strips on the "
+                    f"{src} combined vs K4 on the whole table, "
+                    f"{code or 'fp32'}", tp=tp, splits=splits,
+                    max_abs_diff=diff.max().item(),
+                    ok=diff.max().item() == 0.0))
+        del x, whole
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_head_shards(torch, gen, dec, ops, autotune) -> dict:
+    """K3 on one head shard of granite's K3 timing data at tp 2, 4 and 8
+    (:func:`time_k3` on shard 0: its queries, kv heads and pages; the
+    bound counts that shard's bytes)."""
+    x = granite_paged_data(torch, gen)
+    out = {f"paged_decode_partials@head_shard_tp{tp}": dict(
+        time_k3(torch, gen, dec, ops, autotune, x=head_shard_data(x, tp)),
+        tp=tp) for tp in K3_SHARD_TPS}
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_strips(torch, gen, dec, ops, autotune) -> dict:
+    """The latent kernel on one page strip of DeepSeek's decode step at tp
+    2 and 4 (16 splits: strip 0, the one every slot's keys reach, on the
+    rank-complete view, as the sharded decode launches it; every strip's
+    ``ms`` beside it), its plain version, SDPA on the strip's keys (the
+    library yardstick) and the bound of that strip's keys: latent rows
+    read once, the partials of its splits written once, the 3xTF32
+    products of its (key, row) pairs."""
+    x = strip_data(torch, gen, dec)
+    b, h, ps, w, r, rd = (x[k] for k in ("b", "h", "ps", "w", "r", "rd"))
+    q4, kv_len, kvl = x["q4"], x["kv_len"], x["kvl"]
+    view_c, view_k = x["view"]
+    scale = (r + rd) ** -0.5
+    out = {}
+    for tp in STRIP_TPS:
+        splits, block_k, strips = ops.mla_strips(w, ps, h, r, rd, tp)
+        split_len = (w // splits) * ps
+
+        def launch(first, n, impl="cuda"):
+            return lambda: ops.fusemax_mla_decode_strip(
+                q4, view_c, view_k, kv_len, splits=splits, block_k=block_k,
+                split_first=first, n_splits=n, scale=scale, impl=impl)
+
+        first, n = strips[0]
+        lo, hi = first * split_len, (first + n) * split_len
+        got = ops.combine_strips([launch(first, n)()], q4)
+        ref = ops.combine_strips([launch(first, n, "torch")()], q4)
+        torch.cuda.synchronize()
+        err, ok, _, _ = _err(torch, got, ref, "float32")
+        ms = time_ms(torch, launch(first, n))
+        dev_ms = device_ms(torch, launch(first, n),
+                           "latent_decode_partials_kernel")
+        plain_ms = time_ms(torch, launch(first, n, "torch"), iters=5,
+                           warmup=1)
+        q_f = x["q"]
+        strip_len = torch.clamp(kv_len - lo, 0, hi - lo).to(torch.int32)
+        library_ms = time_ms(torch, _latent_library(
+            torch, ops, q_f, view_c[:, lo:hi].contiguous(),
+            view_k[:, lo:hi].contiguous(), torch.clamp(strip_len, min=1),
+            1, h, scale))
+        keys = [max(0, min(k, hi) - lo) for k in kvl]
+        reads = sum(keys)
+        nbytes = (4 * reads * (r + rd) + 4 * q_f.numel() + 4 * b
+                  + 4 * b * n * h * (r + 2))
+        flops = 2 * h * reads * (2 * r + rd)
+        row = _timing_row(ms, plain_ms, library_ms, 0, nbytes, err, ok,
+                          shape=f"strip 0 of {tp}: splits {first}.."
+                                f"{first + n - 1} "
+                                f"of {splits} (keys {lo}..{hi - 1}) of B{b} "
+                                f"H{h} r{r} rd{rd} W {w} page_size {ps}, "
+                                f"the rank-complete view, fp32 kv_len {kvl}",
+                          tf32x3_flops=flops)
+        row.update(tp=tp, device_ms=dev_ms,
+                   device_share_of_bound=row["bound_ms"] / dev_ms,
+                   ms_by_strip=[time_ms(torch, launch(f, m))
+                                for f, m in strips],
+                   library="SDPA on the strip's keys")
+        out[f"latent_decode_partials@strip_tp{tp}"] = row
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 4. model cross-check
 # ---------------------------------------------------------------------------
 
@@ -2332,18 +2634,26 @@ PREFIX_ARGS = ["--arch", "granite-3-8b", "--cache-layout", "paged",
                "--new-tokens", "32", "--max-len", "2048", "--repeats", "1",
                "--no-warmup", "--json", ""]
 
-#: the decode kernel each layout's decode steps launch (GQA models)
+#: the decode kernel each layout's decode steps launch (GQA models; the
+#: sharded pool's: K3 on each head shard)
 DECODE_KERNEL = {"dense": "decode_partials", "paged": "paged_decode_partials",
                  "paged_noprefix": "paged_decode_partials",
                  "paged_nospec": "paged_decode_partials",
                  "paged_swap": "paged_decode_partials",
-                 "paged_quant": "paged_decode_partials"}
-#: ... and on an MLA model (dense: K2's E != F branch; paged: K4)
+                 "paged_quant": "paged_decode_partials",
+                 "paged_sharded": "paged_decode_partials"}
+#: ... and on an MLA model (dense: K2's E != F branch; paged: K4; the
+#: rank-sharded pool: the dense latent kernel on each shard's page strip)
 MLA_DECODE_KERNEL = {"dense": "latent_decode_partials",
                      "paged": "mla_paged_decode_partials",
                      "paged_noprefix": "mla_paged_decode_partials",
                      "paged_nospec": "mla_paged_decode_partials",
-                     "paged_quant": "mla_paged_decode_partials"}
+                     "paged_quant": "mla_paged_decode_partials",
+                     "paged_sharded": "latent_decode_partials"}
+#: the serve phases' device-sharded pool: ``--mesh tp=2`` over the one
+#: card twice (every shard on cuda:0)
+SHARD_TP = 2
+SHARD_ARGS = ["--mesh", f"tp={SHARD_TP}"]
 DECODE_KERNELS = ("decode_partials", "paged_decode_partials",
                   "mla_paged_decode_partials", "latent_decode_partials")
 
@@ -2355,6 +2665,12 @@ def _counts(fm, dec) -> dict:
             "mla_paged_decode_partials":
                 dec.mla_paged_decode_partials_cuda.launches,
             "latent_decode_partials": dec.latent_decode_partials_cuda.launches,
+            # the latent kernels' launches on a strip of their splits (the
+            # rank-sharded pool's decode; part of the counts above)
+            "latent_decode_partials_strips":
+                dec.latent_decode_partials_cuda.launches_strips,
+            "mla_paged_decode_partials_strips":
+                dec.mla_paged_decode_partials_cuda.launches_strips,
             "fusemax_prefill_windowed":
                 fm.fusemax_attention_cuda.launches_windowed,
             "fusemax_prefill_by_dims": {
@@ -2379,6 +2695,8 @@ def _zero_counts(fm, dec) -> None:
     dec.paged_decode_partials_cuda.launches = 0
     dec.mla_paged_decode_partials_cuda.launches = 0
     dec.latent_decode_partials_cuda.launches = 0
+    dec.latent_decode_partials_cuda.launches_strips = 0
+    dec.mla_paged_decode_partials_cuda.launches_strips = 0
     dec.paged_decode_partials_cuda.launches_by_code.clear()
     dec.mla_paged_decode_partials_cuda.launches_by_code.clear()
     for k in DECODE_KERNELS:
@@ -2386,13 +2704,18 @@ def _zero_counts(fm, dec) -> None:
 
 
 def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
-                vocab: int, decode_kernel: dict = DECODE_KERNEL) -> dict:
+                vocab: int, decode_kernel: dict = DECODE_KERNEL,
+                per_shard: Optional[dict] = None) -> dict:
     """Per layout: every stream complete and in the vocabulary, logits
     finite, and each kernel launched once per layer per dispatch (K1) or
     decode step (``decode_kernel[layout]``: K2 on the dense layout, K3 on
     the paged one; on an MLA model K2's dense latent branch and K4), the
-    other decode kernels never."""
+    other decode kernels never.  ``per_shard`` maps a sharded leg to how
+    many times a layer launches (K1, its decode kernel) a dispatch or
+    step: once per shard where the shards split the work (GQA's head
+    shards, MLA's page strips), once where they do not (MLA's prefill)."""
     legs = {}
+    per_shard = per_shard or {}
     for lo, m in metrics["layouts"].items():
         disp, timed = m["dispatches"], m["kernel_launches"]
         legs[lo] = dict(tok_per_s=m["tok_per_s"], ttft_s=m["ttft_s"],
@@ -2404,13 +2727,15 @@ def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
                         peak_resident_cache_bytes=m["memory"][
                             "peak_resident_cache_bytes"])
         check(m["logits_finite"], f"{lo}: non-finite logits while serving")
-        check(timed["fusemax_prefill"] == n_layers * disp["prefill"],
+        k1_x, dk_x = per_shard.get(lo, (1, 1))
+        check(timed["fusemax_prefill"] == k1_x * n_layers * disp["prefill"],
               f"{lo}: K1 launched {timed['fusemax_prefill']} times, "
-              f"expected {n_layers} x {disp['prefill']} prefill dispatches")
+              f"expected {k1_x} x {n_layers} x {disp['prefill']} prefill "
+              f"dispatches")
         dk = decode_kernel[lo]
-        check(timed[dk] == n_layers * disp["decode_steps"],
+        check(timed[dk] == dk_x * n_layers * disp["decode_steps"],
               f"{lo}: {dk} launched {timed[dk]} times, expected "
-              f"{n_layers} x {disp['decode_steps']} decode steps")
+              f"{dk_x} x {n_layers} x {disp['decode_steps']} decode steps")
         for other in set(DECODE_KERNELS) - {dk}:
             check(timed[other] == 0, f"{lo}: {other} launched "
                                      f"{timed[other]} times on this layout")
@@ -2426,28 +2751,62 @@ def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
     return legs
 
 
+def _check_sharded(torch, metrics) -> dict:
+    """The sharded leg's pool: tp shards of ``SHARD_ARGS`` on cuda:0 (the
+    launcher's ``check_invariants`` at the leg's end held every shard
+    tensor to its device and shape), per-device bytes x tp equal to the
+    totals, and the shard tensors' own page bytes adding up to the pool."""
+    mem = metrics["layouts"]["paged_sharded"]["memory"]
+    sh = mem["sharding"]
+    check(metrics["mesh"]["devices"] == ["cuda:0"] * SHARD_TP
+          and sh["tp"] == SHARD_TP, f"sharded leg on {metrics['mesh']}, "
+                                    f"sharding {sh}")
+    for k in ("resident_cache_bytes", "peak_resident_cache_bytes",
+              "physical_cache_bytes"):
+        check(sh["per_device"][k] * SHARD_TP == mem[k],
+              f"per-device {k} {sh['per_device'][k]} x {SHARD_TP} != "
+              f"{mem[k]}")
+    check(sh["shard_bytes"]["per_shard"] * SHARD_TP
+          + sh["shard_bytes"]["replicated"] == mem["physical_cache_bytes"],
+          f"shard tensors {sh['shard_bytes']} do not make up the pool's "
+          f"{mem['physical_cache_bytes']} B")
+    return dict(mesh=metrics["mesh"], sharding=sh,
+                sharded_vs_paged_tok_per_s=metrics[
+                    "sharded_vs_paged_tok_per_s"])
+
+
 def phase_serve(torch, fm, dec, serve) -> dict:
-    """The main path: dense then paged layout on the same trace."""
+    """The main path: the dense layout, the paged one and the paged pool
+    sharded over two shards on the card (``SHARD_ARGS``) on the same
+    trace."""
     from repro_torch.configs import get_config
 
     cfg = get_config("granite-3-8b")
     torch.cuda.reset_peak_memory_stats()
+    argv = SERVE_ARGS + SHARD_ARGS
     # the main path: counts set to 0 just before it, read just after
     _zero_counts(fm, dec)
     t0 = time.perf_counter()
-    metrics = serve.main(SERVE_ARGS)
+    metrics = serve.main(argv, devices=["cuda:0"] * SHARD_TP)
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
-    legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab)
-    check("outputs_match" in metrics, "the serve phase ran one layout")
-    emit("serve", args=" ".join(SERVE_ARGS), seconds=wall, legs=legs,
+    legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab,
+                       per_shard={"paged_sharded": (SHARD_TP, SHARD_TP)})
+    check(list(metrics["layouts"]) == ["dense", "paged", "paged_sharded"]
+          and metrics["outputs_match"] is True,
+          f"serve legs {list(metrics['layouts'])}, outputs_match "
+          f"{metrics.get('outputs_match')}")
+    sharded = _check_sharded(torch, metrics)
+    emit("serve", args=" ".join(argv), seconds=wall, legs=legs,
          outputs_match=metrics["outputs_match"],
          paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
-         main_path_launches=launches,
+         **sharded, main_path_launches=launches,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     for name in ("fusemax_prefill", "decode_partials",
                  "paged_decode_partials"):
         check(launches[name] > 0, f"{name} never launched on the main path")
+    launches["paged_sharded"] = \
+        metrics["layouts"]["paged_sharded"]["kernel_launches"]
     return launches
 
 
@@ -3756,24 +4115,30 @@ def phase_serve_mla(torch, fm, dec, serve) -> dict:
     (dense: K2's E != F branch; paged: K4) 3 x decode steps."""
     cfg = deepseek_tower()
     torch.cuda.reset_peak_memory_stats()
+    argv = MLA_SERVE_ARGS + SHARD_ARGS
     # the MLA main path: counts set to 0 just before it, read just after
     _zero_counts(fm, dec)
     t0 = time.perf_counter()
-    metrics = serve.main(MLA_SERVE_ARGS, cfg=cfg)
+    metrics = serve.main(argv, cfg=cfg, devices=["cuda:0"] * SHARD_TP)
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab,
-                       MLA_DECODE_KERNEL)
-    check(list(metrics["layouts"]) == ["dense", "paged"],
+                       MLA_DECODE_KERNEL,
+                       per_shard={"paged_sharded": (1, SHARD_TP)})
+    check(list(metrics["layouts"]) == ["dense", "paged", "paged_sharded"],
           f"serve_mla served {list(metrics['layouts'])}")
-    emit("serve_mla", args=" ".join(MLA_SERVE_ARGS),
+    sharded = _check_sharded(torch, metrics)
+    emit("serve_mla", args=" ".join(argv),
          config="deepseek-v3-671b n_layers=3", seconds=wall, legs=legs,
          outputs_match=metrics["outputs_match"],
          paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
-         main_path_launches=launches,
+         **sharded, main_path_launches=launches,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     check(metrics["outputs_match"] is True,
-          "MLA greedy streams differ between the dense and paged legs")
+          "MLA greedy streams differ between the dense, paged and sharded "
+          "legs")
+    launches["paged_sharded"] = \
+        metrics["layouts"]["paged_sharded"]["kernel_launches"]
     for name in ("fusemax_prefill", "mla_paged_decode_partials",
                  "latent_decode_partials"):
         check(launches[name] > 0, f"{name} never launched on the MLA path")
@@ -4346,23 +4711,31 @@ def phase_serve_hymba(torch, fm, dec, serve) -> dict:
     return launches
 
 
+#: serve_xlstm's cut of xlstm-125m: 6 of its 12 layers with sLSTM at 1
+#: of them, the full model's 5:1 mLSTM:sLSTM mix (the phase took 95 s at
+#: 12 layers, most of it stepping the recurrences token by token)
+XLSTM_LAYERS = 6
+
+
 def phase_serve_xlstm(torch, fm, dec, serve) -> dict:
-    """xlstm-125m at full width (12 layers, mLSTM d_inner 1536 with head
-    dim 384, sLSTM at layers 1 and 9; no attention), the launcher on the
-    hybrid serve trace, both layouts: equal streams, every request its
-    tokens, no attention kernel launched, no resident KV."""
+    """xlstm-125m at full width (mLSTM d_inner 1536 with head dim 384; no
+    attention) cut to :data:`XLSTM_LAYERS` layers, sLSTM at layer 1, the
+    launcher on the hybrid serve trace, both layouts: equal streams, every
+    request its tokens, no attention kernel launched, no resident KV."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("xlstm-125m")
+    cfg = dataclasses.replace(get_config("xlstm-125m"),
+                              n_layers=XLSTM_LAYERS, slstm_layers=(1,))
     _zero_counts(fm, dec)
     t0 = time.perf_counter()
-    metrics = serve.main(XLSTM_SERVE_ARGS)
+    metrics = serve.main(XLSTM_SERVE_ARGS, cfg=cfg)
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     # no attention layer: every kernel count must stay 0
     legs = _check_legs(metrics, 0, 16, 32, cfg.vocab)
-    emit("serve_xlstm", args=" ".join(XLSTM_SERVE_ARGS), seconds=wall,
-         legs=legs, ssm=_ssm_legs(metrics),
+    emit("serve_xlstm", args=" ".join(XLSTM_SERVE_ARGS),
+         config=f"xlstm-125m n_layers={XLSTM_LAYERS} slstm_layers=(1,)",
+         seconds=wall, legs=legs, ssm=_ssm_legs(metrics),
          outputs_match=metrics["outputs_match"],
          paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
          main_path_launches=launches)
@@ -4622,6 +4995,21 @@ def main() -> int:
     ta = time_async(torch, gen_a, fm, dec, ops, autotune)
     for name, t in ta.items():
         emit("kernel_time", kernel=name, **t)
+    # the device-sharded pool's kernel branches: K1 and K3 on head shards,
+    # the latent body's page strips — cases and timing rows, from a
+    # generator of their own
+    gen_sh = torch.Generator(device="cuda")
+    gen_sh.manual_seed(24)
+    rows_sh = k1_head_shard_cases(torch, gen_sh, ops) + \
+        k3_head_shard_cases(torch, gen_sh, ops) + \
+        latent_strip_cases(torch, gen_sh, dec)
+    for r in rows_sh:
+        emit("kernel_case", **r)
+    rows += rows_sh
+    tsh = time_head_shards(torch, gen_sh, dec, ops, autotune)
+    tsh.update(time_strips(torch, gen_sh, dec, ops, autotune))
+    for name, t in tsh.items():
+        emit("kernel_time", kernel=name, **t)
     bad = [r["case"] for r in rows + rows_same + [
         same, same4, same2l, same256, same3q, same4q, same3qv, same4qv]
            if not r["ok"]]
@@ -4635,7 +5023,8 @@ def main() -> int:
                             t1m["mla_absorbed"])) if not t["ok"]]
     bad += [f"{n} timing shape" for n, t in list(tg.items())
             + list(ts.items()) + list(tq.items()) + list(tv.items())
-            + list(th.items()) + list(ta.items()) if not t["ok"]]
+            + list(th.items()) + list(ta.items()) + list(tsh.items())
+            if not t["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     torch.cuda.empty_cache()
 
@@ -4749,6 +5138,15 @@ def main() -> int:
         + smoke_mla["dense"]["latent_decode_partials"]
     smoke_dims = {k: sum(smoke_mla[lo]["fusemax_prefill_by_dims"].get(k, 0)
                          for lo in smoke_mla) for k in ("48x32",)}
+    latent_dense = mla_launches["latent_decode_partials"] \
+        - mla_launches["latent_decode_partials_strips"]
+
+    def shard_row(t):
+        """A shard count's timing row, in brief."""
+        return {key: t[key] for key in ("shape", "ms", "device_ms",
+                                        "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by", "max_abs_err")}
+
     def async_counts(kernel):
         """A kernel's launches in the async phases' main-path runs."""
         return {"serve_async": async_launches[kernel],
@@ -4847,6 +5245,31 @@ def main() -> int:
                      ta["paged_decode_partials@async_parked"], parked_k3,
                      host_ms=ta["paged_decode_partials@async_parked"][
                          "host_ms"]),
+        # the device-sharded pool (the serve phases' paged_sharded legs on
+        # two shards of the card; launches: each leg's timed run): K3 on
+        # one of 2 kv-head shards (2 a layer and step), and the latent
+        # kernel on one of 2 page strips of K4's 16 splits (2 a layer and
+        # step); the other shard counts' rows beside
+        decode_entry("paged_decode_partials@head_shards", k3_src, k3_tpu,
+                     tsh["paged_decode_partials@head_shard_tp2"],
+                     launches["paged_sharded"]["paged_decode_partials"],
+                     cases_of="paged_decode_partials@head_shards",
+                     tp=SHARD_TP, host_ms=tsh[
+                         "paged_decode_partials@head_shard_tp2"]["host_ms"],
+                     whole_pool_ms=t3["ms"],
+                     whole_pool_device_ms=t3["device_ms"],
+                     other_tp={str(tp): shard_row(
+                         tsh[f"paged_decode_partials@head_shard_tp{tp}"])
+                         for tp in K3_SHARD_TPS if tp != SHARD_TP}),
+        decode_entry("latent_decode_partials@strip", k2l_src, k4_tpu,
+                     tsh["latent_decode_partials@strip_tp2"],
+                     mla_launches["paged_sharded"]["latent_decode_partials"],
+                     cases_of="latent_decode_partials@strip", tp=SHARD_TP, ms_by_strip=tsh[
+                         "latent_decode_partials@strip_tp2"]["ms_by_strip"],
+                     whole_table_device_ms=t4["device_ms"],
+                     other_tp={str(tp): shard_row(
+                         tsh[f"latent_decode_partials@strip_tp{tp}"])
+                         for tp in STRIP_TPS if tp != SHARD_TP}),
         k1_entry("fusemax_prefill@smoke_32x32",
                  ts["fusemax_prefill@smoke_32x32"], smoke["fusemax_prefill"],
                  e=32, f=32),
@@ -4862,14 +5285,15 @@ def main() -> int:
         decode_entry("mla_paged_decode_partials@smoke_32x16", k4_src, k4_tpu,
                      ts["mla_paged_decode_partials@smoke_32x16"],
                      smoke_mla["paged"]["mla_paged_decode_partials"]),
-        # K2's E != F branch: MLA decode on the dense latent cache
-        decode_entry("decode_partials@latent_576x512", k2l_src, k2_tpu, t2l,
-                     mla_launches["latent_decode_partials"],
-                     cases_of="latent_decode_partials",
-                     k2latent_vs_k4_max_abs_diff=same2l[
-                         "max_abs_diff_live"],
-                     **by_n_pos("latent_decode_partials", mla_launches,
-                                mla_spec_launches)),
+        # K2's E != F branch: MLA decode on the dense latent cache (its
+        # launches on serve_mla's page strips are the strip entry's)
+        dict(decode_entry("decode_partials@latent_576x512", k2l_src, k2_tpu,
+                          t2l, latent_dense, cases_of="latent_decode_partials",
+                          k2latent_vs_k4_max_abs_diff=same2l[
+                              "max_abs_diff_live"],
+                          **by_n_pos("latent_decode_partials", mla_launches,
+                                     mla_spec_launches)),
+             launches_n_pos_1=latent_dense),
         # the verify chains of the speculative paths (launches: that
         # path's at n_pos = P)
         decode_entry(f"decode_partials@verify_p{gp}", k2_src, k2_tpu,

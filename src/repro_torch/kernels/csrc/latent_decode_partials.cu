@@ -23,6 +23,13 @@
 // same splits gives the same bits.  Splits are K2's: split_len = M /
 // splits, block_k dividing it.  The reference's dense layout stores no
 // quantized latents, so this kernel has no code branch.
+//
+// It also serves the rank-sharded page pool's decode (the reference's
+// `mla_decode_paged` under shard_map): there each shard's pages hold a
+// slice of the latent rank, the view of the table is made rank-complete
+// (what the reference all-gathers, dequantized first on a code pool),
+// and each shard launches this kernel on one strip of K4's page-aligned
+// splits (split_first), so the concatenated strips are K4's partials.
 
 #include "mla_decode_partials.cuh"
 
@@ -85,18 +92,21 @@ cudaError_t dispatch(int rank, int rope_dim, int maccs, const void* q,
 // config's.  q [b, rows, rank + rope_dim] (rows = n_pos * G, any count);
 // ckv [b, m, rank]; krope [b, m, rope_dim], contiguous; kv_len [b] int32
 // -> pm, pl [b, splits, rows], pnv [b, splits, rows, rank] fp32.
-// split_len = m / splits, split_len % block_k == 0.  softcap <= 0: no
-// softcap.  q, ckv and krope start on 16-byte boundaries.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// split_len % block_k == 0; the launch sweeps splits [split_first,
+// split_first + splits) of split_len keys each, which lie inside m (a
+// whole sweep: split_first = 0, split_len = m / splits).  softcap <= 0:
+// no softcap.  q, ckv and krope start on 16-byte boundaries.  split_first
+// comes last, so an earlier build's interface is a prefix of this one.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int latent_decode_partials(
     const void* q, const void* ckv, const void* krope, const void* kv_len,
     void* pm, void* pl, void* pnv, int dtype, int rank, int rope_dim, int b,
     int rows, int m, int splits, int split_len, int block_k, int n_pos,
     int rows_per_pos, float scale, float softcap, int exp_maccs,
-    void* stream) {
+    void* stream, int split_first) {
   const MlaArgs a{rows,      0,       0,     0,            splits,
                   split_len, block_k, n_pos, rows_per_pos, scale,
-                  softcap};
+                  softcap,   split_first};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)

@@ -29,6 +29,14 @@
 // and a chunk of masked keys after a valid one adds exact zeros (p = 0,
 // a rescale by exp(0) = 1).
 //
+// A launch may sweep a strip of the splits (MlaArgs::split_first): its
+// blocks are splits [split_first, split_first + splits) of the same
+// split_len, with the same keys, walk and reduction order as in a launch
+// of the whole sweep, so the strips' partial stacks concatenated in split
+// order are the whole sweep's bit for bit.  A rank-sharded page pool's
+// decode gives each shard one strip of the table (model/attention.py,
+// mla_decode_paged).
+//
 // Replaces the first body of these kernels (true fp32 FMA on the FP32
 // units, 4 query rows a warp in registers, a 16-shuffle butterfly per 4
 // keys), which ran at 30 % of its FP32-units bound with one 228-register
@@ -184,6 +192,10 @@ struct MlaArgs {
   int n_pos, rows_per_pos;
   float scale;
   float softcap;            // <= 0: no softcap
+  // a strip of the sweep: this launch's `splits` blocks are splits
+  // [split_first, split_first + splits) of split_len keys each (0: the
+  // whole sweep); the partials it writes are indexed within the strip
+  int split_first;
 };
 
 // Latent page pools [n_pages, ps, r] / [n_pages, ps, rd] behind a block
@@ -364,7 +376,7 @@ __device__ __forceinline__ void mla_partials_body(
   const int kvl = kv_len[b];
 
   // tiles of this split the TPU kernel runs (its per-tile skip)
-  const int split0 = sid * a.split_len;
+  const int split0 = (a.split_first + sid) * a.split_len;
   const int n_tiles = a.split_len / a.block_k;
   const int lim = kvl + a.n_pos - 1 - split0;
   const int t1 =

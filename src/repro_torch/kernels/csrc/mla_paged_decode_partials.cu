@@ -95,9 +95,13 @@ cudaError_t dispatch(int rank, int rope_dim, int maccs, const void* q,
 // rope_dim] (rows = n_pos * G); ckv_pages [n_pages, page_size, rank];
 // krope_pages [n_pages, page_size, rope_dim]; block_table [b, w] int32
 // (sentinel = n_pages); kv_len [b] int32 -> pm, pl [b, splits, rows], pnv
-// [b, splits, rows, rank] fp32.  Splits are page-aligned: split_len = (w /
-// splits) * page_size, and page_size % block_k == 0.  softcap <= 0: no
-// softcap.  Returns cudaGetLastError() after the launch (0 on success).
+// [b, splits, rows, rank] fp32.  Splits are page-aligned: split_len is a
+// multiple of page_size (the whole sweep's (w / its splits) * page_size),
+// and page_size % block_k == 0; the launch sweeps splits [split_first,
+// split_first + splits), which lie inside the table (a whole sweep:
+// split_first = 0).  softcap <= 0: no softcap.  split_first comes last,
+// so an earlier build's interface is a prefix of this one.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int mla_paged_decode_partials(
     const void* q, const void* ckv_pages, const void* krope_pages,
     const void* ckv_scale, const void* krope_scale, const void* block_table,
@@ -105,10 +109,10 @@ extern "C" int mla_paged_decode_partials(
     int kv_code, int rank, int rope_dim, int b, int rows, int n_pages,
     int page_size, int w, int splits, int split_len, int block_k, int n_pos,
     int rows_per_pos, float scale, float softcap, int exp_maccs,
-    void* stream) {
-  const MlaArgs a{rows,   n_pages,   page_size, w,            splits,
+    void* stream, int split_first) {
+  const MlaArgs a{rows,      n_pages, page_size, w,            splits,
                   split_len, block_k, n_pos,     rows_per_pos, scale,
-                  softcap};
+                  softcap,   split_first};
   const MlaSource src{ckv_pages, krope_pages, ckv_scale,
                       krope_scale, block_table, kv_len};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

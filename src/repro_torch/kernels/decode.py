@@ -20,7 +20,8 @@ sequence, so the 1-pass cascade runs twice:
    ``csrc/mla_decode_partials.cuh``); each CUDA wrapper counts its
    launches in ``<wrapper>.launches`` and, by draft positions (1 for a
    decode step, P for a verify chain), in
-   ``<wrapper>.launches_by_n_pos``;
+   ``<wrapper>.launches_by_n_pos``, and the latent ones those of a strip
+   of their splits in ``<wrapper>.launches_strips``;
 2. :func:`combine_partials` merges them with the associative running-max
    algebra of Eqs. 48-52, in plain torch ops as the reference keeps it in
    jnp outside its ``pallas_call``.
@@ -45,6 +46,15 @@ latent partials take ckv ``[B, M, r]`` and krope ``[B, M, rd]`` with the
 dense split geometry: they are the dense partials of ``q`` against K =
 ``[ckv | krope]`` and V = ``ckv`` with Hkv = 1, the only E ≠ F call the
 reference makes of its dense kernel (its MLA decode and verify).
+
+The latent partials (both kernels and both plain versions) also sweep a
+*strip* of a split geometry: ``splits`` fixes the split length as for a
+whole sweep, and ``split_first`` / ``n_splits`` pick the splits
+``[split_first, split_first + n_splits)`` the call computes, so partials
+come out ``[B, n_splits, R]``.  Every split is computed as in the whole
+sweep, so the strips of a sweep concatenated in order are its partials
+bit for bit — the rank-sharded pool's decode gives each shard one strip
+(``repro_torch.model.attention.mla_decode_paged``).
 
 Quantized pools (pages of fp8 e4m3 or int8 codes, ``QUANT_CODES``) pass
 their fp16 scale pools — K3: ``k_scale`` / ``v_scale [P, page_size,
@@ -184,12 +194,14 @@ def _check_code_pools(name: str, q: torch.Tensor, *pools: torch.Tensor):
                              f"dtype, on {q.device}")
 
 
-def _count(wrapper, n_pos: int, pages: Optional[torch.Tensor] = None
-           ) -> None:
+def _count(wrapper, n_pos: int, pages: Optional[torch.Tensor] = None,
+           strip: bool = False) -> None:
     """Add one launch to ``wrapper``'s counters: ``launches`` and
     ``launches_by_n_pos[n_pos]`` always, ``launches_by_code[name]`` on a
-    quantized pool."""
+    quantized pool, ``launches_strips`` for a strip of the splits."""
     wrapper.launches += 1
+    if strip:
+        wrapper.launches_strips += 1
     wrapper.launches_by_n_pos[n_pos] = \
         wrapper.launches_by_n_pos.get(n_pos, 0) + 1
     if pages is not None and pages.dtype in QUANT_NAMES:
@@ -214,6 +226,16 @@ def _split_geometry(m: int, splits: int, block_k: int) -> tuple[int, int]:
     if split_len % block_k:
         raise ValueError(f"split_len={split_len} % block_k={block_k}")
     return split_len, block_k
+
+
+def _strip(splits: int, split_first: int, n_splits: Optional[int]) -> int:
+    """The split count of a strip ``[split_first, split_first +
+    n_splits)`` of ``splits`` (``n_splits`` None: the rest of them)."""
+    n = splits - split_first if n_splits is None else n_splits
+    if split_first < 0 or n < 1 or split_first + n > splits:
+        raise ValueError(f"strip [{split_first}, {split_first + n}) is not "
+                         f"inside {splits} splits")
+    return n
 
 
 def _sweep_partials(q: torch.Tensor, tiles, n_tiles: int, kvl: torch.Tensor,
@@ -284,17 +306,23 @@ def decode_partials_torch(
     exp_impl: str = "native",
     n_pos: int = 1,
     rows_per_pos: Optional[int] = None,
+    split_first: int = 0,
+    n_splits: Optional[int] = None,
 ):
     """Plain split-K partials, mirroring ``_decode_partials_kernel``: all
     splits sweep their key tiles in lockstep, each (fiber, split) updating
-    its running state only on the tiles the TPU kernel runs."""
+    its running state only on the tiles the TPU kernel runs.
+    ``split_first`` / ``n_splits``: the strip of the ``splits`` to
+    compute (default: all)."""
     bh, r, e = q.shape
     m, f = v.shape[1], v.shape[2]
     split_len, block_k = _split_geometry(m, splits, block_k)
+    n = _strip(splits, split_first, n_splits)
     dev = q.device
     kvl = kv_len.to(device=dev, dtype=torch.int64).repeat_interleave(hkv)
-    k4 = k.reshape(bh, splits, split_len, e)
-    v4 = v.reshape(bh, splits, split_len, f)
+    strip = slice(split_first, split_first + n)
+    k4 = k.reshape(bh, splits, split_len, e)[:, strip]
+    v4 = v.reshape(bh, splits, split_len, f)[:, strip]
 
     def tiles(t):
         sl = slice(t * block_k, (t + 1) * block_k)
@@ -302,7 +330,8 @@ def decode_partials_torch(
 
     return _sweep_partials(
         q, tiles, split_len // block_k, kvl,
-        torch.arange(splits, device=dev) * split_len, scale=scale,
+        torch.arange(split_first, split_first + n, device=dev) * split_len,
+        scale=scale,
         softcap=softcap, window=window, block_k=block_k, exp_impl=exp_impl,
         n_pos=n_pos, rows_per_pos=r // n_pos if rows_per_pos is None
         else rows_per_pos, f=f)
@@ -394,13 +423,17 @@ def mla_paged_decode_partials_torch(
     rows_per_pos: Optional[int] = None,
     ckv_scale: Optional[torch.Tensor] = None,     # [P, page_size] fp16
     krope_scale: Optional[torch.Tensor] = None,
+    split_first: int = 0,
+    n_splits: Optional[int] = None,
 ):
     """Plain paged MLA partials in latent space, mirroring
     ``_mla_paged_decode_partials_kernel``: the paged sweep of
     :func:`paged_decode_partials_torch` with one fiber per sequence, the
     key tile ``[ckv | krope]`` (one dot over both halves, which the TPU
     kernel sums as two) and the ckv tile as the value tile.  A quantized
-    pool's tiles are dequantized with their per-token scales."""
+    pool's tiles are dequantized with their per-token scales.
+    ``split_first`` / ``n_splits``: the strip of the ``splits`` to
+    compute (default: all)."""
     b, r, e = q.shape
     n_pages, ps, rank = ckv_pages.shape
     bt_b, w = block_table.shape
@@ -411,12 +444,14 @@ def mla_paged_decode_partials_torch(
                          f"{tuple(krope_pages.shape)}, table "
                          f"{tuple(block_table.shape)}")
     split_pages, block_k = _paged_geometry(w, ps, splits, block_k)
+    n = _strip(splits, split_first, n_splits)
     bpp = ps // block_k
     dev = q.device
     kvl = kv_len.to(device=dev, dtype=torch.int64)
     bt = torch.clamp(block_table.to(device=dev, dtype=torch.int64),
                      max=n_pages - 1)
-    slot0 = torch.arange(splits, device=dev) * split_pages   # [S]
+    slot0 = torch.arange(split_first, split_first + n,
+                         device=dev) * split_pages           # [S]
 
     def tiles(t):
         page = bt[:, slot0 + t // bpp]                        # [B, S]
@@ -450,15 +485,19 @@ def latent_decode_partials_torch(
     exp_impl: str = "native",
     n_pos: int = 1,
     rows_per_pos: Optional[int] = None,
+    split_first: int = 0,
+    n_splits: Optional[int] = None,
 ):
     """Plain dense latent partials: :func:`decode_partials_torch` with one
     fiber per sequence (Hkv = 1) on K = ``[ckv | krope]`` and V = ``ckv``
     — what ``_decode_partials_kernel`` computes at the reference's dense
-    MLA call sites."""
+    MLA call sites; ``split_first`` / ``n_splits`` pick a strip of the
+    ``splits``."""
     return decode_partials_torch(
         q, torch.cat([ckv, krope], dim=-1), ckv, kv_len, scale=scale,
         softcap=softcap, hkv=1, splits=splits, block_k=block_k,
-        exp_impl=exp_impl, n_pos=n_pos, rows_per_pos=rows_per_pos)
+        exp_impl=exp_impl, n_pos=n_pos, rows_per_pos=rows_per_pos,
+        split_first=split_first, n_splits=n_splits)
 
 
 def combine_partials(pm: torch.Tensor, pl: torch.Tensor, pnv: torch.Tensor,
@@ -679,7 +718,7 @@ def _mla_lib():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_int])
     smem = lib.mla_paged_decode_partials_smem_bytes
     smem.restype = ctypes.c_int
     smem.argtypes = [ctypes.c_int] * 4
@@ -718,10 +757,13 @@ def mla_paged_decode_partials_cuda(
     rows_per_pos: Optional[int] = None,
     ckv_scale: Optional[torch.Tensor] = None,     # [P, page_size] fp16
     krope_scale: Optional[torch.Tensor] = None,
+    split_first: int = 0,
+    n_splits: Optional[int] = None,
 ):
     """Launch the CUDA paged MLA partials kernel
     (``csrc/mla_paged_decode_partials.cu``) on the current stream (no
-    sync).  Same contract as :func:`mla_paged_decode_partials_torch`.
+    sync).  Same contract as :func:`mla_paged_decode_partials_torch`,
+    strips included.
     Latent pools of int8 or fp8 e4m3 codes take their scale pools and
     fp32 queries (``launches_by_code`` counts those launches by code
     dtype); any other combination raises."""
@@ -762,31 +804,34 @@ def mla_paged_decode_partials_cuda(
         raise ValueError(f"{r} query rows, n_pos={n_pos}, "
                          f"rows_per_pos={rows_per_pos}")
     split_pages, block_k = _paged_geometry(w, ps, splits, block_k)
+    n = _strip(splits, split_first, n_splits)
     head_blocks = -(-r // autotune.MLA_DECODE_ROWS)
     if b > 65535 or head_blocks > 65535:
-        raise ValueError(f"grid ({splits}, {b}, {head_blocks}) too large")
+        raise ValueError(f"grid ({n}, {b}, {head_blocks}) too large")
     fn = _mla_lib()
     f32 = dict(dtype=torch.float32, device=q.device)
-    pm = torch.empty((b, splits, r), **f32)
-    pl = torch.empty((b, splits, r), **f32)
-    pnv = torch.empty((b, splits, r, rank), **f32)
+    pm = torch.empty((b, n, r), **f32)
+    pl = torch.empty((b, n, r), **f32)
+    pnv = torch.empty((b, n, r, rank), **f32)
     no_scale = ctypes.c_void_p(0)
     err = fn(_ptr(q), _ptr(ckv_pages), _ptr(krope_pages),
              _ptr(ckv_scale) if kv_code else no_scale,
              _ptr(krope_scale) if kv_code else no_scale, _ptr(block_table),
              _ptr(kv_len), _ptr(pm), _ptr(pl), _ptr(pnv),
              CUDA_DTYPES[q.dtype], kv_code, rank, rope_dim, b, r, n_pages,
-             ps, w, splits, split_pages * ps, block_k, n_pos, rows_per_pos,
+             ps, w, n, split_pages * ps, block_k, n_pos, rows_per_pos,
              float(scale), 0.0 if softcap is None else float(softcap),
-             int(exp_impl == "maccs"), _stream(q.device))
+             int(exp_impl == "maccs"), _stream(q.device), split_first)
     if err != 0:
         raise RuntimeError(
             f"mla_paged_decode_partials launch failed: CUDA error {err}")
-    _count(mla_paged_decode_partials_cuda, n_pos, ckv_pages)
+    _count(mla_paged_decode_partials_cuda, n_pos, ckv_pages,
+           strip=n < splits)
     return pm, pl, pnv
 
 
 mla_paged_decode_partials_cuda.launches = 0
+mla_paged_decode_partials_cuda.launches_strips = 0
 mla_paged_decode_partials_cuda.launches_by_code = {}
 mla_paged_decode_partials_cuda.launches_by_n_pos = {}
 
@@ -801,7 +846,7 @@ def _latent_lib():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_int])
     smem = lib.latent_decode_partials_smem_bytes
     smem.restype = ctypes.c_int
     smem.argtypes = [ctypes.c_int] * 3
@@ -831,10 +876,13 @@ def latent_decode_partials_cuda(
     exp_impl: str = "native",
     n_pos: int = 1,
     rows_per_pos: Optional[int] = None,
+    split_first: int = 0,
+    n_splits: Optional[int] = None,
 ):
     """Launch the CUDA dense latent partials kernel
     (``csrc/latent_decode_partials.cu``) on the current stream (no sync).
-    Same contract as :func:`latent_decode_partials_torch`; q, ckv and
+    Same contract as :func:`latent_decode_partials_torch`, strips
+    included; q, ckv and
     krope are contiguous and start on 16-byte boundaries, at a latent in
     :data:`CUDA_LATENT_DIMS`; anything else raises."""
     name = "latent_decode_partials_cuda"
@@ -863,29 +911,31 @@ def latent_decode_partials_cuda(
         raise ValueError(f"{r} query rows, n_pos={n_pos}, "
                          f"rows_per_pos={rows_per_pos}")
     split_len, block_k = _split_geometry(m, splits, block_k)
+    n = _strip(splits, split_first, n_splits)
     head_blocks = -(-r // autotune.MLA_DECODE_ROWS)
     if b > 65535 or head_blocks > 65535:
-        raise ValueError(f"grid ({splits}, {b}, {head_blocks}) too large")
+        raise ValueError(f"grid ({n}, {b}, {head_blocks}) too large")
     need = autotune.mla_decode_smem_bytes(rank, rope_dim, q.element_size())
     if need > autotune.SMEM_BUDGET:
         raise ValueError(f"{name}: ({rank}, {rope_dim}) needs {need} B of "
                          f"shared memory > {autotune.SMEM_BUDGET} B per block")
     fn = _latent_lib()
     f32 = dict(dtype=torch.float32, device=q.device)
-    pm = torch.empty((b, splits, r), **f32)
-    pl = torch.empty((b, splits, r), **f32)
-    pnv = torch.empty((b, splits, r, rank), **f32)
+    pm = torch.empty((b, n, r), **f32)
+    pl = torch.empty((b, n, r), **f32)
+    pnv = torch.empty((b, n, r, rank), **f32)
     err = fn(_ptr(q), _ptr(ckv), _ptr(krope), _ptr(kv_len), _ptr(pm),
              _ptr(pl), _ptr(pnv), CUDA_DTYPES[q.dtype], rank, rope_dim, b, r,
-             m, splits, split_len, block_k, n_pos, rows_per_pos,
+             m, n, split_len, block_k, n_pos, rows_per_pos,
              float(scale), 0.0 if softcap is None else float(softcap),
-             int(exp_impl == "maccs"), _stream(q.device))
+             int(exp_impl == "maccs"), _stream(q.device), split_first)
     if err != 0:
         raise RuntimeError(
             f"latent_decode_partials launch failed: CUDA error {err}")
-    _count(latent_decode_partials_cuda, n_pos)
+    _count(latent_decode_partials_cuda, n_pos, strip=n < splits)
     return pm, pl, pnv
 
 
 latent_decode_partials_cuda.launches = 0
+latent_decode_partials_cuda.launches_strips = 0
 latent_decode_partials_cuda.launches_by_n_pos = {}

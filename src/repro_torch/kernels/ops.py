@@ -11,6 +11,10 @@ FuseMax kernels.  Port of ``repro.kernels.ops``.
 ``fusemax_decode_latent`` — the same against a dense latent cache: the
   reference's ``fusemax_decode`` on ``[ckv | krope]`` and ``ckv``, without
   building the concatenation.
+``fusemax_mla_decode_strip`` / ``combine_strips`` — the latent decode's
+  split-K partials over one strip of K4's page-aligned splits (a
+  rank-sharded pool's decode runs one strip a shard) and the combine of
+  the strips' partials.
 
 ``impl``:
   "cuda"   the hand-written Hopper kernel; raises on a CPU tensor,
@@ -440,20 +444,9 @@ def fusemax_mla_decode_paged(
         return fusemax_decode(q, k, ckv[:, None], kv_len, softcap=softcap,
                               scale=scale, impl="ref")
 
-    if splits is None or block_k is None:
-        tuned = autotune.mla_paged_decode_params(
-            w, page_size, max(hq, 8), rank, rope_dim,
-            elem_bytes=ckv_pages.element_size())
-        splits = tuned.splits if splits is None else splits
-        block_k = tuned.block_k if block_k is None else block_k
-    splits = max(1, min(splits, w))
-    while w % splits:
-        splits -= 1
-    block_k = min(block_k, page_size)
-    while page_size % block_k:
-        block_k -= 1
-    block_k = autotune.verify_block_k(block_k, p=p, g=max(hq, 8), e=e,
-                                      f=rank)
+    splits, block_k = mla_paged_geometry(
+        w, page_size, hq, rank, rope_dim, p=p,
+        elem_bytes=ckv_pages.element_size(), splits=splits, block_k=block_k)
     q_f = _fold_decode_q(q, b, 1, hq, e)                     # [B, P·H, e]
     kw = dict(scale=scale, softcap=softcap, splits=splits, block_k=block_k,
               exp_impl=exp_impl, n_pos=p, rows_per_pos=hq,
@@ -468,3 +461,121 @@ def fusemax_mla_decode_paged(
             q_f, ckv_pages, krope_pages, block_table, kv_len, **kw)
     out = combine_partials(pm, pl, pnv, q.dtype)
     return _unfold_decode_out(out, b, 1, hq, rank, p=p)
+
+
+def mla_paged_geometry(w: int, page_size: int, hq: int, rank: int,
+                       rope_dim: int, *, p: int = 1, elem_bytes: int = 4,
+                       splits: Optional[int] = None,
+                       block_k: Optional[int] = None) -> tuple[int, int]:
+    """(splits, block_k) of K4's sweep over a ``w``-page table as
+    :func:`fusemax_mla_decode_paged` resolves them: the tuned pair from
+    :func:`autotune.mla_paged_decode_params` (at the pool's element size)
+    where left as ``None``, splits cut to a divisor of ``w``, ``block_k``
+    to a divisor of the page, and the verify rows' ``block_k`` clamp."""
+    if splits is None or block_k is None:
+        tuned = autotune.mla_paged_decode_params(
+            w, page_size, max(hq, 8), rank, rope_dim, elem_bytes=elem_bytes)
+        splits = tuned.splits if splits is None else splits
+        block_k = tuned.block_k if block_k is None else block_k
+    splits = max(1, min(splits, w))
+    while w % splits:
+        splits -= 1
+    block_k = min(block_k, page_size)
+    while page_size % block_k:
+        block_k -= 1
+    return splits, autotune.verify_block_k(block_k, p=p, g=max(hq, 8),
+                                           e=rank + rope_dim, f=rank)
+
+
+def mla_strips(w: int, page_size: int, hq: int, rank: int, rope_dim: int,
+               tp: int, *, p: int = 1, elem_bytes: int = 4):
+    """How a ``tp``-way sharded decode sweeps a ``w``-page table: the
+    unsharded K4 launch's (splits, block_k) (:func:`mla_paged_geometry`
+    at the pool's element size) and, per shard ``d``, its contiguous
+    strip ``(split_first, n_splits)`` of those splits, ``[d·S/tp,
+    (d+1)·S/tp)`` rounded down.  Each strip is a slice of the unsharded
+    sweep, so the strips' partials concatenated in shard order are its
+    partials bit for bit.  Where ``tp`` does not divide the splits the
+    strips differ in length and a shard may get none (``n_splits`` 0:
+    it launches nothing); a geometry with more splits would balance them
+    but change the fp32 summation order against the unsharded pool."""
+    splits, block_k = mla_paged_geometry(w, page_size, hq, rank, rope_dim,
+                                         p=p, elem_bytes=elem_bytes)
+    bounds = [d * splits // tp for d in range(tp + 1)]
+    return splits, block_k, [(lo, hi - lo)
+                             for lo, hi in zip(bounds, bounds[1:])]
+
+
+def fusemax_mla_decode_strip(
+    q: torch.Tensor,            # [B, H, P, rank + rope_dim] absorbed q_cat
+    ckv: torch.Tensor,          # [B, W·ps, rank] view, or [P_pages, ps, rank]
+    krope: torch.Tensor,        # [B, W·ps, rope_dim], or [P_pages, ps, rd]
+    kv_len: torch.Tensor,       # [B] valid logical lengths
+    *,
+    splits: int,
+    block_k: int,
+    split_first: int,
+    n_splits: int,
+    block_table: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+    impl: str = "auto",
+    exp_impl: str = "native",
+    ckv_scale: Optional[torch.Tensor] = None,
+    krope_scale: Optional[torch.Tensor] = None,
+):
+    """The latent decode's split-K partials over splits ``[split_first,
+    split_first + n_splits)`` of a sweep of ``splits`` page-aligned splits
+    (:func:`mla_strips`): ``(pm, pl, pnv)`` of shapes ``[B,
+    n_splits, P·H]`` and ``[B, n_splits, P·H, rank]``, query rows folded
+    as the kernels take them (:func:`combine_strips` merges the strips).
+
+    Without ``block_table``, ``ckv`` / ``krope`` are the rank-complete
+    view of a table's ``W·ps`` tokens (what the reference all-gathers on a
+    rank-sharded pool) and "cuda" launches the dense latent kernel, K2's
+    E ≠ F branch; with it, they are latent page pools and "cuda" launches
+    K4 (with ``ckv_scale`` / ``krope_scale`` on code pools); "torch" runs
+    the kernel's plain version.  The split length is the one a whole K4
+    sweep of the table at ``splits`` uses, so a strip of the view and the
+    same strip of the pool give the same bits.  There is no "ref" path:
+    the 3-pass oracle has no partials."""
+    b, hq, p, e = q.shape
+    impl = resolve_impl(impl, q)
+    if impl == "ref":
+        raise ValueError("fusemax_mla_decode_strip: the 3-pass oracle has "
+                         "no split-K partials; use impl 'cuda' or 'torch'")
+    scale = scale if scale is not None else 1.0 / (e ** 0.5)
+    q_f = _fold_decode_q(q, b, 1, hq, e)                     # [B, P·H, e]
+    kw = dict(scale=scale, softcap=softcap, splits=splits, block_k=block_k,
+              exp_impl=exp_impl, n_pos=p, rows_per_pos=hq,
+              split_first=split_first, n_splits=n_splits)
+    if block_table is None:
+        if ckv_scale is not None or krope_scale is not None:
+            raise ValueError("a dense latent view is dequantized before "
+                             "the sweep; it takes no scales")
+        if impl == "cuda":
+            return latent_decode_partials_cuda(
+                q_f.contiguous(), ckv, krope,
+                kv_len.to(device=q.device, dtype=torch.int32).contiguous(),
+                **kw)
+        return latent_decode_partials_torch(q_f, ckv, krope, kv_len, **kw)
+    kw.update(ckv_scale=ckv_scale, krope_scale=krope_scale)
+    if impl == "cuda":
+        return mla_paged_decode_partials_cuda(
+            q_f.contiguous(), ckv, krope,
+            block_table.to(device=q.device, dtype=torch.int32).contiguous(),
+            kv_len.to(device=q.device, dtype=torch.int32).contiguous(), **kw)
+    return mla_paged_decode_partials_torch(q_f, ckv, krope, block_table,
+                                           kv_len, **kw)
+
+
+def combine_strips(parts: list, q: torch.Tensor) -> torch.Tensor:
+    """Combine the strips' partials (``(pm, pl, pnv)`` each, in split
+    order, on ``q``'s device) into the latent output ``[B, H, P, rank]``
+    of queries ``q`` — the unsharded sweep's combine on the concatenated
+    stack."""
+    b, hq, p, _ = q.shape
+    pm, pl, pnv = (torch.cat([part[i] for part in parts], dim=1)
+                   for i in range(3))
+    out = combine_partials(pm, pl, pnv, q.dtype)
+    return _unfold_decode_out(out, b, 1, hq, pnv.shape[-1], p=p)

@@ -75,8 +75,15 @@ model behind the prefix-affinity router, at ``--dp-arrival-rate``.
 Each leg reports its dispatches, kernel launches, ``logits_finite`` and
 the device; the JSON goes to ``BENCH_torch_serving_async.json``.
 
-The reference's ``--mesh`` takes the same flag here and exits with the
-ROADMAP item that ports it.  ``--no-compile-cache`` is accepted and does
+``--mesh tp=N`` serves the trace once more with the paged pool sharded
+over N devices (kv-head / latent-rank partitioning, the
+``paged_sharded`` leg, which joins ``outputs_match``), reports
+``mesh``, ``sharded_vs_paged_tok_per_s`` and the per-device bytes under
+``memory.sharding``; with ``--async --dp M`` each of the M replicas
+shards its pool over its own N devices.  The devices are the visible
+CUDA ones (too few exit with a message), or those a library caller
+passes as ``devices=`` — a list may repeat a device, so one card (or the
+CPU) holds every shard.  ``--no-compile-cache`` is accepted and does
 nothing (XLA's cache has no counterpart here).
 """
 from __future__ import annotations
@@ -94,7 +101,9 @@ from repro_torch.kernels.decode import (
     decode_partials_cuda, latent_decode_partials_cuda,
     mla_paged_decode_partials_cuda, paged_decode_partials_cuda,
 )
+from repro_torch.distributed.sharding import visible_devices
 from repro_torch.kernels.fusemax import fusemax_attention_cuda
+from repro_torch.launch.mesh import make_mesh, make_replica_meshes
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime
 from repro_torch.serving.engine import (
@@ -165,8 +174,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _parse_mesh(arg: Optional[str], devices=None):
+    """``--mesh tp=N`` → a one-axis ("model",) mesh of the first N of
+    ``devices`` (default: the visible CUDA devices), over which the paged
+    pool shards.  None / empty / tp=1 → no mesh."""
+    if not arg:
+        return None
+    try:
+        key, n = arg.split("=")
+        n = int(n)
+    except ValueError:
+        raise SystemExit(f"--mesh expects tp=N, got {arg!r}")
+    if key != "tp":
+        raise SystemExit(f"--mesh expects tp=N, got {arg!r}")
+    if n <= 1:
+        return None
+    devs = visible_devices() if devices is None else list(devices)
+    if n > len(devs):
+        raise SystemExit(
+            f"--mesh tp={n} needs {n} devices but only {len(devs)} are "
+            f"visible (a library caller may pass devices=, e.g. one "
+            f"device repeated)")
+    return make_mesh(n, devs)
+
+
 def _serve_one_layout(args, cfg, model, rt, layout: str,
-                      prefix_caching: bool = True,
+                      prefix_caching: bool = True, mesh=None,
                       speculate: Optional[int] = None,
                       kv_dtype: Optional[str] = None,
                       host_swap_bytes: int = 0) -> dict:
@@ -183,8 +216,8 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
                          prefix_caching=prefix_caching,
                          speculate=speculate, kv_dtype=kv_dtype,
                          pool_bytes=pool_bytes,
-                         host_swap_bytes=host_swap_bytes, device=args.device,
-                         seed=args.seed)
+                         host_swap_bytes=host_swap_bytes, mesh=mesh,
+                         device=args.device, seed=args.seed)
     lens = _trace_lens(args)
     warmup_s = None
     if not args.no_warmup:
@@ -318,13 +351,16 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
     return out
 
 
-def speculation_arg(args, cfg: ModelConfig) -> Optional[int]:
+def speculation_arg(args, cfg: ModelConfig,
+                    sharded: bool = False) -> Optional[int]:
     """The ``--speculate`` K the legs serve with (None: off); a K the
-    engine would refuse exits here, before the model is built."""
+    engine would refuse (``sharded``: with ``--mesh``) exits here, before
+    the model is built."""
     spec = None if args.no_speculate else args.speculate
     if spec is None:
         return None
-    why = speculation_refusal(cfg, spec, temperature=args.temperature)
+    why = speculation_refusal(cfg, spec, temperature=args.temperature,
+                              sharded=sharded)
     if why is not None:
         raise SystemExit(f"--speculate {spec} refused for {args.arch}: "
                          f"{why}")
@@ -348,17 +384,23 @@ def _token_config(args, cfg: Optional[ModelConfig]) -> ModelConfig:
     return cfg
 
 
-def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
+def serve_bench(args, cfg: Optional[ModelConfig] = None,
+                devices=None) -> dict:
     """Build the model and engine, serve the synthetic trace, return the
     metrics (``_outputs`` holds the generated streams, in request order).
     ``cfg`` overrides the config ``args.arch`` names (a library caller's
-    cut of a registered arch, e.g. fewer layers)."""
+    cut of a registered arch, e.g. fewer layers); ``devices`` are those
+    ``--mesh`` draws on (default: the visible CUDA devices)."""
     cfg = _token_config(args, cfg)
-    spec = speculation_arg(args, cfg)
-    rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
-    model = tf.init(cfg, args.seed, rt, device=args.device)
     layouts = ["dense", "paged"] if args.cache_layout == "both" \
         else [args.cache_layout]
+    mesh = _parse_mesh(args.mesh, devices)
+    if mesh is not None and "paged" not in layouts:
+        raise SystemExit("--mesh shards the paged pool; add "
+                         "--cache-layout paged (or both)")
+    spec = speculation_arg(args, cfg, sharded=mesh is not None)
+    rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
+    model = tf.init(cfg, args.seed, rt, device=args.device)
     prefix = not args.no_prefix_cache
     per_layout = {lo: _serve_one_layout(args, cfg, model, rt, lo,
                                         prefix_caching=prefix,
@@ -379,6 +421,14 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
         per_layout[base_lo + "_nospec"] = _serve_one_layout(
             args, cfg, model, rt, base_lo, prefix_caching=prefix)
         layouts = layouts + [base_lo + "_nospec"]
+    if mesh is not None:
+        # the device-sharded pool: the identical trace once more with the
+        # pool split over the mesh — outputs_match then holds the sharded
+        # streams to the single-pool ones, and memory.sharding.per_device
+        # shows the 1/tp residency
+        per_layout["paged_sharded"] = _serve_one_layout(
+            args, cfg, model, rt, "paged", prefix_caching=prefix, mesh=mesh)
+        layouts = layouts + ["paged_sharded"]
     swap_bytes = int((args.host_swap_gb or 0) * (1 << 30))
     if swap_bytes and "paged" in per_layout:
         # the swap tier is lossless (pages round-trip bit for bit through
@@ -452,6 +502,14 @@ def serve_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
                 per_layout[base_lo]["tok_per_s"]
                 / max(per_layout[base_lo + "_nospec"]["tok_per_s"], 1e-9),
                 3))
+    if mesh is not None:
+        metrics["mesh"] = {"tp": int(mesh.shape["model"]),
+                           "axes": list(mesh.axis_names),
+                           "devices": [str(d) for d in mesh.devices]}
+        if "paged" in per_layout:
+            metrics["sharded_vs_paged_tok_per_s"] = round(
+                per_layout["paged_sharded"]["tok_per_s"]
+                / max(per_layout["paged"]["tok_per_s"], 1e-9), 3)
     metrics["device"] = device_info(torch.device(args.device))
     metrics["_outputs"] = outputs[layouts[0]]
     metrics["_outputs_by_layout"] = outputs
@@ -496,14 +554,14 @@ def _fresh_requests(prompts, budgets, arrivals, t0) -> list:
 
 
 def _async_engine(args, cfg, model, rt, *, layout, prefix_caching,
-                  clock=None) -> AsyncServeEngine:
+                  clock=None, mesh=None) -> AsyncServeEngine:
     return AsyncServeEngine(
         cfg, model, slots=args.slots, max_len=args.max_len, rt=rt,
         temperature=args.temperature, decode_chunk=args.decode_chunk,
         prefill_chunk=args.prefill_chunk, cache_layout=layout,
         page_size=args.page_size, num_pages=args.num_pages,
         prefix_caching=prefix_caching, prefill_quantum=args.prefill_quantum,
-        clock=clock, device=args.device, seed=args.seed)
+        clock=clock, mesh=mesh, device=args.device, seed=args.seed)
 
 
 def _leg_summary(engines, reqs, launches: dict) -> dict:
@@ -537,20 +595,31 @@ def _timed_serve(device: torch.device, serve) -> dict:
     return _delta(kernel_launches(), launches0)
 
 
-def serve_async_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
+def serve_async_bench(args, cfg: Optional[ModelConfig] = None,
+                      devices=None) -> dict:
     """Open-loop async serving bench: the same seeded Poisson arrival
     trace served through (a) the async engine on dense / paged /
     paged+prefix — greedy streams held to a synchronous engine's
     (``outputs_match``), (b) the synchronous engine open-loop on the
     paged+prefix layout for the tail-latency comparison
     (``itl_p95_sync_over_async``), and (c, ``--dp N``) N replicas behind
-    the prefix-affinity router for the routed prefix reuse.  ``cfg`` as
-    in :func:`serve_bench`."""
+    the prefix-affinity router for the routed prefix reuse, each replica's
+    pool sharded over its own ``--mesh tp=M`` devices (drawn from
+    ``devices``, by default the visible CUDA devices).  ``cfg`` as in
+    :func:`serve_bench`."""
     if args.speculate and not args.no_speculate:
         raise SystemExit("--speculate does not combine with --async yet "
                          "(the fused verify dispatch conflicts with "
                          "mid-prefill slots)")
     cfg = _token_config(args, cfg)
+    mesh = _parse_mesh(args.mesh, devices)
+    tp = 1 if mesh is None else int(mesh.shape["model"])
+    meshes = None
+    if args.dp > 1:
+        try:
+            meshes = make_replica_meshes(args.dp, tp, devices)
+        except ValueError as e:
+            raise SystemExit(f"--dp {args.dp} --mesh {args.mesh}: {e}")
     rt = Runtime(activation_dtype=torch.float32, param_dtype=torch.float32)
     model = tf.init(cfg, args.seed, rt, device=args.device)
     prompts, budgets = _async_trace(args, cfg)
@@ -629,14 +698,15 @@ def serve_async_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
     }
 
     if args.dp > 1:
-        # the reference's tp = 1 case: every replica on the one device
-        # (make_replica_meshes(dp, 1) gives no mesh), sharing the model's
-        # weights and owning its own page pool
+        # every replica shares the model's weights and owns its page pool,
+        # unsharded at tp = 1 (make_replica_meshes gives no mesh) or
+        # sharded over its own tp devices
         clock = WallClock()
         engines = []
-        for _ in range(args.dp):
+        for replica_mesh in meshes:
             e = _async_engine(args, cfg, model, rt, layout="paged",
-                              prefix_caching=True, clock=clock)
+                              prefix_caching=True, clock=clock,
+                              mesh=replica_mesh)
             if not args.no_warmup:
                 e.warmup(lens)
             engines.append(e)
@@ -653,7 +723,7 @@ def serve_async_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
         leg = _leg_summary(engines, dreqs, launches)
         metrics["dp"] = dict(
             dpe.stats_summary(),
-            tp=1,
+            tp=tp,
             arrival_rate=dp_rate,
             latency=latency_metrics(dreqs),
             outputs_match=outputs["dp"] == outputs["sync"],
@@ -674,12 +744,6 @@ def serve_async_bench(args, cfg: Optional[ModelConfig] = None) -> dict:
 def _empty_cache(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-
-
-#: flags of legs not ported yet → (is it set?, ROADMAP item)
-_UNPORTED = (
-    (lambda a: bool(a.mesh), "--mesh", "§1 item 8, device-sharded pool"),
-)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -746,7 +810,14 @@ def _parser() -> argparse.ArgumentParser:
                          "pages demote to host memory and promote back on "
                          "a hit; adds a lossless 'paged_swap' leg to "
                          "outputs_match")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="shard the paged pool across devices: tp=N splits "
+                         "every page array's kv-head / latent-rank axis "
+                         "over N devices and serves the trace once more as "
+                         "the 'paged_sharded' leg (in outputs_match; "
+                         "per-device bytes under memory.sharding); with "
+                         "--async --dp M, each replica shards over its "
+                         "own N devices")
     ap.add_argument("--async", dest="run_async", action="store_true",
                     help="open-loop async serving: seeded Poisson arrivals "
                          "at --arrival-rate, per-token timestamps, prefill "
@@ -770,7 +841,8 @@ def _parser() -> argparse.ArgumentParser:
                          "(default: --new-tokens)")
     ap.add_argument("--dp", type=int, default=1,
                     help="async: serve the trace once more through N paged "
-                         "replicas behind the prefix-affinity router")
+                         "replicas behind the prefix-affinity router (tp "
+                         "per replica from --mesh)")
     ap.add_argument("--dp-arrival-rate", type=float, default=None,
                     help="offered load of the --dp leg (default: "
                          "--arrival-rate)")
@@ -783,17 +855,14 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[list] = None,
-         cfg: Optional[ModelConfig] = None) -> dict:
-    """Run the launcher on ``argv``; ``cfg`` as in :func:`serve_bench`."""
+def main(argv: Optional[list] = None, cfg: Optional[ModelConfig] = None,
+         devices=None) -> dict:
+    """Run the launcher on ``argv``; ``cfg`` and ``devices`` as in
+    :func:`serve_bench`."""
     args = _parser().parse_args(argv)
-    for is_set, flag, item in _UNPORTED:
-        if is_set(args):
-            raise SystemExit(f"{flag} is not ported to repro_torch yet "
-                             f"(ROADMAP {item})")
     if args.run_async:
-        return _main_async(args, cfg)
-    metrics = serve_bench(args, cfg)
+        return _main_async(args, cfg, devices)
+    metrics = serve_bench(args, cfg, devices)
     hidden = {k: metrics.pop(k) for k in ("_outputs", "_outputs_by_layout")}
     print(f"served {metrics['requests']} requests "
           f"({metrics['tokens_decoded']} new tokens) in "
@@ -819,6 +888,13 @@ def main(argv: Optional[list] = None,
                   f"({ht['demoted_bytes']} B) resident on host; host ms "
                   f"demote {m['host_swap_ms']['demote']:.2f}, promote "
                   f"{m['host_swap_ms']['promote']:.2f}")
+        sh = mem.get("sharding")
+        if sh:
+            pd = sh["per_device"]
+            print(f"    pool sharded tp={sh['tp']} over '{sh['axis']}': "
+                  f"per-device peak resident "
+                  f"{pd['peak_resident_cache_bytes']} B, physical "
+                  f"{pd['physical_cache_bytes']} B")
         pf = m["prefix"]
         if pf["tokens_reused"]:
             print(f"    prefix cache: {pf['hits']} hits "
@@ -830,6 +906,10 @@ def main(argv: Optional[list] = None,
     if "outputs_match" in metrics:
         print(f"  greedy outputs match across layouts: "
               f"{metrics['outputs_match']}")
+    if "sharded_vs_paged_tok_per_s" in metrics:
+        print(f"  sharded/paged tok/s = "
+              f"{metrics['sharded_vs_paged_tok_per_s']} on "
+              f"{metrics['mesh']['devices']}")
     qq = metrics.get("quant_quality")
     if qq:
         print(f"  quantized leg ({qq['kv_dtype']}): token match rate "
@@ -848,10 +928,10 @@ def main(argv: Optional[list] = None,
     return metrics
 
 
-def _main_async(args, cfg: Optional[ModelConfig]) -> dict:
+def _main_async(args, cfg: Optional[ModelConfig], devices=None) -> dict:
     if args.json == "BENCH_torch_serving.json":
         args.json = "BENCH_torch_serving_async.json"
-    metrics = serve_async_bench(args, cfg)
+    metrics = serve_async_bench(args, cfg, devices)
     hidden = metrics.pop("_outputs_by_leg")
     a, s = metrics["async"], metrics["sync_open_loop"]
     print(f"async open-loop @ {metrics['arrival_rate']} req/s: "
@@ -865,7 +945,7 @@ def _main_async(args, cfg: Optional[ModelConfig]) -> dict:
           f"{metrics['outputs_match']}")
     dp = metrics.get("dp")
     if dp:
-        print(f"  dp={dp['dp']} routed: tokens_reused "
+        print(f"  dp={dp['dp']} x tp={dp['tp']} routed: tokens_reused "
               f"{dp['tokens_reused']} (per replica "
               f"{[p['tokens_reused'] for p in dp['per_replica']]}), "
               f"routing {dp['routing']['prefix_routed']} by prefix / "

@@ -62,6 +62,25 @@ and the prefix hash all see raw codes.  A continuation chunk attends its
 own K/V quant-round-tripped, as the reference does, so it sees exactly
 what later reads reconstruct.
 
+A device-sharded pool (``Runtime.kv_shard``, a
+:class:`repro_torch.distributed.sharding.KVShard` of ``tp`` devices)
+keeps each page array as ``tp`` tensors, shard ``d`` on ``devices[d]``
+with its own sink page: GQA pools split on the kv-head axis, MLA latent
+pools on the rank axis, MLA scale pools stay whole on the engine's
+device.  GQA prefill and decode run head-parallel
+(:func:`_over_head_shards`): each shard takes its slice of the query and
+fresh K/V heads, writes its pages and runs K1 (prefill; at ``off == 0``
+too, as the reference's sharded path does) or K3 (decode) on them, and
+the heads concatenate in shard order before the replicated ``wo``.  MLA
+writes rank slices; a continuation chunk reads the rank-complete view of
+its history (the reference's all-gather); a decode step makes that view
+of the whole table and each shard sweeps one contiguous strip of K4's
+page-aligned splits with the latent kernel
+(``ops.fusemax_mla_decode_strip``), and the strips' partials combine
+once.  Every shard computes exactly what the unsharded call computes for
+its heads or splits, so greedy streams equal the unsharded pool's bit
+for bit.
+
 Speculative verify (:func:`gqa_verify`, :func:`gqa_verify_paged`,
 :func:`mla_verify`, :func:`mla_verify_paged`) scores a P-token chain in
 one call: chain position j sits at ``kv_len - 1 + j`` and attends keys
@@ -81,9 +100,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed.sharding import leaf_parts, shard_slice
 from repro_torch.kernels.ops import (
-    fusemax_attention, fusemax_decode, fusemax_decode_latent,
-    fusemax_decode_paged, fusemax_mla_decode_paged, gather_pages,
+    combine_strips, fusemax_attention, fusemax_decode, fusemax_decode_latent,
+    fusemax_decode_paged, fusemax_mla_decode_paged, fusemax_mla_decode_strip,
+    gather_pages, mla_strips,
 )
 from repro_torch.model.layers import (
     Norm, Runtime, _param, apply_norm, normal_, rope,
@@ -403,7 +424,7 @@ def _gqa_capacity(cache: dict, bt_rows: torch.Tensor,
                   spec: LayerSpec) -> int:
     """Logical token capacity of a paged GQA cache: the window for local
     layers, the full table span for global layers."""
-    page_size = cache["k_pages"].shape[1]
+    page_size = leaf_parts(cache["k_pages"])[0].shape[1]
     return spec.window if spec.window is not None \
         else bt_rows.shape[1] * page_size
 
@@ -491,6 +512,25 @@ def _readable_scales(cache: dict, *names: str) -> list:
     return [pool_pages(cache[n]) if n in cache else None for n in names]
 
 
+def _over_head_shards(shard, cache: dict, fn, *heads: torch.Tensor
+                      ) -> torch.Tensor:
+    """``fn(part, *heads)`` on the whole pool (``shard`` None), or once per
+    shard of a head-sharded pool: shard ``d`` gets its page tensors and
+    its slice of each ``[B, H*, ...]`` head tensor on its device, and the
+    outputs concatenate on the head axis, in shard order, on the device
+    of ``heads``."""
+    if shard is None:
+        return fn(cache, *heads)
+    lead = heads[0].device
+    outs = []
+    for d, dev in enumerate(shard.devices):
+        part = {name: leaf[d] for name, leaf in cache.items()}
+        sliced = (t[:, shard_slice(t.shape[1], d, shard.size)].to(dev)
+                  for t in heads)
+        outs.append(fn(part, *sliced).to(lead))
+    return torch.cat(outs, dim=1)
+
+
 def gqa_prefill_paged(p: GQA, x: torch.Tensor, cache: dict,
                       bt_rows: torch.Tensor, off: int, cfg: ModelConfig,
                       spec: LayerSpec, rt: Runtime, true_len: torch.Tensor,
@@ -499,7 +539,9 @@ def gqa_prefill_paged(p: GQA, x: torch.Tensor, cache: dict,
     [off, off+S) attend history gathered through ``bt_rows`` plus the
     chunk; the chunk's K/V then scatter into pages, masked by
     ``true_len`` and by ``cached_len`` (positions below it live in pages
-    mapped from the prefix index: read, never rewritten).  x: [B, S, d]."""
+    mapped from the prefix index: read, never rewritten).  On a sharded
+    pool (``rt.kv_shard``) each shard does so for its heads.  x: [B, S,
+    d]."""
     b, s_len, _ = x.shape
     positions = torch.arange(off, off + s_len, device=x.device).expand(
         b, s_len)
@@ -512,24 +554,29 @@ def gqa_prefill_paged(p: GQA, x: torch.Tensor, cache: dict,
     valid = valid.expand(b, s_len)
 
     q, k_new, v_new = _proj_qkv(p, x, cfg, positions)
-    k_q, k_s, v_q, v_s, k_att, v_att = _gqa_quant_new(cache, k_new, v_new)
-    if off == 0:
-        # the first chunk attends its K/V as computed, as the reference's
-        # gqa_forward does (quantized or not)
-        y = gqa_forward(p, x, cfg, spec, rt, qkv=(q, k_new, v_new))
-    else:
-        ks, vs = _readable_scales(cache, "k_scale", "v_scale")
-        out = _gqa_paged_attend(q, k_att, v_att,
-                                pool_pages(cache["k_pages"]),
-                                pool_pages(cache["v_pages"]), bt_rows, off,
-                                cap, cfg, spec, rt, k_scale=ks, v_scale=vs)
-        y = _out_proj(p, out)
-    for name, new in (("k_pages", k_q), ("v_pages", v_q), ("k_scale", k_s),
-                      ("v_scale", v_s)):
-        if new is not None:
-            write_pages(cache[name], bt_rows, positions, new.transpose(1, 2),
-                        cap, valid)
-    return y, cache
+
+    def attend_write(part: dict, q, k_new, v_new):
+        dev = q.device
+        bt = bt_rows.to(dev)
+        k_q, k_s, v_q, v_s, k_att, v_att = _gqa_quant_new(part, k_new,
+                                                          v_new)
+        if off == 0:
+            # the first chunk attends its K/V as computed, as the
+            # reference's gqa_forward does (quantized or not)
+            k_att, v_att = k_new, v_new
+        ks, vs = _readable_scales(part, "k_scale", "v_scale")
+        out = _gqa_paged_attend(q, k_att, v_att, pool_pages(part["k_pages"]),
+                                pool_pages(part["v_pages"]), bt, off, cap,
+                                cfg, spec, rt, k_scale=ks, v_scale=vs)
+        for name, new in (("k_pages", k_q), ("v_pages", v_q),
+                          ("k_scale", k_s), ("v_scale", v_s)):
+            if new is not None:
+                write_pages(part[name], bt, positions.to(dev),
+                            new.transpose(1, 2), cap, valid.to(dev))
+        return out
+
+    out = _over_head_shards(rt.kv_shard, cache, attend_write, q, k_new, v_new)
+    return _out_proj(p, out), cache
 
 
 def decode_slots(cache: dict, bt_rows: torch.Tensor, kv_len: torch.Tensor,
@@ -540,10 +587,10 @@ def decode_slots(cache: dict, bt_rows: torch.Tensor, kv_len: torch.Tensor,
     class, so a step computes it once per class."""
     pos = (kv_len.long() - 1)[:, None]
     if "ckv_pages" in cache:
-        pages = cache["ckv_pages"]
+        pages = leaf_parts(cache["ckv_pages"])[0]
         cap = bt_rows.shape[1] * pages.shape[1]
     else:
-        pages = cache["k_pages"]
+        pages = leaf_parts(cache["k_pages"])[0]
         cap = _gqa_capacity(cache, bt_rows, spec)
     return page_slots(pages, bt_rows, pos, cap, (kv_len > 0)[:, None])
 
@@ -557,31 +604,38 @@ def gqa_decode_paged(p: GQA, x: torch.Tensor, cache: dict,
     (kv_len = 0) drop their writes (into the sink page).  ``slots``: this
     step's :func:`decode_slots`, when the caller shares them across
     layers.  A ring layer writes at ``(kv_len - 1) % window`` and reads
-    ``min(kv_len, window)`` logical tokens of its class's table.  x: [B,
-    1, d]."""
+    ``min(kv_len, window)`` logical tokens of its class's table.  On a
+    sharded pool each shard writes and runs K3 for its heads.  x: [B, 1,
+    d]."""
     pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
     q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, 1, dh]
     page, off = decode_slots(cache, bt_rows, kv_len, spec) \
         if slots is None else slots
-    k_q, k_s, v_q, v_s, _, _ = _gqa_quant_new(cache, k_new, v_new)
-    for name, new in (("k_pages", k_q), ("v_pages", v_q), ("k_scale", k_s),
-                      ("v_scale", v_s)):
-        if new is not None:
-            pages = cache[name]
-            pages[page, off] = new.transpose(1, 2).to(pages.dtype)
     cap = None if spec.window is None \
         else _gqa_capacity(cache, bt_rows, spec)
     eff_len = kv_len if cap is None else torch.clamp(kv_len, max=cap)
-    ks, vs = _readable_scales(cache, "k_scale", "v_scale")
-    out = fusemax_decode_paged(
-        q, pool_pages(cache["k_pages"]), pool_pages(cache["v_pages"]),
-        bt_rows, eff_len, capacity=cap,
-        softcap=cfg.attn_softcap,
-        impl=rt.attn_impl,
-        splits=rt.decode_splits,
-        exp_impl=rt.exp_impl,
-        k_scale=ks, v_scale=vs,
-    )                                                    # [B, H, 1, dh]
+
+    def write_attend(part: dict, q, k_new, v_new):
+        dev = q.device
+        pg, po = page.to(dev), off.to(dev)
+        k_q, k_s, v_q, v_s, _, _ = _gqa_quant_new(part, k_new, v_new)
+        for name, new in (("k_pages", k_q), ("v_pages", v_q),
+                          ("k_scale", k_s), ("v_scale", v_s)):
+            if new is not None:
+                pages = part[name]
+                pages[pg, po] = new.transpose(1, 2).to(pages.dtype)
+        ks, vs = _readable_scales(part, "k_scale", "v_scale")
+        return fusemax_decode_paged(
+            q, pool_pages(part["k_pages"]), pool_pages(part["v_pages"]),
+            bt_rows.to(dev), eff_len.to(dev), capacity=cap,
+            softcap=cfg.attn_softcap,
+            impl=rt.attn_impl,
+            splits=rt.decode_splits,
+            exp_impl=rt.exp_impl,
+            k_scale=ks, v_scale=vs,
+        )                                                # [B, H, 1, dh]
+
+    out = _over_head_shards(rt.kv_shard, cache, write_attend, q, k_new, v_new)
     return _out_proj(p, out), cache
 
 
@@ -880,22 +934,51 @@ def _mla_quant_new(cache: dict, ckv_new: torch.Tensor,
     scales."""
     if "ckv_scale" not in cache:
         return ckv_new, None, krope_new, None
-    qdt = cache["ckv_pages"].dtype
+    qdt = leaf_parts(cache["ckv_pages"])[0].dtype
     ckv_q, ckv_s = quantize_kv(ckv_new, qdt)
     kr_q, kr_s = quantize_kv(krope_new, qdt)
     return ckv_q, ckv_s, kr_q, kr_s
+
+
+def _rank_slices(leaf, new: torch.Tensor):
+    """(pool, values) pairs that write ``new`` ([..., r]) into a latent
+    pool leaf: the whole vectors into an unsharded (or replicated) pool,
+    shard ``d``'s slice of the last axis into shard ``d``, on its
+    device."""
+    parts = leaf_parts(leaf)
+    if len(parts) == 1:
+        return [(parts[0], new)]
+    return [(part, new[..., shard_slice(new.shape[-1], d, len(parts))]
+             .to(part.device)) for d, part in enumerate(parts)]
 
 
 def _mla_write(cache: dict, bt_rows: torch.Tensor, positions: torch.Tensor,
                cap: int, valid: Optional[torch.Tensor],
                ckv_new: torch.Tensor, krope_new: torch.Tensor) -> None:
     """Write a chunk's latents (quantized first on a quantized pool, with
-    their scales) into the pools through the block-table rows."""
+    their scales: over whole vectors, so a rank-sharded pool's shards hold
+    slices of the unsharded codes) into the pools through the block-table
+    rows."""
     ckv_q, ckv_s, kr_q, kr_s = _mla_quant_new(cache, ckv_new, krope_new)
     for name, new in (("ckv_pages", ckv_q), ("krope_pages", kr_q),
                       ("ckv_scale", ckv_s), ("krope_scale", kr_s)):
-        if new is not None:
-            write_pages(cache[name], bt_rows, positions, new, cap, valid)
+        if new is None:
+            continue
+        for pages, vals in _rank_slices(cache[name], new):
+            dev = pages.device
+            write_pages(pages, bt_rows.to(dev), positions.to(dev), vals, cap,
+                        None if valid is None else valid.to(dev))
+
+
+def _latent_view(leaf, rows: torch.Tensor, tot: int,
+                 device: torch.device) -> torch.Tensor:
+    """The first ``tot`` tokens of a latent (or scale) pool leaf gathered
+    through table rows, on ``device``: a rank-sharded leaf's shards
+    gathered where they lie and concatenated on the rank axis — the
+    reference's all-gather of the rank-complete view."""
+    views = [gather_pages(pool_pages(part), rows.to(part.device))[:, :tot]
+             .to(device) for part in leaf_parts(leaf)]
+    return views[0] if len(views) == 1 else torch.cat(views, dim=-1)
 
 
 def mla_prefill_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
@@ -912,13 +995,15 @@ def mla_prefill_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
     positions ``[0, off + S)`` gathered through ``bt_rows`` after the
     chunk's writes — as the reference reads them, so a position the masks
     kept from being written is read from its page, and on a quantized
-    pool every latent is read back dequantized.  x: [B, S, d]."""
+    pool every latent is read back dequantized.  A rank-sharded pool
+    takes rank slices and is read as the rank-complete view.  x: [B, S,
+    d]."""
     b, s_len, _ = x.shape
     positions = torch.arange(off, off + s_len, device=x.device).expand(
         b, s_len)
     latent = _mla_qkv_latent(p, x, cfg, positions)
     q_nope, q_rope, ckv_new, krope_new = latent
-    ps = cache["ckv_pages"].shape[1]
+    ps = leaf_parts(cache["ckv_pages"])[0].shape[1]
     cap = bt_rows.shape[1] * ps
     valid = positions[:1] < true_len.to(x.device).long()[:, None]
     if cached_len is not None:
@@ -932,12 +1017,13 @@ def mla_prefill_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
     tot = off + s_len
     hp = -(-tot // ps)
     rows = bt_rows[:, :hp]
-    ckv, krope = (gather_pages(pool_pages(cache[n]), rows)[:, :tot]
+    ckv, krope = (_latent_view(cache[n], rows, tot, x.device)
                   for n in ("ckv_pages", "krope_pages"))
     if "ckv_scale" in cache:
-        ckv, krope = (dequantize_kv(v, gather_pages(
-            pool_pages(cache[n]), rows)[:, :tot], x.dtype)
-            for v, n in ((ckv, "ckv_scale"), (krope, "krope_scale")))
+        ckv, krope = (dequantize_kv(v, _latent_view(cache[n], rows, tot,
+                                                    x.device), x.dtype)
+                      for v, n in ((ckv, "ckv_scale"),
+                                   (krope, "krope_scale")))
     out = _mla_absorbed_attend(p, q_nope, q_rope, ckv, krope, off, cfg, rt)
     return _out_proj(p, out), cache
 
@@ -946,11 +1032,13 @@ def mla_decode_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
                      bt_rows: torch.Tensor, kv_len: torch.Tensor,
                      cfg: ModelConfig, spec: LayerSpec, rt: Runtime,
                      slots=None):
-    """Absorbed-form decode against the latent pages (the reference's
-    unsharded branch): write the new latents at the logical tail, then K4
-    through ``ops.fusemax_mla_decode_paged`` and the W_uv / ``wo`` lifts.
+    """Absorbed-form decode against the latent pages: write the new
+    latents at the logical tail, then K4 through
+    ``ops.fusemax_mla_decode_paged`` and the W_uv / ``wo`` lifts.
     Inactive slots (kv_len = 0) drop their writes.  ``slots``: this
-    step's :func:`decode_slots`, shared across layers.  x: [B, 1, d]."""
+    step's :func:`decode_slots`, shared across layers.  A rank-sharded
+    pool (``rt.kv_shard``) takes rank slices and decodes in page strips
+    (:func:`_mla_decode_strips`).  x: [B, 1, d]."""
     pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv_latent(p, x, cfg, pos)
     page, off = decode_slots(cache, bt_rows, kv_len, spec) \
@@ -958,22 +1046,66 @@ def mla_decode_paged(p: MLAAttention, x: torch.Tensor, cache: dict,
     ckv_q, ckv_s, kr_q, kr_s = _mla_quant_new(cache, ckv_new, krope_new)
     for name, new in (("ckv_pages", ckv_q), ("krope_pages", kr_q),
                       ("ckv_scale", ckv_s), ("krope_scale", kr_s)):
-        if new is not None:
-            pages = cache[name]
-            pages[page, off] = new.to(pages.dtype)
+        if new is None:
+            continue
+        for pages, vals in _rank_slices(cache[name], new):
+            dev = pages.device
+            pages[page.to(dev), off.to(dev)] = vals.to(pages.dtype)
     dt = x.dtype
     q_eff = torch.einsum("bhse,rhe->bhsr", q_nope, p.w_uk.to(dt))
     q_cat = torch.cat([q_eff, q_rope], dim=-1)           # [B, H, 1, r+rd]
-    cs, ks = _readable_scales(cache, "ckv_scale", "krope_scale")
-    out_lat = fusemax_mla_decode_paged(
-        q_cat, pool_pages(cache["ckv_pages"]),
-        pool_pages(cache["krope_pages"]), bt_rows, kv_len,
-        scale=_mla_scale(cfg), softcap=cfg.attn_softcap,
-        impl=rt.attn_impl, exp_impl=rt.exp_impl,
-        ckv_scale=cs, krope_scale=ks,
-    )                                                    # [B, H, 1, r]
+    if rt.kv_shard is not None:
+        out_lat = _mla_decode_strips(q_cat, cache, bt_rows, kv_len, cfg, rt)
+    else:
+        cs, ks = _readable_scales(cache, "ckv_scale", "krope_scale")
+        out_lat = fusemax_mla_decode_paged(
+            q_cat, pool_pages(cache["ckv_pages"]),
+            pool_pages(cache["krope_pages"]), bt_rows, kv_len,
+            scale=_mla_scale(cfg), softcap=cfg.attn_softcap,
+            impl=rt.attn_impl, exp_impl=rt.exp_impl,
+            ckv_scale=cs, krope_scale=ks,
+        )                                                # [B, H, 1, r]
     out = torch.einsum("bhsr,rhe->bhse", out_lat, p.w_uv.to(dt))
     return _out_proj(p, out), cache
+
+
+def _mla_decode_strips(q_cat: torch.Tensor, cache: dict,
+                       bt_rows: torch.Tensor, kv_len: torch.Tensor,
+                       cfg: ModelConfig, rt: Runtime) -> torch.Tensor:
+    """The rank-sharded pool's decode (the reference's sharded branch of
+    ``mla_decode_paged``): the rank-complete view of the whole table
+    (dequantized on a code pool), then on each shard's device one
+    contiguous strip of the page-aligned splits the unsharded K4 launch
+    would sweep (``ops.mla_strips``, at the pool's element size) through
+    the latent kernel, and one combine of the strips' partials in split
+    order.  Returns the latent output ``[B, H, 1, r]``."""
+    shard = rt.kv_shard
+    dev = q_cat.device
+    ckv_parts = leaf_parts(cache["ckv_pages"])
+    _, ps, _ = ckv_parts[0].shape
+    w = bt_rows.shape[1]
+    ckv = _latent_view(cache["ckv_pages"], bt_rows, w * ps, dev)
+    krope = _latent_view(cache["krope_pages"], bt_rows, w * ps, dev)
+    if "ckv_scale" in cache:
+        ckv, krope = (dequantize_kv(v, _latent_view(cache[n], bt_rows,
+                                                    w * ps, dev))
+                      for v, n in ((ckv, "ckv_scale"),
+                                   (krope, "krope_scale")))
+    splits, block_k, strips = mla_strips(
+        w, ps, q_cat.shape[1], ckv.shape[-1], krope.shape[-1], shard.size,
+        elem_bytes=ckv_parts[0].element_size())
+    views, parts = {}, []
+    for sdev, (first, n) in zip(shard.devices, strips):
+        if n == 0:
+            continue
+        if sdev not in views:
+            views[sdev] = (ckv.to(sdev), krope.to(sdev))
+        parts.append(tuple(t.to(dev) for t in fusemax_mla_decode_strip(
+            q_cat.to(sdev), *views[sdev], kv_len.to(sdev), splits=splits,
+            block_k=block_k, split_first=first, n_splits=n,
+            scale=_mla_scale(cfg), softcap=cfg.attn_softcap,
+            impl=rt.attn_impl, exp_impl=rt.exp_impl)))
+    return combine_strips(parts, q_cat)
 
 
 def mla_verify_paged(p: MLAAttention, x: torch.Tensor, cache: dict,

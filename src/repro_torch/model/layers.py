@@ -33,6 +33,9 @@ class Runtime:
     activation_dtype: torch.dtype = torch.bfloat16
     #: split-K factor for decode; None → autotuned
     decode_splits: Optional[int] = None
+    #: the paged pool's device sharding
+    #: (:class:`repro_torch.distributed.sharding.KVShard`); None: one pool
+    kv_shard: Optional[object] = None
 
 
 def strict_fp32() -> None:

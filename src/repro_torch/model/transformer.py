@@ -29,7 +29,12 @@ Entry points:
 
 ``block_tables`` (``{"full": [slots, W] int32}`` on the device) selects
 the paged layout in ``prefill`` / ``decode_step`` / ``decode_loop`` /
-``verify_step`` / ``speculative_step``.
+``verify_step`` / ``speculative_step``.  On a device-sharded pool
+(``Runtime.kv_shard``; its page leaves are lists of shards, see
+:mod:`repro_torch.distributed.sharding`) the paged prefill, decode step
+and loop, and the COW copies run the attention layers' sharded paths;
+block tables, write positions, activations and SSM state stay on the
+engine's device, and speculative verify is refused by the engine.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed.sharding import leaf_parts
 from repro_torch.model import attention as attn_mod
 from repro_torch.model import moe as moe_mod
 from repro_torch.model import ssm as ssm_mod
@@ -345,13 +351,14 @@ def copy_cache_pages(cfg: ModelConfig, caches: list, key: str,
                      src: torch.Tensor, dst: torch.Tensor) -> list:
     """``pages[dst] = pages[src]`` in every layer of capacity class
     ``key`` (MLA layers: the "full" class, both latent pools) — one
-    indexed copy per pool and layer for all pairs at once (copy-on-write
-    of shared prefix pages).  Returns ``caches``."""
+    indexed copy per pool, shard and layer for all pairs at once
+    (copy-on-write of shared prefix pages).  Returns ``caches``."""
     for spec, c in zip(cfg.layer_specs(), caches):
         if "attn" not in c or attn_mod.paged_cache_key(spec) != key:
             continue
-        for a in c["attn"].values():
-            a[dst] = a[src]
+        for leaf in c["attn"].values():
+            for a in leaf_parts(leaf):
+                a[dst.to(a.device)] = a[src.to(a.device)]
     return caches
 
 

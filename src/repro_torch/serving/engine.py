@@ -48,13 +48,20 @@ kernels handle the ragged lengths themselves.  Finished slots refill from the qu
   that commit or roll back by block-table surgery.  Greedy streams equal
   the non-speculative engine's.
 
+* **Device-sharded pool** (``mesh=``, a one-axis
+  :class:`repro_torch.distributed.sharding.Mesh`, e.g. from
+  :func:`repro_torch.launch.mesh.make_mesh`) — the paged pool's page
+  arrays split over the mesh's devices along the kv-head / latent-rank
+  axis (``shard_axis``), and the paged attention runs per shard; the
+  model, the tables and the per-step state stay on ``device``, and greedy
+  streams equal the unsharded pool's.  Paged layout only, no speculation,
+  and on an MLA model a table width the mesh divides (the reference's
+  gates).
+
 The reference donates its cache buffers to each jit'd call; the port
 updates the caches in place instead.  ``stats`` counts dispatches and
 steps exactly as the reference does, so the two engines can be held to
 the same counters on the same trace.
-
-Not ported yet (raises ``NotImplementedError``, see ROADMAP.md): ``mesh``
-(the sharded pool).
 """
 from __future__ import annotations
 
@@ -66,10 +73,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.autotune import next_pow2
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime, resolve_device
-from repro_torch.serving.kv_cache import _SHARD, PagedKVCache, _not_ported
+from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.speculate import NGramProposer
 
 
@@ -87,10 +95,11 @@ def speculation_supported(cfg: ModelConfig) -> bool:
                for s in cfg.layer_specs())
 
 
-def speculation_refusal(cfg: ModelConfig, k: int, *,
-                        temperature: float) -> Optional[str]:
-    """Why ``speculate=k`` cannot serve ``cfg``, or None: the reference's
-    gates — k >= 1, greedy only, :func:`speculation_supported`.  The CUDA
+def speculation_refusal(cfg: ModelConfig, k: int, *, temperature: float,
+                        sharded: bool = False) -> Optional[str]:
+    """Why ``speculate=k`` cannot serve ``cfg`` (on a device-sharded pool
+    when ``sharded``), or None: the reference's gates — k >= 1, greedy
+    only, an unsharded pool, :func:`speculation_supported`.  The CUDA
     kernels take a verify chain of any length (K2 and K3 up to
     ``CUDA_MAX_ROWS`` folded rows a fiber, the grid's limit)."""
     if k < 1:
@@ -100,6 +109,10 @@ def speculation_refusal(cfg: ModelConfig, k: int, *,
                 "commits a draft token iff it equals the model's own "
                 "argmax, which reproduces the non-speculative stream only "
                 "at temperature=0")
+    if sharded:
+        return ("speculative decoding does not support the device-sharded "
+                "pool (mesh=) — the verify kernels run unsharded; drop "
+                "mesh= or --speculate")
     if not speculation_supported(cfg):
         return ("speculative decoding needs every layer to be global "
                 "GQA/MLA attention with a dense MLP (no sliding windows, "
@@ -138,7 +151,7 @@ class ServeEngine:
                  kv_dtype: Optional[str] = None,
                  pool_bytes: Optional[int] = None,
                  host_swap_bytes: int = 0,
-                 mesh=None,
+                 mesh=None, shard_axis: str = "model",
                  device="cuda",
                  seed: int = 0):
         if cache_layout not in ("dense", "paged"):
@@ -149,8 +162,24 @@ class ServeEngine:
             raise ValueError(
                 "kv_dtype / pool_bytes / host_swap_bytes quantize and swap "
                 "*pages* — they require cache_layout='paged'")
-        if mesh is not None:
-            raise _not_ported("the device-sharded pool (mesh=)", _SHARD)
+        shard = None
+        if mesh is not None and shard_axis not in mesh.axis_names:
+            raise ValueError(
+                f"mesh axes {tuple(mesh.axis_names)} have no "
+                f"{shard_axis!r} axis to shard the paged pool over — "
+                f"pass shard_axis= or build the mesh with a "
+                f"{shard_axis!r} axis")
+        if mesh is not None and int(mesh.shape[shard_axis]) > 1:
+            if cache_layout != "paged":
+                raise ValueError(
+                    "pool sharding (mesh=) requires cache_layout='paged' — "
+                    "the dense layout reserves worst-case rows per slot "
+                    "and is not device-sharded")
+            shd.validate_kv_shard(cfg, int(mesh.shape[shard_axis]))
+            shard = shd.KVShard(devices=mesh.devices, axis=shard_axis)
+            # page pools shard; the model and per-step state stay on the
+            # engine's device, so every non-paged op is the 1-device one
+            rt = dataclasses.replace(rt, kv_shard=shard)
         if cfg.frontend != "tokens":
             raise ValueError(
                 f"{cfg.name}: the {cfg.frontend!r} front end takes [B, S, d] "
@@ -160,7 +189,8 @@ class ServeEngine:
         self.proposer = None
         if speculate is not None:
             k = int(speculate)
-            why = speculation_refusal(cfg, k, temperature=temperature)
+            why = speculation_refusal(cfg, k, temperature=temperature,
+                                      sharded=shard is not None)
             if why is not None:
                 raise ValueError(why)
             self.spec_k = k
@@ -188,11 +218,21 @@ class ServeEngine:
                                    prefix_caching=prefix_caching,
                                    kv_dtype=kv_dtype, pool_bytes=pool_bytes,
                                    host_swap_bytes=host_swap_bytes,
-                                   device=self.device)
+                                   shard=shard, device=self.device)
             self.caches = self.kv.caches
             # the swap tier copies page contents out at demotion time: hand
             # it the engine's live cache list
             self.kv.cache_source = lambda: self.caches
+            if shard is not None and any(
+                    s.attn == "mla" for s in cfg.layer_specs()):
+                w = self.kv.classes["full"].table_width
+                if w % shard.size:
+                    raise ValueError(
+                        f"MLA rank-sharded decode sweeps the block table "
+                        f"in contiguous per-device page strips, so the "
+                        f"table width {w} (= ceil(max_len/page_size)) "
+                        f"must divide by tp={shard.size} — adjust "
+                        f"max_len or page_size")
         else:
             self.kv = None
             self.caches = tf.init_cache(cfg, slots, max_len, dtype,

@@ -1,8 +1,8 @@
 """Paged KV cache: page pool + per-slot block tables + automatic prefix
 cache.
 
-Port of ``repro.serving.kv_cache`` for the unsharded pool, quantized
-pages and the host swap tier included.
+Port of ``repro.serving.kv_cache``: the pool, quantized pages, the host
+swap tier and the device-sharded pool.
 The host side (free lists, refcounts, block tables, the prefix index) is
 Python and numpy as in the reference, line for line where it can be, so
 the same admit / grow / release sequence gives the same tables and
@@ -56,9 +56,17 @@ counters; the page arrays are torch tensors on the engine's device.
   :meth:`PagedKVCache.drop_draft` drops them all — block-table surgery,
   no K/V copies.  Scratch pages never enter the prefix index and are
   drained by ``release`` (preemption).
-
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-the device-sharded pool (``shard``) — item 8.
+* Device sharding (``shard``, a
+  :class:`repro_torch.distributed.sharding.KVShard` of ``tp`` devices):
+  every GQA page array (and scale pool) splits along its kv-head axis and
+  every MLA latent pool along its rank axis into ``tp`` tensors, shard
+  ``d`` on ``shard.devices[d]`` with its own sink page; MLA scale pools
+  and SSM state stay whole on ``device``.  The page dimension is whole on
+  every shard, so the host side (tables, free lists, refcounts, prefix
+  index) is unchanged; COW, swap demotion and promotion copy every
+  shard, and ``memory_stats()["sharding"]`` reports the per-device bytes
+  (total / tp), checked against the shard tensors.  The sharded compute
+  lives in the attention layer (``Runtime.kv_shard``).
 """
 from __future__ import annotations
 
@@ -70,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.model import transformer as tf
 from repro_torch.model.attention import kv_quant_dtype, paged_cache_key
 from repro_torch.model.layers import resolve_device
@@ -77,14 +86,6 @@ from repro_torch.model.layers import resolve_device
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
-
-
-_SHARD = "§1 item 8, device-sharded pool"
 
 
 class PagePool:
@@ -209,8 +210,9 @@ class PagedKVCache:
     pages) — shrink it to serve in less memory, at the cost of admission
     back-pressure and (worst case) preemption.  ``kv_dtype`` stores the
     pages quantized, ``pool_bytes`` sizes the full class from a byte
-    budget instead, and ``host_swap_bytes`` turns on the host swap tier
-    (it needs the prefix cache)."""
+    budget instead, ``host_swap_bytes`` turns on the host swap tier (it
+    needs the prefix cache), and ``shard`` splits the page arrays over
+    devices (a one-device shard is no shard)."""
 
     def __init__(self, cfg: ModelConfig, slots: int, max_len: int, dtype,
                  *, page_size: int = 16,
@@ -221,8 +223,6 @@ class PagedKVCache:
                  pool_bytes: Optional[int] = None,
                  host_swap_bytes: int = 0,
                  device="cuda"):
-        if shard is not None:
-            raise _not_ported("the device-sharded pool (shard=)", _SHARD)
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if max_len % page_size:
@@ -234,6 +234,16 @@ class PagedKVCache:
         self.max_len = max_len
         self.page_size = page_size
         self.device = resolve_device(device)
+        # device sharding of the pool along the kv-head / latent-rank axis,
+        # validated up front: an axis the shard count does not divide
+        # fails loudly
+        self.shard = shard if shard is not None and shard.size > 1 else None
+        if self.shard is not None:
+            shd.validate_kv_shard(cfg, self.shard.size)
+            for dev in self.shard.devices:
+                if resolve_device(dev).type != self.device.type:
+                    raise ValueError(f"a pool on {self.device} cannot shard "
+                                     f"onto {dev}")
 
         # capacity classes; the scale elems are a quantized pool's fp16
         # scale-pool entries (one per token and kv head for GQA, one per
@@ -323,6 +333,8 @@ class PagedKVCache:
 
         self.caches = tf.init_paged_cache(cfg, slots, pool_sizes, page_size,
                                           dtype, self.device, kv_dtype)
+        if self.shard is not None:
+            shd.shard_paged_caches(self.caches, self.shard)
         # the pools as the reference sizes them: the sink pages are the
         # port's drop target, not pool capacity
         self._physical_page_bytes = sum(
@@ -565,27 +577,30 @@ class PagedKVCache:
 
     def _full_leaves(self, caches: list) -> List[torch.Tensor]:
         """Every full-class layer leaf of ``caches`` (data pools and, when
-        quantized, scale pools), in the order host copies keep: layer
-        order, then sorted leaf names."""
-        return [c["attn"][name]
+        quantized, scale pools; each shard of a sharded one), in the order
+        host copies keep: layer order, then sorted leaf names, then shard
+        order."""
+        return [a
                 for spec, c in zip(self.cfg.layer_specs(), caches)
                 if "attn" in c and paged_cache_key(spec) == "full"
-                for name in sorted(c["attn"])]
+                for name in sorted(c["attn"])
+                for a in shd.leaf_parts(c["attn"][name])]
 
     def _page_blobs(self, pages: List[int]) -> List[torch.Tensor]:
         """Copy pages to host memory: per page one flat byte buffer of its
         ``bytes_per_page`` (pinned on a CUDA pool) holding every
         full-class leaf's page in :meth:`_full_leaves` order.  One indexed
-        read per leaf and one ``torch.cat`` lay the pages out on the
-        device, then one non-blocking device→host copy per page on the
-        current stream.  No host code reads the buffers: the stream orders
+        read per leaf (and shard) and one ``torch.cat`` lay the pages out
+        on the pool's device, then one non-blocking device→host copy per
+        page on the current stream.  No host code reads the buffers: the stream orders
         the copies before any later write of the freed pages and before
         the promotion that copies them back."""
         leaves = self._full_leaves(self.cache_source())
         pinned = self.device.type == "cuda"
         idx = torch.tensor(pages, device=self.device)
         n = len(pages)
-        flat = torch.cat([a[idx].reshape(n, -1).view(torch.uint8)
+        flat = torch.cat([a[idx.to(a.device)].reshape(n, -1)
+                          .view(torch.uint8).to(self.device)
                           for a in leaves], dim=1)
         return [torch.empty(row.shape, dtype=torch.uint8,
                             pin_memory=pinned).copy_(row, non_blocking=pinned)
@@ -852,10 +867,10 @@ class PagedKVCache:
             row.copy_(host, non_blocking=cuda)
         dst = torch.tensor([d for d, _ in promotes], device=self.device)
         at = 0
-        for a in leaves:                # one indexed write per leaf
+        for a in leaves:                # one indexed write per leaf (shard)
             nb = a[0].numel() * a.element_size()
-            a[dst] = staging[:, at:at + nb].view(a.dtype).view(
-                n, *a.shape[1:])
+            a[dst.to(a.device)] = staging[:, at:at + nb].to(a.device).view(
+                a.dtype).view(n, *a.shape[1:])
             at += nb
         self.swap_ms["promote"] += (time.perf_counter() - t0) * 1e3
         return promotes
@@ -898,7 +913,10 @@ class PagedKVCache:
           and demoted ones hold one;
         * host tier: the accounted bytes equal demoted pages × page bytes;
         * quantized pools: every code pool holds the pool's code dtype and
-          its fp16 scale pool covers the same pages, slots and heads.
+          its fp16 scale pool covers the same pages, slots and heads;
+        * sharded pools: every sharded leaf is ``tp`` tensors on the shard
+          devices, each 1/tp of the leaf along its axis, and every
+          replicated leaf one tensor on the pool's device.
         """
         for key, c in self.classes.items():
             pool = c.pool
@@ -970,14 +988,66 @@ class PagedKVCache:
                                     ("krope_pages", "krope_scale")):
                     if data not in a:
                         continue
-                    assert a[data].dtype == qdt, \
-                        f"'{data}' holds {a[data].dtype}, not {qdt}"
-                    assert scale in a and a[scale].dtype == torch.float16 \
-                        and a[scale].shape == a[data].shape[:-1], \
+                    codes = shd.leaf_parts(a[data])
+                    scales = shd.leaf_parts(a.get(scale, []))
+                    assert all(t.dtype == qdt for t in codes), \
+                        f"'{data}' holds {codes[0].dtype}, not {qdt}"
+                    # a replicated scale pool covers the whole vector of
+                    # every shard's slice
+                    assert scales and all(
+                        t.dtype == torch.float16 for t in scales) and all(
+                        scales[i if len(scales) > 1 else 0].shape
+                        == t.shape[:-1] for i, t in enumerate(codes)), \
                         f"'{scale}' does not cover '{data}' " \
-                        f"{tuple(a[data].shape[:-1])}"
+                        f"{tuple(codes[0].shape[:-1])}"
+        if self.shard is not None:
+            self._check_shards()
+
+    def _check_shards(self) -> None:
+        """The sharded pool's leaves, as :meth:`check_invariants` states
+        them."""
+        tp = self.shard.size
+        for c in self.caches:
+            for name, leaf in c.get("attn", {}).items():
+                dim = shd._PAGED_SHARD_DIMS.get(name)
+                parts = shd.leaf_parts(leaf)
+                if dim is None:
+                    assert len(parts) == 1 and parts[0].device == \
+                        self.device, f"replicated '{name}' is not one " \
+                        f"tensor on {self.device}"
+                    continue
+                assert len(parts) == tp, \
+                    f"'{name}' has {len(parts)} shards, not {tp}"
+                for part, dev in zip(parts, self.shard.devices):
+                    assert part.device == resolve_device(dev), \
+                        f"a shard of '{name}' is on {part.device}, not {dev}"
+                    assert part.shape == parts[0].shape, \
+                        f"'{name}' shards differ: {part.shape} vs " \
+                        f"{parts[0].shape}"
 
     # -- accounting ---------------------------------------------------------
+
+    def _shard_bytes(self) -> dict:
+        """Page bytes (the sink page left out) of each shard's tensors and
+        of the replicated leaves; raises if the shards differ or the parts
+        do not add up to ``physical_cache_bytes``."""
+        per_shard = [0] * self.shard.size
+        replicated = 0
+        for c in self.caches:
+            for name, leaf in c.get("attn", {}).items():
+                parts = shd.leaf_parts(leaf)
+                pages = [t.nbytes * (t.shape[0] - 1) // t.shape[0]
+                         for t in parts]
+                if name in shd._PAGED_SHARD_DIMS:
+                    per_shard = [a + b for a, b in zip(per_shard, pages)]
+                else:
+                    replicated += pages[0]
+        if len(set(per_shard)) != 1 \
+                or sum(per_shard) + replicated != self._physical_page_bytes:
+            raise RuntimeError(
+                f"shard tensors hold {per_shard} B + {replicated} B "
+                f"replicated, the pool {self._physical_page_bytes} B")
+        return {"per_shard": per_shard[0], "replicated": replicated}
 
     def _live_pages(self, c: _CacheClass) -> int:
         live = set()
@@ -1006,7 +1076,12 @@ class PagedKVCache:
         capacity and is not counted).  In-flight speculative scratch pages
         are not resident (they are promoted or dropped within the step, and
         counting them would count the accepted ones twice): they report as
-        ``draft_pages``."""
+        ``draft_pages``.  A sharded pool's head / rank axis splits evenly
+        over ``tp`` devices (validated at construction), so per-device
+        bytes are total / tp, as the reference reports them under
+        ``sharding.per_device``; ``sharding.shard_bytes`` has the page
+        bytes each shard's tensors hold (sink pages left out) and the
+        replicated ones, which must add up to the physical total."""
         live = {k: self._live_pages(c) for k, c in self.classes.items()}
         resident = sum(live[k] * c.bytes_per_page
                        for k, c in self.classes.items())
@@ -1016,6 +1091,20 @@ class PagedKVCache:
         prefix_only = 0 if full is None else \
             self._evictable_pages("full", full)
         demoted = sum(1 for e in self._prefix.values() if e.page < 0)
+        sharding = None
+        if self.shard is not None:
+            tp = self.shard.size
+            sharding = {
+                "tp": tp,
+                "axis": self.shard.axis,
+                "per_device": {
+                    "resident_cache_bytes": resident // tp,
+                    "peak_resident_cache_bytes": peak // tp,
+                    "physical_cache_bytes":
+                        self._physical_page_bytes // tp,
+                },
+                "shard_bytes": self._shard_bytes(),
+            }
         return {
             "page_size": self.page_size,
             "kv_dtype": self.kv_dtype,
@@ -1033,7 +1122,7 @@ class PagedKVCache:
                             for k, c in self.classes.items()},
             "physical_cache_bytes": self._physical_page_bytes,
             "ssm_state_bytes": self._state_bytes,
-            "sharding": None,
+            "sharding": sharding,
             "prefix_cache": {
                 "enabled": self.prefix_enabled,
                 "entries": len(self._prefix),

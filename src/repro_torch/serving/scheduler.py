@@ -359,8 +359,10 @@ class AsyncServeEngine(ServeEngine):
     intake, per-request token streams, deadline-aware admission, and
     (paged, non-SSM configs) prefill quanta interleaved with decode
     dispatches.  Admission, paging and the preempt-youngest policy are
-    inherited; speculation is refused (the verify dispatch writes draft
-    K/V beyond the parked position of a mid-prefill slot)."""
+    inherited, and so is the device-sharded pool (``mesh=``, passed
+    through to :class:`ServeEngine`); speculation is refused (the verify
+    dispatch writes draft K/V beyond the parked position of a mid-prefill
+    slot)."""
 
     def __init__(self, cfg, model, *, prefill_quantum: Optional[int] = None,
                  clock=None, shed_expired: bool = False, **kw):

@@ -671,8 +671,9 @@ def test_launcher_async_trace_equals_reference(argv):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--async", "--mesh", "tp=2"], "item 8"),
-    (["--async", "--dp", "2", "--mesh", "tp=2"], "item 8"),
+    # no CUDA device is visible here; a library caller passes devices=
+    (["--async", "--mesh", "tp=2"], "needs 2 devices"),
+    (["--async", "--dp", "2", "--mesh", "tp=2"], "needs 2 devices"),
     (["--async", "--speculate", "4"], "--speculate does not combine"),
 ], ids=["mesh", "dp-mesh", "speculate"])
 def test_launcher_async_refusals(argv, msg):

@@ -36,6 +36,7 @@ from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro.serving.kv_cache import PagedKVCache as JaxPagedKVCache
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import KVShard
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.model import attention as attn
@@ -693,10 +694,13 @@ def test_pool_defaults_to_cuda_and_never_drifts_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(shard=object()), "sharded pool"),
+    # the sharded pool is ported; a shard count that does not divide the
+    # kv heads is refused with the reference's message
+    (dict(shard=KVShard(("cpu", "cpu"))),
+     "n_kv_heads=1 is not divisible by tp=2"),
 ])
 def test_unported_pool_options_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         _kv(slots=1, max_len=32, page_size=16, **kw)
 
 

@@ -21,6 +21,7 @@ from repro.serving.engine import Request as JaxRequest
 from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.launch import serve
 from repro_torch.model.layers import Runtime
 from repro_torch.serving import Request, ServeEngine
@@ -148,11 +149,13 @@ def test_engine_defaults_to_cuda_and_never_drifts_to_cpu(models,
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "sharded pool"),
+    # the sharded pool is ported; the dense layout refuses a mesh, as the
+    # reference's engine does
+    (dict(mesh=Mesh(("cpu", "cpu"))), "requires cache_layout='paged'"),
 ], ids=["kw1-sharded pool"])
 def test_unported_engine_options_raise(models, kw, item):
     _, model = models
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         ServeEngine(get_config(NAME), model, slots=2, max_len=32, rt=RT,
                     device="cpu", **kw)
 
@@ -194,8 +197,11 @@ def test_launcher_trace_lengths_match_reference(argv):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "tp=2"], "sharded pool"),
-    (["--async", "--dp", "2", "--mesh", "tp=2"], "sharded pool"),
+    # --mesh is ported: with no CUDA device visible (and no devices=
+    # from a library caller) it exits as the reference's does when tp
+    # exceeds the devices
+    (["--mesh", "tp=2"], "needs 2 devices"),
+    (["--async", "--dp", "2", "--mesh", "tp=2"], "needs 2 devices"),
 ], ids=["flag1-sharded pool", "flag2-async"])
 def test_launcher_unported_flags_name_their_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=item):
