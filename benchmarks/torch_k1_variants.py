@@ -229,9 +229,9 @@ def mma_rate(peak) -> dict:
 def launch(fn, q, k, v, o, group, q_offset, window=0, softcap=0.0):
     bh, pg, e = q.shape
     m, f = v.shape[1], v.shape[2]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 0, e,
-             f, bh, pg, m, e ** -0.5, 1, window, softcap, q_offset, group,
-             m, 0, torch.cuda.current_stream().cuda_stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+             0, e, f, bh, pg, m, e ** -0.5, 1, window, softcap, q_offset,
+             group, m, 0, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: CUDA error {err}")
 

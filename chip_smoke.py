@@ -99,13 +99,14 @@ JSON line (``"phase": ...``):
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
              logits difference and token match rate;
 5. serve   — ``repro_torch.launch.serve.main --cache-layout both --mesh
-             tp=2`` on the full 40-layer granite-3-8b (fp32), the mesh
-             two shards on cuda:0: greedy streams equal on the dense
-             layout, the paged one and the paged pool sharded on the kv
-             heads (``paged_sharded``), every request gets its tokens,
+             tp=2`` on granite-3-8b at full width (fp32) cut to 20 of its
+             40 layers (``SERVE_LAYERS``, since the training phase came),
+             the mesh two shards on cuda:0: greedy streams equal on the
+             dense layout, the paged one and the paged pool sharded on the
+             kv heads (``paged_sharded``), every request gets its tokens,
              logits stay finite, and in each leg's timed run K1 launched
-             40 x prefill dispatches and K2 (dense) or K3 (paged) 40 x
-             decode steps, on the sharded leg 2 x 40 x each; its per-device
+             20 x prefill dispatches and K2 (dense) or K3 (paged) 20 x
+             decode steps, on the sharded leg 2 x 20 x each; its per-device
              bytes x 2 equal to the totals and the shard tensors' bytes
              making up the pool; ``sharded_vs_paged_tok_per_s``;
 6. serve_prefix — the launcher on the paged layout with a 256-token
@@ -237,7 +238,27 @@ JSON line (``"phase": ...``):
              (frames, layernorm, GeLU, MHA at d64) and pixtral-12b-smoke
              (patches): ``forward``, ``prefill`` and ``decode_step`` on
              seeded embeddings, cuda vs torch within 1e-4 of scale;
-19. the ``kernels`` line (launches on the main paths, K2 / K3 / K4 / K2's
+19. train — K1 with its log-sum-exp output (``kernel_case``s at (64, 64)
+             fp32 and bf16, (128, 128), (192, 128), (256, 256) and (32,
+             32), each with a window, a softcap and a ragged ``m_valid``,
+             and bf16 (64, 64) at the training shape, B 4, 32/32 heads,
+             P = M = 1024, causal:
+             the LSE within 1e-4 of the plain version's and the output
+             equal, bit for bit, to the output without an LSE) and the
+             attention Function's (dq, dk, dv) on the card (K1's forward
+             against the plain one, both against float64), run with the
+             other kernel cases, and timing rows at the training shape:
+             K1 + LSE and the recompute backward (against its bound and
+             SDPA's fp32 backward); then stablelm-1.6b at full width and
+             depth in fp32, batch 4 x 1024: the first step's loss, grad
+             norm and every grad leaf with ``attn_impl`` "cuda" against
+             "torch", then 4 train steps on that batch (the loss finite
+             and falling, K1 2 x 24 a step: forward and remat), step
+             seconds, tokens/s and peak memory (``train``); and 3 steps of
+             ``launch/train.py``'s ``main`` at its default bf16, its first
+             step's loss and grad norm against one ``--attn-impl torch``
+             step from the same seed (``train_launcher``);
+20. the ``kernels`` line (launches on the main paths, K2 / K3 / K4 / K2's
    latent branch split by n_pos == 1 (decode steps) and n_pos > 1 (verify
    chains), K3 on head shards and the latent strips from the sharded
    legs, errors, times, bounds) and, last, ``{"ok": true, "device":
@@ -272,6 +293,8 @@ TF32_FLOPS = 495e12
 #: tolerances: fp32 differs only in summation order; bf16 outputs may
 #: differ by one rounding of the output (2 ulps at unit scale)
 TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
+#: K1's log-sum-exp output against its plain version's (absolute)
+LSE_TOL = 1e-4
 
 
 def emit(phase: str, **kw) -> None:
@@ -1872,7 +1895,7 @@ def time_k4_quant(torch, gen, dec, ops, autotune, kv_dtype) -> dict:
 
 def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
                    q_offset, shape, window=None, softcap=None,
-                   with_device_ms=False) -> dict:
+                   with_device_ms=False, return_lse=False) -> dict:
     """K1 at one prefill shape, causal with a history offset (and a window
     and a softcap where given), fp32: the kernel, its plain version, SDPA
     on the same inputs (by default and under each fp32 backend; the window
@@ -1881,7 +1904,9 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
     units' and the tensor cores' in 3xTF32, which is the one K1 runs
     against, over the (query, key) pairs the causal and window masks
     leave.  ``with_device_ms``: also the kernel's own device time from
-    the profiler (:func:`device_ms`)."""
+    the profiler (:func:`device_ms`).  ``return_lse``: the kernel and
+    its plain version also write each row's log-sum-exp (the training
+    forward), which the bytes count and ``lse_max_abs_err`` compares."""
     g = hq // hkv
     q = _rand(torch, gen, (b, hq, p, e), torch.float32)
     k = _rand(torch, gen, (b, hkv, m, e), torch.float32)
@@ -1893,12 +1918,24 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
     args = dict(scale=e ** -0.5, causal=True, group=g, q_offset=q_offset,
                 block_q=tile.block_q, block_k=tile.block_k, window=window,
                 softcap=softcap)
+    if return_lse:
+        args["return_lse"] = True
     out = fm.fusemax_attention_cuda(q_f, k_f, v_f, **args)
     ref = fm.fusemax_attention_torch(q_f, k_f, v_f, **args)
+    lse_err = None
+    if return_lse:
+        (out, lse), (ref, lse_ref) = out, ref
+        lse_err = (lse - lse_ref).abs().max().item()
+        del lse, lse_ref
     err, ok, _, _ = _err(torch, out, ref, "float32")
+    ok = ok and (lse_err is None or lse_err <= LSE_TOL)
     del out, ref
     ms = time_ms(torch, lambda: fm.fusemax_attention_cuda(q_f, k_f, v_f,
                                                           **args))
+    if return_lse:                      # the same launch without the LSE
+        bare = {key: val for key, val in args.items() if key != "return_lse"}
+        ms_no_lse = time_ms(torch, lambda: fm.fusemax_attention_cuda(
+            q_f, k_f, v_f, **bare))
     plain_ms = time_ms(torch, lambda: fm.fusemax_attention_torch(
         q_f, k_f, v_f, **args), iters=3, warmup=1)
     if q_offset or window is not None:
@@ -1919,7 +1956,8 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
         seen = torch.clamp(seen, max=window)
     pairs = int(seen.sum().item())
     flops = 2 * (e + f) * pairs * hq * b
-    nbytes = 4 * (q.numel() + k.numel() + v.numel() + b * hq * p * f)
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + b * hq * p * f
+                  + (b * hq * p if return_lse else 0))
     t_fp32 = flops / FP32_FLOPS * 1e3
     t_3xtf32 = 3 * flops / TF32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1931,6 +1969,9 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
                share_of_3xtf32_bound=max(t_3xtf32, t_bytes) / ms,
                flops=flops, bytes=nbytes, max_abs_err=err, ok=ok,
                tile=[tile.block_q, tile.block_k], **backends)
+    if return_lse:
+        row.update(lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
+                   ms_no_lse=ms_no_lse)
     if with_device_ms:
         row["device_ms"] = device_ms(torch, lambda: fm.fusemax_attention_cuda(
             q_f, k_f, v_f, **args), "fusemax_prefill")
@@ -2775,19 +2816,26 @@ def _check_sharded(torch, metrics) -> dict:
                     "sharded_vs_paged_tok_per_s"])
 
 
+#: granite-3-8b's depth in the serve phase: its 40 layers cut to 20 so
+#: the training phase fits the script's time limit (193 s at 40)
+SERVE_LAYERS = 20
+
+
 def phase_serve(torch, fm, dec, serve) -> dict:
     """The main path: the dense layout, the paged one and the paged pool
     sharded over two shards on the card (``SHARD_ARGS``) on the same
-    trace."""
+    trace; granite-3-8b at full width, ``SERVE_LAYERS`` of its 40
+    layers."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("granite-3-8b")
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              n_layers=SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     argv = SERVE_ARGS + SHARD_ARGS
     # the main path: counts set to 0 just before it, read just after
     _zero_counts(fm, dec)
     t0 = time.perf_counter()
-    metrics = serve.main(argv, devices=["cuda:0"] * SHARD_TP)
+    metrics = serve.main(argv, cfg=cfg, devices=["cuda:0"] * SHARD_TP)
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab,
@@ -2797,7 +2845,8 @@ def phase_serve(torch, fm, dec, serve) -> dict:
           f"serve legs {list(metrics['layouts'])}, outputs_match "
           f"{metrics.get('outputs_match')}")
     sharded = _check_sharded(torch, metrics)
-    emit("serve", args=" ".join(argv), seconds=wall, legs=legs,
+    emit("serve", args=" ".join(argv), n_layers=cfg.n_layers,
+         seconds=wall, legs=legs,
          outputs_match=metrics["outputs_match"],
          paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
          **sharded, main_path_launches=launches,
@@ -4827,6 +4876,387 @@ def phase_model_frontends(torch, fm, dec) -> None:
               f"{r['torch_launches']}")
 
 
+# ---------------------------------------------------------------------------
+# 19. train: K1 with a log-sum-exp output, the attention Function, and
+#     stablelm-1.6b trained at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 4, 3e-4
+#: the launcher leg: its default dtype (bf16 parameters and activations)
+TRAIN_LAUNCHER_STEPS = 3
+#: first step, attn_impl "cuda" against "torch": the loss (relative), the
+#: global grad norm (relative), each grad leaf (against its largest
+#: magnitude); the two differ in K1's 3xTF32 forward only
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_TOL = 1e-5, 1e-4, 1e-3
+#: the launcher's first bf16 step, ``--attn-impl cuda`` against
+#: ``torch`` from one seed: the loss and the global grad norm (relative).
+#: Both attention forwards compute in fp32 and round their output to bf16
+#: (unit roundoff 2^-8); K1's 3xTF32 scores move the last bit of a few of
+#: those outputs, and the bf16 layers after them carry that on
+TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GNORM_RTOL = 2.0 ** -8, 2.0 ** -6
+#: (dq, dk, dv) of the Function, CUDA forward against the plain one,
+#: against their largest magnitude
+FN_GRAD_TOL = 1e-4
+
+
+def k1_lse_cases(torch):
+    """K1 with its log-sum-exp output at every head dims training can
+    reach, each with a window, a softcap and a ragged ``m_valid``, and in
+    bf16 at the launcher's training shape (stablelm-1.6b: B 4, 32/32
+    heads, P = M = 1024, causal, d64): (name, b, hkv, group, p, m, e, f,
+    dtype, kwargs)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cw = dict(causal=True, window=100, softcap=30.0)
+    return [
+        (f"lse bf16 E64 F64 stablelm train B{TRAIN_BATCH} 32/32 heads "
+         f"P=M={TRAIN_SEQ} causal", TRAIN_BATCH, 32, 1, TRAIN_SEQ,
+         TRAIN_SEQ, 64, 64, bf16, dict(causal=True)),
+        ("lse fp32 E64 F64 g1 window=100 softcap=30 m_valid=280", 2, 4, 1,
+         300, 300, 64, 64, f32, dict(cw, m_valid=280)),
+        ("lse bf16 E64 F64 g1 window=100 softcap=30 m_valid=280", 1, 4, 1,
+         300, 300, 64, 64, bf16, dict(cw, m_valid=280)),
+        ("lse fp32 E128 F128 g4 q_offset=60 window=100 softcap=30 "
+         "m_valid=250", 1, 2, 4, 200, 260, 128, 128, f32,
+         dict(cw, q_offset=60, m_valid=250)),
+        ("lse fp32 E192 F128 g1 window=64 softcap=20 m_valid=190", 1, 4, 1,
+         200, 200, 192, 128, f32,
+         dict(causal=True, window=64, softcap=20.0, m_valid=190)),
+        ("lse fp32 E256 F256 g2 window=100 softcap=50 m_valid=240", 1, 2, 2,
+         260, 260, 256, 256, f32,
+         dict(causal=True, window=100, softcap=50.0, m_valid=240)),
+        ("lse fp32 E32 F32 g2 window=64 softcap=50 m_valid=140", 2, 2, 2,
+         150, 150, 32, 32, f32,
+         dict(causal=True, window=64, softcap=50.0, m_valid=140)),
+    ]
+
+
+def run_k1_lse_cases(torch, gen, fm, autotune) -> list:
+    """Each LSE case: the output against the plain version's (the K1
+    tolerance), the log-sum-exp within ``LSE_TOL`` of the plain
+    version's, and the output with an LSE requested equal, bit for bit,
+    to the output without one (``out_same_bits``)."""
+    rows = []
+    for name, b, hkv, g, p, m, e, f, dtype, kw in k1_lse_cases(torch):
+        tile = autotune.attention_params(p * g, m, e, f, impl="cuda")
+        q = _rand(torch, gen, (b * hkv, p * g, e), dtype)
+        k = _rand(torch, gen, (b * hkv, m, e), dtype)
+        v = _rand(torch, gen, (b * hkv, m, f), dtype)
+        args = dict(scale=e ** -0.5, group=g, block_q=tile.block_q,
+                    block_k=tile.block_k, **kw)
+        out, lse = fm.fusemax_attention_cuda(q, k, v, return_lse=True,
+                                             **args)
+        bare = fm.fusemax_attention_cuda(q, k, v, **args)
+        ref, lse_ref = fm.fusemax_attention_torch(q, k, v, return_lse=True,
+                                                  **args)
+        torch.cuda.synchronize()
+        dn = str(dtype).split(".")[1]
+        err, ok, atol, rtol = _err(torch, out, ref, dn)
+        lse_err = (lse - lse_ref).abs().max().item()
+        same = bool(torch.equal(out, bare))
+        rows.append(dict(kernel="fusemax_prefill", case=name, dtype=dn,
+                         e=e, f=f, tile=[tile.block_q, tile.block_k],
+                         max_abs_err=err, atol=atol, rtol=rtol,
+                         lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
+                         out_same_bits=same,
+                         ok=ok and lse_err <= LSE_TOL and same))
+    return rows
+
+
+def function_cases(torch, gen, ops) -> list:
+    """``ops.fusemax_attention`` under autograd on the card: (dq, dk, dv)
+    of K1's forward (with its LSE) and the recompute backward against the
+    plain forward and the same backward, within ``FN_GRAD_TOL`` of their
+    scale, and both against float64 autograd through ``mha_reference``
+    (``impl="ref"``): the CUDA path no farther than the plain one plus
+    ``F64_SLACK`` (``ok_vs_f64``)."""
+    rows = []
+    for name, b, hq, hkv, p, m, d, kw in (
+            ("function stablelm MHA d64 P=M=1024 causal", 1, 32, 32, 1024,
+             1024, 64, dict(causal=True)),
+            ("function GQA g4 d128 P=M=512 window=256 softcap=50", 1, 16, 4,
+             512, 512, 128, dict(causal=True, window=256, softcap=50.0))):
+        q = _rand(torch, gen, (b, hq, p, d), torch.float32)
+        k = _rand(torch, gen, (b, hkv, m, d), torch.float32)
+        v = _rand(torch, gen, (b, hkv, m, d), torch.float32)
+        dout = _rand(torch, gen, (b, hq, p, d), torch.float32)
+        grads = {}
+        for impl, dt in (("cuda", torch.float32), ("torch", torch.float32),
+                         ("ref", torch.float64)):
+            xs = [x.to(dt).requires_grad_(True) for x in (q, k, v)]
+            out = ops.fusemax_attention(*xs, impl=impl, **kw)
+            grads[impl] = torch.autograd.grad(out, xs, dout.to(dt))
+        torch.cuda.synchronize()
+        errs, scales, vs = {}, {}, {}
+        for i, x in enumerate("qkv"):
+            c, t, r = (grads[n][i] for n in ("cuda", "torch", "ref"))
+            scales[x] = t.abs().max().item()
+            errs[x] = (c - t).abs().max().item()
+            vs[x] = {"kernel": (c.double() - r).abs().max().item(),
+                     "plain": (t.double() - r).abs().max().item()}
+        ok_plain = all(errs[x] <= FN_GRAD_TOL * scales[x] for x in "qkv")
+        ok_f64 = all(vs[x]["kernel"] <= vs[x]["plain"] + F64_SLACK
+                     for x in "qkv")
+        rows.append(dict(kernel="fusemax_prefill", case=name, dtype="float32",
+                         e=d, f=d, grad_max_abs_err=errs, grad_scale=scales,
+                         grad_tol=FN_GRAD_TOL, vs_f64=vs,
+                         f64_slack=F64_SLACK, ok_vs_plain=ok_plain,
+                         ok_vs_f64=ok_f64, ok=ok_plain and ok_f64,
+                         max_abs_err=max(errs.values())))
+        del grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_train(torch, gen, fm, autotune) -> dict:
+    """K1 with its LSE at the training shape (B 4, 32/32 heads, P = M =
+    1024, causal, (64, 64)): ``_time_k1_shape``'s row with the kernel's
+    device time; and the recompute backward at that shape: its time, its
+    bound (2 (3E + 2F) FLOPs a visible (query, key) pair, about 2.5 x the
+    forward's, against the 3xTF32 and the FP32 rates; each input read and
+    each output written once), SDPA's fp32 backward on the same inputs as
+    the yardstick it never calls, and (dq, dk, dv) after K1's forward
+    against those after the plain forward."""
+    import torch.nn.functional as F
+
+    b, h, p, d = TRAIN_BATCH, 32, TRAIN_SEQ, 64
+    fwd = _time_k1_shape(torch, gen, fm, autotune, b=b, hq=h, hkv=h, p=p,
+                         m=p, e=d, f=d, q_offset=0, return_lse=True,
+                         with_device_ms=True,
+                         shape=f"stablelm train: B{b} {h}/{h} heads P=M={p} "
+                               f"causal d{d}, with the LSE")
+    q, k, v, dout = (_rand(torch, gen, (b, h, p, d), torch.float32)
+                     for _ in range(4))
+    fold = lambda x: x.reshape(b * h, p, d)
+    tile = autotune.attention_params(p, p, d, d, impl="cuda")
+    args = dict(scale=d ** -0.5, causal=True, group=1)
+    saved = {}
+    for impl in ("cuda", "torch"):
+        fwd_fn = fm.fusemax_attention_cuda if impl == "cuda" \
+            else fm.fusemax_attention_torch
+        out, lse = fwd_fn(fold(q), fold(k), fold(v), return_lse=True,
+                          block_q=tile.block_q if impl == "cuda" else 128,
+                          block_k=tile.block_k if impl == "cuda" else 128,
+                          **args)
+        saved[impl] = (out, lse)
+    bwd = lambda impl: fm.fusemax_attention_bwd(
+        fold(q), fold(k), fold(v), *saved[impl], fold(dout), **args)
+    gc_, gt = bwd("cuda"), bwd("torch")
+    errs = [(a - t).abs().max().item() / t.abs().max().item()
+            for a, t in zip(gc_, gt)]
+    del gc_, gt
+    ms = time_ms(torch, lambda: bwd("cuda"), iters=5, warmup=1)
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             scale=d ** -0.5)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), dout, retain_graph=True), iters=5, warmup=1)
+    pairs = b * h * p * (p + 1) // 2
+    flops = 2 * (3 * d + 2 * d) * pairs
+    nbytes = 4 * (3 * q.numel() + 2 * dout.numel() + b * h * p
+                  + 3 * q.numel())
+    t_3x = 3 * flops / TF32_FLOPS * 1e3
+    t_fp32 = flops / FP32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bwd_row = dict(
+        shape=f"stablelm train backward: B{b} {h}/{h} heads P=M={p} causal "
+              f"d{d}, blocks of {fm.BWD_BLOCK_K} keys",
+        ms=ms, plain_ms=ms, plain_note="the backward is torch ops: it is its "
+                                       "own plain version",
+        library_ms=library_ms, library="SDPA fp32 backward (default "
+                                       "backend), never called by the port",
+        bound_ms=max(t_3x, t_bytes),
+        bound_by="operations" if t_3x >= t_bytes else "bytes",
+        bound_ms_3xtf32=max(t_3x, t_bytes), bound_ms_fp32=max(t_fp32, t_bytes),
+        share_of_fp32_bound=max(t_fp32, t_bytes) / ms,
+        flops=flops, bytes=nbytes, fwd_flops=fwd["flops"],
+        grad_rel_err_cuda_vs_torch_fwd=errs,
+        max_abs_err=max(errs), ok=max(errs) <= FN_GRAD_TOL)
+    del saved, lib_out, qs, ks, vs
+    torch.cuda.empty_cache()
+    return {"fusemax_prefill@train_lse": fwd,
+            "fusemax_attention_bwd@train": bwd_row}
+
+
+def _train_batch(torch, cfg, seed: int = 0) -> dict:
+    from repro_torch.data import DataConfig, SyntheticSource
+
+    src = SyntheticSource(DataConfig(global_batch=TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+                                     seed=seed))
+    return {k: v.to("cuda") for k, v in src.batch_at(0).items()}
+
+
+def phase_train(torch, fm, dec) -> dict:
+    """stablelm-1.6b at full width and depth, fp32, one seed, batch 4 x
+    1024: the loss and every gradient of the first step with
+    ``attn_impl="cuda"`` and ``"torch"`` on the same batch; then
+    ``TRAIN_STEPS`` steps of the train step (AdamW, warmup-cosine, clip)
+    through K1 on that batch, repeated — the main path: counts set to 0
+    just before, read just after; K1 launches twice a layer a step (the
+    forward and the remat recompute), each with its LSE."""
+    from repro_torch.configs import get_config
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    rt_c = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                   param_dtype=torch.float32)
+    rt_t = dataclasses.replace(rt_c, attn_impl="torch")
+    opt = make_optimizer("adamw")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, 0, opt, rt_c, device="cuda")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    batch = _train_batch(torch, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # the first step's loss and grads, K1 against its plain version
+    params = list(state.params.values())
+    first = {}
+    for name, rt in (("cuda", rt_c), ("torch", rt_t)):
+        k1 = fm.fusemax_attention_cuda.launches
+        t0 = time.perf_counter()
+        loss, _ = tf.loss_fn(cfg, state.model, batch, rt)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        first[name] = dict(loss=loss.item(), grads=grads,
+                           seconds=time.perf_counter() - t0,
+                           k1=fm.fusemax_attention_cuda.launches - k1)
+        del loss
+    gc_, gt = first["cuda"].pop("grads"), first["torch"].pop("grads")
+    gnorm = {n: torch.sqrt(sum((g.double() ** 2).sum() for g in gs)).item()
+             for n, gs in (("cuda", gc_), ("torch", gt))}
+    leaf_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(gc_, gt))
+    del gc_, gt
+    torch.cuda.empty_cache()
+    loss_rel = abs(first["cuda"]["loss"] - first["torch"]["loss"]) \
+        / abs(first["torch"]["loss"])
+    gnorm_rel = abs(gnorm["cuda"] - gnorm["torch"]) / gnorm["torch"]
+
+    # the main path: the train step through K1
+    step = make_train_step(cfg, opt, warmup_cosine(TRAIN_LR, 1, TRAIN_STEPS),
+                           rt_c)
+    _zero_counts(fm, dec)
+    fm.fusemax_attention_cuda.launches_lse = 0
+    fm.fusemax_attention_bwd.calls = 0
+    losses, gnorms, lrs, secs, per_step = [], [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        k1 = fm.fusemax_attention_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        gnorms.append(m["grad_norm"].item())
+        lrs.append(m["lr"].item())
+        per_step.append(fm.fusemax_attention_cuda.launches - k1)
+    launches = _counts(fm, dec)
+    launches["fusemax_prefill_lse"] = fm.fusemax_attention_cuda.launches_lse
+    launches["backward_calls"] = fm.fusemax_attention_bwd.calls
+    peak = torch.cuda.max_memory_allocated()
+    steady = secs[1:]
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (sum(steady) / len(steady))
+    emit("train", config=f"{TRAIN_ARCH} fp32, {cfg.n_layers} layers, d "
+                         f"{cfg.d_model}", n_params=n_params,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=init_s,
+         first_step={n: first[n] for n in first}, loss_rel_diff=loss_rel,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_norm=gnorm, grad_norm_rel_diff=
+         gnorm_rel, grad_norm_rtol=TRAIN_GNORM_RTOL,
+         grad_leaf_max_rel_diff=leaf_err, grad_leaf_tol=TRAIN_LEAF_TOL,
+         losses=losses, grad_norms=gnorms, lrs=lrs, step_seconds=secs,
+         tokens_per_s=tok_s, k1_launches_per_step=per_step,
+         main_path_launches=launches, max_memory_allocated=peak)
+    check(first["cuda"]["k1"] == 2 * cfg.n_layers
+          and first["torch"]["k1"] == 0,
+          f"first step: K1 launched {first['cuda']['k1']} / "
+          f"{first['torch']['k1']} times (cuda / torch), expected "
+          f"{2 * cfg.n_layers} / 0")
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"first-step loss cuda vs torch "
+                                       f"differs by {loss_rel} (relative)")
+    check(gnorm_rel <= TRAIN_GNORM_RTOL,
+          f"first-step grad norm cuda vs torch differs by {gnorm_rel}")
+    check(leaf_err <= TRAIN_LEAF_TOL,
+          f"a first-step grad leaf differs by {leaf_err} of its scale")
+    check(all(x == x and abs(x) != float("inf") for x in losses + gnorms),
+          f"non-finite loss or grad norm: {losses}, {gnorms}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(per_step == [2 * cfg.n_layers] * TRAIN_STEPS
+          and launches["fusemax_prefill_lse"] == launches["fusemax_prefill"]
+          and launches["backward_calls"] == cfg.n_layers * TRAIN_STEPS,
+          f"K1 launches per step {per_step} (expected {2 * cfg.n_layers}: "
+          f"forward + remat), {launches['fusemax_prefill_lse']} with an "
+          f"LSE of {launches['fusemax_prefill']}, "
+          f"{launches['backward_calls']} backward passes")
+    for other in DECODE_KERNELS:
+        check(launches[other] == 0, f"{other} launched while training")
+    del state, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_launcher(torch, fm) -> dict:
+    """``launch/train.py``'s ``main`` on stablelm-1.6b at its default
+    dtype (bf16 parameters and activations): ``TRAIN_LAUNCHER_STEPS``
+    steps of the synthetic stream, K1 twice a layer a step, the loss
+    finite; then one step from the same seed with ``--attn-impl torch``
+    (the plain forward): the first step's loss and grad norm of the two
+    within ``TRAIN_BF16_LOSS_RTOL`` / ``TRAIN_BF16_GNORM_RTOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_LAUNCHER_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    t0 = time.perf_counter()
+    m = train.main(argv)
+    wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv_t = argv[:2] + ["--steps", "1"] + argv[4:] + ["--attn-impl",
+                                                       "torch"]
+    mt = train.main(argv_t)
+    loss_rel = abs(m["losses"][0] - mt["losses"][0]) / abs(mt["losses"][0])
+    gnorm_rel = abs(m["grad_norms"][0] - mt["grad_norms"][0]) \
+        / mt["grad_norms"][0]
+    n_layers = get_config(TRAIN_ARCH).n_layers
+    emit("train_launcher", args=" ".join(argv), seconds=wall,
+         **{k: m[k] for k in ("losses", "grad_norms", "lrs", "step_seconds",
+                              "tokens_per_s", "fusemax_prefill_launches",
+                              "peak_memory_bytes", "device", "fp32")},
+         first_step_vs_torch=dict(
+             args=" ".join(argv_t), loss=mt["losses"][0],
+             grad_norm=mt["grad_norms"][0],
+             fusemax_prefill_launches=mt["fusemax_prefill_launches"],
+             loss_rel_diff=loss_rel, loss_rtol=TRAIN_BF16_LOSS_RTOL,
+             grad_norm_rel_diff=gnorm_rel,
+             grad_norm_rtol=TRAIN_BF16_GNORM_RTOL))
+    check(not m["fp32"] and m["device"]["platform"] == "gpu",
+          f"launcher leg ran fp32={m['fp32']} on {m['device']}")
+    check(all(x == x and abs(x) != float("inf") for x in m["losses"]),
+          f"non-finite bf16 losses {m['losses']}")
+    check(mt["fusemax_prefill_launches"] == 0,
+          f"--attn-impl torch launched K1 {mt['fusemax_prefill_launches']} "
+          f"times")
+    check(loss_rel <= TRAIN_BF16_LOSS_RTOL,
+          f"bf16 first-step loss cuda vs torch differs by {loss_rel} "
+          f"(relative)")
+    check(gnorm_rel <= TRAIN_BF16_GNORM_RTOL,
+          f"bf16 first-step grad norm cuda vs torch differs by {gnorm_rel}")
+    check(m["fusemax_prefill_launches"]
+          == 2 * n_layers * TRAIN_LAUNCHER_STEPS,
+          f"K1 launched {m['fusemax_prefill_launches']} times in "
+          f"{TRAIN_LAUNCHER_STEPS} bf16 steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return m
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -5010,6 +5440,19 @@ def main() -> int:
     tsh.update(time_strips(torch, gen_sh, dec, ops, autotune))
     for name, t in tsh.items():
         emit("kernel_time", kernel=name, **t)
+    # training: K1 with its log-sum-exp at every head dims, the attention
+    # Function's grads on the card, and the training shape's timing rows
+    # (K1 + LSE, the recompute backward), from a generator of their own
+    gen_tr = torch.Generator(device="cuda")
+    gen_tr.manual_seed(25)
+    rows_tr = run_k1_lse_cases(torch, gen_tr, fm, autotune) + \
+        function_cases(torch, gen_tr, ops)
+    for r in rows_tr:
+        emit("kernel_case", **r)
+    rows += rows_tr
+    ttr = time_train(torch, gen_tr, fm, autotune)
+    for name, t in ttr.items():
+        emit("kernel_time", kernel=name, **t)
     bad = [r["case"] for r in rows + rows_same + [
         same, same4, same2l, same256, same3q, same4q, same3qv, same4qv]
            if not r["ok"]]
@@ -5024,7 +5467,7 @@ def main() -> int:
     bad += [f"{n} timing shape" for n, t in list(tg.items())
             + list(ts.items()) + list(tq.items()) + list(tv.items())
             + list(th.items()) + list(ta.items()) + list(tsh.items())
-            if not t["ok"]]
+            + list(ttr.items()) if not t["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     torch.cuda.empty_cache()
 
@@ -5066,6 +5509,11 @@ def main() -> int:
     phase_serve_moe(torch, fm, dec, serve)
     smoke_mla = phase_model_mla(torch, fm, dec, cfg=mla_smoke_tower(),
                                 phase="model_mla_smoke")
+    # training gets the card to itself
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = phase_train(torch, fm, dec)
+    phase_train_launcher(torch, fm)
 
     def entry(name, route, source, replaces, t, n_launches, kernel=None):
         cases = [r["ok"] for r in rows + [same, same4, same2l, same256]
@@ -5270,6 +5718,21 @@ def main() -> int:
                      other_tp={str(tp): shard_row(
                          tsh[f"latent_decode_partials@strip_tp{tp}"])
                          for tp in STRIP_TPS if tp != SHARD_TP}),
+        # training: K1 with its LSE at stablelm-1.6b's shape (launches:
+        # phase_train's steps, the forward and the remat recompute), and
+        # the recompute backward beside it (torch ops, not a kernel)
+        dict(k1_entry("fusemax_prefill@train_lse",
+                      ttr["fusemax_prefill@train_lse"],
+                      train_launches["fusemax_prefill_lse"], e=64, f=64),
+             device_ms=ttr["fusemax_prefill@train_lse"]["device_ms"],
+             lse_max_abs_err=ttr["fusemax_prefill@train_lse"][
+                 "lse_max_abs_err"],
+             ms_no_lse=ttr["fusemax_prefill@train_lse"]["ms_no_lse"],
+             backward={key: ttr["fusemax_attention_bwd@train"][key]
+                       for key in ("shape", "ms", "bound_ms", "bound_by",
+                                   "bound_ms_fp32", "library_ms", "library",
+                                   "max_abs_err")},
+             backward_calls=train_launches["backward_calls"]),
         k1_entry("fusemax_prefill@smoke_32x32",
                  ts["fusemax_prefill@smoke_32x32"], smoke["fusemax_prefill"],
                  e=32, f=32),

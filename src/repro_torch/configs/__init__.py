@@ -1,12 +1,13 @@
-"""Architecture registry: the 10 assigned configs + reduced smoke variants.
-
-The port's copy of the JAX package's registry, without its input-shape
-cells (those belong to the dry-run, which is not ported yet).
-"""
+"""Architecture registry: the 10 assigned configs + reduced smoke variants
+(the port's copy of the JAX package's registry) and the input-shape cells
+(:mod:`repro_torch.configs.shapes`)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (
     LayerSpec, MLAConfig, ModelConfig, MoEConfig, SSMConfig, reduced,
+)
+from repro_torch.configs.shapes import (
+    SHAPES, SUBQUADRATIC, ShapeCell, cell_applicable, input_specs,
 )
 
 from repro_torch.configs.musicgen_large import CONFIG as MUSICGEN_LARGE
@@ -45,5 +46,6 @@ def get_config(name: str) -> ModelConfig:
 
 __all__ = [
     "ARCHS", "LayerSpec", "MLAConfig", "ModelConfig", "MoEConfig",
-    "SSMConfig", "get_config", "reduced",
+    "SHAPES", "SSMConfig", "SUBQUADRATIC", "ShapeCell", "cell_applicable",
+    "get_config", "input_specs", "reduced",
 ]

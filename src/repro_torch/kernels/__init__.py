@@ -1,10 +1,13 @@
 """FuseMax attention kernels for Hopper, with their plain torch versions.
 
 ``fusemax.py``  — 1-pass prefill attention: CUDA wrapper + plain version
+                  (each with a log-sum-exp output), and the recompute
+                  backward in torch ops
 ``decode.py``   — split-K decode partials, dense, paged, and MLA latent
                   (paged and dense): CUDA wrappers + plain versions, and
                   the torch combine
-``ops.py``      — public ops (GQA folding, tile choice, impl dispatch)
+``ops.py``      — public ops (GQA folding, tile choice, impl dispatch,
+                  the differentiable ``FuseMaxAttention``)
 ``autotune.py`` — modeled tile / split selection
 ``ref.py``      — 3-pass fp32 oracles
 ``_build.py``   — nvcc build + ctypes loading of ``csrc/*.cu``
@@ -21,19 +24,22 @@ from repro_torch.kernels.decode import (
     paged_decode_partials_cuda, paged_decode_partials_torch,
 )
 from repro_torch.kernels.fusemax import (
-    exp_maccs, fusemax_attention_cuda, fusemax_attention_torch,
+    exp_maccs, fusemax_attention_bwd, fusemax_attention_cuda,
+    fusemax_attention_torch,
 )
 from repro_torch.kernels.ops import (
-    KERNEL_CASCADES, fusemax_attention, fusemax_decode, fusemax_decode_latent,
+    KERNEL_CASCADES, FuseMaxAttention, fusemax_attention, fusemax_decode,
+    fusemax_decode_latent,
     fusemax_decode_paged, fusemax_mla_decode_paged, gather_pages,
 )
 from repro_torch.kernels.ref import decode_reference, mha_reference
 
 __all__ = [
-    "AttentionParams", "DecodeParams", "KERNEL_CASCADES",
+    "AttentionParams", "DecodeParams", "FuseMaxAttention", "KERNEL_CASCADES",
     "attention_params", "autotune", "combine_partials", "decode_params",
     "decode_partials_cuda", "decode_partials_torch", "decode_reference",
-    "exp_maccs", "fusemax_attention", "fusemax_attention_cuda",
+    "exp_maccs", "fusemax_attention", "fusemax_attention_bwd",
+    "fusemax_attention_cuda",
     "fusemax_attention_torch", "fusemax_decode", "fusemax_decode_latent",
     "fusemax_decode_paged", "fusemax_mla_decode_paged", "gather_pages",
     "latent_decode_partials_cuda", "latent_decode_partials_torch",

@@ -234,9 +234,10 @@ __device__ __forceinline__ void issue_chunk(T* slot, const T* kb,
 template <typename T, int E, int F, bool MACCS>
 __global__ void __launch_bounds__(Layout<T, E, F>::NT)
 fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int pg,
-                       int m, float scale, int causal, int window,
-                       float softcap, int q_offset, int group, int m_valid) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int pg, int m, float scale,
+                       int causal, int window, float softcap, int q_offset,
+                       int group, int m_valid) {
   using L = Layout<T, E, F>;
   constexpr int BQ = L::BQ, BK = L::BK, WF = L::WF, MT = L::MT, VK = L::VK;
   constexpr int KC = L::KC;
@@ -539,13 +540,19 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
   }
 
-  // AV (Eq. 53): deferred division; rows no tile reached emit 0
+  // AV (Eq. 53): deferred division; rows no tile reached emit 0.  With
+  // `lse`, one lane of the row's quad (in the row group's first warp)
+  // also writes the row's log-sum-exp m + log(l), the reference's
+  // rm + log(rd_safe): NEG_INF for a row no tile reached.
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (row[mt][h] >= rows) continue;
       const float d = l_i[mt][h] == 0.f ? 1.f : l_i[mt][h];
+      if (lse != nullptr && t4 == 0 && wf == 0)
+        lse[static_cast<size_t>(bh) * pg + r0 + row[mt][h]] =
+            m_i[mt][h] + logf(d);
       T* orow = o + (static_cast<size_t>(bh) * pg + r0 + row[mt][h]) * F +
                 wf * FW + 2 * t4;
 #pragma unroll
@@ -558,9 +565,9 @@ fusemax_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int E, int F, bool MACCS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int pg, int m, float scale, int causal, int window,
-                   float softcap, int q_offset, int group, int m_valid,
-                   cudaStream_t stream) {
+                   float* lse, int bh, int pg, int m, float scale, int causal,
+                   int window, float softcap, int q_offset, int group,
+                   int m_valid, cudaStream_t stream) {
   using L = Layout<T, E, F>;
   auto kern = fusemax_prefill_kernel<T, E, F, MACCS>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -569,34 +576,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((pg + L::BQ - 1) / L::BQ, bh);
   kern<<<grid, L::NT, L::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), pg, m, scale, causal,
-      window, softcap, q_offset, group, m_valid);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, pg, m, scale,
+      causal, window, softcap, q_offset, group, m_valid);
   return cudaGetLastError();
 }
 
 template <typename T, int E, int F>
 cudaError_t launch_exp(int maccs, const void* q, const void* k, const void* v,
-                       void* o, int bh, int pg, int m, float scale,
-                       int causal, int window, float softcap, int q_offset,
-                       int group, int m_valid, cudaStream_t stream) {
-  return maccs ? launch<T, E, F, true>(q, k, v, o, bh, pg, m, scale, causal,
-                                       window, softcap, q_offset, group,
-                                       m_valid, stream)
-               : launch<T, E, F, false>(q, k, v, o, bh, pg, m, scale, causal,
-                                        window, softcap, q_offset, group,
-                                        m_valid, stream);
+                       void* o, float* lse, int bh, int pg, int m,
+                       float scale, int causal, int window, float softcap,
+                       int q_offset, int group, int m_valid,
+                       cudaStream_t stream) {
+  return maccs ? launch<T, E, F, true>(q, k, v, o, lse, bh, pg, m, scale,
+                                       causal, window, softcap, q_offset,
+                                       group, m_valid, stream)
+               : launch<T, E, F, false>(q, k, v, o, lse, bh, pg, m, scale,
+                                        causal, window, softcap, q_offset,
+                                        group, m_valid, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_dims(int e, int f, int maccs, const void* q,
-                          const void* k, const void* v, void* o, int bh,
-                          int pg, int m, float scale, int causal, int window,
-                          float softcap, int q_offset, int group, int m_valid,
-                          cudaStream_t st) {
+                          const void* k, const void* v, void* o, float* lse,
+                          int bh, int pg, int m, float scale, int causal,
+                          int window, float softcap, int q_offset, int group,
+                          int m_valid, cudaStream_t st) {
 #define REPRO_DIMS(E, F)                                                      \
   if (e == E && f == F)                                                       \
-    return launch_exp<T, E, F>(maccs, q, k, v, o, bh, pg, m, scale, causal,   \
-                               window, softcap, q_offset, group, m_valid, st);
+    return launch_exp<T, E, F>(maccs, q, k, v, o, lse, bh, pg, m, scale,      \
+                               causal, window, softcap, q_offset, group,      \
+                               m_valid, st);
   REPRO_DIMS(128, 128)
   REPRO_DIMS(64, 64)
   REPRO_DIMS(192, 128)
@@ -613,22 +622,25 @@ cudaError_t dispatch_dims(int e, int f, int maccs, const void* q,
 // dtype: 0 = float32, 1 = bfloat16.  (e, f): q/k head dim and v head dim,
 // one of (64, 64), (128, 128), (192, 128), (576, 512), (256, 256),
 // (32, 32), (48, 32).  q, k, v and o must be 16-byte aligned.
-// window <= 0 means no window; softcap <= 0 means no softcap.
+// window <= 0 means no window; softcap <= 0 means no softcap.  lse, when
+// not null, is an fp32 [bh, pg] output: each row's log-sum-exp of its
+// scaled (softcapped, masked) scores, which a recompute backward reads.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int fusemax_prefill(const void* q, const void* k, const void* v,
-                               void* o, int dtype, int e, int f, int bh,
-                               int pg, int m, float scale, int causal,
+                               void* o, void* lse, int dtype, int e, int f,
+                               int bh, int pg, int m, float scale, int causal,
                                int window, float softcap, int q_offset,
                                int group, int m_valid, int exp_maccs,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0)
     return static_cast<int>(dispatch_dims<float>(
-        e, f, exp_maccs, q, k, v, o, bh, pg, m, scale, causal, window,
+        e, f, exp_maccs, q, k, v, o, lse_f, bh, pg, m, scale, causal, window,
         softcap, q_offset, group, m_valid, st));
   if (dtype == 1)
     return static_cast<int>(dispatch_dims<__nv_bfloat16>(
-        e, f, exp_maccs, q, k, v, o, bh, pg, m, scale, causal, window,
+        e, f, exp_maccs, q, k, v, o, lse_f, bh, pg, m, scale, causal, window,
         softcap, q_offset, group, m_valid, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,7 +15,14 @@ differ from F (DeepSeek's MLA: (192, 128) expanded, (576, 512) absorbed):
   (both products on the tensor cores in error-compensated 3xTF32) and
   counts its launches in ``fusemax_attention_cuda.launches`` (and by
   head dims in ``.launches_by_dims``, those with a sliding window in
-  ``.launches_windowed``).
+  ``.launches_windowed``, those that write a log-sum-exp in
+  ``.launches_lse``).
+
+With ``return_lse=True`` both also return each row's log-sum-exp
+``rm + log(rd_safe)`` as fp32 ``[B·Hkv, P·G]`` — what the reference's
+custom-VJP forward saves for its recompute backward
+(``repro.kernels.ops._make_flash_jnp``); ``-1e30`` for a row no key tile
+reached.
 
 ``NEG_INF`` is finite on purpose: a row fully masked inside a tile that
 runs accumulates ``exp(0) = 1`` terms, and the next valid tile's
@@ -71,6 +78,12 @@ def _exp(x: torch.Tensor, impl: str) -> torch.Tensor:
     return exp_maccs(x) if impl == "maccs" else torch.exp(x)
 
 
+def acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: fp32, or fp64 for fp64 inputs
+    (which only a gradient check passes; the kernels take fp32 / bf16)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def _tile_runs(pg: int, block_q: int, block_k: int, n_kt: int, *,
                causal: bool, window: Optional[int], q_offset: int,
                group: int, m_valid: int) -> np.ndarray:
@@ -106,10 +119,12 @@ def fusemax_attention_torch(
     block_k: int = 128,
     m_valid: Optional[int] = None,
     exp_impl: str = "native",
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain 1-pass FuseMax forward, mirroring ``_fusemax_kernel``: every
     query tile sweeps the key tiles the TPU kernel runs for it, carrying
-    (RM, RD, RNV) in fp32; division is deferred to the end."""
+    (RM, RD, RNV) in fp32; division is deferred to the end.  Returns the
+    output, or (output, log-sum-exp) with ``return_lse``."""
     bh, pg, e = q.shape
     m, f = v.shape[1], v.shape[2]
     m_valid = m if m_valid is None else m_valid
@@ -122,18 +137,19 @@ def fusemax_attention_torch(
     run_rows = torch.from_numpy(
         np.repeat(run_t, block_q, axis=0)[:pg].T.copy()).to(dev)
 
-    qf = q.float()
+    acc = acc_dtype(q)
+    qf = q.to(acc)
     qpos = torch.arange(pg, device=dev) // group + q_offset      # [PG]
-    rm = torch.full((bh, pg), NEG_INF, dtype=torch.float32, device=dev)
-    rd = torch.zeros((bh, pg), dtype=torch.float32, device=dev)
-    rnv = torch.zeros((bh, pg, f), dtype=torch.float32, device=dev)
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    rm = torch.full((bh, pg), NEG_INF, dtype=acc, device=dev)
+    rd = torch.zeros((bh, pg), dtype=acc, device=dev)
+    rnv = torch.zeros((bh, pg, f), dtype=acc, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=acc, device=dev)
     for kt in range(n_kt):
         if not run_t[:, kt].any():
             continue
         k_lo = kt * block_k
-        k_t = k[:, k_lo:k_lo + block_k].float()
-        v_t = v[:, k_lo:k_lo + block_k].float()
+        k_t = k[:, k_lo:k_lo + block_k].to(acc)
+        v_t = v[:, k_lo:k_lo + block_k].to(acc)
         s = torch.einsum("bre,bke->brk", qf, k_t) * scale     # BQK (Eq. 42)
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
@@ -157,7 +173,94 @@ def fusemax_attention_torch(
                           rnv * prm[..., None] + slnv, rnv)   # Eqs. 51-52
         rm = torch.where(run, m_new, rm)
     rd = torch.where(rd == 0.0, torch.ones_like(rd), rd)      # l = 0 guard
-    return (rnv / rd[..., None]).to(q.dtype)                  # Eq. 53
+    out = (rnv / rd[..., None]).to(q.dtype)                   # Eq. 53
+    return (out, (rm + torch.log(rd)).to(acc)) if return_lse else out
+
+
+#: keys a block of the recompute backward (:func:`fusemax_attention_bwd`)
+BWD_BLOCK_K = 128
+
+
+def fusemax_attention_bwd(
+    q: torch.Tensor,     # [BHkv, PG, E]
+    k: torch.Tensor,     # [BHkv, M, E]
+    v: torch.Tensor,     # [BHkv, M, F]
+    out: torch.Tensor,   # [BHkv, PG, F]
+    lse: torch.Tensor,   # [BHkv, PG] fp32
+    dout: torch.Tensor,  # [BHkv, PG, F]
+    *,
+    scale: float,
+    causal: bool = False,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    group: int = 1,
+    m_valid: Optional[int] = None,
+    block_k: int = BWD_BLOCK_K,
+):
+    """(dq, dk, dv) of the 1-pass forward: the FlashAttention-2 recompute
+    backward of the reference's custom VJP (``ops.py:_make_flash_jnp``'s
+    ``bwd_vjp``), in torch ops on the folded layout.
+
+    One pass over key blocks recomputes the probabilities from (q, k, lse)
+    — P = exp(S − lse) — so nothing of size [PG, M] is kept: ``delta =
+    Σ dO∘O``, dV += Pᵀ dO, dP = dO Vᵀ, dS = P (dP − delta) (times the
+    softcap's 1 − tanh²), dQ += dS K · scale, dK = dSᵀ Q · scale, all in
+    fp32 (fp64 for fp64 inputs).  A key block touches only the query rows its causal / window
+    masks leave (rows are ordered by position, so they are one slice);
+    the rows outside it have P = 0 exactly in the reference, as here.
+    The reference has no Pallas backward, so neither is this a kernel."""
+    bh, pg, e = q.shape
+    m, f = v.shape[1], v.shape[2]
+    m_valid = m if m_valid is None else m_valid
+    dev = q.device
+    acc = acc_dtype(q)
+    qf = q.to(acc)
+    do = dout.to(acc)
+    delta = (do * out.to(acc)).sum(dim=-1)                    # [BH, PG]
+    qpos = torch.arange(pg, device=dev) // group + q_offset
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((bh, m, e), dtype=acc, device=dev)
+    dv = torch.zeros((bh, m, f), dtype=acc, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=acc, device=dev)
+    for k_lo in range(0, min(m, m_valid), block_k):
+        k_hi = min(k_lo + block_k, m)
+        # the rows that see a key of [k_lo, k_hi): qpos >= k_lo (causal)
+        # and qpos < k_hi - 1 + window; qpos rises with the row
+        r_lo = max(0, (k_lo - q_offset) * group) if causal else 0
+        r_hi = pg
+        if window is not None:
+            r_hi = min(pg, max(0, (k_hi - 1 + window - q_offset) * group))
+        if r_lo >= r_hi:
+            continue
+        q_b, do_b = qf[:, r_lo:r_hi], do[:, r_lo:r_hi]
+        k_b, v_b = k[:, k_lo:k_hi].to(acc), v[:, k_lo:k_hi].to(acc)
+        s = torch.einsum("bre,bke->brk", q_b, k_b) * scale
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        kpos = torch.arange(k_lo, k_hi, device=dev)
+        qp = qpos[r_lo:r_hi, None]
+        ok = (kpos < m_valid)[None, :].expand(r_hi - r_lo, -1)
+        if causal:
+            ok = ok & (kpos[None, :] <= qp)
+        if window is not None:
+            ok = ok & (kpos[None, :] > qp - window)
+        s = torch.where(ok, s, neg)
+        p = torch.exp(s - lse[:, r_lo:r_hi, None].to(acc))    # = A
+        dv[:, k_lo:k_hi] = torch.einsum("brk,brf->bkf", p, do_b)
+        dp = torch.einsum("brf,bkf->brk", do_b, v_b)
+        ds = p * (dp - delta[:, r_lo:r_hi, None])
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)                           # d softcap
+        dq[:, r_lo:r_hi] += torch.einsum("brk,bke->bre", ds, k_b) * scale
+        dk[:, k_lo:k_hi] = torch.einsum("brk,bre->bke", ds, q_b) * scale
+    fusemax_attention_bwd.calls += 1
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: backward passes run (torch ops on any device; not a kernel launch)
+fusemax_attention_bwd.calls = 0
 
 
 def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
@@ -194,7 +297,7 @@ def _prefill_lib():
     lib = _build.load("fusemax_prefill")
     fn = lib.fusemax_prefill
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
@@ -233,11 +336,15 @@ def fusemax_attention_cuda(
     block_k: int = 64,
     m_valid: Optional[int] = None,
     exp_impl: str = "native",
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Launch the CUDA prefill kernel on the current stream (no sync).
     ``block_q``/``block_k`` must be the tile the kernel is compiled for at
     these head dims (``autotune.attention_params(..., impl="cuda")``; the
-    library's own report is checked here)."""
+    library's own report is checked here).  With ``return_lse`` the
+    kernel also writes each row's log-sum-exp (fp32 ``[B·Hkv, P·G]``) and
+    (output, lse) is returned; without it the kernel gets a null pointer
+    and writes none."""
     check_cuda_operands("fusemax_attention_cuda", q, k, v)
     bh, pg, e = q.shape
     f = v.shape[2]
@@ -267,9 +374,12 @@ def fusemax_attention_cuda(
         raise ValueError(f"tile ({block_q}, {block_k}) but the kernel is "
                          f"compiled for {tile} at (E, F) = ({e}, {f})")
     out = torch.empty((bh, pg, f), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, pg), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if pg == 0 or bh == 0:
-        return out
-    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), CUDA_DTYPES[q.dtype], e,
+        return (out, lse) if return_lse else out
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out),
+             None if lse is None else _ptr(lse), CUDA_DTYPES[q.dtype], e,
              f, bh, pg, m, float(scale), int(causal),
              0 if window is None else int(window),
              0.0 if softcap is None else float(softcap), int(q_offset),
@@ -282,6 +392,9 @@ def fusemax_attention_cuda(
     by_dims[(e, f)] = by_dims.get((e, f), 0) + 1
     if window is not None:
         fusemax_attention_cuda.launches_windowed += 1
+    if return_lse:
+        fusemax_attention_cuda.launches_lse += 1
+        return out, lse
     return out
 
 
@@ -290,3 +403,5 @@ fusemax_attention_cuda.launches = 0
 fusemax_attention_cuda.launches_by_dims = {}
 #: the launches with a sliding window (local layers)
 fusemax_attention_cuda.launches_windowed = 0
+#: the launches that wrote a log-sum-exp (the training forward)
+fusemax_attention_cuda.launches_lse = 0

@@ -1,7 +1,11 @@
 """Public attention ops: GQA folding, tile choice and dispatch around the
 FuseMax kernels.  Port of ``repro.kernels.ops``.
 
-``fusemax_attention``    — [B, Hq, P, E] × [B, Hkv, M, E/F] → [B, Hq, P, F].
+``fusemax_attention``    — [B, Hq, P, E] × [B, Hkv, M, E/F] → [B, Hq, P, F];
+  differentiable: with grad mode on and an operand that requires grad,
+  "cuda" and "torch" run :class:`FuseMaxAttention`, the reference's custom
+  VJP (K1 or its plain version with a log-sum-exp output forward, the
+  FA-2 recompute backward in torch ops); "ref" is plain autograd.
 ``fusemax_decode``       — one-token (or P-row verify) queries against a
   ragged dense KV cache, split-K.
 ``fusemax_decode_paged`` — the same against a page pool through a block
@@ -39,7 +43,7 @@ from repro_torch.kernels.decode import (
     paged_decode_partials_cuda, paged_decode_partials_torch,
 )
 from repro_torch.kernels.fusemax import (
-    fusemax_attention_cuda, fusemax_attention_torch,
+    fusemax_attention_bwd, fusemax_attention_cuda, fusemax_attention_torch,
 )
 
 # Every public op dispatches to exactly one declared cascade of the
@@ -88,6 +92,33 @@ def resolve_impl(impl: str, t: torch.Tensor) -> str:
     return impl
 
 
+class FuseMaxAttention(torch.autograd.Function):
+    """The reference's ``_make_flash_jnp`` custom VJP on the folded layout
+    (q [B·Hkv, P·G, E], k, v): forward is K1 (``impl="cuda"``) or its
+    plain version (``"torch"``), each with its log-sum-exp output, and
+    saves (q, k, v, out, lse); backward is
+    :func:`~repro_torch.kernels.fusemax.fusemax_attention_bwd`.  ``kw``
+    holds the forward's keyword arguments (scale, masks, group, tile)."""
+
+    @staticmethod
+    def forward(ctx, q_f, k_f, v_f, impl: str, kw: dict):
+        fwd = fusemax_attention_cuda if impl == "cuda" \
+            else fusemax_attention_torch
+        out, lse = fwd(q_f, k_f, v_f, return_lse=True, **kw)
+        ctx.save_for_backward(q_f, k_f, v_f, out, lse)
+        ctx.kw = {key: kw[key] for key in ("scale", "causal", "window",
+                                           "softcap", "q_offset", "group",
+                                           "m_valid")}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_f, k_f, v_f, out, lse = ctx.saved_tensors
+        dq, dk, dv = fusemax_attention_bwd(q_f, k_f, v_f, out, lse, dout,
+                                           **ctx.kw)
+        return dq, dk, dv, None, None
+
+
 def fusemax_attention(
     q: torch.Tensor,   # [B, Hq, P, E]
     k: torch.Tensor,   # [B, Hkv, M, E]
@@ -134,16 +165,20 @@ def fusemax_attention(
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
               q_offset=q_offset, group=group, m_valid=m, exp_impl=exp_impl)
     if impl == "cuda":
-        out = fusemax_attention_cuda(
-            q_f.contiguous(), k_f.contiguous(), v_f.contiguous(),
-            block_q=block_q, block_k=block_k, **kw)
+        q_f, k_f, v_f = q_f.contiguous(), k_f.contiguous(), v_f.contiguous()
+        kw.update(block_q=block_q, block_k=block_k)
+        fwd = fusemax_attention_cuda
     else:
         # the TPU wrapper's tile clamps, so the plain version runs the
         # same (query tile, key tile) pairs as the Pallas kernel
-        pg = p * group
-        out = fusemax_attention_torch(
-            q_f, k_f, v_f, block_q=min(block_q, _round_up(pg, 8)),
-            block_k=min(block_k, _round_up(m, 128)), **kw)
+        kw.update(block_q=min(block_q, _round_up(p * group, 8)),
+                  block_k=min(block_k, _round_up(m, 128)))
+        fwd = fusemax_attention_torch
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = FuseMaxAttention.apply(q_f, k_f, v_f, impl, kw)
+    else:
+        out = fwd(q_f, k_f, v_f, **kw)
     return (out.reshape(b, hkv, p, group, f).transpose(2, 3)
             .reshape(b, hq, p, f))
 

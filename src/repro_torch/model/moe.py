@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN: top-k routing, capacity-bounded scatter dispatch.
 
-Port of ``repro.model.moe`` (serving paths; the load-balance aux loss is
-training-only and comes with ROADMAP §1 item 9).  As in the reference:
+Port of ``repro.model.moe``, the switch-style load-balance loss
+(``moe_ffn(..., return_aux=True)``) included; as in the reference, no
+caller adds it to a loss.  As in the reference:
 
 * the router is fp32 ``[d, E]``: softmax top-k, or (DeepSeek-V3, llama4)
   sigmoid scores with the top-k gates renormalised.  Ties break toward the
@@ -87,8 +88,12 @@ def _route(logits: torch.Tensor, mo: MoEConfig):
     return gates, experts, probs
 
 
-def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: [B, S, d] → [B, S, d]; each batch row is one capacity group."""
+def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+            return_aux: bool = False):
+    """x: [B, S, d] → [B, S, d]; each batch row is one capacity group.
+    With ``return_aux`` also the switch-style load-balance loss
+    ``E · Σ_e f_e · p_e · aux_loss_weight`` (f: the share of picks, p: the
+    mean routing probability of expert e)."""
     mo = cfg.moe
     b, s, d = x.shape
     e, k = mo.n_experts, mo.top_k
@@ -96,7 +101,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
 
     logits = x.float() @ p.router                            # [B, S, E]
-    gates, experts, _ = _route(logits, mo)                   # [B, S, k]
+    gates, experts, probs = _route(logits, mo)               # [B, S, k]
 
     # slot: exclusive count of each expert over the flattened (S·k) axis
     flat_e = experts.reshape(b, s * k)                       # [B, T]
@@ -126,4 +131,8 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     if hasattr(p, "shared"):
         y = y + mlp(p.shared, x, cfg.mlp_act)
-    return y
+    if not return_aux:
+        return y
+    me = probs.float().mean(dim=(0, 1))                      # mean prob [E]
+    ce = F.one_hot(experts, e).float().sum(dim=2).mean(dim=(0, 1)) / k
+    return y, e * (me * ce).sum() * mo.aux_loss_weight

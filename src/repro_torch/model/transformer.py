@@ -15,7 +15,8 @@ and loops in Python, and its caches are a flat per-layer list.
 
 Entry points:
   ``init``             → :class:`Model` with seeded random weights
-  ``forward``          → logits [B, S, vocab]
+  ``forward``          → logits [B, S, vocab]             (no grad)
+  ``loss_fn``          → (loss, metrics)                  (training)
   ``init_cache``       → per-layer dense caches
   ``init_paged_cache`` → per-layer page pools (paged layout)
   ``prefill``          → (last-token logits, caches)
@@ -43,6 +44,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.distributed.sharding import leaf_parts
@@ -114,10 +116,15 @@ class Layer(nn.Module):
 class Model(nn.Module):
     """All parameters: ``embed``, [``unembed``], [``frontend_proj`` — the
     [d, d] projection of precomputed frame / patch embeddings],
-    ``layers`` (one module per layer, in depth order), ``final_norm``."""
+    ``layers`` (one module per layer, in depth order), ``final_norm``, and
+    with ``with_mtp`` (training a config with ``n_mtp > 0``) ``mtp``:
+    DeepSeek's multi-token-prediction layers, each built like the last
+    layer of the stack (the reference's ``params["mtp"]``).  Serving never
+    runs the MTP head, so the serving entry points build none."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None,
+                 with_mtp: bool = False):
         super().__init__()
         check_supported(cfg)
         nk = dict(dtype=dtype, device=device)
@@ -130,6 +137,10 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(
             Layer(cfg, spec, gen=gen, **nk) for spec in cfg.layer_specs())
         self.final_norm = Norm(cfg.d_model, cfg.norm, **nk)
+        if with_mtp and cfg.n_mtp:
+            spec = cfg.layer_specs()[-1]
+            self.mtp = nn.ModuleList(Layer(cfg, spec, gen=gen, **nk)
+                                     for _ in range(cfg.n_mtp))
 
     @property
     def head(self) -> Embedding:
@@ -137,14 +148,16 @@ class Model(nn.Module):
 
 
 def init(cfg: ModelConfig, seed: int = 0, rt: Runtime = Runtime(),
-         device="cuda") -> Model:
+         device="cuda", with_mtp: bool = False) -> Model:
     """A model with N(0, fan-in) random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the same
-    distributions as the reference's init, not the same numbers)."""
+    distributions as the reference's init, not the same numbers).
+    ``with_mtp`` adds the MTP head (drawn after every other weight)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return Model(cfg, dtype=rt.param_dtype, device=dev, gen=gen)
+    return Model(cfg, dtype=rt.param_dtype, device=dev, gen=gen,
+                 with_mtp=with_mtp)
 
 
 # ---------------------------------------------------------------------------
@@ -291,11 +304,75 @@ def _logits(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def forward(cfg: ModelConfig, model: Model, batch: dict,
             rt: Runtime = Runtime()) -> torch.Tensor:
-    """Training-shape forward. Returns logits [B, S, vocab]."""
+    """Training-shape forward without gradients (evaluation, the serving
+    paths' reference). Returns logits [B, S, vocab]."""
     x = _embed_inputs(cfg, model, batch["inputs"], rt)
     for spec, p in zip(cfg.layer_specs(), model.layers):
         x = layer_forward(p, x, cfg, spec, rt)
     return _logits(cfg, model, x)
+
+
+def _trunk(cfg: ModelConfig, model: Model, inputs: torch.Tensor,
+           rt: Runtime) -> torch.Tensor:
+    """The layer stack's output (before the final norm) with gradients,
+    rematerialized per (pattern, repeat) of ``cfg.runs()`` as the
+    reference's ``_run_forward`` wraps each in ``jax.checkpoint``: only a
+    unit's input is kept, and its layers run again in the backward."""
+    x = _embed_inputs(cfg, model, inputs, rt)
+    layer = 0
+    for pattern, reps in cfg.runs():
+        for _ in range(reps):
+            unit = list(zip(pattern, model.layers[layer:layer + len(pattern)]))
+            layer += len(pattern)
+
+            def apply_pattern(h, unit=unit):
+                for spec, p in unit:
+                    h = layer_forward(p, h, cfg, spec, rt)
+                return h
+
+            x = checkpoint(apply_pattern, x, use_reentrant=False)
+    return x
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor,
+          mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean next-token cross-entropy in fp32."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) \
+        - lf.gather(-1, targets.long()[..., None])[..., 0]
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, model: Model, batch: dict,
+            rt: Runtime = Runtime()):
+    """Causal LM loss (next-token cross-entropy under ``loss_mask``) plus,
+    with ``mtp_targets`` and an MTP head, 0.1 x the MTP losses: head j
+    applies one more layer to the running trunk output and predicts token
+    t + 2 + j.  Returns (loss, metrics) as the reference's ``loss_fn``:
+    ``loss`` (next-token), ``tokens``, [``mtp_loss``], ``total_loss``.
+    The reference runs the trunk a second time for the MTP head; it is the
+    same function of the same inputs, so the port reuses its output."""
+    x = _trunk(cfg, model, batch["inputs"], rt)
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    mask = torch.ones(targets.shape, dtype=torch.float32,
+                      device=targets.device) if mask is None else mask.float()
+    loss = _xent(_logits(cfg, model, x), targets, mask)
+    metrics = {"loss": loss, "tokens": mask.sum()}
+    if cfg.n_mtp and "mtp_targets" in batch:
+        if not hasattr(model, "mtp"):
+            raise ValueError(f"{cfg.name}: mtp_targets given but the model "
+                             "has no MTP head (build it with_mtp=True)")
+        spec = cfg.layer_specs()[-1]
+        mtp_loss = 0.0
+        for j, p in enumerate(model.mtp):
+            x = layer_forward(p, x, cfg, spec, rt)
+            mtp_loss = mtp_loss + _xent(_logits(cfg, model, x),
+                                        batch["mtp_targets"][..., j], mask)
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.1 * mtp_loss
+    metrics["total_loss"] = loss
+    return loss, metrics
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+# -n 6 xdist workers x 8 intra-op threads would oversubscribe 8 cores
+torch.set_num_threads(1)
+
 from repro.configs import get_config as jax_get_config
 from repro.model import transformer as jtf
 from repro.model.layers import Runtime as JaxRuntime

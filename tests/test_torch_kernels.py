@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+# -n 6 xdist workers x 8 intra-op threads would oversubscribe 8 cores
+torch.set_num_threads(1)
+
 from repro.kernels import autotune as jax_autotune
 from repro.kernels import ops as jax_ops
 from repro.kernels.fusemax import exp_maccs as jax_exp_maccs

@@ -26,6 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+# -n 6 xdist workers x 8 intra-op threads would oversubscribe 8 cores
+torch.set_num_threads(1)
+
 from repro.configs import get_config as jax_get_config
 from repro.kernels import ops as jax_ops
 from repro.model import attention as jattn

@@ -23,6 +23,9 @@ and latents: each admitted config's quantized pool must reach a built
 import pytest
 import torch
 
+# -n 6 xdist workers x 8 intra-op threads would oversubscribe 8 cores
+torch.set_num_threads(1)
+
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import decode as dec

@@ -27,6 +27,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+# -n 6 xdist workers x 8 intra-op threads would oversubscribe 8 cores
+torch.set_num_threads(1)
+
 from hypothesis import given, settings, strategies as st
 
 from repro.configs import get_config as jax_get_config

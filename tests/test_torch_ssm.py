@@ -31,6 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+# -n 6 xdist workers x 8 intra-op threads would oversubscribe 8 cores
+torch.set_num_threads(1)
+
 from repro.configs.base import LayerSpec as JaxLayerSpec
 from repro.configs.base import ModelConfig as JaxModelConfig
 from repro.configs.base import SSMConfig as JaxSSMConfig

@@ -23,6 +23,9 @@ import numpy as np
 import pytest
 import torch
 
+# -n 6 xdist workers x 8 intra-op threads would oversubscribe 8 cores
+torch.set_num_threads(1)
+
 from repro_torch.kernels import decode as dec
 from repro_torch.kernels import fusemax as fm
 
