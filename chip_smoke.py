@@ -94,6 +94,25 @@ JSON line (``"phase": ...``):
              within the fp32 tolerance, and the kernel no farther from a
              float64 reference than the plain version plus
              ``F64_SLACK``;
+3a. analysis — ``repro_torch.analysis.report.check(impl="cuda")``: the
+             declared cascades' pass counts and footprints, and the
+             structural probes of ``repro_torch.analysis.lint`` on the
+             kernels at the main paths' widths (K1 at granite's prefill,
+             K2 / K3 at granite's decode data, fp32 and fp8 pools behind a
+             permuted table, K4 and K2's latent branch at DeepSeek's, the
+             P = 13 and P = 5 verify chains): with q = 0 every live key
+             counted exactly once and its position sums exact, a launch's
+             shared memory the same at M and 2M;
+3b. cascades_numeric — ``repro_torch.core``'s torch cascades (3-, 2-,
+             1-pass, split-K decode) at granite's prefill shape against
+             the float64 3-pass oracle, K1 beside them;
+3c. autotune_measured — ``autotune.measure_best`` over the decode splits
+             of K2 / K3 (granite) and K4 (DeepSeek): modeled and measured
+             choice with their ms, the kernel at the measured choice
+             against its plain version, the public op's verify read
+             against single-token reads under it (equal bits), the disk
+             cache (``build/autotune_measured.json``) read back after
+             ``clear_table()``;
 4. model   — granite-3-8b at full width cut to 4 layers, fp32: prefill 4
              mixed-length prompts and decode 8 greedy steps with
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
@@ -263,6 +282,11 @@ JSON line (``"phase": ...``):
    chains), K3 on head shards and the latent strips from the sharded
    legs, errors, times, bounds) and, last, ``{"ok": true, "device":
    {...}}``.
+
+After the build, the kernel block and every phase from 3a on, a
+``clocks`` line gives the phase's seconds and the card's SM and memory
+clocks, power draw, temperature and active throttle reasons as
+``nvidia-smi`` reads them right after it.
 
 Any failed phase raises: the script then exits non-zero and prints no
 result line.  It also exits non-zero when no CUDA card is visible or when
@@ -5257,6 +5281,279 @@ def phase_train_launcher(torch, fm) -> dict:
     return m
 
 
+# ---------------------------------------------------------------------------
+# clocks beside every timed phase
+# ---------------------------------------------------------------------------
+
+#: what ``nvidia-smi`` reports beside each timed phase
+CLOCK_FIELDS = ("clocks.sm", "clocks.mem", "power.draw", "temperature.gpu",
+                "clocks_throttle_reasons.active")
+
+
+def emit_clocks(phase: str, seconds: float) -> None:
+    """One ``clocks`` line right after ``phase``: its seconds and the
+    card's SM and memory clocks, power draw, temperature and active
+    throttle reasons; a query that fails or takes over 60 s fails the
+    run."""
+    smi = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(CLOCK_FIELDS)}",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip() != "",
+          f"{phase}: nvidia-smi clock query failed: {smi.stderr.strip()}")
+    vals = [v.strip() for v in smi.stdout.strip().splitlines()[0].split(",")]
+    check(len(vals) == len(CLOCK_FIELDS),
+          f"{phase}: nvidia-smi gave {vals} for {CLOCK_FIELDS}")
+    emit("clocks", of=phase, seconds=round(seconds, 3),
+         **dict(zip(CLOCK_FIELDS, vals)))
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, then its clocks line."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    emit_clocks(name, time.perf_counter() - t0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the cascade analysis, the numeric cascades and the measured autotuner
+# ---------------------------------------------------------------------------
+
+def phase_analysis(torch) -> dict:
+    """``repro_torch.analysis.report.check(impl="cuda")``: the declared
+    cascades' analysis, and every structural probe on the kernels at the
+    main paths' widths — K1 at granite's prefill (B4, 32/8 heads, P = M =
+    1024 and 2048, causal, and with a window and a softcap), K2 / K3 at
+    granite's decode data (B8, M 2048 and 4096, 16 splits; K3 on a
+    permuted pool with sentinel pages, fp32 and fp8), K4 and K2's latent
+    branch at DeepSeek's (B8, 128 heads, r 512, rd 64), the verify chains
+    (P = 13, P = 5), and the plain torch ops: each live key counted once,
+    the position sums exact, the shared memory a launch asks for the same
+    at M and 2M."""
+    import io
+
+    from repro_torch.analysis import report
+
+    buf, results = io.StringIO(), []
+    failures = report.check(impl="cuda", out=buf, results=results)
+    probes = [dict(entry=r["name"], probe=pr["probe"],
+                   smem_bytes=pr.get("smem_bytes"),
+                   page_list_bytes=pr.get("page_list_bytes"),
+                   cases=pr["cases"])
+              for r in results if r["ok"] for pr in r["probes"]]
+    emit("analysis", failures=failures, report=buf.getvalue().splitlines(),
+         probes=probes,
+         errors=[r["error"] for r in results if not r["ok"]])
+    check(failures == 0, f"cascade check: {failures} failure(s): "
+          f"{buf.getvalue()}")
+    return {"probes": len(probes)}
+
+
+#: tests/test_cascades_numeric.py's tolerance for every cascade (and K1)
+#: against the oracle
+CASCADE_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def phase_cascades_numeric(torch, ops) -> dict:
+    """The torch cascades of ``repro_torch.core`` on the card at granite's
+    prefill shape (B4, 32 heads of 128, P = M = 1024, causal; K/V repeated
+    over the 4-head groups): ``attention_{3,2,1}pass`` (blocks of 128) and
+    ``attention_decode_1pass`` (the last row, 16 splits), each against the
+    3-pass oracle ``reference_attention`` evaluated in float64, with K1's
+    output (``fusemax_attention``, GQA) on the same inputs beside them."""
+    from repro_torch import core as cn
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    b, hq, hkv, m, d = 4, 32, 8, 1024, 128
+    q = _rand(torch, gen, (b, hq, m, d), torch.float32)
+    k = _rand(torch, gen, (b, hkv, m, d), torch.float32)
+    v = _rand(torch, gen, (b, hkv, m, d), torch.float32)
+    k_e, v_e = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+    spec = cn.AttnSpec(causal=True)
+    ref = cn.reference_attention(q.double(), k_e.double(), v_e.double(), spec)
+    dec_spec = cn.AttnSpec(causal=True, q_offset=m - 1)
+    outs = {
+        "attention_3pass": (cn.attention_3pass(q, k_e, v_e, spec), ref),
+        "attention_2pass": (cn.attention_2pass(q, k_e, v_e, spec,
+                                               block=128), ref),
+        "attention_1pass": (cn.attention_1pass(q, k_e, v_e, spec,
+                                               block=128), ref),
+        "attention_decode_1pass": (cn.attention_decode_1pass(
+            q[:, :, -1:].contiguous(), k_e, v_e, dec_spec, splits=16),
+            ref[:, :, -1:]),
+        "fusemax_attention (K1)": (ops.fusemax_attention(
+            q, k, v, causal=True, impl="cuda"), ref),
+    }
+    torch.cuda.synchronize()
+    rows = {}
+    for name, (out, want) in outs.items():
+        diff = (out.double() - want).abs()
+        excess = (diff - (CASCADE_TOL["atol"] + CASCADE_TOL["rtol"]
+                          * want.abs())).max().item()
+        rows[name] = dict(max_abs_err_vs_f64=diff.max().item(),
+                          ok=excess <= 0.0)
+    emit("cascades_numeric", shape=f"B{b} {hq}/{hkv} heads P=M={m} d{d} "
+         "causal", tolerance=CASCADE_TOL, results=rows)
+    bad = [n for n, r in rows.items() if not r["ok"]]
+    check(not bad, f"cascades off their float64 oracle: {bad}")
+    return rows
+
+
+AUTOTUNE_CACHE = os.path.join("build", "autotune_measured.json")
+
+
+def phase_autotune_measured(torch, dec, ops, autotune) -> dict:
+    """``autotune.measure_best`` over the decode candidates of K2 and K3 at
+    granite's decode shape and of K4 at DeepSeek's, each writing its
+    winner into the table and the disk cache ``build/
+    autotune_measured.json``: the modeled and the measured choice with
+    their ms; each kernel at the measured choice against its plain
+    version (the kernel cases' fp32 gate); the verify read (P = 13 on
+    K2 / K3, P = 5 on K4) through the public op against single-token reads
+    under that split, bit for bit; and, after ``clear_table()``, the
+    lookups read back from the disk to the same choices.  The table and
+    the cache variable are cleared after, so later phases model."""
+    path = os.path.join(ROOT, AUTOTUNE_CACHE)
+    if os.path.exists(path):
+        os.remove(path)
+    os.environ[autotune.CACHE_ENV] = path
+    autotune.clear_table()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    x = granite_paged_data(torch, gen)
+    b, hkv, g, m, d, ps, w = (x[k] for k in ("b", "hkv", "g", "m", "d",
+                                             "ps", "w"))
+    kvl = list(TIMING_KVL)
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    q_f = x["q"].reshape(b * hkv, g, d)
+    k_f, v_f = x["k"].reshape(b * hkv, m, d), x["v"].reshape(b * hkv, m, d)
+    table = with_sentinels(x["table"], kvl, ps, x["k_pages"].shape[0])
+    kv_chain = torch.tensor([min(n, m - GRANITE_SPEC_K) for n in kvl],
+                            dtype=torch.int32, device="cuda")
+    table_chain = with_sentinels(x["table"], [n + GRANITE_SPEC_K for n in
+                                              kv_chain.tolist()], ps,
+                                 x["k_pages"].shape[0])
+    y = deepseek_decode_data(torch, gen, kvl)
+    q4, (ckv, kr), t4 = y["q"], y["pools"]["permuted"], \
+        y["tables"]["permuted"]
+    # the verify chain's data: tables backed to kv_len + P - 1
+    kv_chain4 = [min(n, y["w"] * y["ps"] - MLA_SPEC_K) for n in kvl]
+    y4 = deepseek_decode_data(torch, gen, [n + MLA_SPEC_K
+                                           for n in kv_chain4])
+    gq, hq4 = max(g, 8), y["h"]
+
+    def k2(c, plain=False):
+        fn = dec.decode_partials_torch if plain else dec.decode_partials_cuda
+        return fn(q_f, k_f, v_f, kv_len, scale=d ** -0.5, hkv=hkv,
+                  splits=c.splits, block_k=c.block_k)
+
+    def k3(c, plain=False):
+        fn = dec.paged_decode_partials_torch if plain \
+            else dec.paged_decode_partials_cuda
+        return fn(q_f, x["k_pages"], x["v_pages"], table, kv_len,
+                  scale=d ** -0.5, hkv=hkv, splits=c.splits,
+                  block_k=c.block_k)
+
+    def k4(c, plain=False):
+        fn = dec.mla_paged_decode_partials_torch if plain \
+            else dec.mla_paged_decode_partials_cuda
+        return fn(q4, ckv, kr, t4, y["kv_len"], scale=(MLA_R + MLA_RD)
+                  ** -0.5, splits=c.splits, block_k=c.block_k)
+
+    # the public ops: a P-position verify read against P single reads
+    # (position j at kv_len + j), splits and block_k left to the table
+    def verify_k2(p):
+        qq = _rand(torch, gen, (b, hkv * g, p, d), torch.float32)
+        chain = ops.fusemax_decode(qq, x["k"], x["v"], kv_chain, impl="cuda")
+        single = torch.cat([ops.fusemax_decode(
+            qq[:, :, j:j + 1], x["k"], x["v"], kv_chain + j, impl="cuda")
+            for j in range(p)], dim=2)
+        return chain, single
+
+    def verify_k3(p):
+        qq = _rand(torch, gen, (b, hkv * g, p, d), torch.float32)
+        chain = ops.fusemax_decode_paged(qq, x["k_pages"], x["v_pages"],
+                                         table_chain, kv_chain, impl="cuda")
+        single = torch.cat([ops.fusemax_decode_paged(
+            qq[:, :, j:j + 1], x["k_pages"], x["v_pages"], table_chain,
+            kv_chain + j, impl="cuda") for j in range(p)], dim=2)
+        return chain, single
+
+    def verify_k4(p):
+        qq = _rand(torch, gen, (y["b"], hq4, p, MLA_R + MLA_RD),
+                   torch.float32)
+        pools, tab = y4["pools"]["permuted"], y4["tables"]["permuted"]
+        kl = torch.tensor(kv_chain4, dtype=torch.int32, device="cuda")
+        chain = ops.fusemax_mla_decode_paged(qq, *pools, tab, kl,
+                                             impl="cuda")
+        single = torch.cat([ops.fusemax_mla_decode_paged(
+            qq[:, :, j:j + 1], *pools, tab, kl + j, impl="cuda")
+            for j in range(p)], dim=2)
+        return chain, single
+
+    kernels = {
+        "decode_partials": (k2, autotune._decode_candidates(m),
+                            autotune.decode_key(m, gq, d, d),
+                            lambda: autotune.decode_params(m, gq, d, d),
+                            verify_k2, GRANITE_SPEC_K + 1),
+        "paged_decode_partials": (
+            k3, autotune._paged_decode_candidates(w, ps),
+            autotune.paged_decode_key(w, ps, gq, d, d),
+            lambda: autotune.paged_decode_params(w, ps, gq, d, d),
+            verify_k3, GRANITE_SPEC_K + 1),
+        "mla_paged_decode_partials": (
+            k4, autotune._paged_decode_candidates(y["w"], y["ps"]),
+            autotune.mla_paged_decode_key(y["w"], y["ps"], hq4, MLA_R,
+                                          MLA_RD),
+            lambda: autotune.mla_paged_decode_params(y["w"], y["ps"], hq4,
+                                                     MLA_R, MLA_RD),
+            verify_k4, MLA_SPEC_K + 1),
+    }
+    out, bad = {}, []
+    for name, (run, cands, key, lookup, verify, p) in kernels.items():
+        modeled = lookup()
+        best, secs = autotune.measure_best(lambda c: (lambda: run(c)),
+                                           cands, key=key, iters=20,
+                                           warmup=3)
+        chosen = lookup()
+        got = dec.combine_partials(*run(best), torch.float32)
+        want = dec.combine_partials(*run(best, plain=True), torch.float32)
+        chain, single = verify(p)
+        torch.cuda.synchronize()
+        err, ok, atol, rtol = _err(torch, got, want, "float32")
+        vdiff = (chain - single).abs().max().item()
+        row = dict(modeled=dataclasses.astuple(modeled),
+                   modeled_ms=secs[modeled] * 1e3,
+                   measured=dataclasses.astuple(best),
+                   measured_ms=secs[best] * 1e3,
+                   candidates_ms={f"{c.splits}x{c.block_k}": s * 1e3
+                                  for c, s in secs.items()},
+                   lookup=dataclasses.astuple(chosen), max_abs_err=err,
+                   atol=atol, rtol=rtol, ok=ok and chosen == best,
+                   verify_p=p, verify_vs_single_max_abs_diff=vdiff,
+                   verify_ok=vdiff == 0.0)
+        out[name] = row
+        if not (row["ok"] and row["verify_ok"]):
+            bad.append(name)
+    autotune.clear_table()
+    readback = {"decode_partials": kernels["decode_partials"][3](),
+                "paged_decode_partials":
+                    kernels["paged_decode_partials"][3](),
+                "mla_paged_decode_partials":
+                    kernels["mla_paged_decode_partials"][3]()}
+    for name, hit in readback.items():
+        out[name]["read_back"] = dataclasses.astuple(hit)
+        if dataclasses.astuple(hit) != out[name]["measured"]:
+            bad.append(f"{name} read back")
+    del os.environ[autotune.CACHE_ENV]
+    autotune.clear_table()
+    emit("autotune_measured", cache=AUTOTUNE_CACHE, **out)
+    check(not bad, f"measured autotune: {bad}")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -5281,6 +5578,8 @@ def main() -> int:
     ptxas = _build.ptxas_report()
     emit("build", seconds=secs, build_dir=os.path.relpath(
         _build.build_dir(), ROOT), ptxas=ptxas)
+    emit_clocks("build", secs)
+    t_kernels = time.perf_counter()
     # the latent body keeps its accumulators and query fragments in
     # registers: a spill would put them in local memory
     spills = [f"{inst}: {line}" for lib in ("mla_paged_decode_partials",
@@ -5469,51 +5768,70 @@ def main() -> int:
             + list(th.items()) + list(ta.items()) + list(tsh.items())
             + list(ttr.items()) if not t["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
+    emit_clocks("kernels", time.perf_counter() - t_kernels)
     torch.cuda.empty_cache()
-
-    phase_model(torch)
-    launches = phase_serve(torch, fm, dec, serve)
-    phase_serve_prefix(torch, fm, dec, serve)
-    async_launches = phase_serve_async(torch, fm, dec, serve)
-    dp_launches = phase_serve_dp(torch, fm, dec, serve)
+    # the paper's cascade analysis on the kernels, the torch cascades
+    # against float64, and the autotuner's measured mode (which leaves the
+    # table empty: every later phase takes the modeled choice)
+    timed("analysis", phase_analysis, torch)
+    timed("cascades_numeric", phase_cascades_numeric, torch, ops)
+    timed("autotune_measured", phase_autotune_measured, torch, dec, ops,
+          autotune)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_model_spec(torch, fm, dec)
-    spec_launches = phase_serve_spec(torch, fm, dec, serve)
-    rows_launches = phase_serve_spec_rows(torch, fm, dec, serve)
-    phase_model_quant(torch, fm, dec)
-    quant_launches = phase_serve_quant(torch, fm, dec, serve)
-    phase_serve_swap(torch, fm, dec)
+
+    timed("model", phase_model, torch)
+    launches = timed("serve", phase_serve, torch, fm, dec, serve)
+    timed("serve_prefix", phase_serve_prefix, torch, fm, dec, serve)
+    async_launches = timed("serve_async", phase_serve_async, torch, fm, dec,
+                           serve)
+    dp_launches = timed("serve_dp", phase_serve_dp, torch, fm, dec, serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("model_spec", phase_model_spec, torch, fm, dec)
+    spec_launches = timed("serve_spec", phase_serve_spec, torch, fm, dec,
+                          serve)
+    rows_launches = timed("serve_spec_rows", phase_serve_spec_rows, torch,
+                          fm, dec, serve)
+    timed("model_quant", phase_model_quant, torch, fm, dec)
+    quant_launches = timed("serve_quant", phase_serve_quant, torch, fm, dec,
+                           serve)
+    timed("serve_swap", phase_serve_swap, torch, fm, dec)
     # each later model gets the card to itself: the granite phases have
     # released theirs
     gc.collect()
     torch.cuda.empty_cache()
-    phase_model_gemma2(torch, fm, dec)
-    g2_launches = phase_serve_gemma2(torch, fm, dec, serve)
-    defaults = phase_launcher_defaults(torch)
+    timed("model_gemma2", phase_model_gemma2, torch, fm, dec)
+    g2_launches = timed("serve_gemma2", phase_serve_gemma2, torch, fm, dec,
+                        serve)
+    defaults = timed("launcher_defaults", phase_launcher_defaults, torch)
     # the hybrid, SSM and front-end models: each gets the card to itself
-    phase_model_hybrid(torch, fm, dec)
-    hymba_launches = phase_serve_hymba(torch, fm, dec, serve)
-    phase_serve_xlstm(torch, fm, dec, serve)
-    phase_model_frontends(torch, fm, dec)
-    phase_model_mla(torch, fm, dec)
-    mla_launches = phase_serve_mla(torch, fm, dec, serve)
-    phase_serve_mla_prefix(torch, fm, dec, serve)
-    phase_serve_mla_impls(torch, fm, dec)
-    mla_quant_launches = phase_serve_mla_quant(torch, fm, dec, serve)
-    mla_spec_launches = phase_serve_mla_spec(torch, fm, dec, serve)
+    timed("model_hybrid", phase_model_hybrid, torch, fm, dec)
+    hymba_launches = timed("serve_hymba", phase_serve_hymba, torch, fm, dec,
+                           serve)
+    timed("serve_xlstm", phase_serve_xlstm, torch, fm, dec, serve)
+    timed("model_frontends", phase_model_frontends, torch, fm, dec)
+    timed("model_mla", phase_model_mla, torch, fm, dec)
+    mla_launches = timed("serve_mla", phase_serve_mla, torch, fm, dec, serve)
+    timed("serve_mla_prefix", phase_serve_mla_prefix, torch, fm, dec, serve)
+    timed("serve_mla_impls", phase_serve_mla_impls, torch, fm, dec)
+    mla_quant_launches = timed("serve_mla_quant", phase_serve_mla_quant,
+                               torch, fm, dec, serve)
+    mla_spec_launches = timed("serve_mla_spec", phase_serve_mla_spec, torch,
+                              fm, dec, serve)
     # the MoE tower holds 56 GiB of weights: every earlier model is gone
     gc.collect()
     torch.cuda.empty_cache()
-    phase_model_mla(torch, fm, dec, cfg=moe_tower(), phase="model_moe")
-    phase_serve_moe(torch, fm, dec, serve)
-    smoke_mla = phase_model_mla(torch, fm, dec, cfg=mla_smoke_tower(),
-                                phase="model_mla_smoke")
+    timed("model_moe", phase_model_mla, torch, fm, dec, cfg=moe_tower(),
+          phase="model_moe")
+    timed("serve_moe", phase_serve_moe, torch, fm, dec, serve)
+    smoke_mla = timed("model_mla_smoke", phase_model_mla, torch, fm, dec,
+                      cfg=mla_smoke_tower(), phase="model_mla_smoke")
     # training gets the card to itself
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = phase_train(torch, fm, dec)
-    phase_train_launcher(torch, fm)
+    train_launches = timed("train", phase_train, torch, fm, dec)
+    timed("train_launcher", phase_train_launcher, torch, fm)
 
     def entry(name, route, source, replaces, t, n_launches, kernel=None):
         cases = [r["ok"] for r in rows + [same, same4, same2l, same256]

@@ -6,7 +6,9 @@ leading axis (``ModelConfig.runs()``: run i is ``(pattern, reps)`` and
 port keeps one module per layer, so :func:`state_from_jax` unstacks:
 layer ``L`` of run i is rep ``r``, position ``j`` with
 ``L = start_i + r·len(pattern) + j``.  :func:`jax_from_model` restacks,
-so the two round-trip.
+so the two round-trip.  Where the reference takes one statistic over a
+stacked leaf (an optimizer's update clipping, a compressor's scale),
+:func:`leaf_groups` names the port's leaves that make it up.
 
 The leaves map one to one under the reference's names, GQA
 (``wq``/``wk``/``wv``/``wo``) and MLA (``w_dq``, ``w_uq``, ``w_dkv``,
@@ -57,6 +59,24 @@ def _layer_slices(cfg: ModelConfig):
             for j in range(len(pattern)):
                 yield layer, i, j, r, reps
                 layer += 1
+
+
+def leaf_groups(cfg: ModelConfig, names) -> list[list[str]]:
+    """The parameter names (``layers.<L>.<leaf>``) that the reference
+    stacks into one leaf: for each run i, pattern position j and leaf,
+    the reps of ``L = start_i + r·len(pattern) + j``, in rep order.  A
+    name outside the runs (embeddings, final norm, the MTP head) and a run
+    of one rep form no group."""
+    where = {layer: (i, j) for layer, i, j, _, reps in _layer_slices(cfg)
+             if reps > 1}
+    groups: dict = {}
+    for name in names:
+        parts = name.split(".", 2)
+        if parts[0] != "layers" or int(parts[1]) not in where:
+            continue
+        groups.setdefault((*where[int(parts[1])], parts[2]), []).append(name)
+    return [sorted(g, key=lambda n: int(n.split(".")[1]))
+            for g in groups.values()]
 
 
 def state_from_jax(cfg: ModelConfig, params: Any,

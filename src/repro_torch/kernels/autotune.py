@@ -1,13 +1,27 @@
 """Tile and split selection for the FuseMax kernels.
 
-Port of the *modeled* half of ``repro.kernels.autotune``: the cost model
-seeded by the paper's 128×128 spatial array prices padding waste,
-per-tile overhead and the M-independent working set of each candidate,
-and :func:`attention_params` / :func:`decode_params` /
-:func:`paged_decode_params` / :func:`mla_paged_decode_params` return the
-cheapest.
-The model is a pure function of the (bucketed) shape, so it is memoised
-with ``functools.lru_cache`` instead of a mutable table.
+Port of ``repro.kernels.autotune``.  Two sources feed the decode
+lookups (:func:`decode_params`, :func:`paged_decode_params`,
+:func:`mla_paged_decode_params`), in priority order:
+
+1. **Measured** entries: :func:`measure_best` times real candidate calls
+   (:func:`time_fn`: the median of N after warmup, with CUDA events on
+   the card) and puts the winner in the table under the lookup's key
+   (:func:`decode_key`, :func:`paged_decode_key`,
+   :func:`mla_paged_decode_key`: the reference's keys — the cache length
+   or the table width and page size, the bucketed group, the head dims —
+   never P); with ``REPRO_TORCH_AUTOTUNE_CACHE=/path.json`` the table is
+   also written there, and read back by a later process before it
+   models.  :func:`clear_table` drops both.
+2. **Modeled** entries: a cost model seeded by the paper's 128×128 spatial
+   array prices padding waste, per-tile overhead and the M-independent
+   working set of each candidate.  The model is a pure function of the
+   shape, so it is memoised with ``functools.lru_cache``, behind the
+   table: a measured entry always wins.
+
+Nothing measures by default: the serving paths take the modeled choice
+unless a caller seeds the table.  The prefill tile is never measured
+(below).
 
 What the port changes:
 
@@ -24,13 +38,18 @@ What the port changes:
   CUDA decode kernels' own layout (chunk, ring stages, row blocks) is
   mirrored by :func:`decode_smem_bytes`, which their wrappers hold
   against ``SMEM_BUDGET`` before each launch.
-
-The measured mode and its on-disk cache are not ported yet.
+* The table's keys drop the reference's backend and impl: the split
+  geometry is the same for every impl.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import os
+import statistics
+import time
+from typing import Callable, Optional, Sequence
 
 #: the paper's 2D array edge (``SpatialArch.pe2d_rows/cols``) — the base
 #: tile of the cost model
@@ -299,13 +318,18 @@ def attention_params(p: int, m: int, e: int, f: int, *,
 
 
 @functools.lru_cache(maxsize=None)
+def _modeled_decode(m: int, g: int, e: int, f: int) -> DecodeParams:
+    cands = _decode_candidates(m)
+    return min(cands, key=lambda c: _decode_cost(c, m, g, e, f))
+
+
 def decode_params(m: int, g: int, e: int, f: int) -> DecodeParams:
-    """Pick (splits, block_k) for a split-K decode against an M-slot cache.
+    """Pick (splits, block_k) for a split-K decode against an M-slot cache:
+    the measured entry of :func:`decode_key`, else the model's.
 
     Keyed by the exact cache length (split validity depends on M's
     divisors) and never by P or the impl."""
-    cands = _decode_candidates(m)
-    return min(cands, key=lambda c: _decode_cost(c, m, g, e, f))
+    return _lookup(decode_key(m, g, e, f)) or _modeled_decode(m, g, e, f)
 
 
 def _paged_decode_candidates(n_pages: int,
@@ -330,31 +354,40 @@ def _paged_decode_candidates(n_pages: int,
 
 
 @functools.lru_cache(maxsize=None)
-def paged_decode_params(n_pages: int, page_size: int, g: int, e: int,
-                        f: int, elem_bytes: int = 4) -> DecodeParams:
-    """Pick (splits, block_k) for a paged split-K decode over a block table
-    ``n_pages`` wide: the cost model of :func:`decode_params` at
-    M = n_pages·page_size, restricted to page-aligned candidates."""
+def _modeled_paged_decode(n_pages: int, page_size: int, g: int, e: int,
+                          f: int, elem_bytes: int) -> DecodeParams:
     m = n_pages * page_size
     cands = _paged_decode_candidates(n_pages, page_size)
     return min(cands, key=lambda c: _decode_cost(c, m, g, e, f,
                                                  elem_bytes=elem_bytes))
 
 
-@functools.lru_cache(maxsize=None)
+def paged_decode_params(n_pages: int, page_size: int, g: int, e: int,
+                        f: int, elem_bytes: int = 4) -> DecodeParams:
+    """Pick (splits, block_k) for a paged split-K decode over a block table
+    ``n_pages`` wide: the measured entry of :func:`paged_decode_key`, else
+    the cost model of :func:`decode_params` at M = n_pages·page_size,
+    restricted to page-aligned candidates."""
+    return (_lookup(paged_decode_key(n_pages, page_size, g, e, f,
+                                     elem_bytes))
+            or _modeled_paged_decode(n_pages, page_size, g, e, f,
+                                     elem_bytes))
+
+
 def mla_paged_decode_params(n_pages: int, page_size: int, g: int,
                             rank: int, rope_dim: int,
                             elem_bytes: int = 4) -> DecodeParams:
     """Pick (splits, block_k) for the paged *latent-space* MLA decode
-    (K4): the K stream is the concatenated (rank + rope_dim) latent page
-    pair and the V stream is the rank-wide latent itself, so the cost
-    model of :func:`paged_decode_params` runs with e = rank + rope_dim,
-    f = rank over the same page-aligned candidates — the reference's
-    ``mla_paged_decode_params``, for every impl."""
-    m = n_pages * page_size
-    cands = _paged_decode_candidates(n_pages, page_size)
-    return min(cands, key=lambda c: _decode_cost(
-        c, m, g, rank + rope_dim, rank, elem_bytes=elem_bytes))
+    (K4): the measured entry of :func:`mla_paged_decode_key`, else the
+    cost model of :func:`paged_decode_params` with e = rank + rope_dim,
+    f = rank (the K stream is the concatenated latent page pair, the V
+    stream the rank-wide latent itself) over the same page-aligned
+    candidates — the reference's ``mla_paged_decode_params``, for every
+    impl."""
+    return (_lookup(mla_paged_decode_key(n_pages, page_size, g, rank,
+                                         rope_dim, elem_bytes))
+            or _modeled_paged_decode(n_pages, page_size, g,
+                                     rank + rope_dim, rank, elem_bytes))
 
 
 def verify_block_k(block_k: int, *, p: int, g: int, e: int, f: int,
@@ -375,3 +408,160 @@ def verify_block_k(block_k: int, *, p: int, g: int, e: int, f: int,
             break
         block_k //= 2
     return block_k
+
+
+# ---------------------------------------------------------------------------
+# Table: measured > cached on disk > modeled
+# ---------------------------------------------------------------------------
+
+#: the environment variable naming the on-disk cache (a JSON file)
+CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
+
+_MEASURED: dict[tuple, tuple] = {}
+_DISK: dict[tuple, tuple] = {}
+_DISK_LOADED = False
+
+
+def decode_key(m: int, g: int, e: int, f: int) -> tuple:
+    """The table key of :func:`decode_params`."""
+    return tuple(map(str, ("decode", m, _bucket(g), e, f)))
+
+
+def paged_decode_key(n_pages: int, page_size: int, g: int, e: int, f: int,
+                     elem_bytes: int = 4) -> tuple:
+    """The table key of :func:`paged_decode_params`."""
+    return tuple(map(str, ("pdecode", n_pages, page_size, _bucket(g), e, f,
+                           elem_bytes)))
+
+
+def mla_paged_decode_key(n_pages: int, page_size: int, g: int, rank: int,
+                         rope_dim: int, elem_bytes: int = 4) -> tuple:
+    """The table key of :func:`mla_paged_decode_params`."""
+    return tuple(map(str, ("mla-pdecode", n_pages, page_size, _bucket(g),
+                           rank, rope_dim, elem_bytes)))
+
+
+def _load_disk_cache() -> None:
+    global _DISK_LOADED
+    if _DISK_LOADED:
+        return
+    _DISK_LOADED = True
+    path = os.environ.get(CACHE_ENV)
+    if not path or not os.path.exists(path):
+        return
+    with open(path) as fh:
+        _DISK.update({tuple(k.split("|")): tuple(v)
+                      for k, v in json.load(fh).items()})
+
+
+def _save_disk_cache() -> None:
+    path = os.environ.get(CACHE_ENV)
+    if not path:
+        return
+    _load_disk_cache()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump({"|".join(k): list(v)
+                   for k, v in {**_DISK, **_MEASURED}.items()}, fh, indent=1)
+
+
+def _lookup(key: tuple) -> Optional[DecodeParams]:
+    """The measured entry of ``key``, else the disk cache's, else None."""
+    hit = _MEASURED.get(key)
+    if hit is None:
+        _load_disk_cache()
+        hit = _DISK.get(key)
+    return None if hit is None else DecodeParams(int(hit[0]), int(hit[1]))
+
+
+def clear_table() -> None:
+    """Drop every measured entry and the loaded disk cache (the file stays
+    and is read again at the next lookup)."""
+    global _DISK_LOADED
+    _MEASURED.clear()
+    _DISK.clear()
+    _DISK_LOADED = False
+
+
+# ---------------------------------------------------------------------------
+# Measured mode
+# ---------------------------------------------------------------------------
+
+def _device_of(*objs):
+    """The device of the first tensor in ``objs`` (nested in tuples or
+    lists), or None."""
+    import torch
+
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            return o.device
+        if isinstance(o, (tuple, list)):
+            dev = _device_of(*o)
+            if dev is not None:
+                return dev
+    return None
+
+
+def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 2) -> float:
+    """Median seconds per ``fn(*args)`` call after ``warmup`` untimed ones.
+    On a CUDA tensor's device (the first among ``args``, or else in the
+    warmup's result) each call is timed with CUDA events on the current
+    stream and synchronized; otherwise with the host clock."""
+    import torch
+
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    dev = _device_of(*args, out)
+    ts = []
+    if dev is not None and dev.type == "cuda":
+        with torch.cuda.device(dev):
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(*args)
+                end.record()
+                end.synchronize()
+                ts.append(start.elapsed_time(end) / 1e3)
+    else:
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn(*args)
+            ts.append(time.perf_counter() - t0)
+    return statistics.median(ts)
+
+
+def measure_best(
+    make_fn: Callable[..., Callable],
+    candidates: Sequence,
+    *args,
+    key: Optional[tuple] = None,
+    iters: int = 5,
+    warmup: int = 2,
+):
+    """Time each candidate with :func:`time_fn` and return
+    ``(best_candidate, {candidate: seconds})``; a candidate whose call
+    raises ``ValueError`` or ``RuntimeError`` (a geometry its kernel
+    refuses) times as infinite.  ``make_fn(candidate)`` returns a callable
+    taking ``*args``.  With ``key`` (one of :func:`decode_key`,
+    :func:`paged_decode_key`, :func:`mla_paged_decode_key`) the winner goes
+    into the table, and into the disk cache where ``CACHE_ENV`` names one,
+    so that the key's lookup returns it."""
+    timings: dict = {}
+    for cand in candidates:
+        try:
+            timings[cand] = time_fn(make_fn(cand), *args, iters=iters,
+                                    warmup=warmup)
+        except (ValueError, RuntimeError):
+            timings[cand] = float("inf")
+    best = min(timings, key=timings.get)
+    if timings[best] == float("inf"):
+        raise RuntimeError(
+            "measure_best: every candidate failed; nothing to return "
+            f"(candidates={list(candidates)!r})")
+    if key is not None:
+        _MEASURED[tuple(map(str, key))] = dataclasses.astuple(best)
+        _save_disk_cache()
+    return best, timings

@@ -73,6 +73,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.einsum import Cascade, Einsum, T
 from repro_torch.kernels import autotune
 from repro_torch.kernels.fusemax import (
     CUDA_DTYPES, NEG_INF, _exp, _ptr, _stream, check_cuda_operands,
@@ -510,6 +511,146 @@ def combine_partials(pm: torch.Tensor, pl: torch.Tensor, pnv: torch.Tensor,
     rnv = (pnv * cf[..., None]).sum(dim=1)   # [BH, R, F]
     rd = torch.where(rd == 0.0, torch.ones_like(rd), rd)
     return (rnv / rd[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Declared cascades (checked against the kernels by repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def _splitk_cascade(
+    name: str,
+    *,
+    query_ranks: tuple[str, ...] = ("G",),
+    mla: bool = False,
+    causal_chain: bool = False,
+) -> Cascade:
+    """The split-K instantiation of Cascade 5 as a symbolic cascade.
+
+    M is partitioned into (S, M2, M0): S independent splits (grid-parallel),
+    M2 the per-split *iterative* rank (the key-chunk walk carrying the
+    RM/RD/RNV running state), M0 the tile.  Per-split
+    partials (PM, PD, PNV) are single final reads of the running state;
+    the combine stage is the associative running-max algebra of Eqs. 48-52
+    over the S axis — partial-M bookkeeping (O(S·G) work), not a pass.
+
+    ``mla`` switches to the absorbed-score MLA form: the latent page
+    stream BC plays both K (scores contract the latent rank R against the
+    W_uk-absorbed queries, plus a rope dot) and V (the accumulator lives
+    in latent space) — BC is read twice, but both reads sit in the same
+    pass generation, so the cascade stays 1-pass with O(1) live state.
+
+    ``causal_chain`` adds the k+1-token verify chain: the extra free query
+    rank C rides every query-side tensor and the intra-draft causal mask
+    is a *filtered* consumption of M (``m < kv_len + c``) — filtering
+    touches a subset of each fiber and never acts as a pass barrier.
+    """
+    qr = query_ranks
+    c = Cascade(name)
+    c.partition("M", ("S", "M2", "M0"))
+    blk = ("S", "M2", "M0")
+    it = ("S", "M2*")       # running state: per-split, iterative over M2
+    if mla:
+        # latent pages [R, M] double as K and V; rope pages [O, M] are
+        # score-only.  Queries arrive absorbed: QN[R, ...] ⊕ QR[O, ...].
+        c.add(Einsum(T("BC", "R", *blk), (T("CKV", "R", "M"),), init=True))
+        c.add(Einsum(T("BR", "O", *blk), (T("KR", "O", "M"),), init=True))
+        v_rank = "R"
+    else:
+        c.add(Einsum(T("BK", "E", *blk), (T("K", "E", "M"),), init=True))
+        c.add(Einsum(T("BV", "F", *blk), (T("V", "F", "M"),), init=True))
+        v_rank = "F"
+    c.add(Einsum(T("RM", *it, *qr), (), init=True))
+    c.add(Einsum(T("RD", *it, *qr), (), init=True))
+    c.add(Einsum(T("RNV", v_rank, *it, *qr), (), init=True))
+
+    if mla:
+        score_in = (T("QN", "R", *qr), T("BC", "R", *blk),
+                    T("QR", "O", *qr), T("BR", "O", *blk))
+    else:
+        score_in = (T("Q", "E", *qr), T("BK", "E", *blk))
+    if causal_chain:
+        # intra-draft causal mask: position c sees keys m < kv_len + c
+        score_in = (*score_in, T("CM", "M<=C", "C"))
+    c.add(Einsum(T("BQK", *blk, *qr), score_in))                   # Eq. 42
+    c.add(Einsum(T("LM", "S", "M2", *qr),
+                 (T("BQK", *blk, *qr),), reduce_op="max"))         # Eq. 43
+    c.add(Einsum(T("RM", *it, *qr),
+                 (T("RM", *it, *qr), T("LM", *it, *qr)),
+                 compute="max"))                                   # Eq. 44
+    c.add(Einsum(T("SLN", *blk, *qr),
+                 (T("BQK", *blk, *qr), T("RM", *it, *qr)),
+                 compute="exp-sub"))                               # Eq. 45
+    c.add(Einsum(T("SLD", "S", "M2", *qr), (T("SLN", *blk, *qr),)))  # Eq. 46
+    c.add(Einsum(T("SLNV", v_rank, "S", "M2", *qr),
+                 (T("SLN", *blk, *qr),
+                  T("BC" if mla else "BV", v_rank, *blk))))        # Eq. 47
+    c.add(Einsum(T("PRM", *it, *qr),
+                 (T("RM", *it, *qr),), compute="exp-sub"))         # Eq. 48
+    c.add(Einsum(T("SPD", "S", "M2", *qr),
+                 (T("RD", *it, *qr), T("PRM", *it, *qr))))         # Eq. 49
+    c.add(Einsum(T("RD", *it, *qr),
+                 (T("SLD", *it, *qr), T("SPD", *it, *qr))))        # Eq. 50
+    c.add(Einsum(T("SPNV", v_rank, "S", "M2", *qr),
+                 (T("RNV", v_rank, *it, *qr), T("PRM", *it, *qr))))  # Eq. 51
+    c.add(Einsum(T("RNV", v_rank, *it, *qr),
+                 (T("SLNV", v_rank, *it, *qr),
+                  T("SPNV", v_rank, *it, *qr))))                   # Eq. 52
+    # per-split partials: the emitted (PM, PD, PNV) stacks — single final
+    # reads of each split's running state (not passes over M)
+    c.add(Einsum(T("PM", "S", *qr), (T("RM", "S", "M2$", *qr),)))
+    c.add(Einsum(T("PD", "S", *qr), (T("RD", "S", "M2$", *qr),)))
+    c.add(Einsum(T("PNV", v_rank, "S", *qr),
+                 (T("RNV", v_rank, "S", "M2$", *qr),)))
+    # combine: associative running-max algebra over S (_combine_partials)
+    c.add(Einsum(T("GM", *qr), (T("PM", "S", *qr),), reduce_op="max"))
+    c.add(Einsum(T("CF", "S", *qr),
+                 (T("PM", "S", *qr), T("GM", *qr)), compute="exp-sub"))
+    c.add(Einsum(T("SD", *qr), (T("PD", "S", *qr), T("CF", "S", *qr))))
+    c.add(Einsum(T("SNV", v_rank, *qr),
+                 (T("PNV", v_rank, "S", *qr), T("CF", "S", *qr))))
+    c.add(Einsum(T("AV", v_rank, *qr),
+                 (T("SNV", v_rank, *qr), T("SD", *qr)),
+                 compute="÷"))                                     # Eq. 53
+    return c
+
+
+def decode_splitk_cascade() -> Cascade:
+    """Dense split-K decode (:func:`decode_partials_cuda` and
+    :func:`decode_partials_torch`; K2's E ≠ F branch,
+    :func:`latent_decode_partials_cuda`, is this cascade on K = ``[ckv |
+    krope]``, V = ``ckv``): 1 pass over M, O(1) live state."""
+    return _splitk_cascade("decode-splitk-1pass")
+
+
+def decode_paged_cascade() -> Cascade:
+    """Paged split-K decode (:func:`paged_decode_partials_cuda`): same
+    cascade as the dense kernel — the block table changes where tiles
+    physically live, never how often they are read."""
+    return _splitk_cascade("decode-paged-splitk-1pass")
+
+
+def mla_decode_paged_cascade() -> Cascade:
+    """Paged MLA absorbed-score decode
+    (:func:`mla_paged_decode_partials_cuda`): the latent stream BC feeds
+    both the score dot and the rank-space accumulator — two same-pass
+    reads, still 1-pass with an O(G·R) accumulator."""
+    return _splitk_cascade("mla-decode-paged-1pass", mla=True)
+
+
+def verify_chain_cascade() -> Cascade:
+    """k+1-token draft-chain verify (the GQA partials with ``n_pos > 1``): the
+    chain rank C is a free query rank; the intra-draft causal mask is a
+    filtered consumption of M.  Accumulators are O((k+1)·G) — independent
+    of the cache length."""
+    return _splitk_cascade("verify-chain-1pass",
+                           query_ranks=("C", "G"), causal_chain=True)
+
+
+def mla_verify_chain_cascade() -> Cascade:
+    """MLA variant of the verify chain (absorbed scores, latent
+    accumulator, free chain rank C)."""
+    return _splitk_cascade("mla-verify-chain-1pass", mla=True,
+                           query_ranks=("C", "G"), causal_chain=True)
 
 
 def _check_max_rows(name: str, got: int) -> int:

@@ -37,6 +37,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.einsum import Cascade
+from repro_torch.core.taxonomy import attention_1pass
 from repro_torch.kernels.autotune import CUDA_PREFILL_TILES
 
 NEG_INF = -1e30
@@ -54,6 +56,19 @@ _EXP2_COEFFS = (
     0.0013333558146428443,
     0.00015403530393381608,
 )
+
+def prefill_cascade() -> Cascade:
+    """Declared cascade of this kernel family (checked by the analyzer).
+
+    Both functions below are Mapping 1 of Cascade 5: M1 is the key-tile
+    loop (the cascade's iterative rank), the per-row (RM, RD, RNV) the
+    running state of Eqs. 39-41 (registers in the CUDA kernel), and each
+    K/V tile is visited once a query tile —
+    :mod:`repro_torch.analysis.lint` checks the visits on the kernel's own
+    outputs and its shared memory at two sequence lengths.
+    """
+    return attention_1pass()
+
 
 #: dtypes the CUDA kernels take, by their code in the C interface
 CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -36,22 +36,42 @@ import torch
 
 from repro_torch.kernels import autotune, ref as _ref
 from repro_torch.kernels.decode import (
-    _dequant_tile, combine_partials, decode_partials_cuda,
-    decode_partials_torch, latent_decode_partials_cuda,
-    latent_decode_partials_torch,
-    mla_paged_decode_partials_cuda, mla_paged_decode_partials_torch,
+    _dequant_tile, combine_partials, decode_paged_cascade,
+    decode_partials_cuda, decode_partials_torch, decode_splitk_cascade,
+    latent_decode_partials_cuda, latent_decode_partials_torch,
+    mla_decode_paged_cascade, mla_paged_decode_partials_cuda,
+    mla_paged_decode_partials_torch, mla_verify_chain_cascade,
     paged_decode_partials_cuda, paged_decode_partials_torch,
+    verify_chain_cascade,
 )
 from repro_torch.kernels.fusemax import (
     fusemax_attention_bwd, fusemax_attention_cuda, fusemax_attention_torch,
+    prefill_cascade,
 )
 
-# Every public op dispatches to exactly one declared cascade of the
-# reference (``repro.kernels.ops.KERNEL_CASCADES``); the port names the
-# builders by dotted path so it never imports the JAX package, and
-# tests/test_torch_kernels.py checks the two maps agree (a port-only op
-# through the reference op it implements, ``REFERENCE_OP``).
+# Every public op dispatches to exactly one declared cascade, built by the
+# port's own builder beside its kernel (``repro.kernels.ops``'s map, with
+# the port's builders); ``python -m repro_torch.analysis.report --check``
+# verifies the declarations.  ``REFERENCE_CASCADES`` names the reference's
+# builder of each op by dotted path, so the port never imports the JAX
+# package; tests/test_torch_kernels.py checks that the two agree, Einsum by
+# Einsum (a port-only op through the reference op it implements,
+# ``REFERENCE_OP``).
 KERNEL_CASCADES = {
+    "mha_reference": _ref.reference_cascade,
+    "decode_reference": _ref.reference_cascade,
+    "fusemax_attention": prefill_cascade,
+    "fusemax_decode": decode_splitk_cascade,
+    "fusemax_decode_paged": decode_paged_cascade,
+    "fusemax_mla_decode_paged": mla_decode_paged_cascade,
+    "fusemax_decode[p>1]": verify_chain_cascade,
+    "fusemax_decode_paged[p>1]": verify_chain_cascade,
+    "fusemax_mla_decode_paged[p>1]": mla_verify_chain_cascade,
+    "fusemax_decode_latent": decode_splitk_cascade,
+    "fusemax_decode_latent[p>1]": verify_chain_cascade,
+}
+
+REFERENCE_CASCADES = {
     "mha_reference": "repro.kernels.ref.reference_cascade",
     "decode_reference": "repro.kernels.ref.reference_cascade",
     "fusemax_attention": "repro.kernels.fusemax.prefill_cascade",

@@ -11,7 +11,21 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.einsum import Cascade
+from repro_torch.core.taxonomy import attention_3pass
+
 NEG_INF = -1e30
+
+
+def reference_cascade() -> Cascade:
+    """Declared cascade of this kernel family (checked by the analyzer).
+
+    Both oracles below evaluate Cascade 4 verbatim — global max (Eq. 33),
+    stable numerator/denominator (Eqs. 34-35), eager division (Eq. 36) —
+    which is the 3-pass point of the taxonomy: SN must stay live across
+    the divide, so the M fiber's footprint is O(S).
+    """
+    return attention_3pass()
 
 
 def mha_reference(

@@ -1,7 +1,8 @@
 """AdamW with configurable state dtype (fp32 default; bf16 for memory).
 
 Port of ``repro.optim.adamw``: the moments are stored in ``state_dtype``
-and every update is computed in fp32."""
+and every update is computed in fp32.  It takes no statistic over a
+leaf, so ``update``'s ``groups`` change nothing."""
 from __future__ import annotations
 
 import torch
@@ -20,7 +21,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, groups=None):
         count = state["count"] + 1
         cf = count.to(torch.float32)
         c1 = 1.0 - b1 ** cf

@@ -18,8 +18,10 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """init(params) → state;  update(grads, state, params, lr) →
-    (params, state), updated in place."""
+    """init(params) → state;  update(grads, state, params, lr,
+    groups=None) → (params, state), updated in place.  ``groups`` lists
+    leaf paths (:func:`tree_flatten`'s keys) that share one per-tensor
+    statistic, as :func:`partition_leaves` reads it."""
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, Any], tuple]
 
@@ -30,6 +32,42 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def tree_flatten(tree, prefix: str = "") -> dict:
+    """{path: leaf} of nested dicts, paths joined by "." (the keys of a
+    flat tree such as ``dict(model.named_parameters())`` are its paths)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out: dict = {}
+    for k, v in tree.items():
+        out.update(tree_flatten(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def tree_unflatten(like, flat: dict, prefix: str = ""):
+    """A tree of ``like``'s structure holding ``flat``'s leaves by path."""
+    if not isinstance(like, dict):
+        return flat[prefix]
+    return {k: tree_unflatten(v, flat, f"{prefix}.{k}" if prefix else k)
+            for k, v in like.items()}
+
+
+def partition_leaves(paths, groups=None) -> list[list[str]]:
+    """``paths`` cut into the groups that share a per-tensor statistic:
+    each of ``groups`` (lists of paths, as
+    :func:`repro_torch.bridge.leaf_groups` gives them for a model's
+    parameters), then every path no group holds on its own."""
+    paths = list(paths)
+    known, out, seen = set(paths), [], set()
+    for group in groups or ():
+        missing = [k for k in group if k not in known or k in seen]
+        if missing:
+            raise ValueError(f"group {group}: paths {missing} are unknown or "
+                             f"in another group")
+        seen.update(group)
+        out.append(list(group))
+    return out + [[k] for k in paths if k not in seen]
 
 
 def tree_leaves(tree) -> list:

@@ -8,15 +8,17 @@ the compression bias vanishes over steps (Karimireddy et al., 2019).
                         on tied magnitudes its pick may differ from
                         ``jax.lax.top_k``'s, the threshold does not).
 
-As in :mod:`repro_torch.optim.adafactor`, the port's per-tensor
-statistics (the int8 scale, the top-k threshold) are per layer, where the
-reference's stacked leaves take one over a run's layers.
+Each per-tensor statistic (the int8 scale, the top-k threshold and its
+k) spans one of ``groups`` (the layers of a run, which the reference
+stacks in one leaf) or one other leaf alone.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.optim.common import tree_map
+from repro_torch.optim.common import (
+    partition_leaves, tree_flatten, tree_map, tree_unflatten,
+)
 
 
 def init_error_feedback(params):
@@ -24,35 +26,37 @@ def init_error_feedback(params):
                                           device=p.device), params)
 
 
-def _pick(tree, i: int):
-    """The i-th element of every (grad, residual) pair of a tree."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
+def _by_group(compress, grads, residual, groups):
+    """``compress(grads, residuals)`` (lists of one group's leaves, the
+    residual added) over each group → (decompressed grads, residual)."""
+    g, r = tree_flatten(grads), tree_flatten(residual)
+    out_g, out_r = {}, {}
+    for group in partition_leaves(g, groups):
+        gfs = [g[k].float() + r[k] for k in group]
+        for k, gf, kept in zip(group, gfs, compress(gfs)):
+            out_g[k] = kept.to(g[k].dtype)
+            out_r[k] = gf - kept
+    return tree_unflatten(grads, out_g), tree_unflatten(grads, out_r)
 
 
-def ef_int8_compress(grads, residual):
+def ef_int8_compress(grads, residual, groups=None):
     """Returns (decompressed grads, new residual)."""
-    def one(g, r):
-        gf = g.float() + r
-        scale = torch.max(torch.abs(gf)) / 127.0 + 1e-12
-        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
-        deq = q.float() * scale
-        return deq.to(g.dtype), gf - deq
+    def one(gfs):
+        amax = torch.stack([torch.max(torch.abs(gf)) for gf in gfs]).max()
+        scale = amax / 127.0 + 1e-12
+        return [torch.clamp(torch.round(gf / scale), -127, 127)
+                .to(torch.int8).float() * scale for gf in gfs]
 
-    out = tree_map(one, grads, residual)
-    return _pick(out, 0), _pick(out, 1)
+    return _by_group(one, grads, residual, groups)
 
 
-def ef_topk_compress(grads, residual, frac: float = 0.1):
-    """Keep the top ``frac`` fraction of entries by magnitude."""
-    def one(g, r):
-        gf = g.float() + r
-        flat = gf.reshape(-1)
+def ef_topk_compress(grads, residual, frac: float = 0.1, groups=None):
+    """Keep the top ``frac`` fraction of entries by magnitude; entries tied
+    with the threshold are all kept."""
+    def one(gfs):
+        flat = torch.cat([gf.reshape(-1) for gf in gfs])
         k = max(1, int(flat.numel() * frac))
         thresh = torch.topk(torch.abs(flat), k).values[-1]
-        kept = gf * (torch.abs(gf) >= thresh).float()
-        return kept.to(g.dtype), gf - kept
+        return [gf * (torch.abs(gf) >= thresh).float() for gf in gfs]
 
-    out = tree_map(one, grads, residual)
-    return _pick(out, 0), _pick(out, 1)
+    return _by_group(one, grads, residual, groups)

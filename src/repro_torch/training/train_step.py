@@ -9,9 +9,13 @@ that place a step over a device list are ROADMAP item 9b):
     backward, each (pattern, repeat) of layers rematerialized;
   * microbatches are a loop that sums each one's grads in
     ``grad_accum_dtype`` (the reference's ``lax.scan``), then divides;
-  * then, as the reference: clip by the global norm, optional int8 error
-    feedback (the residual lives in the state), the learning rate of
-    ``state.step``, the optimizer's update (in place).
+  * then, as the reference: clip by the global norm, optional error
+    feedback (int8, the reference's, or top-k; the residual lives in the
+    state), the learning rate of ``state.step``, the optimizer's update
+    (in place);
+  * the compressor's and the optimizer's per-tensor statistics span the
+    layers of a (pattern, repeat) run, which the reference stacks in one
+    leaf (:func:`repro_torch.bridge.leaf_groups`).
 """
 from __future__ import annotations
 
@@ -20,12 +24,18 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.bridge import leaf_groups
 from repro_torch.configs.base import ModelConfig
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime
 from repro_torch.optim import (
-    Optimizer, clip_by_global_norm, ef_int8_compress, init_error_feedback,
+    Optimizer, clip_by_global_norm, ef_int8_compress, ef_topk_compress,
+    init_error_feedback,
 )
+
+#: error-feedback compressors by name; ``compression=True`` is "int8", the
+#: reference's only scheme inside its step
+COMPRESSORS = {"int8": ef_int8_compress, "topk": ef_topk_compress}
 
 
 @dataclasses.dataclass
@@ -66,7 +76,7 @@ class TrainState:
 
 
 def init_train_state(cfg: ModelConfig, seed: int, optimizer: Optimizer,
-                     rt: Runtime = Runtime(), compression: bool = False,
+                     rt: Runtime = Runtime(), compression: bool | str = False,
                      device="cuda") -> TrainState:
     """A model with seeded random weights (with its MTP head, if the config
     has one) whose parameters require grad, and a fresh optimizer state."""
@@ -97,14 +107,19 @@ def make_train_step(
     *,
     grad_clip: float = 1.0,
     microbatches: int = 1,
-    compression: bool = False,
+    compression: bool | str = False,
     grad_accum_dtype: torch.dtype = torch.float32,
 ):
-    """Returns step(state, batch) → (state, metrics).  ``batch`` holds
+    """Returns step(state, batch) → (state, metrics).  ``compression``:
+    False, True (= ``"int8"``) or a name of :data:`COMPRESSORS`.  ``batch`` holds
     tensors on the model's device; metrics are 0-d tensors: the loss
     function's (``loss``, ``tokens``, [``mtp_loss``], ``total_loss``; with
     microbatches only ``loss``), ``grad_norm`` (before clipping) and
     ``lr``."""
+
+    compress = None
+    if compression:
+        compress = COMPRESSORS["int8" if compression is True else compression]
 
     def step(state: TrainState, batch: dict):
         params = state.params
@@ -130,11 +145,12 @@ def make_train_step(
             metrics = {"loss": loss_sum / microbatches}
 
         grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        groups = leaf_groups(cfg, params)
         ef = state.ef_residual
-        if compression:
-            grads, ef = ef_int8_compress(grads, ef)
+        if compress is not None:
+            grads, ef = compress(grads, ef, groups=groups)
         lr = lr_schedule(state.step)
-        optimizer.update(grads, state.opt_state, params, lr)
+        optimizer.update(grads, state.opt_state, params, lr, groups=groups)
         new_state = TrainState(model=state.model, opt_state=state.opt_state,
                                step=state.step + 1, ef_residual=ef)
         metrics.update({"grad_norm": gnorm, "lr": lr})

@@ -11,6 +11,7 @@ Tolerances: fp32 paths differ only in summation order, so outputs
 are accumulated in fp32 by both and the output is rounded once, so they
 agree to one bf16 ulp (rtol 2**-7, atol 1e-2).
 """
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -23,9 +24,11 @@ import torch
 # -n 6 xdist workers x 8 intra-op threads would oversubscribe 8 cores
 torch.set_num_threads(1)
 
+from repro.core.passes import analyze as jax_analyze
 from repro.kernels import autotune as jax_autotune
 from repro.kernels import ops as jax_ops
 from repro.kernels.fusemax import exp_maccs as jax_exp_maccs
+from repro_torch.core.passes import analyze as port_analyze
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.fusemax import exp_maccs
 
@@ -269,9 +272,29 @@ def test_kernel_cascades_name_the_reference_builders():
     """Each port op names its reference op's cascade builder; a port-only
     op (the dense latent decode) resolves through the reference op it
     implements."""
-    for name, dotted in ops.KERNEL_CASCADES.items():
+    assert set(ops.REFERENCE_CASCADES) == set(ops.KERNEL_CASCADES)
+    for name, dotted in ops.REFERENCE_CASCADES.items():
         builder = jax_ops.KERNEL_CASCADES[ops.REFERENCE_OP.get(name, name)]
         assert dotted == f"{builder.__module__}.{builder.__qualname__}", name
+
+
+def _cascade_fields(c):
+    return (c.name, [dataclasses.astuple(e) for e in c.einsums],
+            dict(c.partitions), dict(c.aliases))
+
+
+@pytest.mark.parametrize("name", sorted(ops.KERNEL_CASCADES))
+def test_port_cascade_builders_equal_the_reference_builders(name):
+    """The port's builder of each op builds the reference builder's
+    cascade, Einsum by Einsum, and both analyze to the same passes and
+    live footprint over M."""
+    port = ops.KERNEL_CASCADES[name]()
+    ref = jax_ops.KERNEL_CASCADES[ops.REFERENCE_OP.get(name, name)]()
+    assert _cascade_fields(port) == _cascade_fields(ref)
+    pa, ra = port_analyze(port, "M"), jax_analyze(ref, "M")
+    assert (pa.passes, pa.full_fiber_tensors()) \
+        == (ra.passes, ra.full_fiber_tensors())
+    assert pa.traversal_gens == ra.traversal_gens
 
 
 def test_cuda_impl_on_cpu_tensor_raises():
