@@ -208,7 +208,8 @@ def launcher(kind: str, fn, x: dict):
     q, k, v, kp, vp, table, kv_len, pm_, pl_, pnv_ = p
     if kind == "k2":
         args = (q, k, v, kv_len, pm_, pl_, pnv_, 0, d, bh, hkv, g, m,
-                splits, m // splits, bk, 1, g, d ** -0.5, 0, 0.0, 0, stream)
+                splits, m // splits, bk, 1, g, d ** -0.5, 0, 0.0, 0, 0,
+                stream)
     else:
         n_pages = x["k_pages"].shape[0]
         args = (q, kp, vp, None, None, table, kv_len, pm_, pl_, pnv_, 0, 0,

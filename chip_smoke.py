@@ -48,7 +48,13 @@ JSON line (``"phase": ...``):
              in identity page order (``k4_perm_vs_identity``), and the
              dense latent kernel against K4 on a permuted pool holding its
              rows (``k2latent_vs_k4``), all equal
-             bits on every row with kv_len >= 1; then each kernel's time at
+             bits on every row with kv_len >= 1; K2 on the slot strips of
+             a sequence-sharded dense cache (``decode_partials@seq_strip``:
+             granite's decode data at 2, 4 and 16 strips, a window, a P =
+             13 chain and gemma2's d256 data at 16; each strip against its
+             plain version, the strips' partials concatenated equal to the
+             whole call's bit for bit, and 3 strips of a 4-split sweep
+             refused) with one strip's timing row; then each kernel's time at
              the shapes the granite-3-8b, DeepSeek-V3 and gemma2-9b main
              paths give it and at a smoke serving shape (``ms``: CUDA
              events around 20 back-to-back wrapper calls; K2-K4 also
@@ -183,7 +189,14 @@ JSON line (``"phase": ...``):
              5000 tokens, one prefilled whole and one in 2048-token
              chunks, 8 decode steps past the window, dense and paged, with
              ``attn_impl`` "cuda" and "torch": equal tokens, logits within
-             1e-4 of their scale, dense = paged;
+             1e-4 of their scale, dense = paged; then the dense leg's 8
+             decode steps from its prefilled caches with the parameters
+             placed by the ``serve`` rules and the caches by
+             ``cache_shardings`` on a (1, 16) mesh of cuda:0
+             (``model_gemma2_seq_sharded``: 8 kv heads on a 16-way model
+             axis, so every cache splits on its slots and K2 runs on each
+             of 16 strips): tokens equal to the unsharded step's, logits
+             within 1e-4 of their scale, K2 16 x 4 x 8 strip launches;
 8. serve_gemma2 — the launcher (``--cache-layout both``) on all 42 layers
              at full width (fp32, ~37 GB): 4 prompts of 4200-6000 tokens,
              all past the window, 32 new tokens; the serve phase's checks,
@@ -276,7 +289,25 @@ JSON line (``"phase": ...``):
              seconds, tokens/s and peak memory (``train``); and 3 steps of
              ``launch/train.py``'s ``main`` at its default bf16, its first
              step's loss and grad norm against one ``--attn-impl torch``
-             step from the same seed (``train_launcher``);
+             step from the same seed (``train_launcher``), and its
+             defaults on a ``--mesh 2x2 --rules fsdp_tp`` of the card
+             (``train_launcher_mesh``: K1 4 x 2 a layer and step);
+19a. train_sharded — the train phase's run on a (data 2, model 2) mesh of
+             cuda:0 under ``fsdp_tp``: the state held as its shards, K1 +
+             LSE per data shard and kv-head shard (2 x 2 x 24 x 2 = 192 a
+             step), losses within 2e-4 of the train phase's, the first
+             grad norm within 1e-5, each position's parameter and
+             optimizer bytes equal to its shard tensors', peak memory;
+19b. train_elastic — stablelm-1.6b at full width cut to 2 layers: two
+             steps on (2, 2), a checkpoint, two more; ``ElasticMeshManager``
+             plans (1, 2), a fresh state restores the checkpoint onto it
+             and its two steps' losses equal the uninterrupted ones
+             within 2e-4;
+19c. dryrun — ``repro_torch.launch.dryrun`` with the peaks read off the
+             card: stablelm-1.6b at the train phase's shape (fp32, 1 x 1)
+             beside its measured step (the compute term at most 1.05 of
+             the step seconds), ``--list`` (32 cells) and gemma2-9b
+             decode_32k on 16 x 16 and 2 x 16 x 16, nothing allocated;
 20. the ``kernels`` line (launches on the main paths, K2 / K3 / K4 / K2's
    latent branch split by n_pos == 1 (decode steps) and n_pos > 1 (verify
    chains), K3 on head shards and the latent strips from the sharded
@@ -297,7 +328,9 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2629,6 +2662,160 @@ def time_strips(torch, gen, dec, ops, autotune) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the sequence-sharded dense cache: K2 on slot strips
+# ---------------------------------------------------------------------------
+
+#: K2 strip cases: (label, B, Hq, Hkv, M, D, kv_len, P, window, strip
+#: counts) — granite's decode data at 2 / 4 / 16 strips, a window, a
+#: P = 13 chain, and gemma2's d256 data on its 16-way model axis
+K2_STRIP_CASES = (
+    ("granite", 8, 32, 8, 2048, 128, TIMING_KVL, 1, None, (2, 4, 16)),
+    ("granite window 700", 8, 32, 8, 2048, 128, TIMING_KVL, 1, 700, (4,)),
+    ("granite P=13", 8, 32, 8, 2048, 128,
+     (2035, 1500, 1024, 700, 300, 64, 1, 1900), 13, None, (4,)),
+    ("gemma2 d256", 4, 16, 8, 8192, 256, (8192, 5000, 4601, 300), 1, None,
+     (16,)),
+)
+#: the seq-sharded decode's split count (gemma2's 16-way model axis)
+SEQ_SPLITS = 16
+
+
+def _k2_strip_data(torch, gen, b, hq, hkv, m, d, kvl, p):
+    q = _rand(torch, gen, (b, hq, p, d), torch.float32)
+    k = _rand(torch, gen, (b, hkv, m, d), torch.float32)
+    v = _rand(torch, gen, (b, hkv, m, d), torch.float32)
+    return q, k, v, torch.tensor(list(kvl), dtype=torch.int32, device="cuda")
+
+
+def k2_strip_cases(torch, gen, dec) -> list:
+    """K2 on the slot strips of a sequence-sharded dense cache
+    (:data:`K2_STRIP_CASES`, ``SEQ_SPLITS`` splits): each strip launched on
+    a K/V that hold only its keys against its plain version (fp32
+    tolerance), and the strips' partials concatenated in strip order
+    against K2's whole call on the whole cache (``strips_vs_whole``:
+    bit-equal partials, and the combined outputs' max abs difference
+    0.0); ``tp`` 3 (not dividing the splits) must raise."""
+    from repro_torch.kernels import ops
+
+    rows = []
+    for label, b, hq, hkv, m, d, kvl, p, window, tps in K2_STRIP_CASES:
+        q, k, v, kv_len = _k2_strip_data(torch, gen, b, hq, hkv, m, d, kvl,
+                                         p)
+        g = hq // hkv
+        for tp in tps:
+            splits, block_k, n = ops.seq_strips(m, g, d, d, tp, p=p,
+                                                splits=SEQ_SPLITS)
+            kw = dict(splits=splits, block_k=block_k, window=window)
+            whole = ops.fusemax_decode_strip(q, k, v, kv_len, split_first=0,
+                                             n_splits=splits, impl="cuda",
+                                             **kw)
+            parts = []
+            ms = m // tp
+            for j in range(tp):
+                ks = k[:, :, j * ms:(j + 1) * ms].contiguous()
+                vs = v[:, :, j * ms:(j + 1) * ms].contiguous()
+                got = ops.fusemax_decode_strip(q, ks, vs, kv_len,
+                                               split_first=j * n,
+                                               n_splits=n, impl="cuda", **kw)
+                plain = ops.fusemax_decode_strip(q, ks, vs, kv_len,
+                                                 split_first=j * n,
+                                                 n_splits=n, impl="torch",
+                                                 **kw)
+                parts.append(got)
+                out = dec.combine_partials(*got, torch.float32)
+                ref = dec.combine_partials(*plain, torch.float32)
+                torch.cuda.synchronize()
+                err, ok, atol, rtol = _err(torch, out, ref, "float32")
+                equal = all(torch.equal(a, b_) for a, b_ in zip(got, plain))
+                if tp <= 4 or j in (0, tp - 1):
+                    rows.append(dict(
+                        kernel="decode_partials@seq_strip",
+                        case=f"{label}: strip {j} of {tp} (splits "
+                        f"{j * n}..{(j + 1) * n - 1} of {splits}, keys "
+                        f"{j * ms}..{(j + 1) * ms - 1})", tp=tp,
+                        max_abs_err=err, atol=atol, rtol=rtol, ok=ok,
+                        partials_equal_plain=equal))
+                elif not ok:
+                    rows.append(dict(kernel="decode_partials@seq_strip",
+                                     case=f"{label}: strip {j} of {tp}",
+                                     tp=tp, max_abs_err=err, ok=False))
+            cat = [torch.cat([part[i] for part in parts], dim=1)
+                   for i in range(3)]
+            bits = all(torch.equal(a, w) for a, w in zip(cat, whole))
+            diff = (dec.combine_partials(*cat, torch.float32)
+                    - dec.combine_partials(*whole, torch.float32)).abs()
+            rows.append(dict(
+                kernel="decode_partials@seq_strip",
+                case=f"strips_vs_whole: {label}, {tp} strips of {splits} "
+                f"splits vs K2 on the whole cache", tp=tp, splits=splits,
+                partials_bit_equal=bits, max_abs_diff=diff.max().item(),
+                ok=bits and diff.max().item() == 0.0))
+        del q, k, v
+        torch.cuda.empty_cache()
+    x = _k2_strip_data(torch, gen, 2, 8, 2, 96, 64, (96, 50), 1)
+    try:
+        ops.fusemax_decode_seq_sharded(x[0], list(x[1].chunk(3, 2)),
+                                       list(x[2].chunk(3, 2)), x[3],
+                                       impl="cuda", splits=4)
+        refused = False
+    except ValueError as e:
+        refused = "tp=3" in str(e) and "splits=4" in str(e)
+    rows.append(dict(kernel="decode_partials@seq_strip",
+                     case="3 strips of a 4-split sweep must raise",
+                     ok=refused))
+    return rows
+
+
+def time_seq_strip(torch, gen, dec, autotune) -> dict:
+    """K2 on strip 0 of 16 of gemma2-9b's decode step (4 slots, 16 q over
+    8 kv heads, head dim 256, an 8192-slot global cache, ``SEQ_SPLITS``
+    splits; strip 0 holds keys 0..511, which every slot reaches), beside
+    its plain version, SDPA on the strip's keys (the library yardstick)
+    and the bound of that strip: its valid keys' K and V rows read once,
+    the queries once, its partials written once; each query row's products
+    with those keys on the FP32 units."""
+    from repro_torch.kernels import ops
+
+    b, hq, hkv, m, d, tp = 4, 16, 8, 8192, 256, 16
+    kvl = [8192, 5000, 4601, 300]
+    g = hq // hkv
+    q, k, v, kv_len = _k2_strip_data(torch, gen, b, hq, hkv, m, d, kvl, 1)
+    splits, block_k, n = ops.seq_strips(m, g, d, d, tp, splits=SEQ_SPLITS)
+    ms = m // tp
+    ks, vs = k[:, :, :ms].contiguous(), v[:, :, :ms].contiguous()
+
+    def launch(impl="cuda"):
+        return lambda: ops.fusemax_decode_strip(
+            q, ks, vs, kv_len, splits=splits, block_k=block_k,
+            split_first=0, n_splits=n, impl=impl)
+
+    got, ref = launch()(), launch("torch")()
+    err, ok, _, _ = _err(torch, dec.combine_partials(*got, torch.float32),
+                         dec.combine_partials(*ref, torch.float32),
+                         "float32")
+    ms_ = time_ms(torch, launch())
+    dev_ms = device_ms(torch, launch(), "DenseKV")
+    plain_ms = time_ms(torch, launch("torch"), iters=5, warmup=1)
+    strip_len = torch.clamp(kv_len, max=ms)
+    mask = (torch.arange(ms, device="cuda")[None, :]
+            < strip_len[:, None])[:, None, None, :]
+    library_ms = time_ms(torch, _sdpa_fn(torch, q, ks, vs, attn_mask=mask))
+    reads = sum(min(x, ms) for x in kvl)
+    nbytes = (4 * 2 * reads * hkv * d + 4 * q.numel() + 4 * b
+              + 4 * b * hkv * n * g * (d + 2))
+    flops = 4 * d * reads * hq
+    row = _timing_row(ms_, plain_ms, library_ms, flops, nbytes, err, ok,
+                      shape=f"strip 0 of {tp} (splits 0..{n - 1} of "
+                            f"{splits}, keys 0..{ms - 1}) of B{b} Hq{hq} "
+                            f"Hkv{hkv} M{m} d{d} fp32 kv_len {kvl}")
+    del q, k, v, ks, vs
+    torch.cuda.empty_cache()
+    return dict(row, tp=tp, device_ms=dev_ms,
+                device_share_of_bound=row["bound_ms"] / dev_ms,
+                library="SDPA on the strip's keys")
+
+
+# ---------------------------------------------------------------------------
 # 4. model cross-check
 # ---------------------------------------------------------------------------
 
@@ -2734,6 +2921,8 @@ def _counts(fm, dec) -> dict:
             # rank-sharded pool's decode; part of the counts above)
             "latent_decode_partials_strips":
                 dec.latent_decode_partials_cuda.launches_strips,
+            # K2's launches on a slot strip of a sequence-sharded cache
+            "decode_partials_strips": dec.decode_partials_cuda.launches_strips,
             "mla_paged_decode_partials_strips":
                 dec.mla_paged_decode_partials_cuda.launches_strips,
             "fusemax_prefill_windowed":
@@ -2762,6 +2951,7 @@ def _zero_counts(fm, dec) -> None:
     dec.latent_decode_partials_cuda.launches = 0
     dec.latent_decode_partials_cuda.launches_strips = 0
     dec.mla_paged_decode_partials_cuda.launches_strips = 0
+    dec.decode_partials_cuda.launches_strips = 0
     dec.paged_decode_partials_cuda.launches_by_code.clear()
     dec.mla_paged_decode_partials_cuda.launches_by_code.clear()
     for k in DECODE_KERNELS:
@@ -3667,13 +3857,14 @@ def _gemma2_prefill_rows(torch, tf, cfg, model, rt, caches, toks, lens,
     return torch.cat(out)
 
 
-def phase_model_gemma2(torch, fm, dec) -> None:
+def phase_model_gemma2(torch, fm, dec) -> dict:
     """4 full-width gemma2-9b layers (local, global, local, global), fp32:
     prompts of 4600 and 5000 tokens, one prefilled whole and one in
     2048-token chunks, then 8 greedy decode steps, on the dense and the
     paged layout, with ``attn_impl`` "cuda" and "torch" on the same
     weights: logits within 1e-4 of their scale, equal tokens, and dense =
-    paged."""
+    paged; then the dense leg's decode on the sequence-sharded cache
+    (:func:`_gemma2_seq_sharded`, whose record it returns)."""
     from repro_torch.configs import get_config
     from repro_torch.model import transformer as tf
     from repro_torch.model.layers import Runtime
@@ -3705,6 +3896,8 @@ def phase_model_gemma2(torch, fm, dec) -> None:
                 tf.init_cache(cfg, b, max_len, torch.float32, "cuda")
             lg = _gemma2_prefill_rows(torch, tf, cfg, model, rt, caches,
                                       toks, lens, chunk, paged)
+            if layout == "dense" and name == "cuda":
+                prefilled = (_clone_caches(caches), lg.clone())
             kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
             out, lgs = [], [lg]
             for _ in range(8):
@@ -3765,9 +3958,79 @@ def phase_model_gemma2(torch, fm, dec) -> None:
     check(streams_equal, "gemma2: dense and paged greedy streams differ")
     check(dense_paged <= rel_tol * res["dense"]["logits_max_abs"],
           f"gemma2: dense vs paged logits differ by {dense_paged}")
-    del model, logits_all
+    seq = _gemma2_seq_sharded(torch, fm, dec, cfg, model, rt_c, prefilled,
+                              lens, logits_all["dense", "cuda"],
+                              streams["dense", "cuda"], rel_tol)
+    del model, logits_all, prefilled
     gc.collect()
     torch.cuda.empty_cache()
+    return seq
+
+
+#: the seq-sharded decode step's mesh: gemma2's 16-way model axis
+SEQ_MESH = (1, 16)
+
+
+def _gemma2_seq_sharded(torch, fm, dec, cfg, model, rt, prefilled, lens,
+                        ref_logits, ref_stream, rel_tol) -> dict:
+    """The dense leg's 8 decode steps again from its prefilled caches, with
+    the parameters placed by the ``serve`` rules and the caches by
+    ``cache_shardings`` on a (1, 16) mesh of cuda:0: 8 kv heads do not
+    divide the 16-way model axis, so every cache (the global layers' 8192
+    slots, the rings' 4096) splits on its slots into 16 strips and K2 runs
+    on each strip (``SEQ_SPLITS`` splits, one a strip) — the main path of
+    the strip: counts set to 0 just before, read just after.  Gates:
+    tokens equal to the unsharded dense step's, logits within 1e-4 of
+    their scale, K2 16 strips x 4 layers x 8 steps."""
+    from repro_torch.distributed import sharded_decode as sdec
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(SEQ_MESH, ("data", "model"),
+                     ["cuda:0"] * math.prod(SEQ_MESH))
+    rules = shd.make_rules(mesh, "serve")
+    rt = dataclasses.replace(rt, decode_splits=SEQ_SPLITS)
+    caches, lg = prefilled
+    t0 = time.perf_counter()
+    params = sdec.place_params(cfg, model, mesh, rules)
+    caches = sdec.shard_caches(cfg, caches, mesh)
+    specs = sorted({str(c["attn"]["k"].sharding.spec) for c in caches})
+    _zero_counts(fm, dec)
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out, lgs = [], [lg]
+    for _ in range(8):
+        nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+        out.append(nxt)
+        kv = kv + 1
+        lg, caches = sdec.decode_step(cfg, model, params, nxt[:, None],
+                                      caches, kv, rt, mesh)
+        lgs.append(lg)
+    torch.cuda.synchronize()
+    launches = _counts(fm, dec)
+    strips = launches["decode_partials_strips"]
+    stream = torch.stack(out).cpu()
+    diff = (torch.stack(lgs) - ref_logits).abs().max().item()
+    scale = ref_logits.abs().max().item()
+    tp = SEQ_MESH[1]
+    r = dict(mesh=dict(mesh.shape), rules="serve", cache_specs=specs,
+             splits=SEQ_SPLITS, decode_steps=8,
+             logits_max_abs_diff_vs_unsharded=diff, logits_max_abs=scale,
+             rel_tol=rel_tol, tokens_equal=bool(torch.equal(stream,
+                                                            ref_stream)),
+             k2_strip_launches=strips, launches=launches,
+             seconds=time.perf_counter() - t0)
+    emit("model_gemma2_seq_sharded", **r)
+    check(specs == ["('data', None, 'model', None)"],
+          f"gemma2 caches placed {specs}, expected slot strips")
+    check(r["tokens_equal"], "gemma2 seq-sharded decode: tokens differ from "
+                             "the unsharded step's")
+    check(diff <= rel_tol * scale, f"gemma2 seq-sharded logits differ by "
+                                   f"{diff} > {rel_tol} x {scale}")
+    check(strips == launches["decode_partials"] == tp * cfg.n_layers * 8,
+          f"K2 launched {launches['decode_partials']} times, {strips} on "
+          f"strips; expected {tp} x {cfg.n_layers} x 8")
+    del params, caches
+    return r
 
 
 GEMMA2_SERVE_ARGS = ["--arch", "gemma2-9b", "--cache-layout", "both",
@@ -3851,6 +4114,61 @@ LAUNCHER_RUNS = [
 LAUNCHER_REFUSED = [(["--arch", "pixtral-12b-smoke"], "token prompts")]
 
 
+#: launcher subprocesses run at once (each reaches the card in ~8 s of
+#: start-up; one at a time they took ~100 s of the script's limit)
+LAUNCHER_PARALLEL = 4
+
+
+def _run_launchers(argvs: list) -> list:
+    """``python -m repro_torch.launch.serve <argv>`` for each of ``argvs``,
+    :data:`LAUNCHER_PARALLEL` at a time, each in a working directory of
+    its own (the launcher writes ``BENCH_torch_serving.json`` into it).
+    Returns, in the order of ``argvs``, (argv, exit code, stderr, wall
+    seconds, the JSON it wrote or None)."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    base = os.path.join(ROOT, "build", "launcher_runs")
+    shutil.rmtree(base, ignore_errors=True)
+    results = [None] * len(argvs)
+    pending = list(enumerate(argvs))
+    live = {}
+    try:
+        while pending or live:
+            while pending and len(live) < LAUNCHER_PARALLEL:
+                i, argv = pending.pop(0)
+                cwd = os.path.join(base, str(i))
+                os.makedirs(cwd)
+                with open(os.path.join(cwd, "stderr"), "w") as err:
+                    proc = subprocess.Popen(
+                        [sys.executable, "-m", "repro_torch.launch.serve",
+                         *argv], cwd=cwd, env=env,
+                        stdout=subprocess.DEVNULL, stderr=err)
+                live[i] = (proc, time.perf_counter(), cwd)
+            time.sleep(0.2)
+            for i, (proc, t0, cwd) in list(live.items()):
+                wall = time.perf_counter() - t0
+                if proc.poll() is None:
+                    if wall < 600:
+                        continue
+                    proc.kill()
+                    proc.wait()
+                del live[i]
+                with open(os.path.join(cwd, "stderr")) as fh:
+                    err = fh.read()
+                out_json = os.path.join(cwd, "BENCH_torch_serving.json")
+                m = None
+                if os.path.exists(out_json):
+                    with open(out_json) as fh:
+                        m = json.load(fh)
+                results[i] = (argvs[i], proc.returncode, err, wall, m)
+    finally:
+        for proc, _, _ in live.values():
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(base, ignore_errors=True)
+    return results
+
+
 def phase_launcher_defaults(torch) -> dict:
     """Each :data:`LAUNCHER_RUNS` command as a subprocess from the repo
     root: exit code 0, every layout's streams complete and, where the
@@ -3861,22 +4179,10 @@ def phase_launcher_defaults(torch) -> dict:
     from repro_torch.configs import get_config
 
     runs = []
-    out_json = os.path.join(ROOT, "BENCH_torch_serving.json")
-    for argv in LAUNCHER_RUNS + [a for a, _ in LAUNCHER_REFUSED]:
-        if os.path.exists(out_json):
-            os.unlink(out_json)
-        env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        run = dict(argv=" ".join(argv) or "(no flags)", rc=proc.returncode,
-                   seconds=wall)
-        if proc.returncode == 0 and os.path.exists(out_json):
-            with open(out_json) as fh:
-                m = json.load(fh)
+    for argv, rc, stderr, wall, m in _run_launchers(
+            LAUNCHER_RUNS + [a for a, _ in LAUNCHER_REFUSED]):
+        run = dict(argv=" ".join(argv) or "(no flags)", rc=rc, seconds=wall)
+        if rc == 0 and m is not None:
             run.update(arch=m["arch"],
                        mla=get_config(m["arch"]).mla is not None,
                        attention=any(sp.attn != "none" for sp in get_config(
@@ -3889,10 +4195,8 @@ def phase_launcher_defaults(torch) -> dict:
             if "outputs_match" in m:     # the launcher compared layouts
                 run["outputs_match"] = m["outputs_match"]
         else:
-            run["stderr_tail"] = proc.stderr[-2000:]
+            run["stderr_tail"] = stderr[-2000:]
         runs.append(run)
-    if os.path.exists(out_json):
-        os.unlink(out_json)
     refused, runs = runs[len(LAUNCHER_RUNS):], runs[:len(LAUNCHER_RUNS)]
     emit("launcher_defaults", runs=runs, refused=refused)
     for run, (_, msg) in zip(refused, LAUNCHER_REFUSED):
@@ -5183,6 +5487,8 @@ def phase_train(torch, fm, dec) -> dict:
     launches = _counts(fm, dec)
     launches["fusemax_prefill_lse"] = fm.fusemax_attention_cuda.launches_lse
     launches["backward_calls"] = fm.fusemax_attention_bwd.calls
+    launches["step_losses"], launches["step_grad_norms"] = losses, gnorms
+    launches["step_seconds"] = secs
     peak = torch.cuda.max_memory_allocated()
     steady = secs[1:]
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (sum(steady) / len(steady))
@@ -5223,6 +5529,274 @@ def phase_train(torch, fm, dec) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+#: the sharded phases' mesh: (data 2, model 2) positions, all cuda:0
+SHARD_MESH = (2, 2)
+#: the sharded step against the unsharded one (the reference's rtol), and
+#: the first grad norm's
+SHARD_LOSS_RTOL, SHARD_GNORM_RTOL = 2e-4, 1e-5
+#: train_elastic: stablelm-1.6b at full width cut to this many layers
+ELASTIC_LAYERS = 2
+
+
+def phase_train_sharded(torch, fm, dec, unsharded: dict) -> dict:
+    """The train phase's run (stablelm-1.6b, full width and depth, fp32,
+    its 4 x 1024 batch, seed and schedule) on a (data 2, model 2) mesh of
+    cuda:0 under ``fsdp_tp``: the state held as its shards (each
+    parameter, its AdamW moments split by the rules), each data shard's
+    half of the batch through K1 + LSE per kv-head shard — the main path:
+    counts set to 0 just before, read just after.  Gates: the losses equal
+    the train phase's within the reference's rtol 2e-4, the first grad
+    norm within 1e-5 relative, K1 + LSE 2 data x 2 kv-head shards x 24
+    layers x 2 (forward + remat) launches a step, and each position's
+    parameter and optimizer bytes (from the shard shapes) equal the bytes
+    of the shard tensors it reads."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.model.layers import Runtime
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.training import (
+        init_train_state, make_train_step, shard_train_state,
+    )
+
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_mesh(SHARD_MESH, ("data", "model"),
+                     ["cuda:0"] * math.prod(SHARD_MESH))
+    rules = shd.make_rules(mesh, "fsdp_tp")
+    rt = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                 param_dtype=torch.float32,
+                 shard_activation=shd.act_sharder(mesh, rules))
+    opt = make_optimizer("adamw")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = shard_train_state(init_train_state(cfg, 0, opt, rt,
+                                               device="cuda"),
+                              cfg, mesh, rules)
+    batch = _train_batch(torch, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    step = make_train_step(cfg, opt, warmup_cosine(TRAIN_LR, 1, TRAIN_STEPS),
+                           rt, mesh=mesh, rules=rules)
+    _zero_counts(fm, dec)
+    fm.fusemax_attention_cuda.launches_lse = 0
+    losses, gnorms, secs, per_step = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        k1 = fm.fusemax_attention_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        gnorms.append(m["grad_norm"].item())
+        per_step.append(fm.fusemax_attention_cuda.launches - k1)
+    launches = _counts(fm, dec)
+    launches["fusemax_prefill_lse"] = fm.fusemax_attention_cuda.launches_lse
+    peak = torch.cuda.max_memory_allocated()
+    pos_bytes = state.position_bytes()
+    planned = [a + b for a, b in zip(pos_bytes["params"],
+                                     pos_bytes["opt_state"])]
+    in_shards = state.held_position_bytes()
+    ref_l, ref_g = unsharded["step_losses"], unsharded["step_grad_norms"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_l))
+    gnorm_rel = abs(gnorms[0] - ref_g[0]) / ref_g[0]
+    expect = math.prod(SHARD_MESH) * cfg.n_layers * 2
+    steady = secs[1:]
+    emit("train_sharded", config=f"{TRAIN_ARCH} fp32, {cfg.n_layers} "
+         f"layers, d {cfg.d_model}", mesh=dict(mesh.shape),
+         devices=[str(d) for d in mesh.devices], rules="fsdp_tp",
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=init_s, losses=losses,
+         unsharded_losses=ref_l, loss_max_rel_diff=loss_rel,
+         loss_rtol=SHARD_LOSS_RTOL, grad_norms=gnorms,
+         unsharded_grad_norms=ref_g, first_grad_norm_rel_diff=gnorm_rel,
+         grad_norm_rtol=SHARD_GNORM_RTOL, step_seconds=secs,
+         unsharded_step_seconds=unsharded["step_seconds"],
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (sum(steady) / len(steady)),
+         k1_launches_per_step=per_step, main_path_launches=launches,
+         position_bytes=pos_bytes, shard_tensor_bytes=in_shards,
+         state_bytes_held=held, max_memory_allocated=peak)
+    check(loss_rel <= SHARD_LOSS_RTOL,
+          f"sharded losses {losses} vs unsharded {ref_l}: {loss_rel}")
+    check(gnorm_rel <= SHARD_GNORM_RTOL,
+          f"sharded first grad norm {gnorms[0]} vs {ref_g[0]}: {gnorm_rel}")
+    check(per_step == [expect] * TRAIN_STEPS
+          and launches["fusemax_prefill_lse"] == launches["fusemax_prefill"],
+          f"K1 launches per step {per_step}, expected {expect} (2 data x 2 "
+          f"kv-head shards x {cfg.n_layers} layers x forward + remat), "
+          f"{launches['fusemax_prefill_lse']} with an LSE")
+    check(planned == in_shards and len(set(planned)) == 1,
+          f"per-position bytes {planned} vs the shard tensors' {in_shards}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_elastic(torch, fm, dec) -> dict:
+    """The elastic re-mesh: stablelm-1.6b at full width cut to
+    ``ELASTIC_LAYERS`` layers, fp32, two steps on a (2, 2) mesh of cuda:0,
+    a checkpoint (leaves written whole), two more steps (the uninterrupted
+    run); then half the devices lost: ``ElasticMeshManager.plan`` picks
+    (1, 2), a fresh state on it (another seed) restores the checkpoint
+    onto that mesh and takes the same two steps.  Gate: its losses equal
+    the uninterrupted run's within 2e-4."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.fault_tolerance import (
+        ElasticMeshManager, RecoveryLog,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.model.layers import Runtime
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.training import (
+        init_train_state, make_train_step, shard_train_state,
+        state_shardings,
+    )
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=ELASTIC_LAYERS)
+    opt = make_optimizer("adamw")
+    src = SyntheticSource(DataConfig(global_batch=TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+                                     seed=5))
+    batches = [{k: v.to("cuda") for k, v in src.batch_at(i).items()}
+               for i in range(4)]
+    log = RecoveryLog()
+
+    def build(shape, seed):
+        mesh = make_mesh(shape, ("data", "model"),
+                         ["cuda:0"] * math.prod(shape))
+        rules = shd.make_rules(mesh, "fsdp_tp")
+        rt = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                     param_dtype=torch.float32)
+        whole = init_train_state(cfg, seed, opt, rt, device="cuda")
+        sh = state_shardings(whole, shd.param_axes(cfg, whole.model), mesh,
+                             rules)
+        state = shard_train_state(whole, cfg, mesh, rules)
+        step = make_train_step(cfg, opt, warmup_cosine(TRAIN_LR, 1, 8), rt,
+                               mesh=mesh, rules=rules)
+        return state, step, sh
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="elastic_")
+    state, step, _ = build(SHARD_MESH, 0)
+    for i in range(2):
+        state, _ = step(state, batches[i])
+    ckpt.save(tmp, 2, state.as_tree())
+    log.record("checkpoint", step=2)
+    ref = []
+    for i in range(2, 4):
+        state, m = step(state, batches[i])
+        ref.append(m["loss"].item())
+    del state
+    gc.collect()
+    plan = ElasticMeshManager(model_parallel=SHARD_MESH[1],
+                              devices_per_pod=8).plan(2)
+    state, step, sh = build(plan.shape, 1)
+    state.load_tree(ckpt.restore(tmp, 2, state.as_tree(), sh))
+    log.record("remesh", step=2, shape=list(plan.shape))
+    got = []
+    for i in range(2, 4):
+        state, m = step(state, batches[i])
+        got.append(m["loss"].item())
+    shutil.rmtree(tmp, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    emit("train_elastic", config=f"{TRAIN_ARCH} fp32, {cfg.n_layers} "
+         f"layers, d {cfg.d_model}", first_mesh=list(SHARD_MESH),
+         plan=dict(shape=list(plan.shape), axes=list(plan.axes),
+                   n_devices=plan.n_devices), uninterrupted_losses=ref,
+         restored_losses=got, loss_max_rel_diff=rel,
+         loss_rtol=SHARD_LOSS_RTOL, recovery_log=log.events,
+         seconds=time.perf_counter() - t0)
+    check(tuple(plan.shape) == (1, SHARD_MESH[1]),
+          f"elastic plan {plan} for 2 surviving devices")
+    check(rel <= SHARD_LOSS_RTOL,
+          f"restored losses {got} vs uninterrupted {ref}: {rel}")
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": got}
+
+
+#: the measured share of the dry run's compute bound above which the
+#: bound is a miscount (the step cannot beat its bound)
+DRYRUN_SHARE_MAX = 1.05
+
+
+def phase_dryrun(torch, unsharded: dict) -> dict:
+    """``repro_torch.launch.dryrun`` on the card: the peaks read through
+    ``torch.cuda.get_device_properties``; stablelm-1.6b at the train
+    phase's shape (4 x 1024, fp32, a 1 x 1 mesh) beside that phase's
+    measured step — its compute term (FlopCounterMode on meta tensors plus
+    the attention formula, at the fp32 peak) over the steady step seconds
+    must be at most ``DRYRUN_SHARE_MAX``; ``--list``; one production cell
+    per mesh (gemma2-9b decode_32k on 16 x 16 and 2 x 16 x 16).  Nothing
+    is allocated on the card."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis.roofline import card_peaks
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    peaks = card_peaks()
+    cfg = get_config(TRAIN_ARCH)
+    rec = dryrun.lower_cell(TRAIN_ARCH, "train_4k",
+                            mesh=make_mesh((1, 1), ("data", "model"),
+                                           ["meta"]),
+                            batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                            dtype=torch.float32)
+    steady = unsharded["step_seconds"][1:]
+    measured = sum(steady) / len(steady)
+    compute_s = rec["roofline"]["compute_s"]
+    share = compute_s / measured
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    eight_nd = 8 * cfg.param_count() * tokens
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dryrun.main(["--list"])
+    listed = out.getvalue().strip().splitlines()
+    cells = {}
+    for multi in (False, True):
+        r = dryrun.lower_cell("gemma2-9b", "decode_32k", multi_pod=multi)
+        cells[r["mesh"]] = {k: r[k] for k in ("chips", "mesh_shape",
+                                              "model_axis_spans_hosts",
+                                              "memory", "roofline")}
+    after = torch.cuda.memory_allocated()
+    emit("dryrun", peaks=dict(name=peaks.name, flops=peaks.flops,
+                              hbm_bytes_per_s=peaks.hbm_bytes_per_s,
+                              nvlink_bytes_per_s=peaks.nvlink_bytes_per_s,
+                              network_bytes_per_s=peaks.network_bytes_per_s,
+                              source=peaks.source),
+         device_name=torch.cuda.get_device_properties(0).name,
+         train_cell=dict(shape=f"{TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ} "
+                               "fp32 1 x 1", cost=rec["cost"],
+                         memory=rec["memory"], roofline=rec["roofline"],
+                         eight_n_d=eight_nd),
+         measured_step_s=measured, compute_s=compute_s,
+         measured_share_of_bound=share, share_max=DRYRUN_SHARE_MAX,
+         list_last=listed[-1], production_cells=cells,
+         allocated_before=before, allocated_after=after,
+         seconds=time.perf_counter() - t0)
+    check(share <= DRYRUN_SHARE_MAX,
+          f"the dry run's compute term {compute_s} s is {share} of the "
+          f"measured step {measured} s: a miscount")
+    check(listed[-1] == "32 applicable cells", f"--list ended {listed[-1]}")
+    check(before == after, f"the dry run allocated {after - before} bytes")
+    check(all(c["model_axis_spans_hosts"] for c in cells.values()),
+          "a 16-way model axis must span two hosts of 8")
+    return rec
 
 
 def phase_train_launcher(torch, fm) -> dict:
@@ -5276,6 +5850,25 @@ def phase_train_launcher(torch, fm) -> dict:
           == 2 * n_layers * TRAIN_LAUNCHER_STEPS,
           f"K1 launched {m['fusemax_prefill_launches']} times in "
           f"{TRAIN_LAUNCHER_STEPS} bf16 steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launcher over a (2, 2) mesh of the card, at its defaults
+    argv_m = ["--mesh", "2x2", "--rules", "fsdp_tp"]
+    t0 = time.perf_counter()
+    mm = train.main(argv_m)
+    n_smoke = get_config(mm["arch"]).n_layers
+    emit("train_launcher_mesh", args=" ".join(argv_m),
+         seconds=time.perf_counter() - t0,
+         **{k: mm[k] for k in ("arch", "losses", "step_seconds",
+                               "fusemax_prefill_launches", "position_bytes",
+                               "mesh", "rules", "device")})
+    check(mm["device"]["platform"] == "gpu"
+          and all(x == x and abs(x) != float("inf") for x in mm["losses"]),
+          f"--mesh 2x2 trained {mm['losses']} on {mm['device']}")
+    check(mm["fusemax_prefill_launches"] == 4 * 2 * n_smoke * mm["steps"],
+          f"--mesh 2x2: K1 launched {mm['fusemax_prefill_launches']} times")
+    check(len(mm["position_bytes"]["params"]) == 4,
+          f"--mesh 2x2 position bytes {mm['position_bytes']}")
     gc.collect()
     torch.cuda.empty_cache()
     return m
@@ -5739,6 +6332,16 @@ def main() -> int:
     tsh.update(time_strips(torch, gen_sh, dec, ops, autotune))
     for name, t in tsh.items():
         emit("kernel_time", kernel=name, **t)
+    # the sequence-sharded dense cache: K2 on slot strips, cases and one
+    # strip's timing row, from a generator of their own
+    gen_sq = torch.Generator(device="cuda")
+    gen_sq.manual_seed(26)
+    rows_sq = k2_strip_cases(torch, gen_sq, dec)
+    for r in rows_sq:
+        emit("kernel_case", **r)
+    rows += rows_sq
+    tsq = time_seq_strip(torch, gen_sq, dec, autotune)
+    emit("kernel_time", kernel="decode_partials@seq_strip", **tsq)
     # training: K1 with its log-sum-exp at every head dims, the attention
     # Function's grads on the card, and the training shape's timing rows
     # (K1 + LSE, the recompute backward), from a generator of their own
@@ -5766,7 +6369,7 @@ def main() -> int:
     bad += [f"{n} timing shape" for n, t in list(tg.items())
             + list(ts.items()) + list(tq.items()) + list(tv.items())
             + list(th.items()) + list(ta.items()) + list(tsh.items())
-            + list(ttr.items()) if not t["ok"]]
+            + list(ttr.items()) + [("K2 seq strip", tsq)] if not t["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     emit_clocks("kernels", time.perf_counter() - t_kernels)
     torch.cuda.empty_cache()
@@ -5801,7 +6404,7 @@ def main() -> int:
     # released theirs
     gc.collect()
     torch.cuda.empty_cache()
-    timed("model_gemma2", phase_model_gemma2, torch, fm, dec)
+    seq_sharded = timed("model_gemma2", phase_model_gemma2, torch, fm, dec)
     g2_launches = timed("serve_gemma2", phase_serve_gemma2, torch, fm, dec,
                         serve)
     defaults = timed("launcher_defaults", phase_launcher_defaults, torch)
@@ -5831,7 +6434,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = timed("train", phase_train, torch, fm, dec)
+    sharded_launches = timed("train_sharded", phase_train_sharded, torch, fm,
+                             dec, train_launches)
+    timed("train_elastic", phase_train_elastic, torch, fm, dec)
     timed("train_launcher", phase_train_launcher, torch, fm)
+    timed("dryrun", phase_dryrun, torch, train_launches)
 
     def entry(name, route, source, replaces, t, n_launches, kernel=None):
         cases = [r["ok"] for r in rows + [same, same4, same2l, same256]
@@ -6036,6 +6643,13 @@ def main() -> int:
                      other_tp={str(tp): shard_row(
                          tsh[f"latent_decode_partials@strip_tp{tp}"])
                          for tp in STRIP_TPS if tp != SHARD_TP}),
+        # the sequence-sharded dense cache: K2 on one of 16 slot strips of
+        # gemma2's decode step (launches: model_gemma2's seq-sharded leg,
+        # 16 strips x 4 layers x 8 steps)
+        decode_entry("decode_partials@seq_strip", k2_src, k2_tpu, tsq,
+                     seq_sharded["k2_strip_launches"],
+                     cases_of="decode_partials@seq_strip", tp=tsq["tp"],
+                     splits=SEQ_SPLITS),
         # training: K1 with its LSE at stablelm-1.6b's shape (launches:
         # phase_train's steps, the forward and the remat recompute), and
         # the recompute backward beside it (torch ops, not a kernel)
@@ -6050,7 +6664,8 @@ def main() -> int:
                        for key in ("shape", "ms", "bound_ms", "bound_by",
                                    "bound_ms_fp32", "library_ms", "library",
                                    "max_abs_err")},
-             backward_calls=train_launches["backward_calls"]),
+             backward_calls=train_launches["backward_calls"],
+             sharded_launches=sharded_launches["fusemax_prefill_lse"]),
         k1_entry("fusemax_prefill@smoke_32x32",
                  ts["fusemax_prefill@smoke_32x32"], smoke["fusemax_prefill"],
                  e=32, f=32),

@@ -1,4 +1,7 @@
-"""Device placement of the serving tier (the paged pool's shards,
-:mod:`repro_torch.distributed.sharding`), checkpoints
-(:mod:`~repro_torch.distributed.checkpoint`) and the fault-tolerance
-control plane (:mod:`~repro_torch.distributed.fault_tolerance`)."""
+"""Device placement over a mesh of named axes: the logical-axis rules and
+the paged pool's shards (:mod:`repro_torch.distributed.sharding`), a
+leaf held as its shards (:mod:`~repro_torch.distributed.placement`), the
+decode step over a mesh (:mod:`~repro_torch.distributed.sharded_decode`),
+checkpoints (:mod:`~repro_torch.distributed.checkpoint`) and the
+fault-tolerance control plane (:mod:`~repro_torch.distributed.
+fault_tolerance`)."""

@@ -15,11 +15,17 @@ per step):
   memory before it returns, then writes on a background thread;
 * an integrity digest over all leaf bytes, checked on restore.
 
-A tree is nested dicts (keys sorted when flattened) and lists of tensors
-or numpy arrays; :meth:`repro_torch.training.TrainState.as_tree` gives a
-training state's.  Leaves restore onto the devices and dtypes of the
-example tree's (the reference's ``shardings`` placement is ROADMAP item
-9b).
+A tree is nested dicts (keys sorted when flattened) and lists of tensors,
+numpy arrays or :class:`~repro_torch.distributed.placement.ShardedTensor`
+leaves; :meth:`repro_torch.training.TrainState.as_tree` gives a training
+state's (:class:`~repro_torch.training.ShardedTrainState`'s over a mesh).
+``save`` writes every leaf whole, gathering a sharded leaf's shards, so a
+checkpoint does not depend on the mesh that wrote it.  ``restore`` puts
+each leaf where ``shardings`` says (a matching tree of
+:class:`~repro_torch.distributed.sharding.Sharding`: the leaf split onto
+that mesh, which may differ from the writer's — the elastic re-mesh),
+else where the example leaf lies: a sharded example's placement, or a
+tensor's device and dtype.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.placement import ShardedTensor, place
 
 
 def _flatten(tree, prefix: str = "") -> list:
@@ -65,6 +73,8 @@ def _unflatten(tree, leaves: list):
 def _host(leaf) -> tuple[np.ndarray, str]:
     """(host array, dtype name) of a leaf; bf16 travels as its raw 16
     bits."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = _whole(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -75,8 +85,16 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _whole(st: ShardedTensor) -> torch.Tensor:
+    """A sharded leaf gathered whole on the host."""
+    with torch.no_grad():
+        return st.gather("cpu").detach()
+
+
 def _snapshot(leaf):
     """A host copy that later writes to the device cannot change."""
+    if isinstance(leaf, ShardedTensor):
+        return _whole(leaf).clone()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
@@ -162,16 +180,24 @@ def _leaf_from_bytes(raw: bytes, meta: dict) -> torch.Tensor:
     return torch.from_numpy(arr.reshape(meta["shape"]).copy())
 
 
-def restore(ckpt_dir: str, step: int, example_tree: Any, *,
-            verify: bool = True) -> Any:
-    """The checkpoint of ``step`` in the structure of ``example_tree``,
-    each leaf a tensor on the example leaf's device and of its dtype."""
+def restore(ckpt_dir: str, step: int, example_tree: Any,
+            shardings: Any = None, *, verify: bool = True) -> Any:
+    """The checkpoint of ``step`` in the structure of ``example_tree``:
+    each leaf placed by its :class:`~repro_torch.distributed.sharding.
+    Sharding` in ``shardings`` (a tree of the same structure; a sharded
+    leaf, in the example's dtype), else as the example leaf is (a sharded
+    example's placement, or a tensor on its device and of its dtype)."""
     path = os.path.join(ckpt_dir, f"step_{step:09d}")
     if not os.path.exists(os.path.join(path, "COMMITTED")):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     refs = _flatten(example_tree)
+    places = [sh for _, sh in _flatten(shardings)] if shardings is not None \
+        else [None] * len(refs)
+    if len(places) != len(refs):
+        raise ValueError(f"shardings hold {len(places)} leaves, the example "
+                         f"tree {len(refs)}")
     if manifest["n_leaves"] != len(refs):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"expected {len(refs)}")
@@ -191,7 +217,11 @@ def restore(ckpt_dir: str, step: int, example_tree: Any, *,
         if tuple(t.shape) != shape:
             raise ValueError(f"leaf {i}: checkpoint shape {tuple(t.shape)} "
                              f"!= {shape}")
-        if isinstance(ref, torch.Tensor):
+        if places[i] is not None and t.ndim:
+            t = place(t, places[i], dtype=ref.dtype)
+        elif isinstance(ref, ShardedTensor):
+            t = place(t, ref.sharding, dtype=ref.dtype)
+        elif isinstance(ref, torch.Tensor):
             t = t.to(device=ref.device, dtype=ref.dtype)
         out.append(t)
     if verify and digest.hexdigest() != manifest["digest"]:

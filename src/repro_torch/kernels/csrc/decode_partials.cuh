@@ -165,12 +165,16 @@ __host__ __device__ constexpr int ilog2(int n) {
   return n <= 1 ? 0 : 1 + ilog2(n / 2);
 }
 
-// Scalar arguments of one launch.
+// Scalar arguments of one launch.  `splits` is the launch's split count;
+// a strip of a longer sweep starts at global split `split_first` (0 for a
+// whole sweep), so split s of the grid covers keys from
+// (split_first + s) * split_len, and its partials land at local index s.
 struct DecodeArgs {
   int hkv, R, splits, split_len, block_k, n_pos, rows_per_pos;
   float scale;
   int window;       // <= 0: no window
   float softcap;    // <= 0: no softcap
+  int split_first;  // strip: the first global split (whole sweep: 0)
 };
 
 // Where K and V live, as the C entry points receive it; each KV policy
@@ -181,11 +185,14 @@ struct KVSource {
   const void* k_scale;      // paged code pools only: fp16 [n_pages, ps, Hkv]
   const void* v_scale;
   const int* block_table;   // paged only
-  int m;                    // dense: cache slots per fiber
+  int m;                    // dense: cache slots per fiber held
+  int k0;                   // dense: global index of the first key held
   int w, ps, n_pages, hkv;  // paged: table width, page size, pool pages
 };
 
-// Dense cache [B*Hkv, M, D]: key row kpos of fiber bh.
+// Dense cache [B*Hkv, M, D] holding keys k0 .. k0 + M - 1 (a strip of a
+// sequence-sharded cache; k0 = 0 for a whole one): key row kpos (a global
+// key index) of fiber bh.
 template <typename T, int D>
 struct DenseKV {
   using Elem = T;                        // stored element
@@ -194,14 +201,16 @@ struct DenseKV {
   const T* k;
   const T* v;
   int m;
+  int k0;
   static DenseKV from(const KVSource& s, int) {
-    return {static_cast<const T*>(s.k), static_cast<const T*>(s.v), s.m};
+    return {static_cast<const T*>(s.k), static_cast<const T*>(s.v), s.m,
+            s.k0};
   }
   int pages() const { return 0; }  // no page list
   __device__ __forceinline__ void load_pages(int*, int, int) const {}
   __device__ __forceinline__ size_t row(const int*, int bh, int,
                                         int kpos) const {
-    return (static_cast<size_t>(bh) * m + kpos) * D;
+    return (static_cast<size_t>(bh) * m + (kpos - k0)) * D;
   }
 };
 
@@ -437,7 +446,7 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
   const int row_base = blockIdx.z * RB;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int split0 = split * a.split_len;
+  const int split0 = (a.split_first + split) * a.split_len;
 
   kv.load_pages(page_list, bh, split0);
   const int kvl = kv_len[bh / a.hkv];

@@ -47,7 +47,8 @@ extern "C" int paged_decode_partials(
     int n_pos, int rows_per_pos, float scale, float softcap, int exp_maccs,
     void* stream) {
   const DecodeArgs a{hkv,   rows,         splits, split_len, block_k,
-                     n_pos, rows_per_pos, scale,  0,         softcap};
+                     n_pos, rows_per_pos, scale,  0,         softcap,
+                     0};
   KVSource src{};
   src.k = k_pages;
   src.v = v_pages;

@@ -309,21 +309,27 @@ def decode_partials_torch(
     rows_per_pos: Optional[int] = None,
     split_first: int = 0,
     n_splits: Optional[int] = None,
+    strip_kv: bool = False,
 ):
     """Plain split-K partials, mirroring ``_decode_partials_kernel``: all
     splits sweep their key tiles in lockstep, each (fiber, split) updating
     its running state only on the tiles the TPU kernel runs.
     ``split_first`` / ``n_splits``: the strip of the ``splits`` to
-    compute (default: all)."""
+    compute (default: all); ``strip_kv``: k / v hold only that strip's
+    keys (a strip of a sequence-sharded cache, ``M·n_splits/splits``
+    keys), else the whole cache, which the strip slices."""
     bh, r, e = q.shape
     m, f = v.shape[1], v.shape[2]
-    split_len, block_k = _split_geometry(m, splits, block_k)
     n = _strip(splits, split_first, n_splits)
+    if strip_kv:
+        split_len, block_k = _split_geometry(m, n, block_k)
+    else:
+        split_len, block_k = _split_geometry(m, splits, block_k)
     dev = q.device
     kvl = kv_len.to(device=dev, dtype=torch.int64).repeat_interleave(hkv)
-    strip = slice(split_first, split_first + n)
-    k4 = k.reshape(bh, splits, split_len, e)[:, strip]
-    v4 = v.reshape(bh, splits, split_len, f)[:, strip]
+    strip = slice(0, n) if strip_kv else slice(split_first, split_first + n)
+    k4 = k.reshape(bh, -1, split_len, e)[:, strip]
+    v4 = v.reshape(bh, -1, split_len, f)[:, strip]
 
     def tiles(t):
         sl = slice(t * block_k, (t + 1) * block_k)
@@ -672,7 +678,7 @@ def _partials_lib():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     max_rows = lib.decode_partials_max_rows
     max_rows.restype = ctypes.c_int
     max_rows.argtypes = []
@@ -695,10 +701,15 @@ def decode_partials_cuda(
     exp_impl: str = "native",
     n_pos: int = 1,
     rows_per_pos: Optional[int] = None,
+    split_first: int = 0,
+    n_splits: Optional[int] = None,
 ):
     """Launch the CUDA split-K partials kernel on the current stream (no
     sync).  Same contract as :func:`decode_partials_torch`; q, k and v
-    start on 16-byte boundaries."""
+    start on 16-byte boundaries.  A strip (``split_first`` / ``n_splits``
+    of the ``splits``) takes a k / v that hold only its keys, as
+    :func:`decode_partials_torch` with ``strip_kv`` (a strip of a
+    sequence-sharded cache); ``launches_strips`` counts those launches."""
     check_cuda_operands("decode_partials_cuda", q, k, v)
     _check_head_dims("decode_partials_cuda", q, k, v)
     _check_vectors("decode_partials_cuda", q=q, k=k, v=v)
@@ -716,31 +727,33 @@ def decode_partials_cuda(
     if exp_impl not in ("native", "maccs"):
         raise ValueError(f"unknown exp_impl {exp_impl!r}")
     rows_per_pos = r // n_pos if rows_per_pos is None else rows_per_pos
-    split_len, block_k = _split_geometry(m, splits, block_k)
+    n = _strip(splits, split_first, n_splits)
+    split_len, block_k = _split_geometry(m, n, block_k)
     fn, max_rows = _partials_lib()
     if not 1 <= r <= max_rows:
         raise ValueError(f"{r} query rows per fiber; the kernel takes "
                          f"1..{max_rows}")
     if bh > 65535 or splits > 2**31 - 1:
-        raise ValueError(f"grid ({splits}, {bh}) too large")
+        raise ValueError(f"grid ({n}, {bh}) too large")
     _check_smem("decode_partials_cuda", r, e, q.element_size(), 0)
     f32 = dict(dtype=torch.float32, device=q.device)
-    pm = torch.empty((bh, splits, r), **f32)
-    pl = torch.empty((bh, splits, r), **f32)
-    pnv = torch.empty((bh, splits, r, v.shape[2]), **f32)
+    pm = torch.empty((bh, n, r), **f32)
+    pl = torch.empty((bh, n, r), **f32)
+    pnv = torch.empty((bh, n, r, v.shape[2]), **f32)
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(kv_len), _ptr(pm), _ptr(pl),
-             _ptr(pnv), CUDA_DTYPES[q.dtype], e, bh, hkv, r, m, splits,
+             _ptr(pnv), CUDA_DTYPES[q.dtype], e, bh, hkv, r, m, n,
              split_len, block_k, n_pos, rows_per_pos, float(scale),
              0 if window is None else int(window),
              0.0 if softcap is None else float(softcap),
-             int(exp_impl == "maccs"), _stream(q.device))
+             int(exp_impl == "maccs"), split_first, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"decode_partials launch failed: CUDA error {err}")
-    _count(decode_partials_cuda, n_pos)
+    _count(decode_partials_cuda, n_pos, strip=n < splits)
     return pm, pl, pnv
 
 
 decode_partials_cuda.launches = 0
+decode_partials_cuda.launches_strips = 0
 decode_partials_cuda.launches_by_n_pos = {}
 
 

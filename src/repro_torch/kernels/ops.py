@@ -92,7 +92,8 @@ REFERENCE_CASCADES = {
 REFERENCE_OP = {"fusemax_decode_latent": "fusemax_decode",
                 "fusemax_decode_latent[p>1]": "fusemax_decode[p>1]"}
 
-IMPLS = ("cuda", "torch", "ref", "auto")
+#: "meta": the dry run's stand-in on meta tensors (:func:`_meta_attention`)
+IMPLS = ("cuda", "torch", "ref", "auto", "meta")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -106,10 +107,26 @@ def resolve_impl(impl: str, t: torch.Tensor) -> str:
         raise ValueError(f"unknown impl {impl!r} (one of {IMPLS})")
     if impl == "auto":
         return "cuda" if t.is_cuda else "torch"
+    if impl == "meta" and t.device.type != "meta":
+        raise ValueError("impl='meta' is the dry run's stand-in and takes "
+                         f"meta tensors; got a tensor on {t.device}")
     if impl == "cuda" and not t.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors; got a tensor on "
                          f"{t.device}")
     return impl
+
+
+def _meta_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """An attention output's shape [B, Hq, P, F] from q [B, Hq, P, E] and
+    k / v [B, Hkv, M, *] with no product a FLOP counter sees: the dry run
+    counts attention by formula (the (query, key) pairs its masks leave),
+    not through a kernel.  Every input reaches the output, so the
+    projections' backward runs and is counted."""
+    g = q.shape[1] // v.shape[1]
+    kv = v.mean(dim=2, keepdim=True) \
+        + k.mean(dim=(2, 3), keepdim=True)[..., :1] * 0
+    return q[..., :1] * 0 + kv.repeat_interleave(g, dim=1)
 
 
 class FuseMaxAttention(torch.autograd.Function):
@@ -167,6 +184,8 @@ def fusemax_attention(
     scale = scale if scale is not None else 1.0 / (e ** 0.5)
     impl = resolve_impl(impl, q)
 
+    if impl == "meta":
+        return _meta_attention(q, k, v)
     if impl == "ref":
         return _ref.mha_reference(
             q, k, v, causal=causal, window=window, softcap=softcap,
@@ -269,6 +288,8 @@ def fusemax_decode(
     scale = scale if scale is not None else 1.0 / (e ** 0.5)
     impl = resolve_impl(impl, q)
 
+    if impl == "meta":
+        return _meta_attention(q, k, v)
     if impl == "ref":
         if p == 1:
             return _ref.decode_reference(
@@ -292,6 +313,116 @@ def fusemax_decode(
             kv_len.to(device=q.device, dtype=torch.int32).contiguous(), **kw)
     else:
         pm, pl, pnv = decode_partials_torch(q_f, k_f, v_f, kv_len, **kw)
+    out = combine_partials(pm, pl, pnv, q.dtype)
+    return _unfold_decode_out(out, b, hkv, group, f, p=p)
+
+
+def seq_strips(m: int, group: int, e: int, f: int, tp: int, *, p: int = 1,
+               splits: Optional[int] = None,
+               block_k: Optional[int] = None) -> tuple:
+    """(splits, block_k, n_splits) of a decode over a dense cache of ``m``
+    slots split on its slots into ``tp`` strips: the unsharded call's
+    geometry (:func:`fusemax_decode`'s), each strip ``n_splits = splits /
+    tp`` of its splits.  ``tp`` must divide the split count — a strip of
+    unequal length would change the sweep — so any other ``tp`` is
+    refused, naming both numbers.  A ``splits`` given without a
+    ``block_k`` keeps its count: the tuned tile is cut to the split
+    length."""
+    if splits is not None and block_k is None:
+        block_k = min(autotune.decode_params(m, max(group, 8), e, f).block_k,
+                      max(1, m // splits))
+    splits, block_k = _decode_geometry(m, group, e, f, p, splits, block_k)
+    if splits % tp:
+        raise ValueError(
+            f"a sequence-sharded cache of {tp} strips needs a split count "
+            f"it divides; the decode of M={m} sweeps splits={splits} "
+            f"(tp={tp} does not divide {splits}: pick a tp that divides "
+            f"the splits, or set Runtime.decode_splits)")
+    return splits, block_k, splits // tp
+
+
+def fusemax_decode_strip(
+    q: torch.Tensor,         # [B, Hq, P, E]
+    k: torch.Tensor,         # [B, Hkv, M/tp, E] (the strip's slots)
+    v: torch.Tensor,         # [B, Hkv, M/tp, F]
+    kv_len: torch.Tensor,    # [B] valid lengths (the query is kv_len-1)
+    *,
+    splits: int,
+    block_k: int,
+    split_first: int,
+    n_splits: int,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    exp_impl: str = "native",
+):
+    """K2's partials ``(pm, pl, pnv)`` over splits ``[split_first,
+    split_first + n_splits)`` of a ``splits`` sweep (:func:`seq_strips`),
+    from a K / V that hold only those splits' slots: the strip of a
+    sequence-sharded cache.  Key positions stay global, so the tile-run
+    rule, the window and a verify chain's causal limit are the whole
+    sweep's; the strips' partials, concatenated on the split axis, are the
+    whole call's bit for bit.  "cuda" launches K2 on the strip, "torch"
+    runs its plain version."""
+    b, hq, p, e = q.shape
+    hkv = v.shape[1]
+    group = hq // hkv
+    impl = resolve_impl(impl, q)
+    if impl == "ref":
+        raise ValueError("fusemax_decode_strip: the 3-pass oracle has no "
+                         "split-K partials; use impl 'cuda' or 'torch'")
+    scale = scale if scale is not None else 1.0 / (e ** 0.5)
+    q_f = _fold_decode_q(q, b, hkv, group, e)
+    k_f = k.reshape(b * hkv, k.shape[2], e)
+    v_f = v.reshape(b * hkv, v.shape[2], v.shape[3])
+    kw = dict(scale=scale, softcap=softcap, window=window, hkv=hkv,
+              splits=splits, block_k=block_k, exp_impl=exp_impl, n_pos=p,
+              rows_per_pos=group, split_first=split_first,
+              n_splits=n_splits)
+    if impl == "cuda":
+        return decode_partials_cuda(
+            q_f.contiguous(), k_f.contiguous(), v_f.contiguous(),
+            kv_len.to(device=q.device, dtype=torch.int32).contiguous(), **kw)
+    return decode_partials_torch(q_f, k_f, v_f, kv_len, strip_kv=True, **kw)
+
+
+def fusemax_decode_seq_sharded(
+    q: torch.Tensor,         # [B, Hq, P, E]
+    k_strips: list,          # tp x [B, Hkv, M/tp, E], strip d on its device
+    v_strips: list,          # tp x [B, Hkv, M/tp, F]
+    kv_len: torch.Tensor,    # [B]
+    *,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    splits: Optional[int] = None,
+    block_k: Optional[int] = None,
+    exp_impl: str = "native",
+) -> torch.Tensor:
+    """:func:`fusemax_decode` over a dense cache sharded on its slots:
+    strip ``d`` computes its splits' partials on its own device
+    (:func:`fusemax_decode_strip`), the partials are gathered in strip
+    order on q's device and combined once — the unsharded call's output
+    bit for bit.  Returns [B, Hq, P, F]."""
+    b, hq, p, e = q.shape
+    tp = len(k_strips)
+    hkv, ms, f = v_strips[0].shape[1], v_strips[0].shape[2], \
+        v_strips[0].shape[3]
+    group = hq // hkv
+    splits, block_k, n = seq_strips(ms * tp, group, e, f, tp, p=p,
+                                    splits=splits, block_k=block_k)
+    parts = []
+    for d, (k, v) in enumerate(zip(k_strips, v_strips)):
+        dev = k.device
+        part = fusemax_decode_strip(
+            q.to(dev), k, v, kv_len.to(dev), splits=splits, block_k=block_k,
+            split_first=d * n, n_splits=n, softcap=softcap, window=window,
+            scale=scale, impl=impl, exp_impl=exp_impl)
+        parts.append([t.to(q.device) for t in part])
+    pm, pl, pnv = (torch.cat([part[i] for part in parts], dim=1)
+                   for i in range(3))
     out = combine_partials(pm, pl, pnv, q.dtype)
     return _unfold_decode_out(out, b, hkv, group, f, p=p)
 
@@ -328,6 +459,9 @@ def fusemax_decode_latent(
     scale = scale if scale is not None else 1.0 / (e ** 0.5)
     impl = resolve_impl(impl, q)
 
+    if impl == "meta":
+        return _meta_attention(q, ckv[:, None], ckv[:, None]) \
+            + krope.mean() * 0
     if impl == "ref":
         k = torch.cat([ckv, krope], dim=-1)[:, None]
         return fusemax_decode(q, k, ckv[:, None], kv_len, softcap=softcap,

@@ -4,6 +4,7 @@ and async checkpoints on one device.
   python -m repro_torch.launch.train --arch stablelm-1.6b --fp32 \
       --steps 4 --batch 4 --seq 1024
   python -m repro_torch.launch.train --device cpu --arch stablelm-1.6b-smoke
+  python -m repro_torch.launch.train --mesh 2x2 --rules fsdp_tp
 
 Port of ``repro.launch.train``: config registry → train state (random
 weights from ``--seed``; bf16 parameters and activations unless
@@ -17,11 +18,16 @@ from the latest → the heartbeat monitor.  It prints the reference's lines
 Runs on ``--device cuda`` (the default; attention through K1 forward and
 the recompute backward) or ``cpu`` (the plain versions).  ``--attn-impl``
 is ``auto`` (K1 on CUDA, the plain version on the CPU), ``cuda``,
-``torch`` or ``ref``.  One device only: ``--mesh`` other than ``1x1``
-and ``--rules`` (the sharding rules of a device mesh) are ROADMAP item
-9b and are refused.  :func:`main` returns the run's metrics: losses, grad
-norms, learning rates, step seconds, tokens/s, K1 launches, peak memory
-and the device.
+``torch`` or ``ref``.  ``--mesh DxM`` trains over a ("data", "model")
+mesh whose every position is the run's device (``cuda:0`` repeated on
+the card, ``cpu`` with ``--device cpu``) under ``--rules`` ``fsdp_tp``
+(the default, as the reference's) or ``tp``: the state is held as its
+shards and the step splits the batch over the data shards and the heads,
+MLP columns and vocab over the model shards
+(:mod:`repro_torch.training.train_step`); ``1x1`` is the unsharded step.
+:func:`main` returns the run's metrics: losses, grad norms, learning
+rates, step seconds, tokens/s, K1 launches, peak memory, the device, and
+the bytes of parameters and of optimizer state each mesh position holds.
 """
 from __future__ import annotations
 
@@ -34,15 +40,17 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, PrefetchIterator, SyntheticSource
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.fault_tolerance import (
     HeartbeatMonitor, RecoveryLog,
 )
 from repro_torch.kernels.fusemax import fusemax_attention_cuda
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import device_info
 from repro_torch.model.layers import Runtime, resolve_device
-from repro_torch.optim import make_optimizer, warmup_cosine
+from repro_torch.optim import make_optimizer, tree_leaves, warmup_cosine
 from repro_torch.training.train_step import (
-    init_train_state, make_train_step,
+    init_train_state, make_train_step, shard_train_state,
 )
 
 
@@ -53,7 +61,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh", default="1x1")
-    ap.add_argument("--rules", default=None)
+    ap.add_argument("--rules", default="fsdp_tp", choices=("tp", "fsdp_tp"))
     ap.add_argument("--optimizer", default=None)
     ap.add_argument("--attn-impl", default="auto",
                     choices=("auto", "cuda", "torch", "ref"))
@@ -71,37 +79,47 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args):
-    """(cfg, rt, optimizer, step_fn) of the parsed flags."""
-    if args.mesh != "1x1" or args.rules is not None:
-        raise SystemExit(
-            f"--mesh {args.mesh}" + (f" --rules {args.rules}" if args.rules
-                                     else "")
-            + ": sharded training over a device mesh (the sharding rules "
-            "make_rules / param_shardings / act_sharder / batch_shardings) "
-            "is ROADMAP item 9b; this launcher trains on one device "
-            "(--mesh 1x1)")
+def parse_mesh(text: str) -> tuple:
+    """``DxM`` → (D, M)."""
+    try:
+        d, m = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {text}: expected DxM, e.g. 2x2") from None
+    if d < 1 or m < 1:
+        raise SystemExit(f"--mesh {text}: sizes must be >= 1")
+    return d, m
+
+
+def build(args, dev=None):
+    """(cfg, rt, optimizer, step_fn, mesh, rules) of the parsed flags; the
+    mesh's positions all on ``dev`` (default: ``--device``)."""
     cfg = get_config(args.arch)
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     rt = Runtime(attn_impl=args.attn_impl, param_dtype=dtype,
                  activation_dtype=dtype)
+    shape = parse_mesh(args.mesh)
+    dev = dev or torch.device(args.device)
+    mesh = make_mesh(shape, ("data", "model"), [dev] * (shape[0] * shape[1]))
+    rules = shd.make_rules(mesh, args.rules)
     opt = make_optimizer(args.optimizer or cfg.default_optimizer)
     lr = warmup_cosine(args.lr, args.warmup, args.steps)
     step_fn = make_train_step(cfg, opt, lr, rt,
                               microbatches=args.microbatches,
-                              compression=args.compression)
-    return cfg, rt, opt, step_fn
+                              compression=args.compression, mesh=mesh,
+                              rules=rules)
+    return cfg, rt, opt, step_fn, mesh, rules
 
 
 def main(argv: Optional[list] = None) -> dict:
     """Train on ``argv``'s flags and return the run's metrics."""
     args = _parser().parse_args(argv)
-    cfg, rt, opt, step_fn = build(args)
     dev = resolve_device(args.device)
+    cfg, rt, opt, step_fn, mesh, rules = build(args, dev)
     monitor = HeartbeatMonitor(n_workers=1)
     log = RecoveryLog()
     state = init_train_state(cfg, args.seed, opt, rt,
                              compression=args.compression, device=dev)
+    state = shard_train_state(state, cfg, mesh, rules)
 
     start_step = 0
     saver = None
@@ -170,7 +188,20 @@ def main(argv: Optional[list] = None) -> dict:
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)
         if dev.type == "cuda" else None,
         "recovery_log": log.events, "device": device_info(dev),
+        "mesh": args.mesh, "rules": args.rules,
+        "position_bytes": position_bytes(state),
     }
+
+
+def position_bytes(state) -> dict:
+    """Per mesh position, the bytes of parameters and of optimizer state
+    it holds (one position: the whole state)."""
+    if hasattr(state, "position_bytes"):
+        return state.position_bytes()
+    size = lambda t: t.numel() * t.element_size()
+    opt = [t for t in tree_leaves(state.opt_state) if t.ndim]
+    return {"params": [sum(size(p) for p in state.params.values())],
+            "opt_state": [sum(size(t) for t in opt)]}
 
 
 if __name__ == "__main__":

@@ -93,21 +93,26 @@ it.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.distributed.sharding import leaf_parts, shard_slice
+from repro_torch.distributed.sharding import (
+    DenseCacheShards, KVShard, leaf_parts, shard_slice,
+)
 from repro_torch.kernels.ops import (
     combine_strips, fusemax_attention, fusemax_decode, fusemax_decode_latent,
+    fusemax_decode_seq_sharded,
     fusemax_decode_paged, fusemax_mla_decode_paged, fusemax_mla_decode_strip,
     gather_pages, mla_strips,
 )
 from repro_torch.model.layers import (
-    Norm, Runtime, _param, apply_norm, normal_, rope,
+    Norm, Runtime, _param, apply_norm, normal_, rope, tp_count,
 )
 
 
@@ -313,6 +318,9 @@ def gqa_forward(p: GQA, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
     if qkv is None:
         if positions is None:
             positions = torch.arange(s_len, device=x.device).expand(b, s_len)
+        tp = tp_count(rt)
+        if tp > 1 and cfg.n_kv_heads % tp == 0:
+            return _gqa_forward_shards(p, x, cfg, spec, rt, positions)
         qkv = _proj_qkv(p, x, cfg, positions)
     q, k, v = qkv
     out = fusemax_attention(
@@ -326,6 +334,29 @@ def gqa_forward(p: GQA, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
         exp_impl=rt.exp_impl,
     )                                                    # [B, H, S, dh]
     return _out_proj(p, out)
+
+
+def _gqa_forward_shards(p: GQA, x: torch.Tensor, cfg: ModelConfig,
+                        spec: LayerSpec, rt: Runtime,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """:func:`gqa_forward` split over ``rt.tp_devices``: shard ``j`` takes
+    its slice of the kv heads (and of the query heads that read them),
+    projects QKV, runs the attention (one K1 launch on CUDA) and its part
+    of the output projection on ``tp_devices[j]``; the partial outputs
+    sum in shard order on x's device."""
+    devs = rt.tp_devices
+    tp = len(devs)
+    out = None
+    for j, dev in enumerate(devs):
+        hs = shard_slice(cfg.n_heads, j, tp)
+        ks = shard_slice(cfg.n_kv_heads, j, tp)
+        part = SimpleNamespace(wq=p.wq[:, hs].to(dev), wk=p.wk[:, ks].to(dev),
+                               wv=p.wv[:, ks].to(dev), wo=p.wo[hs].to(dev))
+        rt_j = dataclasses.replace(rt, tp_devices=None)
+        y = gqa_forward(part, x.to(dev), cfg, spec, rt_j,
+                        positions=positions.to(dev)).to(x.device)
+        out = y if out is None else out + y
+    return out
 
 
 def gqa_init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -377,25 +408,71 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, kv_len: torch.Tensor,
     The new K/V land at slot ``(kv_len - 1) % slots`` (an empty slot with
     kv_len = 0 writes the last slot, as in the reference).  A ring layer
     reads ``min(kv_len, slots)`` slots, all in its window, with no window
-    mask."""
-    b = x.shape[0]
+    mask.  A cache split over the model axis
+    (:class:`~repro_torch.distributed.sharding.DenseCacheShards`) runs
+    per kv-head shard through :func:`_over_head_shards`, or on its slot
+    strips (:func:`_gqa_decode_strips`)."""
     pos = (kv_len.long() - 1)[:, None]                   # [B, 1]
     q, k_new, v_new = _proj_qkv(p, x, cfg, pos)          # [B, H*, 1, dh]
-    slots = cache["k"].shape[2]
-    slot = pos[:, 0] % slots
-    bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, :, slot] = k_new[:, :, 0].to(cache["k"].dtype)
-    cache["v"][bidx, :, slot] = v_new[:, :, 0].to(cache["v"].dtype)
+    kc, vc = cache["k"], cache["v"]
+    if isinstance(kc, DenseCacheShards) and kc.dim == 2:
+        return _out_proj(p, _gqa_decode_strips(q, k_new, v_new, kc.parts,
+                                               vc.parts, kv_len, cfg, spec,
+                                               rt)), cache
+    shard, parts = None, cache
+    if isinstance(kc, DenseCacheShards):
+        shard = KVShard(tuple(t.device for t in kc.parts))
+        parts = {"k": kc.parts, "v": vc.parts}
+
+    def write_attend(part: dict, q, k_new, v_new):
+        kp, vp = part["k"], part["v"]
+        slots = kp.shape[2]
+        lens = kv_len.to(kp.device)
+        slot = (lens.long() - 1) % slots
+        bidx = torch.arange(q.shape[0], device=kp.device)
+        kp[bidx, :, slot] = k_new[:, :, 0].to(kp.dtype)
+        vp[bidx, :, slot] = v_new[:, :, 0].to(vp.dtype)
+        eff_len = lens if spec.window is None \
+            else torch.clamp(lens, max=slots)
+        return fusemax_decode(q, kp, vp, eff_len, softcap=cfg.attn_softcap,
+                              impl=rt.attn_impl, splits=rt.decode_splits,
+                              exp_impl=rt.exp_impl)      # [B, H, 1, dh]
+
+    out = _over_head_shards(shard, parts, write_attend, q, k_new, v_new)
+    return _out_proj(p, out), cache
+
+
+def _gqa_decode_strips(q: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, kparts: list, vparts: list,
+                       kv_len: torch.Tensor, cfg: ModelConfig,
+                       spec: LayerSpec, rt: Runtime) -> torch.Tensor:
+    """:func:`gqa_decode`'s write and attention on a dense cache whose
+    slots are split into strips over the model axis (the sequence-sharded
+    fallback of :func:`~repro_torch.distributed.sharding.cache_shardings`):
+    each row's new K/V land in the strip that holds its slot (the others
+    rewrite what they hold), every strip computes its splits' partials on
+    its device (:func:`~repro_torch.kernels.ops.fusemax_decode_seq_sharded`;
+    a split count the strip count does not divide is refused) and one
+    combine merges them."""
+    b = q.shape[0]
+    ms = kparts[0].shape[2]
+    slots = ms * len(kparts)
+    slot = (kv_len.long() - 1) % slots
+    for d, (kp, vp) in enumerate(zip(kparts, vparts)):
+        dev = kp.device
+        local = (slot - d * ms).to(dev)
+        mine = (local >= 0) & (local < ms)
+        at = local.clamp(0, ms - 1)
+        bidx = torch.arange(b, device=dev)
+        for part, new in ((kp, k_new), (vp, v_new)):
+            old = part[bidx, :, at]                        # [B, Hkv, dh]
+            part[bidx, :, at] = torch.where(
+                mine[:, None, None], new[:, :, 0].to(dev, part.dtype), old)
     eff_len = kv_len if spec.window is None \
         else torch.clamp(kv_len, max=slots)
-    out = fusemax_decode(
-        q, cache["k"], cache["v"], eff_len,
-        softcap=cfg.attn_softcap,
-        impl=rt.attn_impl,
-        splits=rt.decode_splits,
-        exp_impl=rt.exp_impl,
-    )                                                    # [B, H, 1, dh]
-    return _out_proj(p, out), cache
+    return fusemax_decode_seq_sharded(
+        q, kparts, vparts, eff_len, softcap=cfg.attn_softcap,
+        impl=rt.attn_impl, splits=rt.decode_splits, exp_impl=rt.exp_impl)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +36,16 @@ class Runtime:
     #: the paged pool's device sharding
     #: (:class:`repro_torch.distributed.sharding.KVShard`); None: one pool
     kv_shard: Optional[object] = None
+    #: activation hook ``(x, logical_axes) → x`` of the sharding rules
+    #: (:func:`repro_torch.distributed.sharding.act_sharder`); the identity
+    #: by default, as the reference's
+    shard_activation: Callable = staticmethod(lambda x, axes: x)
+    #: the devices of a data shard's model-axis positions (a sharded train
+    #: step sets them): with more than one, GQA attention runs per kv-head
+    #: shard on them, the dense MLP per column shard and the unembedding
+    #: per vocab shard, where the shard count divides the axis; partial
+    #: sums reduce in shard order.  None: one shard
+    tp_devices: Optional[tuple] = None
 
 
 def strict_fp32() -> None:
@@ -114,9 +124,10 @@ def embed(p: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return p.table.to(dtype)[tokens.long()]
 
 
-def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:
-    """Tied LM head: logits = x @ table.T."""
-    return torch.einsum("...d,vd->...v", x, p.table.to(x.dtype))
+def unembed(p: Embedding, x: torch.Tensor,
+            rows: slice = slice(None)) -> torch.Tensor:
+    """Tied LM head: logits = x @ table.T, over the vocab ``rows``."""
+    return torch.einsum("...d,vd->...v", x, p.table[rows, :].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -214,10 +225,30 @@ class MLP(nn.Module):
             normal_(self.wo, 1.0 / math.sqrt(d_ff), gen)
 
 
-def mlp(p: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    h = _ACTS[act](x @ p.wi_gate.to(x.dtype))
-    h = h * (x @ p.wi_up.to(x.dtype))
-    return h @ p.wo.to(x.dtype)
+def mlp(p: MLP, x: torch.Tensor, act: str = "silu",
+        shards: int = 1) -> torch.Tensor:
+    """The gated MLP over ``shards`` column shards of the up / gate
+    weights and row shards of the down weights (tensor parallelism over
+    "mlp"; a count that does not divide d_ff is one shard, as
+    :func:`~repro_torch.distributed.sharding._divisible` drops the axis);
+    the partial outputs sum in shard order."""
+    d_ff = p.wo.shape[0]
+    if d_ff % shards:
+        shards = 1
+    n = d_ff // shards
+    out = None
+    for j in range(shards):
+        sl = slice(j * n, (j + 1) * n)
+        h = _ACTS[act](x @ p.wi_gate[:, sl].to(x.dtype))
+        h = h * (x @ p.wi_up[:, sl].to(x.dtype))
+        part = h @ p.wo[sl, :].to(x.dtype)
+        out = part if out is None else out + part
+    return out
+
+
+def tp_count(rt: Runtime) -> int:
+    """The model-axis shard count of ``rt`` (1 without a sharded step)."""
+    return len(rt.tp_devices) if rt.tp_devices else 1
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

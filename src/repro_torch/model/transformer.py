@@ -53,8 +53,11 @@ from repro_torch.model import moe as moe_mod
 from repro_torch.model import ssm as ssm_mod
 from repro_torch.model.layers import (
     MLP, Dense, Embedding, Norm, Runtime, apply_norm, dense, embed, mlp,
-    resolve_device, softcap, unembed,
+    resolve_device, softcap, tp_count, unembed,
 )
+
+#: the logical axes of the residual stream (``Runtime.shard_activation``)
+_ACT_AXES = ("batch", "seq", "embed")
 
 
 #: the profiler range around every SSM call (a layer's prefill or decode
@@ -165,7 +168,7 @@ def init(cfg: ModelConfig, seed: int = 0, rt: Runtime = Runtime(),
 # ---------------------------------------------------------------------------
 
 def _mlp_block(p: Layer, x: torch.Tensor, cfg: ModelConfig,
-               spec: LayerSpec) -> torch.Tensor:
+               spec: LayerSpec, rt: Optional[Runtime] = None) -> torch.Tensor:
     """The FFN half of a layer, dense or MoE (none: x as is).  An MoE
     layer routes each batch row of x [B, S, d] as one capacity group of S
     tokens: the S a caller passes (a prefill bucket, a decode step's 1)
@@ -176,7 +179,8 @@ def _mlp_block(p: Layer, x: torch.Tensor, cfg: ModelConfig,
     if spec.mlp == "moe":
         y2 = moe_mod.moe_ffn(p.moe, h2, cfg)
     else:
-        y2 = mlp(p.mlp, h2, cfg.mlp_act)
+        y2 = mlp(p.mlp, h2, cfg.mlp_act,
+                 shards=1 if rt is None else tp_count(rt))
     if cfg.post_norm:
         y2 = apply_norm(p.post2, y2, cfg.norm)
     return x + y2
@@ -209,7 +213,7 @@ def layer_forward(p: Layer, x: torch.Tensor, cfg: ModelConfig,
     if spec.ssm is not None:
         parts.append(ssm_mod.FORWARD[spec.ssm](p.ssm, h, cfg, rt))
     x = _residual(p, x, parts, cfg)
-    return _mlp_block(p, x, cfg, spec)
+    return _mlp_block(p, x, cfg, spec, rt)
 
 
 def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
@@ -296,9 +300,21 @@ def _embed_inputs(cfg: ModelConfig, model: Model, inputs: torch.Tensor,
     return x
 
 
-def _logits(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, model: Model, x: torch.Tensor,
+            shards: int = 1) -> torch.Tensor:
+    """The final norm, the tied unembedding and the final softcap.  The
+    unembedding runs over ``shards`` vocab-row shards (tensor parallelism
+    over "vocab"; a count that does not divide the vocab is one shard),
+    whose logits concatenate in shard order, so a cross-entropy's max and
+    log-sum-exp span every shard."""
     x = apply_norm(model.final_norm, x, cfg.norm)
-    return softcap(unembed(model.head, x), cfg.final_softcap)
+    if cfg.vocab % shards:
+        shards = 1
+    n = cfg.vocab // shards
+    parts = [unembed(model.head, x, slice(j * n, (j + 1) * n))
+             for j in range(shards)]
+    logits = parts[0] if shards == 1 else torch.cat(parts, dim=-1)
+    return softcap(logits, cfg.final_softcap)
 
 
 @torch.no_grad()
@@ -318,7 +334,8 @@ def _trunk(cfg: ModelConfig, model: Model, inputs: torch.Tensor,
     rematerialized per (pattern, repeat) of ``cfg.runs()`` as the
     reference's ``_run_forward`` wraps each in ``jax.checkpoint``: only a
     unit's input is kept, and its layers run again in the backward."""
-    x = _embed_inputs(cfg, model, inputs, rt)
+    x = rt.shard_activation(_embed_inputs(cfg, model, inputs, rt),
+                            _ACT_AXES)
     layer = 0
     for pattern, reps in cfg.runs():
         for _ in range(reps):
@@ -327,7 +344,8 @@ def _trunk(cfg: ModelConfig, model: Model, inputs: torch.Tensor,
 
             def apply_pattern(h, unit=unit):
                 for spec, p in unit:
-                    h = layer_forward(p, h, cfg, spec, rt)
+                    h = rt.shard_activation(layer_forward(p, h, cfg, spec,
+                                                          rt), _ACT_AXES)
                 return h
 
             x = checkpoint(apply_pattern, x, use_reentrant=False)
@@ -357,7 +375,8 @@ def loss_fn(cfg: ModelConfig, model: Model, batch: dict,
     mask = batch.get("loss_mask")
     mask = torch.ones(targets.shape, dtype=torch.float32,
                       device=targets.device) if mask is None else mask.float()
-    loss = _xent(_logits(cfg, model, x), targets, mask)
+    tp = tp_count(rt)
+    loss = _xent(_logits(cfg, model, x, tp), targets, mask)
     metrics = {"loss": loss, "tokens": mask.sum()}
     if cfg.n_mtp and "mtp_targets" in batch:
         if not hasattr(model, "mtp"):
@@ -367,7 +386,7 @@ def loss_fn(cfg: ModelConfig, model: Model, batch: dict,
         mtp_loss = 0.0
         for j, p in enumerate(model.mtp):
             x = layer_forward(p, x, cfg, spec, rt)
-            mtp_loss = mtp_loss + _xent(_logits(cfg, model, x),
+            mtp_loss = mtp_loss + _xent(_logits(cfg, model, x, tp),
                                         batch["mtp_targets"][..., j], mask)
         metrics["mtp_loss"] = mtp_loss
         loss = loss + 0.1 * mtp_loss

@@ -1,5 +1,8 @@
 from repro_torch.training.train_step import (
-    TrainState, init_train_state, make_train_step,
+    ShardedTrainState, TrainState, init_train_state, make_train_step,
+    opt_state_axes, shard_train_state, state_shardings,
 )
 
-__all__ = ["TrainState", "init_train_state", "make_train_step"]
+__all__ = ["ShardedTrainState", "TrainState", "init_train_state",
+           "make_train_step", "opt_state_axes", "shard_train_state",
+           "state_shardings"]

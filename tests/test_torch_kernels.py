@@ -333,3 +333,59 @@ def test_import_without_jax_or_triton():
                          env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------------------------
+# K2 on the slot strips of a sequence-sharded dense cache
+# ---------------------------------------------------------------------------
+
+#: (B, Hq, Hkv, P, M, E, kv_len, window, strip counts, splits)
+K2_STRIPS = [
+    (4, 8, 2, 1, 256, 64, [0, 1, 150, 256], None, (2, 4, 16), 16),
+    (3, 4, 4, 1, 256, 32, [17, 200, 256], 64, (2, 4), 8),
+    (2, 8, 2, 13, 512, 32, [300, 499], None, (4,), 8),
+]
+
+
+@pytest.mark.parametrize("case", K2_STRIPS, ids=["ragged", "window",
+                                                 "chain_p13"])
+def test_k2_strips_concatenate_to_the_whole_sweep(case):
+    """Each strip's plain partials on a K/V that hold only its slots
+    (``strip_kv``), concatenated in strip order, equal the whole sweep's
+    partials bit for bit; so does the seq-sharded decode's output the
+    whole decode's at the same geometry."""
+    b, hq, hkv, p, m, e, kv_len, window, tps, splits = case
+    q, k, v, kvl = (torch.from_numpy(np.asarray(a)) for a in
+                    _decode_inputs(11, b, hq, hkv, p, m, e, kv_len))
+    g = hq // hkv
+    for tp in tps:
+        sp, bk, n = ops.seq_strips(m, g, e, e, tp, p=p, splits=splits)
+        assert sp == splits and n * tp == sp
+        kw = dict(splits=sp, block_k=bk, window=window, impl="torch")
+        whole = ops.fusemax_decode_strip(q, k, v, kvl, split_first=0,
+                                         n_splits=sp, **kw)
+        ms = m // tp
+        parts = [ops.fusemax_decode_strip(
+            q, k[:, :, j * ms:(j + 1) * ms], v[:, :, j * ms:(j + 1) * ms],
+            kvl, split_first=j * n, n_splits=n, **kw) for j in range(tp)]
+        for i in range(3):
+            cat = torch.cat([part[i] for part in parts], dim=1)
+            assert torch.equal(cat, whole[i]), (tp, i)
+        if p == 1:
+            out = ops.fusemax_decode_seq_sharded(
+                q, list(k.chunk(tp, 2)), list(v.chunk(tp, 2)), kvl,
+                window=window, impl="torch", splits=sp)
+            ref = ops.fusemax_decode(q, k, v, kvl, window=window,
+                                     impl="torch", splits=sp, block_k=bk)
+            assert torch.equal(out, ref), tp
+
+
+def test_k2_strip_count_must_divide_the_splits():
+    q, k, v, kvl = (torch.from_numpy(np.asarray(a)) for a in
+                    _decode_inputs(12, 2, 4, 2, 1, 96, 32, [96, 50]))
+    with pytest.raises(ValueError, match=r"tp=3 does not divide 4"):
+        ops.fusemax_decode_seq_sharded(q, list(k.chunk(3, 2)),
+                                       list(v.chunk(3, 2)), kvl,
+                                       impl="torch", splits=4)
+    with pytest.raises(ValueError, match="splits=8"):
+        ops.seq_strips(256, 4, 32, 32, 16, splits=8)

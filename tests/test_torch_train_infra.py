@@ -20,8 +20,8 @@ shape cells and the training launcher, on the CPU.
    ``input_specs`` gives the reference's shapes on the ``meta`` device.
 5. ``launch/train.py``'s ``main`` at its default arch on ``--device cpu``
    (the reference's printed lines, a metrics dict, K1 never launched on
-   the CPU), with checkpoints and ``--resume``, and its refusal of
-   ``--mesh 2x1`` / ``--rules`` (ROADMAP item 9b).
+   the CPU), with checkpoints and ``--resume``, and its refusal of a
+   malformed ``--mesh`` / unknown ``--rules``.
 """
 import dataclasses
 import json
@@ -313,8 +313,11 @@ def test_launcher_trains_on_cpu(tmp_path, capsys):
     assert np.isfinite(m3["losses"][0]) and not m3["fp32"]
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "2x1"],
-                                  ["--rules", "fsdp_tp"]])
-def test_launcher_refuses_sharded_training(argv):
-    with pytest.raises(SystemExit, match="ROADMAP item 9b"):
+@pytest.mark.parametrize("argv,match", [(["--mesh", "2x"], "expected DxM"),
+                                        (["--rules", "dp"], "2")])
+def test_launcher_refuses_sharded_training(argv, match):
+    """Sharded training runs (tests/test_torch_distributed.py); what the
+    launcher refuses is a mesh it cannot parse and rules it does not
+    have."""
+    with pytest.raises(SystemExit, match=match):
         train.main(["--device", "cpu"] + argv)
