@@ -108,7 +108,10 @@ JSON line (``"phase": ...``):
              permuted table, K4 and K2's latent branch at DeepSeek's, the
              P = 13 and P = 5 verify chains): with q = 0 every live key
              counted exactly once and its position sums exact, a launch's
-             shared memory the same at M and 2M;
+             shared memory the same at M and 2M; and the ``trace:*``
+             probes, the pass count and live footprint read off the plain
+             versions' torch calls (the reference's ``jnp:*`` probes),
+             each listed with its passes;
 3b. cascades_numeric — ``repro_torch.core``'s torch cascades (3-, 2-,
              1-pass, split-K decode) at granite's prefill shape against
              the float64 3-pass oracle, K1 beside them;
@@ -204,13 +207,19 @@ JSON line (``"phase": ...``):
              steps;
 9. launcher_defaults — ``python -m repro_torch.launch.serve`` as
              subprocesses from the repo root: with no flags (gemma2-9b-
-             smoke on the card), ``--cache-layout both``, granite-3-8b-
-             smoke paged, gemma-7b-smoke, hymba-1.5b-smoke and
+             smoke on the card), granite-3-8b-smoke paged, gemma-7b-smoke, hymba-1.5b-smoke and
              xlstm-125m-smoke on both layouts and deepseek-v3-671b-smoke
              on the default dense layout: exit code 0, kernels launched
              (xlstm: none), ``outputs_match`` where it compares layouts;
              and pixtral-12b-smoke, which it must refuse (non-zero exit,
-             the message that it serves token prompts only);
+             the message that it serves token prompts only); and in the
+             same pool the two examples that wrap the launchers:
+             ``examples/torch_train_100m.py --steps 5`` (the 100M granite,
+             K1 + LSE at (64, 64), G 5: exit 0, the last loss below the
+             first, the card's name in its output, K1 launched 2 x 8
+             layers x 5 steps) and ``examples/torch_serve_batched.py``
+             (the default arch on both layouts: exit 0, ``outputs_match``,
+             K1 and K2 / K3 launched on both layouts);
 10. model_mla — DeepSeek-V3's first three layers (MLA + dense FFN) at full
              width, fp32, on the dense and the paged layout: two prefill
              chunks (the second at an offset, the absorbed form) and 8
@@ -4095,14 +4104,14 @@ def phase_serve_gemma2(torch, fm, dec, serve) -> dict:
 
 
 #: the launcher as a user runs it, from the repo root: no flags (now
-#: gemma2-9b-smoke on the card, dense: K1 at (32, 32), K2 at D = 32), both
-#: layouts, two other smoke configs, the hybrid and the SSM smoke configs
+#: gemma2-9b-smoke on the card, dense: K1 at (32, 32), K2 at D = 32; the
+#: serving example of :data:`EXAMPLE_RUNS` serves it on both layouts),
+#: two other smoke configs, the hybrid and the SSM smoke configs
 #: on both layouts (hymba: K1 / K2 / K3 at d32 beside Mamba; xlstm: no
 #: attention kernel), and the MLA smoke config on the default (dense)
 #: layout: K1 at (48, 32), K2's latent branch at (32, 16)
 LAUNCHER_RUNS = [
     [],
-    ["--cache-layout", "both"],
     ["--arch", "granite-3-8b-smoke", "--cache-layout", "paged"],
     ["--arch", "gemma-7b-smoke"],
     ["--arch", "hymba-1.5b-smoke", "--cache-layout", "both"],
@@ -4114,35 +4123,53 @@ LAUNCHER_RUNS = [
 LAUNCHER_REFUSED = [(["--arch", "pixtral-12b-smoke"], "token prompts")]
 
 
+#: examples/torch_train_100m.py as the pool runs it: its default batch and
+#: sequence, 8 layers of 10 / 2 heads of 64 (G 5), and the steps run.  K1
+#: + LSE runs twice a layer a step (the forward and its remat), in fp32
+EX100M_BATCH, EX100M_SEQ, EX100M_LAYERS, EX100M_STEPS = 8, 256, 8, 5
+
+#: the examples that wrap the launchers, run in the same pool: the 100M
+#: granite of examples/train_100m.py (K1 + LSE at (64, 64), G 5, and the
+#: recompute backward), and the batched serving trace on both layouts
+#: (gemma2-9b-smoke, the launcher's default arch: K1, K2 and K3), its
+#: result written where the pool reads the launcher's
+EXAMPLE_RUNS = [
+    [os.path.join(ROOT, "examples", "torch_train_100m.py"), "--steps",
+     str(EX100M_STEPS)],
+    [os.path.join(ROOT, "examples", "torch_serve_batched.py"),
+     "--json", "BENCH_torch_serving.json"],
+]
+
 #: launcher subprocesses run at once (each reaches the card in ~8 s of
 #: start-up; one at a time they took ~100 s of the script's limit)
 LAUNCHER_PARALLEL = 4
 
 
-def _run_launchers(argvs: list) -> list:
-    """``python -m repro_torch.launch.serve <argv>`` for each of ``argvs``,
-    :data:`LAUNCHER_PARALLEL` at a time, each in a working directory of
-    its own (the launcher writes ``BENCH_torch_serving.json`` into it).
-    Returns, in the order of ``argvs``, (argv, exit code, stderr, wall
-    seconds, the JSON it wrote or None)."""
+def _run_launchers(cmds: list) -> list:
+    """``python <cmd>`` for each of ``cmds`` (a launcher's module and
+    flags, or an example's path and flags), :data:`LAUNCHER_PARALLEL` at a
+    time, each in a working directory of its own (the launcher writes
+    ``BENCH_torch_serving.json`` into it).  Returns, in the order of
+    ``cmds``, (cmd, exit code, stderr, wall seconds, the JSON it wrote or
+    None, stdout)."""
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     base = os.path.join(ROOT, "build", "launcher_runs")
     shutil.rmtree(base, ignore_errors=True)
-    results = [None] * len(argvs)
-    pending = list(enumerate(argvs))
+    results = [None] * len(cmds)
+    pending = list(enumerate(cmds))
     live = {}
     try:
         while pending or live:
             while pending and len(live) < LAUNCHER_PARALLEL:
-                i, argv = pending.pop(0)
+                i, cmd = pending.pop(0)
                 cwd = os.path.join(base, str(i))
                 os.makedirs(cwd)
-                with open(os.path.join(cwd, "stderr"), "w") as err:
+                with open(os.path.join(cwd, "stderr"), "w") as err, \
+                        open(os.path.join(cwd, "stdout"), "w") as out:
                     proc = subprocess.Popen(
-                        [sys.executable, "-m", "repro_torch.launch.serve",
-                         *argv], cwd=cwd, env=env,
-                        stdout=subprocess.DEVNULL, stderr=err)
+                        [sys.executable, *cmd], cwd=cwd, env=env,
+                        stdout=out, stderr=err)
                 live[i] = (proc, time.perf_counter(), cwd)
             time.sleep(0.2)
             for i, (proc, t0, cwd) in list(live.items()):
@@ -4155,12 +4182,14 @@ def _run_launchers(argvs: list) -> list:
                 del live[i]
                 with open(os.path.join(cwd, "stderr")) as fh:
                     err = fh.read()
+                with open(os.path.join(cwd, "stdout")) as fh:
+                    out = fh.read()
                 out_json = os.path.join(cwd, "BENCH_torch_serving.json")
                 m = None
                 if os.path.exists(out_json):
                     with open(out_json) as fh:
                         m = json.load(fh)
-                results[i] = (argvs[i], proc.returncode, err, wall, m)
+                results[i] = (cmds[i], proc.returncode, err, wall, m, out)
     finally:
         for proc, _, _ in live.values():
             proc.kill()
@@ -4178,9 +4207,13 @@ def phase_launcher_defaults(torch) -> dict:
     exits non-zero with its message and writes no result."""
     from repro_torch.configs import get_config
 
+    serve = ["-m", "repro_torch.launch.serve"]
+    argvs = LAUNCHER_RUNS + [a for a, _ in LAUNCHER_REFUSED]
+    pool = _run_launchers([serve + a for a in argvs] + EXAMPLE_RUNS)
+    examples = _check_examples(torch, pool[len(argvs):])
     runs = []
-    for argv, rc, stderr, wall, m in _run_launchers(
-            LAUNCHER_RUNS + [a for a, _ in LAUNCHER_REFUSED]):
+    for cmd, rc, stderr, wall, m, _ in pool[:len(argvs)]:
+        argv = cmd[len(serve):]
         run = dict(argv=" ".join(argv) or "(no flags)", rc=rc, seconds=wall)
         if rc == 0 and m is not None:
             run.update(arch=m["arch"],
@@ -4198,7 +4231,7 @@ def phase_launcher_defaults(torch) -> dict:
             run["stderr_tail"] = stderr[-2000:]
         runs.append(run)
     refused, runs = runs[len(LAUNCHER_RUNS):], runs[:len(LAUNCHER_RUNS)]
-    emit("launcher_defaults", runs=runs, refused=refused)
+    emit("launcher_defaults", runs=runs, refused=refused, examples=examples)
     for run, (_, msg) in zip(refused, LAUNCHER_REFUSED):
         check(run["rc"] != 0 and msg in run.get("stderr_tail", ""),
               f"launcher {run['argv']} was not refused: rc {run['rc']}, "
@@ -4223,7 +4256,61 @@ def phase_launcher_defaults(torch) -> dict:
     check(runs[-1]["mla"] and runs[-1]["layouts"] == ["dense"],
           f"the MLA smoke run served {runs[-1]['layouts']}, not the "
           f"default dense layout")
-    return {"runs": runs}
+    for ex in examples:
+        check(ex["rc"] == 0, f"{ex['example']} exited {ex['rc']}: "
+                             f"{ex.get('stderr_tail', '')[-600:]}")
+    train, serve = examples
+    check(len(train["losses"]) == EX100M_STEPS
+          and train["losses"][-1] < train["losses"][0],
+          f"torch_train_100m: losses {train['losses']}")
+    check(train["card_named"], "torch_train_100m: the card's name is not "
+                               "in its output")
+    want = 2 * EX100M_LAYERS * EX100M_STEPS
+    check(train["k1_launches"] == want, f"torch_train_100m: K1 launched "
+                                        f"{train['k1_launches']}, not {want}")
+    check(serve.get("outputs_match") is True,
+          "torch_serve_batched: streams differ across layouts")
+    for lo, n in serve.get("kernel_launches", {}).items():
+        check(n["fusemax_prefill"] > 0 and n[DECODE_KERNEL[lo]] > 0,
+              f"torch_serve_batched {lo}: kernels not launched: {n}")
+    check(sorted(serve.get("kernel_launches", {})) == ["dense", "paged"],
+          f"torch_serve_batched served {serve.get('kernel_launches')}")
+    return {"runs": runs, "examples": examples}
+
+
+def _check_examples(torch, pool: list) -> list:
+    """What the two :data:`EXAMPLE_RUNS` printed and wrote: the training
+    example's losses, step seconds, tok/s and K1 launches (its own summary
+    line), whether the card's name is in its output; the serving
+    example's ``outputs_match``, tok/s and launches by layout."""
+    import re
+
+    out = []
+    for cmd, rc, stderr, wall, m, stdout in pool:
+        ex = dict(example=os.path.basename(cmd[0]) + " " + " ".join(cmd[1:]),
+                  rc=rc, seconds=wall)
+        if rc != 0:
+            ex["stderr_tail"] = stderr[-2000:]
+        elif "train" in cmd[0]:
+            steps = re.findall(r"step +\d+ loss +([-\d.]+) .* ([\d.]+)s$",
+                               stdout, re.M)
+            done = re.search(r"([\d.]+) tok/s after the first step, K1 "
+                             r"launches (\d+)", stdout)
+            ex.update(losses=[float(a) for a, _ in steps],
+                      step_seconds=[float(b) for _, b in steps],
+                      tok_per_s=float(done.group(1)) if done else None,
+                      k1_launches=int(done.group(2)) if done else 0,
+                      card_named=torch.cuda.get_device_name(0) in stdout,
+                      summary=stdout.strip().splitlines()[-1:])
+        elif m is not None:
+            ex.update(outputs_match=m.get("outputs_match"),
+                      tok_per_s={lo: v["tok_per_s"]
+                                 for lo, v in m["layouts"].items()},
+                      kernel_launches={lo: v["kernel_launches"]
+                                       for lo, v in m["layouts"].items()},
+                      device=m["device"])
+        out.append(ex)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5230,10 +5317,11 @@ FN_GRAD_TOL = 1e-4
 
 def k1_lse_cases(torch):
     """K1 with its log-sum-exp output at every head dims training can
-    reach, each with a window, a softcap and a ragged ``m_valid``, and in
+    reach, each with a window, a softcap and a ragged ``m_valid``, in
     bf16 at the launcher's training shape (stablelm-1.6b: B 4, 32/32
-    heads, P = M = 1024, causal, d64): (name, b, hkv, group, p, m, e, f,
-    dtype, kwargs)."""
+    heads, P = M = 1024, causal, d64), and in fp32 at the 100M example's
+    (B 8, 10/2 heads, G 5, P = M = 256, causal, d64): (name, b, hkv,
+    group, p, m, e, f, dtype, kwargs)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cw = dict(causal=True, window=100, softcap=30.0)
     return [
@@ -5256,6 +5344,9 @@ def k1_lse_cases(torch):
         ("lse fp32 E32 F32 g2 window=64 softcap=50 m_valid=140", 2, 2, 2,
          150, 150, 32, 32, f32,
          dict(causal=True, window=64, softcap=50.0, m_valid=140)),
+        (f"lse fp32 E64 F64 g5 granite-100m train B{EX100M_BATCH} 10/2 "
+         f"heads P=M={EX100M_SEQ} causal", EX100M_BATCH, 2, 5, EX100M_SEQ,
+         EX100M_SEQ, 64, 64, f32, dict(causal=True)),
     ]
 
 
@@ -5923,24 +6014,37 @@ def phase_analysis(torch) -> dict:
     branch at DeepSeek's (B8, 128 heads, r 512, rd 64), the verify chains
     (P = 13, P = 5), and the plain torch ops: each live key counted once,
     the position sums exact, the shared memory a launch asks for the same
-    at M and 2M."""
+    at M and 2M; then the ``trace:*`` probes, which read each family's
+    pass count off its plain version's torch calls on the CPU, listed with
+    their passes (``traced_plain``)."""
     import io
 
     from repro_torch.analysis import report
 
+    from repro_torch.analysis.lint import TRACE_PROBES
+
     buf, results = io.StringIO(), []
+    t0 = time.perf_counter()
     failures = report.check(impl="cuda", out=buf, results=results)
     probes = [dict(entry=r["name"], probe=pr["probe"],
                    smem_bytes=pr.get("smem_bytes"),
                    page_list_bytes=pr.get("page_list_bytes"),
                    cases=pr["cases"])
-              for r in results if r["ok"] for pr in r["probes"]]
+              for r in results if r["ok"] for pr in r["probes"]
+              if "traced" not in pr]
+    traced = {pr["probe"]: dict(entry=r["name"], passes=pr["passes"],
+                                multi_gen=pr["multi_gen"])
+              for r in results if r["ok"] for pr in r["probes"]
+              if "traced" in pr}
     emit("analysis", failures=failures, report=buf.getvalue().splitlines(),
-         probes=probes,
+         probes=probes, traced_plain=traced,
+         seconds=time.perf_counter() - t0,
          errors=[r["error"] for r in results if not r["ok"]])
     check(failures == 0, f"cascade check: {failures} failure(s): "
           f"{buf.getvalue()}")
-    return {"probes": len(probes)}
+    check(set(traced) == set(TRACE_PROBES),
+          f"trace probes run: {sorted(traced)}")
+    return {"probes": len(probes), "traced": len(traced)}
 
 
 #: tests/test_cascades_numeric.py's tolerance for every cascade (and K1)

@@ -10,7 +10,9 @@ sequence rank M, live-footprint class, taxonomy bucket — to the port's
 implementation sites (``kernels``: the CUDA sources and their ``*_cuda``
 wrappers and ``*_torch`` plain versions) and to the structural probes of
 :mod:`repro_torch.analysis.lint` that hold those sites to the declaration
-(``lint``).
+(``lint``): the visit-count probes, and the ``trace:*`` probes that read
+the pass count off the plain versions' torch calls where the reference
+binds its ``jnp:*`` probes.
 
 ``python -m repro_torch.analysis.report --check`` walks this registry and
 exits non-zero on any mismatch.
@@ -63,7 +65,8 @@ REGISTRY: Tuple[CascadeEntry, ...] = (
         bucket="3-pass",
         kernels=("kernels/ref.py::mha_reference",
                  "kernels/ref.py::decode_reference"),
-        lint=("torch:mha_reference", "torch:decode_reference"),
+        lint=("torch:mha_reference", "torch:decode_reference",
+              "trace:mha_reference", "trace:decode_reference"),
         peers=("PyTorch", "TensorFlow", "FLAT", "E.T."),
     ),
     CascadeEntry(
@@ -73,7 +76,7 @@ REGISTRY: Tuple[CascadeEntry, ...] = (
         footprint=OS,
         bucket="2-pass",
         kernels=("core/cascades_numeric.py::attention_2pass",),
-        lint=("torch:attention_2pass",),
+        lint=("torch:attention_2pass", "trace:attention_2pass"),
         peers=("TileFlow", "Choi et al."),
     ),
     CascadeEntry(
@@ -85,7 +88,7 @@ REGISTRY: Tuple[CascadeEntry, ...] = (
         kernels=(_CSRC + "fusemax_prefill.cu",
                  "kernels/fusemax.py::fusemax_attention_cuda",
                  "kernels/fusemax.py::fusemax_attention_torch"),
-        lint=("prefill",),
+        lint=("prefill", "trace:prefill"),
         peers=("FlashAttention-2", "FuseMax"),
     ),
     CascadeEntry(
@@ -100,7 +103,7 @@ REGISTRY: Tuple[CascadeEntry, ...] = (
                  _CSRC + "latent_decode_partials.cu",
                  "kernels/decode.py::latent_decode_partials_cuda",
                  "kernels/decode.py::latent_decode_partials_torch"),
-        lint=("decode", "decode_latent"),
+        lint=("decode", "decode_latent", "trace:decode"),
     ),
     CascadeEntry(
         name="decode-paged-splitk-1pass",
@@ -122,7 +125,7 @@ REGISTRY: Tuple[CascadeEntry, ...] = (
         kernels=(_CSRC + "mla_paged_decode_partials.cu",
                  "kernels/decode.py::mla_paged_decode_partials_cuda",
                  "kernels/decode.py::mla_paged_decode_partials_torch"),
-        lint=("mla_decode_paged",),
+        lint=("mla_decode_paged", "trace:mla_decode"),
     ),
     CascadeEntry(
         name="verify-chain-1pass",
@@ -133,7 +136,7 @@ REGISTRY: Tuple[CascadeEntry, ...] = (
         kernels=("kernels/decode.py::decode_partials_*[n_pos>1]",
                  "kernels/decode.py::paged_decode_partials_*[n_pos>1]",
                  "kernels/decode.py::latent_decode_partials_*[n_pos>1]"),
-        lint=("verify", "verify_paged", "verify_latent"),
+        lint=("verify", "verify_paged", "verify_latent", "trace:verify"),
     ),
     CascadeEntry(
         name="mla-verify-chain-1pass",
@@ -142,7 +145,7 @@ REGISTRY: Tuple[CascadeEntry, ...] = (
         footprint=O1,
         bucket="1-pass",
         kernels=("kernels/decode.py::mla_paged_decode_partials_*[n_pos>1]",),
-        lint=("mla_verify_paged",),
+        lint=("mla_verify_paged", "trace:mla_verify"),
     ),
 )
 

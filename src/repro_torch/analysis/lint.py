@@ -49,8 +49,17 @@ under ``exp_impl="maccs"`` counts and sums are held within 0.5.
 
 Probes take ``impl="torch"`` (the plain versions, on the CPU) or
 ``impl="cuda"`` (the kernels, on the card), at ``size="small"`` or at the
-main paths' full widths (``size="full"``, the card's default).  The
-reference's jaxpr tracer (``trace_m_passes``) is not ported.
+main paths' full widths (``size="full"``, the card's default).
+
+Passes, traced off the torch code
+    The ``trace:*`` probes are the counterparts of the reference's
+    ``jnp:*`` probes: :func:`~repro_torch.analysis.trace.trace_m_passes`
+    reads the pass count and the live footprint off the plain versions'
+    torch calls at the reference's probe sizes (M = 144 in blocks of 48),
+    whatever ``impl`` is — a CUDA kernel is one opaque call whose output
+    would appear to read nothing, so the kernels' structure stays with the
+    visit-count probes above, and their agreement with these plain
+    versions with ``chip_smoke.py``'s kernel cases.
 """
 from __future__ import annotations
 
@@ -61,6 +70,9 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.cascade import CascadeEntry, REGISTRY
+from repro_torch.analysis.trace import (
+    LintError, TorchTrace, assert_torch_path, trace_m_passes,
+)
 from repro_torch.core import cascades_numeric as cn
 from repro_torch.kernels import autotune
 from repro_torch.kernels import decode as dec
@@ -73,10 +85,6 @@ POS_BASE = 1024
 EMPTY_MAX = -1e29
 #: normalised rows: relative error of a mean against its closed form
 MEAN_RTOL = 1e-5
-
-
-class LintError(AssertionError):
-    """A kernel's structure contradicts its declared cascade."""
 
 
 # ---------------------------------------------------------------------------
@@ -626,6 +634,98 @@ def _with_chain(probe: Callable, key: str) -> Callable:
     return run
 
 
+# ---------------------------------------------------------------------------
+# Traced pass counts of the plain versions (the reference's jnp:* probes)
+# ---------------------------------------------------------------------------
+
+_M = 144                    # probe sequence extent (3 blocks of 48)
+_PAIRS = ((3, 48),)
+
+
+def _traced(key: str, fn: Callable, args: Callable, pairs) -> Callable:
+    """A probe that traces ``fn(*args())`` under the registry entry that
+    binds ``key`` (or the entry it is given) and reports its passes."""
+    def run(entry=None, impl="torch", size=None):
+        _setup(impl, size)
+        entry = entry or next(e for e in REGISTRY if key in e.lint)
+        a = args()
+        tr = assert_torch_path(fn, a, entry, m_total=_M, m_pairs=pairs,
+                               label=key.split(":", 1)[1])
+        case = dict(case=f"{key}[{', '.join(str(tuple(t.shape)) for t in a)}]",
+                    passes=tr.passes, multi_gen=tr.multi_gen)
+        return {"probe": key, "traced": "plain", "passes": tr.passes,
+                "multi_gen": tr.multi_gen, "cases": [case]}
+    return run
+
+
+def _z(*shape):
+    return torch.zeros(shape, dtype=torch.float32)
+
+
+def _kv_len():
+    return torch.tensor([100, 40], dtype=torch.int32)
+
+
+def _splitk(n_pos: int) -> Callable:
+    """``decode_partials_torch`` (3 splits of 48 keys, tiles of 16) and
+    ``combine_partials`` at ``n_pos`` draft positions."""
+    def fn(q, k, v, kv_len):
+        pm, pl, pnv = dec.decode_partials_torch(
+            q, k, v, kv_len, scale=0.25, hkv=2, splits=3, block_k=16,
+            n_pos=n_pos)
+        return dec.combine_partials(pm, pl, pnv, torch.float32)
+    return fn
+
+
+def _mla_paged(n_pos: int) -> Callable:
+    """``mla_paged_decode_partials_torch`` (3 splits of one 48-token page)
+    and ``combine_partials`` at ``n_pos`` draft positions."""
+    def fn(q, ckv_pages, krope_pages, table, kv_len):
+        pm, pl, pnv = dec.mla_paged_decode_partials_torch(
+            q, ckv_pages, krope_pages, table, kv_len, scale=0.25, splits=3,
+            block_k=48, n_pos=n_pos)
+        return dec.combine_partials(pm, pl, pnv, torch.float32)
+    return fn
+
+
+def _mla_args(n_pos: int):
+    """q [2, 4·n_pos, 16 + 8] against a pool of 7 pages of 48 tokens (only
+    the gathered view carries both factors) on an identity block table."""
+    return (_z(2, 4 * n_pos, 24), _z(7, 48, 16), _z(7, 48, 8),
+            torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32),
+            _kv_len())
+
+
+#: each trace probe's function, its arguments (made anew each call) and
+#: the (n_blocks, block) pairs of its blocked layouts
+_TRACED = {
+    "trace:mha_reference": (
+        kref.mha_reference,
+        lambda: (_z(2, 4, 5, 8), _z(2, 2, _M, 8), _z(2, 2, _M, 8)), ()),
+    "trace:decode_reference": (
+        kref.decode_reference,
+        lambda: (_z(2, 4, 1, 8), _z(2, 2, _M, 8), _z(2, 2, _M, 8),
+                 _kv_len()), ()),
+    "trace:attention_2pass": (
+        lambda q, k, v: cn.attention_2pass(q, k, v, block=48),
+        lambda: (_z(2, 4, 5, 8), _z(2, 4, _M, 8), _z(2, 4, _M, 8)), _PAIRS),
+    "trace:prefill": (
+        lambda q, k, v: fm.fusemax_attention_torch(
+            q, k, v, scale=0.125, group=2, block_k=48),
+        lambda: (_z(4, 10, 8), _z(4, _M, 8), _z(4, _M, 8)), _PAIRS),
+    "trace:decode": (
+        _splitk(1),
+        lambda: (_z(4, 2, 8), _z(4, _M, 8), _z(4, _M, 8), _kv_len()), _PAIRS),
+    "trace:verify": (
+        _splitk(2),
+        lambda: (_z(4, 4, 8), _z(4, _M, 8), _z(4, _M, 8), _kv_len()), _PAIRS),
+    "trace:mla_decode": (_mla_paged(1), lambda: _mla_args(1), _PAIRS),
+    "trace:mla_verify": (_mla_paged(2), lambda: _mla_args(2), _PAIRS),
+}
+TRACE_PROBES: dict[str, Callable[..., dict]] = {
+    key: _traced(key, *spec) for key, spec in _TRACED.items()}
+
+
 PROBES: dict[str, Callable[..., dict]] = {
     "prefill": probe_prefill,
     "decode": probe_decode,
@@ -641,6 +741,7 @@ PROBES: dict[str, Callable[..., dict]] = {
     "torch:mha_reference": probe_torch_mha_reference,
     "torch:decode_reference": probe_torch_decode_reference,
     "torch:attention_2pass": probe_torch_attention_2pass,
+    **TRACE_PROBES,
 }
 
 
@@ -677,7 +778,10 @@ __all__ = [
     "LintError",
     "PROBES",
     "SHAPES",
+    "TRACE_PROBES",
+    "TorchTrace",
     "assert_s_independent",
+    "assert_torch_path",
     "check_partials",
     "check_rows",
     "lint_all",
@@ -685,4 +789,5 @@ __all__ = [
     "paged_layout",
     "position_values",
     "range_sums",
+    "trace_m_passes",
 ]

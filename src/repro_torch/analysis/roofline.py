@@ -23,6 +23,7 @@ is a measurement.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -57,6 +58,18 @@ H100_SXM = CardPeaks(
            "(ConnectX-7 400 Gb/s per GPU)")
 
 PEAKS = {H100_SXM.name: H100_SXM}
+
+#: the directory the dry run, the roofline pass and the hill climb write
+#: their records under, and the report reads them from
+OUT_ENV = "REPRO_TORCH_DRYRUN_OUT"
+
+
+def out_dir(*parts: str) -> str:
+    """``$REPRO_TORCH_DRYRUN_OUT`` (read at each call; default
+    ``out/torch_dryrun/`` at the repo root) joined with ``parts``."""
+    base = os.environ.get(OUT_ENV) or os.path.join(
+        os.path.dirname(__file__), "..", "..", "..", "out", "torch_dryrun")
+    return os.path.join(base, *parts)
 
 
 def card_peaks(name: Optional[str] = None) -> CardPeaks:

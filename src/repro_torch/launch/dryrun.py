@@ -46,7 +46,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.analysis.collectives import collective_stats
-from repro_torch.analysis.roofline import card_peaks, roofline
+from repro_torch.analysis.roofline import card_peaks, out_dir, roofline
 from repro_torch.configs import ARCHS, SHAPES, cell_applicable, get_config
 from repro_torch.configs.shapes import ShapeCell, input_specs
 from repro_torch.distributed import sharding as shd
@@ -56,11 +56,6 @@ from repro_torch.model.layers import Runtime
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.common import tree_flatten
 from repro_torch.training.train_step import opt_state_axes
-
-OUT_DIR = os.environ.get(
-    "REPRO_TORCH_DRYRUN_OUT",
-    os.path.join(os.path.dirname(__file__), "..", "..", "..", "out",
-                 "torch_dryrun"))
 
 #: a card's memory (H100 SXM, 80 GB)
 CARD_BYTES = 80e9
@@ -327,6 +322,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool = False, *,
                    train=train, cfg=cfg, dtype=dtype,
                    network_bytes=cs.network_bytes)
     record["roofline"] = rep.to_dict()
+    record["card"] = card_peaks().name
     record["peaks"] = card_peaks().source
     record["lower_s"] = round(time.time() - t0, 3)
     record["ok"] = True
@@ -354,9 +350,9 @@ def all_cells():
 
 def run_cell(arch: str, shape: str, mesh_name: str, force: bool,
              **kw) -> dict:
-    out_dir = os.path.join(OUT_DIR, mesh_name)
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{arch}__{shape}.json")
+    rec_dir = out_dir(mesh_name)
+    os.makedirs(rec_dir, exist_ok=True)
+    path = os.path.join(rec_dir, f"{arch}__{shape}.json")
     if os.path.exists(path) and not force:
         with open(path) as f:
             rec = json.load(f)

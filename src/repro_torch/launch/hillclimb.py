@@ -24,14 +24,13 @@ import argparse
 import json
 import os
 
+from repro_torch.analysis.roofline import out_dir
 from repro_torch.launch import dryrun as dr
-
-OUT = os.path.join(dr.OUT_DIR, "hillclimb")
 
 
 def record(name: str, rec: dict) -> dict:
-    os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, f"{name}.json"), "w") as f:
+    os.makedirs(out_dir("hillclimb"), exist_ok=True)
+    with open(out_dir("hillclimb", f"{name}.json"), "w") as f:
         json.dump(rec, f, indent=1)
     if rec.get("ok"):
         c, m, q = rec["collectives"], rec["memory"], rec["cost"]

@@ -23,11 +23,9 @@ import json
 import os
 import traceback
 
-from repro_torch.analysis.roofline import roofline
+from repro_torch.analysis.roofline import card_peaks, out_dir, roofline
 from repro_torch.configs import ARCHS, SHAPES, cell_applicable, get_config
 from repro_torch.launch import dryrun as dr
-
-OUT = os.path.join(dr.OUT_DIR, "roofline")
 
 
 def depth_variants(cfg):
@@ -73,7 +71,7 @@ def run_cell(arch, shape, force=False, microbatches=1, **kw):
     """The extrapolated quantities of one cell beside the full depth's and
     their roofline (``kw``: :func:`~repro_torch.launch.dryrun.lower_cell`
     overrides)."""
-    path = os.path.join(OUT, f"{arch}__{shape}.json")
+    path = out_dir("roofline", f"{arch}__{shape}.json")
     if os.path.exists(path) and not force:
         print(f"[skip] {arch}/{shape}")
         with open(path) as f:
@@ -94,7 +92,7 @@ def run_cell(arch, shape, force=False, microbatches=1, **kw):
                        collective_bytes=q["coll"], tokens=tokens,
                        train=cell.kind == "train", cfg=cfg)
         rec = {"arch": arch, "shape": shape, "ok": True,
-               "method": "depth-extrapolated",
+               "card": card_peaks().name, "method": "depth-extrapolated",
                "variants": {"a": qa, "b": qb, "reps": reps, "full": rf},
                "per_layer": slope, "quantities": q,
                "full_depth": {k: full[k] for k in ("flops", "bytes",
@@ -104,7 +102,7 @@ def run_cell(arch, shape, force=False, microbatches=1, **kw):
         rec = {"arch": arch, "shape": shape, "ok": False,
                "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-1500:]}
-    os.makedirs(OUT, exist_ok=True)
+    os.makedirs(out_dir("roofline"), exist_ok=True)
     with open(path, "w") as f:
         json.dump(rec, f, indent=1)
     status = "ok  " if rec.get("ok") else "FAIL"

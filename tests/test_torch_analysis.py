@@ -124,17 +124,119 @@ def test_report_check_cli_exits_nonzero_on_misdeclaration():
     env = dict(os.environ, REPRO_TORCH_ANALYSIS_INJECT_BAD="1")
     env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep \
         + env.get("PYTHONPATH", "")
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.analysis.report", "--check"],
-        env=env, capture_output=True, text=True, timeout=600)
+    cmd = [sys.executable, "-m", "repro_torch.analysis.report", "--check",
+           "--impl", "torch"]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
     assert proc.returncode != 0, proc.stdout + proc.stderr
     assert "injected-bad-1pass-claim" in proc.stdout
     # without the hook the CLI gate passes
     del env["REPRO_TORCH_ANALYSIS_INJECT_BAD"]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for key in lint.TRACE_PROBES:
+        assert f"{key} (traced plain," in proc.stdout, key
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep \
+        + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_report_check_cli_without_impl_needs_a_card():
+    """``--check`` probes the kernels unless asked for the plain versions:
+    on a host without a card it exits non-zero and says how."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: --check probes its kernels")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.analysis.report", "--check"],
-        env=env, capture_output=True, text=True, timeout=600)
+        env=_env(), capture_output=True, text=True, timeout=600)
+    assert proc.returncode != 0, proc.stdout + proc.stderr
+    assert "--impl torch" in proc.stderr
+    assert "cascade check" not in proc.stdout
+
+
+def test_check_prints_every_trace_probe(monkeypatch):
+    import io
+    buf = io.StringIO()
+    assert report.check(impl="torch", out=buf) == 0
+    lines = buf.getvalue().splitlines()
+    for key, fn in lint.TRACE_PROBES.items():
+        passes = fn(None, "torch")["passes"]
+        assert any(line.startswith("  ok  ") and f"{key} (traced plain, "
+                   f"{passes}-pass)" in line for line in lines), key
+    # the self-test still fails the gate
+    monkeypatch.setenv(report.INJECT_BAD_ENV, "1")
+    buf = io.StringIO()
+    assert report.check(impl="torch", out=buf) > 0
+    assert "FAIL  injected-bad-1pass-claim" in buf.getvalue()
+
+
+def _dryrun_record(arch, shape, ok=True):
+    if not ok:
+        return {"arch": arch, "shape": shape, "mesh": "single", "ok": False,
+                "error": "RuntimeError: synthetic failure"}
+    return {
+        "arch": arch, "shape": shape, "mesh": "single", "chips": 256,
+        "ok": True, "card": "NVIDIA H100 80GB HBM3",
+        "memory": {"param_bytes": 3 * 2 ** 30, "peak_bytes_est": 5e10,
+                   "fits": True},
+        "cost": {"flops": 1.5e14, "bytes_accessed": 4e10},
+        "collectives": {"bytes_by_kind": {"all_gather": 2e9,
+                                          "reduce_scatter": 1e9},
+                        "total_bytes": 3e9}}
+
+
+def _roofline_record(arch, shape, ok=True, dominant="compute"):
+    if not ok:
+        return {"arch": arch, "shape": shape, "ok": False,
+                "error": "KeyError: synthetic failure"}
+    return {"arch": arch, "shape": shape, "ok": True,
+            "card": "NVIDIA H100 80GB HBM3",
+            "roofline": {"compute_s": 0.25, "memory_s": 0.002,
+                         "collective_s": 3e-5, "dominant": dominant,
+                         "model_flops_per_chip": 1.2e14,
+                         "useful_ratio": 0.8, "roofline_fraction": 0.48}}
+
+
+def test_report_tables_read_the_dry_run_records(tmp_path, monkeypatch):
+    import json
+    cells = [("alpha-1b", "train_4k", True), ("beta-2b", "decode_32k", True),
+             ("gamma-3b", "prefill_32k", False)]
+    for sub, make in (("single", _dryrun_record),
+                      ("roofline", _roofline_record)):
+        (tmp_path / sub).mkdir()
+        for arch, shape, ok in cells:
+            (tmp_path / sub / f"{arch}__{shape}.json").write_text(
+                json.dumps(make(arch, shape, ok)))
+    env = dict(_env(), REPRO_TORCH_DRYRUN_OUT=str(tmp_path))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.report"], env=env,
+        capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = proc.stdout
+    dry = out[out.index("§Dry-run"):out.index("§Roofline")]
+    roof = out[out.index("§Roofline"):out.index("§Einsum")]
+    for table in (dry, roof):
+        assert "NVIDIA H100 80GB HBM3" in table
+        rows = [ln for ln in table.splitlines() if ln.startswith("| ")
+                and not ln.startswith("| arch")]
+        assert [r.split(" | ")[0][2:] for r in rows] == [
+            "alpha-1b", "beta-2b", "gamma-3b"], table
+        assert "FAILED: " in rows[2] and "synthetic failure" in rows[2]
+        assert "FAILED" not in rows[0] + rows[1]
+    assert "2.8GB (all_gather)" in dry
+    assert "**compute**" in roof and "250.00ms" in roof
+    assert "reference-3pass" in out[out.index("§Einsum"):]
+
+    monkeypatch.setenv("REPRO_TORCH_DRYRUN_OUT", str(tmp_path))
+    summary = report.summarize()
+    assert set(summary) == {("alpha-1b", "train_4k"),
+                            ("beta-2b", "decode_32k")}
+    assert summary[("alpha-1b", "train_4k")]["dominant"] == "compute"
 
 
 def test_unknown_probe_fails_the_entry():

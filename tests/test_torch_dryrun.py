@@ -44,9 +44,7 @@ from repro_torch.launch import roofline_pass as rp
 
 @pytest.fixture(autouse=True)
 def _out(tmp_path, monkeypatch):
-    monkeypatch.setattr(dr, "OUT_DIR", str(tmp_path))
-    monkeypatch.setattr(rp, "OUT", str(tmp_path / "roofline"))
-    monkeypatch.setattr(hc, "OUT", str(tmp_path / "hillclimb"))
+    monkeypatch.setenv(roof.OUT_ENV, str(tmp_path))
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
