@@ -5,16 +5,26 @@
 Builds ``src/repro_torch/kernels/csrc/fusemax_prefill.cu`` as it ships
 and in variants that each change one design choice (a textual edit of
 the shipped source, which raises when the source no longer holds the
-text it edits), all with ``nvcc`` in parallel into ``build/k1_variants/``
-(each beside its ``-Xptxas -v`` report, ``<variant>.log``).  Then, fp32,
-on the CUDA device:
+text it edits, or the shipped source launched under another plan), all
+with ``nvcc`` in parallel into ``build/k1_variants/`` (each beside its
+``-Xptxas -v`` report, ``<variant>.log``).  Then, fp32, on the CUDA
+device:
 
 * times every variant at the shapes ``chip_smoke.py`` times K1 at
-  (granite-3-8b's prefill dispatch, DeepSeek-V3's ``mla_forward`` and its
-  absorbed tail, gemma2-9b's global and local layers), CUDA events over
-  20 launches after 3, in two rounds
-  (the variants in order, then in reverse) so that a drift of the card
-  shows;
+  (granite-3-8b's prefill dispatch and one head shard of it at tp 2,
+  serve_async's prefill quantum, stablelm-1.6b's training forward,
+  hymba-1.5b's local and global layers, DeepSeek-V3's ``mla_forward`` and
+  its absorbed tail, gemma2-9b's global and local layers) and at two
+  serving chunks whose default plan leaves 28-32 of the 132 SMs idle,
+  CUDA events
+  over 20 launches after 3, in two rounds (the variants in order, then in
+  reverse) so that a drift of the card shows, each row with the plan
+  every variant ran;
+* holds, for every variant, the rows of a 1024-token prompt's last
+  128-token quantum (P = 128 after 896) to the same rows of one P = M =
+  1024 call, bit for bit, at (128, 128) with G 4 and at (64, 64) with
+  G 5 (``quantum_vs_chunk``: 0.0 where a row's arithmetic does not
+  depend on the plan);
 * runs every variant on stress inputs (scores in the hundreds, bits below
   TF32's mantissa that matter, a plain long sweep) and reports its
   largest distance to a float64 softmax-attention reference beside the
@@ -22,27 +32,36 @@ on the CUDA device:
 
 Variants:
 
-* ``shipped``       — the source as it is;
+* ``shipped``       — the source as it is, each call under its plan
+  (``autotune.prefill_plan``);
+* ``default_plan``  — the same library with every call under its (E, F)'s
+  default plan (no column split);
+* ``split2``        — every call at (64, 64) and (128, 128) in two column
+  blocks, whatever the waves;
+* ``split4``        — every call at (128, 128) in four column blocks (a
+  plan compiled only here: 32 output columns a block);
+* ``mma_sync``      — (64, 64) and (128, 128) routed back to the
+  ``mma.sync`` body with its tiles before the ``wgmma`` body (128 x 64,
+  one column block): the design this body replaced;
 * ``cvt_split``     — hi and lo rounded by ``cvt.rna.tf32.f32`` instead of
   the same rounding on the integer pipe;
 * ``trunc_lo``      — lo passed unrounded, so the tensor core drops its 13
   low bits (what CUTLASS's fast-fp32 operator does);
-* ``rows16_p_regs`` — the first design: 16-row warps, P in registers at
-  F <= 128 (WF 1, MT 1, BQ 64), two 16-row warps per row group at
-  (576, 512);
 * ``kdepth8``       — score partials of 8 k-steps instead of 4;
-* ``tf32_1x``       — single-pass TF32 (hi·hi only), for the accuracy
-  and speed it gives up; never shipped;
-* ``tile256_128x64`` — gemma's (256, 256) on a 128 x 64 tile with two
-  warps a row group (128 accumulator floats a lane, 223,232 B of shared
-  memory) instead of the shipped 64 x 64 with four (64 floats, 138,240
-  B).
+* ``tf32_1x``       — single-pass TF32 (hi·hi only) in both bodies, for
+  the accuracy and speed it gives up; never shipped.
+
+(``rows16_p_regs`` and ``tile256_128x64`` edited the tile table's ``MT``
+and ``BQ`` at the GQA dims, which the ``wgmma`` body took over; they are
+retired.)
 
 Beside them it measures the rate ``mma.sync.m16n8k8`` TF32 reaches on
 this card with nothing else in the way (2 blocks of 8 warps a SM, 8
 independent accumulators a warp, back-to-back mma): the ceiling of any
-kernel built on that instruction, as against the 495 TFLOP/s that
-``wgmma`` is rated at.
+kernel built on that instruction; and the rate of ``wgmma`` m64n128k8
+TF32 (two warpgroups a SM, operands in shared memory, 8 chained a commit
+group): the ceiling of a ``wgmma`` body, as against the 495 TFLOP/s it
+is rated at.
 
 Prints one JSON object per shape, per stress case and for the mma rate,
 and writes them all to ``--out``.
@@ -51,9 +70,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
-import os
 import re
+import os
 import subprocess
 import sys
 
@@ -62,9 +82,8 @@ import torch
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, autotune  # noqa: E402
 from repro_torch.kernels import fusemax as fm  # noqa: E402
-from repro_torch.kernels.autotune import CUDA_PREFILL_TILES  # noqa: E402
 from repro_torch.model.layers import strict_fp32  # noqa: E402
 
 SRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
@@ -78,18 +97,29 @@ def _edit(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-def _tiles(src: str, tiles: dict) -> str:
-    """``src`` with the (BQ, BK, WF, MT) of each (E, F) in ``tiles``
-    replaced (the K chunk ``KC`` stays)."""
-    for (e, f), (bq, bk, wf, mt) in tiles.items():
-        src, n = re.subn(
-            r"struct PrefillTile<%d, %d> \{\n  static constexpr int "
-            r"BQ = \d+, BK = \d+, WF = \d+, MT = \d+," % (e, f),
-            "struct PrefillTile<%d, %d> {\n  static constexpr int BQ = %d, "
-            "BK = %d, WF = %d, MT = %d," % (e, f, bq, bk, wf, mt), src)
-        if n != 1:
-            raise ValueError(f"no PrefillTile<{e}, {f}> in the source")
-    return src
+#: the mma.sync body's tiles at the GQA dims, before the wgmma body took
+#: them
+MMA_TILES = """template <> struct PrefillTile<64, 64> {
+  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2, KC = 64;
+};
+template <> struct PrefillTile<128, 128> {
+  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2, KC = 64;
+};
+"""
+GQA_DIMS = ((64, 64), (128, 128))
+
+
+def _mma_sync(src: str) -> str:
+    """``src`` with (64, 64) and (128, 128) routed back to the mma.sync
+    body on its earlier tiles."""
+    src = _edit(src, "template <> struct PrefillTile<192, 128> {",
+                MMA_TILES + "template <> struct PrefillTile<192, 128> {")
+    src = _edit(src, "#define REPRO_DIMS(X)",
+                "#define REPRO_DIMS(X) X(64, 64) X(128, 128)")
+    head = "#define REPRO_WGMMA_PLANS(X)"
+    start = src.index(head)
+    end = src.index("\n\n", start)
+    return src[:start] + head + src[end:]
 
 
 INT_TF32 = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
@@ -97,21 +127,52 @@ LO = "  lo = tf32(x - __uint_as_float(hi));"
 
 VARIANTS = {
     "shipped": lambda s: s,
+    "default_plan": lambda s: s,
+    "split2": lambda s: s,
+    "split4": lambda s: _edit(s, "X(128, 128, 64, 2)",
+                              "X(128, 128, 64, 2) X(128, 128, 64, 4)"),
+    "mma_sync": _mma_sync,
     "cvt_split": lambda s: _edit(
         s, INT_TF32, '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : '
         '"=r"(r) : "f"(x));\n  return r;'),
     "trunc_lo": lambda s: _edit(
         s, LO, "  lo = __float_as_uint(x - __uint_as_float(hi));"),
-    "rows16_p_regs": lambda s: _tiles(s, {
-        (64, 64): (64, 64, 1, 1), (128, 128): (64, 64, 1, 1),
-        (192, 128): (64, 64, 1, 1), (576, 512): (64, 64, 2, 1)}),
     "kdepth8": lambda s: _edit(s, "constexpr int KDEPTH = 4;",
                                "constexpr int KDEPTH = 8;"),
-    "tf32_1x": lambda s: _edit(_edit(
+    "tf32_1x": lambda s: _edit(_edit(_edit(_edit(
         s, "mma3<EXACT, EXACT>", "mma3<true, true>"),
         "mma3<false, EXACT>", "mma3<true, true>"),
-    "tile256_128x64": lambda s: _tiles(s, {(256, 256): (128, 64, 2, 2)}),
+        "        if constexpr (!EXACT) {\n          wgmma_ss(",
+        "        if constexpr (false) {\n          wgmma_ss("),
+        "      wgmma_rs(acc, pl[j], dvh);\n      if constexpr (!EXACT)",
+        "      if constexpr (false)"),
 }
+
+
+def _fixed_plan(bq: int, fs: int, dims=GQA_DIMS):
+    """A plan function that runs ``dims`` under (bq rows, fs column
+    blocks) and every other call under ``autotune.prefill_plan``."""
+    def plan(bh: int, pg: int, e: int, f: int) -> autotune.PrefillPlan:
+        if (e, f) not in dims:
+            return autotune.prefill_plan(bh, pg, e, f)
+        bk = 64 if bq == 128 else autotune.CUDA_PREFILL[(e, f)].block_k
+        return autotune.PrefillPlan(bq, bk, fs, -(-pg // bq) * bh * fs)
+    return plan
+
+
+def default_plan(bh: int, pg: int, e: int, f: int) -> autotune.PrefillPlan:
+    """The (E, F)'s first plan whatever the shape: no column split
+    (``default_plan``)."""
+    kern = autotune.CUDA_PREFILL[(e, f)]
+    bq, fs = kern.plans[0]
+    return autotune.PrefillPlan(bq, kern.block_k, fs,
+                                -(-pg // bq) * bh * fs)
+
+
+#: the plan each variant's calls run
+PLANS = {"default_plan": default_plan, "split2": _fixed_plan(64, 2),
+         "split4": _fixed_plan(64, 4, ((128, 128),)),
+         "mma_sync": _fixed_plan(128, 1)}
 
 MMA_PEAK_SRC = r"""
 #include <cuda_runtime.h>
@@ -146,10 +207,84 @@ extern "C" int mma_peak_launch(int blocks, int iters, void* out,
 }
 """
 
-#: (name, B·Hkv, P·G, M, E, F, group, q_offset[, window, softcap]): the
-#: shapes chip_smoke times K1 at
+def _wgmma_peak_src(n: int = 128) -> str:
+    """A kernel that issues `wgmma` m64n{n}k8 .tf32 back to back from two
+    warpgroups a block, operands from shared memory (no swizzle), 8
+    chained into one accumulator a commit group, one group in flight."""
+    r = n // 2
+    regs = ", ".join(f"%{i}" for i in range(r))
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(r))
+    return r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3ffffu) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fffu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3fffu) << 32;
+}
+
+__global__ void __launch_bounds__(256) wgmma_peak(float* out, int iters) {
+  __shared__ __align__(128) float a[64 * 8];
+  __shared__ __align__(128) float b[%(n)d * 8];
+  for (int i = threadIdx.x; i < 64 * 8; i += 256) a[i] = 1e-3f * (i %% 7);
+  for (int i = threadIdx.x; i < %(n)d * 8; i += 256) b[i] = 1e-3f * (i %% 5);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint64_t da = desc(a, 64 * 16, 128), db = desc(b, %(n)d * 16, 128);
+  float d[%(r)d];
+  for (int i = 0; i < %(r)d; ++i) d[i] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %%%(r2)d, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n%(n)dk8.f32.tf32.tf32 "
+          "{%(regs)s}, %%%(r0)d, %%%(r1)d, p, 1, 1;\n}\n"
+          : %(outs)s
+          : "l"(da), "l"(db), "r"(1));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  float s = 0.f;
+  for (int i = 0; i < %(r)d; ++i) s += d[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+extern "C" int wgmma_peak_launch(int blocks, int iters, void* out,
+                                 void* stream) {
+  wgmma_peak<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
+}
+""" % dict(n=n, r=r, r0=r, r1=r + 1, r2=r + 2, regs=regs, outs=outs)
+
+
+#: (name, B·Hkv, P·G, M, E, F, group, q_offset[, window, softcap[, lse]]):
+#: the shapes chip_smoke times K1 at (``lse``: the call also writes each
+#: row's log-sum-exp, as the training forward does)
 SHAPES = [
     ("granite B4 Hq32 Hkv8 P=M=1024 d128", 32, 4096, 1024, 128, 128, 4, 0),
+    ("granite tp2 head shard B4 Hq16 Hkv4 P=M=1024 d128", 16, 4096, 1024,
+     128, 128, 4, 0),
+    ("serve_async quantum B1 Hq32 Hkv8 P=128 after 896 M=1024 d128", 8,
+     512, 1024, 128, 128, 4, 896),
+    ("granite chunk B1 Hq32 Hkv8 P=208 after 816 M=1024 d128", 8, 832,
+     1024, 128, 128, 4, 816),
+    ("hymba quantum B1 Hq25 Hkv5 P=128 after 896 M=1024 d64", 5, 640,
+     1024, 64, 64, 5, 896),
+    ("hymba chunk B1 Hq25 Hkv5 P=256 after 768 M=1024 d64", 5, 1280,
+     1024, 64, 64, 5, 768),
+    ("stablelm train B4 H32 P=M=1024 d64 + LSE", 128, 1024, 1024, 64, 64, 1,
+     0, 0, 0.0, True),
+    ("hymba global B4 Hq25 Hkv5 P=M=2048 d64", 20, 10240, 2048, 64, 64, 5,
+     0),
+    ("hymba local B4 Hq25 Hkv5 P=M=2048 d64 window 1024", 20, 10240, 2048,
+     64, 64, 5, 0, 1024, 0.0),
     ("mla_forward B4 H128 P=M=1024 E192 F128", 512, 1024, 1024, 192, 128,
      1, 0),
     ("absorbed B4 H128 in 1 group P=256 after 768 E576 F512", 4, 32768,
@@ -172,22 +307,43 @@ STRESS = [
 ]
 
 
+def shipped_source() -> str:
+    """The shipped K1 source with its ``csrc/*.cuh`` headers inlined (each
+    once, where it is first included), so that a variant may edit any of
+    them and builds outside ``csrc``."""
+    src, done = open(SRC).read(), set()
+    while True:
+        found = re.search(r'#include "(\w+\.cuh)"\n', src)
+        if not found:
+            return src.replace("#pragma once\n", "")
+        name = found.group(1)
+        text = ""
+        if name not in done:
+            done.add(name)
+            with open(os.path.join(os.path.dirname(SRC), name)) as fh:
+                text = fh.read()
+        src = src[:found.start()] + text + src[found.end():]
+
+
 def build(names: list[str]) -> tuple[dict, object]:
-    """({variant: its fusemax_prefill}, mma_peak_launch), built together."""
+    """({variant: its fusemax_prefill}, {rate probe: its launch}), built
+    together."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    src = open(SRC).read()
+    src = shipped_source()
     sources = {name: VARIANTS[name](src) for name in names}
     sources["mma_peak"] = MMA_PEAK_SRC
-    procs = {}
+    sources["wgmma_peak"] = _wgmma_peak_src()
+    paths = {}
     for name, text in sources.items():
-        path = os.path.join(OUT_DIR, f"{name}.cu")
-        with open(path, "w") as fh:
+        paths[name] = os.path.join(OUT_DIR, f"{name}.cu")
+        with open(paths[name], "w") as fh:
             fh.write(text)
+    procs = {}
+    for name, path in paths.items():
         lib = os.path.join(OUT_DIR, f"lib{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    argtypes = fm._prefill_lib()[0].argtypes
     libs = {}
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
@@ -196,14 +352,18 @@ def build(names: list[str]) -> tuple[dict, object]:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         libs[name] = ctypes.CDLL(lib)
-    peak = libs.pop("mma_peak").mma_peak_launch
-    peak.restype = ctypes.c_int
-    peak.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_void_p]
+    peak = {}
+    for name in ("mma_peak", "wgmma_peak"):
+        fn = getattr(libs.pop(name), f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        peak[name] = fn
     fns = {}
     for name, lib in libs.items():
         fn = lib.fusemax_prefill
-        fn.restype, fn.argtypes = ctypes.c_int, argtypes
+        fn.restype = ctypes.c_int
+        fn.argtypes = fm.PREFILL_ARGTYPES
         fns[name] = fn
     return fns, peak
 
@@ -216,7 +376,7 @@ def mma_rate(peak) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        if peak(blocks, iters, out.data_ptr(), stream):
+        if peak["mma_peak"](blocks, iters, out.data_ptr(), stream):
             raise RuntimeError("mma_peak launch failed")
 
     ms = time_ms(run, iters=5, warmup=1)
@@ -226,14 +386,63 @@ def mma_rate(peak) -> dict:
                 accumulators_per_warp=8)
 
 
-def launch(fn, q, k, v, o, group, q_offset, window=0, softcap=0.0):
+def wgmma_rate(peak) -> dict:
+    """TF32 FLOP/s of back-to-back `wgmma` m64n128k8 on the whole card:
+    one block of two warpgroups a SM, operands in shared memory."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = sms, 4096
+    out = torch.empty(blocks * 256, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        if peak["wgmma_peak"](blocks, iters, out.data_ptr(), stream):
+            raise RuntimeError("wgmma_peak launch failed")
+
+    ms = time_ms(run, iters=5, warmup=1)
+    flops = blocks * 2 * iters * 8 * 2 * 64 * 128 * 8
+    return dict(kind="wgmma_tf32_rate", ms=ms, tflops=flops / ms / 1e9,
+                blocks=blocks, warpgroups_per_block=2, shape="m64n128k8")
+
+
+def plan_of(name: str, q, v) -> autotune.PrefillPlan:
+    """The plan variant ``name`` runs on q [B·Hkv, P·G, E], v."""
+    bh, pg, e = q.shape
+    return PLANS.get(name, autotune.prefill_plan)(bh, pg, e, v.shape[2])
+
+
+def launch(name, fn, q, k, v, o, group, q_offset, window=0, softcap=0.0,
+           lse=None):
     bh, pg, e = q.shape
     m, f = v.shape[1], v.shape[2]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
-             0, e, f, bh, pg, m, e ** -0.5, 1, window, softcap, q_offset,
-             group, m, 0, torch.cuda.current_stream().cuda_stream)
+    plan = plan_of(name, q, v)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), 0, e, f, bh, pg, m,
+            e ** -0.5, 1, window, softcap, q_offset, group, m, 0,
+            plan.block_q, plan.f_split]
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name}: launch failed: CUDA error {err}")
+
+
+def quantum_vs_chunk(name, fn, rand) -> list:
+    """The rows of a 1024-token prompt's last 128-token quantum against
+    the same rows of one P = M = 1024 call (fp32, causal): the largest
+    difference at (128, 128) G 4 (8 kv heads) and (64, 64) G 5 (5)."""
+    out = []
+    for e, hkv, g in ((128, 8, 4), (64, 5, 5)):
+        q, k, v = rand(hkv, 1024 * g, e), rand(hkv, 1024, e), \
+            rand(hkv, 1024, e)
+        whole = torch.empty(hkv, 1024 * g, e, device="cuda")
+        launch(name, fn, q, k, v, whole, g, 0)
+        qq = q[:, 896 * g:].contiguous()
+        part = torch.empty_like(qq)
+        launch(name, fn, qq, k, v, part, g, 896)
+        torch.cuda.synchronize()
+        plans = [plan_of(name, x, v) for x in (qq, q)]
+        out.append(dict(e=e, group=g, max_abs_diff=(
+            part - whole[:, 896 * g:]).abs().max().item(),
+            plans=[[p.block_q, p.f_split, p.blocks] for p in plans]))
+    return out
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -286,21 +495,32 @@ def main(argv=None) -> int:
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    results = [dict(mma_rate(peak), device=smi)]
-    print(json.dumps(results[0]), flush=True)
+    results = [dict(mma_rate(peak), device=smi),
+               dict(wgmma_rate(peak), device=smi)]
+    for row in results:
+        print(json.dumps(row), flush=True)
     for name, bh, pg, m, e, f, group, q_offset, *mask in SHAPES:
         q, k, v = rand(bh, pg, e), rand(bh, m, e), rand(bh, m, f)
         o = torch.empty(bh, pg, f, device="cuda")
+        if len(mask) == 3:                       # (window, softcap, lse)
+            mask = [*mask[:2], torch.empty(bh, pg, device="cuda")]
         ms = {n: [] for n in fns}
         for order in (list(fns), list(fns)[::-1]):
             for n in order:
-                ms[n].append(time_ms(lambda: launch(fns[n], q, k, v, o,
+                ms[n].append(time_ms(lambda: launch(n, fns[n], q, k, v, o,
                                                     group, q_offset, *mask)))
-        row = dict(kind="time", shape=name, device=smi, ms=ms)
+        plans = {n: dataclasses.astuple(plan_of(n, q, v)) for n in fns}
+        row = dict(kind="time", shape=name, device=smi, ms=ms,
+                   plans_bq_bk_fsplit_blocks=plans)
         print(json.dumps(row), flush=True)
         results.append(row)
         del q, k, v, o
         torch.cuda.empty_cache()
+    for n, fn in fns.items():
+        row = dict(kind="quantum_vs_chunk", variant=n, device=smi,
+                   cases=quantum_vs_chunk(n, fn, rand))
+        print(json.dumps(row), flush=True)
+        results.append(row)
     for name, bh, pg, m, e, f, group, q_offset, how in STRESS:
         q, k, v = rand(bh, pg, e), rand(bh, m, e), rand(bh, m, f)
         if how == "q_x30":
@@ -308,7 +528,7 @@ def main(argv=None) -> int:
         elif how == "low_bits":
             q, k, v = (x + x * 2.0 ** -12 for x in (q, k, v))
         ref = ref64(q, k, v, group, q_offset)
-        bq, bk = CUDA_PREFILL_TILES[(e, f)]
+        bq, bk = autotune.CUDA_PREFILL_TILES[(e, f)]
         plain = fm.fusemax_attention_torch(
             q, k, v, scale=e ** -0.5, causal=True, group=group,
             q_offset=q_offset, block_q=bq, block_k=bk)
@@ -317,7 +537,7 @@ def main(argv=None) -> int:
                    vs_f64={}, vs_plain={})
         for n, fn in fns.items():
             o = torch.empty(bh, pg, f, device="cuda")
-            launch(fn, q, k, v, o, group, q_offset)
+            launch(n, fn, q, k, v, o, group, q_offset)
             torch.cuda.synchronize()
             row["vs_f64"][n] = (o.double() - ref).abs().max().item()
             row["vs_plain"][n] = (o - plain).abs().max().item()

@@ -13,7 +13,8 @@ JSON line (``"phase": ...``):
              ``kernels/csrc``
              (nvcc, in parallel) and the ptxas register / shared-memory
              report; every instantiation of the latent decode body (K4 and
-             K2's E != F branch) must be there without a spill;
+             K2's E != F branch) and of K1's plans (both bodies, fp32 and
+             bf16, native and MACC exp) must be there without a spill;
 3. kernels — every case of the prefill (K1, at the GQA head dims and at
              DeepSeek's MLA (E, F) = (192, 128) and (576, 512), at the
              smoke configs' (32, 32) and (48, 32) and gemma's (256, 256)
@@ -85,7 +86,14 @@ JSON line (``"phase": ...``):
              the kernel's device time), K2 and K3 on a global cache and a
              ring read at eff_len; and serve_async's shapes: K1 at a
              one-row 128-token quantum after 896 tokens, K3 at a decode
-             step beside rows parked mid-prefill; and the device-sharded
+             step beside rows parked mid-prefill, and the quantum's rows
+             against the same rows of one P = M = 1024 call (``quantum vs
+             chunk``, at (128, 128) G 4 and (64, 64) G 5: the two calls'
+             plans differ, the bits must not); every K1 timing row names
+             the plan its calls ran (block rows, column blocks, blocks
+             launched; ``autotune.prefill_plan``), and the GQA dims'
+             rows in the kernels line name the wgmma body as their
+             source; and the device-sharded
              pool's kernel branches: K1 (a granite chunk after 896 tokens)
              and K3 (granite's timing data at tp 2, 4 and 8, fp32 and fp8
              pools; gemma2's d256 ring at tp 2) on kv-head shards,
@@ -127,14 +135,14 @@ JSON line (``"phase": ...``):
              ``attn_impl="cuda"`` and ``"torch"`` on the same weights;
              logits difference and token match rate;
 5. serve   — ``repro_torch.launch.serve.main --cache-layout both --mesh
-             tp=2`` on granite-3-8b at full width (fp32) cut to 20 of its
-             40 layers (``SERVE_LAYERS``, since the training phase came),
+             tp=2`` on granite-3-8b at full width (fp32) cut to 10 of its
+             40 layers (``SERVE_LAYERS``),
              the mesh two shards on cuda:0: greedy streams equal on the
              dense layout, the paged one and the paged pool sharded on the
              kv heads (``paged_sharded``), every request gets its tokens,
              logits stay finite, and in each leg's timed run K1 launched
-             20 x prefill dispatches and K2 (dense) or K3 (paged) 20 x
-             decode steps, on the sharded leg 2 x 20 x each; its per-device
+             10 x prefill dispatches and K2 (dense) or K3 (paged) 10 x
+             decode steps, on the sharded leg 2 x 10 x each; its per-device
              bytes x 2 equal to the totals and the shard tensors' bytes
              making up the pool; ``sharded_vs_paged_tok_per_s``;
 6. serve_prefix — the launcher on the paged layout with a 256-token
@@ -180,7 +188,7 @@ JSON line (``"phase": ...``):
              ``--cache-layout paged --kv-dtype fp8_e4m3`` and then ``int8``:
              the quantized leg's peak resident KV against the fp32 leg's
              (at most 27 %), ``quant_quality`` reported, K3's quantized
-             branch 40 x decode steps;
+             branch ``QUANT_LAYERS`` x decode steps;
 6e. serve_swap — 40-layer granite-3-8b through ``ServeEngine`` on three
              waves (a 256-token shared prefix, unrelated prompts that evict
              it from a 320-page pool, the first wave again) with an 8 GiB
@@ -509,6 +517,44 @@ def k1_split_cases(torch):
         ("fp32 P=M=1024 absorbed E576 F512 g16 causal", 1, 1, 16, 1024, 1024,
          576, 512, f32, dict(causal=True), None),
     ]
+
+
+def k1_quantum_vs_chunk_cases(torch, fm) -> list:
+    """The rows of a 1024-token prompt's last 128-token quantum (P = 128
+    after 896, M = 1024: serve_async's last quantum) against the same rows
+    of one P = M = 1024 call on the same q, k and v, fp32, causal: at
+    (128, 128) with G 4 (granite: 8 kv heads) and at (64, 64) with G 5
+    (hymba: 5 kv heads).  The two calls run different plans (the quantum
+    fills the card with smaller blocks and column blocks); a row's
+    arithmetic is the plan's key tile's alone, so the bits must be equal
+    (``max_abs_diff`` 0.0).  Its inputs come from a generator of its own,
+    so that the cases after it draw the inputs they drew before it."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    rows = []
+    for e, hkv, g in ((128, 8, 4), (64, 5, 5)):
+        p_all, p_q, off = 1024, 128, 896
+        q = _rand(torch, gen, (hkv, p_all * g, e), torch.float32)
+        k = _rand(torch, gen, (hkv, p_all, e), torch.float32)
+        v = _rand(torch, gen, (hkv, p_all, e), torch.float32)
+        kw = dict(scale=e ** -0.5, causal=True, group=g)
+        whole = fm.fusemax_attention_cuda(q, k, v, **kw)
+        plan_whole = fm.fusemax_attention_cuda.last_plan
+        quantum = fm.fusemax_attention_cuda(
+            q[:, off * g:].contiguous(), k, v, q_offset=off, **kw)
+        plan_q = fm.fusemax_attention_cuda.last_plan
+        torch.cuda.synchronize()
+        diff = (quantum - whole[:, off * g:]).abs().max().item()
+        rows.append(dict(
+            kernel="fusemax_prefill", case=f"quantum vs chunk: P={p_q} after "
+            f"{off} vs P=M={p_all}, fp32 E{e} F{e} G{g} Hkv{hkv}",
+            e=e, f=e, max_abs_diff=diff,
+            plans={n: dict(block_q=pl.block_q, f_split=pl.f_split,
+                           blocks=pl.blocks)
+                   for n, pl in (("quantum", plan_q), ("chunk", plan_whole))},
+            ok=diff == 0.0))
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _prep(q, k, v, how):
@@ -1987,6 +2033,7 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
     if return_lse:
         args["return_lse"] = True
     out = fm.fusemax_attention_cuda(q_f, k_f, v_f, **args)
+    plan = fm.fusemax_attention_cuda.last_plan
     ref = fm.fusemax_attention_torch(q_f, k_f, v_f, **args)
     lse_err = None
     if return_lse:
@@ -2033,8 +2080,10 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
                bound_ms_fp32=max(t_fp32, t_bytes),
                bound_ms_3xtf32=max(t_3xtf32, t_bytes),
                share_of_3xtf32_bound=max(t_3xtf32, t_bytes) / ms,
-               flops=flops, bytes=nbytes, max_abs_err=err, ok=ok,
-               tile=[tile.block_q, tile.block_k], **backends)
+               flops=flops, bytes=nbytes, max_abs_err=err, ok=ok, e=e, f=f,
+               tile=[tile.block_q, tile.block_k],
+               plan=dict(block_q=plan.block_q, f_split=plan.f_split,
+                         blocks=plan.blocks), **backends)
     if return_lse:
         row.update(lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
                    ms_no_lse=ms_no_lse)
@@ -3039,9 +3088,10 @@ def _check_sharded(torch, metrics) -> dict:
                     "sharded_vs_paged_tok_per_s"])
 
 
-#: granite-3-8b's depth in the serve phase: its 40 layers cut to 20 so
-#: the training phase fits the script's time limit (193 s at 40)
-SERVE_LAYERS = 20
+#: granite-3-8b's depth in the serve phase: its 40 layers cut to 10 so
+#: that the script keeps a margin under its time limit on a slow host
+#: (the phase took 193 s at 40 layers, 104-145 s at 20)
+SERVE_LAYERS = 10
 
 
 def phase_serve(torch, fm, dec, serve) -> dict:
@@ -3672,7 +3722,9 @@ def _quant_args(kv_dtype: str, warmup: bool) -> list:
     return args if warmup else args + ["--no-warmup"]
 
 
-QUANT_LAYERS = 20
+#: granite-3-8b's depth in the serve_quant phase, cut as ``SERVE_LAYERS``
+#: (its two runs took 99-141 s at 20 layers)
+QUANT_LAYERS = 10
 
 
 def phase_serve_quant(torch, fm, dec, serve) -> dict:
@@ -6286,10 +6338,19 @@ def main() -> int:
     check(len(ptxas["mla_paged_decode_partials"]) == 16
           and len(ptxas["latent_decode_partials"]) == 8 and not spills,
           f"latent decode instantiations missing or spilling: {spills}")
+    # K1: every plan of every (E, F), fp32 and bf16, native and MACC exp
+    k1_spills = [f"{inst}: {line}"
+                 for inst, line in ptxas["fusemax_prefill"].items()
+                 if "0 bytes spill stores, 0 bytes spill loads" not in line]
+    n_plans = sum(len(kern.plans) for kern in autotune.CUDA_PREFILL.values())
+    check(len(ptxas["fusemax_prefill"]) == 4 * n_plans and not k1_spills,
+          f"K1: {len(ptxas['fusemax_prefill'])} instantiations for "
+          f"{n_plans} plans x 4, spilling: {k1_spills}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = run_k1_cases(torch, gen, fm, autotune) + \
+        k1_quantum_vs_chunk_cases(torch, fm) + \
         run_k2_cases(torch, gen, dec, autotune) + \
         run_k3_cases(torch, gen, dec, autotune) + \
         misaligned_cases(torch, gen, dec) + \
@@ -6560,9 +6621,13 @@ def main() -> int:
         extra = {key: val for key, val in t.items()
                  if key.startswith(("bound_ms_", "share_", "library_"))
                  and key != "library_ms"}
-        return dict(entry(name, "cuda", k1_src, k1_tpu, t, n_launches,
+        # the GQA dims run the wgmma body
+        src = k1_wg_src \
+            if autotune.CUDA_PREFILL[(t["e"], t["f"])].body == "wgmma" \
+            else k1_src
+        return dict(entry(name, "cuda", src, k1_tpu, t, n_launches,
                           kernel="fusemax_prefill"), **dims, **extra,
-                    tile=t["tile"])
+                    tile=t["tile"], plan=t["plan"])
 
     def by_n_pos(kernel, step_run, verify_run):
         """A decode kernel's launches split by draft positions: decode steps
@@ -6591,6 +6656,7 @@ def main() -> int:
         return e
 
     k1_src = "src/repro_torch/kernels/csrc/fusemax_prefill.cu"
+    k1_wg_src = "src/repro_torch/kernels/csrc/fusemax_prefill_wgmma.cuh"
     k1_tpu = "src/repro/kernels/fusemax.py:102"
     k2_src = "src/repro_torch/kernels/csrc/decode_partials.cu"
     k2_tpu = "src/repro/kernels/decode.py:60"

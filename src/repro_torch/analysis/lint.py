@@ -315,12 +315,13 @@ def probe_prefill(entry: CascadeEntry, impl: str = "torch",
     fn = fn or (fm.fusemax_attention_cuda if impl == "cuda"
                 else fm.fusemax_attention_torch)
     e, f, group = s["e"], s["f"], s["hq"] // s["hkv"]
-    tile = autotune.attention_params(1, 1, e, f, impl="cuda")
-    bq, bk = tile.block_q, tile.block_k
     gen = _gen(dev, 0)
     cases, smem = [], []
     for m in s["ms"]:
         bh, pg = s["b"] * s["hkv"], m * group
+        # the kernel's plan for this call: its tile and column blocks
+        plan = autotune.prefill_plan(bh, pg, e, f)
+        bq, bk = plan.block_q, plan.block_k
         q = torch.zeros((bh, pg, e), device=dev)
         k = torch.randn((bh, m, e), generator=gen, device=dev)
         v = position_values(torch.arange(m, device=dev), f).expand(
@@ -339,8 +340,8 @@ def probe_prefill(entry: CascadeEntry, impl: str = "torch",
                 np.broadcast_to(qpos + 1, (bh, pg)), lse=lse,
                 exact=exp_impl == "native")))
         smem.append(autotune.prefill_smem_bytes(
-            bq, bk, e, f, autotune.CUDA_PREFILL_WARP_SPLIT[(e, f)],
-            q.element_size()))
+            bq, bk, e, f, autotune.CUDA_PREFILL[(e, f)].warp_split,
+            q.element_size(), f_split=plan.f_split))
     return _probe("prefill", cases, smem, impl=impl, size=size)
 
 

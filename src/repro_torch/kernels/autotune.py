@@ -25,13 +25,17 @@ unless a caller seeds the table.  The prefill tile is never measured
 
 What the port changes:
 
-* The CUDA prefill kernel (``csrc/fusemax_prefill.cu``) is compiled for
-  one tile per (E, F) pair, so ``attention_params(..., impl="cuda")``
-  returns that pair's tile (``CUDA_PREFILL_TILES``, the declaration the
-  kernel's wrapper holds against the library's own
-  ``fusemax_prefill_tile`` at each launch) after checking its
+* The CUDA prefill kernel (``csrc/fusemax_prefill.cu``) is compiled, per
+  (E, F) pair, for one body and key tile and a few query-block plans
+  (``CUDA_PREFILL``).  The plan of a call (:func:`prefill_plan`: the
+  block's query rows and a split of the F output columns) is chosen from
+  its fibers and rows so that the grid fills the card's SMs where the
+  shape allows; every plan of a pair has the same tile, which
+  ``attention_params(..., impl="cuda")`` returns after checking its
   shared-memory footprint against the card's per-block limit — the TPU's
-  VMEM budget does not apply to it.
+  VMEM budget does not apply to it.  The kernel's wrapper holds each plan
+  against the library's own ``fusemax_prefill_plan`` report at each
+  launch.
 * The split-K geometry (``decode_params``) is the reference's, for every
   impl: it is keyed on the cache length and never on P, so a later verify
   path inherits exactly the split structure of single-token decode.  The
@@ -65,34 +69,48 @@ TILE_OVERHEAD = 4096
 #: dynamic shared memory one block may use on an H100 (227 KB)
 SMEM_BUDGET = 232_448
 
-#: (E, F) head dims → the (BQ, BK) tile ``csrc/fusemax_prefill.cu`` is
-#: compiled for at those dims (its ``PrefillTile``): GQA heads of 64, 128
-#: and 256 (gemma), DeepSeek's MLA prefill (nope 128 + rope 64 → v 128)
-#: and its absorbed latent attention (rank 512 + rope 64 → rank 512), and
-#: the smoke configs' GQA heads of 32 and MLA (nope 32 + rope 16 → v 32,
-#: and rank 32 + rope 16 → rank 32)
-CUDA_PREFILL_TILES = {
-    (64, 64): (128, 64),
-    (128, 128): (128, 64),
-    (192, 128): (128, 64),
-    (576, 512): (64, 64),
-    (256, 256): (64, 64),
-    (32, 32): (128, 64),
-    (48, 32): (128, 64),
+#: streaming multiprocessors of an H100 SXM: the blocks a prefill plan
+#: aims to launch at least
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillKernel:
+    """How ``csrc/fusemax_prefill.cu`` is compiled at one (E, F) pair:
+    its ``body`` (``"wgmma"``, ``fusemax_prefill_wgmma.cuh``, or
+    ``"mma_sync"``, the file's own), ``block_k`` keys a tile, the
+    ``plans`` (block_q, f_split) in the order :func:`prefill_plan`
+    prefers them (the default first; every plan has the same block_q),
+    and on the mma.sync body the warps that share one row group
+    (``warp_split``, its ``WF``: each holds F / WF accumulator columns,
+    and above 1 the probabilities go through shared memory)."""
+    body: str
+    block_k: int
+    plans: tuple
+    warp_split: int = 1
+
+
+#: (E, F) head dims → the kernel compiled there (``REPRO_WGMMA_PLANS`` and
+#: ``REPRO_DIMS`` with its ``PrefillTile``): GQA heads of 64 and 128 on
+#: the wgmma body (a warpgroup a 64-row block, 32-key tiles; two column
+#: blocks let a short chunk, a serving quantum, come near filling the
+#: card), and on the mma.sync body gemma's 256, DeepSeek's MLA prefill
+#: (nope 128 + rope 64 → v 128) and its absorbed latent attention (rank
+#: 512 + rope 64 → rank 512), and the smoke configs' GQA heads of 32 and
+#: MLA (nope 32 + rope 16 → v 32, and rank 32 + rope 16 → rank 32)
+CUDA_PREFILL = {
+    (64, 64): PrefillKernel("wgmma", 32, ((64, 1), (64, 2))),
+    (128, 128): PrefillKernel("wgmma", 32, ((64, 1), (64, 2))),
+    (192, 128): PrefillKernel("mma_sync", 64, ((128, 1),), 2),
+    (576, 512): PrefillKernel("mma_sync", 64, ((64, 1),), 4),
+    (256, 256): PrefillKernel("mma_sync", 64, ((64, 1),), 4),
+    (32, 32): PrefillKernel("mma_sync", 64, ((128, 1),)),
+    (48, 32): PrefillKernel("mma_sync", 64, ((128, 1),)),
 }
 
-#: (E, F) → the warps that share one row group of that tile (its ``WF``):
-#: each holds F / WF accumulator columns, and above 1 the probabilities
-#: go through shared memory
-CUDA_PREFILL_WARP_SPLIT = {
-    (64, 64): 1,
-    (128, 128): 2,
-    (192, 128): 2,
-    (576, 512): 4,
-    (256, 256): 4,
-    (32, 32): 1,
-    (48, 32): 1,
-}
+#: (E, F) → the (BQ, BK) tile of every plan at those dims
+CUDA_PREFILL_TILES = {dims: (kern.plans[0][0], kern.block_k)
+                      for dims, kern in CUDA_PREFILL.items()}
 
 #: the prefill kernel's K chunk width (columns of E, the tile's ``KC``):
 #: 64, or E where E is below 64 or no multiple of it
@@ -133,6 +151,18 @@ class AttentionParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    """One call's plan of the CUDA prefill kernel: ``block_q`` query rows
+    and ``block_k`` keys a tile, the F output columns in ``f_split``
+    column blocks (each recomputes its rows' scores), ``blocks`` launched
+    (query tiles x fibers x column blocks)."""
+    block_q: int
+    block_k: int
+    f_split: int
+    blocks: int
+
+
+@dataclasses.dataclass(frozen=True)
 class DecodeParams:
     splits: int
     block_k: int
@@ -151,13 +181,28 @@ def _prefill_v_chunk(block_k: int, f: int, k_chunk: int,
 
 
 def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
-                       warp_split: int, elem_bytes: int = 4) -> int:
-    """Shared memory of one prefill block — must match ``Layout`` in
+                       warp_split: int, elem_bytes: int = 4,
+                       f_split: int = 1) -> int:
+    """Shared memory of one prefill block.  On the wgmma body
+    (``CUDA_PREFILL``) it must match ``WgLayout`` in
+    ``fusemax_prefill_wgmma.cuh``: a raw K and a raw V tile of ``block_k``
+    whole rows in the input's dtype, then fp32 splits (hi, and lo unless
+    the input is bf16) of the block's Q, of two K tiles and of two Vᵀ
+    tiles of its F / f_split columns, and 10 mbarriers.  On the mma.sync
+    body (one column block) it must match ``Layout`` in
     ``fusemax_prefill.cu``: the Q tile, a ring of ``PREFILL_STAGES`` equal
     slots (a [block_k x KC] K chunk, KC from ``CUDA_PREFILL_K_CHUNK``, or
     a [VK x F] V chunk), every row padded by 16 bytes, and where
     ``warp_split`` warps share a row group the fp32 probability tile (rows
     padded by 8 floats) and the row-max exchange."""
+    kern = CUDA_PREFILL.get((e, f))
+    if kern is not None and kern.body == "wgmma":
+        parts = 1 if elem_bytes == 2 else 2
+        return (elem_bytes * block_k * (e + f)
+                + 4 * parts * (block_q * e + 2 * block_k * e
+                               + 2 * f // f_split * block_k) + 80)
+    if f_split != 1:
+        raise ValueError("the mma.sync body has no column blocks")
     pad = 16 // elem_bytes
     kc = CUDA_PREFILL_K_CHUNK.get((e, f), PREFILL_K_CHUNK)
     vk = _prefill_v_chunk(block_k, f, kc, elem_bytes)
@@ -292,23 +337,50 @@ def _modeled_attention(pb: int, mb: int, e: int, f: int) -> AttentionParams:
     return min(cands, key=lambda c: _attention_cost(c, pb, mb, e, f))
 
 
+@functools.lru_cache(maxsize=None)
+def prefill_plan(fibers: int, rows: int, e: int, f: int) -> PrefillPlan:
+    """The CUDA prefill kernel's plan for ``fibers`` (B·Hkv) x ``rows``
+    (P·G) folded query rows at head dims (E, F): the first of
+    ``CUDA_PREFILL[(e, f)].plans`` whose grid reaches ``H100_SMS``
+    blocks, else the one that launches the most (the first of equals).
+    A plan with column blocks counts only while it launches at most
+    ``H100_SMS`` blocks: each block recomputes its rows' scores, and on
+    the card more blocks than SMs cost more than the SMs the default plan
+    leaves idle, even at (64, 64), where two blocks fit an SM's shared
+    memory (PERF.md).  The key tile, and
+    with it a row's arithmetic, is the same under every plan of (E, F);
+    M never enters.  Raises for head dims the kernel is not compiled
+    for."""
+    if (e, f) not in CUDA_PREFILL:
+        raise ValueError(
+            f"the CUDA prefill kernel is compiled for head dims (E, F) "
+            f"in {sorted(CUDA_PREFILL)}, not ({e}, {f})")
+    kern = CUDA_PREFILL[(e, f)]
+    plans = [PrefillPlan(bq, kern.block_k, fs, -(-rows // bq) * fibers * fs)
+             for bq, fs in kern.plans]
+    plans = [p for p in plans if p.f_split == 1 or p.blocks <= H100_SMS]
+    return next((p for p in plans if p.blocks >= H100_SMS),
+                max(plans, key=lambda p: p.blocks))
+
+
 def attention_params(p: int, m: int, e: int, f: int, *,
                      impl: str = "torch") -> AttentionParams:
     """Pick (block_q, block_k) for a prefill-shaped attention call.
 
     ``impl="cuda"`` returns the tile the CUDA kernel is compiled for at
-    head dims (E, F), and raises for a pair it is not compiled for or a
-    tile that does not fit one block's shared memory; every other impl
-    takes the reference's modeled choice from the power-of-two bucketed
-    shape."""
+    head dims (E, F) (every plan of :func:`prefill_plan` has it), and
+    raises for a pair it is not compiled for or a plan that does not fit
+    one block's shared memory; every other impl takes the reference's
+    modeled choice from the power-of-two bucketed shape."""
     if impl == "cuda":
-        if (e, f) not in CUDA_PREFILL_TILES:
+        if (e, f) not in CUDA_PREFILL:
             raise ValueError(
                 f"the CUDA prefill kernel is compiled for head dims (E, F) "
-                f"in {sorted(CUDA_PREFILL_TILES)}, not ({e}, {f})")
+                f"in {sorted(CUDA_PREFILL)}, not ({e}, {f})")
+        kern = CUDA_PREFILL[(e, f)]
         bq, bk = CUDA_PREFILL_TILES[(e, f)]
-        need = prefill_smem_bytes(bq, bk, e, f,
-                                  CUDA_PREFILL_WARP_SPLIT[(e, f)])
+        need = max(prefill_smem_bytes(pq, bk, e, f, kern.warp_split,
+                                      f_split=fs) for pq, fs in kern.plans)
         if need > SMEM_BUDGET:
             raise ValueError(
                 f"prefill tile {bq}x{bk} at head dims E={e}, F={f} needs "

@@ -2,6 +2,9 @@
 //
 // Replaces: src/repro/kernels/fusemax.py:_fusemax_kernel, launched by
 // fusemax_attention_pallas (the TPU kernel behind ops.fusemax_attention).
+// Two bodies: this file's `mma.sync` body, and at the GQA head dims
+// (64, 64) and (128, 128) the `wgmma` body of fusemax_prefill_wgmma.cuh;
+// the one C entry below dispatches each call's plan to its body.
 //
 // What it computes (the TPU kernel's function, not its block structure):
 //   q [BH, PG, E] (GQA group folded into query rows: row r is query
@@ -40,7 +43,7 @@
 //   of the tile's keys and holds F / WF accumulator columns; the row max
 //   is combined through shared memory and P goes through shared memory
 //   once per key tile.
-// * At (64, 64) one warp holds a row group (WF = 1) and P stays in
+// * At F <= 64 one warp holds a row group (WF = 1) and P stays in
 //   registers between the two products: the accumulator holds columns
 //   {2t, 2t+1} where the A operand wants {t, t+4}, so the V rows of the
 //   B fragment are permuted to match (key 2t <-> k index t, 2t+1 <->
@@ -64,61 +67,31 @@
 //   query tiles run heaviest first (under a causal mask the last tiles
 //   sweep the most keys), which shortens the tail of the grid.
 //
-// The tile is chosen per (E, F) instantiation (PrefillTile below); the
-// shared memory of one block (fp32) is
-//   (64, 64)   128 x 64, WF 1, 4 warps:          87,040 B
-//   (128, 128) 128 x 64, WF 2, 8 warps:         157,696 B
+// The tile is chosen per (E, F) instantiation (PrefillTile below), and
+// each runs under that one plan (BQ rows, one column block); the shared
+// memory of one block (fp32) is
 //   (192, 128) 128 x 64, WF 2, 8 warps:         190,464 B (mla_forward)
 //   (576, 512) 64 x 64,  WF 4, 8 warps:         220,160 B (absorbed)
 //   (256, 256) 64 x 64,  WF 4, 8 warps:         138,240 B (gemma)
 //   (32, 32)   128 x 64, WF 1, 4 warps, KC 32:   46,080 B (-smoke GQA)
 //   (48, 32)   128 x 64, WF 1, 4 warps, KC 48:   66,560 B (-smoke MLA)
-// (autotune.prefill_smem_bytes is the same formula), one block per SM
-// but at (64, 64).  The TPU's sequential M1 grid axis becomes the loop
-// over key tiles, and the TPU's per-tile skip becomes the loop bounds.
+// (autotune.prefill_smem_bytes is the same formula, which the wrapper
+// holds to fusemax_prefill_plan's report).  The TPU's sequential M1
+// grid axis becomes the loop over key tiles, and the TPU's per-tile skip
+// becomes the loop bounds.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "fusemax_prefill_wgmma.cuh"
+#include "prefill_softmax.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NS = 3;   // ring stages
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// exp(x) for x <= 0 with 6 multiply-adds: 2^n by building the exponent
-// field, 2^f on [0, 1) by a Horner chain (fusemax.py:_EXP2_COEFFS).
-__device__ __forceinline__ float exp_maccs(float x) {
-  float t = fmaxf(x * LOG2E, -126.0f);
-  float n = floorf(t);
-  float f = t - n;
-  float p = 0.00015403530393381608f;
-  p = p * f + 0.0013333558146428443f;
-  p = p * f + 0.009618129107628477f;
-  p = p * f + 0.05550410866482158f;
-  p = p * f + 0.24022650695910072f;
-  p = p * f + 0.6931471805599453f;
-  p = p * f + 1.0f;
-  return p * __int_as_float((static_cast<int>(n) + 127) << 23);
-}
-
-template <bool MACCS>
-__device__ __forceinline__ float fexp(float x) {
-  return MACCS ? exp_maccs(x) : expf(x);
-}
 
 // ---- cp.async --------------------------------------------------------------
 
@@ -147,12 +120,6 @@ template <int N> __device__ __forceinline__ void cp_wait() {
 // accumulator columns and the scores of BK / WF keys; KC columns of E
 // per K chunk.
 template <int E, int F> struct PrefillTile;
-template <> struct PrefillTile<64, 64> {
-  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2, KC = 64;
-};
-template <> struct PrefillTile<128, 128> {
-  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2, KC = 64;
-};
 template <> struct PrefillTile<192, 128> {
   static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2, KC = 64;
 };
@@ -581,39 +548,74 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int bh, pg, m;
+  float scale;
+  int causal, window;
+  float softcap;
+  int q_offset, group, m_valid, maccs;
+  cudaStream_t stream;
+};
+
 template <typename T, int E, int F>
-cudaError_t launch_exp(int maccs, const void* q, const void* k, const void* v,
-                       void* o, float* lse, int bh, int pg, int m,
-                       float scale, int causal, int window, float softcap,
-                       int q_offset, int group, int m_valid,
-                       cudaStream_t stream) {
-  return maccs ? launch<T, E, F, true>(q, k, v, o, lse, bh, pg, m, scale,
-                                       causal, window, softcap, q_offset,
-                                       group, m_valid, stream)
-               : launch<T, E, F, false>(q, k, v, o, lse, bh, pg, m, scale,
-                                        causal, window, softcap, q_offset,
-                                        group, m_valid, stream);
+cudaError_t launch_exp(const Args& a) {
+  return a.maccs ? launch<T, E, F, true>(a.q, a.k, a.v, a.o, a.lse, a.bh,
+                                         a.pg, a.m, a.scale, a.causal,
+                                         a.window, a.softcap, a.q_offset,
+                                         a.group, a.m_valid, a.stream)
+                 : launch<T, E, F, false>(a.q, a.k, a.v, a.o, a.lse, a.bh,
+                                          a.pg, a.m, a.scale, a.causal,
+                                          a.window, a.softcap, a.q_offset,
+                                          a.group, a.m_valid, a.stream);
 }
 
+template <typename T, int E, int F, int FS, bool MACCS>
+cudaError_t launch_wgmma(const Args& a) {
+  using L = WgLayout<T, E, F, FS>;
+  auto kern = fusemax_prefill_wgmma_kernel<T, E, F, FS, MACCS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.pg + L::BQ - 1) / L::BQ * FS, a.bh);
+  kern<<<grid, L::NT, L::BYTES, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.pg, a.m,
+      a.scale, a.causal, a.window, a.softcap, a.q_offset, a.group,
+      a.m_valid);
+  return cudaGetLastError();
+}
+
+template <typename T, int E, int F, int FS>
+cudaError_t launch_wgmma_exp(const Args& a) {
+  return a.maccs ? launch_wgmma<T, E, F, FS, true>(a)
+                 : launch_wgmma<T, E, F, FS, false>(a);
+}
+
+// The instantiations.  REPRO_DIMS (E, F) run this file's mma.sync body
+// under the one plan of their PrefillTile (BQ rows, one column block);
+// REPRO_WGMMA_PLANS (E, F, BQ, FS) run the wgmma body of
+// fusemax_prefill_wgmma.cuh (64-row blocks, one or two column blocks) at
+// the GQA dims.  autotune.CUDA_PREFILL lists the same plans, in order.
+#define REPRO_DIMS(X) X(192, 128) X(576, 512) X(256, 256) X(32, 32) X(48, 32)
+#define REPRO_WGMMA_PLANS(X)                                                  \
+  X(128, 128, 64, 1) X(128, 128, 64, 2) X(64, 64, 64, 1) X(64, 64, 64, 2)
+
 template <typename T>
-cudaError_t dispatch_dims(int e, int f, int maccs, const void* q,
-                          const void* k, const void* v, void* o, float* lse,
-                          int bh, int pg, int m, float scale, int causal,
-                          int window, float softcap, int q_offset, int group,
-                          int m_valid, cudaStream_t st) {
-#define REPRO_DIMS(E, F)                                                      \
-  if (e == E && f == F)                                                       \
-    return launch_exp<T, E, F>(maccs, q, k, v, o, lse, bh, pg, m, scale,      \
-                               causal, window, softcap, q_offset, group,      \
-                               m_valid, st);
-  REPRO_DIMS(128, 128)
-  REPRO_DIMS(64, 64)
-  REPRO_DIMS(192, 128)
-  REPRO_DIMS(576, 512)
-  REPRO_DIMS(256, 256)
-  REPRO_DIMS(32, 32)
-  REPRO_DIMS(48, 32)
-#undef REPRO_DIMS
+cudaError_t dispatch_plan(int e, int f, int block_q, int f_split,
+                          const Args& a) {
+#define REPRO_LAUNCH(E, F)                                                    \
+  if (e == E && f == F && block_q == PrefillTile<E, F>::BQ && f_split == 1)  \
+    return launch_exp<T, E, F>(a);
+#define REPRO_LAUNCH_WGMMA(E, F, BQ, FS)                                      \
+  if (e == E && f == F && block_q == BQ && f_split == FS)                     \
+    return launch_wgmma_exp<T, E, F, FS>(a);
+  REPRO_WGMMA_PLANS(REPRO_LAUNCH_WGMMA)
+  REPRO_DIMS(REPRO_LAUNCH)
+#undef REPRO_LAUNCH_WGMMA
+#undef REPRO_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -621,47 +623,55 @@ cudaError_t dispatch_dims(int e, int f, int maccs, const void* q,
 
 // dtype: 0 = float32, 1 = bfloat16.  (e, f): q/k head dim and v head dim,
 // one of (64, 64), (128, 128), (192, 128), (576, 512), (256, 256),
-// (32, 32), (48, 32).  q, k, v and o must be 16-byte aligned.
-// window <= 0 means no window; softcap <= 0 means no softcap.  lse, when
-// not null, is an fp32 [bh, pg] output: each row's log-sum-exp of its
-// scaled (softcapped, masked) scores, which a recompute backward reads.
-// Returns cudaGetLastError() after the launch (0 on success).
+// (32, 32), (48, 32); (block_q, f_split) one of the plans REPRO_DIMS or
+// REPRO_WGMMA_PLANS compiles for them.  q, k, v and o must be 16-byte
+// aligned.  window <= 0 means no window; softcap <= 0 means no softcap.
+// lse, when not null, is an fp32 [bh, pg] output: each row's log-sum-exp
+// of its scaled (softcapped, masked) scores, which a recompute backward
+// reads.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int fusemax_prefill(const void* q, const void* k, const void* v,
                                void* o, void* lse, int dtype, int e, int f,
                                int bh, int pg, int m, float scale, int causal,
                                int window, float softcap, int q_offset,
                                int group, int m_valid, int exp_maccs,
-                               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
+                               int block_q, int f_split, void* stream) {
+  const Args a{q,         k,       v,        o,     static_cast<float*>(lse),
+               bh,        pg,      m,        scale, causal,
+               window,    softcap, q_offset, group, m_valid,
+               exp_maccs, static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
-    return static_cast<int>(dispatch_dims<float>(
-        e, f, exp_maccs, q, k, v, o, lse_f, bh, pg, m, scale, causal, window,
-        softcap, q_offset, group, m_valid, st));
+    return static_cast<int>(dispatch_plan<float>(e, f, block_q, f_split, a));
   if (dtype == 1)
-    return static_cast<int>(dispatch_dims<__nv_bfloat16>(
-        e, f, exp_maccs, q, k, v, o, lse_f, bh, pg, m, scale, causal, window,
-        softcap, q_offset, group, m_valid, st));
+    return static_cast<int>(
+        dispatch_plan<__nv_bfloat16>(e, f, block_q, f_split, a));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The (BQ, BK) tile of the (e, f) instantiation; returns
-// cudaErrorInvalidValue (outputs untouched) for a pair not compiled.
-extern "C" int fusemax_prefill_tile(int e, int f, int* block_q,
-                                    int* block_k) {
-#define REPRO_TILE(E, F)                                                      \
-  if (e == E && f == F) {                                                     \
-    *block_q = PrefillTile<E, F>::BQ;                                         \
+// The plan (block_q, f_split) at head dims (e, f) for `dtype`: its key
+// tile and the dynamic shared memory one block takes; returns
+// cudaErrorInvalidValue (outputs untouched) for a plan not compiled.
+extern "C" int fusemax_prefill_plan(int dtype, int e, int f, int block_q,
+                                    int f_split, int* block_k,
+                                    int* smem_bytes) {
+#define REPRO_PLAN(E, F)                                                      \
+  if (e == E && f == F && block_q == PrefillTile<E, F>::BQ && f_split == 1) { \
     *block_k = PrefillTile<E, F>::BK;                                         \
+    *smem_bytes = dtype == 0 ? Layout<float, E, F>::BYTES                     \
+                             : Layout<__nv_bfloat16, E, F>::BYTES;            \
     return 0;                                                                 \
   }
-  REPRO_TILE(128, 128)
-  REPRO_TILE(64, 64)
-  REPRO_TILE(192, 128)
-  REPRO_TILE(576, 512)
-  REPRO_TILE(256, 256)
-  REPRO_TILE(32, 32)
-  REPRO_TILE(48, 32)
-#undef REPRO_TILE
+#define REPRO_PLAN_WGMMA(E, F, BQ, FS)                                        \
+  if (e == E && f == F && block_q == BQ && f_split == FS) {                   \
+    *block_k = WgLayout<float, E, F, FS>::BK;                                 \
+    *smem_bytes = dtype == 0 ? WgLayout<float, E, F, FS>::BYTES               \
+                             : WgLayout<__nv_bfloat16, E, F, FS>::BYTES;      \
+    return 0;                                                                 \
+  }
+  if (dtype == 0 || dtype == 1) {
+    REPRO_WGMMA_PLANS(REPRO_PLAN_WGMMA)
+    REPRO_DIMS(REPRO_PLAN)
+  }
+#undef REPRO_PLAN_WGMMA
+#undef REPRO_PLAN
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,7 +16,8 @@ differ from F (DeepSeek's MLA: (192, 128) expanded, (576, 512) absorbed):
   counts its launches in ``fusemax_attention_cuda.launches`` (and by
   head dims in ``.launches_by_dims``, those with a sliding window in
   ``.launches_windowed``, those that write a log-sum-exp in
-  ``.launches_lse``).
+  ``.launches_lse``); ``.last_plan`` is the plan its last launch ran
+  (:func:`~repro_torch.kernels.autotune.prefill_plan`).
 
 With ``return_lse=True`` both also return each row's log-sum-exp
 ``rm + log(rd_safe)`` as fp32 ``[B·Hkv, P·G]`` — what the reference's
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch.core.einsum import Cascade
 from repro_torch.core.taxonomy import attention_1pass
+from repro_torch.kernels import autotune
 from repro_torch.kernels.autotune import CUDA_PREFILL_TILES
 
 NEG_INF = -1e30
@@ -304,36 +306,43 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+#: the ctypes argument types of ``fusemax_prefill``
+PREFILL_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float] + [ctypes.c_int] * 6
+                    + [ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def _prefill_lib():
-    """(kernel entry point, tile query) — builds at first use."""
+    """(kernel entry point, plan query) — builds at first use."""
     from repro_torch.kernels import _build
 
     lib = _build.load("fusemax_prefill")
     fn = lib.fusemax_prefill
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    tile_fn = lib.fusemax_prefill_tile
-    tile_fn.restype = ctypes.c_int
-    tile_fn.argtypes = [ctypes.c_int, ctypes.c_int] \
-        + [ctypes.POINTER(ctypes.c_int)] * 2
-    return fn, tile_fn
+    fn.argtypes = PREFILL_ARGTYPES
+    plan_fn = lib.fusemax_prefill_plan
+    plan_fn.restype = ctypes.c_int
+    plan_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    return fn, plan_fn
 
 
 @functools.lru_cache(maxsize=None)
-def cuda_prefill_tile(e: int, f: int) -> tuple[int, int]:
-    """The (BQ, BK) tile the library compiled for head dims (E, F), as
-    ``fusemax_prefill_tile`` reports it; raises for a pair it does not
+def cuda_prefill_plan(dtype: torch.dtype, e: int, f: int, block_q: int,
+                      f_split: int) -> tuple[int, int]:
+    """(BK, shared-memory bytes of one block) of the plan (block_q,
+    f_split) the library compiled for head dims (E, F) and ``dtype``, as
+    ``fusemax_prefill_plan`` reports it; raises for a plan it does not
     hold."""
-    _, tile_fn = _prefill_lib()
-    bq, bk = ctypes.c_int(), ctypes.c_int()
-    if tile_fn(e, f, ctypes.byref(bq), ctypes.byref(bk)) != 0:
-        raise ValueError(f"fusemax_prefill has no instantiation for head "
-                         f"dims (E, F) = ({e}, {f})")
-    return bq.value, bk.value
+    _, plan_fn = _prefill_lib()
+    bk, smem = ctypes.c_int(), ctypes.c_int()
+    if plan_fn(CUDA_DTYPES[dtype], e, f, block_q, f_split, ctypes.byref(bk),
+               ctypes.byref(smem)) != 0:
+        raise ValueError(f"fusemax_prefill has no plan ({block_q} rows, "
+                         f"{f_split} column blocks) at head dims (E, F) = "
+                         f"({e}, {f})")
+    return bk.value, smem.value
 
 
 def fusemax_attention_cuda(
@@ -347,16 +356,19 @@ def fusemax_attention_cuda(
     softcap: Optional[float] = None,
     q_offset: int = 0,
     group: int = 1,
-    block_q: int = 64,
-    block_k: int = 64,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
     m_valid: Optional[int] = None,
     exp_impl: str = "native",
     return_lse: bool = False,
 ):
     """Launch the CUDA prefill kernel on the current stream (no sync).
-    ``block_q``/``block_k`` must be the tile the kernel is compiled for at
-    these head dims (``autotune.attention_params(..., impl="cuda")``; the
-    library's own report is checked here).  With ``return_lse`` the
+    The call runs the plan :func:`autotune.prefill_plan` gives for its
+    fibers and rows (recorded in ``fusemax_attention_cuda.last_plan``);
+    ``block_q``/``block_k``, where given, must be the tile the kernel is
+    compiled for at these head dims (``autotune.attention_params(...,
+    impl="cuda")``), and the library's own report of the plan (key tile,
+    shared memory) is checked against the autotuner's model here.  With ``return_lse`` the
     kernel also writes each row's log-sum-exp (fp32 ``[B·Hkv, P·G]``) and
     (output, lse) is returned; without it the kernel gets a null pointer
     and writes none."""
@@ -384,10 +396,22 @@ def fusemax_attention_cuda(
                              "16-byte aligned (the kernel copies 16-byte "
                              "vectors)")
     fn, _ = _prefill_lib()
-    tile = cuda_prefill_tile(e, f)
-    if (block_q, block_k) != tile:
-        raise ValueError(f"tile ({block_q}, {block_k}) but the kernel is "
-                         f"compiled for {tile} at (E, F) = ({e}, {f})")
+    plan = autotune.prefill_plan(bh, pg, e, f)
+    tile = (plan.block_q, plan.block_k)
+    if (block_q if block_q is not None else tile[0],
+            block_k if block_k is not None else tile[1]) != tile:
+        raise ValueError(f"tile ({block_q}, {block_k}) but the kernel's "
+                         f"plan at (E, F) = ({e}, {f}) for {bh} x {pg} rows "
+                         f"is {tile}")
+    smem = autotune.prefill_smem_bytes(
+        plan.block_q, plan.block_k, e, f,
+        autotune.CUDA_PREFILL[(e, f)].warp_split, q.element_size(),
+        f_split=plan.f_split)
+    lib_plan = cuda_prefill_plan(q.dtype, e, f, plan.block_q, plan.f_split)
+    if lib_plan != (plan.block_k, smem):
+        raise RuntimeError(f"fusemax_prefill reports (BK, smem) = {lib_plan} "
+                           f"for {plan}; the autotuner models "
+                           f"{(plan.block_k, smem)}")
     out = torch.empty((bh, pg, f), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, pg), dtype=torch.float32, device=q.device) \
         if return_lse else None
@@ -399,10 +423,11 @@ def fusemax_attention_cuda(
              0 if window is None else int(window),
              0.0 if softcap is None else float(softcap), int(q_offset),
              int(group), int(m_valid), int(exp_impl == "maccs"),
-             _stream(q.device))
+             plan.block_q, plan.f_split, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"fusemax_prefill launch failed: CUDA error {err}")
     fusemax_attention_cuda.launches += 1
+    fusemax_attention_cuda.last_plan = plan
     by_dims = fusemax_attention_cuda.launches_by_dims
     by_dims[(e, f)] = by_dims.get((e, f), 0) + 1
     if window is not None:
@@ -420,3 +445,5 @@ fusemax_attention_cuda.launches_by_dims = {}
 fusemax_attention_cuda.launches_windowed = 0
 #: the launches that wrote a log-sum-exp (the training forward)
 fusemax_attention_cuda.launches_lse = 0
+#: the plan of the last launch (``autotune.PrefillPlan``), None before one
+fusemax_attention_cuda.last_plan = None

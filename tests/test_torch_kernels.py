@@ -87,10 +87,12 @@ def test_fusemax_attention_matches_reference(shape, mask):
     np.testing.assert_allclose(ours_ref, oracle, **F32_TOL)
 
 
-@pytest.mark.parametrize("q_offset,p,m", [(7, 64, 71), (100, 28, 128)])
+@pytest.mark.parametrize("q_offset,p,m", [(7, 64, 71), (100, 28, 128),
+                                          (224, 32, 256)])
 def test_fusemax_attention_q_offset(q_offset, p, m):
     """Chunked-prefill continuation: queries at [q_offset, q_offset + P)
-    against M = q_offset + P cached keys."""
+    against M = q_offset + P cached keys (G 4; the last case is a serving
+    quantum's geometry scaled down: a short P after a long offset)."""
     q, k, v = mk(3, 2, 8, 2, p, m, 32, 32)
     kw = dict(causal=True, q_offset=q_offset)
     ours = torch_call(ops.fusemax_attention, q, k, v, impl="torch", **kw)
@@ -246,26 +248,207 @@ def test_paged_autotune_matches_reference_model(w, ps, e):
 
 def test_cuda_tile_fits_shared_memory():
     """Each (E, F) pair the CUDA prefill kernel is compiled for has its own
-    tile, and each fits one block's shared memory: granite's (128, 128)
-    takes 128 x 64 with two warps per 32-row group (157,696 B fp32, the
-    kernel's ``Layout::BYTES``), DeepSeek's absorbed (576, 512) 64 x 64
-    with four (220,160 B; 128 rows would take 388,096 B).  A pair the kernel
-    is not compiled for raises."""
+    body, tile and plans, and every plan fits one block's shared memory:
+    granite's (128, 128) runs the wgmma body on 64 x 32 (229,456 B fp32,
+    the kernel's ``WgLayout::BYTES``: the raw tiles, Q's split and two K
+    and Vᵀ splits), at a serving quantum in two column blocks (196,688 B);
+    the mma.sync body's (128, 128) tile was 128 x 64 with two warps per
+    32-row group (157,696 B); DeepSeek's absorbed (576, 512) takes 64 x 64
+    with four (220,160 B; 128 rows would take 388,096 B).  A pair the
+    kernel is not compiled for raises."""
     tile = autotune.attention_params(4096, 1024, 128, 128, impl="cuda")
-    assert (tile.block_q, tile.block_k) == (128, 64)
+    assert (tile.block_q, tile.block_k) == (64, 32)
+    assert autotune.prefill_plan(8, 512, 128, 128).f_split == 2
+    assert autotune.prefill_smem_bytes(64, 32, 128, 128, 1) == 229_456
+    assert autotune.prefill_smem_bytes(64, 32, 128, 128, 1,
+                                       f_split=2) == 196_688
     for (e, f), (bq, bk) in autotune.CUDA_PREFILL_TILES.items():
+        kern = autotune.CUDA_PREFILL[(e, f)]
         got = autotune.attention_params(4096, 1024, e, f, impl="cuda")
-        assert (got.block_q, got.block_k) == (bq, bk)
-        wf = autotune.CUDA_PREFILL_WARP_SPLIT[(e, f)]
-        assert autotune.prefill_smem_bytes(bq, bk, e, f, wf) \
-            <= autotune.SMEM_BUDGET
+        assert (got.block_q, got.block_k) == (bq, bk) == \
+            (kern.plans[0][0], kern.block_k)
+        assert kern.plans[0] == (bq, 1)
+        for pbq, fs in kern.plans:
+            assert pbq == bq                 # one tile for every plan
+            for eb in (4, 2):
+                assert autotune.prefill_smem_bytes(
+                    pbq, bk, e, f, kern.warp_split, eb, f_split=fs) \
+                    <= autotune.SMEM_BUDGET
     assert autotune.CUDA_PREFILL_TILES[(576, 512)] == (64, 64)
     assert autotune.prefill_smem_bytes(128, 64, 576, 512, 4) \
         > autotune.SMEM_BUDGET
-    assert autotune.prefill_smem_bytes(128, 64, 128, 128, 2) == 157_696
+    assert autotune.prefill_smem_bytes(128, 64, 192, 128, 2) == 190_464
     assert autotune.prefill_smem_bytes(64, 64, 576, 512, 4) == 220_160
     with pytest.raises(ValueError, match="compiled for head dims"):
         autotune.attention_params(64, 64, 512, 512, impl="cuda")
+    with pytest.raises(ValueError, match="no column blocks"):
+        autotune.prefill_smem_bytes(64, 64, 256, 256, 4, f_split=2)
+
+
+def _eligible(fibers, rows, e, f):
+    """The plans :func:`autotune.prefill_plan` chooses among: the default,
+    and a plan with column blocks while it launches at most one block an
+    SM."""
+    kern = autotune.CUDA_PREFILL[(e, f)]
+    plans = [autotune.PrefillPlan(bq, kern.block_k, fs,
+                                  -(-rows // bq) * fibers * fs)
+             for bq, fs in kern.plans]
+    return [p for p in plans if p.f_split == 1 or p.blocks <= 132]
+
+
+@pytest.mark.parametrize("what,fibers,rows,e,f,want", [
+    # serve_async's quantum on granite: B1, 8 kv heads x G 4, P = 128:
+    # 64 blocks by default, two column blocks give 128
+    ("granite quantum", 8, 4 * 128, 128, 128, (2, 128)),
+    # stablelm-1.6b training: B4 x 32 heads, G 1, P = 1024
+    ("stablelm train", 128, 1024, 64, 64, (1, 2048)),
+    # granite's whole-prompt chunk: B4 x 8 kv heads, G 4, P = 1024
+    ("granite chunk", 32, 4 * 1024, 128, 128, (1, 2048)),
+    # hymba's quantum: B1, 5 kv heads x G 5, P = 128: 50 blocks by default
+    ("hymba quantum", 5, 5 * 128, 64, 64, (2, 100)),
+    # granite, P = 208: 104 blocks by default; two column blocks would be
+    # 208, more than the SMs, so the default runs
+    ("granite short chunk", 8, 4 * 208, 128, 128, (1, 104)),
+    # hymba, P = 256: 100 blocks by default; 200 in two column blocks,
+    # though two fit an SM's shared memory, ran slower on the card
+    ("hymba short chunk", 5, 5 * 256, 64, 64, (1, 100)),
+])
+def test_prefill_plan_fills_the_card(what, fibers, rows, e, f, want):
+    """The plan launches at least the card's 132 SMs of blocks at the
+    training shape and a whole-prompt chunk, which the default plan
+    already fills.  A shorter call takes two column blocks where they
+    launch at most one block an SM, else the default plan: granite's
+    quantum launches 128 (4 SMs short of 132; four column blocks, 256,
+    ran slower on the card and are not compiled), hymba's 100, twice the
+    default's."""
+    plan = autotune.prefill_plan(fibers, rows, e, f)
+    assert (plan.f_split, plan.blocks) == want, what
+    assert plan.blocks == -(-rows // plan.block_q) * fibers * plan.f_split
+    assert (plan.block_q, plan.f_split) in autotune.CUDA_PREFILL[(e, f)].plans
+    assert plan.blocks >= autotune.H100_SMS == 132 or plan.blocks == max(
+        p.blocks for p in _eligible(fibers, rows, e, f))
+    if plan.f_split > 1:
+        assert plan.blocks <= 132
+
+
+@pytest.mark.parametrize("e,f", sorted(autotune.CUDA_PREFILL))
+def test_prefill_plan_key_tile_is_independent_of_p(e, f):
+    """BK, the K chunk (whose k-steps make the score partials) and the
+    warps that split a tile's keys are one per (E, F): every plan, at any
+    P, fibers or M, runs the same key tile, so a row's fp32 result never
+    depends on how the prompt was chunked.  A shape too small to fill the
+    card takes the plan that launches the most blocks, at most one an
+    SM."""
+    bk = autotune.CUDA_PREFILL[(e, f)].block_k
+    kc = autotune.CUDA_PREFILL_K_CHUNK.get((e, f), autotune.PREFILL_K_CHUNK)
+    assert e % kc == 0 and kc % 8 == 0
+    for fibers in (1, 2, 5, 8, 32, 128):
+        for p in (1, 3, 17, 128, 512, 1024, 4096):
+            plan = autotune.prefill_plan(fibers, p, e, f)
+            assert plan.block_k == bk
+            if plan.blocks < autotune.H100_SMS:
+                assert plan.blocks == max(
+                    q.blocks for q in _eligible(fibers, p, e, f))
+
+
+@pytest.mark.parametrize("e,f", sorted(autotune.CUDA_PREFILL))
+def test_prefill_plan_column_blocks_tile_f(e, f):
+    """The F-split column blocks of every plan tile F exactly: each output
+    column belongs to one block, and each block's columns split evenly
+    over the warps of a row group in 8-column n-blocks and 16-byte
+    vectors.  Only the wgmma body has column blocks."""
+    kern = autotune.CUDA_PREFILL[(e, f)]
+    for bq, fs in kern.plans:
+        fc = f // fs
+        assert fc * fs == f and fc % (8 * kern.warp_split) == 0 \
+            and fc % 4 == 0
+        if kern.body == "wgmma":             # a wgmma's N
+            assert bq == 64 and fc in (32, 64, 128)
+        else:
+            assert fs == 1
+        cols = np.concatenate([np.arange(cb * fc, (cb + 1) * fc)
+                               for cb in range(fs)])
+        np.testing.assert_array_equal(np.sort(cols), np.arange(f))
+        assert len(set(cols.tolist())) == f
+
+
+def _source_plans():
+    """(E, F) -> (body, BK, WF, [(BQ, FS), ...]) as
+    ``csrc/fusemax_prefill.cu`` compiles them: ``REPRO_WGMMA_PLANS`` on
+    the wgmma body (its ``WgLayout``: 32-key tiles, one warpgroup a row
+    group), in order, and ``REPRO_DIMS`` on the mma.sync body under the
+    one plan of their ``PrefillTile``."""
+    import re
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "fusemax_prefill.cu").read_text()
+    wg = (_build.CSRC / "fusemax_prefill_wgmma.cuh").read_text()
+
+    def macro(name):
+        block = src[src.index(f"#define {name}(X)"):]
+        return block[:block.index("\n\n")]
+
+    wg_bk = int(re.search(r"BQ = 64, BK = (\d+)", wg).group(1))
+    plans = {}
+    for e, f, bq, fs in re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)",
+                                   macro("REPRO_WGMMA_PLANS")):
+        plans.setdefault((int(e), int(f)), ("wgmma", wg_bk, 1, []))[3] \
+            .append((int(bq), int(fs)))
+    for e, f in re.findall(r"X\((\d+), (\d+)\)", macro("REPRO_DIMS")):
+        tile = re.search(
+            rf"struct PrefillTile<{e}, {f}> {{\s*static constexpr int "
+            r"BQ = (\d+), BK = (\d+), WF = (\d+)", src)
+        bq, bk, wf = map(int, tile.groups())
+        plans[(int(e), int(f))] = ("mma_sync", bk, wf, [(bq, 1)])
+    return plans
+
+
+def _layout_bytes(bq, e, f, fs, elem_bytes):
+    """``Layout<T, E, F>::BYTES`` of ``fusemax_prefill.cu`` (VK, the slot
+    and the fp32 P tile), or at the wgmma body's dims ``WgLayout<T, E, F,
+    FS>::BYTES`` of ``fusemax_prefill_wgmma.cuh`` (32 raw K and V rows,
+    the fp32 splits of Q, two K tiles and two Vᵀ tiles, hi and, unless
+    bf16, lo, and 10 mbarriers), written out from the structs."""
+    kern = autotune.CUDA_PREFILL[(e, f)]
+    if kern.body == "wgmma":
+        assert bq == 64
+        nb = 1 if elem_bytes == 2 else 2
+        raw = elem_bytes * (32 * e + 32 * f)
+        return raw + 4 * nb * (64 * e + 2 * 32 * e + 2 * (f // fs) * 32) + 80
+    assert fs == 1
+    bk, wf = kern.block_k, kern.warp_split
+    kc = autotune.CUDA_PREFILL_K_CHUNK.get((e, f), autotune.PREFILL_K_CHUNK)
+    pad = 16 // elem_bytes
+    vk = bk
+    while vk > 8 and vk * (f + pad) > bk * (kc + pad):
+        vk //= 2
+    slot = max(bk * (kc + pad), vk * (f + pad))
+    assert bq % 32 == 0
+    probs = 4 * (bq * (bk + 8) + bq * wf) if wf > 1 else 0
+    return elem_bytes * (bq * (e + pad) + 3 * slot) + probs
+
+
+def test_prefill_plans_and_smem_model_match_the_source():
+    """``CUDA_PREFILL`` is what the source compiles — each (E, F)'s body,
+    key tile, warp split and plans, in order — and ``prefill_smem_bytes``
+    at every plan equals the source's layout formula in fp32 and bf16,
+    within one block's 232,448 B: on the wgmma body at (64, 64) 114,768 B
+    (two blocks share an SM) and 98,384 B in two column blocks; at
+    (128, 128) 229,456 and 196,688 B in one and two."""
+    assert {dims: (k.body, k.block_k, k.warp_split, list(k.plans))
+            for dims, k in autotune.CUDA_PREFILL.items()} == _source_plans()
+    for (e, f), kern in autotune.CUDA_PREFILL.items():
+        for bq, fs in kern.plans:
+            for eb in (4, 2):
+                got = autotune.prefill_smem_bytes(
+                    bq, kern.block_k, e, f, kern.warp_split, eb, f_split=fs)
+                assert got == _layout_bytes(bq, e, f, fs, eb), (e, f, bq, fs)
+                assert got <= autotune.SMEM_BUDGET
+    smem = lambda e, fs: autotune.prefill_smem_bytes(64, 32, e, e, 1,
+                                                     f_split=fs)
+    assert (smem(64, 1), smem(64, 2)) == (114_768, 98_384)
+    assert (smem(128, 1), smem(128, 2)) == (229_456, 196_688)
+    assert 2 * (smem(64, 1) + 1024) <= 233_472   # two blocks an SM
 
 
 def test_kernel_cascades_name_the_reference_builders():

@@ -101,7 +101,7 @@ def test_every_admitted_config_has_its_kernels_built(name):
 @pytest.mark.parametrize("e,f", [(32, 32), (48, 32), (256, 256)])
 def test_prefill_tile_resolves_and_fits(e, f):
     tile = autotune.attention_params(4096, 1024, e, f, impl="cuda")
-    wf = autotune.CUDA_PREFILL_WARP_SPLIT[(e, f)]
+    wf = autotune.CUDA_PREFILL[(e, f)].warp_split
     assert autotune.prefill_smem_bytes(tile.block_q, tile.block_k, e, f,
                                        wf) <= autotune.SMEM_BUDGET
     assert autotune.prefill_smem_bytes(tile.block_q, tile.block_k, e, f, wf,
