@@ -1,6 +1,7 @@
 """K1's design choices, measured on the card.
 
     python benchmarks/torch_k1_variants.py [--out PATH] [VARIANT ...]
+        [--shapes WORD ...]
 
 Builds ``src/repro_torch/kernels/csrc/fusemax_prefill.cu`` as it ships
 and in variants that each change one design choice (a textual edit of
@@ -40,9 +41,16 @@ Variants:
   blocks, whatever the waves;
 * ``split4``        — every call at (128, 128) in four column blocks (a
   plan compiled only here: 32 output columns a block);
-* ``mma_sync``      — (64, 64) and (128, 128) routed back to the
-  ``mma.sync`` body with its tiles before the ``wgmma`` body (128 x 64,
-  one column block): the design this body replaced;
+* ``mma_sync``      — the ``wgmma`` body's dims routed back to the
+  ``mma.sync`` body with the tiles it had there (``MMA_TILES``: 128 x 64
+  at (64, 64), (128, 128) and (192, 128), 64 x 64 at (256, 256); one
+  column block): the design this body replaced;
+* ``d256_bk8x2``    — (256, 256) on 8-key tiles with two K and two Vᵀ
+  split buffers (213,072 B) instead of 16-key tiles with one (229,456 B);
+* ``mla_bk16x2``    — (192, 128) on 16-key tiles with two split buffers
+  (200,784 B) instead of 32-key tiles with one (221,264 B);
+* ``rescale_always`` — the wgmma body rescales its accumulators on every
+  key tile, also where every factor is exactly 1 (the same bits);
 * ``cvt_split``     — hi and lo rounded by ``cvt.rna.tf32.f32`` instead of
   the same rounding on the integer pipe;
 * ``trunc_lo``      — lo passed unrounded, so the tensor core drops its 13
@@ -58,10 +66,11 @@ retired.)
 Beside them it measures the rate ``mma.sync.m16n8k8`` TF32 reaches on
 this card with nothing else in the way (2 blocks of 8 warps a SM, 8
 independent accumulators a warp, back-to-back mma): the ceiling of any
-kernel built on that instruction; and the rate of ``wgmma`` m64n128k8
+kernel built on that instruction; and the rate of ``wgmma`` m64nNk8
 TF32 (two warpgroups a SM, operands in shared memory, 8 chained a commit
-group): the ceiling of a ``wgmma`` body, as against the 495 TFLOP/s it
-is rated at.
+group) at N = 128 (P·V's) and at Q·Kᵀ's narrow 32 and 16: the ceilings
+of a ``wgmma`` body's products, as against the 495 TFLOP/s it is rated
+at.
 
 Prints one JSON object per shape, per stress case and for the mma rate,
 and writes them all to ``--out``.
@@ -97,29 +106,45 @@ def _edit(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-#: the mma.sync body's tiles at the GQA dims, before the wgmma body took
-#: them
-MMA_TILES = """template <> struct PrefillTile<64, 64> {
-  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2, KC = 64;
-};
-template <> struct PrefillTile<128, 128> {
-  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2, KC = 64;
-};
-"""
+#: the mma.sync body's tiles (BQ, BK, WF, MT, KC) at the dims the wgmma
+#: body took from it: the GQA dims, gemma's and DeepSeek's MLA prefill
+MMA_TILES = {(64, 64): (128, 64, 1, 2, 64), (128, 128): (128, 64, 2, 2, 64),
+             (192, 128): (128, 64, 2, 2, 64), (256, 256): (64, 64, 4, 2, 64)}
 GQA_DIMS = ((64, 64), (128, 128))
+WGMMA_DIMS = tuple(MMA_TILES)
 
 
-def _mma_sync(src: str) -> str:
-    """``src`` with (64, 64) and (128, 128) routed back to the mma.sync
-    body on its earlier tiles."""
-    src = _edit(src, "template <> struct PrefillTile<192, 128> {",
-                MMA_TILES + "template <> struct PrefillTile<192, 128> {")
-    src = _edit(src, "#define REPRO_DIMS(X)",
-                "#define REPRO_DIMS(X) X(64, 64) X(128, 128)")
+def mma_sync_source(src: str, dims=WGMMA_DIMS, only: bool = False) -> str:
+    """``src`` with ``dims`` routed back to the mma.sync body on the tiles
+    it had there and no ``wgmma`` plan; with ``only``, those dims alone
+    (a smaller library that builds faster)."""
+    tiles = "".join(
+        f"template <> struct PrefillTile<{e}, {f}> {{\n  static constexpr "
+        f"int BQ = {bq}, BK = {bk}, WF = {wf}, MT = {mt}, KC = {kc};\n}};\n"
+        for (e, f), (bq, bk, wf, mt, kc) in
+        ((d, MMA_TILES[d]) for d in dims))
+    src = _edit(src, "template <> struct PrefillTile<576, 512> {",
+                tiles + "template <> struct PrefillTile<576, 512> {")
+    listed = " ".join(f"X({e}, {f})" for e, f in dims)
+    head = "#define REPRO_DIMS(X)"
+    start = src.index(head)
+    end = src.index("\n", start)
+    rest = "" if only else src[start + len(head):end]
+    src = src[:start] + f"{head} {listed}{rest}" + src[end:]
     head = "#define REPRO_WGMMA_PLANS(X)"
     start = src.index(head)
     end = src.index("\n\n", start)
     return src[:start] + head + src[end:]
+
+
+def _wg_tile(src: str, e: int, f: int, bk: int, nbuf: int) -> str:
+    """``src`` with the wgmma body's key tile at (E, F) set to ``bk`` keys
+    and ``nbuf`` split buffers."""
+    head = f"template <> struct WgTile<{e}, {f}> {{"
+    start = src.index(head)
+    end = src.index("};", start)
+    return (src[:start] + head + f"\n  static constexpr int BK = {bk}, "
+            f"NBUF = {nbuf};\n" + src[end:])
 
 
 INT_TF32 = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
@@ -131,7 +156,12 @@ VARIANTS = {
     "split2": lambda s: s,
     "split4": lambda s: _edit(s, "X(128, 128, 64, 2)",
                               "X(128, 128, 64, 2) X(128, 128, 64, 4)"),
-    "mma_sync": _mma_sync,
+    "mma_sync": mma_sync_source,
+    "d256_bk8x2": lambda s: _wg_tile(s, 256, 256, 8, 2),
+    "mla_bk16x2": lambda s: _wg_tile(s, 192, 128, 16, 2),
+    "rescale_always": lambda s: _edit(
+        s, "    if (!__all_sync(0xffffffffu, prm[0] == 1.f && prm[1] == 1.f))"
+        "\n", ""),
     "cvt_split": lambda s: _edit(
         s, INT_TF32, '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : '
         '"=r"(r) : "f"(x));\n  return r;'),
@@ -155,9 +185,19 @@ def _fixed_plan(bq: int, fs: int, dims=GQA_DIMS):
     def plan(bh: int, pg: int, e: int, f: int) -> autotune.PrefillPlan:
         if (e, f) not in dims:
             return autotune.prefill_plan(bh, pg, e, f)
-        bk = 64 if bq == 128 else autotune.CUDA_PREFILL[(e, f)].block_k
+        bk = autotune.CUDA_PREFILL[(e, f)].block_k
         return autotune.PrefillPlan(bq, bk, fs, -(-pg // bq) * bh * fs)
     return plan
+
+
+def mma_sync_plan(bh: int, pg: int, e: int, f: int) -> autotune.PrefillPlan:
+    """The plan of ``mma_sync_source``'s library: at ``MMA_TILES``' dims
+    the mma.sync tile's BQ rows in one column block, else the shipped
+    plan."""
+    if (e, f) not in MMA_TILES:
+        return autotune.prefill_plan(bh, pg, e, f)
+    bq, bk = MMA_TILES[(e, f)][:2]
+    return autotune.PrefillPlan(bq, bk, 1, -(-pg // bq) * bh)
 
 
 def default_plan(bh: int, pg: int, e: int, f: int) -> autotune.PrefillPlan:
@@ -172,7 +212,7 @@ def default_plan(bh: int, pg: int, e: int, f: int) -> autotune.PrefillPlan:
 #: the plan each variant's calls run
 PLANS = {"default_plan": default_plan, "split2": _fixed_plan(64, 2),
          "split4": _fixed_plan(64, 4, ((128, 128),)),
-         "mma_sync": _fixed_plan(128, 1)}
+         "mma_sync": mma_sync_plan}
 
 MMA_PEAK_SRC = r"""
 #include <cuda_runtime.h>
@@ -304,6 +344,9 @@ STRESS = [
      "low_bits"),
     ("unit normals d128 g4 P=M=1024", 8, 4096, 1024, 128, 128, 4, 0, None),
     ("q x30 d256 g2 P=M=512", 4, 1024, 512, 256, 256, 2, 0, "q_x30"),
+    ("x + x*2^-12 d256 g2 P=M=512", 4, 1024, 512, 256, 256, 2, 0,
+     "low_bits"),
+    ("q x30 E192 F128 P=M=512", 8, 512, 512, 192, 128, 1, 0, "q_x30"),
 ]
 
 
@@ -325,47 +368,63 @@ def shipped_source() -> str:
         src = src[:found.start()] + text + src[found.end():]
 
 
-def build(names: list[str]) -> tuple[dict, object]:
-    """({variant: its fusemax_prefill}, {rate probe: its launch}), built
-    together."""
-    os.makedirs(OUT_DIR, exist_ok=True)
-    src = shipped_source()
-    sources = {name: VARIANTS[name](src) for name in names}
-    sources["mma_peak"] = MMA_PEAK_SRC
-    sources["wgmma_peak"] = _wgmma_peak_src()
-    paths = {}
-    for name, text in sources.items():
-        paths[name] = os.path.join(OUT_DIR, f"{name}.cu")
-        with open(paths[name], "w") as fh:
-            fh.write(text)
+def start_build(sources: dict, out_dir: str = OUT_DIR) -> dict:
+    """Write each {name: CUDA source} to ``out_dir`` and start one ``nvcc``
+    on each, all at once; returns what :func:`finish_build` takes."""
+    os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, path in paths.items():
-        lib = os.path.join(OUT_DIR, f"lib{name}.so")
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, text in sources.items():
+        path = os.path.join(out_dir, f"{name}.cu")
+        with open(path, "w") as fh:
+            fh.write(text)
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        procs[name] = (lib, os.path.join(out_dir, f"{name}.log"),
+                       subprocess.Popen(
+                           [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+                            path], stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def finish_build(procs: dict) -> dict:
+    """Wait for :func:`start_build`'s compilers; {name: loaded library},
+    each beside its ``-Xptxas -v`` report, ``<name>.log``."""
     libs = {}
-    for name, (lib, proc) in procs.items():
+    for name, (lib, log_path, proc) in procs.items():
         log, _ = proc.communicate()
-        with open(os.path.join(OUT_DIR, f"{name}.log"), "w") as fh:
-            fh.write(log)              # the -Xptxas -v report
+        with open(log_path, "w") as fh:
+            fh.write(log)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         libs[name] = ctypes.CDLL(lib)
+    return libs
+
+
+def prefill_fn(lib):
+    """A library's ``fusemax_prefill`` entry, typed."""
+    fn = lib.fusemax_prefill
+    fn.restype = ctypes.c_int
+    fn.argtypes = fm.PREFILL_ARGTYPES
+    return fn
+
+
+def build(names: list[str]) -> tuple[dict, object]:
+    """({variant: its fusemax_prefill}, {rate probe: its launch}), built
+    together."""
+    src = shipped_source()
+    sources = {name: VARIANTS[name](src) for name in names}
+    sources["mma_peak"] = MMA_PEAK_SRC
+    for n in WGMMA_RATE_NS:
+        sources[f"wgmma_peak_n{n}"] = _wgmma_peak_src(n)
+    libs = finish_build(start_build(sources))
     peak = {}
-    for name in ("mma_peak", "wgmma_peak"):
-        fn = getattr(libs.pop(name), f"{name}_launch")
+    for name in ("mma_peak", *(f"wgmma_peak_n{n}" for n in WGMMA_RATE_NS)):
+        fn = getattr(libs.pop(name), f"{name.split('_n')[0]}_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p]
         peak[name] = fn
-    fns = {}
-    for name, lib in libs.items():
-        fn = lib.fusemax_prefill
-        fn.restype = ctypes.c_int
-        fn.argtypes = fm.PREFILL_ARGTYPES
-        fns[name] = fn
-    return fns, peak
+    return {name: prefill_fn(lib) for name, lib in libs.items()}, peak
 
 
 def mma_rate(peak) -> dict:
@@ -386,8 +445,14 @@ def mma_rate(peak) -> dict:
                 accumulators_per_warp=8)
 
 
-def wgmma_rate(peak) -> dict:
-    """TF32 FLOP/s of back-to-back `wgmma` m64n128k8 on the whole card:
+#: the N of the `wgmma` m64nNk8 rate probes: the P·V product's 128, and
+#: the Q·Kᵀ product's 32 and 16, where the A operand (64 x 8 of Q) read
+#: from shared memory by every `wgmma` weighs against fewer FLOPs
+WGMMA_RATE_NS = (128, 32, 16)
+
+
+def wgmma_rate(peak, n: int = 128) -> dict:
+    """TF32 FLOP/s of back-to-back `wgmma` m64n{n}k8 on the whole card:
     one block of two warpgroups a SM, operands in shared memory."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks, iters = sms, 4096
@@ -395,13 +460,13 @@ def wgmma_rate(peak) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        if peak["wgmma_peak"](blocks, iters, out.data_ptr(), stream):
+        if peak[f"wgmma_peak_n{n}"](blocks, iters, out.data_ptr(), stream):
             raise RuntimeError("wgmma_peak launch failed")
 
     ms = time_ms(run, iters=5, warmup=1)
-    flops = blocks * 2 * iters * 8 * 2 * 64 * 128 * 8
+    flops = blocks * 2 * iters * 8 * 2 * 64 * n * 8
     return dict(kind="wgmma_tf32_rate", ms=ms, tflops=flops / ms / 1e9,
-                blocks=blocks, warpgroups_per_block=2, shape="m64n128k8")
+                blocks=blocks, warpgroups_per_block=2, shape=f"m64n{n}k8")
 
 
 def plan_of(name: str, q, v) -> autotune.PrefillPlan:
@@ -410,18 +475,29 @@ def plan_of(name: str, q, v) -> autotune.PrefillPlan:
     return PLANS.get(name, autotune.prefill_plan)(bh, pg, e, v.shape[2])
 
 
-def launch(name, fn, q, k, v, o, group, q_offset, window=0, softcap=0.0,
-           lse=None):
+def launch_plan(fn, plan, q, k, v, o, *, group=1, q_offset=0, window=0,
+                softcap=0.0, lse=None, causal=True, m_valid=None,
+                exp_maccs=False, scale=None):
+    """One launch of a library's ``fusemax_prefill`` under ``plan`` on
+    the current stream: q [B·Hkv, P·G, E] fp32 or bf16 into o, scale
+    E^-0.5 unless given (``window`` 0 and ``softcap`` 0.0 mean none)."""
     bh, pg, e = q.shape
     m, f = v.shape[1], v.shape[2]
-    plan = plan_of(name, q, v)
+    scale = e ** -0.5 if scale is None else scale
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(), 0, e, f, bh, pg, m,
-            e ** -0.5, 1, window, softcap, q_offset, group, m, 0,
-            plan.block_q, plan.f_split]
+            None if lse is None else lse.data_ptr(), fm.CUDA_DTYPES[q.dtype],
+            e, f, bh, pg, m, scale, int(causal), window, softcap,
+            q_offset, group, m if m_valid is None else m_valid,
+            int(exp_maccs), plan.block_q, plan.f_split]
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"{name}: launch failed: CUDA error {err}")
+        raise RuntimeError(f"{plan}: launch failed: CUDA error {err}")
+
+
+def launch(name, fn, q, k, v, o, group, q_offset, window=0, softcap=0.0,
+           lse=None):
+    launch_plan(fn, plan_of(name, q, v), q, k, v, o, group=group,
+                q_offset=q_offset, window=window, softcap=softcap, lse=lse)
 
 
 def quantum_vs_chunk(name, fn, rand) -> list:
@@ -476,6 +552,9 @@ def main(argv=None) -> int:
                     help=f"some of {list(VARIANTS)} (default: all)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/k1_variants.json")
+    ap.add_argument("--shapes", nargs="+", metavar="WORD",
+                    help="time only the shapes whose name holds one of "
+                         "these words (default: all)")
     args = ap.parse_args(argv)
     unknown = set(args.variants) - set(VARIANTS)
     if unknown:
@@ -495,11 +574,13 @@ def main(argv=None) -> int:
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    results = [dict(mma_rate(peak), device=smi),
-               dict(wgmma_rate(peak), device=smi)]
+    results = [dict(mma_rate(peak), device=smi)] + [
+        dict(wgmma_rate(peak, n), device=smi) for n in WGMMA_RATE_NS]
     for row in results:
         print(json.dumps(row), flush=True)
-    for name, bh, pg, m, e, f, group, q_offset, *mask in SHAPES:
+    shapes = [row for row in SHAPES if not args.shapes
+              or any(word in row[0] for word in args.shapes)]
+    for name, bh, pg, m, e, f, group, q_offset, *mask in shapes:
         q, k, v = rand(bh, pg, e), rand(bh, m, e), rand(bh, m, f)
         o = torch.empty(bh, pg, f, device="cuda")
         if len(mask) == 3:                       # (window, softcap, lse)

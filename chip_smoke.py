@@ -10,18 +10,24 @@ JSON line (``"phase": ...``):
 1. device  — ``nvidia-smi`` name and power limit (also printed raw on a
              line of its own), torch and CUDA versions;
 2. build   — seconds to build the five kernel libraries from
-             ``kernels/csrc``
-             (nvcc, in parallel) and the ptxas register / shared-memory
+             ``kernels/csrc``, and beside them K1's parent ``mma.sync``
+             body at gemma's (256, 256) and DeepSeek's (192, 128)
+             (``ParentK1``, from ``benchmarks/torch_k1_variants.py``)
+             (nvcc, all in parallel) and the ptxas register / shared-memory
              report; every instantiation of the latent decode body (K4 and
-             K2's E != F branch) and of K1's plans (both bodies, fp32 and
-             bf16, native and MACC exp) must be there without a spill;
+             K2's E != F branch), of K1's plans (both bodies, fp32 and
+             bf16, native and MACC exp) and of the parent body must be
+             there without a spill;
 3. kernels — every case of the prefill (K1, at the GQA head dims and at
              DeepSeek's MLA (E, F) = (192, 128) and (576, 512), at the
              smoke configs' (32, 32) and (48, 32) and gemma's (256, 256)
              with causal masks, history offsets, windows, softcap 50 and a
              ragged m_valid, and cases that stress its 3xTF32 split:
              scores in the hundreds, low mantissa bits that matter, P = M
-             = 1024), dense split-K decode (K2), paged split-K decode (K3),
+             = 1024; every case at (256, 256) and (192, 128), LSE cases
+             included, also runs the parent body and the plain version in
+             float64, and fails if the kernel's float64 distance is above
+             twice the parent's), dense split-K decode (K2), paged split-K decode (K3),
              paged MLA latent decode (K4) and K2's E != F branch, MLA decode
              on the dense latent cache (``latent_decode_partials``: 128
              rows at (r, rd) = (512, 64), 4 at (32, 16), kv_len 0, 1, on
@@ -71,7 +77,9 @@ JSON line (``"phase": ...``):
              the same masks without one) and the least time the card
              could take (``bound_ms``, over the keys the causal and window
              masks leave; K1, K4 and K2's latent branch against the tensor
-             cores' 3xTF32 rate, with the FP32 units' beside it); K4 also
+             cores' 3xTF32 rate, with the FP32 units' beside it; K1 at
+             gemma2's and ``mla_forward``'s shapes also the parent body's
+             time on the same inputs, ``parent_mma_sync_ms``); K4 also
              at a long context (8 slots of 16384 tokens, its library call
              SDPA with the 128 heads on the query axis of the one latent
              kv head); and the verify shapes of the speculative paths: K2
@@ -145,11 +153,14 @@ JSON line (``"phase": ...``):
              decode steps, on the sharded leg 2 x 10 x each; its per-device
              bytes x 2 equal to the totals and the shard tensors' bytes
              making up the pool; ``sharded_vs_paged_tok_per_s``;
-6. serve_prefix — the launcher on the paged layout with a 256-token
-             shared prefix against its prefix-cache-off leg: equal
+6. serve_prefix — the launcher on the paged layout (20 granite layers)
+             with a 256-token shared prefix against its prefix-cache-off
+             leg: equal
              streams, tokens reused, the pool's invariants audited;
 6'. serve_async — open-loop traffic through the launcher's ``--async`` on
-             all 40 granite-3-8b layers (12 requests at 8 req/s, every
+             granite-3-8b at full width cut to 20 of its 40 layers
+             (``GRANITE_CUT_LAYERS``, as serve_dp, serve_spec and
+             serve_swap) (12 requests at 8 req/s, every
              2nd a 1024-token prompt prefilled in 128-token quanta
              between decode steps): every leg's streams (dense,
              paged_noprefix, paged, the synchronous open-loop engine)
@@ -167,7 +178,7 @@ JSON line (``"phase": ...``):
              "cuda" and "torch": argmax equal at every chain position,
              logits within 1e-4 of their scale; the attention read's own
              verify-vs-stepwise distance reported;
-6b. serve_spec — speculative decoding on all 40 layers: the launcher with
+6b. serve_spec — speculative decoding on 20 layers: the launcher with
              ``--cache-layout both --speculate 12 --duplicates 8`` (8
              prompts of 128-512 tokens and their 8 resends, 64 new
              tokens): streams equal across ``dense``, ``paged`` and
@@ -175,7 +186,7 @@ JSON line (``"phase": ...``):
              non-speculative logits' top-2 gap there, then a failure),
              drafts accepted, no draft page left, and in each speculative
              leg's timed run K2 (dense) / K3 (paged) launched at n_pos = 13
-             40 x verify dispatches; accept rate, committed tokens a
+             20 x verify dispatches; accept rate, committed tokens a
              dispatch and the spec / non-spec tok/s reported;
 6b'. serve_spec_rows — granite-3-8b at full width cut to 4 layers, the
              serve_spec trace with ``--speculate 16`` and ``31`` (P = 17
@@ -189,7 +200,7 @@ JSON line (``"phase": ...``):
              the quantized leg's peak resident KV against the fp32 leg's
              (at most 27 %), ``quant_quality`` reported, K3's quantized
              branch ``QUANT_LAYERS`` x decode steps;
-6e. serve_swap — 40-layer granite-3-8b through ``ServeEngine`` on three
+6e. serve_swap — 20-layer granite-3-8b through ``ServeEngine`` on three
              waves (a 256-token shared prefix, unrelated prompts that evict
              it from a 320-page pool, the first wave again) with an 8 GiB
              host swap tier, against a pool that never evicts, unquantized
@@ -274,13 +285,14 @@ JSON line (``"phase": ...``):
              ``_prefill_ssm``, a step call a token) on the same rows,
              padding and a continuation chunk included, within 1e-5 of
              scale;
-16. serve_hymba — the launcher (``--cache-layout both``) on all 32
-             hymba-1.5b layers at full width: 16 requests of 512-1536
-             tokens, 32 new; the serve phase's checks (K1 32 x prefill
-             dispatches, K2 / K3 32 x decode steps), the SSM state bytes
-             (32 x 8 slots x (3200·16 + 3·3200) x 4 B), tok/s and TTFT;
-17. serve_xlstm — the launcher on xlstm-125m at full width cut to 6
-             layers (sLSTM at one: the full model's 5:1 mix), the same
+16. serve_hymba — the launcher (``--cache-layout both``) on hymba-1.5b
+             at full width cut to 16 of its 32 layers (full attention at
+             the first, middle and last): 16 requests of 512-1536
+             tokens, 32 new; the serve phase's checks (K1 16 x prefill
+             dispatches, K2 / K3 16 x decode steps), the SSM state bytes
+             (16 x 8 slots x (3200·16 + 3·3200) x 4 B), tok/s and TTFT;
+17. serve_xlstm — the launcher on xlstm-125m at full width cut to 3
+             layers (mLSTM, sLSTM, mLSTM: both mixers), the same
              trace, both layouts: equal streams, no attention kernel
              launched, no resident KV, the SSM state bytes;
 18. model_frontends — musicgen-large at full width cut to 4 layers
@@ -370,6 +382,15 @@ TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 #: K1's log-sum-exp output against its plain version's (absolute)
 LSE_TOL = 1e-4
 
+#: the head dims whose K1 body the wgmma body took from the mma.sync body
+#: last: gemma's and DeepSeek's MLA prefill.  The parent's mma.sync body
+#: at these dims is built beside the shipped libraries (``ParentK1``);
+#: every K1 case here holds the kernel's float64 distance to at most
+#: ``PARENT_F64_RATIO`` times the parent's on the same inputs, and each
+#: timing row times the parent beside the kernel
+PARENT_K1_DIMS = ((256, 256), (192, 128))
+PARENT_F64_RATIO = 2.0
+
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
@@ -416,6 +437,53 @@ def _err(torch, out, ref, dtype_name):
 def _rand(torch, gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda",
                        dtype=torch.float32).to(dtype)
+
+
+class ParentK1:
+    """K1's parent body at ``PARENT_K1_DIMS``: the shipped source with
+    those dims routed back to the mma.sync body on the tiles they had
+    there (``benchmarks/torch_k1_variants.py``'s ``mma_sync_source``),
+    its ``nvcc`` started beside the shipped libraries' and awaited by
+    :meth:`finish`.  Called like ``fusemax_attention_torch`` at those
+    dims; it counts no launch of the port's kernel."""
+
+    def __init__(self):
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "torch_k1_variants",
+            os.path.join(ROOT, "benchmarks", "torch_k1_variants.py"))
+        self.k1v = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(self.k1v)
+        src = self.k1v.mma_sync_source(self.k1v.shipped_source(),
+                                       PARENT_K1_DIMS, only=True)
+        self.procs = self.k1v.start_build(
+            {"k1_parent": src}, os.path.join(ROOT, "build", "k1_parent"))
+        self.fn = None
+
+    def finish(self) -> dict:
+        """Wait for the build; its ptxas report, in the form
+        ``_build.ptxas_report`` gives the shipped libraries'."""
+        from repro_torch.kernels import _build
+
+        lib = self.k1v.finish_build(self.procs)["k1_parent"]
+        self.fn = self.k1v.prefill_fn(lib)
+        with open(self.procs["k1_parent"][1]) as fh:
+            return _build.parse_ptxas(fh.read())
+
+    def __call__(self, torch, q, k, v, *, scale, causal=False, window=None,
+                 softcap=None, q_offset=0, group=1, m_valid=None,
+                 exp_impl="native", **_):
+        bh, pg, e = q.shape
+        f = v.shape[2]
+        check((e, f) in PARENT_K1_DIMS, f"no parent body at ({e}, {f})")
+        out = torch.empty((bh, pg, f), dtype=q.dtype, device=q.device)
+        self.k1v.launch_plan(
+            self.fn, self.k1v.mma_sync_plan(bh, pg, e, f), q, k, v, out,
+            group=group, q_offset=q_offset, window=window or 0,
+            softcap=softcap or 0.0, causal=causal, m_valid=m_valid,
+            exp_maccs=exp_impl == "maccs", scale=scale)
+        return out
 
 
 def k1_cases(torch):
@@ -519,6 +587,25 @@ def k1_split_cases(torch):
     ]
 
 
+def k1_wgmma_split_cases(torch):
+    """:func:`k1_split_cases`' stresses at the dims the wgmma body took
+    from the mma.sync body last (``PARENT_K1_DIMS``): scores in the
+    hundreds and low mantissa bits at gemma's (256, 256), scores in the
+    hundreds at DeepSeek's MLA prefill, and one long causal sweep at
+    (256, 256)."""
+    f32 = torch.float32
+    return [
+        ("fp32 q x30 (scores in the hundreds) causal g2 d256", 1, 2, 2, 160,
+         160, 256, 256, f32, dict(causal=True), "q_x30"),
+        ("fp32 x + x*2^-12 causal g2 d256", 1, 2, 2, 160, 160, 256, 256, f32,
+         dict(causal=True), "low_bits"),
+        ("fp32 q x30 (scores in the hundreds) mla_forward E192 F128 causal", 1,
+         4, 1, 200, 200, 192, 128, f32, dict(causal=True), "q_x30"),
+        ("fp32 P=M=1024 causal g2 d256", 1, 2, 2, 1024, 1024, 256, 256, f32,
+         dict(causal=True), None),
+    ]
+
+
 def k1_quantum_vs_chunk_cases(torch, fm) -> list:
     """The rows of a 1024-token prompt's last 128-token quantum (P = 128
     after 896, M = 1024: serve_async's last quantum) against the same rows
@@ -576,16 +663,43 @@ def _causal_ref64(torch, q, k, v, scale, group, q_offset):
     return torch.einsum("brk,bkf->brf", torch.softmax(s, -1), v.double())
 
 
-def run_k1_cases(torch, gen, fm, autotune, cases=None) -> list:
-    """Every K1 case (``cases``: these instead, in :func:`k1_cases`'
-    form) against its plain version; the split cases also report the
-    kernel's and the plain version's distance to a float64 reference
-    (``vs_f64``, not gated)."""
+def _vs_parent(torch, fm, parent, row, q, k, v, out, ref, args) -> dict:
+    """A K1 case's fields against the parent body at ``PARENT_K1_DIMS``:
+    the kernel's, the parent's and the plain version's distance to the
+    plain version run in float64 on the same inputs (``vs_f64``), the
+    parent against the plain version, and the case's ``ok`` also holding
+    the kernel within ``PARENT_F64_RATIO`` times the parent's distance."""
+    old = parent(torch, q, k, v, **args)
+    r64 = fm.fusemax_attention_torch(q.double(), k.double(), v.double(),
+                                     **args)
+    if isinstance(r64, tuple):
+        r64 = r64[0]
+    torch.cuda.synchronize()
+    d = {n: (x.double() - r64).abs().max().item()
+         for n, x in (("kernel", out), ("parent_mma_sync", old),
+                      ("plain", ref))}
+    ok_f64 = d["kernel"] <= PARENT_F64_RATIO * d["parent_mma_sync"]
+    return dict(vs_f64=d, ok_vs_f64=ok_f64, ok=row["ok"] and ok_f64,
+                parent_max_abs_err=_err(torch, old, ref, row["dtype"])[0])
+
+
+def run_k1_cases(torch, gen, fm, autotune, cases=None, split_cases=(),
+                 parent: Optional[ParentK1] = None) -> list:
+    """Every K1 case (``cases`` and ``split_cases``: these instead, in
+    :func:`k1_cases`' and :func:`k1_split_cases`' forms) against its
+    plain version; the split cases also report the kernel's and the
+    plain version's distance to a float64 reference (``vs_f64``, not
+    gated).  With ``parent``, every case at
+    ``PARENT_K1_DIMS`` also runs the parent body and the plain version in
+    float64 (the same function: masks, softcap, ``m_valid`` and exp) and
+    passes only if the kernel's float64 distance is at most
+    ``PARENT_F64_RATIO`` times the parent's (``ok_vs_f64``)."""
     rows = []
-    cases = [c + (None, False) for c in cases] if cases is not None else \
-        [c + (None, False) for c in k1_cases(torch)] + \
-        [c + (None, False) for c in k1_dims_cases(torch)] + \
-        [c + (True,) for c in k1_split_cases(torch)]
+    if cases is None:
+        cases = k1_cases(torch) + k1_dims_cases(torch)
+        split_cases = k1_split_cases(torch)
+    cases = [c + (None, False) for c in cases] + \
+        [c + (True,) for c in split_cases]
     for name, b, hkv, g, p, m, e, f, dtype, kw, how, split in cases:
         tile = autotune.attention_params(p * g, m, e, f, impl="cuda")
         q, k, v = _prep(_rand(torch, gen, (b * hkv, p * g, e), dtype),
@@ -601,7 +715,10 @@ def run_k1_cases(torch, gen, fm, autotune, cases=None) -> list:
         rows.append(dict(kernel="fusemax_prefill", case=name, dtype=dn,
                          e=e, f=f, tile=[tile.block_q, tile.block_k],
                          max_abs_err=err, atol=atol, rtol=rtol, ok=ok))
-        if split:
+        if parent is not None and (e, f) in PARENT_K1_DIMS:
+            rows[-1].update(_vs_parent(torch, fm, parent, rows[-1], q, k, v,
+                                       out, ref, args))
+        elif split:
             r64 = _causal_ref64(torch, q, k, v, e ** -0.5, g,
                                 kw.get("q_offset", 0))
             rows[-1]["vs_f64"] = {
@@ -2007,7 +2124,8 @@ def time_k4_quant(torch, gen, dec, ops, autotune, kv_dtype) -> dict:
 
 def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
                    q_offset, shape, window=None, softcap=None,
-                   with_device_ms=False, return_lse=False) -> dict:
+                   with_device_ms=False, return_lse=False,
+                   parent: Optional[ParentK1] = None) -> dict:
     """K1 at one prefill shape, causal with a history offset (and a window
     and a softcap where given), fp32: the kernel, its plain version, SDPA
     on the same inputs (by default and under each fp32 backend; the window
@@ -2018,7 +2136,9 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
     leave.  ``with_device_ms``: also the kernel's own device time from
     the profiler (:func:`device_ms`).  ``return_lse``: the kernel and
     its plain version also write each row's log-sum-exp (the training
-    forward), which the bytes count and ``lse_max_abs_err`` compares."""
+    forward), which the bytes count and ``lse_max_abs_err`` compares.
+    ``parent``: at ``PARENT_K1_DIMS`` also the parent body's time on the
+    same inputs, in the same call (``parent_mma_sync_ms``)."""
     g = hq // hkv
     q = _rand(torch, gen, (b, hq, p, e), torch.float32)
     k = _rand(torch, gen, (b, hkv, m, e), torch.float32)
@@ -2042,9 +2162,16 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
         del lse, lse_ref
     err, ok, _, _ = _err(torch, out, ref, "float32")
     ok = ok and (lse_err is None or lse_err <= LSE_TOL)
+    with_parent = parent is not None and (e, f) in PARENT_K1_DIMS
+    if with_parent:
+        parent_err = _err(torch, parent(torch, q_f, k_f, v_f, **args), ref,
+                          "float32")[0]
     del out, ref
     ms = time_ms(torch, lambda: fm.fusemax_attention_cuda(q_f, k_f, v_f,
                                                           **args))
+    if with_parent:
+        parent_ms = time_ms(torch, lambda: parent(torch, q_f, k_f, v_f,
+                                                  **args))
     if return_lse:                      # the same launch without the LSE
         bare = {key: val for key, val in args.items() if key != "return_lse"}
         ms_no_lse = time_ms(torch, lambda: fm.fusemax_attention_cuda(
@@ -2087,6 +2214,10 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
     if return_lse:
         row.update(lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
                    ms_no_lse=ms_no_lse)
+    if with_parent:
+        row.update(parent_mma_sync_ms=parent_ms,
+                   parent_mma_sync_max_abs_err=parent_err,
+                   share_of_3xtf32_bound_parent=row["bound_ms"] / parent_ms)
     if with_device_ms:
         row["device_ms"] = device_ms(torch, lambda: fm.fusemax_attention_cuda(
             q_f, k_f, v_f, **args), "fusemax_prefill")
@@ -2143,14 +2274,14 @@ def _sdpa_backends(torch, q, k, v, **kw) -> dict:
     return out
 
 
-def time_k1_mla(torch, gen, fm, autotune) -> dict:
+def time_k1_mla(torch, gen, fm, autotune, parent=None) -> dict:
     """K1 at DeepSeek-V3's two MLA prefill shapes: ``mla_forward`` (4
     prompts of 1024, 128 heads, (E, F) = (192, 128), causal) and the
     absorbed tail (4 rows of a 256-token tail after a 768-token cached
     prefix, the 128 heads in one fiber's group, (576, 512))."""
     fwd = _time_k1_shape(
         torch, gen, fm, autotune, b=4, hq=128, hkv=128, p=1024, m=1024,
-        e=192, f=128, q_offset=0,
+        e=192, f=128, q_offset=0, parent=parent,
         shape="B4 H128 (one fiber each) P=M=1024 E192 F128 fp32 causal")
     torch.cuda.empty_cache()
     tail = _time_k1_shape(
@@ -2162,7 +2293,7 @@ def time_k1_mla(torch, gen, fm, autotune) -> dict:
     return {"mla_forward": fwd, "mla_absorbed": tail}
 
 
-def time_gemma2(torch, gen, fm, dec, ops, autotune) -> dict:
+def time_gemma2(torch, gen, fm, dec, ops, autotune, parent=None) -> dict:
     """K1, K2 and K3 at gemma2-9b's shapes, fp32: K1 at a prefill dispatch
     of 2 prompts of 8192 (16 q over 8 kv heads, head dim 256, causal,
     softcap 50) on a local layer (window 4096) and a global one; K2 and K3
@@ -2175,7 +2306,7 @@ def time_gemma2(torch, gen, fm, dec, ops, autotune) -> dict:
         out[f"fusemax_prefill@{where}"] = _time_k1_shape(
             torch, gen, fm, autotune, b=2, hq=16, hkv=8, p=8192, m=8192,
             e=256, f=256, q_offset=0, window=window, softcap=50.0,
-            shape=f"B2 Hq16 Hkv8 P=M=8192 d256 fp32 causal softcap 50"
+            parent=parent, shape=f"B2 Hq16 Hkv8 P=M=8192 d256 fp32 causal softcap 50"
                   + (f" window {window}" if window else ""))
         torch.cuda.empty_cache()
     glob, ring = [8192, 5000, 4096, 1], [4096, 4096, 4096, 1]
@@ -3093,6 +3224,20 @@ def _check_sharded(torch, metrics) -> dict:
 #: (the phase took 193 s at 40 layers, 104-145 s at 20)
 SERVE_LAYERS = 10
 
+#: granite-3-8b's depth in the prefix, async, dp, speculative and swap
+#: phases: 20 of its 40 layers, which frees chip_smoke's time for more
+#: kernel cases (at 40 layers the five took 13.3, 25.5, 77.2, 41.9 and
+#: 52.7 s of an 850 s run); every gate counts launches per layer
+GRANITE_CUT_LAYERS = 20
+
+
+def granite_cut():
+    """granite-3-8b at full width, :data:`GRANITE_CUT_LAYERS` layers."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("granite-3-8b"),
+                               n_layers=GRANITE_CUT_LAYERS)
+
 
 def phase_serve(torch, fm, dec, serve) -> dict:
     """The main path: the dense layout, the paged one and the paged pool
@@ -3133,13 +3278,12 @@ def phase_serve(torch, fm, dec, serve) -> dict:
 
 
 def phase_serve_prefix(torch, fm, dec, serve) -> dict:
-    """Shared-prefix traffic on the paged layout, prefix cache on vs off."""
-    from repro_torch.configs import get_config
-
-    cfg = get_config("granite-3-8b")
+    """Shared-prefix traffic on the paged layout, prefix cache on vs off,
+    on :data:`GRANITE_CUT_LAYERS` granite-3-8b layers."""
+    cfg = granite_cut()
     _zero_counts(fm, dec)
     t0 = time.perf_counter()
-    metrics = serve.main(PREFIX_ARGS)
+    metrics = serve.main(PREFIX_ARGS, cfg=cfg)
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     legs = _check_legs(metrics, cfg.n_layers, 16, 32, cfg.vocab)
@@ -3241,7 +3385,7 @@ def _check_async(serve, argv, metrics, cfg) -> dict:
 
 
 def phase_serve_async(torch, fm, dec, serve) -> dict:
-    """Open-loop traffic on all 40 granite-3-8b layers
+    """Open-loop traffic on :data:`GRANITE_CUT_LAYERS` granite-3-8b layers
     (:data:`ASYNC_ARGS`): the launcher's async legs (dense, whole prompts
     at admission; paged_noprefix and paged, 1024-token prompts in eight
     128-token quanta between decode steps, so K1 runs one row at a
@@ -3251,23 +3395,22 @@ def phase_serve_async(torch, fm, dec, serve) -> dict:
     ``itl_p95_sync_over_async`` reported, not gated (same-code serve runs
     spread 49-52 % across calls).  ``--no-warmup``: the kernels are built
     and cuBLAS is up from the earlier phases."""
-    from repro_torch.configs import get_config
-
-    cfg = get_config("granite-3-8b")
+    cfg = granite_cut()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # this main path: counts set to 0 just before it, read just after
     _zero_counts(fm, dec)
     t0 = time.perf_counter()
-    metrics = serve.main(ASYNC_ARGS)
+    metrics = serve.main(ASYNC_ARGS, cfg=cfg)
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     legs = _check_async(serve, ASYNC_ARGS, metrics, cfg)
     for name in ("paged_noprefix", "paged"):
         check(legs[name]["interleave"], f"{name}: not interleaved")
     check(not legs["dense"]["interleave"], "dense leg interleaved")
-    emit("serve_async", args=" ".join(ASYNC_ARGS), seconds=wall, legs=legs,
+    emit("serve_async", args=" ".join(ASYNC_ARGS), n_layers=cfg.n_layers,
+         seconds=wall, legs=legs,
          outputs_match=metrics["outputs_match"],
          itl_p95_sync_over_async=metrics["itl_p95_sync_over_async"],
          main_path_launches=launches,
@@ -3280,25 +3423,25 @@ def phase_serve_async(torch, fm, dec, serve) -> dict:
 
 
 def phase_serve_dp(torch, fm, dec, serve) -> dict:
-    """Two paged replicas of all 40 granite-3-8b layers sharing one model
-    on the card behind the prefix-affinity router (:data:`DP_ARGS`):
+    """Two paged replicas of :data:`GRANITE_CUT_LAYERS` granite-3-8b
+    layers sharing one model on the card behind the prefix-affinity
+    router (:data:`DP_ARGS`):
     :func:`_check_async`'s gates on every leg, the dp streams equal to
     the synchronous engine's, at least one arrival routed by prefix and
     prefix tokens reused.  ``--no-warmup`` as :func:`phase_serve_async`."""
-    from repro_torch.configs import get_config
-
-    cfg = get_config("granite-3-8b")
+    cfg = granite_cut()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(fm, dec)
     t0 = time.perf_counter()
-    metrics = serve.main(DP_ARGS)
+    metrics = serve.main(DP_ARGS, cfg=cfg)
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     legs = _check_async(serve, DP_ARGS, metrics, cfg)
     dp = metrics["dp"]
-    emit("serve_dp", args=" ".join(DP_ARGS), seconds=wall, legs=legs,
+    emit("serve_dp", args=" ".join(DP_ARGS), n_layers=cfg.n_layers,
+         seconds=wall, legs=legs,
          outputs_match=metrics["outputs_match"],
          dp={k: dp[k] for k in ("dp", "tp", "per_replica", "tokens_reused",
                                 "prefix_hits", "routing", "arrival_rate")},
@@ -3544,21 +3687,20 @@ def _check_spec_legs(torch, serve, argv, cfg, metrics, p: int,
 
 
 def phase_serve_spec(torch, fm, dec, serve) -> dict:
-    """Speculative decoding on all 40 layers of granite-3-8b: the launcher
+    """Speculative decoding on :data:`GRANITE_CUT_LAYERS` layers of
+    granite-3-8b at full width: the launcher
     with ``--cache-layout both --speculate 12 --duplicates 8`` (8 prompts
     of 128-512 tokens, then their 8 resends, which FIFO admission sends
     after the originals complete: the cross-request drafting traffic of
     repeated or popular queries), 64 new tokens, 8 slots: the dense and
     paged legs speculative through K2 / K3 at n_pos = 13, ``paged_nospec``
     the same trace without; streams equal across the three."""
-    from repro_torch.configs import get_config
-
-    cfg = get_config("granite-3-8b")
+    cfg = granite_cut()
     torch.cuda.reset_peak_memory_stats()
     # a main path of this slice: counts set to 0 just before, read after
     _zero_counts(fm, dec)
     t0 = time.perf_counter()
-    metrics = serve.main(SPEC_ARGS)
+    metrics = serve.main(SPEC_ARGS, cfg=cfg)
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     check(list(metrics["layouts"]) == ["dense", "paged", "paged_nospec"],
@@ -3566,7 +3708,8 @@ def phase_serve_spec(torch, fm, dec, serve) -> dict:
     spec = _check_spec_legs(torch, serve, SPEC_ARGS, cfg, metrics,
                             GRANITE_SPEC_K + 1, DECODE_KERNEL, "serve_spec")
     legs = _check_legs(metrics, cfg.n_layers, 16, 64, cfg.vocab)
-    emit("serve_spec", args=" ".join(SPEC_ARGS), seconds=wall, legs=legs,
+    emit("serve_spec", args=" ".join(SPEC_ARGS), n_layers=cfg.n_layers,
+         seconds=wall, legs=legs,
          speculation_by_leg=spec, speculation=metrics["speculation"],
          outputs_match=metrics["outputs_match"],
          invariants="checked by the launcher after each paged leg",
@@ -3722,9 +3865,10 @@ def _quant_args(kv_dtype: str, warmup: bool) -> list:
     return args if warmup else args + ["--no-warmup"]
 
 
-#: granite-3-8b's depth in the serve_quant phase, cut as ``SERVE_LAYERS``
-#: (its two runs took 99-141 s at 20 layers)
-QUANT_LAYERS = 10
+#: granite-3-8b's depth in the serve_quant phase (its two runs took
+#: 99-141 s at 20 layers, 52.8-56.6 s at 10); the resident-KV gate is a
+#: ratio and the launch gates count per layer
+QUANT_LAYERS = 5
 
 
 def phase_serve_quant(torch, fm, dec, serve) -> dict:
@@ -3801,7 +3945,8 @@ SWAP_HOST_BYTES = 8 << 30
 
 
 def phase_serve_swap(torch, fm, dec) -> dict:
-    """granite-3-8b at full width (40 layers, fp32 weights) on the swap
+    """granite-3-8b at full width (:data:`GRANITE_CUT_LAYERS` layers, fp32
+    weights) on the swap
     cell's three waves (:func:`_swap_waves`) through ``ServeEngine``: a
     320-page pool with an 8 GiB host swap tier against a pool that never
     evicts (1024 pages), unquantized and with fp8 e4m3 pages.  Wave 2
@@ -3809,12 +3954,11 @@ def phase_serve_swap(torch, fm, dec) -> dict:
     back (>= 16 pages, prefix hits), and every stream must equal the
     never-evicting pool's, bit for bit.  Reports the swap tier's host ms
     of demotion and promotion."""
-    from repro_torch.configs import get_config
     from repro_torch.model import transformer as tf
     from repro_torch.model.layers import Runtime
     from repro_torch.serving import Request, ServeEngine
 
-    cfg = get_config("granite-3-8b")
+    cfg = granite_cut()
     rt = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
                  param_dtype=torch.float32)
     model = tf.init(cfg, 0, rt, device="cuda")
@@ -3868,7 +4012,8 @@ def phase_serve_swap(torch, fm, dec) -> dict:
             promote_host_ms=swap["host_swap_ms"]["promote"],
             never=runs[(kv, "never")], swap=swap)
     launches = _counts(fm, dec)
-    emit("serve_swap", config="granite-3-8b n_layers=40 fp32 weights",
+    emit("serve_swap",
+         config=f"granite-3-8b n_layers={cfg.n_layers} fp32 weights",
          waves=[[len(p) for p in w] for w in waves], new_tokens=32,
          pool_pages=SWAP_POOL_PAGES, host_swap_bytes=SWAP_HOST_BYTES,
          by_kv_dtype=result, launches=launches)
@@ -5179,30 +5324,40 @@ def _ssm_legs(metrics) -> dict:
             for lo, m in metrics["layouts"].items()}
 
 
+#: hymba-1.5b's depth in serve_hymba: 16 of its 32 layers, full attention
+#: at the first, middle and last of them as in the full model (the phase
+#: took 71.3 s at 32 layers on an 850 s run)
+HYMBA_SERVE_LAYERS = 16
+HYMBA_SERVE_GLOBAL = (0, 7, 15)
+
+
 def phase_serve_hymba(torch, fm, dec, serve) -> dict:
-    """The hybrid main path: all 32 hymba-1.5b layers at full width (fp32,
-    6.4 GB), the launcher on both layouts (:data:`HYMBA_SERVE_ARGS`):
-    equal streams, every request its tokens, finite logits, and in each
-    leg's timed run K1 launched 32 x prefill dispatches and K2 (dense) /
-    K3 (paged) 32 x decode steps; tok/s, TTFT, peak allocated and the
-    SSM state bytes reported (32 layers x 8 slots x (3200·16 + 3·3200)
-    x 4 B)."""
+    """The hybrid main path: hymba-1.5b at full width cut to
+    :data:`HYMBA_SERVE_LAYERS` layers (fp32), the launcher on both
+    layouts (:data:`HYMBA_SERVE_ARGS`): equal streams, every request its
+    tokens, finite logits, and in each leg's timed run K1 launched once
+    per layer and prefill dispatch and K2 (dense) / K3 (paged) once per
+    layer and decode step; tok/s, TTFT, peak allocated and the SSM state
+    bytes reported (layers x 8 slots x (3200·16 + 3·3200) x 4 B)."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("hymba-1.5b")
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              n_layers=HYMBA_SERVE_LAYERS,
+                              hybrid_global_layers=HYMBA_SERVE_GLOBAL)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # the hybrid main path: counts set to 0 just before it, read just after
     _zero_counts(fm, dec)
     t0 = time.perf_counter()
-    metrics = serve.main(HYMBA_SERVE_ARGS)
+    metrics = serve.main(HYMBA_SERVE_ARGS, cfg=cfg)
     wall = time.perf_counter() - t0
     launches = _counts(fm, dec)
     legs = _check_legs(metrics, cfg.n_layers, 16, 32, cfg.vocab)
     di, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
     want_ssm = cfg.n_layers * 8 * (di * n + (cfg.ssm.conv_dim - 1) * di) * 4
-    emit("serve_hymba", args=" ".join(HYMBA_SERVE_ARGS), seconds=wall,
+    emit("serve_hymba", args=" ".join(HYMBA_SERVE_ARGS),
+         n_layers=cfg.n_layers, seconds=wall,
          legs=legs, ssm=_ssm_legs(metrics),
          outputs_match=metrics["outputs_match"],
          paged_vs_dense_tok_per_s=metrics["paged_vs_dense_tok_per_s"],
@@ -5227,10 +5382,10 @@ def phase_serve_hymba(torch, fm, dec, serve) -> dict:
     return launches
 
 
-#: serve_xlstm's cut of xlstm-125m: 6 of its 12 layers with sLSTM at 1
-#: of them, the full model's 5:1 mLSTM:sLSTM mix (the phase took 95 s at
-#: 12 layers, most of it stepping the recurrences token by token)
-XLSTM_LAYERS = 6
+#: serve_xlstm's cut of xlstm-125m: 3 of its 12 layers, mLSTM, sLSTM,
+#: mLSTM, so that both mixers serve (the phase took 95 s at 12 layers,
+#: 43-47 s at 6, most of it stepping the recurrences token by token)
+XLSTM_LAYERS = 3
 
 
 def phase_serve_xlstm(torch, fm, dec, serve) -> dict:
@@ -5402,11 +5557,14 @@ def k1_lse_cases(torch):
     ]
 
 
-def run_k1_lse_cases(torch, gen, fm, autotune) -> list:
+def run_k1_lse_cases(torch, gen, fm, autotune,
+                     parent: Optional[ParentK1] = None) -> list:
     """Each LSE case: the output against the plain version's (the K1
     tolerance), the log-sum-exp within ``LSE_TOL`` of the plain
     version's, and the output with an LSE requested equal, bit for bit,
-    to the output without one (``out_same_bits``)."""
+    to the output without one (``out_same_bits``); with ``parent``, at
+    ``PARENT_K1_DIMS`` also the output's float64 distance against the
+    parent body's (``_vs_parent``)."""
     rows = []
     for name, b, hkv, g, p, m, e, f, dtype, kw in k1_lse_cases(torch):
         tile = autotune.attention_params(p * g, m, e, f, impl="cuda")
@@ -5431,6 +5589,9 @@ def run_k1_lse_cases(torch, gen, fm, autotune) -> list:
                          lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
                          out_same_bits=same,
                          ok=ok and lse_err <= LSE_TOL and same))
+        if parent is not None and (e, f) in PARENT_K1_DIMS:
+            rows[-1].update(_vs_parent(torch, fm, parent, rows[-1], q, k, v,
+                                       out, ref, args))
     return rows
 
 
@@ -6323,11 +6484,18 @@ def main() -> int:
     strict_fp32()
     info = phase_device(torch, serve)
 
+    # the parent's K1 body at PARENT_K1_DIMS compiles beside the shipped
+    # libraries, all at once
+    t_build = time.perf_counter()
+    parent = ParentK1()
     secs = _build.timed_build()
+    parent_ptxas = parent.finish()
+    secs_all = time.perf_counter() - t_build
     ptxas = _build.ptxas_report()
-    emit("build", seconds=secs, build_dir=os.path.relpath(
-        _build.build_dir(), ROOT), ptxas=ptxas)
-    emit_clocks("build", secs)
+    emit("build", seconds=secs_all, shipped_seconds=secs,
+         build_dir=os.path.relpath(_build.build_dir(), ROOT), ptxas=ptxas,
+         parent_k1_ptxas=parent_ptxas)
+    emit_clocks("build", secs_all)
     t_kernels = time.perf_counter()
     # the latent body keeps its accumulators and query fragments in
     # registers: a spill would put them in local memory
@@ -6346,11 +6514,24 @@ def main() -> int:
     check(len(ptxas["fusemax_prefill"]) == 4 * n_plans and not k1_spills,
           f"K1: {len(ptxas['fusemax_prefill'])} instantiations for "
           f"{n_plans} plans x 4, spilling: {k1_spills}")
+    parent_spills = [f"{inst}: {line}" for inst, line in parent_ptxas.items()
+                     if "0 bytes spill stores, 0 bytes spill loads"
+                     not in line]
+    check(len(parent_ptxas) == 4 * len(PARENT_K1_DIMS) and not parent_spills,
+          f"K1's parent body: {len(parent_ptxas)} instantiations, spilling: "
+          f"{parent_spills}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = run_k1_cases(torch, gen, fm, autotune) + \
+    # the wgmma dims' stress cases draw from a generator of their own, so
+    # that every case after them draws the inputs it drew before them
+    gen_wg = torch.Generator(device="cuda")
+    gen_wg.manual_seed(30)
+    rows = run_k1_cases(torch, gen, fm, autotune, parent=parent) + \
         k1_quantum_vs_chunk_cases(torch, fm) + \
+        run_k1_cases(torch, gen_wg, fm, autotune, cases=[],
+                     split_cases=k1_wgmma_split_cases(torch),
+                     parent=parent) + \
         run_k2_cases(torch, gen, dec, autotune) + \
         run_k3_cases(torch, gen, dec, autotune) + \
         misaligned_cases(torch, gen, dec) + \
@@ -6390,10 +6571,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t2l = time_latent(torch, gen, dec, autotune)
     emit("kernel_time", kernel="decode_partials@latent_576x512", **t2l)
-    t1m = time_k1_mla(torch, gen, fm, autotune)
+    t1m = time_k1_mla(torch, gen, fm, autotune, parent)
     for where, t in t1m.items():
         emit("kernel_time", kernel=f"fusemax_prefill@{where}", **t)
-    tg = time_gemma2(torch, gen, fm, dec, ops, autotune)
+    tg = time_gemma2(torch, gen, fm, dec, ops, autotune, parent)
     same256 = tg.pop("k3_vs_k2_d256")
     emit("kernel_case", **same256)
     ts = time_smoke(torch, gen, fm, dec, ops, autotune)
@@ -6512,7 +6693,7 @@ def main() -> int:
     # (K1 + LSE, the recompute backward), from a generator of their own
     gen_tr = torch.Generator(device="cuda")
     gen_tr.manual_seed(25)
-    rows_tr = run_k1_lse_cases(torch, gen_tr, fm, autotune) + \
+    rows_tr = run_k1_lse_cases(torch, gen_tr, fm, autotune, parent) + \
         function_cases(torch, gen_tr, ops)
     for r in rows_tr:
         emit("kernel_case", **r)
@@ -6619,9 +6800,10 @@ def main() -> int:
 
     def k1_entry(name, t, n_launches, **dims):
         extra = {key: val for key, val in t.items()
-                 if key.startswith(("bound_ms_", "share_", "library_"))
+                 if key.startswith(("bound_ms_", "share_", "library_",
+                                    "parent_"))
                  and key != "library_ms"}
-        # the GQA dims run the wgmma body
+        # the wgmma body's dims name it as their source
         src = k1_wg_src \
             if autotune.CUDA_PREFILL[(t["e"], t["f"])].body == "wgmma" \
             else k1_src
@@ -6758,7 +6940,7 @@ def main() -> int:
                      ring=tg["paged_decode_partials@gemma2_ring"],
                      k3_vs_k2_max_abs_diff=same256["max_abs_diff_live"]),
         # hymba-1.5b: G = 5, head dim 64, window 1024 on 29 of 32 layers
-        # (launches: serve_hymba's)
+        # (launches: serve_hymba's cut, 13 of 16)
         dict(k1_entry("fusemax_prefill@hymba_local",
                       th["fusemax_prefill@hymba_local"],
                       hymba_launches["fusemax_prefill_windowed"], e=64,

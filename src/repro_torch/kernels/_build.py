@@ -126,24 +126,29 @@ def timed_build() -> float:
     return time.perf_counter() - t0
 
 
+def parse_ptxas(log: str) -> dict[str, str]:
+    """{instantiation (its mangled template arguments): ptxas resource
+    line (registers, barriers, stack, spills)} of one ``-Xptxas -v``
+    log."""
+    entries: dict[str, str] = {}
+    current, spills = None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
+                      r"I(\w+?)EEv", ln)
+        if m:
+            current, spills = f"{m.group(1)}<{m.group(2)}>", ""
+        elif current and "spill" in ln:
+            spills = "; " + ln.strip()
+        elif current and "Used" in ln and "registers" in ln:
+            entries[current] = ln.split(":", 1)[1].strip() + spills
+            current = None
+    return entries
+
+
 def ptxas_report() -> dict[str, dict[str, str]]:
-    """Per library, {instantiation (its mangled template arguments):
-    ptxas resource line (registers, barriers, stack, spills)} from the
-    last build's log."""
+    """Per library, :func:`parse_ptxas` of the last build's log."""
     out: dict[str, dict[str, str]] = {}
     for name in SOURCES:
         log = build_dir() / f"{name}.log"
-        entries: dict[str, str] = {}
-        current, spills = None, ""
-        for ln in log.read_text().splitlines() if log.exists() else []:
-            m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
-                          r"I(\w+?)EEv", ln)
-            if m:
-                current, spills = f"{m.group(1)}<{m.group(2)}>", ""
-            elif current and "spill" in ln:
-                spills = "; " + ln.strip()
-            elif current and "Used" in ln and "registers" in ln:
-                entries[current] = ln.split(":", 1)[1].strip() + spills
-                current = None
-        out[name] = entries
+        out[name] = parse_ptxas(log.read_text() if log.exists() else "")
     return out

@@ -81,29 +81,35 @@ class PrefillKernel:
     ``"mma_sync"``, the file's own), ``block_k`` keys a tile, the
     ``plans`` (block_q, f_split) in the order :func:`prefill_plan`
     prefers them (the default first; every plan has the same block_q),
-    and on the mma.sync body the warps that share one row group
+    on the mma.sync body the warps that share one row group
     (``warp_split``, its ``WF``: each holds F / WF accumulator columns,
-    and above 1 the probabilities go through shared memory)."""
+    and above 1 the probabilities go through shared memory), and on the
+    wgmma body the split buffers each of K and of Vᵀ (``split_buffers``,
+    its ``NBUF``: 2 where the next tile's split is written while the
+    tensor cores read this one's, 1 where two do not fit beside Q's)."""
     body: str
     block_k: int
     plans: tuple
     warp_split: int = 1
+    split_buffers: int = 2
 
 
-#: (E, F) head dims → the kernel compiled there (``REPRO_WGMMA_PLANS`` and
-#: ``REPRO_DIMS`` with its ``PrefillTile``): GQA heads of 64 and 128 on
-#: the wgmma body (a warpgroup a 64-row block, 32-key tiles; two column
-#: blocks let a short chunk, a serving quantum, come near filling the
-#: card), and on the mma.sync body gemma's 256, DeepSeek's MLA prefill
-#: (nope 128 + rope 64 → v 128) and its absorbed latent attention (rank
+#: (E, F) head dims → the kernel compiled there (``REPRO_WGMMA_PLANS`` with
+#: its ``WgTile``, ``REPRO_DIMS`` with its ``PrefillTile``): on the wgmma
+#: body (a warpgroup a 64-row block) GQA heads of 64 and 128 (32-key
+#: tiles, double-buffered splits; two column blocks let a short chunk, a
+#: serving quantum, come near filling the card), gemma's 256 (16-key
+#: tiles, one split buffer: Q's split takes half the block) and
+#: DeepSeek's MLA prefill (nope 128 + rope 64 → v 128; 32-key tiles, one
+#: split buffer); on the mma.sync body its absorbed latent attention (rank
 #: 512 + rope 64 → rank 512), and the smoke configs' GQA heads of 32 and
 #: MLA (nope 32 + rope 16 → v 32, and rank 32 + rope 16 → rank 32)
 CUDA_PREFILL = {
     (64, 64): PrefillKernel("wgmma", 32, ((64, 1), (64, 2))),
     (128, 128): PrefillKernel("wgmma", 32, ((64, 1), (64, 2))),
-    (192, 128): PrefillKernel("mma_sync", 64, ((128, 1),), 2),
+    (256, 256): PrefillKernel("wgmma", 16, ((64, 1),), split_buffers=1),
+    (192, 128): PrefillKernel("wgmma", 32, ((64, 1),), split_buffers=1),
     (576, 512): PrefillKernel("mma_sync", 64, ((64, 1),), 4),
-    (256, 256): PrefillKernel("mma_sync", 64, ((64, 1),), 4),
     (32, 32): PrefillKernel("mma_sync", 64, ((128, 1),)),
     (48, 32): PrefillKernel("mma_sync", 64, ((128, 1),)),
 }
@@ -187,8 +193,9 @@ def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
     (``CUDA_PREFILL``) it must match ``WgLayout`` in
     ``fusemax_prefill_wgmma.cuh``: a raw K and a raw V tile of ``block_k``
     whole rows in the input's dtype, then fp32 splits (hi, and lo unless
-    the input is bf16) of the block's Q, of two K tiles and of two Vᵀ
-    tiles of its F / f_split columns, and 10 mbarriers.  On the mma.sync
+    the input is bf16) of the block's Q, of the (E, F)'s
+    ``PrefillKernel.split_buffers`` K tiles and as many Vᵀ tiles of its F
+    / f_split columns, and 10 mbarriers.  On the mma.sync
     body (one column block) it must match ``Layout`` in
     ``fusemax_prefill.cu``: the Q tile, a ring of ``PREFILL_STAGES`` equal
     slots (a [block_k x KC] K chunk, KC from ``CUDA_PREFILL_K_CHUNK``, or
@@ -198,9 +205,10 @@ def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
     kern = CUDA_PREFILL.get((e, f))
     if kern is not None and kern.body == "wgmma":
         parts = 1 if elem_bytes == 2 else 2
+        nbuf = kern.split_buffers
         return (elem_bytes * block_k * (e + f)
-                + 4 * parts * (block_q * e + 2 * block_k * e
-                               + 2 * f // f_split * block_k) + 80)
+                + 4 * parts * (block_q * e + nbuf * block_k * e
+                               + nbuf * f // f_split * block_k) + 80)
     if f_split != 1:
         raise ValueError("the mma.sync body has no column blocks")
     pad = 16 // elem_bytes

@@ -3,8 +3,13 @@
 // Replaces: src/repro/kernels/fusemax.py:_fusemax_kernel, launched by
 // fusemax_attention_pallas (the TPU kernel behind ops.fusemax_attention).
 // Two bodies: this file's `mma.sync` body, and at the GQA head dims
-// (64, 64) and (128, 128) the `wgmma` body of fusemax_prefill_wgmma.cuh;
-// the one C entry below dispatches each call's plan to its body.
+// (64, 64), (128, 128) and (256, 256) and DeepSeek's MLA prefill
+// (192, 128) the `wgmma` body of fusemax_prefill_wgmma.cuh; the one C
+// entry below dispatches each call's plan to its body.  The mma.sync body
+// keeps the dims whose operands do not fit the wgmma body's layout
+// (DeepSeek's absorbed (576, 512): Q's split alone would take 288 KB at
+// 64 rows) or whose head dims are too small to pay for it (the smoke
+// configs' (32, 32) and (48, 32)).
 //
 // What it computes (the TPU kernel's function, not its block structure):
 //   q [BH, PG, E] (GQA group folded into query rows: row r is query
@@ -70,9 +75,7 @@
 // The tile is chosen per (E, F) instantiation (PrefillTile below), and
 // each runs under that one plan (BQ rows, one column block); the shared
 // memory of one block (fp32) is
-//   (192, 128) 128 x 64, WF 2, 8 warps:         190,464 B (mla_forward)
 //   (576, 512) 64 x 64,  WF 4, 8 warps:         220,160 B (absorbed)
-//   (256, 256) 64 x 64,  WF 4, 8 warps:         138,240 B (gemma)
 //   (32, 32)   128 x 64, WF 1, 4 warps, KC 32:   46,080 B (-smoke GQA)
 //   (48, 32)   128 x 64, WF 1, 4 warps, KC 48:   66,560 B (-smoke MLA)
 // (autotune.prefill_smem_bytes is the same formula, which the wrapper
@@ -120,13 +123,7 @@ template <int N> __device__ __forceinline__ void cp_wait() {
 // accumulator columns and the scores of BK / WF keys; KC columns of E
 // per K chunk.
 template <int E, int F> struct PrefillTile;
-template <> struct PrefillTile<192, 128> {
-  static constexpr int BQ = 128, BK = 64, WF = 2, MT = 2, KC = 64;
-};
 template <> struct PrefillTile<576, 512> {
-  static constexpr int BQ = 64, BK = 64, WF = 4, MT = 2, KC = 64;
-};
-template <> struct PrefillTile<256, 256> {
   static constexpr int BQ = 64, BK = 64, WF = 4, MT = 2, KC = 64;
 };
 template <> struct PrefillTile<32, 32> {
@@ -597,11 +594,13 @@ cudaError_t launch_wgmma_exp(const Args& a) {
 // The instantiations.  REPRO_DIMS (E, F) run this file's mma.sync body
 // under the one plan of their PrefillTile (BQ rows, one column block);
 // REPRO_WGMMA_PLANS (E, F, BQ, FS) run the wgmma body of
-// fusemax_prefill_wgmma.cuh (64-row blocks, one or two column blocks) at
-// the GQA dims.  autotune.CUDA_PREFILL lists the same plans, in order.
-#define REPRO_DIMS(X) X(192, 128) X(576, 512) X(256, 256) X(32, 32) X(48, 32)
+// fusemax_prefill_wgmma.cuh (64-row blocks, one or two column blocks, the
+// key tile of its WgTile).  autotune.CUDA_PREFILL lists the same plans,
+// in order.
+#define REPRO_DIMS(X) X(576, 512) X(32, 32) X(48, 32)
 #define REPRO_WGMMA_PLANS(X)                                                  \
-  X(128, 128, 64, 1) X(128, 128, 64, 2) X(64, 64, 64, 1) X(64, 64, 64, 2)
+  X(128, 128, 64, 1) X(128, 128, 64, 2) X(64, 64, 64, 1) X(64, 64, 64, 2)    \
+  X(256, 256, 64, 1) X(192, 128, 64, 1)
 
 template <typename T>
 cudaError_t dispatch_plan(int e, int f, int block_q, int f_split,

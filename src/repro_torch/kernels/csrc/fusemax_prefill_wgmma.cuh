@@ -1,5 +1,6 @@
-// K1's Hopper body at the GQA head dims (64, 64) and (128, 128):
-// `wgmma` in error-compensated 3xTF32, fed by asynchronous bulk copies.
+// K1's Hopper body at the GQA head dims (64, 64) and (128, 128), gemma's
+// (256, 256) and DeepSeek's MLA prefill (192, 128): `wgmma` in
+// error-compensated 3xTF32, fed by asynchronous bulk copies.
 //
 // Replaces, at those dims, the `mma.sync` body of fusemax_prefill.cu
 // (both port src/repro/kernels/fusemax.py:_fusemax_kernel, called at
@@ -34,30 +35,52 @@
 //   one `cp.async.bulk` each, completed by `mbarrier` transaction counts.
 //   A bulk copy does not zero-fill: keys >= m are not copied, and the
 //   split writes zeros for them (the plain version has no such keys).
-// * K and Vᵀ splits are double-buffered: the next tile's is written
-//   while the tensor cores read this one's.  At E = 128 one block fills
-//   an SM's shared memory, so a second warpgroup (the splitter) does the
-//   loads and splits while the first runs the products and the softmax,
-//   handing buffers over by full / empty mbarriers, and loads the next
-//   raw tile as soon as it has split one.  At E = 64 two blocks share an
-//   SM and each warpgroup splits the next tile between its own products.
+// * At E >= 128 one block fills an SM's shared memory, so a second
+//   warpgroup (the splitter) does the loads and splits while the first
+//   runs the products and the softmax, handing buffers over by full /
+//   empty mbarriers, and loads the next raw tile as soon as it has split
+//   one.  Two warpgroups of 255 registers fit the SM's 65,536, so the
+//   consumer needs no `setmaxnreg` to hold P·V's 128 accumulators a
+//   thread at F = 256.  At E = 64 two blocks share an SM and each
+//   warpgroup splits the next tile between its own products.
+// * The key tile and the split buffers are set per (E, F) (WgTile): at
+//   (64, 64) and (128, 128) 32-key tiles whose K and Vᵀ splits are
+//   double-buffered (the next tile's is written while the tensor cores
+//   read this one's).  Q's split fills half the block at E = 256 (128
+//   KB), so gemma's dims take 16-key tiles and one K and one Vᵀ split:
+//   the splitter writes tile i + 1's K split while tile i's softmax and
+//   P·V run, and its Vᵀ split while tile i + 1's Q·Kᵀ runs.  (192, 128)
+//   takes 32-key tiles the same way, which doubles Q·Kᵀ's N against
+//   double-buffered 16-key tiles: the A operand (Q) is read from shared
+//   memory once per `wgmma`, so a narrow N leaves the product waiting on
+//   shared memory.
+// * P·V's accumulators are rescaled only in a warp where a row's running
+//   max moved (a factor of exactly 1 changes no bit): at F = 256 the
+//   rescale of 128 accumulators a thread on every 16-key tile took
+//   gemma2-9b's prefill from 27.0 ms on the mma.sync body to 38.9 ms, and
+//   skipping it where it is 1 to 21.4 (H100 SXM, variants bench).
 // * The tensor cores' fp32 accumulation truncates, so a score partial
 //   takes at most KDEPTH k-steps (KDEPTH chained `wgmma` per product) in
 //   its own registers before it is added in IEEE fp32; the partials'
 //   chains are issued interleaved, all in flight at once.  P·V
-//   accumulates directly, as the mma.sync body does.
-// * BK = 32 keys a tile at both dims, the same under every plan, so a
-//   row's fp32 result does not depend on the call's plan (a serving
-//   quantum's rows equal the same rows of a whole-prompt call: 0.0 on the
-//   card).  A short chunk splits the F output columns over two blocks
-//   (FS 2), each with its rows' scores.
+//   accumulates directly, as the mma.sync body does.  The descriptors
+//   are derived, where they are used, from bases the compiler may not
+//   hoist out of the tile loop (at E = 256 the Q descriptors alone would
+//   take 128 registers).
+// * One key tile per (E, F), the same under every plan, so a row's fp32
+//   result does not depend on the call's plan (a serving quantum's rows
+//   equal the same rows of a whole-prompt call: 0.0 on the card).  A
+//   short chunk splits the F output columns over two blocks (FS 2), each
+//   with its rows' scores.
 //
 // Shared memory of one block (fp32; WgLayout, the same formula as
-// autotune.prefill_smem_bytes): Q, K and Vᵀ hi and lo, 2 x (64 E + 2 x
-// 32 E + 2 x 32 F / FS) floats, a raw K and a raw V tile, 32 x (E + F)
-// floats, 10 mbarriers; bf16 has raw tiles in bf16 and no lo:
-//   (128, 128) FS 1: 229,456 B; FS 2: 196,688 B (1 block an SM)
-//   (64, 64)   FS 1: 114,768 B; FS 2:  98,384 B (2 blocks an SM)
+// autotune.prefill_smem_bytes): Q, K and Vᵀ hi and lo, 2 x (64 E + NBUF
+// x BK E + NBUF x BK F / FS) floats, a raw K and a raw V tile, BK x (E +
+// F) floats, 10 mbarriers; bf16 has raw tiles in bf16 and no lo:
+//   (128, 128) BK 32 NBUF 2 FS 1: 229,456 B; FS 2: 196,688 B (1 an SM)
+//   (64, 64)   BK 32 NBUF 2 FS 1: 114,768 B; FS 2:  98,384 B (2 an SM)
+//   (256, 256) BK 16 NBUF 1 FS 1: 229,456 B
+//   (192, 128) BK 32 NBUF 1 FS 1: 221,264 B
 
 #pragma once
 
@@ -98,6 +121,31 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 8, fp32) += A (64 x 8) · B (8 x 8)ᵀ, both from shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 16, fp32) += A (64 x 8) · B (16 x 8)ᵀ, both from shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // d (64 x 32, fp32) += A (64 x 8) · B (32 x 8)ᵀ, both from shared memory
@@ -191,6 +239,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "r"(1));
 }
 
+// d (64 x 256, fp32) += A (64 x 8, registers) · B (256 x 8)ᵀ (shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
 // ---- mbarriers and bulk copies -----------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -248,13 +345,28 @@ __device__ __forceinline__ void fence_async_smem() {
 
 // ---- the body ----------------------------------------------------------
 
+// The key tile of each (E, F): BK keys a tile, NBUF split buffers each
+// of K and of Vᵀ (2: the next tile's split is written while the tensor
+// cores read this one's; 1 where two do not fit beside Q's split)
+template <int E, int F> struct WgTile {
+  static constexpr int BK = 32, NBUF = 2;
+};
+template <> struct WgTile<256, 256> {
+  static constexpr int BK = 16, NBUF = 1;
+};
+template <> struct WgTile<192, 128> {
+  static constexpr int BK = 32, NBUF = 1;
+};
+
 template <typename T, int E, int F, int FS> struct WgLayout {
   // WS: a second warpgroup splits the K and V tiles while the first runs
-  // the products and the softmax (at E = 128, where one block fills an
+  // the products and the softmax (at E >= 128, where one block fills an
   // SM's shared memory); else the one warpgroup splits between them and
   // two blocks share an SM
   static constexpr bool WS = E >= 128;
-  static constexpr int BQ = 64, BK = 32, FC = F / FS, NT = WS ? 256 : 128;
+  static constexpr int BQ = 64, BK = WgTile<E, F>::BK,
+                       NBUF = WgTile<E, F>::NBUF, FC = F / FS,
+                       NT = WS ? 256 : 128;
   static constexpr bool EXACT = sizeof(T) == 2;  // bf16: lo = 0
   static constexpr int NB = EXACT ? 1 : 2;       // split buffers: hi (, lo)
   // raw tiles: BK whole K rows and BK whole V rows (a column block
@@ -263,17 +375,31 @@ template <typename T, int E, int F, int FS> struct WgLayout {
   static constexpr int RAW_BYTES =
       (RAWK + RAWV) * static_cast<int>(sizeof(T));
   static constexpr int QOP = BQ * E, KOP = BK * E, VOP = FC * BK;  // floats
-  // Q's split, two of K's and two of Vᵀ's (the next tile's is written
-  // while the tensor cores read this one's), and 10 mbarriers: raw K and
+  // Q's split, NBUF of K's and NBUF of Vᵀ's, and 10 mbarriers: raw K and
   // V landed, and with WS each split buffer's full and empty
-  static constexpr int BYTES = RAW_BYTES + 4 * NB * (QOP + 2 * KOP + 2 * VOP)
-                               + 80;
+  static constexpr int BYTES =
+      RAW_BYTES + 4 * NB * (QOP + NBUF * KOP + NBUF * VOP) + 80;
   static_assert(E % 8 == 0 && F % FS == 0 &&
                     (FC * static_cast<int>(sizeof(T))) % 16 == 0 &&
-                    (FC == 32 || FC == 64 || FC == 128),
+                    (FC == 32 || FC == 64 || FC == 128 || FC == 256) &&
+                    (BK == 8 || BK == 16 || BK == 32) &&
+                    (NBUF == 2 || (NBUF == 1 && WS)),
                 "wgmma tile shapes");
   static_assert(BYTES <= 232448, "the tiles exceed one block's shared memory");
 };
+
+// The descriptor of the operand `floats` (a multiple of 4) past the one
+// `d` describes: the start address field counts 16-byte units.
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, int floats) {
+  return d + static_cast<uint64_t>(floats >> 2);
+}
+// `x`, which the compiler must take as new where this is called: the
+// descriptors derived from it are then computed where they are used, not
+// hoisted out of the tile loop into registers the accumulators need
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
 
 template <typename T>
 __device__ __forceinline__ void load4(const T* p, float (&x)[4]);
@@ -325,6 +451,7 @@ fusemax_prefill_wgmma_kernel(const T* __restrict__ q,
                              int m_valid) {
   using L = WgLayout<T, E, F, FS>;
   constexpr int BQ = L::BQ, BK = L::BK, FC = L::FC, NB = L::NB;
+  constexpr int NBUF = L::NBUF;
   constexpr bool EXACT = L::EXACT, WS = L::WS;
   constexpr int NSB = BK / 8;        // score n-blocks (and P·V k-steps)
   constexpr int KSTEPS = E / 8;      // Q·Kᵀ k-steps
@@ -335,11 +462,11 @@ fusemax_prefill_wgmma_kernel(const T* __restrict__ q,
   T* rv = rk + L::RAWK;                        // raw V tile [BK][F]
   float* qh = reinterpret_cast<float*>(wg_smem + L::RAW_BYTES);
   float* ql = qh + (NB - 1) * L::QOP;          // = qh for bf16
-  float* ks = qh + NB * L::QOP;                // K splits [2][NB][KOP]
-  float* vs = ks + 2 * NB * L::KOP;            // Vᵀ splits [2][NB][VOP]
+  float* ks = qh + NB * L::QOP;                // K splits [NBUF][NB][KOP]
+  float* vs = ks + NBUF * NB * L::KOP;         // Vᵀ splits [NBUF][NB][VOP]
   // raw K / V landed; with WS: K / V split b full (2 + b / 4 + b), empty
   // (6 + b / 8 + b)
-  uint64_t* bar = reinterpret_cast<uint64_t*>(vs + 2 * NB * L::VOP);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(vs + NBUF * NB * L::VOP);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -437,18 +564,19 @@ fusemax_prefill_wgmma_kernel(const T* __restrict__ q,
     fence_async_smem();
     __syncthreads();  // Q's split visible to wgmma
     if (warp >= 4) {
-      // the splitter: tile i's K and V into buffer i % 2 once the
-      // products of tile i - 2 are done with it, then the next raw tile
+      // the splitter: tile i's K and V into buffer i % NBUF once the
+      // products of tile i - NBUF are done with it, then the next raw
+      // tile; buffer b's u-th filling completes phase u of its barriers
       const int st = tid - 128;
       for (int i = 0; i < n_tiles; ++i) {
-        const int b = i & 1;
-        if (i >= 2) mbar_wait(&bar[6 + b], ((i >> 1) - 1) & 1);
+        const int b = i % NBUF, u = i / NBUF;
+        if (i >= NBUF) mbar_wait(&bar[6 + b], (u - 1) & 1);
         split_k(i, b, st);
         fence_async_smem();
         mbar_arrive(&bar[2 + b]);
         splitter_sync();  // every splitter thread is done with raw K
         load(i + 1, false, st);
-        if (i >= 2) mbar_wait(&bar[8 + b], ((i >> 1) - 1) & 1);
+        if (i >= NBUF) mbar_wait(&bar[8 + b], (u - 1) & 1);
         split_v(i, b, st);
         fence_async_smem();
         mbar_arrive(&bar[4 + b]);
@@ -484,12 +612,14 @@ fusemax_prefill_wgmma_kernel(const T* __restrict__ q,
 
   for (int i = 0; i < n_tiles; ++i) {
     const int k0 = (t_begin + i) * BK;
-    const int buf = i & 1;
-    if constexpr (WS) mbar_wait(&bar[2 + buf], (i >> 1) & 1);
-    const float* kh = ks + buf * NB * L::KOP;
-    const float* kl = kh + (NB - 1) * L::KOP;
-    const float* vh = vs + buf * NB * L::VOP;
-    const float* vl = vh + (NB - 1) * L::VOP;
+    const int buf = i % NBUF;  // in its (i / NBUF)-th use
+    if constexpr (WS) mbar_wait(&bar[2 + buf], (i / NBUF) & 1);
+    // descriptors of the tile's operands at k-step 0 (hi; lo follows)
+    const uint64_t dq = opaque(gmma_desc(qh, BQ * 16, 128));
+    const uint64_t dk =
+        opaque(gmma_desc(ks + buf * NB * L::KOP, BK * 16, 128));
+    const uint64_t dv =
+        opaque(gmma_desc(vs + buf * NB * L::VOP, FC * 16, 128));
 
     // BQK (Eq. 42): every partial of KDEPTH k-steps in flight at once
     float part[NPART][BK / 2];
@@ -508,13 +638,11 @@ fusemax_prefill_wgmma_kernel(const T* __restrict__ q,
       for (int pp = 0; pp < NPART; ++pp) {
         const int kk = pp * KDEPTH + kq;
         if (kk >= KSTEPS) continue;
-        const uint64_t dqh = gmma_desc(qh + 2 * kk * BQ * 4, BQ * 16, 128);
-        const uint64_t dkh = gmma_desc(kh + 2 * kk * BK * 4, BK * 16, 128);
+        const uint64_t dqh = desc_at(dq, 8 * kk * BQ);
+        const uint64_t dkh = desc_at(dk, 8 * kk * BK);
         if constexpr (!EXACT) {
-          wgmma_ss(part[pp], gmma_desc(ql + 2 * kk * BQ * 4, BQ * 16, 128),
-                   dkh);
-          wgmma_ss(part[pp], dqh,
-                   gmma_desc(kl + 2 * kk * BK * 4, BK * 16, 128));
+          wgmma_ss(part[pp], desc_at(dqh, L::QOP), dkh);
+          wgmma_ss(part[pp], dqh, desc_at(dkh, L::KOP));
         }
         wgmma_ss(part[pp], dqh, dkh);
       }
@@ -524,7 +652,7 @@ fusemax_prefill_wgmma_kernel(const T* __restrict__ q,
       mbar_arrive(&bar[6 + buf]);  // this K split may be refilled
     } else {
       // meanwhile: the next tile's K split, then its raw K load
-      if (i + 1 < n_tiles) split_k(i + 1, buf ^ 1, tid);
+      if (i + 1 < n_tiles) split_k(i + 1, (i + 1) % NBUF, tid);
       fence_async_smem();
       __syncthreads();
       load(i + 2, false, tid);
@@ -589,8 +717,11 @@ fusemax_prefill_wgmma_kernel(const T* __restrict__ q,
       }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l_i[h] = l_i[h] * prm[h] + sld[h];
+    // a warp rescales its accumulators only where a row's running max
+    // moved: else every factor is exactly 1 (the same bits)
+    if (!__all_sync(0xffffffffu, prm[0] == 1.f && prm[1] == 1.f))
 #pragma unroll
-    for (int x = 0; x < FC / 2; ++x) acc[x] *= prm[(x >> 1) & 1];
+      for (int x = 0; x < FC / 2; ++x) acc[x] *= prm[(x >> 1) & 1];
 
     // SLNV / RNV (Eqs. 47, 51-52): k-step j's A fragment takes key
     // 8j + 2t as k index t and 8j + 2t + 1 as t + 4 (the split of Vᵀ
@@ -604,14 +735,13 @@ fusemax_prefill_wgmma_kernel(const T* __restrict__ q,
       split(s[4 * j + 3], ph[j][3], pl[j][3]);
     }
     fence_regs(acc);
-    if constexpr (WS) mbar_wait(&bar[4 + buf], (i >> 1) & 1);
+    if constexpr (WS) mbar_wait(&bar[4 + buf], (i / NBUF) & 1);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < NSB; ++j) {
-      const uint64_t dvh = gmma_desc(vh + 2 * j * FC * 4, FC * 16, 128);
+      const uint64_t dvh = desc_at(dv, 8 * j * FC);
       wgmma_rs(acc, pl[j], dvh);
-      if constexpr (!EXACT)
-        wgmma_rs(acc, ph[j], gmma_desc(vl + 2 * j * FC * 4, FC * 16, 128));
+      if constexpr (!EXACT) wgmma_rs(acc, ph[j], desc_at(dvh, L::VOP));
       wgmma_rs(acc, ph[j], dvh);
     }
     wgmma_commit();
@@ -621,7 +751,7 @@ fusemax_prefill_wgmma_kernel(const T* __restrict__ q,
       mbar_arrive(&bar[8 + buf]);  // this Vᵀ split may be refilled
     } else {
       // meanwhile: the next tile's Vᵀ split, then its raw V load
-      if (i + 1 < n_tiles) split_v(i + 1, buf ^ 1, tid);
+      if (i + 1 < n_tiles) split_v(i + 1, (i + 1) % NBUF, tid);
       fence_async_smem();
       __syncthreads();
       load(i + 2, true, tid);

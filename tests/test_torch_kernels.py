@@ -138,6 +138,61 @@ def test_kernel_layout_plain_version_matches_pallas_kernel(m_valid, kw):
     np.testing.assert_allclose(ours, ref, **F32_TOL)
 
 
+#: K1 at the redesigned wgmma dims, at the kernel's own key tile:
+#: (E, F, B, Hq, Hkv, P, M, m_valid, kwargs) — gemma's (256, 256) under
+#: every mask it serves (causal, a window, softcap 50, a history offset)
+#: and a ragged ``m_valid``, DeepSeek's MLA prefill (192, 128) causal
+NEW_TILE_CASES = [
+    (256, 256, 1, 4, 2, 64, 64, None, dict(causal=True)),
+    (256, 256, 1, 4, 2, 64, 80, None,
+     dict(causal=True, q_offset=16, window=24, softcap=50.0)),
+    (256, 256, 2, 2, 2, 64, 96, 70, dict(softcap=50.0)),
+    (192, 128, 1, 2, 2, 64, 96, None, dict(causal=True)),
+]
+
+
+@pytest.mark.parametrize("case", NEW_TILE_CASES,
+                         ids=["d256-causal", "d256-off-window-cap",
+                              "d256-mvalid-cap", "mla-fwd-causal"])
+def test_plain_version_at_the_new_key_tiles_matches_reference(case):
+    """The plain version at the wgmma body's 64-row block and its key tile
+    at (256, 256) (16 keys) and (192, 128) (32 keys) equals the
+    reference's Pallas kernel (interpret) at the same tile, on the folded
+    layout the kernel takes, and the reference's jnp executor on the
+    unfolded heads (on the first ``m_valid`` keys, which is the same
+    function), within 1e-5; every plan of those dims has that tile."""
+    from repro.kernels.fusemax import fusemax_attention_pallas
+    from repro_torch.kernels.fusemax import fusemax_attention_torch
+
+    e, f, b, hq, hkv, p, m, m_valid, kw = case
+    kern = autotune.CUDA_PREFILL[(e, f)]
+    assert kern.body == "wgmma"
+    assert {autotune.prefill_plan(fib, rows, e, f).block_k
+            for fib in (1, 16, 512) for rows in (1, 128, 16384)} \
+        == {kern.block_k}
+    assert all(bq == 64 for bq, _ in kern.plans)
+    bq, bk = autotune.CUDA_PREFILL_TILES[(e, f)]
+    assert (bq, bk) == (64, kern.block_k)
+    g = hq // hkv
+    q, k, v = mk(e + m, b, hq, hkv, p, m, e, f)
+    q_f = ops._fold_decode_q(torch.from_numpy(q), b, hkv, g, e)
+    k_f, v_f = (torch.from_numpy(x).reshape(b * hkv, m, x.shape[-1])
+                for x in (k, v))
+    args = dict(scale=e ** -0.5, group=g, block_q=bq, block_k=bk,
+                m_valid=m_valid, **kw)
+    ours = fusemax_attention_torch(q_f, k_f, v_f, **args)
+    tol = dict(rtol=0.0, atol=1e-5)
+    pallas = jax_call(fusemax_attention_pallas, q_f.numpy(), k_f.numpy(),
+                      v_f.numpy(), interpret=True, **args)
+    np.testing.assert_allclose(ours.numpy(), pallas, err_msg="pallas",
+                               **tol)
+    mv = m if m_valid is None else m_valid
+    jnp_ref = jax_call(jax_ops.fusemax_attention, q, k[:, :, :mv],
+                       v[:, :, :mv], impl="jnp", scale=e ** -0.5, **kw)
+    unfolded = ops._unfold_decode_out(ours, b, hkv, g, f, p=p).numpy()
+    np.testing.assert_allclose(unfolded, jnp_ref, err_msg="jnp", **tol)
+
+
 def test_exp_maccs_elementwise():
     x = np.linspace(-60.0, 0.0, 50001, dtype=np.float32)
     ours = exp_maccs(torch.from_numpy(x)).numpy()
@@ -246,6 +301,16 @@ def test_paged_autotune_matches_reference_model(w, ps, e):
         assert (dense.splits, dense.block_k) == (16, 128)
 
 
+def _wg_bytes(bq, bk, e, f, nbuf, fs=1, elem_bytes=4):
+    """``WgLayout::BYTES`` of ``fusemax_prefill_wgmma.cuh`` at a key tile
+    and a count of K / Vᵀ split buffers: BK raw K and V rows, the fp32
+    splits of Q, NBUF K tiles and NBUF Vᵀ tiles, hi and, unless bf16, lo,
+    and 10 mbarriers."""
+    nb = 1 if elem_bytes == 2 else 2
+    return (elem_bytes * bk * (e + f)
+            + 4 * nb * (bq * e + nbuf * bk * e + nbuf * (f // fs) * bk) + 80)
+
+
 def test_cuda_tile_fits_shared_memory():
     """Each (E, F) pair the CUDA prefill kernel is compiled for has its own
     body, tile and plans, and every plan fits one block's shared memory:
@@ -253,9 +318,13 @@ def test_cuda_tile_fits_shared_memory():
     the kernel's ``WgLayout::BYTES``: the raw tiles, Q's split and two K
     and Vᵀ splits), at a serving quantum in two column blocks (196,688 B);
     the mma.sync body's (128, 128) tile was 128 x 64 with two warps per
-    32-row group (157,696 B); DeepSeek's absorbed (576, 512) takes 64 x 64
-    with four (220,160 B; 128 rows would take 388,096 B).  A pair the
-    kernel is not compiled for raises."""
+    32-row group (157,696 B); gemma's (256, 256) runs the wgmma body on
+    64 x 16 with one K and one Vᵀ split (229,456 B; two would fit only at
+    8 keys, 213,072 B) and DeepSeek's MLA prefill (192, 128) on 64 x 32
+    with one of each (221,264 B; two at 16 keys, 200,784 B); DeepSeek's
+    absorbed (576, 512) stays on the mma.sync body at 64 x 64 with four
+    warps a row group (220,160 B; 128 rows would take 388,096 B).  A pair
+    the kernel is not compiled for raises."""
     tile = autotune.attention_params(4096, 1024, 128, 128, impl="cuda")
     assert (tile.block_q, tile.block_k) == (64, 32)
     assert autotune.prefill_plan(8, 512, 128, 128).f_split == 2
@@ -277,12 +346,17 @@ def test_cuda_tile_fits_shared_memory():
     assert autotune.CUDA_PREFILL_TILES[(576, 512)] == (64, 64)
     assert autotune.prefill_smem_bytes(128, 64, 576, 512, 4) \
         > autotune.SMEM_BUDGET
-    assert autotune.prefill_smem_bytes(128, 64, 192, 128, 2) == 190_464
+    assert autotune.CUDA_PREFILL_TILES[(256, 256)] == (64, 16)
+    assert autotune.CUDA_PREFILL_TILES[(192, 128)] == (64, 32)
+    assert autotune.prefill_smem_bytes(64, 16, 256, 256, 1) == 229_456
+    assert _wg_bytes(64, 8, 256, 256, 2) == 213_072
+    assert autotune.prefill_smem_bytes(64, 32, 192, 128, 1) == 221_264
+    assert _wg_bytes(64, 16, 192, 128, 2) == 200_784
     assert autotune.prefill_smem_bytes(64, 64, 576, 512, 4) == 220_160
     with pytest.raises(ValueError, match="compiled for head dims"):
         autotune.attention_params(64, 64, 512, 512, impl="cuda")
     with pytest.raises(ValueError, match="no column blocks"):
-        autotune.prefill_smem_bytes(64, 64, 256, 256, 4, f_split=2)
+        autotune.prefill_smem_bytes(64, 64, 576, 512, 4, f_split=2)
 
 
 def _eligible(fibers, rows, e, f):
@@ -363,7 +437,7 @@ def test_prefill_plan_column_blocks_tile_f(e, f):
         assert fc * fs == f and fc % (8 * kern.warp_split) == 0 \
             and fc % 4 == 0
         if kern.body == "wgmma":             # a wgmma's N
-            assert bq == 64 and fc in (32, 64, 128)
+            assert bq == 64 and fc in (32, 64, 128, 256)
         else:
             assert fs == 1
         cols = np.concatenate([np.arange(cb * fc, (cb + 1) * fc)
@@ -373,11 +447,12 @@ def test_prefill_plan_column_blocks_tile_f(e, f):
 
 
 def _source_plans():
-    """(E, F) -> (body, BK, WF, [(BQ, FS), ...]) as
+    """(E, F) -> (body, BK, WF, NBUF, [(BQ, FS), ...]) as
     ``csrc/fusemax_prefill.cu`` compiles them: ``REPRO_WGMMA_PLANS`` on
-    the wgmma body (its ``WgLayout``: 32-key tiles, one warpgroup a row
-    group), in order, and ``REPRO_DIMS`` on the mma.sync body under the
-    one plan of their ``PrefillTile``."""
+    the wgmma body (one warpgroup a row group; the key tile and split
+    buffers of its ``WgTile``: 32 keys and two buffers unless the (E, F)
+    has a specialization), in order, and ``REPRO_DIMS`` on the mma.sync
+    body under the one plan of their ``PrefillTile``."""
     import re
     from repro_torch.kernels import _build
 
@@ -388,33 +463,38 @@ def _source_plans():
         block = src[src.index(f"#define {name}(X)"):]
         return block[:block.index("\n\n")]
 
-    wg_bk = int(re.search(r"BQ = 64, BK = (\d+)", wg).group(1))
+    tile_re = r"static constexpr int BK = (\d+), NBUF = (\d+);"
+    default = tuple(map(int, re.search(
+        r"struct WgTile {\s*" + tile_re, wg).groups()))
+    wg_tiles = {(int(e), int(f)): (int(bk), int(nbuf))
+                for e, f, bk, nbuf in re.findall(
+                    r"struct WgTile<(\d+), (\d+)> {\s*" + tile_re, wg)}
     plans = {}
     for e, f, bq, fs in re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)",
                                    macro("REPRO_WGMMA_PLANS")):
-        plans.setdefault((int(e), int(f)), ("wgmma", wg_bk, 1, []))[3] \
+        dims = (int(e), int(f))
+        bk, nbuf = wg_tiles.get(dims, default)
+        plans.setdefault(dims, ("wgmma", bk, 1, nbuf, []))[4] \
             .append((int(bq), int(fs)))
     for e, f in re.findall(r"X\((\d+), (\d+)\)", macro("REPRO_DIMS")):
         tile = re.search(
             rf"struct PrefillTile<{e}, {f}> {{\s*static constexpr int "
             r"BQ = (\d+), BK = (\d+), WF = (\d+)", src)
         bq, bk, wf = map(int, tile.groups())
-        plans[(int(e), int(f))] = ("mma_sync", bk, wf, [(bq, 1)])
+        plans[(int(e), int(f))] = ("mma_sync", bk, wf, 2, [(bq, 1)])
     return plans
 
 
 def _layout_bytes(bq, e, f, fs, elem_bytes):
     """``Layout<T, E, F>::BYTES`` of ``fusemax_prefill.cu`` (VK, the slot
     and the fp32 P tile), or at the wgmma body's dims ``WgLayout<T, E, F,
-    FS>::BYTES`` of ``fusemax_prefill_wgmma.cuh`` (32 raw K and V rows,
-    the fp32 splits of Q, two K tiles and two Vᵀ tiles, hi and, unless
-    bf16, lo, and 10 mbarriers), written out from the structs."""
+    FS>::BYTES`` (:func:`_wg_bytes` at the BK and NBUF the source's
+    ``WgTile`` sets), written out from the structs."""
     kern = autotune.CUDA_PREFILL[(e, f)]
     if kern.body == "wgmma":
         assert bq == 64
-        nb = 1 if elem_bytes == 2 else 2
-        raw = elem_bytes * (32 * e + 32 * f)
-        return raw + 4 * nb * (64 * e + 2 * 32 * e + 2 * (f // fs) * 32) + 80
+        _, bk, _, nbuf, _ = _source_plans()[(e, f)]
+        return _wg_bytes(bq, bk, e, f, nbuf, fs, elem_bytes)
     assert fs == 1
     bk, wf = kern.block_k, kern.warp_split
     kc = autotune.CUDA_PREFILL_K_CHUNK.get((e, f), autotune.PREFILL_K_CHUNK)
@@ -434,8 +514,10 @@ def test_prefill_plans_and_smem_model_match_the_source():
     at every plan equals the source's layout formula in fp32 and bf16,
     within one block's 232,448 B: on the wgmma body at (64, 64) 114,768 B
     (two blocks share an SM) and 98,384 B in two column blocks; at
-    (128, 128) 229,456 and 196,688 B in one and two."""
-    assert {dims: (k.body, k.block_k, k.warp_split, list(k.plans))
+    (128, 128) 229,456 and 196,688 B in one and two; at (256, 256)
+    229,456 B and at (192, 128) 221,264 B, one split buffer each."""
+    assert {dims: (k.body, k.block_k, k.warp_split, k.split_buffers,
+                   list(k.plans))
             for dims, k in autotune.CUDA_PREFILL.items()} == _source_plans()
     for (e, f), kern in autotune.CUDA_PREFILL.items():
         for bq, fs in kern.plans:
@@ -449,6 +531,8 @@ def test_prefill_plans_and_smem_model_match_the_source():
     assert (smem(64, 1), smem(64, 2)) == (114_768, 98_384)
     assert (smem(128, 1), smem(128, 2)) == (229_456, 196_688)
     assert 2 * (smem(64, 1) + 1024) <= 233_472   # two blocks an SM
+    assert autotune.prefill_smem_bytes(64, 16, 256, 256, 1) == 229_456
+    assert autotune.prefill_smem_bytes(64, 32, 192, 128, 1) == 221_264
 
 
 def test_kernel_cascades_name_the_reference_builders():

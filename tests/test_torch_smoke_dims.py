@@ -109,14 +109,18 @@ def test_prefill_tile_resolves_and_fits(e, f):
 
 
 def test_prefill_smem_mirror_at_the_new_dims():
-    """``prefill_smem_bytes`` at the new tiles, as the kernel's ``Layout``
-    counts them (fp32): (256, 256) on 64 x 64 with four warps a row group
-    138,240 B (its 128 x 64 alternative would take 223,232 B); the smoke
-    dims on 128 x 64 with K chunks of E itself, 46,080 B at (32, 32) and
+    """``prefill_smem_bytes`` at the new tiles, as the kernels' layouts
+    count them (fp32): (256, 256) on the wgmma body's 64 x 16 with one K
+    and one Vᵀ split 229,456 B (two of each at 16 keys would take
+    294,992 B, at 32 keys 458,832 B); the smoke dims on the mma.sync
+    body's 128 x 64 with K chunks of E itself, 46,080 B at (32, 32) and
     66,560 B at (48, 32)."""
-    assert autotune.CUDA_PREFILL_TILES[(256, 256)] == (64, 64)
-    assert autotune.prefill_smem_bytes(64, 64, 256, 256, 4) == 138_240
-    assert autotune.prefill_smem_bytes(128, 64, 256, 256, 2) == 223_232
+    assert autotune.CUDA_PREFILL_TILES[(256, 256)] == (64, 16)
+    assert autotune.prefill_smem_bytes(64, 16, 256, 256, 1) == 229_456
+    for bk, want in ((16, 294_992), (32, 458_832)):
+        # raw K and V, Q's split, two K and two Vᵀ splits, 10 mbarriers
+        got = 4 * bk * 512 + 8 * (64 * 256 + 2 * bk * 256 * 2) + 80
+        assert got == want > autotune.SMEM_BUDGET
     assert autotune.prefill_smem_bytes(128, 64, 32, 32, 1) == 46_080
     assert autotune.prefill_smem_bytes(128, 64, 48, 32, 1) == 66_560
     assert autotune.CUDA_PREFILL_K_CHUNK == {(32, 32): 32, (48, 32): 48}
