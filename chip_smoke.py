@@ -392,6 +392,27 @@ PARENT_K1_DIMS = ((256, 256), (192, 128))
 PARENT_F64_RATIO = 2.0
 
 
+def load_benchmark(name: str):
+    """``benchmarks/<name>.py`` of this checkout, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "benchmarks", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: the decode kernels' data builders, shared with the decode variants bench
+_data = load_benchmark("torch_decode_data")
+_rand = _data.rand
+paged_data = _data.paged_data
+granite_paged_data = _data.granite_paged_data
+gemma2_paged_data = _data.gemma2_paged_data
+with_sentinels = _data.with_sentinels
+_quantized = _data.quantized
+
+
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -434,11 +455,6 @@ def _err(torch, out, ref, dtype_name):
     return diff.max().item(), excess <= 0.0, atol, rtol
 
 
-def _rand(torch, gen, shape, dtype):
-    return torch.randn(shape, generator=gen, device="cuda",
-                       dtype=torch.float32).to(dtype)
-
-
 class ParentK1:
     """K1's parent body at ``PARENT_K1_DIMS``: the shipped source with
     those dims routed back to the mma.sync body on the tiles they had
@@ -448,13 +464,7 @@ class ParentK1:
     dims; it counts no launch of the port's kernel."""
 
     def __init__(self):
-        import importlib.util
-
-        spec = importlib.util.spec_from_file_location(
-            "torch_k1_variants",
-            os.path.join(ROOT, "benchmarks", "torch_k1_variants.py"))
-        self.k1v = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(self.k1v)
+        self.k1v = load_benchmark("torch_k1_variants")
         src = self.k1v.mma_sync_source(self.k1v.shipped_source(),
                                        PARENT_K1_DIMS, only=True)
         self.procs = self.k1v.start_build(
@@ -1106,49 +1116,6 @@ def run_k3_cases(torch, gen, dec, autotune, cases=None) -> list:
     return rows
 
 
-def paged_data(torch, gen, b, hq, hkv, m, d, ps=16):
-    """A decode step's data on both layouts, fp32: a dense cache of m slots
-    and the same rows scattered into a pool of b * m / ps pages in a random
-    page order (tables [b, m / ps])."""
-    w = m // ps
-    g = hq // hkv
-    q = _rand(torch, gen, (b, hq, 1, d), torch.float32)
-    k = _rand(torch, gen, (b, hkv, m, d), torch.float32)
-    v = _rand(torch, gen, (b, hkv, m, d), torch.float32)
-    perm = torch.randperm(b * w, generator=gen, device="cuda")
-    k_pages = torch.empty((b * w, ps, hkv, d), device="cuda")
-    v_pages = torch.empty_like(k_pages)
-    k_pages[perm] = k.reshape(b, hkv, w, ps, d).permute(0, 2, 3, 1, 4) \
-        .reshape(b * w, ps, hkv, d)
-    v_pages[perm] = v.reshape(b, hkv, w, ps, d).permute(0, 2, 3, 1, 4) \
-        .reshape(b * w, ps, hkv, d)
-    table = perm.to(torch.int32).reshape(b, w).contiguous()
-    return dict(b=b, hq=hq, hkv=hkv, g=g, m=m, d=d, ps=ps, w=w, q=q, k=k,
-                v=v, k_pages=k_pages, v_pages=v_pages, table=table)
-
-
-def granite_paged_data(torch, gen):
-    """A granite-3-8b decode step: 8 slots, 32 q over 8 kv heads, head dim
-    128, a 2048-token cache, a 1024-page pool (page_size 16, W 128)."""
-    return paged_data(torch, gen, 8, 32, 8, 2048, 128)
-
-
-def gemma2_paged_data(torch, gen, m=8192):
-    """A gemma2-9b decode step: 4 slots, 16 q over 8 kv heads, head dim
-    256, a global layer's 8192-token cache (or a local layer's ring of
-    4096) and its pool (page_size 16)."""
-    return paged_data(torch, gen, 4, 16, 8, m, 256)
-
-
-def with_sentinels(table, kvl, ps, n_pages):
-    """``table`` with the entries past each row's kv_len set to the
-    sentinel ``n_pages``."""
-    t = table.clone()
-    for i, n in enumerate(kvl):
-        t[i, -(-n // ps):] = n_pages
-    return t
-
-
 def k3_vs_k2(torch, gen, dec, autotune, x=None,
              kvl=(2048, 1500, 1024, 700, 300, 64, 1, 0),
              case="k3_vs_k2") -> dict:
@@ -1265,6 +1232,7 @@ def time_k3(torch, gen, dec, ops, autotune, x=None,
                             f"{tuned.splits} block_k {args['block_k']}"
                             + (f" P={p} ({p * g} rows)" if p > 1 else ""))
     row["k2_ms_same_data"] = k2_ms
+    row["plan"] = decode_plan(autotune, p * g, tuned.splits, b * hkv)
     row["device_ms"] = dev_ms
     row["host_ms"] = wrapper_ms
     row["device_share_of_bound"] = row["bound_ms"] / dev_ms
@@ -1811,21 +1779,6 @@ def time_latent(torch, gen, dec, autotune,
 QUANT_KV = {"fp8_e4m3": "fp8", "int8": "int8"}
 
 
-def _quantized(torch, pools, kv_dtype):
-    """Per pool: (codes, fp16 scales, the fp32 pool they decode to),
-    through the port's ``quantize_kv`` (one scale per trailing vector)."""
-    from repro_torch.model.attention import (
-        dequantize_kv, kv_quant_dtype, quantize_kv,
-    )
-
-    qdt = kv_quant_dtype(kv_dtype)
-    out = []
-    for x in pools:
-        codes, scales = quantize_kv(x, qdt)
-        out.append((codes, scales, dequantize_kv(codes, scales)))
-    return out
-
-
 def run_k3q_cases(torch, gen, dec, autotune, cases=None) -> tuple:
     """K3 on quantized pools: every fp32 case of :func:`k3_cases` (head
     dims 32-256, verify rows, ring classes at eff_len, softcap, kv_len 0,
@@ -2222,6 +2175,9 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
         row["device_ms"] = device_ms(torch, lambda: fm.fusemax_attention_cuda(
             q_f, k_f, v_f, **args), "fusemax_prefill")
         row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        # SDPA's own kernels, so the two compare device against device
+        row["library_device_ms"] = call_device_ms(
+            torch, _sdpa_fn(torch, q, k, v, **sdpa_kw))
     if softcap is not None:
         row["library_note"] = (f"SDPA has no softcap: library_ms is the "
                                f"same shapes and masks without softcap "
@@ -2336,11 +2292,11 @@ def time_smoke(torch, gen, fm, dec, ops, autotune) -> dict:
     out = {
         "fusemax_prefill@smoke_32x32": _time_k1_shape(
             torch, gen, fm, autotune, b=4, hq=4, hkv=2, p=256, m=256, e=32,
-            f=32, q_offset=0, window=64, softcap=50.0,
+            f=32, q_offset=0, window=64, softcap=50.0, with_device_ms=True,
             shape="B4 Hq4 Hkv2 P=M=256 d32 fp32 causal window 64 softcap 50"),
         "fusemax_prefill@smoke_48x32": _time_k1_shape(
             torch, gen, fm, autotune, b=4, hq=4, hkv=4, p=256, m=256, e=48,
-            f=32, q_offset=0,
+            f=32, q_offset=0, with_device_ms=True,
             shape="B4 H4 (one fiber each) P=M=256 E48 F32 fp32 causal"),
         "decode_partials@smoke_d32": time_k2(
             torch, gen, dec, autotune, b=4, hq=4, hkv=2, m=256, d=32,
@@ -2423,6 +2379,45 @@ def device_ms(torch, fn, kernel: str, iters: int = 20,
               flush=True)
     ms = time_ms(torch, fn, iters=iters, warmup=0)
     print(json.dumps({"device_ms_fallback": kernel, "sessions": tries,
+                      "via": "cuda_events", "ms": ms}), flush=True)
+    return ms
+
+
+def call_device_ms(torch, fn, iters: int = 20, warmup: int = 3,
+                   tries: int = 3) -> float:
+    """Device time of one call of ``fn`` (a library call) over ``iters``
+    calls after ``warmup``: for every CUDA kernel it launches, the mean
+    of its recorded launches times its launches a call, summed.  A call
+    launches the same kernels each time, but CUPTI drops a few records (at
+    SDPA's fp32 kernel 2 of 20 in each session), so a kernel's launches a
+    call are its records over ``iters`` rounded up, not its records.  A
+    session with no record is profiled again, up to ``tries`` sessions,
+    and then the time is CUDA events around the calls (:func:`time_ms`),
+    said on a line of its own."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, tries + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n, us = {}, {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                n[ev.name] = n.get(ev.name, 0) + 1
+                us[ev.name] = us.get(ev.name, 0.0) + (
+                    ev.device_time_total if hasattr(ev, "device_time_total")
+                    else ev.cuda_time_total)
+        if n:
+            return sum(us[k] / n[k] * -(-n[k] // iters) for k in n) / 1e3
+        print(f"call_device_ms: profiler session {attempt} of {tries} "
+              f"recorded no kernel in {iters} calls", file=sys.stderr,
+              flush=True)
+    ms = time_ms(torch, fn, iters=iters, warmup=0)
+    print(json.dumps({"device_ms_fallback": "library call", "sessions": tries,
                       "via": "cuda_events", "ms": ms}), flush=True)
     return ms
 
@@ -2544,7 +2539,20 @@ def time_k2(torch, gen, dec, autotune, b=8, hq=32, hkv=8, m=2048, d=128,
                             f"{args['block_k']}"
                             + (f" P={p} ({p * g} rows)" if p > 1 else ""))
     return dict(row, device_ms=dev_ms, host_ms=wrapper_ms,
-                device_share_of_bound=row["bound_ms"] / dev_ms)
+                device_share_of_bound=row["bound_ms"] / dev_ms,
+                plan=decode_plan(autotune, p * g, tuned.splits, b * hkv))
+
+
+def decode_plan(autotune, rows: int, splits: int, fibers: int) -> dict:
+    """A K2/K3 launch's plan (``autotune``'s mirror of the kernel's
+    layout): rows a block, blocks of rows a (split, fiber), the grid and
+    its blocks against the card's SMs."""
+    grid = autotune.decode_grid(rows, splits, fibers)
+    blocks = grid[0] * grid[1] * grid[2]
+    return dict(rows_a_block=autotune.decode_row_block(rows),
+                row_blocks=grid[0], grid=list(grid), blocks=blocks,
+                sms=autotune.H100_SMS,
+                blocks_per_sm=blocks / autotune.H100_SMS)
 
 
 def _timing_row(ms, plain_ms, library_ms, flops, nbytes, err, ok, shape,

@@ -39,9 +39,10 @@ What the port changes:
 * The split-K geometry (``decode_params``) is the reference's, for every
   impl: it is keyed on the cache length and never on P, so a later verify
   path inherits exactly the split structure of single-token decode.  The
-  CUDA decode kernels' own layout (chunk, ring stages, row blocks) is
-  mirrored by :func:`decode_smem_bytes`, which their wrappers hold
-  against ``SMEM_BUDGET`` before each launch.
+  CUDA decode kernels' own layout (chunk, ring stages, row blocks, the
+  grid) is mirrored by :func:`decode_smem_bytes` and
+  :func:`decode_grid`, which their wrappers hold against ``SMEM_BUDGET``
+  and the grid's limits before each launch.
 * The table's keys drop the reference's backend and impl: the split
   geometry is the same for every impl.
 """
@@ -132,6 +133,8 @@ PREFILL_STAGES = 3
 DECODE_CHUNK = 16
 DECODE_STAGES = 2
 DECODE_KEY_WARPS = 4
+#: the CUDA grid's limit on its y and z axes
+GRID_YZ = 65535
 
 
 def _round_up(x: int, m: int) -> int:
@@ -222,11 +225,19 @@ def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
 
 def decode_row_block(rows: int) -> int:
     """Query rows one K2/K3 block serves (``row_block`` in the kernel): 4,
-    or 8 when a fiber has more than 4 (a fiber of R rows takes
-    ceil(R / block) blocks per split), at every head dim: at 256 the 8-row
+    or 8 when a fiber has more than 4, at every head dim: at 256 the 8-row
     block holds 128 query and accumulator floats a lane, which ptxas fits
     in 200-203 registers without a spill."""
     return 4 if rows <= 4 else 8
+
+
+def decode_grid(rows: int, splits: int, fibers: int) -> tuple[int, int, int]:
+    """The (x, y, z) grid of one K2/K3 launch of 128-thread blocks
+    (``launch_partials`` in the kernel): ceil(rows / row block) blocks of
+    rows on grid.x, so a split's blocks of rows run side by side and all
+    but the first read its chunks from L2, then the splits and the
+    fibers."""
+    return -(-rows // decode_row_block(rows)), splits, fibers
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,12 +251,16 @@ def decode_smem_bytes(rows: int, d: int, elem_bytes: int = 4,
     cross-warp merge (fp32 m, l and accumulator of every key warp and row
     of the block) reuses after the walk, padded to 16 bytes; with
     ``scaled`` (a quantized pool) each stage's fp32 K and V scales of its
-    chunk's keys; then the split's page list, ``pages`` int32 ids (K3:
-    ``split_len / page_size``; K2: 0) padded to 4."""
+    chunk's keys; each warp's fp32 probabilities of a chunk and rescale
+    factors of its rows; then the split's page list, ``pages`` int32 ids
+    (K3: ``split_len / page_size``; K2: 0) padded to 4."""
     ring = stages * 2 * DECODE_CHUNK * d * elem_bytes
-    merge = 4 * DECODE_KEY_WARPS * decode_row_block(rows) * (d + 2)
+    rb = decode_row_block(rows)
+    merge = 4 * DECODE_KEY_WARPS * rb * (d + 2)
     scales = 4 * stages * 2 * DECODE_CHUNK if scaled else 0
-    return _round_up(max(ring, merge), 16) + scales + 4 * _round_up(pages, 4)
+    pbuf = 4 * DECODE_KEY_WARPS * rb * (DECODE_CHUNK // DECODE_KEY_WARPS + 1)
+    return (_round_up(max(ring, merge), 16) + scales + pbuf
+            + 4 * _round_up(pages, 4))
 
 
 #: keys per shared-memory chunk of the MLA latent decode body (K4 and

@@ -41,7 +41,7 @@ extern "C" int decode_partials(const void* q, const void* k, const void* v,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Most folded query rows a fiber takes (the grid's row-block limit).
+// Most folded query rows a fiber takes (max_rows() in decode_partials.cuh).
 extern "C" int decode_partials_max_rows() { return max_rows(); }
 
 // Dynamic shared memory one launch with `rows` query rows per fiber takes

@@ -1,7 +1,7 @@
 // Split-K decode partials body shared by the dense (K2,
 // decode_partials.cu) and paged (K3, paged_decode_partials.cu) kernels.
 //
-// One block per (split, batch*kv-head fiber, block of RB query rows)
+// One block per (split, batch*kv-head fiber, block of query rows)
 // computes the running (m, l, acc) of Cascade 5 over the key tiles of its
 // split that the TPU kernels run — tiles with k_lo < kv_len + P - 1 and,
 // with a window, k_hi > kv_len - 1 - window, as loop bounds — for its
@@ -48,15 +48,28 @@
 //   once per split in shared memory (exact where a warp saw only masked
 //   keys: its m = NEG_INF meets a real maximum with a factor 0); scores
 //   are per-lane partial dots summed across the warp by a transposed
-//   butterfly (NP (row, key) dots in NP - 1 shuffles when NP = 32), the
-//   running max and sum are shuffles over the lanes of a row, and the
-//   value pass broadcasts each probability from its lane;
+//   butterfly (NP (row, key) dots in NP - 1 shuffles when NP = 32) over
+//   slots permuted per lane, so no step selects what to keep or send, the
+//   running max and sum are shuffles over the lanes of a row, and each
+//   probability and row factor reaches the value pass through a per-warp
+//   slot in shared memory;
 // * with P = 1 and no window the walk stops at kv_len: every tile that
 //   runs starts below kv_len, so each row has a valid key in the split's
 //   first chunk and a later chunk past kv_len would add exact zeros.
 //   With P > 1 or a window a row can have no valid key in a tile that
 //   runs, and its output then depends on how many masked keys the walk
 //   crosses, so there the walk is the whole tile-run range.
+// * verify rows (more than 8 a fiber, a speculative chain of P positions
+//   x G): the blocks of 8 rows of one (split, fiber) lie on grid.x, so
+//   they run side by side and all but the first read the split's chunks
+//   from L2; on grid.z, one slice after another, each read them from HBM
+//   again (at granite's P = 13 the walk without its arithmetic takes
+//   0.132 ms there, 0.058 on grid.x).  On grid.x the arithmetic sets the
+//   pace, so the rest cuts instructions and stalls: a 128-register cap
+//   at 8 rows below d256 (4 blocks a SM, not 3), each row's WK merge
+//   factors taken once, and the butterfly and broadcasts above
+//   (benchmarks/torch_decode_variants.py times each against its
+//   alternative).
 // Scores, softmax and the accumulator update are true fp32 FMA; bf16 is
 // widened on the shared-memory read.  The partials are written without
 // the TPU's 128-lane padding.
@@ -76,6 +89,7 @@
 #pragma once
 
 #include <atomic>
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -92,7 +106,7 @@ constexpr int NW = NT / 32;   // warps per block
 constexpr int CK = 16;        // keys per chunk (one ring stage)
 constexpr int STAGES = 2;     // chunks the ring holds
 constexpr int WK = 4;         // warps that split a chunk's keys
-constexpr int MAX_ROW_BLOCKS = 65535;  // grid.z: row blocks of one fiber
+constexpr int MAX_GRID_YZ = 65535;   // grid.y / grid.z limit
 constexpr int SMEM_BUDGET = 232448;  // dynamic shared memory of one block
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -133,20 +147,22 @@ __host__ __device__ constexpr int row_block(int rows) {
   return rows <= 4 ? 4 : 8;
 }
 
-// Most folded query rows (P * G) a fiber takes: one block per RB of them on
-// grid.z, whose limit is the only bound.  Nothing in the body assumes fewer:
-// the merge's [WK][RB] state, the query load and the chain limit
-// kvl + row / rows_per_pos all index by row_base + (row within the block),
-// and the partials by (bh * splits + split) * R + row.
-__host__ __device__ constexpr int max_rows() {
-  return MAX_ROW_BLOCKS * row_block(MAX_ROW_BLOCKS);
-}
+// Most folded query rows (P * G) a fiber takes: its blocks of rows lie on
+// grid.x, whose limit is past any int row count, so the bound is the
+// largest R for which row_base + (row within the block), up to R + 7,
+// still fits an int.  Nothing in the body assumes fewer: the merge's
+// [WK][RB] state, the query load and the chain limit kvl + row /
+// rows_per_pos all index by row_base + (row within the block), and the
+// partials by (bh * splits + split) * R + row.
+__host__ __device__ constexpr int max_rows() { return INT_MAX - 7; }
 
 // Shared memory of one block (autotune.decode_smem_bytes is its twin):
 // the ring, STAGES x [K rows | V rows] of CK x D elements, which the
 // cross-warp merge ([WK][RB] m, [WK][RB] l, [WK][RB][D] acc, fp32)
 // reuses after the walk; on a quantized pool the scale slots, STAGES x
-// [K | V] x CK fp32; then the split's page list.
+// [K | V] x CK fp32; each warp's chunk probabilities ([RW][CK / WK]) and
+// rescale factors ([RW]), fp32 (RW = RB / (NW / WK) rows a warp); then
+// the split's page list.
 __host__ __device__ constexpr int ring_bytes(int rb, int d, int elem_bytes) {
   return round16(STAGES * 2 * CK * d * elem_bytes > 4 * WK * rb * (d + 2)
                      ? STAGES * 2 * CK * d * elem_bytes
@@ -155,10 +171,13 @@ __host__ __device__ constexpr int ring_bytes(int rb, int d, int elem_bytes) {
 __host__ __device__ constexpr int scale_bytes(bool scaled) {
   return scaled ? 4 * STAGES * 2 * CK : 0;
 }
+__host__ __device__ constexpr int pbuf_bytes(int rb) {
+  return 4 * NW * (rb / (NW / WK)) * (CK / WK + 1);
+}
 __host__ __device__ constexpr int smem_bytes(int rows, int d, int elem_bytes,
                                              int pages, bool scaled) {
   return ring_bytes(row_block(rows), d, elem_bytes) + scale_bytes(scaled) +
-         4 * ((pages + 3) / 4 * 4);
+         pbuf_bytes(row_block(rows)) + 4 * ((pages + 3) / 4 * 4);
 }
 
 __host__ __device__ constexpr int ilog2(int n) {
@@ -375,6 +394,13 @@ __device__ __forceinline__ void load_feats(const __nv_fp8_e4m3* p,
 // butterfly: each of the log2(N) first steps sends half of the live values
 // and keeps the other half, the remaining steps are plain).  Lane l
 // returns the warp-wide sum of v[l >> (5 - log2 N)].
+//
+// The lanes hold their values permuted: lane l's v[s] is the value of
+// index s ^ (l >> (5 - log2 N)), so at every step the value to keep is
+// v[i] and the one to send v[i + h], with no select by the lane's bit.
+// Each step adds the same two lanes' values of the same index as the
+// unpermuted form (an fp32 add does not depend on its operands' order),
+// so the sums are the same bits.
 template <int N>
 __device__ __forceinline__ float lane_sum(float (&v)[N], int lane) {
   constexpr unsigned FULL = 0xffffffffu;
@@ -385,15 +411,9 @@ __device__ __forceinline__ float lane_sum(float (&v)[N], int lane) {
   for (int st = 0; st < LOGN; ++st) {
     const int h = N >> (st + 1);
     const int mask = 16 >> st;
-    const bool up = lane & mask;
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) {
-      if (i < h) {
-        const float keep = up ? v[i + h] : v[i];
-        const float send = up ? v[i] : v[i + h];
-        v[i] = keep + __shfl_xor_sync(FULL, send, mask);
-      }
-    }
+    for (int i = 0; i < N / 2; ++i)
+      if (i < h) v[i] = v[i] + __shfl_xor_sync(FULL, v[i + h], mask);
   }
   float s = v[0];
 #pragma unroll
@@ -402,8 +422,12 @@ __device__ __forceinline__ float lane_sum(float (&v)[N], int lane) {
   return s;
 }
 
+// RB rows a block.  At 8 rows below d256 a SM holds 4 blocks (128
+// registers a thread; ptxas gives the fp32 bodies no spill): left to
+// itself it takes 147-156 registers, 3 blocks a SM, and the verify rows
+// run 1.1x slower.
 template <typename T, int D, bool MACCS, int RB, class KV>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, (RB == 8 && D < 256) ? 4 : 1)
 decode_partials_kernel(const T* __restrict__ q, const KV kv,
                        const int* __restrict__ kv_len,
                        float* __restrict__ pm, float* __restrict__ pl,
@@ -431,19 +455,26 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
   static_assert(VPR % TPK == 0 || TPK % VPR == 0,
                 "a key row's copies split evenly over its threads");
   static_assert(RB % (NW / WK) == 0 && NP <= 32 && (NP & (NP - 1)) == 0 &&
-                    KW % KG == 0,
+                    KW % KG == 0 && (RW & (RW - 1)) == 0,
                 "warps tile the rows; a score group fits the lanes");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* ring = reinterpret_cast<S*>(smem_raw);
   // quantized pools: [STAGES][K | V][CK] fp32 scales of each chunk's keys
   float* scales =
       reinterpret_cast<float*>(smem_raw + ring_bytes(RB, D, sizeof(S)));
+  // this warp's [RW][KW] probabilities, then its [RW] rescale factors
+  float* pw = reinterpret_cast<float*>(
+                  smem_raw + ring_bytes(RB, D, sizeof(S)) +
+                  scale_bytes(SCALED)) +
+              threadIdx.x / 32 * RW * (KW + 1);
   int* page_list = reinterpret_cast<int*>(
-      smem_raw + ring_bytes(RB, D, sizeof(S)) + scale_bytes(SCALED));
+      smem_raw + ring_bytes(RB, D, sizeof(S)) + scale_bytes(SCALED) +
+      pbuf_bytes(RB));
 
-  const int split = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int row_base = blockIdx.z * RB;
+  // a split's blocks of rows side by side on grid.x
+  const int row_base = blockIdx.x * RB;
+  const int split = blockIdx.y;
+  const int bh = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int split0 = (a.split_first + split) * a.split_len;
@@ -504,13 +535,16 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
   const int kw0 = (warp % WK) * KW;
   const int r0 = (warp / WK) * RW;
   const int my_i = (lane >> SH) / KG, my_k = (lane >> SH) % KG;
+  // lane_sum's permuted slots: slot (i, k) of a score group holds row
+  // i ^ my_i, key k ^ my_k
+  const int xi = my_i, xk = my_k;
   const int my_row = row_base + r0 + my_i;
   const int my_lim = a.n_pos == 1 ? kvl : kvl + my_row / a.rows_per_pos;
   const bool windowed = a.window > 0;
   float qr[RW][FPL], acc[RW][FPL];
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
-    const int row = row_base + r0 + i;
+    const int row = row_base + r0 + (i ^ xi);
     const T* qrow = q + (static_cast<size_t>(bh) * a.R + row) * D + lane * FPL;
 #pragma unroll
     for (int j = 0; j < FPL; ++j) {
@@ -548,9 +582,10 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
 #pragma unroll
       for (int k = 0; k < KG; ++k) {
         float kf[FPL];
-        load_feats(kb + (kw0 + g * KG + k) * D + lane * FPL, kf);
+        const int kr = kw0 + g * KG + (k ^ xk);
+        load_feats(kb + kr * D + lane * FPL, kf);
         if constexpr (SCALED) {
-          const float sk = ksc[kw0 + g * KG + k];
+          const float sk = ksc[kr];
 #pragma unroll
           for (int j = 0; j < FPL; ++j) kf[j] *= sk;
         }
@@ -593,9 +628,17 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
     const float prm = fexp<MACCS>(m_i - m_new);
     l_i = l_i * prm + sum;
     m_i = m_new;
+    // the lane holding (row, key) publishes its probability, and a row's
+    // key-0 lane its factor; the warp reads them back broadcast
+    if ((lane & ((1 << SH) - 1)) == 0) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) pw[g * NP + (lane >> SH)] = p[g];
+      if (my_k == 0) pw[RW * KW + my_i] = prm;
+    }
+    __syncwarp();
 #pragma unroll
     for (int i = 0; i < RW; ++i) {
-      const float f = __shfl_sync(FULL, prm, (i * KG) << SH);
+      const float f = pw[RW * KW + i];
 #pragma unroll
       for (int j = 0; j < FPL; ++j) acc[i][j] *= f;
     }
@@ -607,7 +650,7 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
       float pc[RW];
 #pragma unroll
       for (int i = 0; i < RW; ++i)
-        pc[i] = __shfl_sync(FULL, p[kk / KG], (i * KG + kk % KG) << SH);
+        pc[i] = pw[kk / KG * NP + i * KG + kk % KG];
       float vf[FPL];
       load_feats(vb + (kw0 + kk) * D + lane * FPL, vf);
       if constexpr (SCALED) {
@@ -629,7 +672,9 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
   const bool holds_row = (lane & ((1 << SH) - 1)) == 0 && my_k == 0;
   if constexpr (WK > 1) {
     // merge the WK warps' states of each row: M = max m_w, every state
-    // scaled by exp(m_w - M), summed in warp order
+    // scaled by exp(m_w - M), summed in warp order; each row's WK factors
+    // are taken once, in place of its m_w, before the accumulators'
+    // merge reads them
     float* mm = reinterpret_cast<float*>(smem_raw);  // [WK][RB]
     float* ml = mm + WK * RB;                        // [WK][RB]
     float* ma = ml + WK * RB;                        // [WK][RB][D]
@@ -645,28 +690,28 @@ decode_partials_kernel(const T* __restrict__ q, const KV kv,
       ml[kwi * RB + r0 + my_i] = l_i;
     }
     __syncthreads();
-    for (int idx = tid; idx < nr * D; idx += NT) {
-      const int r = idx / D, e = idx - r * D;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int w = 0; w < WK; ++w) mx = fmaxf(mx, mm[w * RB + r]);
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < WK; ++w)
-        s = fmaf(fexp<MACCS>(mm[w * RB + r] - mx), ma[(w * RB + r) * D + e],
-                 s);
-      pnv[(base + r) * D + e] = s;
-    }
     for (int r = tid; r < nr; r += NT) {
       float mx = NEG_INF;
 #pragma unroll
       for (int w = 0; w < WK; ++w) mx = fmaxf(mx, mm[w * RB + r]);
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < WK; ++w)
-        s = fmaf(fexp<MACCS>(mm[w * RB + r] - mx), ml[w * RB + r], s);
+      for (int w = 0; w < WK; ++w) {
+        const float f = fexp<MACCS>(mm[w * RB + r] - mx);
+        s = fmaf(f, ml[w * RB + r], s);
+        mm[w * RB + r] = f;
+      }
       pm[base + r] = mx;
       pl[base + r] = s;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < nr * D; idx += NT) {
+      const int r = idx / D, e = idx - r * D;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < WK; ++w)
+        s = fmaf(mm[w * RB + r], ma[(w * RB + r) * D + e], s);
+      pnv[(base + r) * D + e] = s;
     }
   } else {
 #pragma unroll
@@ -703,7 +748,7 @@ cudaError_t launch_partials(const void* q, const KV& kv, const void* kv_len,
       opened.fetch_or(bit, std::memory_order_relaxed);
     }
   }
-  const dim3 grid(a.splits, bh, (a.R + RB - 1) / RB);
+  const dim3 grid(a.R / RB + (a.R % RB != 0), a.splits, bh);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), kv, static_cast<const int*>(kv_len),
       static_cast<float*>(pm), static_cast<float*>(pl),
@@ -723,6 +768,7 @@ cudaError_t dispatch_partials(int dtype, int head_dim, int maccs,
                               void* pnv, int bh, const DecodeArgs& a,
                               cudaStream_t st) {
   if (a.R < 1 || a.R > max_rows()) return cudaErrorInvalidValue;
+  if (a.splits > MAX_GRID_YZ || bh > MAX_GRID_YZ) return cudaErrorInvalidValue;
 #define REPRO_LAUNCH(T, D, RB)                                                \
   (maccs ? launch_partials<T, D, true, RB>(q, kv, kv_len, pm, pl, pnv, bh,    \
                                            smem, a, st)                       \

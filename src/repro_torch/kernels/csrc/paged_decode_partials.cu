@@ -74,7 +74,7 @@ extern "C" int paged_decode_partials(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Most folded query rows a fiber takes (the grid's row-block limit).
+// Most folded query rows a fiber takes (max_rows() in decode_partials.cuh).
 extern "C" int paged_decode_partials_max_rows() { return max_rows(); }
 
 // Dynamic shared memory one launch takes: `pages` = split_len / page_size

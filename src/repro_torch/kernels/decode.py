@@ -92,11 +92,12 @@ CUDA_LATENT_DIMS = ((512, 64), (32, 16))
 QUANT_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 #: the launch counters' names of the code dtypes
 QUANT_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8_e4m3"}
-#: most folded query rows (P·G) a fiber of K2 and K3 takes: one block per
-#: 8 of them on grid.z, whose 65535 is the only bound (the kernels'
-#: ``max_rows()``, held to the libraries' own report when they load); K4
-#: and K2's latent branch take any count
-CUDA_MAX_ROWS = 65535 * 8
+#: most folded query rows (P·G) a fiber of K2 and K3 takes: the blocks of
+#: rows lie on grid.x, whose limit no int row count reaches, so the bound
+#: is the largest int R whose row indices up to R + 7 still fit an int
+#: (the kernels' ``max_rows()``, held to the libraries' own report when
+#: they load); K4 and K2's latent branch take any count
+CUDA_MAX_ROWS = 2**31 - 8
 
 
 def _check_head_dims(name: str, *tensors: torch.Tensor) -> None:
@@ -118,6 +119,15 @@ def _check_vectors(name: str, **tensors: torch.Tensor) -> None:
                 f"a multiple of 16 bytes apart (the kernel copies 16-byte "
                 f"vectors); it starts {t.data_ptr() % 16} bytes past one, "
                 f"rows {t.stride(-2) * t.element_size()} bytes apart")
+
+
+def _check_grid(name: str, rows: int, splits: int, fibers: int) -> None:
+    """Raise unless the K2/K3 grid of a launch
+    (:func:`autotune.decode_grid`: the splits on grid.y, the fibers on
+    grid.z) fits the CUDA grid's limits."""
+    grid = autotune.decode_grid(rows, splits, fibers)
+    if max(grid[1:]) > autotune.GRID_YZ:
+        raise ValueError(f"{name}: grid {grid} too large")
 
 
 def _check_smem(name: str, rows: int, d: int, elem_bytes: int,
@@ -142,7 +152,7 @@ def _check_smem_mirror(fn, name: str, codes: bool = False) -> None:
     if codes:
         kinds += [(0, kv_code, 1, True) for kv_code in QUANT_CODES.values()]
     for code, kv_code, eb, scaled in kinds:
-        for rows in (1, 4, 5, 64):
+        for rows in (1, 4, 5, 9, 52, 64, 128):
             for d in CUDA_HEAD_DIMS:
                 for pages in (0, 8, 13):
                     got = fn(rows, d, code, pages, kv_code) if codes \
@@ -733,8 +743,7 @@ def decode_partials_cuda(
     if not 1 <= r <= max_rows:
         raise ValueError(f"{r} query rows per fiber; the kernel takes "
                          f"1..{max_rows}")
-    if bh > 65535 or splits > 2**31 - 1:
-        raise ValueError(f"grid ({n}, {bh}) too large")
+    _check_grid("decode_partials_cuda", r, n, bh)
     _check_smem("decode_partials_cuda", r, e, q.element_size(), 0)
     f32 = dict(dtype=torch.float32, device=q.device)
     pm = torch.empty((bh, n, r), **f32)
@@ -833,8 +842,7 @@ def paged_decode_partials_cuda(
     if not 1 <= r <= max_rows:
         raise ValueError(f"{r} query rows per fiber; the kernel takes "
                          f"1..{max_rows}")
-    if bh > 65535:
-        raise ValueError(f"grid ({splits}, {bh}) too large")
+    _check_grid(name, r, splits, bh)
     _check_smem(name, r, e, k_pages.element_size(), split_pages,
                 scaled=bool(kv_code))
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -101,7 +101,7 @@ def speculation_refusal(cfg: ModelConfig, k: int, *, temperature: float,
     when ``sharded``), or None: the reference's gates — k >= 1, greedy
     only, an unsharded pool, :func:`speculation_supported`.  The CUDA
     kernels take a verify chain of any length (K2 and K3 up to
-    ``CUDA_MAX_ROWS`` folded rows a fiber, the grid's limit)."""
+    ``CUDA_MAX_ROWS`` folded rows a fiber, 2**31 - 8)."""
     if k < 1:
         return f"need speculate >= 1, got {k}"
     if temperature > 0.0:

@@ -409,15 +409,17 @@ def test_walk_constants_are_the_kernels():
 def test_decode_smem_mirror_pins_the_kernel_layout():
     """``decode_smem_bytes`` is the kernels' ``smem_bytes``: a ring of 2
     chunks of 16 K and 16 V rows (32,768 B at fp32 d128) which the merge
-    of 4 key warps reuses, plus the page list.  Granite's K3 launch (4
-    rows, 8 pages a split) takes 32,800 B, 64 rows the same (the merge of
-    8 rows, 16,640 B, fits the ring); at bf16 d64 with 64 rows the merge
-    (8,448 B) is larger than the ring (8,192 B).  Every instantiation fits
-    one block, with page lists of up to 2048 ids."""
-    assert autotune.decode_smem_bytes(4, 128, 4, pages=8) == 32_800
-    assert autotune.decode_smem_bytes(64, 128, 4, pages=8) == 32_800
-    assert autotune.decode_smem_bytes(64, 64, 2) == 8_448
-    assert autotune.decode_smem_bytes(4, 64, 2) == 8_192
+    of 4 key warps reuses, each warp's probabilities of a chunk and
+    rescale factors of its rows (80 B a row of the block), plus the page
+    list.  Granite's K3 launch (4 rows, 8 pages a split) takes 33,120 B,
+    64 rows 33,440 B (the merge of 8 rows, 16,640 B, fits the ring); at
+    bf16 d64 with 64 rows the merge (8,448 B) is larger than the ring
+    (8,192 B).  Every instantiation fits one block, with page lists of up
+    to 2048 ids."""
+    assert autotune.decode_smem_bytes(4, 128, 4, pages=8) == 32_800 + 320
+    assert autotune.decode_smem_bytes(64, 128, 4, pages=8) == 32_800 + 640
+    assert autotune.decode_smem_bytes(64, 64, 2) == 8_448 + 640
+    assert autotune.decode_smem_bytes(4, 64, 2) == 8_192 + 320
     assert autotune.decode_row_block(4) == 4
     assert autotune.decode_row_block(5) == autotune.decode_row_block(64) == 8
     for eb in (4, 2):
@@ -428,6 +430,55 @@ def test_decode_smem_mirror_pins_the_kernel_layout():
     dec._check_smem("t", 4, 128, 4, 2048)
     with pytest.raises(ValueError, match="shared memory"):
         dec._check_smem("t", 4, 128, 4, 60_000)
+
+
+def test_quad_layout_constants_are_the_kernels():
+    """The header's block (128 threads), its row limit (``INT_MAX - 7``,
+    ``CUDA_MAX_ROWS``) and its grid (the blocks of rows on grid.x, then
+    the splits and the fibers) are those ``autotune.decode_grid`` and
+    ``decode.CUDA_MAX_ROWS`` mirror."""
+    src = (ROOT / "src/repro_torch/kernels/csrc/decode_partials.cuh") \
+        .read_text()
+    assert re.findall(r"constexpr int NT = (\d+);", src) == ["128"]
+    assert "constexpr int max_rows() { return INT_MAX - 7; }" in src
+    assert dec.CUDA_MAX_ROWS == 2**31 - 1 - 7
+    assert "const dim3 grid(a.R / RB + (a.R % RB != 0), a.splits, bh);" \
+        in src
+    assert autotune.decode_grid(9, 16, 64) == (2, 16, 64)
+
+
+@pytest.mark.parametrize("code_bytes", [4, 2, 1])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("rows", [4, 8, 52, 65, 68, 128, 640])
+def test_quad_layout_mirror(rows, d, code_bytes):
+    """``autotune``'s mirror of the K2/K3 layout at a fiber's row count:
+    blocks of 4 rows up to 4, else of 8, that cover the fiber once and lie
+    on grid.x; the merge of 4 key warps over the block's rows reuses the
+    ring (fp32 m, l and acc), quantized pools (1-byte codes) add their
+    scale slots, and each warp its chunk's probabilities and its rows'
+    rescale factors."""
+    rb = 4 if rows <= 4 else 8
+    assert autotune.decode_row_block(rows) == rb
+    nb = -(-rows // rb)
+    assert (nb - 1) * rb < rows <= nb * rb
+    assert autotune.decode_grid(rows, 16, 64) == (nb, 16, 64)
+    scaled = code_bytes == 1
+    ring = 2 * CK * 2 * d * code_bytes
+    merge = 4 * WK * rb * (d + 2)
+    pbuf = 4 * WK * rb * (CK // WK + 1)
+    want = -(-max(ring, merge) // 16) * 16 + (4 * 2 * 2 * CK if scaled
+                                              else 0) + pbuf + 4 * 8
+    assert autotune.decode_smem_bytes(rows, d, code_bytes, pages=8,
+                                      scaled=scaled) == want
+    assert want <= autotune.SMEM_BUDGET
+    # every row count up to the kernels' limit has a grid within CUDA's;
+    # past 65535 splits or fibers the wrappers refuse it
+    dec._check_grid("t", rows, 16, 64)
+    dec._check_grid("t", dec.CUDA_MAX_ROWS, 2**16 - 1, 2**16 - 1)
+    with pytest.raises(ValueError, match="grid"):
+        dec._check_grid("t", rows, 2**16, 64)
+    with pytest.raises(ValueError, match="grid"):
+        dec._check_grid("t", rows, 16, 2**16)
 
 
 def test_vector_check_refuses_a_misaligned_view():

@@ -136,10 +136,12 @@ def test_decode_tiles_resolve_at_the_new_head_dims(d):
     for eb in (4, 2):
         for rows in (1, 2, 4, 5, 16, 64):
             dec._check_smem("t", rows, d, eb, 2048)
-    # the ring (2 x 16 K and V rows) outweighs the merge of 8 rows at d256
-    assert autotune.decode_smem_bytes(4, 256, 4, pages=32) == 65_536 + 128
-    assert autotune.decode_smem_bytes(64, 256, 4) == 65_536
-    assert autotune.decode_smem_bytes(64, 32, 2) == 4 * 4 * 8 * 34
+    # the ring (2 x 16 K and V rows) outweighs the merge of 8 rows at
+    # d256; each warp's probabilities and factors take 80 B a block row
+    assert autotune.decode_smem_bytes(4, 256, 4, pages=32) \
+        == 65_536 + 320 + 128
+    assert autotune.decode_smem_bytes(64, 256, 4) == 65_536 + 640
+    assert autotune.decode_smem_bytes(64, 32, 2) == 4 * 4 * 8 * 34 + 640
 
 
 def test_mla_latent_tiles_resolve_at_the_smoke_latent():
@@ -248,10 +250,11 @@ def test_an_unbuilt_code_pair_raises_and_never_falls_back():
     ones = torch.ones(4, 16, 2, dtype=torch.float16)
     assert dec._check_scales("t", codes, (ones, ones), codes.shape[:3]) == 1
     # granite: the merge of 4 rows outweighs a ring of 1-byte codes; the
-    # scale slots add 2 stages x (K, V) x 16 keys of fp32
-    assert autotune.decode_smem_bytes(4, 128, 1, pages=8) == 8_320 + 32
+    # scale slots add 2 stages x (K, V) x 16 keys of fp32, the warps'
+    # probabilities and factors 80 B a block row
+    assert autotune.decode_smem_bytes(4, 128, 1, pages=8) == 8_320 + 320 + 32
     assert autotune.decode_smem_bytes(4, 128, 1, pages=8, scaled=True) \
-        == 8_320 + 256 + 32
+        == 8_320 + 256 + 320 + 32
     # K4: three code chunks (rows padded by 16 bytes), their scales, one
     # dequantized fp32 chunk (rows padded by 4 floats), the 32 fp32 query
     # rows of the head block and its score / P tiles

@@ -215,13 +215,13 @@ def jax_serve_supported(name: str) -> bool:
 
 def test_row_limit_refuses_k_at_construction(gqa_pair):
     """Fault F2 closed: K2 and K3 take any number of folded rows a fiber
-    (up to the grid's CUDA_MAX_ROWS), so ``speculate=k`` is refused only
+    (up to CUDA_MAX_ROWS), so ``speculate=k`` is refused only
     by the reference's gates.  Granite's k = 16 (17 chain positions x G 4
     = 68 rows) and k = 31 (128 rows) are admitted, on the CUDA kernels
     too, as the reference serves them; an MoE config is still refused,
     with the reference's reason."""
     granite = get_config("granite-3-8b")
-    assert CUDA_MAX_ROWS == 65535 * 8
+    assert CUDA_MAX_ROWS == 2**31 - 8
     for k in (15, 16, 31, 100):
         assert speculation_refusal(granite, k, temperature=0.0) is None
     assert speculation_refusal(ModelConfig(**MLA_KW,
