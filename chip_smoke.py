@@ -11,23 +11,25 @@ JSON line (``"phase": ...``):
              line of its own), torch and CUDA versions;
 2. build   — seconds to build the five kernel libraries from
              ``kernels/csrc``, and beside them K1's parent ``mma.sync``
-             body at gemma's (256, 256) and DeepSeek's (192, 128)
-             (``ParentK1``, from ``benchmarks/torch_k1_variants.py``)
-             (nvcc, all in parallel) and the ptxas register / shared-memory
-             report; every instantiation of the latent decode body (K4 and
-             K2's E != F branch), of K1's plans (both bodies, fp32 and
-             bf16, native and MACC exp) and of the parent body must be
-             there without a spill;
+             body at ``PARENT_K1_DIMS`` (gemma's (256, 256), DeepSeek's
+             (192, 128), the smoke configs' (48, 32) and (32, 32);
+             ``ParentK1``, from ``benchmarks/torch_k1_variants.py``)
+             (nvcc, all in parallel) and the ptxas register /
+             shared-memory report; every instantiation of the latent
+             decode body (K4 and K2's E != F branch), of K1's plans (both
+             bodies, fp32 and bf16, native and MACC exp) and of the
+             parent body must be there without a spill;
 3. kernels — every case of the prefill (K1, at the GQA head dims and at
              DeepSeek's MLA (E, F) = (192, 128) and (576, 512), at the
              smoke configs' (32, 32) and (48, 32) and gemma's (256, 256)
              with causal masks, history offsets, windows, softcap 50 and a
              ragged m_valid, and cases that stress its 3xTF32 split:
              scores in the hundreds, low mantissa bits that matter, P = M
-             = 1024; every case at (256, 256) and (192, 128), LSE cases
+             = 1024; every case at ``PARENT_K1_DIMS``, LSE cases
              included, also runs the parent body and the plain version in
              float64, and fails if the kernel's float64 distance is above
-             twice the parent's), dense split-K decode (K2), paged split-K decode (K3),
+             twice the parent's; a serving quantum's rows against the
+             whole prompt's, bit for bit, at every dim), dense split-K decode (K2), paged split-K decode (K3),
              paged MLA latent decode (K4) and K2's E != F branch, MLA decode
              on the dense latent cache (``latent_decode_partials``: 128
              rows at (r, rd) = (512, 64), 4 at (32, 16), kv_len 0, 1, on
@@ -78,8 +80,9 @@ JSON line (``"phase": ...``):
              could take (``bound_ms``, over the keys the causal and window
              masks leave; K1, K4 and K2's latent branch against the tensor
              cores' 3xTF32 rate, with the FP32 units' beside it; K1 at
-             gemma2's and ``mla_forward``'s shapes also the parent body's
-             time on the same inputs, ``parent_mma_sync_ms``); K4 also
+             ``PARENT_K1_DIMS``' shapes also the parent body's time on the
+             same inputs, ``parent_mma_sync_ms``, and where the row has a
+             device time the parent's, ``parent_mma_sync_device_ms``); K4 also
              at a long context (8 slots of 16384 tokens, its library call
              SDPA with the 128 heads on the query axis of the one latent
              kv head); and the verify shapes of the speculative paths: K2
@@ -383,12 +386,13 @@ TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 LSE_TOL = 1e-4
 
 #: the head dims whose K1 body the wgmma body took from the mma.sync body
-#: last: gemma's and DeepSeek's MLA prefill.  The parent's mma.sync body
-#: at these dims is built beside the shipped libraries (``ParentK1``);
-#: every K1 case here holds the kernel's float64 distance to at most
-#: ``PARENT_F64_RATIO`` times the parent's on the same inputs, and each
-#: timing row times the parent beside the kernel
-PARENT_K1_DIMS = ((256, 256), (192, 128))
+#: last: gemma's, DeepSeek's MLA prefill, the smoke configs' MLA and GQA
+#: dims.  The parent's mma.sync body at these dims is built beside the
+#: shipped libraries (``ParentK1``); every K1 case here holds the kernel's
+#: float64 distance to at most ``PARENT_F64_RATIO`` times the parent's on
+#: the same inputs, and each timing row times the parent beside the
+#: kernel
+PARENT_K1_DIMS = ((256, 256), (192, 128), (48, 32), (32, 32))
 PARENT_F64_RATIO = 2.0
 
 
@@ -616,24 +620,35 @@ def k1_wgmma_split_cases(torch):
     ]
 
 
-def k1_quantum_vs_chunk_cases(torch, fm) -> list:
-    """The rows of a 1024-token prompt's last 128-token quantum (P = 128
-    after 896, M = 1024: serve_async's last quantum) against the same rows
-    of one P = M = 1024 call on the same q, k and v, fp32, causal: at
-    (128, 128) with G 4 (granite: 8 kv heads) and at (64, 64) with G 5
-    (hymba: 5 kv heads).  The two calls run different plans (the quantum
-    fills the card with smaller blocks and column blocks); a row's
+#: (E, F, kv heads, G, P = M of the whole call, the quantum's P): serve_
+#: async's last 128-token quantum of a 1024-token prompt at granite's
+#: (128, 128) G 4 and hymba's (64, 64) G 5; and a 256-token prompt's
+#: last 64 at the absorbed (576, 512) G 16, the MLA smoke config's
+#: (48, 32) G 1 and the GQA smoke configs' (32, 32) G 2, which draw from
+#: a generator of their own
+K1_QUANTUM_CASES = ((128, 128, 8, 4, 1024, 128), (64, 64, 5, 5, 1024, 128))
+K1_QUANTUM_DIMS_CASES = ((576, 512, 1, 16, 256, 64), (48, 32, 4, 1, 256, 64),
+                         (32, 32, 2, 2, 256, 64))
+
+
+def k1_quantum_vs_chunk_cases(torch, fm, cases=K1_QUANTUM_CASES,
+                              seed: int = 29) -> list:
+    """The rows of a prompt's last quantum (``cases``) against the same
+    rows of one whole-prompt call on the same q, k and v, fp32, causal.
+    The two calls run different plans (a quantum fills the card with
+    smaller blocks and column blocks where it has them); a row's
     arithmetic is the plan's key tile's alone, so the bits must be equal
-    (``max_abs_diff`` 0.0).  Its inputs come from a generator of its own,
-    so that the cases after it draw the inputs they drew before it."""
+    (``max_abs_diff`` 0.0).  Its inputs come from a generator of its own
+    (``seed``), so that the cases after it draw the inputs they drew
+    before it."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(29)
+    gen.manual_seed(seed)
     rows = []
-    for e, hkv, g in ((128, 8, 4), (64, 5, 5)):
-        p_all, p_q, off = 1024, 128, 896
+    for e, f, hkv, g, p_all, p_q in cases:
+        off = p_all - p_q
         q = _rand(torch, gen, (hkv, p_all * g, e), torch.float32)
         k = _rand(torch, gen, (hkv, p_all, e), torch.float32)
-        v = _rand(torch, gen, (hkv, p_all, e), torch.float32)
+        v = _rand(torch, gen, (hkv, p_all, f), torch.float32)
         kw = dict(scale=e ** -0.5, causal=True, group=g)
         whole = fm.fusemax_attention_cuda(q, k, v, **kw)
         plan_whole = fm.fusemax_attention_cuda.last_plan
@@ -644,8 +659,8 @@ def k1_quantum_vs_chunk_cases(torch, fm) -> list:
         diff = (quantum - whole[:, off * g:]).abs().max().item()
         rows.append(dict(
             kernel="fusemax_prefill", case=f"quantum vs chunk: P={p_q} after "
-            f"{off} vs P=M={p_all}, fp32 E{e} F{e} G{g} Hkv{hkv}",
-            e=e, f=e, max_abs_diff=diff,
+            f"{off} vs P=M={p_all}, fp32 E{e} F{f} G{g} Hkv{hkv}",
+            e=e, f=f, max_abs_diff=diff,
             plans={n: dict(block_q=pl.block_q, f_split=pl.f_split,
                            blocks=pl.blocks)
                    for n, pl in (("quantum", plan_q), ("chunk", plan_whole))},
@@ -2125,6 +2140,9 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
     if with_parent:
         parent_ms = time_ms(torch, lambda: parent(torch, q_f, k_f, v_f,
                                                   **args))
+        if with_device_ms:
+            parent_device_ms = device_ms(torch, lambda: parent(
+                torch, q_f, k_f, v_f, **args), "fusemax_prefill")
     if return_lse:                      # the same launch without the LSE
         bare = {key: val for key, val in args.items() if key != "return_lse"}
         ms_no_lse = time_ms(torch, lambda: fm.fusemax_attention_cuda(
@@ -2171,6 +2189,8 @@ def _time_k1_shape(torch, gen, fm, autotune, *, b, hq, hkv, p, m, e, f,
         row.update(parent_mma_sync_ms=parent_ms,
                    parent_mma_sync_max_abs_err=parent_err,
                    share_of_3xtf32_bound_parent=row["bound_ms"] / parent_ms)
+        if with_device_ms:
+            row["parent_mma_sync_device_ms"] = parent_device_ms
     if with_device_ms:
         row["device_ms"] = device_ms(torch, lambda: fm.fusemax_attention_cuda(
             q_f, k_f, v_f, **args), "fusemax_prefill")
@@ -2242,7 +2262,7 @@ def time_k1_mla(torch, gen, fm, autotune, parent=None) -> dict:
     torch.cuda.empty_cache()
     tail = _time_k1_shape(
         torch, gen, fm, autotune, b=4, hq=128, hkv=1, p=256, m=1024, e=576,
-        f=512, q_offset=768,
+        f=512, q_offset=768, with_device_ms=True,
         shape="B4 H128 in one group (Hkv 1) P=256 after 768 cached, M=1024 "
               "E576 F512 fp32 causal")
     torch.cuda.empty_cache()
@@ -2282,7 +2302,7 @@ def time_gemma2(torch, gen, fm, dec, ops, autotune, parent=None) -> dict:
     return out
 
 
-def time_smoke(torch, gen, fm, dec, ops, autotune) -> dict:
+def time_smoke(torch, gen, fm, dec, ops, autotune, parent=None) -> dict:
     """Each smoke instantiation at a smoke serving shape (4 slots, a
     256-token cache): K1 at (32, 32) on gemma2-9b-smoke's local layer
     (window 64, softcap 50) and at (48, 32) on the MLA smoke config's
@@ -2293,10 +2313,11 @@ def time_smoke(torch, gen, fm, dec, ops, autotune) -> dict:
         "fusemax_prefill@smoke_32x32": _time_k1_shape(
             torch, gen, fm, autotune, b=4, hq=4, hkv=2, p=256, m=256, e=32,
             f=32, q_offset=0, window=64, softcap=50.0, with_device_ms=True,
+            parent=parent,
             shape="B4 Hq4 Hkv2 P=M=256 d32 fp32 causal window 64 softcap 50"),
         "fusemax_prefill@smoke_48x32": _time_k1_shape(
             torch, gen, fm, autotune, b=4, hq=4, hkv=4, p=256, m=256, e=48,
-            f=32, q_offset=0, with_device_ms=True,
+            f=32, q_offset=0, with_device_ms=True, parent=parent,
             shape="B4 H4 (one fiber each) P=M=256 E48 F32 fp32 causal"),
         "decode_partials@smoke_d32": time_k2(
             torch, gen, dec, autotune, b=4, hq=4, hkv=2, m=256, d=32,
@@ -5565,16 +5586,39 @@ def k1_lse_cases(torch):
     ]
 
 
+def k1_absorbed_lse_cases(torch):
+    """K1 with its log-sum-exp output at DeepSeek's absorbed (576, 512): a
+    window, a softcap and a ragged ``m_valid`` (keys past it inside a key
+    tile), fp32 and bf16, a history offset, and no mask (keys past M =
+    131 in the last tile): (name, b, hkv, group, p, m, e, f, dtype,
+    kwargs)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("lse fp32 E576 F512 g16 q_offset=40 window=50 softcap=30 "
+         "m_valid=90", 1, 1, 16, 60, 100, 576, 512, f32,
+         dict(causal=True, q_offset=40, window=50, softcap=30.0,
+              m_valid=90)),
+        ("lse bf16 E576 F512 g32 q_offset=24 causal", 2, 1, 32, 40, 64, 576,
+         512, bf16, dict(causal=True, q_offset=24)),
+        ("lse fp32 E576 F512 g8 no mask M=131", 1, 2, 8, 24, 131, 576, 512,
+         f32, dict()),
+    ]
+
+
 def run_k1_lse_cases(torch, gen, fm, autotune,
-                     parent: Optional[ParentK1] = None) -> list:
-    """Each LSE case: the output against the plain version's (the K1
-    tolerance), the log-sum-exp within ``LSE_TOL`` of the plain
-    version's, and the output with an LSE requested equal, bit for bit,
-    to the output without one (``out_same_bits``); with ``parent``, at
-    ``PARENT_K1_DIMS`` also the output's float64 distance against the
-    parent body's (``_vs_parent``)."""
+                     parent: Optional[ParentK1] = None,
+                     cases=None) -> list:
+    """Each LSE case (``cases``, or :func:`k1_lse_cases`'): the output
+    against the plain version's (the K1 tolerance), the log-sum-exp
+    within ``LSE_TOL`` of the plain version's, and the output with an LSE
+    requested equal, bit for bit, to the output without one
+    (``out_same_bits``); with ``parent``, at ``PARENT_K1_DIMS`` also the
+    output's float64 distance against the parent body's
+    (``_vs_parent``)."""
     rows = []
-    for name, b, hkv, g, p, m, e, f, dtype, kw in k1_lse_cases(torch):
+    if cases is None:
+        cases = k1_lse_cases(torch)
+    for name, b, hkv, g, p, m, e, f, dtype, kw in cases:
         tile = autotune.attention_params(p * g, m, e, f, impl="cuda")
         q = _rand(torch, gen, (b * hkv, p * g, e), dtype)
         k = _rand(torch, gen, (b * hkv, m, e), dtype)
@@ -6535,11 +6579,17 @@ def main() -> int:
     # that every case after them draws the inputs it drew before them
     gen_wg = torch.Generator(device="cuda")
     gen_wg.manual_seed(30)
+    # and so do the absorbed dims' LSE cases
+    gen_ab = torch.Generator(device="cuda")
+    gen_ab.manual_seed(33)
     rows = run_k1_cases(torch, gen, fm, autotune, parent=parent) + \
         k1_quantum_vs_chunk_cases(torch, fm) + \
+        k1_quantum_vs_chunk_cases(torch, fm, K1_QUANTUM_DIMS_CASES, 32) + \
         run_k1_cases(torch, gen_wg, fm, autotune, cases=[],
                      split_cases=k1_wgmma_split_cases(torch),
                      parent=parent) + \
+        run_k1_lse_cases(torch, gen_ab, fm, autotune, parent,
+                         k1_absorbed_lse_cases(torch)) + \
         run_k2_cases(torch, gen, dec, autotune) + \
         run_k3_cases(torch, gen, dec, autotune) + \
         misaligned_cases(torch, gen, dec) + \
@@ -6585,7 +6635,7 @@ def main() -> int:
     tg = time_gemma2(torch, gen, fm, dec, ops, autotune, parent)
     same256 = tg.pop("k3_vs_k2_d256")
     emit("kernel_case", **same256)
-    ts = time_smoke(torch, gen, fm, dec, ops, autotune)
+    ts = time_smoke(torch, gen, fm, dec, ops, autotune, parent)
     tq = {f"paged_decode_partials@{short}": time_k3_quant(
         torch, gen, dec, ops, autotune, kv) for kv, short in QUANT_KV.items()}
     # K4 on both code dtypes (int8 latents serve on no main path: timed,
@@ -6809,7 +6859,7 @@ def main() -> int:
     def k1_entry(name, t, n_launches, **dims):
         extra = {key: val for key, val in t.items()
                  if key.startswith(("bound_ms_", "share_", "library_",
-                                    "parent_"))
+                                    "parent_", "device_"))
                  and key != "library_ms"}
         # the wgmma body's dims name it as their source
         src = k1_wg_src \

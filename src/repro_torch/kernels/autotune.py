@@ -100,29 +100,28 @@ class PrefillKernel:
 #: body (a warpgroup a 64-row block) GQA heads of 64 and 128 (32-key
 #: tiles, double-buffered splits; two column blocks let a short chunk, a
 #: serving quantum, come near filling the card), gemma's 256 (16-key
-#: tiles, one split buffer: Q's split takes half the block) and
-#: DeepSeek's MLA prefill (nope 128 + rope 64 → v 128; 32-key tiles, one
-#: split buffer); on the mma.sync body its absorbed latent attention (rank
-#: 512 + rope 64 → rank 512), and the smoke configs' GQA heads of 32 and
-#: MLA (nope 32 + rope 16 → v 32, and rank 32 + rope 16 → rank 32)
+#: tiles, one split buffer: Q's split takes half the block), DeepSeek's
+#: MLA prefill (nope 128 + rope 64 → v 128; 32-key tiles, one split
+#: buffer) and the smoke configs' GQA heads of 32 and MLA (nope 32 + rope
+#: 16 → v 32, and rank 32 + rope 16 → rank 32; 32-key tiles,
+#: double-buffered splits); on the mma.sync body DeepSeek's absorbed
+#: latent attention (rank 512 + rope 64 → rank 512)
 CUDA_PREFILL = {
     (64, 64): PrefillKernel("wgmma", 32, ((64, 1), (64, 2))),
     (128, 128): PrefillKernel("wgmma", 32, ((64, 1), (64, 2))),
     (256, 256): PrefillKernel("wgmma", 16, ((64, 1),), split_buffers=1),
     (192, 128): PrefillKernel("wgmma", 32, ((64, 1),), split_buffers=1),
     (576, 512): PrefillKernel("mma_sync", 64, ((64, 1),), 4),
-    (32, 32): PrefillKernel("mma_sync", 64, ((128, 1),)),
-    (48, 32): PrefillKernel("mma_sync", 64, ((128, 1),)),
+    (32, 32): PrefillKernel("wgmma", 32, ((64, 1),)),
+    (48, 32): PrefillKernel("wgmma", 32, ((64, 1),)),
 }
 
 #: (E, F) → the (BQ, BK) tile of every plan at those dims
 CUDA_PREFILL_TILES = {dims: (kern.plans[0][0], kern.block_k)
                       for dims, kern in CUDA_PREFILL.items()}
 
-#: the prefill kernel's K chunk width (columns of E, the tile's ``KC``):
-#: 64, or E where E is below 64 or no multiple of it
+#: the mma.sync body's K chunk width (columns of E, the tile's ``KC``)
 PREFILL_K_CHUNK = 64
-CUDA_PREFILL_K_CHUNK = {(32, 32): 32, (48, 32): 48}
 
 #: the prefill kernel's ring stages (``NS`` in ``fusemax_prefill.cu``)
 PREFILL_STAGES = 3
@@ -201,8 +200,8 @@ def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
     / f_split columns, and 10 mbarriers.  On the mma.sync
     body (one column block) it must match ``Layout`` in
     ``fusemax_prefill.cu``: the Q tile, a ring of ``PREFILL_STAGES`` equal
-    slots (a [block_k x KC] K chunk, KC from ``CUDA_PREFILL_K_CHUNK``, or
-    a [VK x F] V chunk), every row padded by 16 bytes, and where
+    slots (a [block_k x KC] K chunk, KC ``PREFILL_K_CHUNK``, or a [VK x
+    F] V chunk), every row padded by 16 bytes, and where
     ``warp_split`` warps share a row group the fp32 probability tile (rows
     padded by 8 floats) and the row-max exchange."""
     kern = CUDA_PREFILL.get((e, f))
@@ -215,7 +214,7 @@ def prefill_smem_bytes(block_q: int, block_k: int, e: int, f: int,
     if f_split != 1:
         raise ValueError("the mma.sync body has no column blocks")
     pad = 16 // elem_bytes
-    kc = CUDA_PREFILL_K_CHUNK.get((e, f), PREFILL_K_CHUNK)
+    kc = PREFILL_K_CHUNK
     vk = _prefill_v_chunk(block_k, f, kc, elem_bytes)
     slot = max(block_k * (kc + pad), vk * (f + pad))
     probs = (4 * block_q * (block_k + 8 + warp_split) if warp_split > 1

@@ -2,14 +2,18 @@
 //
 // Replaces: src/repro/kernels/fusemax.py:_fusemax_kernel, launched by
 // fusemax_attention_pallas (the TPU kernel behind ops.fusemax_attention).
-// Two bodies: this file's `mma.sync` body, and at the GQA head dims
-// (64, 64), (128, 128) and (256, 256) and DeepSeek's MLA prefill
-// (192, 128) the `wgmma` body of fusemax_prefill_wgmma.cuh; the one C
-// entry below dispatches each call's plan to its body.  The mma.sync body
-// keeps the dims whose operands do not fit the wgmma body's layout
-// (DeepSeek's absorbed (576, 512): Q's split alone would take 288 KB at
-// 64 rows) or whose head dims are too small to pay for it (the smoke
-// configs' (32, 32) and (48, 32)).
+// Two bodies; the one C entry below dispatches each call's plan to its
+// body.  The GQA head dims (64, 64), (128, 128) and (256, 256),
+// DeepSeek's MLA prefill (192, 128) and the smoke configs' (32, 32) and
+// (48, 32) run the `wgmma` body of fusemax_prefill_wgmma.cuh; this file's
+// `mma.sync` body keeps DeepSeek's absorbed (576, 512), whose Q split
+// alone would take 288 KB at 64 rows.  A thread-block cluster body for
+// that dim (two blocks a 64-row block, each with half of E and F) ran
+// 3 % slower than this body in the same call (PERF.md); it is not part
+// of this library: benchmarks/torch_k1_variants.py splices it in as a
+// variant.  The mma.sync body also stays the parent that chip_smoke.py
+// and the variants bench build at the dims the wgmma body took and hold
+// it against.
 //
 // What it computes (the TPU kernel's function, not its block structure):
 //   q [BH, PG, E] (GQA group folded into query rows: row r is query
@@ -72,16 +76,16 @@
 //   query tiles run heaviest first (under a causal mask the last tiles
 //   sweep the most keys), which shortens the tail of the grid.
 //
-// The tile is chosen per (E, F) instantiation (PrefillTile below), and
-// each runs under that one plan (BQ rows, one column block); the shared
-// memory of one block (fp32) is
+// The tile is chosen per (E, F) instantiation (PrefillTile below; the
+// parent builds add the dims the wgmma body took), and each runs under
+// that one plan (BQ rows, one column block); the shared memory of one
+// block (fp32) is
 //   (576, 512) 64 x 64,  WF 4, 8 warps:         220,160 B (absorbed)
-//   (32, 32)   128 x 64, WF 1, 4 warps, KC 32:   46,080 B (-smoke GQA)
-//   (48, 32)   128 x 64, WF 1, 4 warps, KC 48:   66,560 B (-smoke MLA)
 // (autotune.prefill_smem_bytes is the same formula, which the wrapper
-// holds to fusemax_prefill_plan's report).  The TPU's sequential M1
-// grid axis becomes the loop over key tiles, and the TPU's per-tile skip
-// becomes the loop bounds.
+// holds to fusemax_prefill_plan's report); the smoke dims' parent tiles
+// were 128 x 64, WF 1, KC 32 (46,080 B) and KC 48 (66,560 B).  The TPU's
+// sequential M1 grid axis becomes the loop over key tiles, and the TPU's
+// per-tile skip becomes the loop bounds.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -125,12 +129,6 @@ template <int N> __device__ __forceinline__ void cp_wait() {
 template <int E, int F> struct PrefillTile;
 template <> struct PrefillTile<576, 512> {
   static constexpr int BQ = 64, BK = 64, WF = 4, MT = 2, KC = 64;
-};
-template <> struct PrefillTile<32, 32> {
-  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2, KC = 32;
-};
-template <> struct PrefillTile<48, 32> {
-  static constexpr int BQ = 128, BK = 64, WF = 1, MT = 2, KC = 48;
 };
 
 // keys of a V chunk: the largest power of two (8 <= VK <= BK) whose
@@ -597,10 +595,10 @@ cudaError_t launch_wgmma_exp(const Args& a) {
 // fusemax_prefill_wgmma.cuh (64-row blocks, one or two column blocks, the
 // key tile of its WgTile).  autotune.CUDA_PREFILL lists the same plans,
 // in order.
-#define REPRO_DIMS(X) X(576, 512) X(32, 32) X(48, 32)
+#define REPRO_DIMS(X) X(576, 512)
 #define REPRO_WGMMA_PLANS(X)                                                  \
   X(128, 128, 64, 1) X(128, 128, 64, 2) X(64, 64, 64, 1) X(64, 64, 64, 2)    \
-  X(256, 256, 64, 1) X(192, 128, 64, 1)
+  X(256, 256, 64, 1) X(192, 128, 64, 1) X(32, 32, 64, 1) X(48, 32, 64, 1)
 
 template <typename T>
 cudaError_t dispatch_plan(int e, int f, int block_q, int f_split,

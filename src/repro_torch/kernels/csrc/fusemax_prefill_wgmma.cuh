@@ -1,6 +1,10 @@
 // K1's Hopper body at the GQA head dims (64, 64) and (128, 128), gemma's
-// (256, 256) and DeepSeek's MLA prefill (192, 128): `wgmma` in
-// error-compensated 3xTF32, fed by asynchronous bulk copies.
+// (256, 256), DeepSeek's MLA prefill (192, 128) and the smoke configs'
+// (32, 32) and (48, 32): `wgmma` in error-compensated 3xTF32, fed by
+// asynchronous bulk copies.  (DeepSeek's absorbed (576, 512) runs the
+// mma.sync body of fusemax_prefill.cu; the thread-block cluster body that
+// benchmarks/torch_k1_variants.py builds for it as a variant uses this
+// file's helpers.)
 //
 // Replaces, at those dims, the `mma.sync` body of fusemax_prefill.cu
 // (both port src/repro/kernels/fusemax.py:_fusemax_kernel, called at
@@ -49,7 +53,9 @@
 //   read this one's).  Q's split fills half the block at E = 256 (128
 //   KB), so gemma's dims take 16-key tiles and one K and one Vᵀ split:
 //   the splitter writes tile i + 1's K split while tile i's softmax and
-//   P·V run, and its Vᵀ split while tile i + 1's Q·Kᵀ runs.  (192, 128)
+//   P·V run, and its Vᵀ split while tile i + 1's Q·Kᵀ runs.  The smoke
+//   dims take the GQA dims' tile: at E = 48 and 32 one warpgroup splits
+//   between its products, and three blocks share an SM.  (192, 128)
 //   takes 32-key tiles the same way, which doubles Q·Kᵀ's N against
 //   double-buffered 16-key tiles: the A operand (Q) is read from shared
 //   memory once per `wgmma`, so a narrow N leaves the product waiting on
@@ -81,6 +87,8 @@
 //   (64, 64)   BK 32 NBUF 2 FS 1: 114,768 B; FS 2:  98,384 B (2 an SM)
 //   (256, 256) BK 16 NBUF 1 FS 1: 229,456 B
 //   (192, 128) BK 32 NBUF 1 FS 1: 221,264 B
+//   (48, 32)   BK 32 NBUF 2 FS 1:  75,856 B (3 an SM)
+//   (32, 32)   BK 32 NBUF 2 FS 1:  57,424 B (3 an SM)
 
 #pragma once
 

@@ -141,26 +141,36 @@ def test_kernel_layout_plain_version_matches_pallas_kernel(m_valid, kw):
 #: K1 at the redesigned wgmma dims, at the kernel's own key tile:
 #: (E, F, B, Hq, Hkv, P, M, m_valid, kwargs) — gemma's (256, 256) under
 #: every mask it serves (causal, a window, softcap 50, a history offset)
-#: and a ragged ``m_valid``, DeepSeek's MLA prefill (192, 128) causal
+#: and a ragged ``m_valid``, DeepSeek's MLA prefill (192, 128) causal, the
+#: MLA smoke config's (48, 32) (causal, a ragged ``m_valid``) and the GQA
+#: smoke configs' (32, 32) (a window and softcap, as gemma2-9b-smoke's
+#: local layers)
 NEW_TILE_CASES = [
     (256, 256, 1, 4, 2, 64, 64, None, dict(causal=True)),
     (256, 256, 1, 4, 2, 64, 80, None,
      dict(causal=True, q_offset=16, window=24, softcap=50.0)),
     (256, 256, 2, 2, 2, 64, 96, 70, dict(softcap=50.0)),
     (192, 128, 1, 2, 2, 64, 96, None, dict(causal=True)),
+    (48, 32, 2, 4, 4, 64, 64, None, dict(causal=True)),
+    (48, 32, 1, 4, 4, 64, 96, 75, dict()),
+    (32, 32, 1, 4, 2, 64, 64, None,
+     dict(causal=True, window=40, softcap=50.0)),
 ]
 
 
 @pytest.mark.parametrize("case", NEW_TILE_CASES,
                          ids=["d256-causal", "d256-off-window-cap",
-                              "d256-mvalid-cap", "mla-fwd-causal"])
+                              "d256-mvalid-cap", "mla-fwd-causal",
+                              "smoke-mla-causal", "smoke-mla-mvalid",
+                              "smoke-gqa-window-cap"])
 def test_plain_version_at_the_new_key_tiles_matches_reference(case):
     """The plain version at the wgmma body's 64-row block and its key tile
-    at (256, 256) (16 keys) and (192, 128) (32 keys) equals the
-    reference's Pallas kernel (interpret) at the same tile, on the folded
-    layout the kernel takes, and the reference's jnp executor on the
-    unfolded heads (on the first ``m_valid`` keys, which is the same
-    function), within 1e-5; every plan of those dims has that tile."""
+    at (256, 256) (16 keys), (192, 128), (48, 32) and (32, 32) (32 keys)
+    equals the reference's Pallas kernel (interpret) at the same tile, on
+    the folded layout the kernel takes, and the reference's jnp executor
+    on the unfolded heads (on the first ``m_valid`` keys, which is the
+    same function), within 1e-5; every plan of those dims has that
+    tile."""
     from repro.kernels.fusemax import fusemax_attention_pallas
     from repro_torch.kernels.fusemax import fusemax_attention_torch
 
@@ -321,10 +331,13 @@ def test_cuda_tile_fits_shared_memory():
     32-row group (157,696 B); gemma's (256, 256) runs the wgmma body on
     64 x 16 with one K and one Vᵀ split (229,456 B; two would fit only at
     8 keys, 213,072 B) and DeepSeek's MLA prefill (192, 128) on 64 x 32
-    with one of each (221,264 B; two at 16 keys, 200,784 B); DeepSeek's
-    absorbed (576, 512) stays on the mma.sync body at 64 x 64 with four
-    warps a row group (220,160 B; 128 rows would take 388,096 B).  A pair
-    the kernel is not compiled for raises."""
+    with one of each (221,264 B; two at 16 keys, 200,784 B); the smoke
+    dims (48, 32) and (32, 32) on 64 x 32 with two split buffers (75,856
+    and 57,424 B; on the mma.sync body 128 x 64, 66,560 and 46,080 B).
+    DeepSeek's absorbed (576, 512) stays on the mma.sync body at 64 x 64
+    with four warps a row group (220,160 B; 128 rows would take 388,096
+    B; the wgmma body's Q split alone would take 294,912 B).  A pair the
+    kernel is not compiled for raises."""
     tile = autotune.attention_params(4096, 1024, 128, 128, impl="cuda")
     assert (tile.block_q, tile.block_k) == (64, 32)
     assert autotune.prefill_plan(8, 512, 128, 128).f_split == 2
@@ -346,6 +359,11 @@ def test_cuda_tile_fits_shared_memory():
     assert autotune.CUDA_PREFILL_TILES[(576, 512)] == (64, 64)
     assert autotune.prefill_smem_bytes(128, 64, 576, 512, 4) \
         > autotune.SMEM_BUDGET
+    assert 4 * 64 * 576 * 2 == 294_912 > autotune.SMEM_BUDGET
+    assert autotune.CUDA_PREFILL_TILES[(48, 32)] == (64, 32)
+    assert autotune.CUDA_PREFILL_TILES[(32, 32)] == (64, 32)
+    assert autotune.prefill_smem_bytes(64, 32, 48, 32, 1) == 75_856
+    assert autotune.prefill_smem_bytes(64, 32, 32, 32, 1) == 57_424
     assert autotune.CUDA_PREFILL_TILES[(256, 256)] == (64, 16)
     assert autotune.CUDA_PREFILL_TILES[(192, 128)] == (64, 32)
     assert autotune.prefill_smem_bytes(64, 16, 256, 256, 1) == 229_456
@@ -386,6 +404,11 @@ def _eligible(fibers, rows, e, f):
     # hymba, P = 256: 100 blocks by default; 200 in two column blocks,
     # though two fit an SM's shared memory, ran slower on the card
     ("hymba short chunk", 5, 5 * 256, 64, 64, (1, 100)),
+    # DeepSeek's absorbed tail: B4, the 128 heads in one group, P = 256:
+    # 512 row blocks a fiber on the mma.sync body
+    ("absorbed tail", 4, 128 * 256, 576, 512, (1, 2048)),
+    # the MLA smoke config's prefill: B4 x 4 heads, P = 256
+    ("mla smoke", 16, 256, 48, 32, (1, 64)),
 ])
 def test_prefill_plan_fills_the_card(what, fibers, rows, e, f, want):
     """The plan launches at least the card's 132 SMs of blocks at the
@@ -394,7 +417,8 @@ def test_prefill_plan_fills_the_card(what, fibers, rows, e, f, want):
     launch at most one block an SM, else the default plan: granite's
     quantum launches 128 (4 SMs short of 132; four column blocks, 256,
     ran slower on the card and are not compiled), hymba's 100, twice the
-    default's."""
+    default's.  The absorbed tail launches 2048 blocks, the MLA smoke
+    prefill 64 (its one plan)."""
     plan = autotune.prefill_plan(fibers, rows, e, f)
     assert (plan.f_split, plan.blocks) == want, what
     assert plan.blocks == -(-rows // plan.block_q) * fibers * plan.f_split
@@ -407,14 +431,16 @@ def test_prefill_plan_fills_the_card(what, fibers, rows, e, f, want):
 
 @pytest.mark.parametrize("e,f", sorted(autotune.CUDA_PREFILL))
 def test_prefill_plan_key_tile_is_independent_of_p(e, f):
-    """BK, the K chunk (whose k-steps make the score partials) and the
-    warps that split a tile's keys are one per (E, F): every plan, at any
-    P, fibers or M, runs the same key tile, so a row's fp32 result never
-    depends on how the prompt was chunked.  A shape too small to fill the
-    card takes the plan that launches the most blocks, at most one an
-    SM."""
-    bk = autotune.CUDA_PREFILL[(e, f)].block_k
-    kc = autotune.CUDA_PREFILL_K_CHUNK.get((e, f), autotune.PREFILL_K_CHUNK)
+    """BK, the K chunk (whose k-steps make the score partials: the
+    mma.sync body's ``PREFILL_K_CHUNK``, the wgmma body's all of E) and
+    the warps that split a tile's keys are one per (E, F): every plan, at
+    any P, fibers or M, runs the same key tile, so a row's fp32 result
+    never depends on how the prompt was chunked.  A shape too small to
+    fill the card takes the plan that launches the most blocks, at most
+    one an SM."""
+    kern = autotune.CUDA_PREFILL[(e, f)]
+    bk = kern.block_k
+    kc = autotune.PREFILL_K_CHUNK if kern.body == "mma_sync" else e
     assert e % kc == 0 and kc % 8 == 0
     for fibers in (1, 2, 5, 8, 32, 128):
         for p in (1, 3, 17, 128, 512, 1024, 4096):
@@ -461,7 +487,10 @@ def _source_plans():
 
     def macro(name):
         block = src[src.index(f"#define {name}(X)"):]
-        return block[:block.index("\n\n")]
+        end = block.index("\n")
+        while block[end - 1] == "\\":
+            end = block.index("\n", end + 1)
+        return block[:end]
 
     tile_re = r"static constexpr int BK = (\d+), NBUF = (\d+);"
     default = tuple(map(int, re.search(
@@ -497,7 +526,7 @@ def _layout_bytes(bq, e, f, fs, elem_bytes):
         return _wg_bytes(bq, bk, e, f, nbuf, fs, elem_bytes)
     assert fs == 1
     bk, wf = kern.block_k, kern.warp_split
-    kc = autotune.CUDA_PREFILL_K_CHUNK.get((e, f), autotune.PREFILL_K_CHUNK)
+    kc = autotune.PREFILL_K_CHUNK
     pad = 16 // elem_bytes
     vk = bk
     while vk > 8 and vk * (f + pad) > bk * (kc + pad):
@@ -515,7 +544,9 @@ def test_prefill_plans_and_smem_model_match_the_source():
     within one block's 232,448 B: on the wgmma body at (64, 64) 114,768 B
     (two blocks share an SM) and 98,384 B in two column blocks; at
     (128, 128) 229,456 and 196,688 B in one and two; at (256, 256)
-    229,456 B and at (192, 128) 221,264 B, one split buffer each."""
+    229,456 B and at (192, 128) 221,264 B, one split buffer each; at
+    (48, 32) and (32, 32) 75,856 and 57,424 B (three blocks an SM, by
+    shared memory)."""
     assert {dims: (k.body, k.block_k, k.warp_split, k.split_buffers,
                    list(k.plans))
             for dims, k in autotune.CUDA_PREFILL.items()} == _source_plans()
@@ -533,6 +564,9 @@ def test_prefill_plans_and_smem_model_match_the_source():
     assert 2 * (smem(64, 1) + 1024) <= 233_472   # two blocks an SM
     assert autotune.prefill_smem_bytes(64, 16, 256, 256, 1) == 229_456
     assert autotune.prefill_smem_bytes(64, 32, 192, 128, 1) == 221_264
+    assert autotune.prefill_smem_bytes(64, 32, 48, 32, 1) == 75_856
+    assert autotune.prefill_smem_bytes(64, 32, 32, 32, 1) == 57_424
+    assert 3 * (75_856 + 1024) <= 233_472 < 4 * (57_424 + 1024)
 
 
 def test_kernel_cascades_name_the_reference_builders():

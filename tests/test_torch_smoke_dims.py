@@ -112,18 +112,22 @@ def test_prefill_smem_mirror_at_the_new_dims():
     """``prefill_smem_bytes`` at the new tiles, as the kernels' layouts
     count them (fp32): (256, 256) on the wgmma body's 64 x 16 with one K
     and one Vᵀ split 229,456 B (two of each at 16 keys would take
-    294,992 B, at 32 keys 458,832 B); the smoke dims on the mma.sync
-    body's 128 x 64 with K chunks of E itself, 46,080 B at (32, 32) and
-    66,560 B at (48, 32)."""
+    294,992 B, at 32 keys 458,832 B); the smoke dims on the wgmma body's
+    64 x 32 with two split buffers, 57,424 B at (32, 32) and 75,856 B at
+    (48, 32) (on the mma.sync body's 128 x 64 with K chunks of E itself
+    they took 46,080 and 66,560 B)."""
     assert autotune.CUDA_PREFILL_TILES[(256, 256)] == (64, 16)
     assert autotune.prefill_smem_bytes(64, 16, 256, 256, 1) == 229_456
     for bk, want in ((16, 294_992), (32, 458_832)):
         # raw K and V, Q's split, two K and two Vᵀ splits, 10 mbarriers
         got = 4 * bk * 512 + 8 * (64 * 256 + 2 * bk * 256 * 2) + 80
         assert got == want > autotune.SMEM_BUDGET
-    assert autotune.prefill_smem_bytes(128, 64, 32, 32, 1) == 46_080
-    assert autotune.prefill_smem_bytes(128, 64, 48, 32, 1) == 66_560
-    assert autotune.CUDA_PREFILL_K_CHUNK == {(32, 32): 32, (48, 32): 48}
+    assert autotune.CUDA_PREFILL_TILES[(32, 32)] == (64, 32)
+    assert autotune.CUDA_PREFILL_TILES[(48, 32)] == (64, 32)
+    for e, want in ((32, 57_424), (48, 75_856)):
+        # raw K and V, Q's split, two K and two Vᵀ splits, 10 mbarriers
+        got = 4 * 32 * (e + 32) + 8 * (64 * e + 2 * 32 * e + 2 * 32 * 32) + 80
+        assert autotune.prefill_smem_bytes(64, 32, e, 32, 1) == got == want
 
 
 @pytest.mark.parametrize("d", [32, 256])
