@@ -3088,6 +3088,244 @@ def phase_model(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the decode step as a captured CUDA graph
+# ---------------------------------------------------------------------------
+
+#: decode_graph: steps from one prefilled state, timing rounds, slots
+GRAPH_STEPS, GRAPH_ROUNDS, GRAPH_SLOTS = 16, 3, 8
+
+
+def _clone_all(caches: list) -> list:
+    return [{part: {n: t.clone() for n, t in c[part].items()} for part in c}
+            for c in caches]
+
+
+def _step_busy(torch, fn) -> tuple:
+    """(device busy ms, kernels, device-to-device copy ms) of one call of
+    ``fn``: the CUDA records of a profiler session around it, summed, and
+    those of its ``Memcpy DtoD`` records (the SSM steps' state copies)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    us = [ev.device_time_total if hasattr(ev, "device_time_total")
+          else ev.cuda_time_total for ev in evs]
+    copy_us = sum(u for ev, u in zip(evs, us)
+                  if ev.name.startswith("Memcpy DtoD"))
+    return sum(us) / 1e3, len(us), copy_us / 1e3
+
+
+def _events_ms(torch, fn) -> float:
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def _graph_case(torch, fm, dec, cfg, model, rt, layout: str, seed: int,
+                decode_kernel, temperature: float = 0.0) -> dict:
+    """One engine of ``GRAPH_SLOTS`` slots, prefilled once (prompts of
+    128-511 tokens from ``numpy`` seeded with ``seed``), then from that
+    state, restored in place each time: ``GRAPH_STEPS`` steps of the
+    eager ``decode_loop`` on a copy of the caches against the engine's
+    first dispatch (its warm-up steps, the capture, replays) and against
+    ``GRAPH_STEPS`` replays — tokens, logits, kv_len and every cache leaf
+    equal bit for bit, and the decode kernel's counted launches equal
+    (``decode_kernel`` None: a model with no attention, which launches no
+    kernel of ours either way) — then step wall ms (CUDA events over the steps, ``GRAPH_ROUNDS``
+    rounds) and one step's device busy ms and kernels (profiler), eager
+    and replayed, the capture's seconds and pool bytes."""
+    import numpy as np
+
+    from repro_torch.kernels import COUNTED_WRAPPERS
+    from repro_torch.model import decode_graph as dg
+    from repro_torch.model import transformer as tf
+    from repro_torch.serving import Request, ServeEngine
+
+    def launched() -> int:
+        if decode_kernel is None:
+            return sum(w.launches for w in COUNTED_WRAPPERS)
+        return _counts(fm, dec)[decode_kernel]
+
+    n = GRAPH_STEPS
+    eng = ServeEngine(cfg, model, slots=GRAPH_SLOTS, max_len=1024, rt=rt,
+                      cache_layout=layout, page_size=16, decode_chunk=n,
+                      temperature=temperature, seed=seed, device="cuda")
+    check(eng.decode_graph_mode == "graph",
+          f"{layout}: decode graph mode {eng.decode_graph_mode}")
+    rng = np.random.default_rng(seed)
+    for i in range(GRAPH_SLOTS):
+        plen = int(rng.integers(128, 512))
+        eng.submit(Request(rid=i, max_new_tokens=4 * n, prompt=rng.integers(
+            0, cfg.vocab, plen).astype(np.int32)))
+    eng._admit()
+    eng._ensure_pages(n)
+    check(all(r is not None for r in eng.active), "a slot was not admitted")
+    leaves = dg.cache_leaves(eng.caches)
+    saved = [t.clone() for t in leaves]
+    logits0, kv0, rem0 = eng._last_logits.clone(), eng.kv_len.copy(), \
+        eng.remaining.copy()
+    gen0 = eng.generator.get_state()
+    tables = None if eng.kv is None else eng.kv.tables()
+
+    def restore():
+        for t, v in zip(leaves, saved):
+            t.copy_(v)
+        eng._last_logits.copy_(logits0)
+        eng.kv_len, eng.remaining = kv0.copy(), rem0.copy()
+        eng.generator.set_state(gen0)
+
+    eager_caches = _clone_all(eng.caches)
+    eager_leaves = dg.cache_leaves(eager_caches)
+    eager_gen = torch.Generator(device="cuda")
+
+    def reset_eager():
+        for t, v in zip(eager_leaves, saved):
+            t.copy_(v)
+        eager_gen.set_state(gen0)
+
+    def eager(steps=n):
+        return tf.decode_loop(
+            cfg, model, eager_caches, torch.from_numpy(kv0).cuda(),
+            logits0.clone(), torch.from_numpy(rem0).cuda(), n_steps=steps,
+            rt=rt, temperature=temperature, generator=eager_gen,
+            host_remaining=rem0, block_tables=tables)
+
+    _zero_counts(fm, dec)
+    reset_eager()
+    e_toks, _, e_kv, e_logits, _, steps = eager()
+    torch.cuda.synchronize()
+    eager_launches = launched()
+    first_toks, _ = eng._decode_steps(n)      # warm-up, capture, replays
+    g = eng._decode_graph
+    check(g is not None and g.graph is not None
+          and g.replays == n - dg.WARMUP_STEPS,
+          f"{layout}: the first dispatch did not capture "
+          f"({None if g is None else g.replays} replays)")
+    restore()
+    _zero_counts(fm, dec)
+    g_toks, _ = eng._decode_steps(n)          # every step a replay
+    torch.cuda.synchronize()
+    graph_launches = launched()
+    st = eng._decode_state
+    leaves_equal = all(torch.equal(a, b)
+                       for a, b in zip(leaves, eager_leaves))
+    logits_diff = (eng._last_logits - e_logits).abs().max().item()
+    out = dict(
+        steps=steps, tokens_equal=torch.equal(g_toks, e_toks),
+        first_dispatch_tokens_equal=torch.equal(first_toks, e_toks),
+        logits_bit_equal=torch.equal(eng._last_logits, e_logits),
+        logits_max_abs_diff=logits_diff,
+        kv_len_equal=torch.equal(st.kv_len, e_kv),
+        caches_bit_equal=leaves_equal,
+        decode_kernel=decode_kernel, eager_launches=eager_launches,
+        graph_launches=graph_launches, replays=g.replays,
+        launches_per_step=eng.decode_graph_info()["launches_per_step"],
+        capture_s=g.capture_s, pool_bytes=g.pool_bytes)
+    check(steps == n and out["tokens_equal"]
+          and out["first_dispatch_tokens_equal"],
+          f"{layout}: graph tokens differ from eager decode_loop's")
+    check(out["logits_bit_equal"] and out["caches_bit_equal"]
+          and out["kv_len_equal"],
+          f"{layout}: after {n} replays logits (max diff {logits_diff}), "
+          f"caches ({leaves_equal}) or kv_len differ from eager")
+    check(graph_launches == eager_launches
+          and (eager_launches > 0) == (decode_kernel is not None),
+          f"{layout}: {decode_kernel} counted {graph_launches} launches "
+          f"over {n} replays, {eager_launches} over {n} eager steps")
+    if temperature > 0.0:
+        del eager_caches, saved
+        return out
+
+    def run_graph():
+        eng._decode_steps(n)
+
+    wall_e, wall_g = [], []
+    for _ in range(GRAPH_ROUNDS):
+        reset_eager()
+        wall_e.append(_events_ms(torch, eager) / n)
+        restore()
+        wall_g.append(_events_ms(torch, run_graph) / n)
+    reset_eager()
+    busy_e, kernels_e, copy_e = _step_busy(torch, lambda: eager(1))
+    restore()
+    eng._decode_state.load(eng.kv_len, eng.remaining, tables)
+    busy_g, kernels_g, copy_g = _step_busy(torch, g.step)
+    out.update(step_wall_ms_eager=wall_e, step_wall_ms_graph=wall_g,
+               step_busy_ms_eager=busy_e, step_busy_ms_graph=busy_g,
+               copy_dtod_ms_eager=copy_e, copy_dtod_ms_graph=copy_g,
+               kernels_per_step_eager=kernels_e,
+               kernels_per_step_graph=kernels_g,
+               graph_over_eager_wall=sorted(wall_g)[GRAPH_ROUNDS // 2]
+               / sorted(wall_e)[GRAPH_ROUNDS // 2])
+    del eager_caches, saved, eng
+    return out
+
+
+def phase_decode_graph(torch, fm, dec) -> dict:
+    """The decode step captured once and replayed (the reference's one
+    dispatch a chunk) held to the eager ``decode_loop`` by
+    :func:`_graph_case`: granite-3-8b at full width cut to
+    :data:`SERVE_LAYERS` layers on both layouts (and a sampled dispatch
+    on the dense one, generator state restored: equal tokens), hymba-1.5b
+    cut to :data:`HYMBA_SERVE_LAYERS` (Mamba state beside attention) on
+    both, the DeepSeek-V3 tower paged (MLA, K4), and xlstm-125m cut to
+    :data:`XLSTM_LAYERS` as ``serve_xlstm`` cuts it (mLSTM / sLSTM state,
+    no attention) on both, fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.model import transformer as tf
+    from repro_torch.model.layers import Runtime
+
+    rt = Runtime(attn_impl="cuda", activation_dtype=torch.float32,
+                 param_dtype=torch.float32)
+    granite = dataclasses.replace(get_config("granite-3-8b"),
+                                  n_layers=SERVE_LAYERS)
+    hymba = dataclasses.replace(get_config("hymba-1.5b"),
+                                n_layers=HYMBA_SERVE_LAYERS,
+                                hybrid_global_layers=HYMBA_SERVE_GLOBAL)
+    xlstm = dataclasses.replace(get_config("xlstm-125m"),
+                                n_layers=XLSTM_LAYERS, slstm_layers=(1,))
+    # each model with its layouts and the decode kernel each one's steps
+    # launch (xlstm has no attention: none)
+    gqa = [(lo, DECODE_KERNEL[lo]) for lo in ("dense", "paged")]
+    plan = [("granite-3-8b", granite, gqa), ("hymba-1.5b", hymba, gqa),
+            ("deepseek-v3-671b", deepseek_tower(),
+             [("paged", MLA_DECODE_KERNEL["paged"])]),
+            ("xlstm-125m", xlstm, [("dense", None), ("paged", None)])]
+    result = {}
+    for seed, (name, cfg, layouts) in enumerate(plan):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = tf.init(cfg, 0, rt, device="cuda")
+        for layout, kernel in layouts:
+            result[f"{name}/{layout}"] = _graph_case(
+                torch, fm, dec, cfg, model, rt, layout, 40 + seed, kernel)
+            gc.collect()
+        if name == "granite-3-8b":
+            result[f"{name}/dense_sampled"] = _graph_case(
+                torch, fm, dec, cfg, model, rt, "dense", 50, "decode_partials",
+                temperature=0.8)
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("decode_graph", steps=GRAPH_STEPS, rounds=GRAPH_ROUNDS,
+         slots=GRAPH_SLOTS,
+         layers={"granite-3-8b": SERVE_LAYERS,
+                 "hymba-1.5b": HYMBA_SERVE_LAYERS, "deepseek-v3-671b": 3,
+                 "xlstm-125m": XLSTM_LAYERS},
+         cases=result)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # 5. serve
 # ---------------------------------------------------------------------------
 
@@ -3195,11 +3433,14 @@ def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
                         wall_s=m["wall_s"], warmup_s=m["warmup_s"],
                         steps_per_s=m["steps_per_s"], dispatches=disp,
                         timed_run_launches=timed, prefix=m["prefix"],
+                        decode_graph=m["decode_graph"],
                         preemptions=m["preemptions"],
                         cache_bytes=m["memory"]["physical_cache_bytes"],
                         peak_resident_cache_bytes=m["memory"][
                             "peak_resident_cache_bytes"])
         check(m["logits_finite"], f"{lo}: non-finite logits while serving")
+        if "speculation" not in m:
+            _check_graph(lo, m["decode_graph"])
         k1_x, dk_x = per_shard.get(lo, (1, 1))
         check(timed["fusemax_prefill"] == k1_x * n_layers * disp["prefill"],
               f"{lo}: K1 launched {timed['fusemax_prefill']} times, "
@@ -3222,6 +3463,15 @@ def _check_legs(metrics, n_layers: int, n_req: int, new_tokens: int,
     check(metrics.get("outputs_match", True) is True,
           f"greedy streams differ across {list(metrics['layouts'])}")
     return legs
+
+
+def _check_graph(leg: str, graph: dict) -> None:
+    """A non-speculative leg's decode steps replayed the captured graph:
+    the engine's mode is ``graph`` (every replica's, on a dp leg) and the
+    timed run replayed it at least once."""
+    modes = graph.get("modes", [graph.get("mode")])
+    check(modes == ["graph"] and graph["replays"] > 0,
+          f"{leg}: decode graph mode {modes}, {graph['replays']} replays")
 
 
 def _check_sharded(torch, metrics) -> dict:
@@ -3371,6 +3621,7 @@ def _check_async(serve, argv, metrics, cfg) -> dict:
                           dispatches=metrics["dp"]["dispatches"],
                           kernel_launches=metrics["dp"]["kernel_launches"],
                           logits_finite=metrics["dp"]["logits_finite"],
+                          decode_graph=metrics["dp"]["decode_graph"],
                           preemptions=metrics["dp"]["preemptions"],
                           tokens_reused=metrics["dp"]["tokens_reused"])
     out = {}
@@ -3381,6 +3632,7 @@ def _check_async(serve, argv, metrics, cfg) -> dict:
               f"{name}: served {m['served']} of {len(prompts)}, "
               f"{m['tokens']} of {sum(budgets)} tokens")
         check(m["logits_finite"], f"{name}: non-finite logits")
+        _check_graph(name, m["decode_graph"])
         check(timed["fusemax_prefill"] == cfg.n_layers * disp["prefill"],
               f"{name}: K1 launched {timed['fusemax_prefill']} times, "
               f"expected {cfg.n_layers} x {disp['prefill']} dispatches")
@@ -3403,6 +3655,7 @@ def _check_async(serve, argv, metrics, cfg) -> dict:
                          dispatches=disp, kernel_launches=timed,
                          preemptions=m["preemptions"],
                          tokens_reused=m["tokens_reused"],
+                         decode_graph=m["decode_graph"],
                          interleave=m.get("interleave"))
     for name, outs in metrics["_outputs_by_leg"].items():
         check([len(o) for o in outs] == budgets,
@@ -4019,6 +4272,7 @@ def phase_serve_swap(torch, fm, dec) -> dict:
                 out.append([list(r.generated) for r in reqs])
             engine.kv.check_invariants()
             check(engine.logits_finite(), f"{kv} {label}: non-finite logits")
+            _check_graph(f"{kv} {label}", engine.decode_graph_info())
             streams[label] = out
             runs[(kv, label)] = dict(
                 wave_s=wave_s, stats=dict(engine.stats),
@@ -4884,7 +5138,7 @@ def phase_serve_mla_impls(torch, fm, dec) -> None:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
                for n in rng.integers(128, 257, size=4)]
-    streams, launches = {}, {}
+    streams, launches, replays = {}, {}, {}
     for impl in ("cuda", "torch"):
         _zero_counts(fm, dec)
         engine = ServeEngine(cfg, model, slots=4, max_len=512,
@@ -4900,11 +5154,13 @@ def phase_serve_mla_impls(torch, fm, dec) -> None:
         streams[impl] = [list(r.generated) for r in reqs]
         launches[impl] = _counts(fm, dec)
         check(engine.logits_finite(), f"{impl}: non-finite logits")
+        replays[impl] = engine.decode_graph_info()
+        _check_graph(impl, replays[impl])
         del engine
     emit("serve_mla_impls", config="deepseek-v3-671b n_layers=3",
          prompts=[len(pr) for pr in prompts], new_tokens=16,
          streams_equal=streams["cuda"] == streams["torch"],
-         launches=launches)
+         launches=launches, decode_graph=replays)
     check(all(len(st) == 16 for st in streams["cuda"]),
           "a request did not get its 16 tokens")
     check(streams["cuda"] == streams["torch"],
@@ -5036,7 +5292,7 @@ def phase_serve_mla_quant(torch, fm, dec, serve) -> dict:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
                for n in rng.integers(128, 257, size=4)]
-    streams = {}
+    streams, graphs = {}, {}
     for impl in ("cuda", "torch"):
         engine = ServeEngine(cfg, model, slots=4, max_len=512,
                              rt=dataclasses.replace(rt_c, attn_impl=impl),
@@ -5049,6 +5305,8 @@ def phase_serve_mla_quant(torch, fm, dec, serve) -> dict:
         engine.run()
         torch.cuda.synchronize()
         check(engine.logits_finite(), f"{impl}: non-finite logits")
+        graphs[impl] = engine.decode_graph_info()
+        _check_graph(f"fp8 {impl}", graphs[impl])
         streams[impl] = [list(r.generated) for r in reqs]
         del engine
     emit("serve_mla_quant", args=" ".join(MLA_QUANT_ARGS),
@@ -5057,7 +5315,7 @@ def phase_serve_mla_quant(torch, fm, dec, serve) -> dict:
          quant_over_fp32_peak_resident=peak["paged_quant"] / peak["paged"],
          quant_quality=metrics["quant_quality"],
          impls_streams_equal=streams["cuda"] == streams["torch"],
-         main_path_launches=launches)
+         impls_decode_graph=graphs, main_path_launches=launches)
     check(by_code == {"fp8_e4m3": cfg.n_layers * steps},
           f"K4's quantized branch launched {by_code} times, expected "
           f"{cfg.n_layers} x {steps} decode steps")
@@ -6788,6 +7046,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     timed("model", phase_model, torch)
+    timed("decode_graph", phase_decode_graph, torch, fm, dec)
     launches = timed("serve", phase_serve, torch, fm, dec, serve)
     timed("serve_prefix", phase_serve_prefix, torch, fm, dec, serve)
     async_launches = timed("serve_async", phase_serve_async, torch, fm, dec,

@@ -34,8 +34,17 @@ from repro_torch.kernels.ops import (
 )
 from repro_torch.kernels.ref import decode_reference, mha_reference
 
+#: the CUDA wrappers, each counting its launches in its ``launches*``
+#: attributes (a replayed CUDA graph must advance them: see
+#: :mod:`repro_torch.model.decode_graph`)
+COUNTED_WRAPPERS = (fusemax_attention_cuda, decode_partials_cuda,
+                    paged_decode_partials_cuda,
+                    mla_paged_decode_partials_cuda,
+                    latent_decode_partials_cuda)
+
 __all__ = [
-    "AttentionParams", "DecodeParams", "FuseMaxAttention", "KERNEL_CASCADES",
+    "AttentionParams", "COUNTED_WRAPPERS", "DecodeParams", "FuseMaxAttention",
+    "KERNEL_CASCADES",
     "attention_params", "autotune", "combine_partials", "decode_params",
     "decode_partials_cuda", "decode_partials_torch", "decode_reference",
     "exp_maccs", "fusemax_attention", "fusemax_attention_bwd",

@@ -270,7 +270,8 @@ def _sweep_partials(q: torch.Tensor, tiles, n_tiles: int, kvl: torch.Tensor,
                     device=dev)
     rd = torch.zeros((bh, splits, r), dtype=torch.float32, device=dev)
     rnv = torch.zeros((bh, splits, r, f), dtype=torch.float32, device=dev)
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    # a fill on the device, not a host copy (a captured step cannot copy)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     for t in range(n_tiles):
         k_lo = split0 + t * block_k                          # [S]
         run = k_lo[None, :] < (kvl + (n_pos - 1))[:, None]   # [BH, S]

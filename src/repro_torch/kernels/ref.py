@@ -62,7 +62,7 @@ def mha_reference(
         ok &= kpos <= qpos
     if window is not None:
         ok &= kpos > qpos - window
-    logits = torch.where(ok, logits, torch.tensor(NEG_INF, device=q.device))
+    logits = torch.where(ok, logits, torch.full((), NEG_INF, device=q.device))
 
     gm = logits.amax(dim=-1, keepdim=True)                # Eq. 33
     sn = torch.exp(logits - gm)                           # Eq. 34

@@ -284,6 +284,7 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
     finite = engine.logits_finite()
     prefix_on = engine.kv is not None and engine.kv.prefix_enabled
     spec_k = engine.spec_k
+    graph = engine.decode_graph_info()
     if engine.kv is not None:
         # the trace has drained: a quiescent point, so the pool's host
         # state must audit clean (raises AssertionError otherwise)
@@ -331,6 +332,9 @@ def _serve_one_layout(args, cfg, model, rt, layout: str,
         # host ms of the swap tier's demotions and promotions in that run
         "host_swap_ms": swap_ms,
         "logits_finite": finite,
+        # the captured decode step: its mode, the run's replays, and the
+        # capture's seconds, pool bytes and counted launches a replay
+        "decode_graph": graph,
         "_outputs": [list(r.generated) for r in reqs],
     }
     if spec_k is not None:
@@ -577,6 +581,9 @@ def _leg_summary(engines, reqs, launches: dict) -> dict:
     out["preemptions"] = sum(e.stats["preemptions"] for e in engines)
     out["tokens_reused"] = sum(e.stats["tokens_reused"] for e in engines)
     out["kernel_launches"] = launches
+    out["decode_graph"] = {
+        "modes": sorted({e.decode_graph_mode for e in engines}),
+        "replays": sum(e.stats["decode_graph_replays"] for e in engines)}
     out["logits_finite"] = all(e.logits_finite() for e in engines)
     out["device"] = device_info(engines[0].device)
     for e in engines:
@@ -731,6 +738,7 @@ def serve_async_bench(args, cfg: Optional[ModelConfig] = None,
             preemptions=leg["preemptions"],
             kernel_launches=launches,
             logits_finite=leg["logits_finite"],
+            decode_graph=leg["decode_graph"],
             device=leg["device"],
         )
         metrics["outputs_match"] = outputs_match and \

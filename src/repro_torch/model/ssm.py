@@ -684,3 +684,15 @@ PREFILL = {"mamba": mamba_prefill, "mlstm": mlstm_prefill,
            "slstm": slstm_prefill}
 INIT_STATE = {"mamba": mamba_init_state, "mlstm": mlstm_init_state,
               "slstm": slstm_init_state}
+
+
+def step_into(kind: str, p: nn.Module, x: torch.Tensor, state: dict,
+              cfg: ModelConfig, rt: Runtime) -> torch.Tensor:
+    """``STEP[kind]`` with the new state written into ``state``'s own
+    tensors (cast to their dtypes, as prefill hands state off), so every
+    leaf keeps its storage across decode steps — a captured decode step
+    replays the addresses it captured.  Returns the output [B, 1, d]."""
+    y, new = STEP[kind](p, x, state, cfg, rt)
+    for name, value in new.items():
+        state[name].copy_(value)
+    return y

@@ -21,7 +21,8 @@ Entry points:
   ``init_paged_cache`` → per-layer page pools (paged layout)
   ``prefill``          → (last-token logits, caches)
   ``decode_step``      → (logits, caches)
-  ``decode_loop``      → fused multi-step greedy / sampled decode
+  ``decode_loop``      → fused multi-step greedy / sampled decode, each
+                         step ``step_in_place`` on a ``DecodeState``
   ``layer_verify``     → one layer of a P-token speculative verify
   ``verify_step``      → (logits [B, P, vocab], caches) of a draft chain
   ``speculative_step`` → fused speculate→verify→accept step (greedy)
@@ -39,9 +40,11 @@ engine's device, and speculative verify is refused by the engine.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -224,9 +227,10 @@ def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
     With ``block_tables`` the layer reads and writes its page pool through
     its class's table (``slots``: the step's write positions per class,
     shared by the class's layers; computed here when absent).  An SSM
-    steps its per-slot state (``cache["ssm"]``, dense on either layout);
-    the state of a slot the decode loop masks moves too, and admission
-    resets it, as in the reference."""
+    steps its per-slot state (``cache["ssm"]``, dense on either layout)
+    in place (:func:`repro_torch.model.ssm.step_into`); the state of a
+    slot the decode loop masks moves too, and admission resets it, as in
+    the reference."""
     h = apply_norm(p.ln1, x, cfg.norm)
     parts = []
     if spec.attn != "none" and block_tables is not None:
@@ -245,8 +249,8 @@ def layer_decode(p: Layer, x: torch.Tensor, cache: dict,
         parts.append(y)
     if spec.ssm is not None:
         with torch.profiler.record_function(SSM_RANGE):
-            y, cache["ssm"] = ssm_mod.STEP[spec.ssm](p.ssm, h, cache["ssm"],
-                                                     cfg, rt)
+            y = ssm_mod.step_into(spec.ssm, p.ssm, h, cache["ssm"], cfg,
+                                  rt)
         parts.append(y)
     x = _residual(p, x, parts, cfg)
     return _mlp_block(p, x, cfg, spec), cache
@@ -763,53 +767,142 @@ def scatter_cache_slots(cfg: ModelConfig, caches: list, sub: list,
     return caches
 
 
+@dataclasses.dataclass
+class DecodeState:
+    """The decode loop's static buffers, all on one device: ``kv_len``
+    and ``remaining`` [B] int32, ``last_logits`` [B, vocab], ``tok`` [B]
+    int32 (the token the last step fed), ``tables`` (paged layout: one
+    [B, W] int32 block table per class; None on the dense one).  Every
+    step writes them in place, so a captured step
+    (:class:`repro_torch.model.decode_graph.DecodeGraph`) can replay on
+    them."""
+    kv_len: torch.Tensor
+    remaining: torch.Tensor
+    last_logits: torch.Tensor
+    tok: torch.Tensor
+    tables: Optional[dict] = None
+
+    @classmethod
+    def for_logits(cls, last_logits: torch.Tensor,
+                   tables: Optional[dict] = None) -> "DecodeState":
+        """Buffers around ``last_logits`` (kept, not copied), with block
+        tables shaped like ``tables``' where given."""
+        b, dev = last_logits.shape[0], last_logits.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        return cls(kv_len=torch.zeros((b,), **i32),
+                   remaining=torch.zeros((b,), **i32),
+                   last_logits=last_logits, tok=torch.zeros((b,), **i32),
+                   tables=None if tables is None else
+                   {k: torch.empty(tuple(t.shape), **i32)
+                    for k, t in tables.items()})
+
+    def load(self, kv_len, remaining, tables: Optional[dict] = None) -> None:
+        """Copy a chunk's inputs in: host arrays (or tensors) of kv_len and
+        remaining, and the pool's block tables."""
+        for buf, src in ((self.kv_len, kv_len), (self.remaining, remaining)):
+            buf.copy_(torch.from_numpy(np.asarray(src, np.int32))
+                      if isinstance(src, np.ndarray) else src)
+        if (tables is None) != (self.tables is None):
+            raise ValueError("block tables given to a dense decode state, or "
+                             "none to a paged one")
+        for k, t in (tables or {}).items():
+            self.tables[k].copy_(t)
+
+    def buffers(self) -> list:
+        return [self.kv_len, self.remaining, self.last_logits, self.tok,
+                *(self.tables or {}).values()]
+
+
+def sample_next(logits: torch.Tensor, temperature: float,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The next token of every row [B] int32: the argmax, or at
+    ``temperature > 0`` a draw from ``softmax(logits / temperature)`` —
+    ``torch.multinomial``'s one-sample draw, ``argmax(p / q)`` with ``q ~
+    Exp(1)`` from ``generator``, which gives the same token from the same
+    generator state, without multinomial's host-side check of the
+    probabilities (a host sync, which a graph cannot capture)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def step_in_place(cfg: ModelConfig, model: Model, caches: list,
+                  st: DecodeState, rt: Runtime = Runtime(),
+                  temperature: float = 0.0,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """One step of :func:`decode_loop` on ``st``'s buffers, in place:
+    sample the next token, mask the slots with ``remaining <= 0``, advance
+    ``kv_len`` for the active ones, run :func:`decode_step`, keep the
+    masked slots' logits, spend ``remaining``."""
+    active = st.remaining > 0
+    nxt = sample_next(st.last_logits, temperature, generator)
+    st.tok.copy_(torch.where(active, nxt, torch.zeros_like(nxt)))
+    step = active.to(torch.int32)
+    st.kv_len.add_(step)
+    logits, _ = decode_step(cfg, model, st.tok[:, None], caches, st.kv_len,
+                            rt, st.tables)
+    st.last_logits.copy_(torch.where(
+        active[:, None], logits.to(st.last_logits.dtype), st.last_logits))
+    st.remaining.sub_(step)
+
+
 @torch.no_grad()
 def decode_loop(cfg: ModelConfig, model: Model, caches: list,
-                kv_len: torch.Tensor, last_logits: torch.Tensor,
-                remaining: torch.Tensor, *, n_steps: int,
-                rt: Runtime = Runtime(), temperature: float = 0.0,
+                kv_len, last_logits: torch.Tensor, remaining, *,
+                n_steps: int, rt: Runtime = Runtime(),
+                temperature: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                host_remaining=None, block_tables: Optional[dict] = None):
+                host_remaining=None, block_tables: Optional[dict] = None,
+                state: Optional[DecodeState] = None,
+                step: Optional[Callable[[], None]] = None):
     """Fused multi-step decode: advance every slot by up to ``n_steps``
     tokens, sampling on the device.
 
-    Per step: sample the next token from ``last_logits``, advance
-    ``kv_len`` for active slots, run :func:`decode_step`, decrement
-    ``remaining``.  Slots with ``remaining <= 0`` are masked — their
-    kv_len, logits and token stream freeze.  The loop exits early once
-    every budget is spent, as the reference's ``lax.while_loop`` does: the
-    step count is ``min(n_steps, max(remaining))``, which the caller's host
-    mirror ``host_remaining`` gives without waiting for the device (read
-    from ``remaining`` otherwise).
+    Each step is :func:`step_in_place`.  Slots with ``remaining <= 0`` are
+    masked — their kv_len, logits and token stream freeze.  The loop exits
+    early once every budget is spent, as the reference's
+    ``lax.while_loop`` does: the step count is ``min(n_steps,
+    max(remaining))``, which the caller's host mirror ``host_remaining``
+    gives without waiting for the device (read from ``remaining``
+    otherwise).  ``kv_len`` and ``remaining`` are [B] tensors or host
+    arrays.
 
     ``block_tables`` (paged layout) is loop-invariant: the engine grows
     every slot's pages for the whole chunk before the dispatch.
 
+    The steps run on ``state`` (fresh buffers around a copy of
+    ``last_logits`` when None; ``last_logits`` is copied into a given
+    state's unless it is that state's own), loaded from ``kv_len``,
+    ``remaining`` and ``block_tables``.  ``step``, where given, takes the
+    place of :func:`step_in_place` on ``state``: a callable that advances
+    the same buffers and caches by one step, as
+    :meth:`repro_torch.model.decode_graph.DecodeGraph.step` does by
+    replaying the captured step.
+
     Returns ``(tokens [n_steps, B], caches, kv_len, last_logits,
-    remaining, steps)``.  Greedy streams equal per-token
-    :func:`decode_step` calls; sampled ones draw from ``generator``."""
-    b = kv_len.shape[0]
-    dev = last_logits.device
-    rem_host = remaining.cpu() if host_remaining is None else host_remaining
-    steps = int(min(n_steps, max(0, int(max(rem_host, default=0)))))
-    toks = torch.zeros((n_steps, b), dtype=torch.int32, device=dev)
-    kv_len = kv_len.to(device=dev, dtype=torch.int32)
-    remaining = remaining.to(device=dev, dtype=torch.int32)
+    remaining, steps)``, the middle three ``state``'s buffers.  Greedy
+    streams equal per-token :func:`decode_step` calls; sampled ones draw
+    from ``generator``."""
+    if host_remaining is None:
+        host_remaining = remaining.cpu() if torch.is_tensor(remaining) \
+            else remaining
+    steps = int(min(n_steps, max(0, int(max(host_remaining, default=0)))))
+    if state is None:
+        state = DecodeState.for_logits(last_logits.clone(), block_tables)
+    elif last_logits is not state.last_logits:
+        state.last_logits.copy_(last_logits)
+    state.load(kv_len, remaining, block_tables)
+    if step is None:
+        def step():
+            step_in_place(cfg, model, caches, state, rt, temperature,
+                          generator)
+    toks = torch.zeros((n_steps, state.tok.shape[0]), dtype=torch.int32,
+                       device=state.tok.device)
     for i in range(steps):
-        active = remaining > 0
-        if temperature <= 0.0:
-            nxt = torch.argmax(last_logits, dim=-1).to(torch.int32)
-        else:
-            probs = torch.softmax(last_logits.float() / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-                torch.int32)
-        nxt = torch.where(active, nxt, torch.zeros_like(nxt))
-        toks[i] = nxt
-        kv_len = kv_len + active.to(torch.int32)
-        new_logits, caches = decode_step(cfg, model, nxt[:, None], caches,
-                                         kv_len, rt, block_tables)
-        last_logits = torch.where(active[:, None],
-                                  new_logits.to(last_logits.dtype),
-                                  last_logits)
-        remaining = remaining - active.to(torch.int32)
-    return toks, caches, kv_len, last_logits, remaining, steps
+        step()
+        toks[i] = state.tok
+    return (toks, caches, state.kv_len, state.last_logits, state.remaining,
+            steps)

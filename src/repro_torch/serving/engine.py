@@ -36,7 +36,11 @@ kernels handle the ragged lengths themselves.  Finished slots refill from the qu
   early exit; the first dispatch after an admission runs a single step
   so the reported TTFT is a first-token latency.  On the paged layout
   every slot's pages for the whole chunk are grown before the dispatch,
-  so the block tables go to the device once per dispatch.
+  so the block tables go to the device once per dispatch.  On a CUDA
+  device the decode step is captured once as a CUDA graph
+  (:class:`repro_torch.model.decode_graph.DecodeGraph`, the counterpart
+  of the reference's jit'd loop) and every step of every non-speculative
+  dispatch replays it; on the CPU the same in-place step runs eagerly.
 * **Speculative decoding** (``speculate=k``, greedy only, on models whose
   every layer is global GQA or MLA attention with a dense MLP —
   :func:`speculation_supported`) — an n-gram proposer
@@ -59,7 +63,9 @@ kernels handle the ragged lengths themselves.  Finished slots refill from the qu
   gates).
 
 The reference donates its cache buffers to each jit'd call; the port
-updates the caches in place instead.  ``stats`` counts dispatches and
+updates the caches in place instead, and every cache leaf keeps its
+storage for the engine's life (a captured decode step replays the
+addresses it captured).  ``stats`` counts dispatches and
 steps exactly as the reference does, so the two engines can be held to
 the same counters on the same trace.
 """
@@ -75,6 +81,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.autotune import next_pow2
+from repro_torch.model import decode_graph as dg
 from repro_torch.model import transformer as tf
 from repro_torch.model.layers import Runtime, resolve_device
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -252,13 +259,20 @@ class ServeEngine:
         self._finite = torch.ones((), dtype=torch.bool, device=self.device)
         self._admit_seq = 0
         self._order = [0] * slots          # admission sequence per slot
+        # the decode step's static buffers and (on one CUDA device) its
+        # captured graph, built at the first decode dispatch; the mode says
+        # why a step runs eagerly where it does
+        self._decode_state: Optional[tf.DecodeState] = None
+        self._decode_graph: Optional[dg.DecodeGraph] = None
+        self.decode_graph_mode = dg.graph_refusal(
+            self.caches, self.device) or "graph"
         self.stats = {"prefill_dispatches": 0, "decode_dispatches": 0,
                       "decode_steps": 0, "tokens_decoded": 0,
                       "preemptions": 0, "peak_live_tokens": 0,
                       "prefix_hits": 0, "tokens_reused": 0,
                       "cow_copies": 0, "tokens_prefilled": 0,
                       "spec_dispatches": 0, "spec_proposed": 0,
-                      "spec_accepted": 0}
+                      "spec_accepted": 0, "decode_graph_replays": 0}
 
     # -- prefill ------------------------------------------------------------
 
@@ -544,23 +558,16 @@ class ServeEngine:
         if not act:
             return
         rem_before = self.remaining.copy()
-        toks, self.caches, kv_len, self._last_logits, remaining, steps = \
-            tf.decode_loop(
-                self.cfg, self.model, self.caches,
-                torch.from_numpy(self.kv_len).to(self.device),
-                self._last_logits,
-                torch.from_numpy(self.remaining).to(self.device),
-                n_steps=n, rt=self.rt, temperature=self.temperature,
-                generator=self.generator, host_remaining=self.remaining,
-                block_tables=None if self.kv is None else self.kv.tables())
+        toks, steps = self._decode_steps(n)
         self.stats["decode_dispatches"] += 1
-        self.stats["decode_steps"] += int(steps)
+        self.stats["decode_steps"] += steps
         self._finite &= torch.isfinite(self._last_logits).all()
 
+        st = self._decode_state
         toks = toks.cpu().numpy()                     # [n, slots]; one sync
         now = time.perf_counter()
-        self.kv_len = kv_len.cpu().numpy().astype(np.int32)
-        self.remaining = remaining.cpu().numpy().astype(np.int32)
+        self.kv_len = st.kv_len.cpu().numpy().astype(np.int32)
+        self.remaining = st.remaining.cpu().numpy().astype(np.int32)
         self._sync_live_peak()
         for i in act:
             req = self.active[i]
@@ -575,6 +582,52 @@ class ServeEngine:
                     self.proposer.extend(req.rid, got)
             if self.remaining[i] <= 0:
                 self._retire(i)
+
+    def _decode_steps(self, n: int) -> tuple:
+        """Up to ``n`` decode steps of every slot from the host mirrors:
+        :func:`transformer.decode_loop` on the engine's
+        :class:`transformer.DecodeState`, each step a replay of the
+        captured graph on one CUDA device, else the in-place step run
+        eagerly.  The buffers keep the new ``kv_len``, ``remaining`` and
+        logits (``_last_logits`` itself).  Returns (tokens [n, slots] on
+        the device, steps)."""
+        tables = None if self.kv is None else self.kv.tables()
+        st = self._decode_state
+        if st is None:
+            st = self._decode_state = tf.DecodeState.for_logits(
+                self._last_logits, tables)
+        g = self._decode_graph
+        if self.decode_graph_mode == "graph" and g is None:
+            g = self._decode_graph = dg.DecodeGraph(
+                self.cfg, self.model, self.caches, st, self.rt,
+                temperature=self.temperature, generator=self.generator)
+        replays = 0
+        if g is not None:
+            g.check(self.caches)
+            replays = g.replays
+        toks, _, _, _, _, steps = tf.decode_loop(
+            self.cfg, self.model, self.caches, self.kv_len,
+            self._last_logits, self.remaining, n_steps=n, rt=self.rt,
+            temperature=self.temperature, generator=self.generator,
+            host_remaining=self.remaining, block_tables=tables, state=st,
+            step=None if g is None else g.step)
+        if g is not None:
+            self.stats["decode_graph_replays"] += g.replays - replays
+        return toks, steps
+
+    def decode_graph_info(self) -> dict:
+        """The decode graph's mode (``"graph"``, or why steps run eagerly),
+        and once captured its capture seconds, private pool bytes and the
+        kernel launches each replay counts."""
+        g = self._decode_graph
+        out = {"mode": self.decode_graph_mode,
+               "replays": self.stats["decode_graph_replays"]}
+        if g is not None and g.graph is not None:
+            out.update(capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                       launches_per_step={
+                           f"{w}.{a}": d for (w, a), d in
+                           g.launches_per_step.items()})
+        return out
 
     def _retire(self, i: int) -> None:
         """A slot's request is complete: close its draft history (indexed
@@ -635,7 +688,7 @@ class ServeEngine:
                     self.kv.drop_draft(i)
                 return False
         dev = self.device
-        toks, advance, _, _, self._last_logits, self.caches = \
+        toks, advance, _, _, last_logits, self.caches = \
             tf.speculative_step(
                 self.cfg, self.model, self._last_logits,
                 torch.from_numpy(drafts).to(dev), self.caches,
@@ -645,6 +698,7 @@ class ServeEngine:
         self.stats["decode_dispatches"] += 1
         self.stats["spec_dispatches"] += 1
         self.stats["decode_steps"] += 1          # one model evaluation
+        self._last_logits.copy_(last_logits)     # the decode step's buffer
         self._finite &= torch.isfinite(self._last_logits).all()
 
         # one sync: the committed chains [P, slots] and their lengths
